@@ -1,0 +1,444 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``vidtok_tpu_torch``) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (exit code != 0, no result line):
+
+1. build the four hand-written kernels from ``vidtok_tpu_torch/csrc`` (nvcc,
+   sm_90a) and print the build time and the ``-Xptxas -v`` report;
+2. hold every kernel against its plain PyTorch version at every shape the
+   serving path gives it (bf16 inputs from a numpy seed; the plain version
+   in f32 with TF32 off); gate relative L2 <= 1e-2, and no further from
+   the f32 plain version than the plain version in bf16 is (x 1.1); time
+   both (CUDA events);
+3. serve the causal v1.1 KL 4x8x8 16-channel tokenizer at full width with
+   seeded random weights in bf16: 3 requests of [1, 3, 17, 256, 256],
+   per-request latency, frames/s and peak memory, and the kernels' launch
+   counts per forward (20 / 20 / 3 / 1); then the same requests through
+   the plain path (no kernel launched) for comparison, and a torch.profiler
+   breakdown of one kernel-path request;
+4. compare the kernel path with the same model's plain path on one request,
+   all outputs finite: on z and on the reconstruction the kernel path
+   (bf16) must be no further from the f32 plain run than the plain bf16
+   path is (x 1.1).
+
+It never falls back to the CPU or to a plain version. The last two lines of
+standard output are a JSON object with the per-kernel results and
+``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# The v1.1 KL 4x8x8 16-channel tokenizer's model section
+# (configs/v1_1/vidtok_kl_causal_488_16chn_v1_1.yaml), resolved, so no YAML
+# parser is needed.
+_ENC = {"double_z": True, "z_channels": 16, "in_channels": 3, "out_ch": 3,
+        "ch": 128, "num_res_blocks": 2, "dropout": 0.0,
+        "use_checkpoint": False, "norm_type": "layernorm",
+        "ch_mult": [1, 2, 4, 4], "time_downsample_factor": 4,
+        "init_pad_mode": "replicate", "interpolation_mode": "trilinear"}
+MODEL_CFG = {"model": {"target": "AutoencodingEngineV1_1", "params": {
+    "encoder_config": {"target": "EncoderCausal3DV1_1", "params": dict(_ENC)},
+    "decoder_config": {"target": "DecoderCausal3DV1_1", "params": dict(_ENC)},
+    "regularizer_config": {"target": "DiagonalGaussianRegularizer"},
+    "use_tiling": False, "t_chunk_enc": 16}}}
+REQUEST = (1, 3, 17, 256, 256)
+N_REQUESTS = 3
+PER_FORWARD = {"fused_spatial_resblock": 20, "fused_temporal_resblock": 20,
+               "subpixel_interleave": 3, "decoder_tail_rgb": 1}
+KERNEL_GATE = 1e-2
+# a kernel, and the kernel path, vs the f32 plain run may be at most
+# BF16_SLACK x as far from it as the plain version in bf16 is
+BF16_SLACK = 1.1
+
+# Every call shape of each kernel in one forward of REQUEST (17 frames are
+# padded to 20): spatial (N, H, W, Cin, C), temporal (B, T, H, W, C),
+# subpixel (N, H, W, C), tail (B, T, H, W, C); with calls per forward.
+SPATIAL_SHAPES = [((20, 256, 256, 128, 128), 4), ((20, 128, 128, 128, 256), 1),
+                  ((20, 128, 128, 256, 256), 1), ((10, 64, 64, 256, 512), 1),
+                  ((10, 64, 64, 512, 512), 1), ((5, 32, 32, 512, 512), 5),
+                  ((5, 64, 64, 512, 512), 3), ((10, 128, 128, 512, 256), 1),
+                  ((10, 128, 128, 256, 256), 2), ((20, 256, 256, 256, 128), 1)]
+TEMPORAL_SHAPES = [((1, 20, 256, 256, 128), 5), ((1, 20, 128, 128, 256), 2),
+                   ((1, 10, 64, 64, 512), 2), ((1, 5, 32, 32, 512), 5),
+                   ((1, 5, 64, 64, 512), 3), ((1, 10, 128, 128, 256), 3)]
+SUBPIXEL_SHAPES = [((5, 32, 32, 512), 1), ((5, 64, 64, 512), 1),
+                   ((10, 128, 128, 256), 1)]
+TAIL_SHAPES = [((1, 20, 256, 256, 128), 1)]
+
+SOURCES = {
+    "fused_spatial_resblock": ("vidtok_tpu_torch/csrc/fused_spatial.cu",
+                               "vidtok_tpu/ops/pallas/fused_spatial_v2.py:183"),
+    "fused_temporal_resblock": ("vidtok_tpu_torch/csrc/fused_temporal.cu",
+                                "vidtok_tpu/ops/pallas/fused_temporal.py:205"),
+    "subpixel_interleave": ("vidtok_tpu_torch/csrc/subpixel.cu",
+                            "vidtok_tpu/ops/pallas/subpixel_epilogue.py:100"),
+    "decoder_tail_rgb": ("vidtok_tpu_torch/csrc/decoder_tail.cu",
+                         "vidtok_tpu/ops/pallas/decoder_tail.py:245"),
+}
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def cuda_ms(fn, warmup: int = 2, iters: int = 5) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+class Params:
+    """Random inputs and parameters from one numpy seed, on ``device``."""
+
+    def __init__(self, seed: int, device):
+        self.rng = np.random.RandomState(seed)
+        self.device = device
+
+    def t(self, a, dtype=None):
+        import torch
+
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            self.device, dtype or torch.float32)
+
+    def x(self, shape, dtype):
+        return self.t(self.rng.randn(*shape), dtype)
+
+    def norm(self, c):
+        return (self.t(1.0 + 0.1 * self.rng.randn(c)),
+                self.t(0.1 * self.rng.randn(c)))
+
+    def conv(self, shape):
+        bound = 1.0 / np.sqrt(np.prod(shape[1:]))
+        return (self.t(self.rng.uniform(-bound, bound, shape)),
+                self.t(self.rng.uniform(-bound, bound, shape[0])))
+
+
+def f32(args):
+    """Upcast every tensor in a nested tuple of call arguments."""
+    import torch
+
+    if isinstance(args, torch.Tensor):
+        return args.float()
+    if isinstance(args, tuple):
+        return tuple(f32(a) for a in args)
+    return args
+
+
+def kernel_cases(device):
+    """Yield (kernel name, shape, calls per forward, wrapper, plain, args)
+    with bf16 activations and f32 parameters on ``device``."""
+    import torch
+
+    from vidtok_tpu_torch.ops.kernels import (decoder_tail, fused_spatial,
+                                              fused_temporal, subpixel as sp)
+
+    bf = torch.bfloat16
+    p = Params(0, device)
+    for shape, calls in SPATIAL_SHAPES:
+        n, h, w, cin, c = shape
+        nin = p.conv((c, cin, 1, 1)) if cin != c else None
+        args = (p.x((n, h, w, cin), bf), p.norm(cin), p.conv((c, cin, 3, 3)),
+                p.norm(c), p.conv((c, c, 3, 3)), nin)
+        yield ("fused_spatial_resblock", shape, calls,
+               fused_spatial.fused_spatial_resblock,
+               fused_spatial.fused_spatial_resblock_plain, args)
+    for shape, calls in TEMPORAL_SHAPES:
+        c = shape[-1]
+        for mode in ("replicate", "zero"):
+            args = (p.x(shape, bf), p.norm(c), p.conv((c, c, 3)), p.norm(c),
+                    p.conv((c, c, 3)), mode)
+            # the serving path runs replicate; zero is checked, not timed
+            yield ("fused_temporal_resblock", shape + (mode,),
+                   calls if mode == "replicate" else 0,
+                   fused_temporal.fused_temporal_resblock,
+                   fused_temporal.fused_temporal_resblock_plain, args)
+    for shape, calls in SUBPIXEL_SHAPES:
+        ys = tuple(p.x(shape, bf) for _ in range(4))
+        args = ys + (p.t(0.1 * p.rng.randn(shape[-1])),)
+        yield ("subpixel_interleave", shape, calls, sp.subpixel_interleave,
+               sp.subpixel_interleave_plain, args)
+    for shape, calls in TAIL_SHAPES:
+        c = shape[-1]
+        for mode in ("replicate", "zero"):
+            args = (p.x(shape, bf), p.norm(c), p.conv((3, c, 3, 3, 3)), mode)
+            yield ("decoder_tail_rgb", shape + (mode,),
+                   calls if mode == "replicate" else 0,
+                   decoder_tail.decoder_tail_rgb,
+                   decoder_tail.decoder_tail_rgb_plain, args)
+
+
+def check_kernels(device) -> dict:
+    """Phase 2: every kernel against its plain version; returns per-kernel
+    {max_abs_err, max_rel_l2, ms, plain_ms} with times summed per forward.
+
+    Besides the fixed bound KERNEL_GATE, each kernel is held to the plain
+    version's own bf16 error: a fault on a frame's border (a padding tap
+    that reads ln_silu(0) = silu(bias) instead of 0) stays under 1e-2 at
+    256x256 but doubles that error.
+    """
+    import torch
+
+    results = {}
+    for name, shape, calls, kernel, plain, args in kernel_cases(device):
+        out = kernel(*args)
+        ref = plain(*f32(args))
+        plain_bf16 = plain(*args)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or out.dtype != args[0].dtype:
+            raise AssertionError(f"{name}{shape}: {out.shape}/{out.dtype} "
+                                 f"vs {ref.shape}")
+        err = float((out.float() - ref).abs().max())
+        rel = rel_l2(out.float(), ref)
+        plain_rel = rel_l2(plain_bf16.float(), ref)
+        ms = plain_ms = 0.0
+        if calls:
+            ms = cuda_ms(lambda: kernel(*args))
+            plain_ms = cuda_ms(lambda: plain(*args))
+        print(f"kernel {name} {shape}: max_abs_err {err:.4g} rel_l2 {rel:.4g} "
+              f"plain_bf16_rel_l2 {plain_rel:.4g} kernel_ms {ms:.4f} "
+              f"plain_bf16_ms {plain_ms:.4f} calls/forward {calls}", flush=True)
+        if not (rel <= KERNEL_GATE and rel <= BF16_SLACK * plain_rel):
+            raise AssertionError(
+                f"{name}{shape}: rel_l2 {rel} > {KERNEL_GATE}, or > "
+                f"{BF16_SLACK} x plain bf16 rel_l2 {plain_rel}")
+        r = results.setdefault(name, dict(max_abs_err=0.0, max_rel_l2=0.0,
+                                          ms=0.0, plain_ms=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["max_rel_l2"] = max(r["max_rel_l2"], rel)
+        r["ms"] += calls * ms
+        r["plain_ms"] += calls * plain_ms
+        del out, ref, plain_bf16, args
+    return results
+
+
+def randomize_(core, seed: int) -> None:
+    """Seeded random weights that exercise every parameter: kaiming-uniform
+    convs (the temporal conv2 included, which init leaves at zero), norm
+    scales 1 +- 0.1 and non-zero norm biases, mix factors around 2."""
+    import torch
+    from torch import nn
+
+    from vidtok_tpu_torch.models.autoencoder import reset_params_
+    from vidtok_tpu_torch.modules.conv import CausalConv1d, reset_conv_
+
+    g = torch.Generator().manual_seed(seed)
+    reset_params_(core, g)
+
+    def randn(p, scale, mean=0.0):
+        p.copy_(mean + scale * torch.randn(p.shape, generator=g))
+
+    with torch.no_grad():
+        for m in core.modules():
+            if isinstance(m, CausalConv1d) and m.zero_init:
+                reset_conv_(m.conv.weight, m.conv.bias, g)
+            elif isinstance(m, nn.LayerNorm):
+                randn(m.weight, 0.1, 1.0)
+                randn(m.bias, 0.1)
+            if isinstance(getattr(m, "mix_factor", None), nn.Parameter):
+                randn(m.mix_factor, 0.5, 2.0)
+
+
+def serve(tok, n_requests: int, shape, per_forward: dict) -> dict:
+    """Phase 3: answer ``n_requests`` requests; host-clock latency per
+    request ending in ``torch.cuda.synchronize()``; each forward must
+    launch the kernels ``per_forward`` times."""
+    import torch
+
+    from vidtok_tpu_torch.ops import kernels
+
+    reqs = [np.clip(np.random.RandomState(1 + i).randn(*shape) * 0.5, -1, 1)
+            .astype(np.float32) for i in range(n_requests)]
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    kernels.reset_counts()
+    for x in reqs:
+        before = kernels.counts()
+        t0 = time.perf_counter()
+        z, dec, log = tok(x)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        after = kernels.counts()
+        per = {k: after[k] - before[k] for k in after}
+        if per != per_forward:
+            raise AssertionError(f"launches per forward {per} != {per_forward}")
+        t_lat = shape[2] // 4 + (shape[2] % 4 > 0)
+        if (tuple(dec.shape) != tuple(shape)
+                or tuple(z.shape) != (shape[0], 16, t_lat, shape[3] // 8,
+                                      shape[4] // 8)):
+            raise AssertionError(f"shapes z {tuple(z.shape)} dec {tuple(dec.shape)}")
+        if not (torch.isfinite(z).all() and torch.isfinite(dec).all()
+                and torch.isfinite(log["kl_loss"])):
+            raise AssertionError("non-finite output")
+    steady = min(lat[1:]) if len(lat) > 1 else lat[0]
+    return dict(latency_s=lat, launches=kernels.counts(),
+                frames_per_s=shape[0] * shape[2] / steady,
+                peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def profile_request(tok, shape) -> None:
+    """Device time by kernel over one request (torch.profiler), and the
+    device's busy share of the request's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = np.zeros(shape, np.float32)
+    tok(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tok(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        print("profile: no device time recorded (not measured)", flush=True)
+        return
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    kernels_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"profile: wall {wall_ms:.2f} ms, device kernels {kernels_ms:.2f} ms "
+          f"(busy share {kernels_ms / wall_ms:.3f})", flush=True)
+    for e in rows[:12]:
+        print(f"profile: {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<4d} {e.key[:100]}", flush=True)
+
+
+def e2e_check(core, meta, shape) -> dict:
+    """Phase 4: the kernel path against the plain path, in bf16 and in f32.
+
+    Two bf16 evaluations of this 60-block network differ by 2-3% relative
+    L2 whatever the kernels do (bf16 rounding accumulated through the
+    residual stream), so the kernel path is held to the plain bf16 path's
+    own distance from the f32 plain run: it must be no further from f32
+    than the plain bf16 path is (x BF16_SLACK), on z and on the
+    reconstruction. The kernel path's distance from the plain bf16 path is
+    printed beside it.
+    """
+    import torch
+
+    from vidtok_tpu_torch.models.autoencoder import VideoTokenizer
+
+    x = np.clip(np.random.RandomState(100).randn(*shape) * 0.5, -1, 1) \
+        .astype(np.float32)
+    outs = {}
+    for key, dtype, fused in (("kernel", torch.bfloat16, True),
+                              ("plain", torch.bfloat16, False),
+                              ("plain_f32", torch.float32, False)):
+        z, dec, log = VideoTokenizer(core, meta, dtype, fused=fused)(x)
+        torch.cuda.synchronize()
+        for t in (z, dec, log["kl_loss"]):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"{key}: non-finite output")
+        outs[key] = (z, dec)
+    res = {}
+    for i, what in enumerate(("z", "recon")):
+        res[f"{what}_kernel_vs_plain"] = rel_l2(outs["kernel"][i], outs["plain"][i])
+        res[f"{what}_kernel_vs_f32"] = rel_l2(outs["kernel"][i], outs["plain_f32"][i])
+        res[f"{what}_plain_vs_f32"] = rel_l2(outs["plain"][i], outs["plain_f32"][i])
+    print("e2e rel_l2 " + json.dumps(res), flush=True)
+    for what in ("z", "recon"):
+        k_f32 = res[f"{what}_kernel_vs_f32"]
+        p_f32 = res[f"{what}_plain_vs_f32"]
+        if not k_f32 <= BF16_SLACK * p_f32:
+            raise AssertionError(
+                f"e2e {what}: kernel vs f32 {k_f32} > {BF16_SLACK} x plain "
+                f"bf16 vs f32 {p_f32}")
+    return res
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from vidtok_tpu_torch import load_model_from_config
+    from vidtok_tpu_torch.ops.kernels import _lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi: no output"
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    t0 = time.perf_counter()
+    lib = _lib.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {lib.build_seconds:.1f} s)"
+          f" -> {lib.path.name}", flush=True)
+    for line in lib.build_log.splitlines():
+        if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
+                or "spill" in line):
+            print(line, flush=True)
+
+    kres = check_kernels(device)
+
+    tok = load_model_from_config(MODEL_CFG, seed=0, device="cpu",
+                                 compute_dtype=torch.bfloat16)
+    randomize_(tok.core, seed=0)
+    core = tok.core.to(device)
+    from vidtok_tpu_torch.models.autoencoder import VideoTokenizer
+
+    tok = VideoTokenizer(core, tok.meta, torch.bfloat16)
+    n_params = sum(p.numel() for p in core.parameters())
+    runs = {}
+    for name, fused, per in (("kernel path", True, PER_FORWARD),
+                             ("plain path", False, dict.fromkeys(PER_FORWARD, 0))):
+        tok.fused = fused
+        runs[name] = serve(tok, N_REQUESTS, REQUEST, per)
+        r = runs[name]
+        print(f"serve {name}: v1.1 kl 4x8x8 16chn, {n_params} params; request "
+              f"{list(REQUEST)} bf16; latency_s "
+              + " ".join(f"{v:.4f}" for v in r["latency_s"])
+              + f"; frames_per_s (best of requests 2-3) {r['frames_per_s']:.2f};"
+              f" peak_mem_bytes {r['peak_mem_bytes']}; launches {r['launches']}",
+              flush=True)
+    s = runs["kernel path"]
+    for name, n in s["launches"].items():
+        if n != N_REQUESTS * PER_FORWARD[name]:
+            raise AssertionError(f"{name}: {n} launches in the serving run")
+    tok.fused = True
+    profile_request(tok, REQUEST)
+
+    e2e_check(core, tok.meta, REQUEST)
+
+    kernels_line = {"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name][0],
+         "replaces": SOURCES[name][1], "launches": s["launches"][name],
+         "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
+         "plain_ms": kres[name]["plain_ms"]} for name in PER_FORWARD]}
+    print(json.dumps(kernels_line), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

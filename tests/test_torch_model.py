@@ -1,0 +1,173 @@
+"""The PyTorch port's tokenizer as a whole against ``vidtok_tpu``.
+
+* The tiny causal v1.1 model of ``tests/test_fast_paths.py`` with random
+  parameters: z, reconstruction and kl_loss of the port's
+  ``VideoTokenizer.forward`` (kernel call sites on and off) against JAX
+  with ``fused`` False and True; fp32, rtol 1e-4, atol 2e-4.
+* Weights: ``state_dict_from_jax`` and ``convert_torch_state_dict`` are
+  inverse; the full-width v1.1 16-channel model's parameter shapes equal
+  ``jax.eval_shape`` of the JAX init.
+* Import hygiene: the port imports neither JAX, Flax nor PyYAML.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vidtok_tpu.models.autoencoder import build_core_from_config as j_build
+from vidtok_tpu.utils.checkpoint import convert_torch_state_dict
+from vidtok_tpu_torch import load_model_from_config
+from vidtok_tpu_torch.convert import state_dict_from_jax
+from vidtok_tpu_torch.models.autoencoder import build_core_from_config
+from vidtok_tpu_torch.ops import kernels as K
+
+torch.set_num_threads(2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = dict(rtol=1e-4, atol=2e-4)
+
+_P = {"double_z": True, "z_channels": 4, "in_channels": 3, "out_ch": 3,
+      "ch": 32, "ch_mult": [1, 2], "time_downsample_factor": 2,
+      "num_res_blocks": 1, "norm_type": "layernorm",
+      "interpolation_mode": "trilinear", "tempo_ds": [0], "tempo_us": [1]}
+CFG = {"params": {
+    "encoder_config": {"target": "EncoderCausal3DV1_1", "params": dict(_P)},
+    "decoder_config": {"target": "DecoderCausal3DV1_1", "params": dict(_P)},
+    "regularizer_config": {"target": "DiagonalGaussianRegularizer"},
+}}
+V11_16CHN = os.path.join(ROOT, "configs", "v1_1",
+                         "vidtok_kl_causal_488_16chn_v1_1.yaml")
+
+
+def load_jax_params(module, params):
+    """Copy a JAX parameter tree into ``module`` (strict key match)."""
+    sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+          for k, v in state_dict_from_jax(params).items()}
+    module.load_state_dict(sd, strict=True)
+
+
+def flat(tree):
+    return {jax.tree_util.keystr(k): np.asarray(v)
+            for k, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """JAX core + random params (non-zero norm biases, temporal conv2) and
+    a [1, 3, 5, 32, 32] clip."""
+    core, _ = j_build(CFG)
+    rng = np.random.RandomState(0)
+    x = np.clip(rng.randn(1, 3, 5, 32, 32) * 0.5, -1, 1).astype(np.float32)
+    v = core.init({"params": jax.random.PRNGKey(0),
+                   "sample": jax.random.PRNGKey(0)},
+                  jnp.asarray(x.transpose(0, 2, 3, 4, 1)), sample_override=False)
+
+    def leaf(path, a):
+        r = rng.randn(*a.shape).astype(np.float32)
+        if jax.tree_util.keystr(path).endswith("['scale']"):
+            return 1.0 + 0.2 * r
+        return 0.08 * r
+
+    params = jax.tree_util.tree_map_with_path(leaf, v["params"])
+    return core, params, x
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_tiny_v1_1_end_to_end(tiny, fused):
+    core, params, x = tiny
+    xt = jnp.asarray(x.transpose(0, 2, 3, 4, 1))
+    tok = load_model_from_config({"model": CFG}, fused=fused)
+    load_jax_params(tok.core, params)
+    K.reset_counts()
+    z, dec, log = tok(x)
+    calls = K.counts("calls")
+    # one call per spatial/temporal resblock (1 + 1 encoder levels,
+    # 2 + 2 decoder levels), one spatial upsample, one decoder tail
+    want = ({"fused_spatial_resblock": 6, "fused_temporal_resblock": 6,
+             "subpixel_interleave": 1, "decoder_tail_rgb": 1} if fused
+            else dict.fromkeys(calls, 0))
+    assert calls == want
+    assert all(n == 0 for n in K.counts().values())  # CPU: no launches
+    assert z.shape == (1, 4, 3, 16, 16) and dec.shape == x.shape
+    for j_fused in (False, True):
+        zj, dj, lj = core.apply({"params": params}, xt, sample_override=False,
+                                fused=j_fused)
+        np.testing.assert_allclose(z.numpy(), np.asarray(zj).transpose(0, 4, 1, 2, 3),
+                                   **TOL)
+        np.testing.assert_allclose(dec.numpy(), np.asarray(dj).transpose(0, 4, 1, 2, 3),
+                                   **TOL)
+        np.testing.assert_allclose(float(log["kl_loss"]), float(lj["kl_loss"]),
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_default(dtype):
+    """The kernel call sites are on by default only on a CUDA device in
+    bf16; on the CPU they stay off unless asked for."""
+    tok = load_model_from_config({"model": CFG}, compute_dtype=dtype)
+    assert tok.fused is False
+    tok = load_model_from_config({"model": CFG}, compute_dtype=dtype, fused=True)
+    assert tok.fused is True
+
+
+def test_state_dict_round_trip(tiny):
+    _, params, _ = tiny
+    tok = load_model_from_config({"model": CFG})
+    load_jax_params(tok.core, params)
+    back = convert_torch_state_dict(
+        {k: v.numpy() for k, v in tok.core.state_dict().items()})
+    a, b = flat(params), flat(back)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    sd = state_dict_from_jax(params)
+    assert sd.keys() == tok.core.state_dict().keys()
+
+
+def test_full_width_v1_1_16chn_shapes():
+    """Parameter shapes of the port's full-width model (on the meta device,
+    no memory) equal the JAX init's, with no forward pass."""
+    from vidtok_tpu.config import load_config
+
+    cfg = load_config(V11_16CHN)["model"]
+    with torch.device("meta"):
+        core, meta = build_core_from_config(cfg)
+    assert meta["variant"] == "causal_v1_1" and not meta["use_tiling"]
+    zero = np.zeros((), np.float32)
+    sd = {k: np.broadcast_to(zero, v.shape) for k, v in core.state_dict().items()}
+    port = {k: v.shape for k, v in flat(convert_torch_state_dict(sd)).items()}
+
+    jcore, _ = j_build(cfg)
+    shapes = jax.eval_shape(
+        lambda: jcore.init({"params": jax.random.PRNGKey(0),
+                            "sample": jax.random.PRNGKey(0)},
+                           jnp.zeros((1, 4, 16, 16, 3)), sample_override=False))
+    ref = {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
+           jax.tree_util.tree_leaves_with_path(shapes["params"])}
+    assert port == ref
+    assert sum(int(np.prod(s)) for s in ref.values()) == 157_949_351
+    assert sum(p.numel() for p in core.parameters()) == 157_949_351
+
+
+def test_import_hygiene():
+    """The port imports torch and numpy only: no jax, flax or yaml, also
+    when it builds a model from a config dict."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env["JAX_PLATFORMS"] = "cpu"
+    code = (
+        "import sys, vidtok_tpu_torch, vidtok_tpu_torch.convert\n"
+        "import vidtok_tpu_torch.ops.kernels\n"
+        f"cfg = {{'model': {CFG!r}}}\n"
+        "tok = vidtok_tpu_torch.load_model_from_config(cfg)\n"
+        "bad = [m for m in ('jax', 'flax', 'yaml') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr

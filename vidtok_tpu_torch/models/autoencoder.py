@@ -1,0 +1,204 @@
+"""The video tokenizer model (``vidtok_tpu/models/autoencoder.py``), non-tiled.
+
+* ``TokenizerCore``: encoder, regularizer and decoder on channels-last
+  tensors; ``forward`` encodes, regularizes, decodes and crops the decoded
+  clip to the input length.
+* ``VideoTokenizer``: the serving engine over ``[B, C, T, H, W]`` tensors in
+  [-1, 1]; it casts the input to ``compute_dtype`` and returns f32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..modules.decoder import Decoder
+from ..modules.encoder import Encoder
+from ..modules.regularizers import DiagonalGaussianRegularizer
+
+# reference and alias target names -> variant (vidtok_tpu/registry.py)
+_ENC_VARIANTS = {
+    "EncoderCausal3DV1_1": "causal_v1_1",
+    "vidtok.modules.model_3dcausal_v1_1.EncoderCausal3DPadding": "causal_v1_1",
+}
+_DEC_VARIANTS = {
+    "DecoderCausal3DV1_1": "causal_v1_1",
+    "vidtok.modules.model_3dcausal_v1_1.DecoderCausal3DPadding": "causal_v1_1",
+}
+_REGULARIZERS = ("DiagonalGaussianRegularizer",
+                 "vidtok.modules.regularizers.DiagonalGaussianRegularizer")
+
+
+def _variant(table: dict, target: str) -> str:
+    if target not in table:
+        raise NotImplementedError(
+            f"{target!r}: only the causal v1.1 encoder/decoder are ported")
+    return table[target]
+
+
+def build_core_from_config(model_cfg: dict) -> Tuple["TokenizerCore", dict]:
+    """Reference-style ``model:`` section (already resolved: no ``${...}``)
+    -> (TokenizerCore, meta)."""
+    p = model_cfg.get("params", model_cfg)
+    enc_cfg = p["encoder_config"]
+    dec_cfg = p.get("decoder_config", enc_cfg)
+    reg_cfg = p["regularizer_config"]
+    ep = dict(enc_cfg.get("params") or {})
+    dp = dict(dec_cfg.get("params") or {})
+    for d in (ep, dp):
+        if d.get("dropout", 0.0) != 0.0:
+            raise NotImplementedError("dropout > 0 (training) is not ported")
+
+    def common(d):
+        return dict(ch=d.get("ch", 128), ch_mult=tuple(d.get("ch_mult", (1, 2, 4, 4))),
+                    num_res_blocks=d.get("num_res_blocks", 2),
+                    z_channels=d["z_channels"],
+                    norm_type=d.get("norm_type", "groupnorm"))
+
+    def opt(d, key):
+        return tuple(d[key]) if d.get(key) is not None else None
+
+    tdf = ep.get("time_downsample_factor", 4)
+    encoder = Encoder(
+        in_channels=ep.get("in_channels", 3), double_z=ep.get("double_z", True),
+        spatial_ds=opt(ep, "spatial_ds"), tempo_ds=opt(ep, "tempo_ds"),
+        variant=_variant(_ENC_VARIANTS, enc_cfg["target"]),
+        time_downsample_factor=tdf,
+        init_pad_mode=ep.get("init_pad_mode", "replicate"), **common(ep))
+    decoder = Decoder(
+        out_ch=dp.get("out_ch", 3), spatial_us=opt(dp, "spatial_us"),
+        tempo_us=opt(dp, "tempo_us"),
+        variant=_variant(_DEC_VARIANTS, dec_cfg["target"]),
+        interpolation_mode=dp.get("interpolation_mode", "nearest"),
+        tanh_out=dp.get("tanh_out", False), **common(dp))
+    if reg_cfg["target"] not in _REGULARIZERS:
+        raise NotImplementedError(f"regularizer {reg_cfg['target']!r}")
+    rp = dict(reg_cfg.get("params") or {})
+    core = TokenizerCore(encoder, decoder,
+                         DiagonalGaussianRegularizer(sample=rp.get("sample", True)))
+    meta = dict(variant="causal_v1_1", is_causal=True, discrete=False,
+                time_downsample_factor=tdf, use_tiling=p.get("use_tiling", False))
+    return core, meta
+
+
+def reset_params_(module: nn.Module, generator: torch.Generator = None) -> None:
+    """Initialize as ``vidtok_tpu`` does: convs uniform in +-1/sqrt(fan_in)
+    (temporal conv2 zero), norms 1 and 0, mix factors 2.0. Draws run on
+    the CPU from ``generator``, so every device gets the same weights."""
+    for m in module.modules():
+        if hasattr(m, "reset_params"):
+            m.reset_params(generator)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        if isinstance(getattr(m, "mix_factor", None), nn.Parameter):
+            nn.init.constant_(m.mix_factor, 2.0)
+
+
+class TokenizerCore(nn.Module):
+    def __init__(self, encoder: Encoder, decoder: Decoder,
+                 regularization: DiagonalGaussianRegularizer):
+        super().__init__()
+        self.encoder = encoder
+        self.decoder = decoder
+        self.regularization = regularization
+
+    def encode(self, x, sample: Optional[bool] = None, fused: bool = False,
+               generator: torch.Generator = None):
+        return self.regularization(self.encoder(x, fused=fused), sample=sample,
+                                   generator=generator)
+
+    def decode(self, z, fused: bool = False):
+        return self.decoder(z, fused=fused)
+
+    def forward(self, x, sample: Optional[bool] = None, fused: bool = False,
+                generator: torch.Generator = None):
+        z, log = self.encode(x, sample=sample, fused=fused, generator=generator)
+        dec = self.decode(z, fused=fused)
+        # v1.1 decodes tdf*T' frames: crop to the input length
+        if dec.shape[1] != x.shape[1]:
+            dec = dec[:, -x.shape[1]:]
+        return z, dec, log
+
+
+def _to_nthwc(x):
+    return x.permute(0, 2, 3, 4, 1)
+
+
+def _to_ncthw(x):
+    return x.permute(0, 4, 1, 2, 3)
+
+
+class VideoTokenizer:
+    """Serving engine. Public tensors are ``[B, C, T, H, W]`` in [-1, 1];
+    computation is channels-last in ``compute_dtype`` with f32 norm
+    statistics; outputs are f32. ``fused`` (default: on for a CUDA device
+    in bf16, which the kernels need) routes the four kernels' call sites
+    through their wrappers."""
+
+    def __init__(self, core: TokenizerCore, meta: dict,
+                 compute_dtype: torch.dtype = torch.float32,
+                 fused: Optional[bool] = None, seed: int = 0):
+        if meta.get("use_tiling"):
+            raise NotImplementedError("tiled/streaming inference is not ported")
+        self.core = core.eval()
+        self.meta = meta
+        self.compute_dtype = compute_dtype
+        self.device = next(core.parameters()).device
+        on_card = self.device.type == "cuda"
+        if fused is None:
+            fused = on_card and compute_dtype == torch.bfloat16
+        if fused and on_card and compute_dtype != torch.bfloat16:
+            raise ValueError("the CUDA kernels take bf16 activations: fused=True "
+                             "on a CUDA device needs compute_dtype=torch.bfloat16")
+        self.fused = bool(fused)
+        self.time_downsample_factor = meta["time_downsample_factor"]
+        self.generator = torch.Generator(self.device).manual_seed(seed)
+
+    @classmethod
+    def from_config(cls, config, seed: int = 0, device="cpu",
+                    compute_dtype: torch.dtype = torch.float32,
+                    fused: Optional[bool] = None):
+        """``config``: a dict (resolved) or a YAML path. Weights are random
+        from ``seed``; no checkpoint loading yet."""
+        if not isinstance(config, dict):
+            from vidtok_tpu.config import load_config  # YAML only
+
+            config = load_config(config)
+        model_cfg = config.get("model", config)
+        if (model_cfg.get("params", {}) or {}).get("ckpt_path"):
+            raise NotImplementedError("checkpoint loading is not ported yet")
+        core, meta = build_core_from_config(model_cfg)
+        reset_params_(core, torch.Generator().manual_seed(seed))
+        return cls(core.to(device), meta, compute_dtype, fused, seed)
+
+    def _input(self, x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        return _to_nthwc(x.to(self.device)).to(self.compute_dtype).contiguous()
+
+    @torch.no_grad()
+    def encode(self, x, return_reg_log: bool = False, sample: bool = False):
+        """x: [B,C,T,H,W] -> z [B,Cz,T',H',W'] (+ reg_log)."""
+        z, log = self.core.encode(self._input(x), sample=sample,
+                                  fused=self.fused, generator=self.generator)
+        z = _to_ncthw(z.float())
+        return (z, log) if return_reg_log else z
+
+    @torch.no_grad()
+    def decode(self, z):
+        """z: [B,Cz,T',H',W'] -> [B,C,tdf*T',H,W]."""
+        dec = self.core.decode(self._input(z), fused=self.fused)
+        return _to_ncthw(dec.float())
+
+    @torch.no_grad()
+    def forward(self, x, sample: bool = False):
+        """(z, x_rec, reg_log) for x: [B,C,T,H,W]."""
+        z, dec, log = self.core(self._input(x), sample=sample, fused=self.fused,
+                                generator=self.generator)
+        return _to_ncthw(z.float()), _to_ncthw(dec.float()), log
+
+    __call__ = forward

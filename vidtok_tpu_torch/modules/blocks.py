@@ -1,0 +1,223 @@
+"""Residual, attention and resampling blocks on ``[B, T, H, W, C]``.
+
+Counterpart of ``vidtok_tpu/modules/blocks.py`` for the causal layernorm
+blocks, non-streaming. ``fused=True`` routes the spatial and temporal
+resblocks and the spatial-upsample tail through kernels A, B and C
+(``ops/kernels``); their wrappers run the plain forms on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.kernels import (fused_spatial_resblock, fused_temporal_resblock,
+                           subpixel_interleave)
+from .conv import CausalConv1d, CausalConv3d, SpatialConv, pad_time_front
+from .interp import temporal_avg_pool3_stride2, temporal_linear_up2x
+from .norms import make_norm, silu
+
+
+def _norm_args(norm):
+    return (norm.norm.weight, norm.norm.bias)
+
+
+class ResnetBlockSpatial(nn.Module):
+    """Per-frame 2D residual block (``blocks.py:37-72``); kernel A."""
+
+    def __init__(self, cin: int, cout: int, norm_type: str = "layernorm"):
+        super().__init__()
+        self.norm1 = make_norm(norm_type, cin)
+        self.conv1 = SpatialConv(cin, cout, 3)
+        self.norm2 = make_norm(norm_type, cout)
+        self.conv2 = SpatialConv(cout, cout, 3)
+        if cin != cout:
+            self.nin_shortcut = SpatialConv(cin, cout, 1)
+
+    def forward(self, x, fused: bool = False):
+        if fused:
+            b, t = x.shape[:2]
+            nin = self.nin_shortcut if hasattr(self, "nin_shortcut") else None
+            y = fused_spatial_resblock(
+                x.reshape((b * t,) + tuple(x.shape[2:])),
+                _norm_args(self.norm1), (self.conv1.weight, self.conv1.bias),
+                _norm_args(self.norm2), (self.conv2.weight, self.conv2.bias),
+                None if nin is None else (nin.weight, nin.bias))
+            return y.reshape((b, t) + tuple(y.shape[1:]))
+        h = self.conv1(silu(self.norm1(x)))
+        h = self.conv2(silu(self.norm2(h)))
+        if hasattr(self, "nin_shortcut"):
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+class ResnetBlockTemporal(nn.Module):
+    """Causal temporal residual block (``blocks.py:75-189``); kernel B.
+    ``conv2`` is zero-initialized so the block starts as the identity."""
+
+    def __init__(self, cin: int, cout: int, norm_type: str = "layernorm",
+                 first_pad_mode: str = "zero"):
+        super().__init__()
+        self.first_pad_mode = first_pad_mode
+        self.norm1 = make_norm(norm_type, cin)
+        self.conv1 = CausalConv1d(cin, cout, 3, first_pad_mode=first_pad_mode)
+        self.norm2 = make_norm(norm_type, cout)
+        self.conv2 = CausalConv1d(cout, cout, 3, first_pad_mode=first_pad_mode,
+                                  zero_init=True)
+        if cin != cout:
+            self.nin_shortcut = CausalConv1d(cin, cout, 1,
+                                             first_pad_mode=first_pad_mode)
+
+    def forward(self, x, fused: bool = False):
+        if fused and not hasattr(self, "nin_shortcut"):
+            return fused_temporal_resblock(
+                x, _norm_args(self.norm1),
+                (self.conv1.conv.weight, self.conv1.conv.bias),
+                _norm_args(self.norm2),
+                (self.conv2.conv.weight, self.conv2.conv.bias),
+                self.first_pad_mode)
+        h = self.conv1(silu(self.norm1(x)))
+        h = self.conv2(silu(self.norm2(h)))
+        if hasattr(self, "nin_shortcut"):
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+class ResnetBlock3D(nn.Module):
+    """Full 3D causal residual block of the mid stack (``blocks.py:192-236``)."""
+
+    def __init__(self, cin: int, cout: int, norm_type: str = "layernorm",
+                 first_pad_mode: str = "zero"):
+        super().__init__()
+        self.norm1 = make_norm(norm_type, cin)
+        self.conv1 = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode)
+        self.norm2 = make_norm(norm_type, cout)
+        self.conv2 = CausalConv3d(cout, cout, 3, first_pad_mode=first_pad_mode)
+        if cin != cout:
+            self.nin_shortcut = CausalConv3d(cin, cout, 1,
+                                             first_pad_mode=first_pad_mode)
+
+    def forward(self, x):
+        h = self.conv1(silu(self.norm1(x)))
+        h = self.conv2(silu(self.norm2(h)))
+        if hasattr(self, "nin_shortcut"):
+            x = self.nin_shortcut(x)
+        return x + h
+
+
+class AttnBlock(nn.Module):
+    """Per-frame single-head spatial self-attention (``blocks.py:239-268``):
+    q/k/v/proj are 1x1 convs, q, k and v are cast to f32, the softmax runs
+    in f32 and the scale is C^-1/2."""
+
+    def __init__(self, c: int, norm_type: str = "layernorm"):
+        super().__init__()
+        self.norm = make_norm(norm_type, c)
+        self.q = CausalConv3d(c, c, 1)
+        self.k = CausalConv3d(c, c, 1)
+        self.v = CausalConv3d(c, c, 1)
+        self.proj_out = CausalConv3d(c, c, 1)
+
+    def forward(self, x):
+        b, t, hh, ww, c = x.shape
+        h = self.norm(x)
+
+        def proj(m, v):
+            return F.linear(v, m.conv.weight[:, :, 0, 0, 0].to(v.dtype),
+                            m.conv.bias.to(v.dtype))
+
+        q, k, v = (proj(m, h).reshape(b * t, 1, hh * ww, c).float()
+                   for m in (self.q, self.k, self.v))
+        out = F.scaled_dot_product_attention(q, k, v).to(x.dtype)
+        return x + proj(self.proj_out, out.reshape(b, t, hh, ww, c))
+
+
+class SpatialDownsample(nn.Module):
+    """Per-frame 2x downsample: (0,1,0,1) zero pad + 3x3 stride-2 conv."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = SpatialConv(c, c, 3, stride=2, padding=(0, 1, 0, 1))
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class SpatialUpsample(nn.Module):
+    """Per-frame nearest 2x upsample + 3x3 conv (``blocks.py:286-385``), as
+    four 2x2 parity convs on the source grid whose outputs are interleaved
+    by parity (kernel C when ``fused``)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = SpatialConv(c, c, 3)
+
+    def forward(self, x, fused: bool = False):
+        b, t, h, w, c = x.shape
+        k = self.conv.weight.to(x.dtype)                     # [O, I, 3, 3]
+        # row-combined taps: parity 0 reads rows a-1, a; parity 1 rows a, a+1
+        r0 = torch.stack([k[:, :, 0], k[:, :, 1] + k[:, :, 2]], dim=2)
+        r1 = torch.stack([k[:, :, 0] + k[:, :, 1], k[:, :, 2]], dim=2)
+
+        def colmix(kr):
+            return (torch.stack([kr[..., 0], kr[..., 1] + kr[..., 2]], dim=-1),
+                    torch.stack([kr[..., 0] + kr[..., 1], kr[..., 2]], dim=-1))
+
+        (e00, e01), (e10, e11) = colmix(r0), colmix(r1)
+        xp = F.pad(x.reshape(b * t, h, w, c), (0, 0, 1, 1, 1, 1))
+        xp = xp.permute(0, 3, 1, 2)                          # [N, C, H+2, W+2]
+
+        def parity(e, pr, pc):
+            y = F.conv2d(xp[:, :, pr:pr + h + 1, pc:pc + w + 1], e)
+            return y.permute(0, 2, 3, 1).contiguous()        # [N, H, W, C]
+
+        ys = (parity(e00, 0, 0), parity(e01, 0, 1),
+              parity(e10, 1, 0), parity(e11, 1, 1))
+        if fused:
+            y = subpixel_interleave(*ys, self.conv.bias)
+        else:
+            y = torch.stack([torch.stack(ys[:2], dim=3),
+                             torch.stack(ys[2:], dim=3)], dim=2)
+            y = y.reshape(b * t, 2 * h, 2 * w, c) + self.conv.bias.to(x.dtype)
+        return y.reshape(b, t, 2 * h, 2 * w, c)
+
+
+class TimeDownsampleRes2x(nn.Module):
+    """Causal blended temporal 2x downsample (``blocks.py:388-438``):
+    ``a*avgpool3s2(front + x) + (1-a)*conv3d_s2(x)``, a = sigmoid(mix)."""
+
+    def __init__(self, cin: int, cout: int, first_pad_mode: str = "zero",
+                 mix_factor_init: float = 2.0):
+        super().__init__()
+        self.first_pad_mode = first_pad_mode
+        self.mix_factor = nn.Parameter(torch.full((1,), mix_factor_init))
+        self.conv = CausalConv3d(cin, cout, 3, stride=(2, 1, 1),
+                                 first_pad_mode=first_pad_mode)
+
+    def forward(self, x):
+        alpha = torch.sigmoid(self.mix_factor).to(x.dtype)
+        x1 = temporal_avg_pool3_stride2(pad_time_front(x, 1, self.first_pad_mode))
+        x2 = self.conv(x)
+        return alpha * x1 + (1 - alpha) * x2
+
+
+class TimeUpsampleRes2x(nn.Module):
+    """Causal blended temporal 2x upsample, trilinear, non-streaming
+    (``blocks.py:441-571``): the first ``num_temp_upsample`` frames are
+    interpolated apart from the rest, then ``a*up + (1-a)*conv(up)``."""
+
+    def __init__(self, cin: int, cout: int, num_temp_upsample: int = 1,
+                 first_pad_mode: str = "zero", mix_factor_init: float = 2.0):
+        super().__init__()
+        self.ntu = num_temp_upsample
+        self.mix_factor = nn.Parameter(torch.full((1,), mix_factor_init))
+        self.conv = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode)
+
+    def forward(self, x):
+        alpha = torch.sigmoid(self.mix_factor).to(x.dtype)
+        head, tail = x[:, :self.ntu], x[:, self.ntu:]
+        x = temporal_linear_up2x(head)
+        if tail.shape[1] > 0:
+            x = torch.cat([x, temporal_linear_up2x(tail)], dim=1)
+        return alpha * x + (1 - alpha) * self.conv(x)

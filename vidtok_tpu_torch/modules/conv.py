@@ -1,0 +1,160 @@
+"""Convolutions on channels-last ``[B, T, H, W, C]`` tensors, non-streaming.
+
+Counterpart of ``vidtok_tpu/modules/conv.py``. Weights keep the reference
+torch layouts (Conv3d OIDHW, Conv2d OIHW, Conv1d OIk) and names, so a
+released torch state dict loads as it is. Each conv runs as one
+``F.conv3d`` on the ``permute(0, 4, 1, 2, 3)`` view of the channels-last
+tensor; that view is already ``channels_last_3d``, so cuDNN takes it
+without a copy and returns a tensor whose inverse permute is contiguous.
+
+Causal time padding (``time_pad = (kT - 1) + (1 - sT)``) is prepended as
+``first_pad_mode`` says: ``zero`` frames (v1.0) or copies of frame 0
+(``replicate``, v1.1). The TPU-only rewrites of the JAX package (the
+decomposed per-frame form and the conv_in time fold) are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _triple(v) -> Tuple[int, int, int]:
+    if isinstance(v, int):
+        return (v, v, v)
+    t = tuple(v)
+    if len(t) != 3:
+        raise ValueError(f"expected 3 values, got {v!r}")
+    return t
+
+
+def conv3d_cl(x, weight, bias=None, stride=(1, 1, 1), padding=(0, 0, 0)):
+    """[B,T,H,W,Ci] x OIDHW weight -> [B,T',H',W',Co], computed in x.dtype."""
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, stride, padding)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def pad_time_front(x, n: int, mode: str):
+    """Prepend ``n`` frames on axis 1: zeros or copies of frame 0."""
+    if n == 0:
+        return x
+    if mode == "replicate":
+        front = x[:, :1].expand(-1, n, *x.shape[2:])
+    elif mode == "zero":
+        front = x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+    else:
+        raise ValueError(f"unknown first_pad_mode {mode!r}")
+    return torch.cat([front, x], dim=1)
+
+
+def reset_conv_(weight, bias, generator=None, zero: bool = False):
+    """torch's default conv init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
+    weight and bias, as ``vidtok_tpu`` inits (``conv.py:147-165``); drawn
+    on the CPU from ``generator`` so every device gets the same numbers.
+    ``zero`` gives the reference zero_init (kernel and bias 0)."""
+    with torch.no_grad():
+        if zero:
+            weight.zero_()
+            if bias is not None:
+                bias.zero_()
+            return
+        bound = 1.0 / math.sqrt(weight[0].numel())
+        for p in (weight, bias):
+            if p is not None:
+                r = torch.empty(p.shape, dtype=torch.float32)
+                p.copy_(r.uniform_(-bound, bound, generator=generator))
+
+
+class Conv3d(nn.Conv3d):
+    """Plain 3D conv with symmetric zero padding ``(k-1)//2`` (torch
+    ``nn.Conv3d(..., padding=p)``), on channels-last tensors."""
+
+    def __init__(self, cin: int, cout: int, kernel=(3, 3, 3), stride=(1, 1, 1),
+                 padding=None):
+        k = _triple(kernel)
+        pad = tuple((kk - 1) // 2 for kk in k) if padding is None else _triple(padding)
+        super().__init__(cin, cout, k, _triple(stride), pad)
+
+    def reset_params(self, generator=None):
+        reset_conv_(self.weight, self.bias, generator)
+
+    def forward(self, x):
+        return conv3d_cl(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class CausalConv3d(nn.Module):
+    """Causal 3D conv: time front pad only, symmetric spatial zero pad.
+    The weights sit in ``self.conv`` as in the reference wrapper."""
+
+    def __init__(self, cin: int, cout: int, kernel=(3, 3, 3), stride=(1, 1, 1),
+                 first_pad_mode: str = "zero"):
+        super().__init__()
+        kt, kh, kw = _triple(kernel)
+        if kh % 2 == 0 or kw % 2 == 0:
+            raise ValueError("spatial kernel sizes must be odd")
+        self.stride = _triple(stride)
+        self.time_pad = (kt - 1) + (1 - self.stride[0])
+        self.first_pad_mode = first_pad_mode
+        self.conv = nn.Conv3d(cin, cout, (kt, kh, kw), self.stride)
+
+    def reset_params(self, generator=None):
+        reset_conv_(self.conv.weight, self.conv.bias, generator)
+
+    def forward(self, x):
+        x = pad_time_front(x, self.time_pad, self.first_pad_mode)
+        _, kh, kw = self.conv.kernel_size
+        return conv3d_cl(x, self.conv.weight, self.conv.bias, self.stride,
+                         (0, kh // 2, kw // 2))
+
+
+class CausalConv1d(nn.Module):
+    """Temporal-only causal conv, run as a (k,1,1) 3D conv on NTHWC.
+    ``self.conv`` holds the reference ``nn.Conv1d`` weight ``[O, I, k]``."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
+                 first_pad_mode: str = "zero", zero_init: bool = False):
+        super().__init__()
+        self.stride = stride
+        self.time_pad = (kernel_size - 1) + (1 - stride)
+        self.first_pad_mode = first_pad_mode
+        self.zero_init = zero_init
+        self.conv = nn.Conv1d(cin, cout, kernel_size, stride)
+
+    def reset_params(self, generator=None):
+        reset_conv_(self.conv.weight, self.conv.bias, generator, self.zero_init)
+
+    def forward(self, x):
+        x = pad_time_front(x, self.time_pad, self.first_pad_mode)
+        w = self.conv.weight
+        return conv3d_cl(x, w[..., None, None], self.conv.bias,
+                         (self.stride, 1, 1))
+
+
+class SpatialConv(nn.Conv2d):
+    """Per-frame 2D conv on ``[B,T,H,W,C]`` (the reference's ``(b t) c h w``
+    fold + ``nn.Conv2d``); ``padding`` is (top, bottom, left, right)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
+                 padding: Sequence[int] = None):
+        super().__init__(cin, cout, kernel_size, stride)
+        p = (kernel_size - 1) // 2
+        self.pad4 = (p, p, p, p) if padding is None else tuple(padding)
+
+    def reset_params(self, generator=None):
+        reset_conv_(self.weight, self.bias, generator)
+
+    def forward(self, x):
+        top, bottom, left, right = self.pad4
+        if top == bottom and left == right:
+            pad = (0, top, left)
+        else:
+            x = F.pad(x, (0, 0, left, right, top, bottom))
+            pad = (0, 0, 0)
+        return conv3d_cl(x, self.weight[:, :, None], self.bias,
+                         (1, self.stride[0], self.stride[1]), pad)

@@ -1,0 +1,87 @@
+"""Video decoder, causal v1.1 variant, non-streaming
+(``vidtok_tpu/modules/decoder.py``).
+
+conv_in -> mid (3D resblock, attention, 3D resblock) -> levels from the
+deepest up, each ``num_res_blocks + 1`` x [spatial + temporal resblock],
+a spatial 2x upsample at ``spatial_us`` levels and a trilinear temporal 2x
+upsample at the ``tempo_us`` levels among them -> norm_out + SiLU +
+conv_out to RGB (kernel D when ``fused``). v1.1 returns every decoded
+frame; the model crops to the input length.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..ops.kernels import decoder_tail_rgb
+from .blocks import (ResnetBlockSpatial, ResnetBlockTemporal, SpatialUpsample,
+                     TimeUpsampleRes2x)
+from .conv import CausalConv3d
+from .encoder import _Mid, _check_variant
+from .norms import make_norm, silu
+
+
+class Decoder(nn.Module):
+    def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_res_blocks: int = 2, out_ch: int = 3, z_channels: int = 4,
+                 spatial_us: Optional[Sequence[int]] = None,
+                 tempo_us: Optional[Sequence[int]] = None,
+                 variant: str = "causal_v1_1", norm_type: str = "layernorm",
+                 interpolation_mode: str = "trilinear", tanh_out: bool = False):
+        super().__init__()
+        _check_variant(variant)
+        if interpolation_mode != "trilinear":
+            raise NotImplementedError("v1.1 upsamples time trilinearly")
+        n = len(ch_mult)
+        self.tanh_out = tanh_out
+        self.first_pad_mode = pad = "replicate"
+        self.spatial_us = tuple(range(1, n) if spatial_us is None else spatial_us)
+        self.tempo_us = tuple((1, 2) if tempo_us is None else tempo_us)
+
+        c = ch * ch_mult[n - 1]
+        self.conv_in = CausalConv3d(z_channels, c, 3, first_pad_mode=pad)
+        self.mid = _Mid(c, norm_type, pad)
+        levels = {}
+        ntu = 1
+        for i in reversed(range(n)):
+            c_out = ch * ch_mult[i]
+            level, tlevel = nn.Module(), nn.Module()
+            level.block = nn.ModuleList()
+            tlevel.block = nn.ModuleList()
+            for _ in range(num_res_blocks + 1):
+                level.block.append(ResnetBlockSpatial(c, c_out, norm_type))
+                tlevel.block.append(ResnetBlockTemporal(c_out, c_out, norm_type, pad))
+                c = c_out
+            if i in self.spatial_us:
+                level.upsample = SpatialUpsample(c)
+                if i in self.tempo_us:
+                    tlevel.upsample = TimeUpsampleRes2x(c, c, ntu, pad)
+                    ntu *= 2
+            levels[i] = (level, tlevel)
+        # indexed by level, as the reference's ``up.insert(0, ...)``
+        self.up = nn.ModuleList(levels[i][0] for i in range(n))
+        self.up_temporal = nn.ModuleList(levels[i][1] for i in range(n))
+        self.norm_out = make_norm(norm_type, c)
+        self.conv_out = CausalConv3d(c, out_ch, 3, first_pad_mode=pad)
+
+    def forward(self, z, fused: bool = False):
+        """z: [B, T', H', W', Cz] -> [B, tdf*T', H, W, out_ch]."""
+        h = self.mid(self.conv_in(z))
+        for level, tlevel in zip(reversed(self.up), reversed(self.up_temporal)):
+            for sp, tm in zip(level.block, tlevel.block):
+                h = tm(sp(h, fused=fused), fused=fused)
+            if hasattr(level, "upsample"):
+                h = level.upsample(h, fused=fused)
+            if hasattr(tlevel, "upsample"):
+                h = tlevel.upsample(h)
+        if fused:
+            norm = self.norm_out.norm
+            conv = self.conv_out.conv
+            h = decoder_tail_rgb(h, (norm.weight, norm.bias),
+                                 (conv.weight, conv.bias), self.first_pad_mode)
+        else:
+            h = self.conv_out(silu(self.norm_out(h)))
+        return torch.tanh(h) if self.tanh_out else h

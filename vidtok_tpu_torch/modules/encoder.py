@@ -1,0 +1,107 @@
+"""Video encoder, causal v1.1 variant (``vidtok_tpu/modules/encoder.py``).
+
+Per level: ``num_res_blocks`` x [spatial resblock + temporal resblock],
+a spatial 2x downsample at ``spatial_ds`` levels and a temporal 2x
+downsample at the ``tempo_ds`` levels among them; then the mid stack
+(3D resblock, attention, 3D resblock), norm_out + SiLU and conv_out to
+``2*z_channels`` when ``double_z``. Module names follow the reference torch
+model (``down.{i}.block.{j}``, ``down_temporal.{i}.downsample``,
+``mid.block_1``, ...).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from torch import nn
+
+from .blocks import (AttnBlock, ResnetBlock3D, ResnetBlockSpatial,
+                     ResnetBlockTemporal, SpatialDownsample,
+                     TimeDownsampleRes2x)
+from .conv import CausalConv3d, pad_time_front
+from .norms import make_norm, silu
+
+VARIANTS = ("causal_v1_1",)
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in VARIANTS:
+        raise NotImplementedError(
+            f"variant {variant!r}: only {VARIANTS} is ported")
+
+
+class _Mid(nn.Module):
+    def __init__(self, c: int, norm_type: str, first_pad_mode: str):
+        super().__init__()
+        self.block_1 = ResnetBlock3D(c, c, norm_type, first_pad_mode)
+        self.attn_1 = AttnBlock(c, norm_type)
+        self.block_2 = ResnetBlock3D(c, c, norm_type, first_pad_mode)
+
+    def forward(self, h):
+        return self.block_2(self.attn_1(self.block_1(h)))
+
+
+class Encoder(nn.Module):
+    def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_res_blocks: int = 2, in_channels: int = 3,
+                 z_channels: int = 4, double_z: bool = True,
+                 spatial_ds: Optional[Sequence[int]] = None,
+                 tempo_ds: Optional[Sequence[int]] = None,
+                 variant: str = "causal_v1_1", norm_type: str = "layernorm",
+                 time_downsample_factor: int = 4,
+                 init_pad_mode: str = "replicate"):
+        super().__init__()
+        _check_variant(variant)
+        n = len(ch_mult)
+        self.tdf = time_downsample_factor
+        self.init_pad_mode = init_pad_mode
+        self.spatial_ds = tuple(range(n - 1) if spatial_ds is None else spatial_ds)
+        self.tempo_ds = tuple((n - 2, n - 3) if tempo_ds is None else tempo_ds)
+        pad = "replicate"  # v1.1 interior convs replicate the stream start
+
+        self.conv_in = CausalConv3d(in_channels, ch, 3, first_pad_mode=pad)
+        self.down = nn.ModuleList()
+        self.down_temporal = nn.ModuleList()
+        c = ch
+        for i in range(n):
+            c_out = ch * ch_mult[i]
+            level, tlevel = nn.Module(), nn.Module()
+            level.block = nn.ModuleList()
+            tlevel.block = nn.ModuleList()
+            for _ in range(num_res_blocks):
+                level.block.append(ResnetBlockSpatial(c, c_out, norm_type))
+                tlevel.block.append(ResnetBlockTemporal(c_out, c_out, norm_type, pad))
+                c = c_out
+            if i in self.spatial_ds:
+                level.downsample = SpatialDownsample(c)
+                if i in self.tempo_ds:
+                    tlevel.downsample = TimeDownsampleRes2x(c, c, pad)
+            self.down.append(level)
+            self.down_temporal.append(tlevel)
+        self.mid = _Mid(c, norm_type, pad)
+        self.norm_out = make_norm(norm_type, c)
+        self.conv_out = CausalConv3d(
+            c, 2 * z_channels if double_z else z_channels, 3, first_pad_mode=pad)
+
+    def pad_input(self, x):
+        """Front-pad T to the next multiple of the time downsample factor
+        with ``init_pad_mode`` frames (``encoder.py:80-101``, v1.1)."""
+        t = x.shape[1]
+        if t % self.tdf == 0:
+            return x
+        mode = "replicate" if self.init_pad_mode == "replicate" else "zero"
+        return pad_time_front(x, self.tdf - t % self.tdf, mode)
+
+    def forward(self, x, fused: bool = False):
+        """x: [B, T, H, W, C] -> posterior parameters [B, T', H', W', 2Cz]."""
+        h = self.conv_in(self.pad_input(x))
+        for level, tlevel in zip(self.down, self.down_temporal):
+            for sp, tm in zip(level.block, tlevel.block):
+                h = tm(sp(h, fused=fused), fused=fused)
+            if hasattr(level, "downsample"):
+                h = level.downsample(h)
+            if hasattr(tlevel, "downsample"):
+                h = tlevel.downsample(h)
+        h = self.mid(h)
+        return self.conv_out(silu(self.norm_out(h)))
+

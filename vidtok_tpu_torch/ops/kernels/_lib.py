@@ -1,0 +1,135 @@
+"""Build and load the hand-written Hopper kernels of ``vidtok_tpu_torch/csrc``.
+
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at the first kernel launch of a process, into
+``build/vidtok_tpu_torch/`` beside the package, under a name that hashes
+the sources and flags, so an edited source rebuilds and an unchanged one
+is loaded as it is. A failed build raises. Nothing here runs at import.
+
+Every C entry launches on the stream it is given, allocates nothing and
+returns ``cudaGetLastError()``; :func:`call` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "vidtok_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry -> argument types (pointers and the stream as void*, sizes as int)
+_SIGNATURES = {
+    # x, out, h1, act, g1, b1, w1, bias1, g2, b2, w2, bias2,
+    # N, H, W, Cin, C, has_nin, stream
+    "vt_fused_spatial_resblock": [_P] * 12 + [_I] * 6 + [_P],
+    # x, out, h1, act, g1, b1, w1, bias1, g2, b2, w2, bias2,
+    # B, T, S, C, replicate, stream
+    "vt_fused_temporal_resblock": [_P] * 12 + [_I] * 5 + [_P],
+    # y00, y01, y10, y11, bias, out, N, H, W, C, stream
+    "vt_subpixel_interleave": [_P] * 6 + [_I] * 4 + [_P],
+    # x, out, stats, g, b, w, bias, B, T, H, W, C, replicate, stream
+    "vt_decoder_tail_rgb": [_P] * 7 + [_I] * 6 + [_P],
+}
+
+
+@dataclass
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_log: str       # nvcc output, including -Xptxas -v
+    build_seconds: float  # 0.0 when a cached build was loaded
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    path = cand if cand and os.path.exists(cand) else shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> KernelLibrary:
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    so = BUILD_DIR / f"libvidtok_kernels-{digest.hexdigest()[:16]}.so"
+    log_path = so.with_suffix(".log")
+    seconds = 0.0
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.vt_error_string.argtypes = [ctypes.c_int]
+    lib.vt_error_string.restype = ctypes.c_char_p
+    log = log_path.read_text() if log_path.exists() else ""
+    return KernelLibrary(lib, so, log, seconds)
+
+
+def call(name: str, *args) -> None:
+    """Run C entry ``name`` on the current CUDA stream; raise on error.
+    Tensors are passed as their data pointers."""
+    import torch
+
+    lib = library().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.vt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
+def f32(t):
+    """A parameter as the contiguous f32 vector a kernel reads."""
+    return t.float().contiguous()
+
+
+def require(x, dtype, shape) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of ``dtype``/``shape``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel input must be a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"kernel input must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"kernel input shape {tuple(x.shape)} != {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError("kernel input must be contiguous")
+
+
+def same_device(t, x) -> None:
+    if t.device != x.device:
+        raise ValueError(f"parameter on {t.device}, input on {x.device}")

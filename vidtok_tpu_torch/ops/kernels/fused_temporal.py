@@ -1,0 +1,82 @@
+"""Kernel B: fused causal temporal residual block (layernorm, non-streaming).
+
+Replaces ``vidtok_tpu/ops/pallas/fused_temporal.py:205``
+(``fused_temporal_resblock``)::
+
+    y = x + conv2_t(ln_silu2(conv1_t(ln_silu1(x))))
+
+both convs causal k=3 over time, C -> C, the residual added in f32.
+CUDA: ``csrc/fused_temporal.cu``. The front pad applies to the ACTIVATED
+tensor: ``replicate`` repeats activated frame 0, ``zero`` masks the taps
+before frame 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _lib
+from .act import ln_silu_fast
+from ...modules.conv import conv3d_cl, pad_time_front
+
+
+def _tconv3(a, weight, mode):
+    """Causal k=3 temporal conv of [B,T,H,W,Ci] with Conv1d weight [O,I,3]."""
+    return conv3d_cl(pad_time_front(a, 2, mode), weight[..., None, None])
+
+
+def fused_temporal_resblock_plain(x, norm1, conv1, norm2, conv2,
+                                  first_pad_mode: str = "zero",
+                                  eps: float = 1e-6):
+    """Plain PyTorch form. x: ``[B, T, H, W, C]``; ``conv*`` are
+    (Conv1d weight ``[C, C, 3]``, bias)."""
+    dt = x.dtype
+    a = ln_silu_fast(x, norm1[0], norm1[1], eps)
+    h = _tconv3(a, conv1[0], first_pad_mode).float() + conv1[1].float()
+    a = ln_silu_fast(h.to(dt), norm2[0], norm2[1], eps)
+    y = _tconv3(a, conv2[0], first_pad_mode).float() + conv2[1].float()
+    return (x.float() + y).to(dt)
+
+
+def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
+                            first_pad_mode: str = "zero"):
+    """x: ``[B, T, H, W, C]`` -> same shape.
+
+    A CPU tensor runs :func:`fused_temporal_resblock_plain`. A CUDA tensor
+    must be contiguous bf16 with C % 128 == 0; it runs the kernel or
+    raises.
+    """
+    fused_temporal_resblock.calls += 1
+    if first_pad_mode not in ("zero", "replicate"):
+        raise ValueError(f"unknown first_pad_mode {first_pad_mode!r}")
+    if x.device.type == "cpu":
+        return fused_temporal_resblock_plain(x, norm1, conv1, norm2, conv2,
+                                             first_pad_mode)
+    b, t, h, w, c = x.shape
+    _lib.require(x, torch.bfloat16, (b, t, h, w, c))
+    if c % 128:
+        raise ValueError(f"kernel B takes C % 128 == 0, got C={c}")
+    for cw in (conv1[0], conv2[0]):
+        if tuple(cw.shape) != (c, c, 3):
+            raise ValueError("kernel B takes two causal k=3 convs C->C")
+    bf = torch.bfloat16
+    # Conv1d [O, I, k] -> GEMM operand [(k, ci), co]
+    w1 = conv1[0].permute(2, 1, 0).reshape(3 * c, c).to(bf).contiguous()
+    w2 = conv2[0].permute(2, 1, 0).reshape(3 * c, c).to(bf).contiguous()
+    g1, b1, g2, b2, bias1, bias2 = (
+        _lib.f32(v) for v in (norm1[0], norm1[1], norm2[0], norm2[1],
+                              conv1[1], conv2[1]))
+    for v in (w1, w2, g1, b1, g2, b2, bias1, bias2):
+        _lib.same_device(v, x)
+    h1 = torch.empty_like(x)
+    out = torch.empty_like(x)
+    act = torch.empty_like(x)  # activation scratch
+    _lib.call("vt_fused_temporal_resblock", x, out, h1, act, g1, b1, w1,
+              bias1, g2, b2, w2, bias2, b, t, h * w, c,
+              int(first_pad_mode == "replicate"))
+    fused_temporal_resblock.launches += 1
+    return out
+
+
+fused_temporal_resblock.calls = 0
+fused_temporal_resblock.launches = 0
