@@ -5,27 +5,35 @@
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
-1. build the four hand-written kernels from ``vidtok_tpu_torch/csrc`` (nvcc,
-   sm_90a) and print the build time and the ``-Xptxas -v`` report;
+1. build the five hand-written kernels from ``vidtok_tpu_torch/csrc`` (nvcc,
+   sm_90a, one process per source) and print the build time and the
+   ``-Xptxas -v`` report;
 2. hold every kernel against its plain PyTorch version at every shape the
-   serving path gives it (bf16 inputs from a numpy seed; the plain version
-   in f32 with TF32 off); gate relative L2 <= 1e-2, and no further from
-   the f32 plain version than the plain version in bf16 is (x 1.1); time
-   both (CUDA events);
-3. serve the causal v1.1 KL 4x8x8 16-channel tokenizer at full width with
+   serving paths give it, in both stream-start modes where it has them
+   (bf16 inputs from a numpy seed; the plain version in f32 with TF32
+   off); gate relative L2 <= 1e-2, and no further from the f32 plain
+   version than the plain version in bf16 is (x 1.1); time both (CUDA
+   events); and hold kernel E at bench.py's T=201 shape, whose output
+   passes 2^31 elements, against its plain version on a window of frames;
+3. serve the causal v1.0 KL 4x8x8 16-channel flagship at full width with
    seeded random weights in bf16: 3 requests of [1, 3, 17, 256, 256],
    per-request latency, frames/s and peak memory, and the kernels' launch
-   counts per forward (20 / 20 / 3 / 1); then the same requests through
-   the plain path (no kernel launched) for comparison, and a torch.profiler
-   breakdown of one kernel-path request;
-4. compare the kernel path with the same model's plain path on one request,
-   all outputs finite: on z and on the reconstruction the kernel path
-   (bf16) must be no further from the f32 plain run than the plain bf16
-   path is (x 1.1).
+   counts per forward (20 / 20 / 3 / 1 / 2); then the same requests through
+   the plain path (no kernel launched), a torch.profiler breakdown of one
+   kernel-path request, and the end-to-end gate: on z and on the
+   reconstruction the kernel path (bf16) must be no further from the f32
+   plain run than the plain bf16 path is (x 1.1);
+4. serve one [1, 3, 201, 256, 256] clip (bench.py's protocol) through the
+   v1.0 kernel path after one warm-up of the same shape;
+5. serve one request through the v1.0 FSQ 4096 tokenizer's kernel path and
+   check its indices, ``indices_to_latent`` and decoding from indices;
+6. the causal v1.1 KL 4x8x8 16-channel tokenizer as in 3 (launches
+   20 / 20 / 3 / 1 / 0).
 
 It never falls back to the CPU or to a plain version. The last two lines of
-standard output are a JSON object with the per-kernel results and
-``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
+standard output are a JSON object with the per-kernel results (launches
+from phase 3's kernel-path run) and ``{"ok": true, "device": {...}}``.
+Needs one CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -37,31 +45,59 @@ import time
 
 import numpy as np
 
-# The v1.1 KL 4x8x8 16-channel tokenizer's model section
-# (configs/v1_1/vidtok_kl_causal_488_16chn_v1_1.yaml), resolved, so no YAML
-# parser is needed.
+# Model sections, resolved, so no YAML parser is needed. The v1.0 KL 4x8x8
+# 16-channel flagship (configs/vidtok_kl_causal_488_16chn.yaml, the model of
+# bench.py), the v1.0 FSQ 4096 tokenizer (configs/vidtok_fsq_causal_488_4096
+# .yaml) and the v1.1 KL 4x8x8 16-channel tokenizer
+# (configs/v1_1/vidtok_kl_causal_488_16chn_v1_1.yaml).
 _ENC = {"double_z": True, "z_channels": 16, "in_channels": 3, "out_ch": 3,
         "ch": 128, "num_res_blocks": 2, "dropout": 0.0,
         "use_checkpoint": False, "norm_type": "layernorm",
         "ch_mult": [1, 2, 4, 4], "time_downsample_factor": 4,
-        "init_pad_mode": "replicate", "interpolation_mode": "trilinear"}
-MODEL_CFG = {"model": {"target": "AutoencodingEngineV1_1", "params": {
-    "encoder_config": {"target": "EncoderCausal3DV1_1", "params": dict(_ENC)},
-    "decoder_config": {"target": "DecoderCausal3DV1_1", "params": dict(_ENC)},
-    "regularizer_config": {"target": "DiagonalGaussianRegularizer"},
-    "use_tiling": False, "t_chunk_enc": 16}}}
+        "init_pad_mode": "replicate"}
+_ENC_FSQ = dict(_ENC, double_z=False, z_channels=4)
+_ENC_V1_1 = dict(_ENC, interpolation_mode="trilinear")
+
+
+def _model(target: str, enc: str, dec: str, params: dict, reg: dict,
+           **extra) -> dict:
+    return {"model": {"target": target, "params": {
+        "encoder_config": {"target": enc, "params": dict(params)},
+        "decoder_config": {"target": dec, "params": dict(params)},
+        "regularizer_config": reg, **extra}}}
+
+
+V1_0_CFG = _model("AutoencodingEngine", "EncoderCausal3D", "DecoderCausal3D",
+                  _ENC, {"target": "DiagonalGaussianRegularizer"})
+FSQ_CFG = _model("AutoencodingEngine", "EncoderCausal3D", "DecoderCausal3D",
+                 _ENC_FSQ, {"target": "FSQRegularizer", "params": {
+        "levels": [8, 8, 8, 8], "entropy_loss_weight": 0.1,
+        "entropy_loss_annealing_steps": 2000,
+        "entropy_loss_annealing_factor": 3, "commitment_loss_weight": 0.25}})
+V1_1_CFG = _model("AutoencodingEngineV1_1", "EncoderCausal3DV1_1",
+                  "DecoderCausal3DV1_1", _ENC_V1_1,
+                  {"target": "DiagonalGaussianRegularizer"},
+                  use_tiling=False, t_chunk_enc=16)
 REQUEST = (1, 3, 17, 256, 256)
+LONG_REQUEST = (1, 3, 201, 256, 256)  # bench.py:46
 N_REQUESTS = 3
-PER_FORWARD = {"fused_spatial_resblock": 20, "fused_temporal_resblock": 20,
-               "subpixel_interleave": 3, "decoder_tail_rgb": 1}
+PER_FORWARD = {"v1_0": {"fused_spatial_resblock": 20,
+                        "fused_temporal_resblock": 20,
+                        "subpixel_interleave": 3, "decoder_tail_rgb": 1,
+                        "parity_up2x_fused": 2}}
+PER_FORWARD["v1_1"] = dict(PER_FORWARD["v1_0"], parity_up2x_fused=0)
 KERNEL_GATE = 1e-2
 # a kernel, and the kernel path, vs the f32 plain run may be at most
 # BF16_SLACK x as far from it as the plain version in bf16 is
 BF16_SLACK = 1.1
+FSQ_CODES = 4096
+FSQ_DECODE_GATE = 1e-6
 
 # Every call shape of each kernel in one forward of REQUEST (17 frames are
-# padded to 20): spatial (N, H, W, Cin, C), temporal (B, T, H, W, C),
-# subpixel (N, H, W, C), tail (B, T, H, W, C); with calls per forward.
+# padded to 20; v1.0 and v1.1 give the same shapes): spatial
+# (N, H, W, Cin, C), temporal (B, T, H, W, C), subpixel (N, H, W, C), tail
+# (B, T, H, W, C), parity upsample (B, T, H, W, C); with calls per forward.
+# Stream-start modes: v1.0 serves ``zero``, v1.1 ``replicate``.
 SPATIAL_SHAPES = [((20, 256, 256, 128, 128), 4), ((20, 128, 128, 128, 256), 1),
                   ((20, 128, 128, 256, 256), 1), ((10, 64, 64, 256, 512), 1),
                   ((10, 64, 64, 512, 512), 1), ((5, 32, 32, 512, 512), 5),
@@ -73,6 +109,12 @@ TEMPORAL_SHAPES = [((1, 20, 256, 256, 128), 5), ((1, 20, 128, 128, 256), 2),
 SUBPIXEL_SHAPES = [((5, 32, 32, 512), 1), ((5, 64, 64, 512), 1),
                    ((10, 128, 128, 256), 1)]
 TAIL_SHAPES = [((1, 20, 256, 256, 128), 1)]
+PARITY_SHAPES = [((1, 5, 128, 128, 512), 1), ((1, 10, 256, 256, 256), 1)]
+MODE_PATH = {"zero": "v1_0", "replicate": "v1_1"}
+# kernel E's second call at T=201: the output has 3.42e9 elements; the
+# window s[95:] gives output frames 192-203 once its first pair is dropped
+PARITY_LONG = (1, 102, 256, 256, 256)
+PARITY_WINDOW = 95
 
 SOURCES = {
     "fused_spatial_resblock": ("vidtok_tpu_torch/csrc/fused_spatial.cu",
@@ -83,6 +125,8 @@ SOURCES = {
                             "vidtok_tpu/ops/pallas/subpixel_epilogue.py:100"),
     "decoder_tail_rgb": ("vidtok_tpu_torch/csrc/decoder_tail.cu",
                          "vidtok_tpu/ops/pallas/decoder_tail.py:245"),
+    "parity_up2x_fused": ("vidtok_tpu_torch/csrc/parity_upsample.cu",
+                          "vidtok_tpu/ops/pallas/parity_upsample_fused.py:108"),
 }
 
 
@@ -146,51 +190,68 @@ def f32(args):
 
 
 def kernel_cases(device):
-    """Yield (kernel name, shape, calls per forward, wrapper, plain, args)
-    with bf16 activations and f32 parameters on ``device``."""
+    """Yield (kernel name, shape, {path: calls per forward}, wrapper, plain,
+    args) with bf16 activations and f32 parameters on ``device``."""
     import torch
 
     from vidtok_tpu_torch.ops.kernels import (decoder_tail, fused_spatial,
-                                              fused_temporal, subpixel as sp)
+                                              fused_temporal,
+                                              parity_upsample as pu,
+                                              subpixel as sp)
 
     bf = torch.bfloat16
     p = Params(0, device)
+    both = MODE_PATH.values()  # the shapes and calls of both paths
     for shape, calls in SPATIAL_SHAPES:
         n, h, w, cin, c = shape
         nin = p.conv((c, cin, 1, 1)) if cin != c else None
         args = (p.x((n, h, w, cin), bf), p.norm(cin), p.conv((c, cin, 3, 3)),
                 p.norm(c), p.conv((c, c, 3, 3)), nin)
-        yield ("fused_spatial_resblock", shape, calls,
+        yield ("fused_spatial_resblock", shape, dict.fromkeys(both, calls),
                fused_spatial.fused_spatial_resblock,
                fused_spatial.fused_spatial_resblock_plain, args)
     for shape, calls in TEMPORAL_SHAPES:
         c = shape[-1]
-        for mode in ("replicate", "zero"):
+        for mode, path in MODE_PATH.items():
             args = (p.x(shape, bf), p.norm(c), p.conv((c, c, 3)), p.norm(c),
                     p.conv((c, c, 3)), mode)
-            # the serving path runs replicate; zero is checked, not timed
-            yield ("fused_temporal_resblock", shape + (mode,),
-                   calls if mode == "replicate" else 0,
+            yield ("fused_temporal_resblock", shape + (mode,), {path: calls},
                    fused_temporal.fused_temporal_resblock,
                    fused_temporal.fused_temporal_resblock_plain, args)
     for shape, calls in SUBPIXEL_SHAPES:
         ys = tuple(p.x(shape, bf) for _ in range(4))
         args = ys + (p.t(0.1 * p.rng.randn(shape[-1])),)
-        yield ("subpixel_interleave", shape, calls, sp.subpixel_interleave,
-               sp.subpixel_interleave_plain, args)
+        yield ("subpixel_interleave", shape, dict.fromkeys(both, calls),
+               sp.subpixel_interleave, sp.subpixel_interleave_plain, args)
     for shape, calls in TAIL_SHAPES:
         c = shape[-1]
-        for mode in ("replicate", "zero"):
+        for mode, path in MODE_PATH.items():
             args = (p.x(shape, bf), p.norm(c), p.conv((3, c, 3, 3, 3)), mode)
-            yield ("decoder_tail_rgb", shape + (mode,),
-                   calls if mode == "replicate" else 0,
+            yield ("decoder_tail_rgb", shape + (mode,), {path: calls},
                    decoder_tail.decoder_tail_rgb,
                    decoder_tail.decoder_tail_rgb_plain, args)
+    for shape, calls in PARITY_SHAPES:
+        c = shape[-1]
+        for mode in MODE_PATH:
+            # v1.0 serves zero mode; replicate is checked, not timed
+            args = (p.x(shape, bf), *p.conv((c, c, 3, 3, 3)),
+                    p.t(1 / (1 + np.exp(-(2.0 + 0.5 * p.rng.randn(1))))), mode)
+            yield ("parity_up2x_fused", shape + (mode,),
+                   {"v1_0": calls if mode == "zero" else 0},
+                   pu.parity_up2x_fused, pu.parity_up2x_fused_plain, args)
+
+
+def gate(what: str, rel: float, plain_rel: float) -> None:
+    if not (rel <= KERNEL_GATE and rel <= BF16_SLACK * plain_rel):
+        raise AssertionError(
+            f"{what}: rel_l2 {rel} > {KERNEL_GATE}, or > "
+            f"{BF16_SLACK} x plain bf16 rel_l2 {plain_rel}")
 
 
 def check_kernels(device) -> dict:
-    """Phase 2: every kernel against its plain version; returns per-kernel
-    {max_abs_err, max_rel_l2, ms, plain_ms} with times summed per forward.
+    """Phase 2: every kernel against its plain version; returns
+    {kernel: {max_abs_err, max_rel_l2, ms: {path: ms}, plain_ms: {path: ms}}}
+    with times summed per forward of each path.
 
     Besides the fixed bound KERNEL_GATE, each kernel is held to the plain
     version's own bf16 error: a fault on a frame's border (a padding tap
@@ -212,24 +273,63 @@ def check_kernels(device) -> dict:
         rel = rel_l2(out.float(), ref)
         plain_rel = rel_l2(plain_bf16.float(), ref)
         ms = plain_ms = 0.0
-        if calls:
+        if any(calls.values()):
             ms = cuda_ms(lambda: kernel(*args))
             plain_ms = cuda_ms(lambda: plain(*args))
         print(f"kernel {name} {shape}: max_abs_err {err:.4g} rel_l2 {rel:.4g} "
               f"plain_bf16_rel_l2 {plain_rel:.4g} kernel_ms {ms:.4f} "
               f"plain_bf16_ms {plain_ms:.4f} calls/forward {calls}", flush=True)
-        if not (rel <= KERNEL_GATE and rel <= BF16_SLACK * plain_rel):
-            raise AssertionError(
-                f"{name}{shape}: rel_l2 {rel} > {KERNEL_GATE}, or > "
-                f"{BF16_SLACK} x plain bf16 rel_l2 {plain_rel}")
-        r = results.setdefault(name, dict(max_abs_err=0.0, max_rel_l2=0.0,
-                                          ms=0.0, plain_ms=0.0))
+        gate(f"{name}{shape}", rel, plain_rel)
+        r = results.setdefault(name, dict(
+            max_abs_err=0.0, max_rel_l2=0.0,
+            ms=dict.fromkeys(MODE_PATH.values(), 0.0),
+            plain_ms=dict.fromkeys(MODE_PATH.values(), 0.0)))
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["max_rel_l2"] = max(r["max_rel_l2"], rel)
-        r["ms"] += calls * ms
-        r["plain_ms"] += calls * plain_ms
+        for path, n in calls.items():
+            r["ms"][path] += n * ms
+            r["plain_ms"][path] += n * plain_ms
         del out, ref, plain_bf16, args
+    for name, r in results.items():
+        print(f"kernel {name} per forward: "
+              + "; ".join(f"{path} kernel_ms {r['ms'][path]:.4f} plain_bf16_ms "
+                          f"{r['plain_ms'][path]:.4f}" for path in r["ms"]),
+              flush=True)
     return results
+
+
+def check_parity_long(device) -> None:
+    """Kernel E at PARITY_LONG, zero mode: its output frames 192-203 (past
+    2^31 elements) against the plain version of the window s[95:] with the
+    first output pair dropped, in f32 and in bf16; E's time at this shape."""
+    import torch
+
+    from vidtok_tpu_torch.ops.kernels import parity_upsample as pu
+
+    b, t, h, w, c = PARITY_LONG
+    p = Params(1, device)
+    weight, bias = p.conv((c, c, 3, 3, 3))
+    alpha = p.t([0.88])
+    g = torch.Generator(device).manual_seed(1)
+    s = torch.randn(PARITY_LONG, generator=g, device=device, dtype=torch.bfloat16)
+    out = pu.parity_up2x_fused(s, weight, bias, alpha, "zero")
+    win = s[:, PARITY_WINDOW:].contiguous()
+    ref = pu.parity_up2x_fused_plain(win.float(), weight, bias, alpha, "zero")[:, 2:]
+    plain_bf16 = pu.parity_up2x_fused_plain(win, weight, bias, alpha, "zero")[:, 2:]
+    got = out[:, 2 * (PARITY_WINDOW + 1):].float()
+    torch.cuda.synchronize()
+    if out.shape != (b, 2 * t, h, w, c) or got.shape != ref.shape:
+        raise AssertionError(f"parity long: {tuple(out.shape)}, window "
+                             f"{tuple(got.shape)} vs {tuple(ref.shape)}")
+    rel, plain_rel = rel_l2(got, ref), rel_l2(plain_bf16.float(), ref)
+    del out, got, ref, plain_bf16, win
+    ms = cuda_ms(lambda: pu.parity_up2x_fused(s, weight, bias, alpha, "zero"),
+                 warmup=1, iters=3)
+    print(f"kernel parity_up2x_fused {PARITY_LONG} zero, output frames "
+          f"{2 * (PARITY_WINDOW + 1)}-{2 * t - 1} (past 2^31 elements): rel_l2 "
+          f"{rel:.4g} plain_bf16_rel_l2 {plain_rel:.4g} kernel_ms {ms:.4f} "
+          "(plain not timed at this shape)", flush=True)
+    gate(f"parity_up2x_fused{PARITY_LONG} window", rel, plain_rel)
 
 
 def randomize_(core, seed: int) -> None:
@@ -260,13 +360,17 @@ def randomize_(core, seed: int) -> None:
 
 
 def serve(tok, n_requests: int, shape, per_forward: dict) -> dict:
-    """Phase 3: answer ``n_requests`` requests; host-clock latency per
-    request ending in ``torch.cuda.synchronize()``; each forward must
-    launch the kernels ``per_forward`` times."""
+    """Answer ``n_requests`` requests; host-clock latency per request ending
+    in ``torch.cuda.synchronize()``; each forward must launch the kernels
+    ``per_forward`` times. The counts are set to 0 before the first request
+    and returned as ``launches``; ``last`` is (x, z, x_rec, reg_log) of the
+    last request."""
     import torch
 
     from vidtok_tpu_torch.ops import kernels
 
+    z_ch = tok.core.decoder.conv_in.conv.in_channels
+    loss = "aux_loss" if tok.meta["discrete"] else "kl_loss"
     reqs = [np.clip(np.random.RandomState(1 + i).randn(*shape) * 0.5, -1, 1)
             .astype(np.float32) for i in range(n_requests)]
     torch.cuda.reset_peak_memory_stats()
@@ -284,16 +388,26 @@ def serve(tok, n_requests: int, shape, per_forward: dict) -> dict:
             raise AssertionError(f"launches per forward {per} != {per_forward}")
         t_lat = shape[2] // 4 + (shape[2] % 4 > 0)
         if (tuple(dec.shape) != tuple(shape)
-                or tuple(z.shape) != (shape[0], 16, t_lat, shape[3] // 8,
+                or tuple(z.shape) != (shape[0], z_ch, t_lat, shape[3] // 8,
                                       shape[4] // 8)):
             raise AssertionError(f"shapes z {tuple(z.shape)} dec {tuple(dec.shape)}")
         if not (torch.isfinite(z).all() and torch.isfinite(dec).all()
-                and torch.isfinite(log["kl_loss"])):
+                and torch.isfinite(log[loss])):
             raise AssertionError("non-finite output")
+    launches = kernels.counts()
     steady = min(lat[1:]) if len(lat) > 1 else lat[0]
-    return dict(latency_s=lat, launches=kernels.counts(),
+    return dict(latency_s=lat, launches=launches,
                 frames_per_s=shape[0] * shape[2] / steady,
-                peak_mem_bytes=torch.cuda.max_memory_allocated())
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                last=(x, z, dec, log))
+
+
+def report(what: str, r: dict, shape) -> None:
+    print(f"serve {what}; request {list(shape)} bf16; latency_s "
+          + " ".join(f"{v:.4f}" for v in r["latency_s"])
+          + f"; frames_per_s (best after the first) {r['frames_per_s']:.2f};"
+          f" peak_mem_bytes {r['peak_mem_bytes']}; launches {r['launches']}",
+          flush=True)
 
 
 def profile_request(tok, shape) -> None:
@@ -326,7 +440,7 @@ def profile_request(tok, shape) -> None:
 
 
 def e2e_check(core, meta, shape) -> dict:
-    """Phase 4: the kernel path against the plain path, in bf16 and in f32.
+    """The kernel path against the plain path, in bf16 and in f32.
 
     Two bf16 evaluations of this 60-block network differ by 2-3% relative
     L2 whatever the kernels do (bf16 rounding accumulated through the
@@ -368,13 +482,101 @@ def e2e_check(core, meta, shape) -> dict:
     return res
 
 
+def make_tokenizer(cfg: dict, device, seed: int = 0):
+    """A full-width engine with ``randomize_`` weights, built on the CPU
+    and moved to ``device``, bf16 compute, the kernel path on."""
+    import torch
+
+    from vidtok_tpu_torch import load_model_from_config
+    from vidtok_tpu_torch.models.autoencoder import VideoTokenizer
+
+    tok = load_model_from_config(cfg, seed=seed, device="cpu",
+                                 compute_dtype=torch.bfloat16)
+    randomize_(tok.core, seed=seed)
+    return VideoTokenizer(tok.core.to(device), tok.meta, torch.bfloat16,
+                          fused=True)
+
+
+def serve_both_paths(name: str, cfg: dict, path: str, device) -> dict:
+    """Phases 3 and 6: N_REQUESTS requests on the kernel path, then on the
+    plain path, a profile of one kernel-path request and the end-to-end
+    gate. Returns the kernel path's ``serve`` result."""
+    tok = make_tokenizer(cfg, device)
+    n_params = sum(p.numel() for p in tok.core.parameters())
+    per = PER_FORWARD[path]
+    runs = {}
+    for label, fused, want in (("kernel path", True, per),
+                               ("plain path", False, dict.fromkeys(per, 0))):
+        tok.fused = fused
+        runs[label] = serve(tok, N_REQUESTS, REQUEST, want)
+        report(f"{label}: {name}, {n_params} params", runs[label], REQUEST)
+    k = runs["kernel path"]
+    for kernel, n in k["launches"].items():
+        if n != N_REQUESTS * per[kernel]:
+            raise AssertionError(f"{kernel}: {n} launches in the serving run")
+    tok.fused = True
+    profile_request(tok, REQUEST)
+    e2e_check(tok.core, tok.meta, REQUEST)
+    return k
+
+
+def serve_long_clip(device) -> None:
+    """Phase 4: one LONG_REQUEST through the v1.0 kernel path, after one
+    warm-up request of the same shape."""
+    tok = make_tokenizer(V1_0_CFG, device)
+    r = serve(tok, 2, LONG_REQUEST, PER_FORWARD["v1_0"])
+    report("long clip, kernel path: v1.0 kl 4x8x8 16chn (request 1 is the "
+           "warm-up)", r, LONG_REQUEST)
+
+
+def check_fsq(device) -> None:
+    """Phase 5: N_REQUESTS requests through the v1.0 FSQ 4096 kernel path
+    (the first pays cuDNN's algorithm search, so the latency to compare is
+    the best after it); on the last, integer indices in [0, 4096) of the
+    latent's shape, ``indices_to_latent`` equal to the quantized z,
+    decoding from indices equal to the reconstruction (relative L2 <=
+    FSQ_DECODE_GATE), a finite ``aux_loss``."""
+    import torch
+
+    tok = make_tokenizer(FSQ_CFG, device)
+    r = serve(tok, N_REQUESTS, REQUEST, PER_FORWARD["v1_0"])
+    report("fsq 4096, kernel path: v1.0 fsq 4x8x8 4096 codes", r, REQUEST)
+    x, z, dec, log = r["last"]
+    idx = log["indices"]
+    want = (REQUEST[0], z.shape[2], REQUEST[3] // 8, REQUEST[4] // 8)
+    if (idx.dtype not in (torch.int32, torch.int64) or tuple(idx.shape) != want
+            or int(idx.min()) < 0 or int(idx.max()) >= FSQ_CODES):
+        raise AssertionError(f"fsq indices {idx.dtype} {tuple(idx.shape)} "
+                             f"[{int(idx.min())}, {int(idx.max())}]")
+    latent = tok.indices_to_latent(idx)
+    dec_idx = tok.decode(idx, decode_from_indices=True)
+    torch.cuda.synchronize()
+    rel = rel_l2(dec_idx, dec)
+    print(f"fsq: indices {tuple(idx.shape)} in [{int(idx.min())}, "
+          f"{int(idx.max())}], {int(idx.unique().numel())} distinct codes; "
+          f"indices_to_latent == z: {torch.equal(latent, z)}; decode from "
+          f"indices vs forward rel_l2 {rel:.4g}; aux_loss "
+          f"{float(log['aux_loss']):.6g}", flush=True)
+    if not torch.equal(latent, z):
+        raise AssertionError("fsq: indices_to_latent(indices) != quantized z")
+    if not rel <= FSQ_DECODE_GATE:
+        raise AssertionError(f"fsq: decode from indices rel_l2 {rel}")
+    if not torch.isfinite(log["aux_loss"]):
+        raise AssertionError("fsq: non-finite aux_loss")
+
+
+def phase(name: str, t0: float) -> float:
+    t = time.perf_counter()
+    print(f"phase {name}: {t - t0:.1f} s", flush=True)
+    return t
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from vidtok_tpu_torch import load_model_from_config
     from vidtok_tpu_torch.ops.kernels import _lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -396,43 +598,30 @@ def main() -> int:
         if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
                 or "spill" in line):
             print(line, flush=True)
+    t = phase("build", t0)
 
     kres = check_kernels(device)
-
-    tok = load_model_from_config(MODEL_CFG, seed=0, device="cpu",
-                                 compute_dtype=torch.bfloat16)
-    randomize_(tok.core, seed=0)
-    core = tok.core.to(device)
-    from vidtok_tpu_torch.models.autoencoder import VideoTokenizer
-
-    tok = VideoTokenizer(core, tok.meta, torch.bfloat16)
-    n_params = sum(p.numel() for p in core.parameters())
-    runs = {}
-    for name, fused, per in (("kernel path", True, PER_FORWARD),
-                             ("plain path", False, dict.fromkeys(PER_FORWARD, 0))):
-        tok.fused = fused
-        runs[name] = serve(tok, N_REQUESTS, REQUEST, per)
-        r = runs[name]
-        print(f"serve {name}: v1.1 kl 4x8x8 16chn, {n_params} params; request "
-              f"{list(REQUEST)} bf16; latency_s "
-              + " ".join(f"{v:.4f}" for v in r["latency_s"])
-              + f"; frames_per_s (best of requests 2-3) {r['frames_per_s']:.2f};"
-              f" peak_mem_bytes {r['peak_mem_bytes']}; launches {r['launches']}",
-              flush=True)
-    s = runs["kernel path"]
-    for name, n in s["launches"].items():
-        if n != N_REQUESTS * PER_FORWARD[name]:
-            raise AssertionError(f"{name}: {n} launches in the serving run")
-    tok.fused = True
-    profile_request(tok, REQUEST)
-
-    e2e_check(core, tok.meta, REQUEST)
+    check_parity_long(device)
+    t = phase("kernels", t)
+    main_path = serve_both_paths("v1.0 kl 4x8x8 16chn", V1_0_CFG, "v1_0", device)
+    torch.cuda.empty_cache()
+    t = phase("v1.0 kl serve", t)
+    serve_long_clip(device)
+    torch.cuda.empty_cache()
+    t = phase("long clip", t)
+    check_fsq(device)
+    torch.cuda.empty_cache()
+    t = phase("fsq", t)
+    serve_both_paths("v1.1 kl 4x8x8 16chn", V1_1_CFG, "v1_1", device)
+    phase("v1.1 kl serve", t)
+    phase("total", t0)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": s["launches"][name],
-         "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
-         "plain_ms": kres[name]["plain_ms"]} for name in PER_FORWARD]}
+         "replaces": SOURCES[name][1], "launches": main_path["launches"][name],
+         "max_abs_err": kres[name]["max_abs_err"],
+         "ms": kres[name]["ms"]["v1_0"],
+         "plain_ms": kres[name]["plain_ms"]["v1_0"]} for name in SOURCES]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

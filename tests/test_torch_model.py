@@ -7,7 +7,8 @@
 * Weights: ``state_dict_from_jax`` and ``convert_torch_state_dict`` are
   inverse; the full-width v1.1 16-channel model's parameter shapes equal
   ``jax.eval_shape`` of the JAX init.
-* Import hygiene: the port imports neither JAX, Flax nor PyYAML.
+* Import hygiene: the port imports neither JAX, Flax nor PyYAML, also
+  when it builds the v1.0 KL and FSQ models.
 """
 
 import os
@@ -88,8 +89,10 @@ def test_tiny_v1_1_end_to_end(tiny, fused):
     calls = K.counts("calls")
     # one call per spatial/temporal resblock (1 + 1 encoder levels,
     # 2 + 2 decoder levels), one spatial upsample, one decoder tail
+    # (v1.1 upsamples time trilinearly: no parity upsample)
     want = ({"fused_spatial_resblock": 6, "fused_temporal_resblock": 6,
-             "subpixel_interleave": 1, "decoder_tail_rgb": 1} if fused
+             "subpixel_interleave": 1, "decoder_tail_rgb": 1,
+             "parity_up2x_fused": 0} if fused
             else dict.fromkeys(calls, 0))
     assert calls == want
     assert all(n == 0 for n in K.counts().values())  # CPU: no launches
@@ -156,15 +159,22 @@ def test_full_width_v1_1_16chn_shapes():
 
 def test_import_hygiene():
     """The port imports torch and numpy only: no jax, flax or yaml, also
-    when it builds a model from a config dict."""
+    when it builds a model from a config dict (v1.1 KL, v1.0 KL and FSQ)."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     env["JAX_PLATFORMS"] = "cpu"
+    v1_0 = {"params": {
+        "encoder_config": {"target": "EncoderCausal3D", "params": dict(_P)},
+        "decoder_config": {"target": "DecoderCausal3D", "params": dict(_P)},
+        "regularizer_config": {"target": "DiagonalGaussianRegularizer"}}}
+    fsq = {"params": dict(v1_0["params"], regularizer_config={
+        "target": "FSQRegularizer", "params": {"levels": [8, 8, 8, 8]}})}
     code = (
         "import sys, vidtok_tpu_torch, vidtok_tpu_torch.convert\n"
         "import vidtok_tpu_torch.ops.kernels\n"
-        f"cfg = {{'model': {CFG!r}}}\n"
-        "tok = vidtok_tpu_torch.load_model_from_config(cfg)\n"
+        f"for m in ({CFG!r}, {v1_0!r}, {fsq!r}):\n"
+        "    tok = vidtok_tpu_torch.load_model_from_config({'model': m})\n"
+        "assert tok.meta['variant'] == 'causal' and tok.meta['discrete']\n"
         "bad = [m for m in ('jax', 'flax', 'yaml') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

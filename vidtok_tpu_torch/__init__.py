@@ -2,9 +2,10 @@
 CUDA kernels for NVIDIA Hopper (sm_90a).
 
 It sits beside ``vidtok_tpu`` (JAX), which stays the reference. Ported so
-far: the causal v1.1 KL tokenizer's non-streaming serving path, with the
-four Pallas kernels of that path as CUDA kernels (``ops/kernels``,
-``csrc``). Imports torch and numpy only.
+far: the non-streaming serving path of the causal v1.0 and v1.1
+tokenizers, KL and FSQ (no projections), with the five Pallas kernels of
+that path as CUDA kernels (``ops/kernels``, ``csrc``). Imports torch and
+numpy only.
 
     from vidtok_tpu_torch import load_model_from_config
     tok = load_model_from_config(cfg, device="cuda", compute_dtype=torch.bfloat16)

@@ -45,7 +45,7 @@ extern "C" int vt_fused_spatial_resblock(
   const igemm::Params p1{ab, static_cast<const __nv_bfloat16*>(w1),
                          static_cast<const float*>(bias1), nullptr, nullptr,
                          hb, M, Cin, C, 0};
-  igemm::launch_conv<true>(p1, geo, s);
+  igemm::launch_conv<igemm::kSpatial>(p1, geo, s);
 
   launch_ln_silu_rows(hb, static_cast<const float*>(g2),
                       static_cast<const float*>(b2), ab, M, C, s);
@@ -54,6 +54,6 @@ extern "C" int vt_fused_spatial_resblock(
                          has_nin ? xb : nullptr, has_nin ? nullptr : xb,
                          static_cast<__nv_bfloat16*>(out), M, C, C,
                          has_nin ? Cin : 0};
-  igemm::launch_conv<true>(p2, geo, s);
+  igemm::launch_conv<igemm::kSpatial>(p2, geo, s);
   return (int)cudaGetLastError();
 }

@@ -41,13 +41,13 @@ extern "C" int vt_fused_temporal_resblock(
   const igemm::Params p1{ab, static_cast<const __nv_bfloat16*>(w1),
                          static_cast<const float*>(bias1), nullptr, nullptr,
                          hb, M, C, C, 0};
-  igemm::launch_conv<false>(p1, geo, s);
+  igemm::launch_conv<igemm::kTemporal>(p1, geo, s);
 
   launch_ln_silu_rows(hb, static_cast<const float*>(g2),
                       static_cast<const float*>(b2), ab, M, C, s);
   const igemm::Params p2{ab, static_cast<const __nv_bfloat16*>(w2),
                          static_cast<const float*>(bias2), nullptr, xb,
                          static_cast<__nv_bfloat16*>(out), M, C, C, 0};
-  igemm::launch_conv<false>(p2, geo, s);
+  igemm::launch_conv<igemm::kTemporal>(p2, geo, s);
   return (int)cudaGetLastError();
 }

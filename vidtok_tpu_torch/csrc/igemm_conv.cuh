@@ -1,6 +1,6 @@
 // Implicit-GEMM conv over channels-last rows, shared by kernel A (3x3
-// spatial taps, fused_spatial.cu) and kernel B (k=3 causal temporal taps,
-// fused_temporal.cu):
+// spatial taps, fused_spatial.cu), kernel B (k=3 causal temporal taps,
+// fused_temporal.cu) and kernel E (2 frames x 3x3 taps, parity_upsample.cu):
 //
 //   out[m, n] = bf16( bias[n] + res[m, n]
 //                     + sum_{tap, c} a[src(m, tap), c] * w[tap*Cin + c, n]
@@ -11,6 +11,13 @@
 // tensor (ln_silu_rows_kernel), so a tap outside the frame (spatial) or
 // before frame 0 in zero mode (temporal) reads zero: the conv's padding
 // after the activation. Replicate mode reads frame 0 instead.
+//
+// kParity (kernel E) has its own epilogue: N = 2C columns are the even and
+// odd output frames of half-rate row m, blended with the row's own input,
+//   out[2f + p, r, c] = bf16( alpha * a[m, c]
+//                             + (1 - alpha) * (acc[m, pC + c] + bias[pC + c]) )
+// for m = f*H*W + r, and the taps of frame f-1 (the first 9) read frame f
+// itself at a clip's frame 0 in replicate mode, zeros in zero mode.
 //
 // Tiling: a 128 x 128 output tile per 128-thread block; K in steps of 32
 // channels of one tap. Each step's A tile (gathered rows, zero-filled when
@@ -30,6 +37,9 @@
 namespace vt {
 namespace igemm {
 
+// tap sets: 3x3 spatial, causal k=3 temporal, previous + current frame 3x3
+enum Taps { kSpatial = 0, kTemporal = 1, kParity = 2 };
+
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
 constexpr int WGM = 2, WGN = 2, kMinBlocks = 2;  // warp grid: 64 x 64 tiles
 constexpr int kThreads = 32 * WGM * WGN;
@@ -41,9 +51,10 @@ constexpr int kStageElems = BM * A_LD + BK * B_LD;
 constexpr int kSmemBytes = STAGES * kStageElems * 2;
 
 struct Geometry {
-  int H, W;       // spatial: frames of H x W, taps (dy, dx) in 3 x 3
-  int T, S;       // temporal: clips of T frames of S positions, taps t-2..t
-  int replicate;  // temporal stream start: 1 = frame 0, 0 = zeros
+  int H, W;       // spatial, parity: frames of H x W, taps (dy, dx) in 3 x 3
+  int T, S;       // temporal: clips of T frames of S positions, taps t-2..t;
+                  // parity: clips of T frames
+  int replicate;  // stream start: 1 = frame 0, 0 = zeros
 };
 
 struct Params {
@@ -52,9 +63,10 @@ struct Params {
   const float* bias;         // [Cout]
   const __nv_bfloat16* xs;   // [M, Cs] rows of the 1x1 term, or null
   const __nv_bfloat16* res;  // [M, Cout] residual, or null
-  __nv_bfloat16* out;        // [M, Cout]
+  __nv_bfloat16* out;        // [M, Cout]; kParity: [2M, Cout / 2]
   long long M;
   int Cin, Cout, Cs;
+  const float* alpha;        // kParity: the blend weight, else unused
 };
 
 // 16-byte global -> shared copy; zero-fills the destination when !valid
@@ -73,7 +85,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <bool SPATIAL>
+template <int TAPS>
 static __global__ void __launch_bounds__(kThreads, kMinBlocks)
     conv_kernel(const Params p, const Geometry g) {
   using namespace nvcuda;
@@ -89,16 +101,18 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int ar = tid / TPR, ac = (tid % TPR) * (BK / TPR);
   const long long am = m0 + ar;
   const bool arow = am < p.M;
+  const long long hw = (long long)g.H * g.W;
   long long base = 0;
-  int pa = 0, pb = 0;  // spatial (y, x); temporal (t, s)
+  int pa = 0, pb = 0;  // spatial, parity (y, x); temporal (t, s)
+  int pt = 0;          // parity: frame within the clip
   if (arow) {
-    if (SPATIAL) {
-      const long long hw = (long long)g.H * g.W;
+    if (TAPS != kTemporal) {
       const long long n = am / hw;
       const int r = (int)(am - n * hw);
       base = n * hw;
       pa = r / g.W;
       pb = r - pa * g.W;
+      if (TAPS == kParity) pt = (int)(n % g.T);
     } else {
       const long long ts = (long long)g.T * g.S;
       const long long b = am / ts;
@@ -112,7 +126,7 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int br = tid / (BN / 8), bc = (tid % (BN / 8)) * 8;
   constexpr int kBRowStep = kThreads / (BN / 8);
 
-  constexpr int kTaps = SPATIAL ? 9 : 3;
+  constexpr int kTaps = TAPS == kSpatial ? 9 : TAPS == kTemporal ? 3 : 18;
   const int kmain = kTaps * p.Cin;
   const int nk = (kmain + p.Cs) / BK;
 
@@ -127,10 +141,15 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const int c = k0 - tap * p.Cin + ac;
       long long row = -1;
       if (arow) {
-        if (SPATIAL) {
-          const int sy = pa + tap / 3 - 1, sx = pb + tap % 3 - 1;
-          if (sy >= 0 && sy < g.H && sx >= 0 && sx < g.W)
-            row = base + (long long)sy * g.W + sx;
+        if (TAPS != kTemporal) {
+          const int st = tap % 9;
+          const int sy = pa + st / 3 - 1, sx = pb + st % 3 - 1;
+          // parity: taps 0-8 read frame f-1 (frame f at a clip's frame 0
+          // in replicate mode), taps 9-17 frame f
+          const bool prev = TAPS == kParity && tap < 9 && !(pt == 0 && g.replicate);
+          const bool none = prev && pt == 0;
+          if (!none && sy >= 0 && sy < g.H && sx >= 0 && sx < g.W)
+            row = base - (prev ? hw : 0) + (long long)sy * g.W + sx;
         } else {
           int sf = pa + tap - 2;
           if (sf < 0 && g.replicate) sf = 0;
@@ -192,9 +211,11 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: reuse it for the epilogue
 
-  // epilogue through a per-warp 16 x 16 f32 scratch: bias, residual, bf16
+  // epilogue through a per-warp 16 x 16 f32 scratch: bias, residual or
+  // blend, bf16
   float* ep = reinterpret_cast<float*>(smem_raw) + warp * 256;
   const int er = lane >> 1, ec = (lane & 1) * 8;
+  const float alpha = TAPS == kParity ? *p.alpha : 0.f;
 #pragma unroll
   for (int i = 0; i < FM; ++i) {
 #pragma unroll
@@ -207,25 +228,35 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
         float v[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = ep[er * 16 + ec + e] + p.bias[n + e];
-        if (p.res != nullptr) {
+        __nv_bfloat16* dst = p.out + m * p.Cout + n;
+        if (TAPS == kParity) {
+          // 8 columns never straddle the parity halves: C % 64 == 0
+          const int C = p.Cout / 2, par = n >= C, c = n - par * C;
+          const long long f = m / hw, r = m - f * hw;
+          float x[8];
+          unpack8(ld_u4(p.a + m * C + c), x);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] = alpha * x[e] + (1.f - alpha) * v[e];
+          dst = p.out + ((2 * f + par) * hw + r) * C + c;
+        } else if (p.res != nullptr) {
           float r[8];
           unpack8(ld_u4(p.res + m * p.Cout + n), r);
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] += r[e];
         }
-        *reinterpret_cast<uint4*>(p.out + m * p.Cout + n) = pack8(v);
+        *reinterpret_cast<uint4*>(dst) = pack8(v);
       }
       __syncwarp();
     }
   }
 }
 
-template <bool SPATIAL>
+template <int TAPS>
 static inline void launch_conv(const Params& p, const Geometry& g, cudaStream_t s) {
-  cudaFuncSetAttribute(conv_kernel<SPATIAL>,
+  cudaFuncSetAttribute(conv_kernel<TAPS>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   const dim3 grid((unsigned)((p.M + BM - 1) / BM), (unsigned)(p.Cout / BN));
-  conv_kernel<SPATIAL><<<grid, kThreads, kSmemBytes, s>>>(p, g);
+  conv_kernel<TAPS><<<grid, kThreads, kSmemBytes, s>>>(p, g);
 }
 
 }  // namespace igemm

@@ -17,26 +17,55 @@ from torch import nn
 
 from ..modules.decoder import Decoder
 from ..modules.encoder import Encoder
-from ..modules.regularizers import DiagonalGaussianRegularizer
+from ..modules.regularizers import DiagonalGaussianRegularizer, FSQRegularizer
 
 # reference and alias target names -> variant (vidtok_tpu/registry.py)
 _ENC_VARIANTS = {
+    "EncoderCausal3D": "causal",
+    "vidtok.modules.model_3dcausal.EncoderCausal3DPadding": "causal",
     "EncoderCausal3DV1_1": "causal_v1_1",
     "vidtok.modules.model_3dcausal_v1_1.EncoderCausal3DPadding": "causal_v1_1",
 }
 _DEC_VARIANTS = {
+    "DecoderCausal3D": "causal",
+    "vidtok.modules.model_3dcausal.DecoderCausal3DPadding": "causal",
     "DecoderCausal3DV1_1": "causal_v1_1",
     "vidtok.modules.model_3dcausal_v1_1.DecoderCausal3DPadding": "causal_v1_1",
 }
-_REGULARIZERS = ("DiagonalGaussianRegularizer",
-                 "vidtok.modules.regularizers.DiagonalGaussianRegularizer")
+_REGULARIZERS = {
+    "DiagonalGaussianRegularizer": "kl",
+    "vidtok.modules.regularizers.DiagonalGaussianRegularizer": "kl",
+    "FSQRegularizer": "fsq",
+    "vidtok.modules.regularizers.FSQRegularizer": "fsq",
+}
 
 
 def _variant(table: dict, target: str) -> str:
     if target not in table:
         raise NotImplementedError(
-            f"{target!r}: only the causal v1.1 encoder/decoder are ported")
+            f"{target!r}: only the causal v1.0 and v1.1 encoder/decoder "
+            "are ported")
     return table[target]
+
+
+def _regularizer(reg_cfg: dict):
+    """(regularizer, discrete) from a ``regularizer_config``."""
+    kind = _REGULARIZERS.get(reg_cfg["target"])
+    if kind is None:
+        raise NotImplementedError(f"regularizer {reg_cfg['target']!r}")
+    rp = dict(reg_cfg.get("params") or {})
+    if kind == "kl":
+        return DiagonalGaussianRegularizer(sample=rp.get("sample", True)), False
+    for key, fixed in (("diversity_gamma", 1.0), ("inv_temperature", 100.0)):
+        if rp.get(key, fixed) != fixed:
+            raise NotImplementedError(f"FSQ {key} != {fixed} is not ported")
+    return FSQRegularizer(
+        levels=tuple(rp["levels"]), dim=rp.get("dim"),
+        num_codebooks=rp.get("num_codebooks", 1),
+        entropy_loss_weight=rp.get("entropy_loss_weight", 0.0),
+        entropy_loss_annealing_steps=rp.get("entropy_loss_annealing_steps", 0),
+        entropy_loss_annealing_factor=rp.get("entropy_loss_annealing_factor", 1.0),
+        commitment_loss_weight=rp.get("commitment_loss_weight", 0.0)), True
 
 
 def build_core_from_config(model_cfg: dict) -> Tuple["TokenizerCore", dict]:
@@ -62,24 +91,22 @@ def build_core_from_config(model_cfg: dict) -> Tuple["TokenizerCore", dict]:
         return tuple(d[key]) if d.get(key) is not None else None
 
     tdf = ep.get("time_downsample_factor", 4)
+    variant = _variant(_ENC_VARIANTS, enc_cfg["target"])
     encoder = Encoder(
         in_channels=ep.get("in_channels", 3), double_z=ep.get("double_z", True),
         spatial_ds=opt(ep, "spatial_ds"), tempo_ds=opt(ep, "tempo_ds"),
-        variant=_variant(_ENC_VARIANTS, enc_cfg["target"]),
-        time_downsample_factor=tdf,
+        variant=variant, time_downsample_factor=tdf,
         init_pad_mode=ep.get("init_pad_mode", "replicate"), **common(ep))
     decoder = Decoder(
         out_ch=dp.get("out_ch", 3), spatial_us=opt(dp, "spatial_us"),
         tempo_us=opt(dp, "tempo_us"),
         variant=_variant(_DEC_VARIANTS, dec_cfg["target"]),
         interpolation_mode=dp.get("interpolation_mode", "nearest"),
-        tanh_out=dp.get("tanh_out", False), **common(dp))
-    if reg_cfg["target"] not in _REGULARIZERS:
-        raise NotImplementedError(f"regularizer {reg_cfg['target']!r}")
-    rp = dict(reg_cfg.get("params") or {})
-    core = TokenizerCore(encoder, decoder,
-                         DiagonalGaussianRegularizer(sample=rp.get("sample", True)))
-    meta = dict(variant="causal_v1_1", is_causal=True, discrete=False,
+        tanh_out=dp.get("tanh_out", False),
+        time_downsample_factor=dp.get("time_downsample_factor", 4), **common(dp))
+    regularizer, discrete = _regularizer(reg_cfg)
+    core = TokenizerCore(encoder, decoder, regularizer)
+    meta = dict(variant=variant, is_causal=True, discrete=discrete,
                 time_downsample_factor=tdf, use_tiling=p.get("use_tiling", False))
     return core, meta
 
@@ -100,7 +127,7 @@ def reset_params_(module: nn.Module, generator: torch.Generator = None) -> None:
 
 class TokenizerCore(nn.Module):
     def __init__(self, encoder: Encoder, decoder: Decoder,
-                 regularization: DiagonalGaussianRegularizer):
+                 regularization: nn.Module):
         super().__init__()
         self.encoder = encoder
         self.decoder = decoder
@@ -114,11 +141,16 @@ class TokenizerCore(nn.Module):
     def decode(self, z, fused: bool = False):
         return self.decoder(z, fused=fused)
 
+    def decode_indices(self, indices):
+        """FSQ indices -> channels-last f32 latent."""
+        return self.regularization.decode_indices(indices)
+
     def forward(self, x, sample: Optional[bool] = None, fused: bool = False,
                 generator: torch.Generator = None):
         z, log = self.encode(x, sample=sample, fused=fused, generator=generator)
         dec = self.decode(z, fused=fused)
-        # v1.1 decodes tdf*T' frames: crop to the input length
+        # v1.1 decodes tdf*T' frames: crop to the input length (v1.0 crops
+        # in the decoder)
         if dec.shape[1] != x.shape[1]:
             dec = dec[:, -x.shape[1]:]
         return z, dec, log
@@ -136,7 +168,7 @@ class VideoTokenizer:
     """Serving engine. Public tensors are ``[B, C, T, H, W]`` in [-1, 1];
     computation is channels-last in ``compute_dtype`` with f32 norm
     statistics; outputs are f32. ``fused`` (default: on for a CUDA device
-    in bf16, which the kernels need) routes the four kernels' call sites
+    in bf16, which the kernels need) routes the five kernels' call sites
     through their wrappers."""
 
     def __init__(self, core: TokenizerCore, meta: dict,
@@ -189,10 +221,21 @@ class VideoTokenizer:
         return (z, log) if return_reg_log else z
 
     @torch.no_grad()
-    def decode(self, z):
-        """z: [B,Cz,T',H',W'] -> [B,C,tdf*T',H,W]."""
+    def decode(self, z, decode_from_indices: bool = False):
+        """z: [B,Cz,T',H',W'] (or FSQ indices [B,T',H',W'] with
+        ``decode_from_indices``) -> [B,C,T,H,W]: tdf*T' frames (v1.1) or
+        tdf*T' - (tdf-1) (v1.0)."""
+        if decode_from_indices:
+            z = self.indices_to_latent(z)
         dec = self.core.decode(self._input(z), fused=self.fused)
         return _to_ncthw(dec.float())
+
+    @torch.no_grad()
+    def indices_to_latent(self, indices):
+        """FSQ indices [B,T',H',W'] -> f32 latent [B,Cz,T',H',W']."""
+        if isinstance(indices, np.ndarray):
+            indices = torch.from_numpy(indices)
+        return _to_ncthw(self.core.decode_indices(indices.to(self.device)))
 
     @torch.no_grad()
     def forward(self, x, sample: bool = False):

@@ -2,8 +2,12 @@
 
 Counterpart of ``vidtok_tpu/modules/blocks.py`` for the causal layernorm
 blocks, non-streaming. ``fused=True`` routes the spatial and temporal
-resblocks and the spatial-upsample tail through kernels A, B and C
-(``ops/kernels``); their wrappers run the plain forms on CPU tensors.
+resblocks, the spatial-upsample tail and the nearest temporal upsample
+through kernels A, B, C and E (``ops/kernels``); their wrappers run the
+plain forms on CPU tensors. ``fused`` alone decides: where the JAX module
+takes a Pallas kernel with ``fused`` off (the nearest temporal upsample
+whenever ``deterministic``, ``blocks.py:529-533``), the port's plain path
+launches none.
 """
 
 from __future__ import annotations
@@ -13,7 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels import (fused_spatial_resblock, fused_temporal_resblock,
-                           subpixel_interleave)
+                           parity_up2x_fused, subpixel_interleave)
+from ..ops.kernels.parity_upsample import parity_up2x_fused_plain
 from .conv import CausalConv1d, CausalConv3d, SpatialConv, pad_time_front
 from .interp import temporal_avg_pool3_stride2, temporal_linear_up2x
 from .norms import make_norm, silu
@@ -203,19 +208,41 @@ class TimeDownsampleRes2x(nn.Module):
 
 
 class TimeUpsampleRes2x(nn.Module):
-    """Causal blended temporal 2x upsample, trilinear, non-streaming
-    (``blocks.py:441-571``): the first ``num_temp_upsample`` frames are
-    interpolated apart from the rest, then ``a*up + (1-a)*conv(up)``."""
+    """Causal blended temporal 2x upsample, non-streaming
+    (``blocks.py:441-571``): ``a*up + (1-a)*conv(up)``, a = sigmoid(mix).
+
+    ``trilinear`` (v1.1): the first ``num_temp_upsample`` frames are
+    interpolated apart from the rest. ``nearest`` (v1.0): the parity form
+    of ``blocks.py:598-668``, which never builds the 2x tensor (kernel E
+    when ``fused``). The blend needs ``cin == cout``; the JAX module's
+    duplicate-then-conv form for other widths fails at the same blend, so
+    it is not ported.
+
+    ``fused`` alone decides whether kernel E runs. The JAX module takes its
+    Pallas kernel whenever ``deterministic`` is set, ``fused`` or not
+    (``blocks.py:529-533``); here the plain path launches no kernel.
+    """
 
     def __init__(self, cin: int, cout: int, num_temp_upsample: int = 1,
-                 first_pad_mode: str = "zero", mix_factor_init: float = 2.0):
+                 first_pad_mode: str = "zero", mix_factor_init: float = 2.0,
+                 interpolation_mode: str = "trilinear"):
         super().__init__()
+        if interpolation_mode not in ("trilinear", "nearest"):
+            raise ValueError(f"unknown interpolation_mode {interpolation_mode!r}")
+        if cin != cout:
+            raise ValueError(f"the blend needs cin == cout, got {cin}, {cout}")
         self.ntu = num_temp_upsample
+        self.parity = interpolation_mode == "nearest"
+        self.first_pad_mode = first_pad_mode
         self.mix_factor = nn.Parameter(torch.full((1,), mix_factor_init))
         self.conv = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode)
 
-    def forward(self, x):
+    def forward(self, x, fused: bool = False):
         alpha = torch.sigmoid(self.mix_factor).to(x.dtype)
+        if self.parity:
+            up = parity_up2x_fused if fused else parity_up2x_fused_plain
+            return up(x, self.conv.conv.weight, self.conv.conv.bias, alpha,
+                      self.first_pad_mode)
         head, tail = x[:, :self.ntu], x[:, self.ntu:]
         x = temporal_linear_up2x(head)
         if tail.shape[1] > 0:

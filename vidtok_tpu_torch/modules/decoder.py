@@ -1,12 +1,18 @@
-"""Video decoder, causal v1.1 variant, non-streaming
+"""Video decoder, causal v1.0 and v1.1 variants, non-streaming
 (``vidtok_tpu/modules/decoder.py``).
 
 conv_in -> mid (3D resblock, attention, 3D resblock) -> levels from the
 deepest up, each ``num_res_blocks + 1`` x [spatial + temporal resblock],
-a spatial 2x upsample at ``spatial_us`` levels and a trilinear temporal 2x
-upsample at the ``tempo_us`` levels among them -> norm_out + SiLU +
-conv_out to RGB (kernel D when ``fused``). v1.1 returns every decoded
-frame; the model crops to the input length.
+a spatial 2x upsample at ``spatial_us`` levels and a temporal 2x upsample
+at the ``tempo_us`` levels among them -> norm_out + SiLU + conv_out to RGB
+(kernel D when ``fused``).
+
+* ``causal`` (v1.0): zero stream-start pads; the temporal upsample is
+  nearest whatever ``interpolation_mode`` says (kernel E when ``fused``);
+  the first ``tdf - 1`` decoded frames are dropped (``decoder.py:291-293``).
+* ``causal_v1_1``: replicate pads, ``interpolation_mode`` (trilinear in
+  the released configs); every decoded frame is returned and the model
+  crops to the input length.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from ..ops.kernels import decoder_tail_rgb
 from .blocks import (ResnetBlockSpatial, ResnetBlockTemporal, SpatialUpsample,
                      TimeUpsampleRes2x)
 from .conv import CausalConv3d
-from .encoder import _Mid, _check_variant
+from .encoder import _Mid, first_pad_mode
 from .norms import make_norm, silu
 
 
@@ -30,14 +36,16 @@ class Decoder(nn.Module):
                  spatial_us: Optional[Sequence[int]] = None,
                  tempo_us: Optional[Sequence[int]] = None,
                  variant: str = "causal_v1_1", norm_type: str = "layernorm",
-                 interpolation_mode: str = "trilinear", tanh_out: bool = False):
+                 interpolation_mode: str = "trilinear", tanh_out: bool = False,
+                 time_downsample_factor: int = 4):
         super().__init__()
-        _check_variant(variant)
-        if interpolation_mode != "trilinear":
-            raise NotImplementedError("v1.1 upsamples time trilinearly")
         n = len(ch_mult)
         self.tanh_out = tanh_out
-        self.first_pad_mode = pad = "replicate"
+        self.first_pad_mode = pad = first_pad_mode(variant)
+        # v1.0 drops its first tdf-1 output frames
+        self.crop = time_downsample_factor - 1 if variant == "causal" else 0
+        if variant == "causal":
+            interpolation_mode = "nearest"
         self.spatial_us = tuple(range(1, n) if spatial_us is None else spatial_us)
         self.tempo_us = tuple((1, 2) if tempo_us is None else tempo_us)
 
@@ -58,7 +66,8 @@ class Decoder(nn.Module):
             if i in self.spatial_us:
                 level.upsample = SpatialUpsample(c)
                 if i in self.tempo_us:
-                    tlevel.upsample = TimeUpsampleRes2x(c, c, ntu, pad)
+                    tlevel.upsample = TimeUpsampleRes2x(
+                        c, c, ntu, pad, interpolation_mode=interpolation_mode)
                     ntu *= 2
             levels[i] = (level, tlevel)
         # indexed by level, as the reference's ``up.insert(0, ...)``
@@ -68,7 +77,7 @@ class Decoder(nn.Module):
         self.conv_out = CausalConv3d(c, out_ch, 3, first_pad_mode=pad)
 
     def forward(self, z, fused: bool = False):
-        """z: [B, T', H', W', Cz] -> [B, tdf*T', H, W, out_ch]."""
+        """z: [B, T', H', W', Cz] -> [B, tdf*T' - crop, H, W, out_ch]."""
         h = self.mid(self.conv_in(z))
         for level, tlevel in zip(reversed(self.up), reversed(self.up_temporal)):
             for sp, tm in zip(level.block, tlevel.block):
@@ -76,7 +85,7 @@ class Decoder(nn.Module):
             if hasattr(level, "upsample"):
                 h = level.upsample(h, fused=fused)
             if hasattr(tlevel, "upsample"):
-                h = tlevel.upsample(h)
+                h = tlevel.upsample(h, fused=fused)
         if fused:
             norm = self.norm_out.norm
             conv = self.conv_out.conv
@@ -84,4 +93,6 @@ class Decoder(nn.Module):
                                  (conv.weight, conv.bias), self.first_pad_mode)
         else:
             h = self.conv_out(silu(self.norm_out(h)))
-        return torch.tanh(h) if self.tanh_out else h
+        if self.tanh_out:
+            h = torch.tanh(h)
+        return h[:, self.crop:]

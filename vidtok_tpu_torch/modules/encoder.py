@@ -1,4 +1,5 @@
-"""Video encoder, causal v1.1 variant (``vidtok_tpu/modules/encoder.py``).
+"""Video encoder, causal v1.0 and v1.1 variants
+(``vidtok_tpu/modules/encoder.py``).
 
 Per level: ``num_res_blocks`` x [spatial resblock + temporal resblock],
 a spatial 2x downsample at ``spatial_ds`` levels and a temporal 2x
@@ -7,6 +8,13 @@ downsample at the ``tempo_ds`` levels among them; then the mid stack
 ``2*z_channels`` when ``double_z``. Module names follow the reference torch
 model (``down.{i}.block.{j}``, ``down_temporal.{i}.downsample``,
 ``mid.block_1``, ...).
+
+``variant``:
+
+* ``causal`` (v1.0): interior convs zero-pad the stream start; the input
+  gets ``tdf - 1`` front frames whenever ``T % tdf != 0``.
+* ``causal_v1_1``: interior convs repeat frame 0; the input is padded to
+  the next multiple of ``tdf``.
 """
 
 from __future__ import annotations
@@ -21,13 +29,15 @@ from .blocks import (AttnBlock, ResnetBlock3D, ResnetBlockSpatial,
 from .conv import CausalConv3d, pad_time_front
 from .norms import make_norm, silu
 
-VARIANTS = ("causal_v1_1",)
+VARIANTS = ("causal", "causal_v1_1")
 
 
-def _check_variant(variant: str) -> None:
+def first_pad_mode(variant: str) -> str:
+    """The interior convs' stream-start pad of a variant."""
     if variant not in VARIANTS:
         raise NotImplementedError(
-            f"variant {variant!r}: only {VARIANTS} is ported")
+            f"variant {variant!r}: only {VARIANTS} are ported")
+    return "replicate" if variant == "causal_v1_1" else "zero"
 
 
 class _Mid(nn.Module):
@@ -51,13 +61,13 @@ class Encoder(nn.Module):
                  time_downsample_factor: int = 4,
                  init_pad_mode: str = "replicate"):
         super().__init__()
-        _check_variant(variant)
         n = len(ch_mult)
         self.tdf = time_downsample_factor
         self.init_pad_mode = init_pad_mode
         self.spatial_ds = tuple(range(n - 1) if spatial_ds is None else spatial_ds)
         self.tempo_ds = tuple((n - 2, n - 3) if tempo_ds is None else tempo_ds)
-        pad = "replicate"  # v1.1 interior convs replicate the stream start
+        self.variant = variant
+        pad = first_pad_mode(variant)
 
         self.conv_in = CausalConv3d(in_channels, ch, 3, first_pad_mode=pad)
         self.down = nn.ModuleList()
@@ -84,13 +94,15 @@ class Encoder(nn.Module):
             c, 2 * z_channels if double_z else z_channels, 3, first_pad_mode=pad)
 
     def pad_input(self, x):
-        """Front-pad T to the next multiple of the time downsample factor
-        with ``init_pad_mode`` frames (``encoder.py:80-101``, v1.1)."""
+        """Front-pad T with ``init_pad_mode`` frames when it is not a
+        multiple of the time downsample factor (``encoder.py:80-101``):
+        ``tdf - 1`` frames (v1.0), or up to the next multiple (v1.1)."""
         t = x.shape[1]
         if t % self.tdf == 0:
             return x
+        n = self.tdf - t % self.tdf if self.variant == "causal_v1_1" else self.tdf - 1
         mode = "replicate" if self.init_pad_mode == "replicate" else "zero"
-        return pad_time_front(x, self.tdf - t % self.tdf, mode)
+        return pad_time_front(x, n, mode)
 
     def forward(self, x, fused: bool = False):
         """x: [B, T, H, W, C] -> posterior parameters [B, T', H', W', 2Cz]."""

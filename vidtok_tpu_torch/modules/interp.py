@@ -5,6 +5,11 @@ from __future__ import annotations
 import torch
 
 
+def temporal_nearest_up2x(x):
+    """[B,T,H,W,C] -> [B,2T,H,W,C] by duplicating each frame (dtype kept)."""
+    return x.repeat_interleave(2, dim=1)
+
+
 def temporal_linear_up2x(x):
     """1D linear 2x upsampling along T, align_corners=False, edge clamp,
     computed in f32 (torch ``F.interpolate`` trilinear with H/W scale 1):

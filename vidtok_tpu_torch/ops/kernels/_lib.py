@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels of ``vidtok_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build
 runs at the first kernel launch of a process, into
 ``build/vidtok_tpu_torch/`` beside the package, under a name that hashes
 the sources and flags, so an edited source rebuilds and an unchanged one
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vidtok_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "vt_subpixel_interleave": [_P] * 6 + [_I] * 4 + [_P],
     # x, out, stats, g, b, w, bias, B, T, H, W, C, replicate, stream
     "vt_decoder_tail_rgb": [_P] * 7 + [_I] * 6 + [_P],
+    # s, out, w, bias, alpha, B, T, H, W, C, replicate, stream
+    "vt_parity_up2x": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 
@@ -77,15 +80,26 @@ def library() -> KernelLibrary:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        objs = [so.with_suffix(f".{os.getpid()}.{f.stem}.o") for f in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for f, o in zip(sources, objs)]
+        log = "".join(proc.communicate()[0] for proc in procs)
+        bad = [f.name for f, proc in zip(sources, procs) if proc.returncode != 0]
+        if not bad:
+            link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                   *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            bad = ["link"] if link.returncode != 0 else []
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if bad:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc failed ({', '.join(bad)}):\n{log}")
         log_path.write_text(log)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))

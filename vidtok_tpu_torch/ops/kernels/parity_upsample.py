@@ -1,0 +1,85 @@
+"""Kernel E: nearest 2x temporal upsample + causal 3x3x3 conv + blend.
+
+Replaces ``vidtok_tpu/ops/pallas/parity_upsample_fused.py:108``
+(``parity_up2x_fused``), the parity form of ``TimeUpsampleRes2x`` in
+nearest mode (``vidtok_tpu/modules/blocks.py:598-668``). With ``Kj`` the
+3x3 spatial taps of time tap j and ``s`` the half-rate input::
+
+    y[2a]   = K2 (*) s[a] + (K0+K1) (*) s[a-1]
+    y[2a+1] = (K1+K2) (*) s[a] + K0 (*) s[a-1]
+    out[2a+p] = alpha * s[a] + (1 - alpha) * (y[2a+p] + bias)
+
+spatial SAME padding with zeros (``s`` is not activated, so zero is exact);
+``s[-1]`` is zeros (``zero``, v1.0) or ``s[0]`` (``replicate``). CUDA:
+``csrc/parity_upsample.cu``, one implicit GEMM over 18 taps (2 frames x
+3x3) with the weights ``[[K0+K1, K0], [K2, K1+K2]]`` summed in f32 and
+rounded to bf16 once; one f32 accumulator per output, where the TPU kernel
+rounds the previous-frame taps to the activation dtype before adding them.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _lib
+
+
+def parity_up2x_fused_plain(s, weight, bias, alpha, first_pad_mode: str):
+    """Plain PyTorch form. s: ``[B, T, H, W, C]``; ``weight`` the causal
+    conv's OIDHW ``[C, C, 3, 3, 3]``, ``bias`` ``[C]``, ``alpha`` a scalar
+    tensor. The three base convs run as one per-frame conv C -> 3C in
+    s.dtype; the previous-frame terms are shifted one frame later (the
+    front rule at frame 0), then bias and blend in f32, rounded once."""
+    b, t, h, w, c = s.shape
+    dt = s.dtype
+    k = weight.to(dt)
+    kb = torch.cat([k[:, :, 0], k[:, :, 1], k[:, :, 2]])    # [3C, C, 3, 3]
+    y = F.conv2d(s.reshape(b * t, h, w, c).permute(0, 3, 1, 2), kb, None, 1, 1)
+    y0, y1, y2 = y.permute(0, 2, 3, 1).float().reshape(b, t, h, w, 3, c).unbind(4)
+    cur = torch.stack([y2, y1 + y2], dim=4)                  # [B,T,H,W,2,C]
+    prev = torch.stack([y0 + y1, y0], dim=4)
+    if first_pad_mode == "replicate":
+        front = prev[:, :1]
+    else:
+        front = torch.zeros_like(prev[:, :1])
+    yc = cur + torch.cat([front, prev[:, :-1]], dim=1) + bias.float()
+    a = alpha.float()
+    out = (a * s.float()[:, :, :, :, None] + (1 - a) * yc).to(dt)
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(b, 2 * t, h, w, c)
+
+
+def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
+    """s: ``[B, T, H, W, C]`` -> ``[B, 2T, H, W, C]``.
+
+    A CPU tensor runs :func:`parity_up2x_fused_plain`. A CUDA tensor must
+    be contiguous bf16 with C % 64 == 0; it runs the kernel or raises.
+    """
+    parity_up2x_fused.calls += 1
+    if first_pad_mode not in ("zero", "replicate"):
+        raise ValueError(f"unknown first_pad_mode {first_pad_mode!r}")
+    if s.device.type == "cpu":
+        return parity_up2x_fused_plain(s, weight, bias, alpha, first_pad_mode)
+    b, t, h, w, c = s.shape
+    _lib.require(s, torch.bfloat16, (b, t, h, w, c))
+    if c % 64 or tuple(weight.shape) != (c, c, 3, 3, 3):
+        raise ValueError(f"kernel E takes C % 64 == 0 and a [C, C, 3, 3, 3] "
+                         f"conv, got C={c}, {tuple(weight.shape)}")
+    # GEMM operand [(frame, dy, dx, ci), (parity, co)], frame 0 = s[a-1]
+    k0, k1, k2 = weight.float().permute(2, 3, 4, 1, 0)      # [3, 3, Ci, Co]
+    wm = torch.stack([torch.cat([k0 + k1, k0], dim=-1),
+                      torch.cat([k2, k1 + k2], dim=-1)])
+    wm = wm.reshape(18 * c, 2 * c).to(torch.bfloat16).contiguous()
+    bias2 = _lib.f32(torch.cat([bias, bias]))
+    alpha = _lib.f32(alpha.reshape(1))
+    for v in (wm, bias2, alpha):
+        _lib.same_device(v, s)
+    out = s.new_empty((b, 2 * t, h, w, c))
+    _lib.call("vt_parity_up2x", s, out, wm, bias2, alpha, b, t, h, w, c,
+              int(first_pad_mode == "replicate"))
+    parity_up2x_fused.launches += 1
+    return out
+
+
+parity_up2x_fused.calls = 0
+parity_up2x_fused.launches = 0
