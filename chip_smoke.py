@@ -5,16 +5,22 @@
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
-1. build the five hand-written kernels from ``vidtok_tpu_torch/csrc`` (nvcc,
+1. build the six hand-written kernels from ``vidtok_tpu_torch/csrc`` (nvcc,
    sm_90a, one process per source) and print the build time and the
    ``-Xptxas -v`` report;
 2. hold every kernel against its plain PyTorch version at every shape the
    serving paths give it, in both stream-start modes where it has them
-   (bf16 inputs from a numpy seed; the plain version in f32 with TF32
-   off); gate relative L2 <= 1e-2, and no further from the f32 plain
+   (bf16 inputs and f32 parameters from a seed; the plain version in f32
+   with TF32 off); gate relative L2 <= 1e-2, and no further from the f32 plain
    version than the plain version in bf16 is (x 1.1); time both (CUDA
-   events); and hold kernel E at bench.py's T=201 shape, whose output
-   passes 2^31 elements, against its plain version on a window of frames;
+   events) and, for A, B and F, cuDNN's convs of the block alone; compute
+   each call's bound (bytes over 3.35 TB/s, FLOP over 989 TFLOP/s); and
+   hold kernel E at bench.py's T=201 shape, whose output passes 2^31
+   elements, against its plain version on a window of frames. Kernel F
+   (the streaming temporal resblock) is held at every chunk shape of the
+   tiled T=65 request, with ``first_chunk`` True and False at each of its
+   cache offsets (0, 1, 2, 4), on y and both new caches; A, C and D also
+   at their chunk shapes;
 3. serve the causal v1.0 KL 4x8x8 16-channel flagship at full width with
    seeded random weights in bf16: 3 requests of [1, 3, 17, 256, 256],
    per-request latency, frames/s and peak memory, and the kernels' launch
@@ -28,12 +34,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 5. serve one request through the v1.0 FSQ 4096 tokenizer's kernel path and
    check its indices, ``indices_to_latent`` and decoding from indices;
 6. the causal v1.1 KL 4x8x8 16-channel tokenizer as in 3 (launches
-   20 / 20 / 3 / 1 / 0).
+   20 / 20 / 3 / 1 / 0);
+7. the same v1.1 tokenizer tiled (``use_tiling``, ``use_overlap``,
+   ``t_chunk_enc`` 16): 3 requests of [1, 3, 65, 256, 256] with the launch
+   counts per forward derived from the chunk schedule (F 100, A 100, C 15,
+   D 5, B and E 0), a profile of one request, one [1, 3, 201, 256, 256]
+   request whose peak memory may be at most 1.25x the T=65 peak, and the
+   end-to-end gates at T=65 against the non-tiled f32 plain run.
 
 It never falls back to the CPU or to a plain version. The last two lines of
 standard output are a JSON object with the per-kernel results (launches
-from phase 3's kernel-path run) and ``{"ok": true, "device": {...}}``.
-Needs one CUDA device; imports no JAX.
+from phase 3's kernel-path run for A-E and phase 7's for F) and
+``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter, defaultdict
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -84,7 +98,8 @@ N_REQUESTS = 3
 PER_FORWARD = {"v1_0": {"fused_spatial_resblock": 20,
                         "fused_temporal_resblock": 20,
                         "subpixel_interleave": 3, "decoder_tail_rgb": 1,
-                        "parity_up2x_fused": 2}}
+                        "parity_up2x_fused": 2,
+                        "fused_temporal_resblock_stream": 0}}
 PER_FORWARD["v1_1"] = dict(PER_FORWARD["v1_0"], parity_up2x_fused=0)
 KERNEL_GATE = 1e-2
 # a kernel, and the kernel path, vs the f32 plain run may be at most
@@ -116,6 +131,30 @@ MODE_PATH = {"zero": "v1_0", "replicate": "v1_1"}
 PARITY_LONG = (1, 102, 256, 256, 256)
 PARITY_WINDOW = 95
 
+# Tiled v1.1 serving (phase 7): 65 = 1 + 4 x 16 frames give 5 encoder and
+# 5 decoder chunks (T' = 17); 201 is bench.py's length, whose last encoder
+# chunk has 8 frames.
+TILED_REQUEST = (1, 3, 65, 256, 256)
+TILED_LONG = (1, 3, 201, 256, 256)
+T_CHUNK_ENC = 16
+TDF = 4
+TILED_MEM_RATIO = 1.25
+# The encoder is causal, so tiling leaves z as it is up to rounding. The
+# decoder's trilinear upsample is not: its first chunk caches its last ntu
+# frames, which with overlap are look-ahead frames, computed there from
+# edge-clamped interpolation (vidtok_tpu blocks.py:538-553, mirrored), so
+# the tiled decode departs from the non-tiled one in JAX too. At this
+# configuration and seed the departure is 1.2e-4 (PERF.md); the gate leaves
+# room for it, and the kernel path is also held to the tiled f32 run.
+TILED_Z_GATE = 1e-4
+TILED_RECON_GATE = 1e-3
+PATHS = ("v1_0", "v1_1", "tiled")
+# one H100 SXM at 700 W (NVIDIA's data sheet): dense bf16 tensor-core rate,
+# f32 rate outside the tensor cores, HBM rate
+PEAK_MMA_FLOPS = 989e12
+PEAK_VEC_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
 SOURCES = {
     "fused_spatial_resblock": ("vidtok_tpu_torch/csrc/fused_spatial.cu",
                                "vidtok_tpu/ops/pallas/fused_spatial_v2.py:183"),
@@ -127,7 +166,81 @@ SOURCES = {
                          "vidtok_tpu/ops/pallas/decoder_tail.py:245"),
     "parity_up2x_fused": ("vidtok_tpu_torch/csrc/parity_upsample.cu",
                           "vidtok_tpu/ops/pallas/parity_upsample_fused.py:108"),
+    "fused_temporal_resblock_stream": (
+        "vidtok_tpu_torch/csrc/fused_temporal_stream.cu",
+        "vidtok_tpu/ops/pallas/fused_temporal.py:274"),
 }
+# the path whose serving run gives each kernel's launches and times in the
+# result line
+MAIN_PATH = dict.fromkeys(SOURCES, "v1_0")
+MAIN_PATH["fused_temporal_resblock_stream"] = "tiled"
+
+
+def _cut(n: int, chunk: int):
+    """``VideoTokenizer.build_chunk_start_end``: [0, 1], then ``chunk``
+    frames at a time."""
+    se = [(0, 1)]
+    while se[-1][1] < n:
+        se.append((se[-1][1], min(n, se[-1][1] + chunk)))
+    return se
+
+
+def chunk_schedule(t: int):
+    """A tiled, overlapped forward of ``t`` frames: frames per encoder
+    chunk (the first is frame 0 padded to TDF) and latent frames per
+    decoder chunk (one look-ahead frame on each but the last)."""
+    enc = [TDF] + [e - s for s, e in _cut(t, T_CHUNK_ENC)[1:]]
+    t_lat = sum(f // TDF for f in enc)
+    dec = [e - s + (e + 1 <= t_lat) for s, e in _cut(t_lat, T_CHUNK_ENC // TDF)]
+    return enc, dec
+
+
+def tiled_calls(t: int) -> Counter:
+    """Kernel calls of one tiled forward of a [1, 3, t, 256, 256] clip, by
+    (kernel, call key). Per encoder chunk of f frames: 2 spatial and 2
+    temporal blocks at each of the levels (f, 256², 128), (f, 128², 256),
+    (f/2, 64², 512), (f/4, 32², 512). Per decoder chunk of n latents: 3 of
+    each at (n, 32², 512), (n, 64², 512), (2n, 128², 256), (4n, 256², 128)
+    with cache offsets 1, 1, 2, 4; a spatial upsample after each of the
+    first three; the tail on 4n + 2 frames (2 cached)."""
+    enc, dec = chunk_schedule(t)
+    calls = Counter()
+    for i, f in enumerate(enc):
+        for n, hw, cin, c in ((f, 256, 128, 128), (f, 128, 128, 256),
+                              (f // 2, 64, 256, 512), (f // 4, 32, 512, 512)):
+            calls["fused_spatial_resblock", (n, hw, hw, cin, c)] += 1
+            calls["fused_spatial_resblock", (n, hw, hw, c, c)] += 1
+            calls["fused_temporal_resblock_stream", ((1, n, hw, hw, c), i == 0, 0)] += 2
+    for i, n in enumerate(dec):
+        for frames, hw, cin, c, off in ((n, 32, 512, 512, 1), (n, 64, 512, 512, 1),
+                                        (2 * n, 128, 512, 256, 2),
+                                        (4 * n, 256, 256, 128, 4)):
+            calls["fused_spatial_resblock", (frames, hw, hw, cin, c)] += 1
+            calls["fused_spatial_resblock", (frames, hw, hw, c, c)] += 2
+            calls["fused_temporal_resblock_stream",
+                  ((1, frames, hw, hw, c), i == 0, off)] += 3
+            if hw < 256:
+                calls["subpixel_interleave", (frames, hw, hw, c)] += 1
+        calls["decoder_tail_rgb", ((1, 4 * n + 2, 256, 256, 128), "replicate")] += 1
+    return calls
+
+
+def tiled_per_forward(t: int) -> dict:
+    """Launches per tiled forward, summed from ``tiled_calls`` and checked
+    against the formula: with E encoder and D decoder chunks, F = A =
+    8E + 12D, C = 3D, D's tail D, B = E's kernel = 0 (T=65: 100, 100, 15,
+    5, 0, 0)."""
+    per = dict.fromkeys(SOURCES, 0)
+    for (name, _), n in tiled_calls(t).items():
+        per[name] += n
+    n_enc, n_dec = map(len, chunk_schedule(t))
+    want = dict(per, fused_temporal_resblock_stream=8 * n_enc + 12 * n_dec,
+                fused_spatial_resblock=8 * n_enc + 12 * n_dec,
+                subpixel_interleave=3 * n_dec, decoder_tail_rgb=n_dec,
+                fused_temporal_resblock=0, parity_up2x_fused=0)
+    if per != want:
+        raise AssertionError(f"tiled launches {per} != formula {want}")
+    return per
 
 
 def rel_l2(a, b) -> float:
@@ -153,10 +266,15 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 5) -> float:
 
 
 class Params:
-    """Random inputs and parameters from one numpy seed, on ``device``."""
+    """Random parameters from one numpy seed and activations from a torch
+    generator of the same seed (drawn on ``device``: the largest are 3e8
+    values), on ``device``."""
 
     def __init__(self, seed: int, device):
+        import torch
+
         self.rng = np.random.RandomState(seed)
+        self.gen = torch.Generator(device).manual_seed(seed)
         self.device = device
 
     def t(self, a, dtype=None):
@@ -166,7 +284,9 @@ class Params:
             self.device, dtype or torch.float32)
 
     def x(self, shape, dtype):
-        return self.t(self.rng.randn(*shape), dtype)
+        import torch
+
+        return torch.randn(shape, generator=self.gen, device=self.device).to(dtype)
 
     def norm(self, c):
         return (self.t(1.0 + 0.1 * self.rng.randn(c)),
@@ -189,10 +309,68 @@ def f32(args):
     return args
 
 
+def _nel(*shapes) -> int:
+    return sum(int(np.prod(s)) for s in shapes)
+
+
+def work(name: str, key) -> tuple:
+    """(bytes, tensor-core FLOP, other FLOP) one call must move and do:
+    each bf16 input read once, each output written once, the f32
+    parameters read once; the FLOP of the function (E: the nearest 2x
+    upsample and a 3x3x3 conv at the output rate, not E's own 36 C^2
+    MACs per half-rate position)."""
+    if name == "fused_spatial_resblock":
+        n, h, w, cin, c = key
+        m, k = n * h * w, 9 * cin * c + 9 * c * c + (cin * c if cin != c else 0)
+        return 2 * m * (cin + c) + 4 * (k + 2 * cin + 5 * c), 2 * m * k, 0
+    if name in ("fused_temporal_resblock", "fused_temporal_resblock_stream"):
+        (b, t, h, w, c), first = key[0], key[1]
+        m = b * t * h * w
+        caches = 0 if name == "fused_temporal_resblock" else (2 if first else 4)
+        return (2 * (2 * m * c + caches * b * 2 * h * w * c)
+                + 4 * (6 * c * c + 6 * c), 12 * m * c * c, 0)
+    if name == "subpixel_interleave":
+        n, h, w, c = key
+        return 2 * 8 * n * h * w * c + 4 * c, 0, 4 * n * h * w * c
+    if name == "decoder_tail_rgb":
+        b, t, h, w, c = key[0]
+        m = b * t * h * w
+        return 2 * m * (c + 3) + 4 * (2 * c + 81 * c + 3), 2 * m * 81 * c, 0
+    b, t, h, w, c = key[0]  # parity_up2x_fused
+    m = b * t * h * w
+    return 2 * 3 * m * c + 4 * (27 * c * c + c + 1), 2 * 2 * m * 27 * c * c, 0
+
+
+def bound_ms(w: tuple) -> tuple:
+    """(bound in ms, "bytes" or "operations"): the larger of the bytes
+    over the HBM rate and the FLOP over the peak rate of their type."""
+    nbytes, mma, vec = w
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (mma / PEAK_MMA_FLOPS + vec / PEAK_VEC_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Case(NamedTuple):
+    """One call shape of a kernel: its wrapper and plain version on the
+    same arguments, the calls per forward of each path, the work of the
+    call, and cuDNN's convs of the block alone (A, B, F) as a yardstick."""
+    name: str
+    key: tuple
+    calls: dict
+    kernel: Callable
+    plain: Callable
+    args: tuple
+    convs: Callable = None
+
+
 def kernel_cases(device):
-    """Yield (kernel name, shape, {path: calls per forward}, wrapper, plain,
-    args) with bf16 activations and f32 parameters on ``device``."""
+    """Yield a ``Case`` for every call shape of each kernel on the three
+    paths (non-tiled v1.0 and v1.1 requests of REQUEST, the tiled v1.1
+    request of TILED_REQUEST), with bf16 activations and f32 parameters on
+    ``device``. Kernel F's shapes come from ``tiled_calls``, each with
+    ``first_chunk`` True and False at its cache offset."""
     import torch
+    import torch.nn.functional as F
 
     from vidtok_tpu_torch.ops.kernels import (decoder_tail, fused_spatial,
                                               fused_temporal,
@@ -201,33 +379,72 @@ def kernel_cases(device):
 
     bf = torch.bfloat16
     p = Params(0, device)
-    both = MODE_PATH.values()  # the shapes and calls of both paths
+    tiled = tiled_calls(TILED_REQUEST[2])
+    shapes = defaultdict(lambda: defaultdict(dict))  # kernel -> key -> calls
     for shape, calls in SPATIAL_SHAPES:
-        n, h, w, cin, c = shape
+        shapes["fused_spatial_resblock"][shape].update(v1_0=calls, v1_1=calls)
+    for shape, calls in SUBPIXEL_SHAPES:
+        shapes["subpixel_interleave"][shape].update(v1_0=calls, v1_1=calls)
+    for shape, calls in TAIL_SHAPES:
+        for mode, path in MODE_PATH.items():
+            shapes["decoder_tail_rgb"][shape, mode][path] = calls
+    for (name, key), calls in tiled.items():
+        shapes[name][key]["tiled"] = calls
+        if name == "fused_temporal_resblock_stream":
+            shapes[name][key[0], not key[1], key[2]].setdefault("tiled", 0)
+
+    def tconvs(x, conv1, conv2):
+        # the two k=3 time convs as cuDNN runs them (symmetric pad 1: the
+        # same FLOP as the causal convs)
+        xp = x.permute(0, 4, 1, 2, 3)
+        w1, w2 = (cw[0][..., None, None].to(bf) for cw in (conv1, conv2))
+        return lambda: F.conv3d(F.conv3d(xp, w1, None, 1, (1, 0, 0)), w2, None, 1,
+                                (1, 0, 0))
+
+    for key, calls in shapes["fused_spatial_resblock"].items():
+        n, h, w, cin, c = key
         nin = p.conv((c, cin, 1, 1)) if cin != c else None
         args = (p.x((n, h, w, cin), bf), p.norm(cin), p.conv((c, cin, 3, 3)),
                 p.norm(c), p.conv((c, c, 3, 3)), nin)
-        yield ("fused_spatial_resblock", shape, dict.fromkeys(both, calls),
-               fused_spatial.fused_spatial_resblock,
-               fused_spatial.fused_spatial_resblock_plain, args)
+        xp = args[0].permute(0, 3, 1, 2)
+        w1, w2 = args[2][0].to(bf), args[4][0].to(bf)
+        wn = nin[0].to(bf) if nin else None
+
+        def convs(xp=xp, w1=w1, w2=w2, wn=wn):
+            y = F.conv2d(F.conv2d(xp, w1, None, 1, 1), w2, None, 1, 1)
+            return y if wn is None else (y, F.conv2d(xp, wn))
+
+        yield Case("fused_spatial_resblock", key, dict(calls),
+                   fused_spatial.fused_spatial_resblock,
+                   fused_spatial.fused_spatial_resblock_plain, args, convs)
     for shape, calls in TEMPORAL_SHAPES:
         c = shape[-1]
         for mode, path in MODE_PATH.items():
             args = (p.x(shape, bf), p.norm(c), p.conv((c, c, 3)), p.norm(c),
                     p.conv((c, c, 3)), mode)
-            yield ("fused_temporal_resblock", shape + (mode,), {path: calls},
-                   fused_temporal.fused_temporal_resblock,
-                   fused_temporal.fused_temporal_resblock_plain, args)
-    for shape, calls in SUBPIXEL_SHAPES:
-        ys = tuple(p.x(shape, bf) for _ in range(4))
-        args = ys + (p.t(0.1 * p.rng.randn(shape[-1])),)
-        yield ("subpixel_interleave", shape, dict.fromkeys(both, calls),
-               sp.subpixel_interleave, sp.subpixel_interleave_plain, args)
-    for shape, calls in TAIL_SHAPES:
+            yield Case("fused_temporal_resblock", (shape, mode), {path: calls},
+                       fused_temporal.fused_temporal_resblock,
+                       fused_temporal.fused_temporal_resblock_plain, args,
+                       tconvs(args[0], args[2], args[4]))
+    for key, calls in shapes["fused_temporal_resblock_stream"].items():
+        (b, t, h, w, c), first, off = key
+        cache = None if first else p.x((b, 2, h, w, c), bf)
+        cache2 = None if first else p.x((b, 2, h, w, c), bf)
+        args = (p.x((b, t, h, w, c), bf), p.norm(c), p.conv((c, c, 3)), p.norm(c),
+                p.conv((c, c, 3)), cache, cache2, first, off)
+        yield Case("fused_temporal_resblock_stream", key, dict(calls),
+                   fused_temporal.fused_temporal_resblock_stream,
+                   fused_temporal.fused_temporal_resblock_stream_plain, args,
+                   tconvs(args[0], args[2], args[4]))
+    for key, calls in shapes["subpixel_interleave"].items():
+        ys = tuple(p.x(key, bf) for _ in range(4))
+        args = ys + (p.t(0.1 * p.rng.randn(key[-1])),)
+        yield Case("subpixel_interleave", key, dict(calls), sp.subpixel_interleave,
+                   sp.subpixel_interleave_plain, args)
+    for (shape, mode), calls in shapes["decoder_tail_rgb"].items():
         c = shape[-1]
-        for mode, path in MODE_PATH.items():
-            args = (p.x(shape, bf), p.norm(c), p.conv((3, c, 3, 3, 3)), mode)
-            yield ("decoder_tail_rgb", shape + (mode,), {path: calls},
+        args = (p.x(shape, bf), p.norm(c), p.conv((3, c, 3, 3, 3)), mode)
+        yield Case("decoder_tail_rgb", (shape, mode), dict(calls),
                    decoder_tail.decoder_tail_rgb,
                    decoder_tail.decoder_tail_rgb_plain, args)
     for shape, calls in PARITY_SHAPES:
@@ -236,9 +453,9 @@ def kernel_cases(device):
             # v1.0 serves zero mode; replicate is checked, not timed
             args = (p.x(shape, bf), *p.conv((c, c, 3, 3, 3)),
                     p.t(1 / (1 + np.exp(-(2.0 + 0.5 * p.rng.randn(1))))), mode)
-            yield ("parity_up2x_fused", shape + (mode,),
-                   {"v1_0": calls if mode == "zero" else 0},
-                   pu.parity_up2x_fused, pu.parity_up2x_fused_plain, args)
+            yield Case("parity_up2x_fused", (shape, mode),
+                       {"v1_0": calls if mode == "zero" else 0},
+                       pu.parity_up2x_fused, pu.parity_up2x_fused_plain, args)
 
 
 def gate(what: str, rel: float, plain_rel: float) -> None:
@@ -248,53 +465,73 @@ def gate(what: str, rel: float, plain_rel: float) -> None:
             f"{BF16_SLACK} x plain bf16 rel_l2 {plain_rel}")
 
 
-def check_kernels(device) -> dict:
-    """Phase 2: every kernel against its plain version; returns
-    {kernel: {max_abs_err, max_rel_l2, ms: {path: ms}, plain_ms: {path: ms}}}
-    with times summed per forward of each path.
+def _outs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
 
-    Besides the fixed bound KERNEL_GATE, each kernel is held to the plain
-    version's own bf16 error: a fault on a frame's border (a padding tap
-    that reads ln_silu(0) = silu(bias) instead of 0) stays under 1e-2 at
-    256x256 but doubles that error.
+
+def check_kernels(device) -> dict:
+    """Phase 2: every kernel against its plain version; returns {kernel:
+    {max_abs_err, max_rel_l2, and per path: ms, plain_ms, convs_ms (cuDNN's
+    convs of the block alone), bound_ms, and bound_by_bytes_ms /
+    bound_by_ops_ms (the part of the bound from calls that bytes or
+    operations bound)}}, times summed per forward of each path.
+
+    Every output is gated: kernel F's y and both new caches. Besides the
+    fixed bound KERNEL_GATE, each kernel is held to the plain version's own
+    bf16 error: a fault on a frame's border (a padding tap that reads
+    ln_silu(0) = silu(bias) instead of 0) stays under 1e-2 at 256x256 but
+    doubles that error.
     """
     import torch
 
+    sums = ("ms", "plain_ms", "convs_ms", "bound_ms", "bound_by_bytes_ms",
+            "bound_by_ops_ms")
     results = {}
-    for name, shape, calls, kernel, plain, args in kernel_cases(device):
-        out = kernel(*args)
-        ref = plain(*f32(args))
-        plain_bf16 = plain(*args)
+    for case in kernel_cases(device):
+        name, args = case.name, case.args
+        out = _outs(case.kernel(*args))
+        ref = _outs(case.plain(*f32(args)))
+        plain_bf16 = _outs(case.plain(*args))
         torch.cuda.synchronize()
-        if out.shape != ref.shape or out.dtype != args[0].dtype:
-            raise AssertionError(f"{name}{shape}: {out.shape}/{out.dtype} "
-                                 f"vs {ref.shape}")
-        err = float((out.float() - ref).abs().max())
-        rel = rel_l2(out.float(), ref)
-        plain_rel = rel_l2(plain_bf16.float(), ref)
-        ms = plain_ms = 0.0
-        if any(calls.values()):
-            ms = cuda_ms(lambda: kernel(*args))
-            plain_ms = cuda_ms(lambda: plain(*args))
-        print(f"kernel {name} {shape}: max_abs_err {err:.4g} rel_l2 {rel:.4g} "
-              f"plain_bf16_rel_l2 {plain_rel:.4g} kernel_ms {ms:.4f} "
-              f"plain_bf16_ms {plain_ms:.4f} calls/forward {calls}", flush=True)
-        gate(f"{name}{shape}", rel, plain_rel)
+        errs, rels, plain_rels = [], [], []
+        for o, r, pb in zip(out, ref, plain_bf16, strict=True):
+            if o.shape != r.shape or o.dtype != args[0].dtype:
+                raise AssertionError(f"{name}{case.key}: {o.shape}/{o.dtype} "
+                                     f"vs {r.shape}")
+            errs.append(float((o.float() - r).abs().max()))
+            rels.append(rel_l2(o.float(), r))
+            plain_rels.append(rel_l2(pb.float(), r))
+        ms = plain_ms = convs_ms = 0.0
+        if any(case.calls.values()):
+            ms = cuda_ms(lambda: case.kernel(*args))
+            plain_ms = cuda_ms(lambda: case.plain(*args))
+            if case.convs is not None:
+                convs_ms = cuda_ms(case.convs)
+        bound, by = bound_ms(work(name, case.key))
+        print(f"kernel {name} {case.key}: max_abs_err "
+              + "/".join(f"{e:.4g}" for e in errs) + " rel_l2 "
+              + "/".join(f"{r:.4g}" for r in rels) + " plain_bf16_rel_l2 "
+              + "/".join(f"{r:.4g}" for r in plain_rels)
+              + f" kernel_ms {ms:.4f} plain_bf16_ms {plain_ms:.4f} cudnn_convs_ms "
+              f"{convs_ms:.4f} bound_ms {bound:.4f} ({by}) calls/forward "
+              f"{case.calls}", flush=True)
+        for i, (rel, plain_rel) in enumerate(zip(rels, plain_rels)):
+            gate(f"{name}{case.key} output {i}", rel, plain_rel)
         r = results.setdefault(name, dict(
             max_abs_err=0.0, max_rel_l2=0.0,
-            ms=dict.fromkeys(MODE_PATH.values(), 0.0),
-            plain_ms=dict.fromkeys(MODE_PATH.values(), 0.0)))
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["max_rel_l2"] = max(r["max_rel_l2"], rel)
-        for path, n in calls.items():
-            r["ms"][path] += n * ms
-            r["plain_ms"][path] += n * plain_ms
-        del out, ref, plain_bf16, args
+            **{k: dict.fromkeys(PATHS, 0.0) for k in sums}))
+        r["max_abs_err"] = max(r["max_abs_err"], *errs)
+        r["max_rel_l2"] = max(r["max_rel_l2"], *rels)
+        part = "bound_by_bytes_ms" if by == "bytes" else "bound_by_ops_ms"
+        for path, n in case.calls.items():
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("convs_ms", convs_ms),
+                         ("bound_ms", bound), (part, bound)):
+                r[k][path] += n * v
+        del out, ref, plain_bf16, args, case
     for name, r in results.items():
-        print(f"kernel {name} per forward: "
-              + "; ".join(f"{path} kernel_ms {r['ms'][path]:.4f} plain_bf16_ms "
-                          f"{r['plain_ms'][path]:.4f}" for path in r["ms"]),
-              flush=True)
+        print(f"kernel {name} per forward: " + "; ".join(
+            f"{path} " + " ".join(f"{k} {r[k][path]:.4f}" for k in sums)
+            for path in PATHS if r["bound_ms"][path]), flush=True)
     return results
 
 
@@ -565,6 +802,98 @@ def check_fsq(device) -> None:
         raise AssertionError("fsq: non-finite aux_loss")
 
 
+def tiled_e2e_check(core, meta, shape) -> dict:
+    """The tiled paths at ``shape`` against the non-tiled f32 plain run,
+    each run alone with its outputs moved to the host.
+
+    * The tiled kernel path (bf16) is no further from the non-tiled f32
+      plain run than BF16_SLACK x the tiled plain bf16 path is, on z and on
+      the reconstruction; the same against the tiled f32 plain run, which
+      takes tiling's own departure out of the comparison.
+    * The tiled f32 plain run is within TILED_Z_GATE of the non-tiled one
+      on z, and within TILED_RECON_GATE on the reconstruction (see there).
+    """
+    import torch
+
+    from vidtok_tpu_torch.models.autoencoder import VideoTokenizer
+
+    x = np.clip(np.random.RandomState(100).randn(*shape) * 0.5, -1, 1) \
+        .astype(np.float32)
+    outs = {}
+    for key, dtype, fused, tiled in (("kernel", torch.bfloat16, True, True),
+                                     ("plain", torch.bfloat16, False, True),
+                                     ("tiled_f32", torch.float32, False, True),
+                                     ("untiled_f32", torch.float32, False, False)):
+        tok = VideoTokenizer(core, meta, dtype, fused=fused)
+        tok.use_tiling, tok.use_overlap = tiled, True
+        z, dec, log = tok(x)
+        torch.cuda.synchronize()
+        for t in (z, dec, log["kl_loss"]):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"{key}: non-finite output")
+        outs[key] = (z.cpu(), dec.cpu())
+        del tok, z, dec, log
+        torch.cuda.empty_cache()
+    res = {}
+    for i, what in enumerate(("z", "recon")):
+        for ref in ("untiled_f32", "tiled_f32"):
+            for key in ("kernel", "plain"):
+                res[f"{what}_{key}_vs_{ref}"] = rel_l2(outs[key][i], outs[ref][i])
+        res[f"{what}_tiled_f32_vs_untiled_f32"] = rel_l2(outs["tiled_f32"][i],
+                                                         outs["untiled_f32"][i])
+    print("tiled e2e rel_l2 " + json.dumps(res), flush=True)
+    for what, bound in (("z", TILED_Z_GATE), ("recon", TILED_RECON_GATE)):
+        for ref in ("untiled_f32", "tiled_f32"):
+            k, pl = res[f"{what}_kernel_vs_{ref}"], res[f"{what}_plain_vs_{ref}"]
+            if not k <= BF16_SLACK * pl:
+                raise AssertionError(f"tiled e2e {what}: kernel vs {ref} {k} > "
+                                     f"{BF16_SLACK} x plain bf16 vs {ref} {pl}")
+        d = res[f"{what}_tiled_f32_vs_untiled_f32"]
+        if not d <= bound:
+            raise AssertionError(f"tiled e2e {what}: tiled f32 vs non-tiled f32 "
+                                 f"{d} > {bound}")
+    return res
+
+
+def serve_tiled(device) -> dict:
+    """Phase 7: the v1.1 tokenizer with ``use_tiling`` and ``use_overlap``:
+    N_REQUESTS requests of TILED_REQUEST with the launches per forward of
+    ``tiled_per_forward``, a profile of one, one TILED_LONG request whose
+    peak memory may be at most TILED_MEM_RATIO x the TILED_REQUEST peak, and
+    the end-to-end gates. Returns the TILED_REQUEST ``serve`` result."""
+    import torch
+
+    tok = make_tokenizer(V1_1_CFG, device)
+    tok.use_tiling, tok.use_overlap = True, True
+    if (tok.t_chunk_enc, tok.t_chunk_dec) != (T_CHUNK_ENC, T_CHUNK_ENC // TDF):
+        raise AssertionError(f"chunks {tok.t_chunk_enc}/{tok.t_chunk_dec}")
+    for t in (TILED_REQUEST[2], TILED_LONG[2]):
+        enc, dec = chunk_schedule(t)
+        t_lat = sum(f // TDF for f in enc)
+        if ([e - s for s, e in tok.build_chunk_start_end(t)][1:] != enc[1:]
+                or [e - s for s, e in tok.build_chunk_start_end(t_lat, True)]
+                != [n - (i < len(dec) - 1) for i, n in enumerate(dec)]):
+            raise AssertionError(f"T={t}: the engine's chunks differ from "
+                                 f"{enc} / {dec}")
+        print(f"tiled T={t}: encoder chunks {enc} frames, decoder chunks {dec} "
+              f"latents; launches per forward {tiled_per_forward(t)}", flush=True)
+    name = "tiled, kernel path: v1.1 kl 4x8x8 16chn, use_overlap, t_chunk_enc 16"
+    r = serve(tok, N_REQUESTS, TILED_REQUEST, tiled_per_forward(TILED_REQUEST[2]))
+    report(name, r, TILED_REQUEST)
+    profile_request(tok, TILED_REQUEST)
+    torch.cuda.empty_cache()
+    long = serve(tok, 1, TILED_LONG, tiled_per_forward(TILED_LONG[2]))
+    report(name + " (one request, the first at T=201)", long, TILED_LONG)
+    ratio = long["peak_mem_bytes"] / r["peak_mem_bytes"]
+    print(f"tiled peak memory T=201 / T=65: {ratio:.4f}", flush=True)
+    if not ratio <= TILED_MEM_RATIO:
+        raise AssertionError(f"tiled peak memory grows with the clip: {ratio}")
+    del long
+    torch.cuda.empty_cache()
+    tiled_e2e_check(tok.core, tok.meta, TILED_REQUEST)
+    return r
+
+
 def phase(name: str, t0: float) -> float:
     t = time.perf_counter()
     print(f"phase {name}: {t - t0:.1f} s", flush=True)
@@ -613,16 +942,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     t = phase("fsq", t)
     serve_both_paths("v1.1 kl 4x8x8 16chn", V1_1_CFG, "v1_1", device)
-    phase("v1.1 kl serve", t)
+    torch.cuda.empty_cache()
+    t = phase("v1.1 kl serve", t)
+    runs = {"v1_0": main_path, "tiled": serve_tiled(device)}
+    phase("v1.1 kl tiled serve", t)
     phase("total", t0)
 
-    kernels_line = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": main_path["launches"][name],
-         "max_abs_err": kres[name]["max_abs_err"],
-         "ms": kres[name]["ms"]["v1_0"],
-         "plain_ms": kres[name]["plain_ms"]["v1_0"]} for name in SOURCES]}
-    print(json.dumps(kernels_line), flush=True)
+    kernels = []
+    for name, (source, replaces) in SOURCES.items():
+        r, path = kres[name], MAIN_PATH[name]
+        by_bytes = r["bound_by_bytes_ms"][path] >= r["bound_by_ops_ms"][path]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": runs[path]["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"][path],
+            "plain_ms": r["plain_ms"][path], "bound_ms": r["bound_ms"][path],
+            "bound_by": "bytes" if by_bytes else "operations",
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

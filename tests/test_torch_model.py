@@ -8,7 +8,8 @@
   inverse; the full-width v1.1 16-channel model's parameter shapes equal
   ``jax.eval_shape`` of the JAX init.
 * Import hygiene: the port imports neither JAX, Flax nor PyYAML, also
-  when it builds the v1.0 KL and FSQ models.
+  when it builds the v1.0 KL and FSQ models, and nothing of ``vidtok_tpu``
+  when it loads a YAML config; without CUDA, naming no device raises.
 """
 
 import os
@@ -82,7 +83,7 @@ def tiny():
 def test_tiny_v1_1_end_to_end(tiny, fused):
     core, params, x = tiny
     xt = jnp.asarray(x.transpose(0, 2, 3, 4, 1))
-    tok = load_model_from_config({"model": CFG}, fused=fused)
+    tok = load_model_from_config({"model": CFG}, device="cpu", fused=fused)
     load_jax_params(tok.core, params)
     K.reset_counts()
     z, dec, log = tok(x)
@@ -92,7 +93,8 @@ def test_tiny_v1_1_end_to_end(tiny, fused):
     # (v1.1 upsamples time trilinearly: no parity upsample)
     want = ({"fused_spatial_resblock": 6, "fused_temporal_resblock": 6,
              "subpixel_interleave": 1, "decoder_tail_rgb": 1,
-             "parity_up2x_fused": 0} if fused
+             "parity_up2x_fused": 0, "fused_temporal_resblock_stream": 0}
+            if fused
             else dict.fromkeys(calls, 0))
     assert calls == want
     assert all(n == 0 for n in K.counts().values())  # CPU: no launches
@@ -112,15 +114,16 @@ def test_tiny_v1_1_end_to_end(tiny, fused):
 def test_fused_default(dtype):
     """The kernel call sites are on by default only on a CUDA device in
     bf16; on the CPU they stay off unless asked for."""
-    tok = load_model_from_config({"model": CFG}, compute_dtype=dtype)
+    tok = load_model_from_config({"model": CFG}, device="cpu", compute_dtype=dtype)
     assert tok.fused is False
-    tok = load_model_from_config({"model": CFG}, compute_dtype=dtype, fused=True)
+    tok = load_model_from_config({"model": CFG}, device="cpu", compute_dtype=dtype,
+                                 fused=True)
     assert tok.fused is True
 
 
 def test_state_dict_round_trip(tiny):
     _, params, _ = tiny
-    tok = load_model_from_config({"model": CFG})
+    tok = load_model_from_config({"model": CFG}, device="cpu")
     load_jax_params(tok.core, params)
     back = convert_torch_state_dict(
         {k: v.numpy() for k, v in tok.core.state_dict().items()})
@@ -157,9 +160,13 @@ def test_full_width_v1_1_16chn_shapes():
     assert sum(p.numel() for p in core.parameters()) == 157_949_351
 
 
-def test_import_hygiene():
-    """The port imports torch and numpy only: no jax, flax or yaml, also
-    when it builds a model from a config dict (v1.1 KL, v1.0 KL and FSQ)."""
+def test_import_hygiene(tmp_path):
+    """The port imports torch and numpy only: no jax, flax or yaml when it
+    builds a model from a config dict (v1.1 KL, v1.0 KL and FSQ), and no
+    jax, flax or ``vidtok_tpu`` module when it loads a YAML file (PyYAML is
+    allowed there) whose ``${...}`` reference its own resolver follows."""
+    import yaml
+
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     env["JAX_PLATFORMS"] = "cpu"
@@ -169,15 +176,36 @@ def test_import_hygiene():
         "regularizer_config": {"target": "DiagonalGaussianRegularizer"}}}
     fsq = {"params": dict(v1_0["params"], regularizer_config={
         "target": "FSQRegularizer", "params": {"levels": [8, 8, 8, 8]}})}
+    yaml_cfg = {"model": {"params": dict(CFG["params"], decoder_config={
+        "target": "DecoderCausal3DV1_1",
+        "params": "${model.params.encoder_config.params}"})}}
+    path = tmp_path / "tiny_v1_1.yaml"
+    path.write_text(yaml.safe_dump(yaml_cfg))
     code = (
         "import sys, vidtok_tpu_torch, vidtok_tpu_torch.convert\n"
         "import vidtok_tpu_torch.ops.kernels\n"
         f"for m in ({CFG!r}, {v1_0!r}, {fsq!r}):\n"
-        "    tok = vidtok_tpu_torch.load_model_from_config({'model': m})\n"
+        "    tok = vidtok_tpu_torch.load_model_from_config({'model': m}, "
+        "device='cpu')\n"
         "assert tok.meta['variant'] == 'causal' and tok.meta['discrete']\n"
         "bad = [m for m in ('jax', 'flax', 'yaml') if m in sys.modules]\n"
         "assert not bad, bad\n"
+        f"tok = vidtok_tpu_torch.load_model_from_config({str(path)!r}, "
+        "device='cpu')\n"
+        "assert tok.meta['variant'] == 'causal_v1_1'\n"
+        "assert tok.core.decoder.conv_in.conv.in_channels == 4\n"
+        "bad = [m for m in ('jax', 'flax', 'vidtok_tpu') if m in sys.modules]\n"
+        "assert not bad and 'yaml' in sys.modules, bad\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    """A caller who names no device gets the card; where there is none the
+    entry point raises instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model_from_config({"model": CFG})
+    assert load_model_from_config({"model": CFG}, device="cpu").device.type == "cpu"

@@ -209,7 +209,7 @@ def test_tiny_v1_0_end_to_end(tiny, fused, frames):
     padded and decodes 4 - (tdf-1) = 3 frames, as in JAX."""
     params, x, jax_out = tiny
     x = x[:, :, :frames]
-    tok = load_model_from_config({"model": CFG}, fused=fused)
+    tok = load_model_from_config({"model": CFG}, device="cpu", fused=fused)
     assert tok.meta["variant"] == "causal" and not tok.meta["discrete"]
     load_jax_params(tok.core, params)
     K.reset_counts()
@@ -217,7 +217,8 @@ def test_tiny_v1_0_end_to_end(tiny, fused, frames):
     calls = K.counts("calls")
     want = ({"fused_spatial_resblock": 6, "fused_temporal_resblock": 6,
              "subpixel_interleave": 1, "decoder_tail_rgb": 1,
-             "parity_up2x_fused": 1} if fused else dict.fromkeys(calls, 0))
+             "parity_up2x_fused": 1, "fused_temporal_resblock_stream": 0}
+            if fused else dict.fromkeys(calls, 0))
     assert calls == want
     assert all(n == 0 for n in K.counts().values())
     assert z.shape == (1, 4, 3 if frames == 5 else 2, 16, 16)
@@ -240,7 +241,7 @@ def test_tiny_v1_0_fsq():
     params = random_params(core, xt, seed=1)
     zj, dj, lj = jax.jit(lambda p, v: core.apply(
         {"params": p}, v, sample_override=False))(params, xt)
-    tok = load_model_from_config({"model": FSQ_CFG})
+    tok = load_model_from_config({"model": FSQ_CFG}, device="cpu")
     assert tok.meta["variant"] == "causal" and tok.meta["discrete"]
     load_jax_params(tok.core, params)
     z, dec, log = tok(x)
@@ -284,7 +285,7 @@ def test_fsq_unported_options_raise(extra):
 
 def test_state_dict_round_trip_v1_0(tiny):
     params = tiny[0]
-    tok = load_model_from_config({"model": CFG})
+    tok = load_model_from_config({"model": CFG}, device="cpu")
     load_jax_params(tok.core, params)
     back = convert_torch_state_dict(
         {k: v.numpy() for k, v in tok.core.state_dict().items()})

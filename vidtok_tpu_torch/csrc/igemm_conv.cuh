@@ -1,6 +1,7 @@
 // Implicit-GEMM conv over channels-last rows, shared by kernel A (3x3
-// spatial taps, fused_spatial.cu), kernel B (k=3 causal temporal taps,
-// fused_temporal.cu) and kernel E (2 frames x 3x3 taps, parity_upsample.cu):
+// spatial taps, fused_spatial.cu), kernels B and F (k=3 causal temporal
+// taps, fused_temporal.cu, fused_temporal_stream.cu) and kernel E (2 frames
+// x 3x3 taps, parity_upsample.cu):
 //
 //   out[m, n] = bf16( bias[n] + res[m, n]
 //                     + sum_{tap, c} a[src(m, tap), c] * w[tap*Cin + c, n]
@@ -10,7 +11,10 @@
 // term over other rows, the nin_shortcut). ``a`` is the ALREADY activated
 // tensor (ln_silu_rows_kernel), so a tap outside the frame (spatial) or
 // before frame 0 in zero mode (temporal) reads zero: the conv's padding
-// after the activation. Replicate mode reads frame 0 instead.
+// after the activation. Replicate mode reads frame 0 instead. A temporal
+// input may instead hold ``pre`` = 2 frames before each clip's first output
+// frame (kernel F's cached front): then every tap reads a frame of ``a``,
+// whose clips are T + 2 frames long.
 //
 // kParity (kernel E) has its own epilogue: N = 2C columns are the even and
 // odd output frames of half-rate row m, blended with the row's own input,
@@ -55,6 +59,7 @@ struct Geometry {
   int T, S;       // temporal: clips of T frames of S positions, taps t-2..t;
                   // parity: clips of T frames
   int replicate;  // stream start: 1 = frame 0, 0 = zeros
+  int pre = 0;    // temporal: frames of ``a`` before each clip's frame 0
 };
 
 struct Params {
@@ -119,7 +124,7 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const long long r = am - b * ts;
       pa = (int)(r / g.S);
       pb = (int)(r - (long long)pa * g.S);
-      base = b * ts + pb;
+      base = b * (ts + (long long)g.pre * g.S) + pb;
     }
   }
   // B copier: 8 columns from bc of rows br, br + kThreads/16, ...
@@ -151,7 +156,7 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
           if (!none && sy >= 0 && sy < g.H && sx >= 0 && sx < g.W)
             row = base - (prev ? hw : 0) + (long long)sy * g.W + sx;
         } else {
-          int sf = pa + tap - 2;
+          int sf = pa + tap - 2 + g.pre;
           if (sf < 0 && g.replicate) sf = 0;
           if (sf >= 0) row = base + (long long)sf * g.S;
         }

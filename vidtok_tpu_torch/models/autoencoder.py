@@ -1,10 +1,13 @@
-"""The video tokenizer model (``vidtok_tpu/models/autoencoder.py``), non-tiled.
+"""The video tokenizer model (``vidtok_tpu/models/autoencoder.py``).
 
 * ``TokenizerCore``: encoder, regularizer and decoder on channels-last
   tensors; ``forward`` encodes, regularizes, decodes and crops the decoded
-  clip to the input length.
+  clip to the input length. ``encode`` and ``decode`` with ``streaming``
+  run one chunk of a stream and return its cache beside the output.
 * ``VideoTokenizer``: the serving engine over ``[B, C, T, H, W]`` tensors in
-  [-1, 1]; it casts the input to ``compute_dtype`` and returns f32.
+  [-1, 1]; it casts the input to ``compute_dtype`` and returns f32. With
+  ``use_tiling`` it encodes and decodes chunk by chunk (v1.1 only), so
+  memory does not grow with the clip.
 """
 
 from __future__ import annotations
@@ -15,9 +18,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..config import load_config
 from ..modules.decoder import Decoder
 from ..modules.encoder import Encoder
 from ..modules.regularizers import DiagonalGaussianRegularizer, FSQRegularizer
+from ..modules.stream import Stream
 
 # reference and alias target names -> variant (vidtok_tpu/registry.py)
 _ENC_VARIANTS = {
@@ -107,7 +112,8 @@ def build_core_from_config(model_cfg: dict) -> Tuple["TokenizerCore", dict]:
     regularizer, discrete = _regularizer(reg_cfg)
     core = TokenizerCore(encoder, decoder, regularizer)
     meta = dict(variant=variant, is_causal=True, discrete=discrete,
-                time_downsample_factor=tdf, use_tiling=p.get("use_tiling", False))
+                time_downsample_factor=tdf, use_tiling=p.get("use_tiling", False),
+                t_chunk_enc=p.get("t_chunk_enc", 16))
     return core, meta
 
 
@@ -134,12 +140,26 @@ class TokenizerCore(nn.Module):
         self.regularization = regularization
 
     def encode(self, x, sample: Optional[bool] = None, fused: bool = False,
-               generator: torch.Generator = None):
-        return self.regularization(self.encoder(x, fused=fused), sample=sample,
-                                   generator=generator)
+               generator: torch.Generator = None, streaming: bool = False,
+               first_chunk: bool = True, cache: Optional[dict] = None):
+        """(z, reg_log); with ``streaming``, (z, reg_log, cache) for one
+        chunk, ``cache`` being what the previous chunk returned."""
+        if not streaming:
+            return self.regularization(self.encoder(x, fused=fused),
+                                       sample=sample, generator=generator)
+        stream = Stream(self.encoder, cache, first_chunk)
+        z, log = self.regularization(self.encoder(x, fused=fused, stream=stream),
+                                     sample=sample, generator=generator)
+        return z, log, stream.new
 
-    def decode(self, z, fused: bool = False):
-        return self.decoder(z, fused=fused)
+    def decode(self, z, fused: bool = False, streaming: bool = False,
+               first_chunk: bool = True, use_cache_offset: bool = False,
+               cache: Optional[dict] = None):
+        """Frames; with ``streaming``, (frames, cache) for one chunk."""
+        if not streaming:
+            return self.decoder(z, fused=fused)
+        stream = Stream(self.decoder, cache, first_chunk, use_cache_offset)
+        return self.decoder(z, fused=fused, stream=stream), stream.new
 
     def decode_indices(self, indices):
         """FSQ indices -> channels-last f32 latent."""
@@ -168,14 +188,23 @@ class VideoTokenizer:
     """Serving engine. Public tensors are ``[B, C, T, H, W]`` in [-1, 1];
     computation is channels-last in ``compute_dtype`` with f32 norm
     statistics; outputs are f32. ``fused`` (default: on for a CUDA device
-    in bf16, which the kernels need) routes the five kernels' call sites
-    through their wrappers."""
+    in bf16, which the kernels need) routes the kernels' call sites
+    through their wrappers.
+
+    Tiled inference (``autoencoder.py:440-699``): ``use_tiling`` (from the
+    config, settable) makes ``encode``, ``decode`` and ``forward`` run
+    chunk by chunk with the causal caches carried between chunks. The
+    encoder's chunks are frame 0 (padded to ``tdf`` frames), then
+    ``t_chunk_enc`` frames; the decoder's one latent frame, then
+    ``t_chunk_dec`` (``t_chunk_enc // tdf`` at construction). With
+    ``use_overlap`` each decoder chunk but the last takes one latent
+    look-ahead frame, whose ``tdf`` decoded frames are dropped, and the
+    caches are stored at each stage's offset.
+    """
 
     def __init__(self, core: TokenizerCore, meta: dict,
                  compute_dtype: torch.dtype = torch.float32,
                  fused: Optional[bool] = None, seed: int = 0):
-        if meta.get("use_tiling"):
-            raise NotImplementedError("tiled/streaming inference is not ported")
         self.core = core.eval()
         self.meta = meta
         self.compute_dtype = compute_dtype
@@ -188,18 +217,25 @@ class VideoTokenizer:
                              "on a CUDA device needs compute_dtype=torch.bfloat16")
         self.fused = bool(fused)
         self.time_downsample_factor = meta["time_downsample_factor"]
+        self.use_tiling = meta.get("use_tiling", False)
+        self.t_chunk_enc = meta.get("t_chunk_enc", 16)
+        self.t_chunk_dec = self.t_chunk_enc // self.time_downsample_factor
+        self.use_overlap = meta.get("use_overlap", False)
         self.generator = torch.Generator(self.device).manual_seed(seed)
 
     @classmethod
-    def from_config(cls, config, seed: int = 0, device="cpu",
+    def from_config(cls, config, seed: int = 0, device="cuda",
                     compute_dtype: torch.dtype = torch.float32,
                     fused: Optional[bool] = None):
-        """``config``: a dict (resolved) or a YAML path. Weights are random
-        from ``seed``; no checkpoint loading yet."""
-        if not isinstance(config, dict):
-            from vidtok_tpu.config import load_config  # YAML only
-
-            config = load_config(config)
+        """``config``: a dict or a YAML path (which needs PyYAML). Weights
+        are random from ``seed``; no checkpoint loading yet. The model is
+        placed on ``device``, the card unless the caller names another: a
+        machine without CUDA raises rather than fall back to the CPU."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to build "
+                               "the model on the CPU")
+        config = load_config(config)
         model_cfg = config.get("model", config)
         if (model_cfg.get("params", {}) or {}).get("ckpt_path"):
             raise NotImplementedError("checkpoint loading is not ported yet")
@@ -215,9 +251,12 @@ class VideoTokenizer:
     @torch.no_grad()
     def encode(self, x, return_reg_log: bool = False, sample: bool = False):
         """x: [B,C,T,H,W] -> z [B,Cz,T',H',W'] (+ reg_log)."""
-        z, log = self.core.encode(self._input(x), sample=sample,
-                                  fused=self.fused, generator=self.generator)
-        z = _to_ncthw(z.float())
+        if self.use_tiling:
+            z, log = self._tile_encode(x, sample)
+        else:
+            z, log = self.core.encode(self._input(x), sample=sample,
+                                      fused=self.fused, generator=self.generator)
+            z = _to_ncthw(z.float())
         return (z, log) if return_reg_log else z
 
     @torch.no_grad()
@@ -227,6 +266,8 @@ class VideoTokenizer:
         tdf*T' - (tdf-1) (v1.0)."""
         if decode_from_indices:
             z = self.indices_to_latent(z)
+        if self.use_tiling:
+            return self._tile_decode(z)
         dec = self.core.decode(self._input(z), fused=self.fused)
         return _to_ncthw(dec.float())
 
@@ -240,8 +281,91 @@ class VideoTokenizer:
     @torch.no_grad()
     def forward(self, x, sample: bool = False):
         """(z, x_rec, reg_log) for x: [B,C,T,H,W]."""
+        if self.use_tiling:
+            z, log = self._tile_encode(x, sample)
+            dec = self._tile_decode(z)
+            # v1.1 decodes tdf*T' frames: keep the last T (autoencoder.py:390-395)
+            return z, dec[:, :, -x.shape[2]:], log
         z, dec, log = self.core(self._input(x), sample=sample, fused=self.fused,
                                 generator=self.generator)
         return _to_ncthw(z.float()), _to_ncthw(dec.float()), log
 
     __call__ = forward
+
+    # -- tiled inference: a Python loop of chunk steps over an explicit cache
+
+    def build_chunk_start_end(self, t: int, decoder_mode: bool = False):
+        """[[0, 1], [1, 1 + chunk], ...]: frame 0 alone, then ``t_chunk_enc``
+        (``t_chunk_dec`` with ``decoder_mode``) frames at a time."""
+        chunk = self.t_chunk_dec if decoder_mode else self.t_chunk_enc
+        start_end = [[0, 1]]
+        start = 1
+        while start < t:
+            end = min(t, start + chunk)
+            start_end.append([start, end])
+            start = end
+        return start_end
+
+    def _check_tiling_supported(self):
+        if self.meta.get("variant") == "causal":
+            raise ValueError(
+                "tiled/streaming inference requires a v1.1 model "
+                "(causal_v1_1); the v1.0 decoder crops warmup frames per "
+                "call, which breaks chunk stitching (reference only "
+                "implements tiling in autoencoder_v1_1.py)")
+
+    def _tile_encode(self, x, sample: bool = False):
+        """x [B,C,T,H,W] -> (f32 z [B,Cz,T',H',W'], reg_log). Each chunk is
+        moved to the device and cast on its own. KL: the mean of the
+        chunks' kl_loss; FSQ: the chunks' indices along time and the mean
+        of their aux_loss."""
+        self._check_tiling_supported()
+        zs, logs, cache = [], [], None
+        for idx, (s, e) in enumerate(self.build_chunk_start_end(x.shape[2])):
+            chunk = self._input(x[:, :, s:e])
+            if idx == 0:
+                chunk = self.core.encoder.pad_input(chunk)
+            z, log, cache = self.core.encode(
+                chunk, sample=sample, fused=self.fused, generator=self.generator,
+                streaming=True, first_chunk=idx == 0, cache=cache)
+            zs.append(z)
+            logs.append(log)
+        z = _to_ncthw(torch.cat(zs, dim=1).float())
+        if self.meta["discrete"]:
+            log = {"aux_loss": torch.stack([l["aux_loss"] for l in logs]).mean(),
+                   "indices": torch.cat([l["indices"] for l in logs], dim=1)}
+        else:
+            log = {"kl_loss": torch.stack([l["kl_loss"] for l in logs]).mean()}
+        return z, log
+
+    def _tile_decode(self, z):
+        """z [B,Cz,T',H',W'] -> f32 [B,C,tdf*T',H,W], chunk by chunk."""
+        t = z.shape[2]
+        tdf = self.time_downsample_factor
+        outs, cache = [], None
+        for idx, (s, e) in enumerate(self.build_chunk_start_end(t, decoder_mode=True)):
+            overlap = self.use_overlap and e + 1 <= t
+            chunk = self._input(z[:, :, s:e + 1] if overlap else z[:, :, s:e])
+            dec, cache = self.core.decode(
+                chunk, fused=self.fused, streaming=True, first_chunk=idx == 0,
+                use_cache_offset=self.use_overlap, cache=cache)
+            outs.append(dec[:, :dec.shape[1] - tdf] if overlap else dec)
+        return _to_ncthw(torch.cat(outs, dim=1).float())
+
+    @torch.no_grad()
+    def encode_streaming_scan(self, x, sample: bool = False):
+        """The tiled encode of a clip of ``1 + k * t_chunk_enc`` frames, as
+        (z, reg_log). JAX compiles this as one ``lax.scan``; eager PyTorch
+        runs the same chunk loop as ``use_tiling``."""
+        k, rem = divmod(x.shape[2] - 1, self.t_chunk_enc)
+        if rem:
+            raise ValueError(f"T={x.shape[2]} not 1 + k*{self.t_chunk_enc}")
+        return self._tile_encode(x, sample)
+
+    @torch.no_grad()
+    def decode_streaming_scan(self, z):
+        """The tiled decode of ``1 + k * t_chunk_dec`` latent frames."""
+        k, rem = divmod(z.shape[2] - 1, self.t_chunk_dec)
+        if rem:
+            raise ValueError(f"T'={z.shape[2]} not 1 + k*{self.t_chunk_dec}")
+        return self._tile_decode(z)

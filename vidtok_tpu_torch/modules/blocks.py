@@ -1,13 +1,18 @@
 """Residual, attention and resampling blocks on ``[B, T, H, W, C]``.
 
 Counterpart of ``vidtok_tpu/modules/blocks.py`` for the causal layernorm
-blocks, non-streaming. ``fused=True`` routes the spatial and temporal
-resblocks, the spatial-upsample tail and the nearest temporal upsample
-through kernels A, B, C and E (``ops/kernels``); their wrappers run the
-plain forms on CPU tensors. ``fused`` alone decides: where the JAX module
-takes a Pallas kernel with ``fused`` off (the nearest temporal upsample
-whenever ``deterministic``, ``blocks.py:529-533``), the port's plain path
-launches none.
+blocks. ``fused=True`` routes the spatial and temporal resblocks, the
+spatial-upsample tail and the nearest temporal upsample through kernels A,
+B (F on a stream), C and E (``ops/kernels``); their wrappers run the plain
+forms on CPU tensors. ``fused`` alone decides: where the JAX module takes a
+Pallas kernel with ``fused`` off (the nearest temporal upsample whenever
+``deterministic``, ``blocks.py:529-533``), the port's plain path launches
+none. JAX's separate ``fused_streaming`` switch is not carried over.
+
+A block given a :class:`~.stream.Stream` runs one chunk of a stream; the
+time-causal ones carry their state in it (the spatial blocks and attention
+are per frame and carry none). Each module keeps one cache layout on both
+paths, so a stream may switch ``fused`` between chunks.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels import (fused_spatial_resblock, fused_temporal_resblock,
-                           parity_up2x_fused, subpixel_interleave)
+                           fused_temporal_resblock_stream, parity_up2x_fused,
+                           subpixel_interleave)
 from ..ops.kernels.parity_upsample import parity_up2x_fused_plain
 from .conv import CausalConv1d, CausalConv3d, SpatialConv, pad_time_front
 from .interp import temporal_avg_pool3_stride2, temporal_linear_up2x
@@ -58,32 +64,44 @@ class ResnetBlockSpatial(nn.Module):
 
 
 class ResnetBlockTemporal(nn.Module):
-    """Causal temporal residual block (``blocks.py:75-189``); kernel B.
-    ``conv2`` is zero-initialized so the block starts as the identity."""
+    """Causal temporal residual block (``blocks.py:75-189``); kernel B, or
+    kernel F on a stream. ``conv2`` is zero-initialized so the block starts
+    as the identity. On a stream each conv caches 2 frames of its activated
+    input (``cache_offset`` frames back with offsets) under its own path,
+    on both paths."""
 
     def __init__(self, cin: int, cout: int, norm_type: str = "layernorm",
-                 first_pad_mode: str = "zero"):
+                 first_pad_mode: str = "zero", cache_offset: int = 0):
         super().__init__()
         self.first_pad_mode = first_pad_mode
         self.norm1 = make_norm(norm_type, cin)
-        self.conv1 = CausalConv1d(cin, cout, 3, first_pad_mode=first_pad_mode)
+        self.conv1 = CausalConv1d(cin, cout, 3, first_pad_mode=first_pad_mode,
+                                  cache_offset=cache_offset)
         self.norm2 = make_norm(norm_type, cout)
         self.conv2 = CausalConv1d(cout, cout, 3, first_pad_mode=first_pad_mode,
-                                  zero_init=True)
+                                  zero_init=True, cache_offset=cache_offset)
         if cin != cout:
             self.nin_shortcut = CausalConv1d(cin, cout, 1,
                                              first_pad_mode=first_pad_mode)
 
-    def forward(self, x, fused: bool = False):
+    def forward(self, x, fused: bool = False, stream=None):
         if fused and not hasattr(self, "nin_shortcut"):
-            return fused_temporal_resblock(
-                x, _norm_args(self.norm1),
-                (self.conv1.conv.weight, self.conv1.conv.bias),
-                _norm_args(self.norm2),
-                (self.conv2.conv.weight, self.conv2.conv.bias),
-                self.first_pad_mode)
-        h = self.conv1(silu(self.norm1(x)))
-        h = self.conv2(silu(self.norm2(h)))
+            args = (x, _norm_args(self.norm1),
+                    (self.conv1.conv.weight, self.conv1.conv.bias),
+                    _norm_args(self.norm2),
+                    (self.conv2.conv.weight, self.conv2.conv.bias))
+            if stream is None:
+                return fused_temporal_resblock(*args, self.first_pad_mode)
+            first = stream.first_chunk
+            y, c1, c2 = fused_temporal_resblock_stream(
+                *args, None if first else stream.get(self.conv1),
+                None if first else stream.get(self.conv2), first,
+                stream.offset(self.conv1))
+            stream.put(self.conv1, c1)
+            stream.put(self.conv2, c2)
+            return y
+        h = self.conv1(silu(self.norm1(x)), stream)
+        h = self.conv2(silu(self.norm2(h)), stream)
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -93,19 +111,21 @@ class ResnetBlock3D(nn.Module):
     """Full 3D causal residual block of the mid stack (``blocks.py:192-236``)."""
 
     def __init__(self, cin: int, cout: int, norm_type: str = "layernorm",
-                 first_pad_mode: str = "zero"):
+                 first_pad_mode: str = "zero", cache_offset: int = 0):
         super().__init__()
         self.norm1 = make_norm(norm_type, cin)
-        self.conv1 = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode)
+        self.conv1 = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode,
+                                  cache_offset=cache_offset)
         self.norm2 = make_norm(norm_type, cout)
-        self.conv2 = CausalConv3d(cout, cout, 3, first_pad_mode=first_pad_mode)
+        self.conv2 = CausalConv3d(cout, cout, 3, first_pad_mode=first_pad_mode,
+                                  cache_offset=cache_offset)
         if cin != cout:
             self.nin_shortcut = CausalConv3d(cin, cout, 1,
                                              first_pad_mode=first_pad_mode)
 
-    def forward(self, x):
-        h = self.conv1(silu(self.norm1(x)))
-        h = self.conv2(silu(self.norm2(h)))
+    def forward(self, x, stream=None):
+        h = self.conv1(silu(self.norm1(x)), stream)
+        h = self.conv2(silu(self.norm2(h)), stream)
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -190,7 +210,10 @@ class SpatialUpsample(nn.Module):
 
 class TimeDownsampleRes2x(nn.Module):
     """Causal blended temporal 2x downsample (``blocks.py:388-438``):
-    ``a*avgpool3s2(front + x) + (1-a)*conv3d_s2(x)``, a = sigmoid(mix)."""
+    ``a*avgpool3s2(front + x) + (1-a)*conv3d_s2(x)``, a = sigmoid(mix).
+    On a stream the pool's front after the first chunk is its cache, the
+    last frame of the previous ``[front | x]`` (no offset), and the first
+    chunk's front follows ``first_pad_mode``."""
 
     def __init__(self, cin: int, cout: int, first_pad_mode: str = "zero",
                  mix_factor_init: float = 2.0):
@@ -200,23 +223,34 @@ class TimeDownsampleRes2x(nn.Module):
         self.conv = CausalConv3d(cin, cout, 3, stride=(2, 1, 1),
                                  first_pad_mode=first_pad_mode)
 
-    def forward(self, x):
+    def forward(self, x, stream=None):
         alpha = torch.sigmoid(self.mix_factor).to(x.dtype)
-        x1 = temporal_avg_pool3_stride2(pad_time_front(x, 1, self.first_pad_mode))
-        x2 = self.conv(x)
+        if stream is None or stream.first_chunk:
+            x_pad = pad_time_front(x, 1, self.first_pad_mode)
+        else:
+            x_pad = torch.cat([stream.get(self).to(x.dtype), x], dim=1)
+        if stream is not None:
+            stream.put(self, x_pad[:, -1:].clone())
+        x1 = temporal_avg_pool3_stride2(x_pad)
+        x2 = self.conv(x, stream)
         return alpha * x1 + (1 - alpha) * x2
 
 
 class TimeUpsampleRes2x(nn.Module):
-    """Causal blended temporal 2x upsample, non-streaming
-    (``blocks.py:441-571``): ``a*up + (1-a)*conv(up)``, a = sigmoid(mix).
+    """Causal blended temporal 2x upsample (``blocks.py:441-571``):
+    ``a*up + (1-a)*conv(up)``, a = sigmoid(mix).
 
-    ``trilinear`` (v1.1): the first ``num_temp_upsample`` frames are
-    interpolated apart from the rest. ``nearest`` (v1.0): the parity form
-    of ``blocks.py:598-668``, which never builds the 2x tensor (kernel E
-    when ``fused``). The blend needs ``cin == cout``; the JAX module's
-    duplicate-then-conv form for other widths fails at the same blend, so
-    it is not ported.
+    ``trilinear`` (v1.1): the first ``num_temp_upsample`` (ntu) frames are
+    interpolated apart from the rest. On a stream (``blocks.py:538-553``)
+    the first chunk does the same and caches its last ntu frames; a later
+    chunk interpolates ``[cache | x]``, drops the first 2*ntu output
+    frames, and caches ``[cache | x][-2*ntu:-ntu]`` (not the last ntu
+    frames: with overlap the last ones are the look-ahead's), as JAX does.
+    ``nearest`` (v1.0): the parity form of ``blocks.py:598-668``, which
+    never builds the 2x tensor (kernel E when ``fused``); v1.0 cannot tile,
+    and its streaming form is not ported. The blend needs ``cin == cout``;
+    the JAX module's duplicate-then-conv form for other widths fails at the
+    same blend, so it is not ported.
 
     ``fused`` alone decides whether kernel E runs. The JAX module takes its
     Pallas kernel whenever ``deterministic`` is set, ``fused`` or not
@@ -225,7 +259,7 @@ class TimeUpsampleRes2x(nn.Module):
 
     def __init__(self, cin: int, cout: int, num_temp_upsample: int = 1,
                  first_pad_mode: str = "zero", mix_factor_init: float = 2.0,
-                 interpolation_mode: str = "trilinear"):
+                 interpolation_mode: str = "trilinear", cache_offset: int = 0):
         super().__init__()
         if interpolation_mode not in ("trilinear", "nearest"):
             raise ValueError(f"unknown interpolation_mode {interpolation_mode!r}")
@@ -235,16 +269,28 @@ class TimeUpsampleRes2x(nn.Module):
         self.parity = interpolation_mode == "nearest"
         self.first_pad_mode = first_pad_mode
         self.mix_factor = nn.Parameter(torch.full((1,), mix_factor_init))
-        self.conv = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode)
+        self.conv = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode,
+                                 cache_offset=cache_offset)
 
-    def forward(self, x, fused: bool = False):
+    def forward(self, x, fused: bool = False, stream=None):
         alpha = torch.sigmoid(self.mix_factor).to(x.dtype)
+        ntu = self.ntu
         if self.parity:
+            if stream is not None:
+                raise NotImplementedError(
+                    "the nearest (v1.0) temporal upsample has no streaming form")
             up = parity_up2x_fused if fused else parity_up2x_fused_plain
             return up(x, self.conv.conv.weight, self.conv.conv.bias, alpha,
                       self.first_pad_mode)
-        head, tail = x[:, :self.ntu], x[:, self.ntu:]
-        x = temporal_linear_up2x(head)
-        if tail.shape[1] > 0:
-            x = torch.cat([x, temporal_linear_up2x(tail)], dim=1)
-        return alpha * x + (1 - alpha) * self.conv(x)
+        if stream is not None and not stream.first_chunk:
+            xc = torch.cat([stream.get(self).to(x.dtype), x], dim=1)
+            stream.put(self, xc[:, -2 * ntu:-ntu].clone())
+            x = temporal_linear_up2x(xc)[:, 2 * ntu:]
+        else:
+            if stream is not None:
+                stream.put(self, x[:, -ntu:].clone())
+            head, tail = x[:, :ntu], x[:, ntu:]
+            x = temporal_linear_up2x(head)
+            if tail.shape[1] > 0:
+                x = torch.cat([x, temporal_linear_up2x(tail)], dim=1)
+        return alpha * x + (1 - alpha) * self.conv(x, stream)

@@ -1,4 +1,4 @@
-"""Convolutions on channels-last ``[B, T, H, W, C]`` tensors, non-streaming.
+"""Convolutions on channels-last ``[B, T, H, W, C]`` tensors.
 
 Counterpart of ``vidtok_tpu/modules/conv.py``. Weights keep the reference
 torch layouts (Conv3d OIDHW, Conv2d OIHW, Conv1d OIk) and names, so a
@@ -9,8 +9,11 @@ without a copy and returns a tensor whose inverse permute is contiguous.
 
 Causal time padding (``time_pad = (kT - 1) + (1 - sT)``) is prepended as
 ``first_pad_mode`` says: ``zero`` frames (v1.0) or copies of frame 0
-(``replicate``, v1.1). The TPU-only rewrites of the JAX package (the
-decomposed per-frame form and the conv_in time fold) are not ported.
+(``replicate``, v1.1). Given a :class:`~.stream.Stream`, the causal convs
+run one chunk of a stream instead (``conv.py:240-261``, ``:297-318``): the
+front is the previous chunk's cached input tail, or frame 0 repeated on
+the first chunk. The TPU-only rewrites of the JAX package (the decomposed
+per-frame form and the conv_in time fold) are not ported.
 """
 
 from __future__ import annotations
@@ -88,12 +91,22 @@ class Conv3d(nn.Conv3d):
         return conv3d_cl(x, self.weight, self.bias, self.stride, self.padding)
 
 
+def _front(conv, x, stream):
+    """A causal conv's time front: its stream-start pad, or with ``stream``
+    the cached tail of the previous chunk (no cache when ``time_pad`` is
+    0)."""
+    if stream is None or conv.time_pad == 0:
+        return pad_time_front(x, conv.time_pad, conv.first_pad_mode)
+    return stream.front(conv, x, conv.time_pad)
+
+
 class CausalConv3d(nn.Module):
     """Causal 3D conv: time front pad only, symmetric spatial zero pad.
-    The weights sit in ``self.conv`` as in the reference wrapper."""
+    The weights sit in ``self.conv`` as in the reference wrapper.
+    ``cache_offset``: see :class:`~.stream.Stream`."""
 
     def __init__(self, cin: int, cout: int, kernel=(3, 3, 3), stride=(1, 1, 1),
-                 first_pad_mode: str = "zero"):
+                 first_pad_mode: str = "zero", cache_offset: int = 0):
         super().__init__()
         kt, kh, kw = _triple(kernel)
         if kh % 2 == 0 or kw % 2 == 0:
@@ -101,13 +114,14 @@ class CausalConv3d(nn.Module):
         self.stride = _triple(stride)
         self.time_pad = (kt - 1) + (1 - self.stride[0])
         self.first_pad_mode = first_pad_mode
+        self.cache_offset = cache_offset
         self.conv = nn.Conv3d(cin, cout, (kt, kh, kw), self.stride)
 
     def reset_params(self, generator=None):
         reset_conv_(self.conv.weight, self.conv.bias, generator)
 
-    def forward(self, x):
-        x = pad_time_front(x, self.time_pad, self.first_pad_mode)
+    def forward(self, x, stream=None):
+        x = _front(self, x, stream)
         _, kh, kw = self.conv.kernel_size
         return conv3d_cl(x, self.conv.weight, self.conv.bias, self.stride,
                          (0, kh // 2, kw // 2))
@@ -118,19 +132,21 @@ class CausalConv1d(nn.Module):
     ``self.conv`` holds the reference ``nn.Conv1d`` weight ``[O, I, k]``."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
-                 first_pad_mode: str = "zero", zero_init: bool = False):
+                 first_pad_mode: str = "zero", zero_init: bool = False,
+                 cache_offset: int = 0):
         super().__init__()
         self.stride = stride
         self.time_pad = (kernel_size - 1) + (1 - stride)
         self.first_pad_mode = first_pad_mode
         self.zero_init = zero_init
+        self.cache_offset = cache_offset
         self.conv = nn.Conv1d(cin, cout, kernel_size, stride)
 
     def reset_params(self, generator=None):
         reset_conv_(self.conv.weight, self.conv.bias, generator, self.zero_init)
 
-    def forward(self, x):
-        x = pad_time_front(x, self.time_pad, self.first_pad_mode)
+    def forward(self, x, stream=None):
+        x = _front(self, x, stream)
         w = self.conv.weight
         return conv3d_cl(x, w[..., None, None], self.conv.bias,
                          (self.stride, 1, 1))

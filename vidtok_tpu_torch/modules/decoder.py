@@ -1,4 +1,4 @@
-"""Video decoder, causal v1.0 and v1.1 variants, non-streaming
+"""Video decoder, causal v1.0 and v1.1 variants
 (``vidtok_tpu/modules/decoder.py``).
 
 conv_in -> mid (3D resblock, attention, 3D resblock) -> levels from the
@@ -13,6 +13,14 @@ at the ``tempo_us`` levels among them -> norm_out + SiLU + conv_out to RGB
 * ``causal_v1_1``: replicate pads, ``interpolation_mode`` (trilinear in
   the released configs); every decoded frame is returned and the model
   crops to the input length.
+
+Given a :class:`~.stream.Stream`, ``forward`` decodes one chunk of a
+stream. Each stage's ``cache_offset`` (:meth:`Decoder.stage_offsets`)
+applies when the stream uses offsets (overlap-tiled decode). The tail
+caches the last two RAW pre-norm frames (``decoder.py:205-250``), on both
+paths: it runs on ``[2 cached | chunk]`` (the first chunk: frame 0 twice)
+and drops the first two output frames, which equals the activated-input
+cache of a streaming conv_out because LayerNorm+SiLU is per position.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from .blocks import (ResnetBlockSpatial, ResnetBlockTemporal, SpatialUpsample,
 from .conv import CausalConv3d
 from .encoder import _Mid, first_pad_mode
 from .norms import make_norm, silu
+from .stream import tail
 
 
 class Decoder(nn.Module):
@@ -48,10 +57,12 @@ class Decoder(nn.Module):
             interpolation_mode = "nearest"
         self.spatial_us = tuple(range(1, n) if spatial_us is None else spatial_us)
         self.tempo_us = tuple((1, 2) if tempo_us is None else tempo_us)
+        mid_off, level_offs, up_offs, out_off = self.stage_offsets(n)
 
         c = ch * ch_mult[n - 1]
-        self.conv_in = CausalConv3d(z_channels, c, 3, first_pad_mode=pad)
-        self.mid = _Mid(c, norm_type, pad)
+        self.conv_in = CausalConv3d(z_channels, c, 3, first_pad_mode=pad,
+                                    cache_offset=mid_off)
+        self.mid = _Mid(c, norm_type, pad, mid_off)
         levels = {}
         ntu = 1
         for i in reversed(range(n)):
@@ -61,31 +72,55 @@ class Decoder(nn.Module):
             tlevel.block = nn.ModuleList()
             for _ in range(num_res_blocks + 1):
                 level.block.append(ResnetBlockSpatial(c, c_out, norm_type))
-                tlevel.block.append(ResnetBlockTemporal(c_out, c_out, norm_type, pad))
+                tlevel.block.append(ResnetBlockTemporal(c_out, c_out, norm_type, pad,
+                                                        level_offs[i]))
                 c = c_out
             if i in self.spatial_us:
                 level.upsample = SpatialUpsample(c)
                 if i in self.tempo_us:
                     tlevel.upsample = TimeUpsampleRes2x(
-                        c, c, ntu, pad, interpolation_mode=interpolation_mode)
+                        c, c, ntu, pad, interpolation_mode=interpolation_mode,
+                        cache_offset=up_offs[i])
                     ntu *= 2
             levels[i] = (level, tlevel)
         # indexed by level, as the reference's ``up.insert(0, ...)``
         self.up = nn.ModuleList(levels[i][0] for i in range(n))
         self.up_temporal = nn.ModuleList(levels[i][1] for i in range(n))
         self.norm_out = make_norm(norm_type, c)
-        self.conv_out = CausalConv3d(c, out_ch, 3, first_pad_mode=pad)
+        self.conv_out = CausalConv3d(c, out_ch, 3, first_pad_mode=pad,
+                                     cache_offset=out_off)
 
-    def forward(self, z, fused: bool = False):
+    def stage_offsets(self, n: int):
+        """Per-stage cache offsets for overlap-tiled decode (``decoder.py:
+        80-98``): walking the decode order with ``cur = 1``, the temporal
+        blocks of a level get ``cur``; a temporal upsample's conv, which
+        runs on upsampled frames, gets ``2 * cur``, and doubles ``cur``;
+        conv_in and the mid stack get 1 and the tail the final ``cur``.
+        Returns (mid, {level: offset}, {level: upsample offset}, tail)."""
+        cur = 1
+        level_offs, up_offs = {}, {}
+        for i in reversed(range(n)):
+            level_offs[i] = cur
+            if i in self.tempo_us:
+                up_offs[i] = 2 * cur
+                cur *= 2
+        return 1, level_offs, up_offs, cur
+
+    def forward(self, z, fused: bool = False, stream=None):
         """z: [B, T', H', W', Cz] -> [B, tdf*T' - crop, H, W, out_ch]."""
-        h = self.mid(self.conv_in(z))
+        h = self.mid(self.conv_in(z, stream), stream)
         for level, tlevel in zip(reversed(self.up), reversed(self.up_temporal)):
             for sp, tm in zip(level.block, tlevel.block):
-                h = tm(sp(h, fused=fused), fused=fused)
+                h = tm(sp(h, fused=fused), fused=fused, stream=stream)
             if hasattr(level, "upsample"):
                 h = level.upsample(h, fused=fused)
             if hasattr(tlevel, "upsample"):
-                h = tlevel.upsample(h, fused=fused)
+                h = tlevel.upsample(h, fused=fused, stream=stream)
+        if stream is not None:
+            front = (h[:, :1].expand(-1, 2, *h.shape[2:]) if stream.first_chunk
+                     else stream.get(self.conv_out).to(h.dtype))
+            h = torch.cat([front, h], dim=1)
+            stream.put(self.conv_out, tail(h, 2, stream.offset(self.conv_out)))
         if fused:
             norm = self.norm_out.norm
             conv = self.conv_out.conv
@@ -93,6 +128,8 @@ class Decoder(nn.Module):
                                  (conv.weight, conv.bias), self.first_pad_mode)
         else:
             h = self.conv_out(silu(self.norm_out(h)))
+        if stream is not None:
+            h = h[:, 2:]
         if self.tanh_out:
             h = torch.tanh(h)
         return h[:, self.crop:]

@@ -15,6 +15,11 @@ model (``down.{i}.block.{j}``, ``down_temporal.{i}.downsample``,
   gets ``tdf - 1`` front frames whenever ``T % tdf != 0``.
 * ``causal_v1_1``: interior convs repeat frame 0; the input is padded to
   the next multiple of ``tdf``.
+
+Given a :class:`~.stream.Stream`, ``forward`` encodes one chunk of a
+stream: it skips ``pad_input`` (the engine pads the first chunk only,
+``autoencoder.py:461``), and the causal convs, temporal blocks and
+downsamples carry their caches in the stream.
 """
 
 from __future__ import annotations
@@ -41,14 +46,15 @@ def first_pad_mode(variant: str) -> str:
 
 
 class _Mid(nn.Module):
-    def __init__(self, c: int, norm_type: str, first_pad_mode: str):
+    def __init__(self, c: int, norm_type: str, first_pad_mode: str,
+                 cache_offset: int = 0):
         super().__init__()
-        self.block_1 = ResnetBlock3D(c, c, norm_type, first_pad_mode)
+        self.block_1 = ResnetBlock3D(c, c, norm_type, first_pad_mode, cache_offset)
         self.attn_1 = AttnBlock(c, norm_type)
-        self.block_2 = ResnetBlock3D(c, c, norm_type, first_pad_mode)
+        self.block_2 = ResnetBlock3D(c, c, norm_type, first_pad_mode, cache_offset)
 
-    def forward(self, h):
-        return self.block_2(self.attn_1(self.block_1(h)))
+    def forward(self, h, stream=None):
+        return self.block_2(self.attn_1(self.block_1(h, stream)), stream)
 
 
 class Encoder(nn.Module):
@@ -104,16 +110,18 @@ class Encoder(nn.Module):
         mode = "replicate" if self.init_pad_mode == "replicate" else "zero"
         return pad_time_front(x, n, mode)
 
-    def forward(self, x, fused: bool = False):
+    def forward(self, x, fused: bool = False, stream=None):
         """x: [B, T, H, W, C] -> posterior parameters [B, T', H', W', 2Cz]."""
-        h = self.conv_in(self.pad_input(x))
+        if stream is None:
+            x = self.pad_input(x)
+        h = self.conv_in(x, stream)
         for level, tlevel in zip(self.down, self.down_temporal):
             for sp, tm in zip(level.block, tlevel.block):
-                h = tm(sp(h, fused=fused), fused=fused)
+                h = tm(sp(h, fused=fused), fused=fused, stream=stream)
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
             if hasattr(tlevel, "downsample"):
-                h = tlevel.downsample(h)
-        h = self.mid(h)
-        return self.conv_out(silu(self.norm_out(h)))
+                h = tlevel.downsample(h, stream)
+        h = self.mid(h, stream)
+        return self.conv_out(silu(self.norm_out(h)), stream)
 

@@ -7,7 +7,8 @@ kernel for a CUDA tensor (or raises). It keeps two counters: ``calls``
 
 from .decoder_tail import decoder_tail_rgb
 from .fused_spatial import fused_spatial_resblock
-from .fused_temporal import fused_temporal_resblock
+from .fused_temporal import (fused_temporal_resblock,
+                             fused_temporal_resblock_stream)
 from .parity_upsample import parity_up2x_fused
 from .subpixel import subpixel_interleave
 
@@ -17,6 +18,7 @@ WRAPPERS = {
     "subpixel_interleave": subpixel_interleave,
     "decoder_tail_rgb": decoder_tail_rgb,
     "parity_up2x_fused": parity_up2x_fused,
+    "fused_temporal_resblock_stream": fused_temporal_resblock_stream,
 }
 
 

@@ -40,6 +40,9 @@ _SIGNATURES = {
     # x, out, h1, act, g1, b1, w1, bias1, g2, b2, w2, bias2,
     # B, T, S, C, replicate, stream
     "vt_fused_temporal_resblock": [_P] * 12 + [_I] * 5 + [_P],
+    # x, c1, c2, out, nc1, nc2, h1, act, g1, b1, w1, bias1, g2, b2, w2,
+    # bias2, B, T, S, C, first, offset, stream
+    "vt_fused_temporal_resblock_stream": [_P] * 16 + [_I] * 6 + [_P],
     # y00, y01, y10, y11, bias, out, N, H, W, C, stream
     "vt_subpixel_interleave": [_P] * 6 + [_I] * 4 + [_P],
     # x, out, stats, g, b, w, bias, B, T, H, W, C, replicate, stream

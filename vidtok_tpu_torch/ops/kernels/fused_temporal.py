@@ -1,7 +1,7 @@
-"""Kernel B: fused causal temporal residual block (layernorm, non-streaming).
+"""Kernels B and F: the fused causal temporal residual block (layernorm).
 
-Replaces ``vidtok_tpu/ops/pallas/fused_temporal.py:205``
-(``fused_temporal_resblock``)::
+B replaces ``vidtok_tpu/ops/pallas/fused_temporal.py:205``
+(``fused_temporal_resblock``), over a whole clip::
 
     y = x + conv2_t(ln_silu2(conv1_t(ln_silu1(x))))
 
@@ -9,6 +9,12 @@ both convs causal k=3 over time, C -> C, the residual added in f32.
 CUDA: ``csrc/fused_temporal.cu``. The front pad applies to the ACTIVATED
 tensor: ``replicate`` repeats activated frame 0, ``zero`` masks the taps
 before frame 0.
+
+F replaces ``fused_temporal.py:274`` (``fused_temporal_resblock_stream``):
+the same block over one chunk of a stream, each conv's front being its
+2-frame cache of activated frames (activated frame 0 twice on the first
+chunk), the new caches stored ``offset`` frames back. CUDA:
+``csrc/fused_temporal_stream.cu``.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from . import _lib
 from .act import ln_silu_fast
 from ...modules.conv import conv3d_cl, pad_time_front
+from ...modules.stream import tail
 
 
 def _tconv3(a, weight, mode):
@@ -80,3 +87,80 @@ def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
 
 fused_temporal_resblock.calls = 0
 fused_temporal_resblock.launches = 0
+
+
+def _stream_conv(a, cache, conv, first_chunk: bool, offset: int):
+    """VALID k=3 time conv of ``[cache | a]`` (first chunk: ``a[0]`` twice)
+    in f32 with the bias; and the new cache, ``offset`` frames back."""
+    front = (a[:, :1].expand(-1, 2, *a.shape[2:]) if first_chunk
+             else cache.to(a.dtype))
+    full = torch.cat([front, a], dim=1)
+    y = conv3d_cl(full, conv[0][..., None, None]).float() + conv[1].float()
+    return y, tail(full, 2, offset)
+
+
+def fused_temporal_resblock_stream_plain(x, norm1, conv1, norm2, conv2, c1, c2,
+                                         first_chunk: bool, offset: int = 0,
+                                         eps: float = 1e-6):
+    """Plain PyTorch form of one chunk step. x: ``[B, t, H, W, C]``; c1, c2:
+    ``[B, 2, H, W, C]`` activated frames (unused on the first chunk) ->
+    (y, new c1, new c2)."""
+    dt = x.dtype
+    a = ln_silu_fast(x, norm1[0], norm1[1], eps)
+    h, nc1 = _stream_conv(a, c1, conv1, first_chunk, offset)
+    a = ln_silu_fast(h.to(dt), norm2[0], norm2[1], eps)
+    y, nc2 = _stream_conv(a, c2, conv2, first_chunk, offset)
+    return (x.float() + y).to(dt), nc1, nc2
+
+
+def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
+                                   first_chunk: bool, offset: int = 0):
+    """One chunk step: x ``[B, t, H, W, C]`` and the caches -> (y, new c1,
+    new c2); raises when ``t < offset`` (the new cache would reach into the
+    previous chunk).
+
+    A CPU tensor runs :func:`fused_temporal_resblock_stream_plain`. A CUDA
+    tensor must be contiguous bf16 with C % 128 == 0, and so must the
+    caches after the first chunk; it runs the kernel or raises.
+    """
+    fused_temporal_resblock_stream.calls += 1
+    b, t, h, w, c = x.shape
+    if not 0 <= offset <= t:
+        raise ValueError(f"kernel F: offset {offset} outside a {t}-frame chunk")
+    if x.device.type == "cpu":
+        return fused_temporal_resblock_stream_plain(
+            x, norm1, conv1, norm2, conv2, c1, c2, first_chunk, offset)
+    _lib.require(x, torch.bfloat16, (b, t, h, w, c))
+    if c % 128:
+        raise ValueError(f"kernel F takes C % 128 == 0, got C={c}")
+    for cw in (conv1[0], conv2[0]):
+        if tuple(cw.shape) != (c, c, 3):
+            raise ValueError("kernel F takes two causal k=3 convs C->C")
+    if first_chunk:
+        c1 = c2 = None
+    else:
+        for cache in (c1, c2):
+            _lib.require(cache, torch.bfloat16, (b, 2, h, w, c))
+    bf = torch.bfloat16
+    # Conv1d [O, I, k] -> GEMM operand [(k, ci), co]
+    w1 = conv1[0].permute(2, 1, 0).reshape(3 * c, c).to(bf).contiguous()
+    w2 = conv2[0].permute(2, 1, 0).reshape(3 * c, c).to(bf).contiguous()
+    g1, b1, g2, b2, bias1, bias2 = (
+        _lib.f32(v) for v in (norm1[0], norm1[1], norm2[0], norm2[1],
+                              conv1[1], conv2[1]))
+    for v in (w1, w2, g1, b1, g2, b2, bias1, bias2):
+        _lib.same_device(v, x)
+    out = torch.empty_like(x)
+    h1 = torch.empty_like(x)
+    act = x.new_empty((b, t + 2, h, w, c))  # [front | activated chunk]
+    nc1 = x.new_empty((b, 2, h, w, c))
+    nc2 = torch.empty_like(nc1)
+    _lib.call("vt_fused_temporal_resblock_stream", x, c1, c2, out, nc1, nc2,
+              h1, act, g1, b1, w1, bias1, g2, b2, w2, bias2, b, t, h * w, c,
+              int(first_chunk), offset)
+    fused_temporal_resblock_stream.launches += 1
+    return out, nc1, nc2
+
+
+fused_temporal_resblock_stream.calls = 0
+fused_temporal_resblock_stream.launches = 0
