@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
-1. build the six hand-written kernels from ``vidtok_tpu_torch/csrc`` (nvcc,
+1. build the ten hand-written kernels from ``vidtok_tpu_torch/csrc`` (nvcc,
    sm_90a, one process per source) and print the build time and the
    ``-Xptxas -v`` report;
 2. hold every kernel against its plain PyTorch version at every shape the
@@ -20,7 +20,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (the streaming temporal resblock) is held at every chunk shape of the
    tiled T=65 request, with ``first_chunk`` True and False at each of its
    cache offsets (0, 1, 2, 4), on y and both new caches; A, C and D also
-   at their chunk shapes;
+   at their chunk shapes. The kernels of the decoder's other forms
+   (``KernelForms``): G and H at E's shapes, I at C's and D' at D's, the
+   tiled chunk shapes included, in both stream-start modes where they have
+   them; then the forms against each other per call and per v1.0 forward at
+   the flagship's shapes, the convs included: E against one conv + H
+   against two convs + G, four convs + C against one conv + I, D against D';
 3. serve the causal v1.0 KL 4x8x8 16-channel flagship at full width with
    seeded random weights in bf16: 3 requests of [1, 3, 17, 256, 256],
    per-request latency, frames/s and peak memory, and the kernels' launch
@@ -39,13 +44,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``t_chunk_enc`` 16): 3 requests of [1, 3, 65, 256, 256] with the launch
    counts per forward derived from the chunk schedule (F 100, A 100, C 15,
    D 5, B and E 0), a profile of one request, one [1, 3, 201, 256, 256]
-   request whose peak memory may be at most 1.25x the T=65 peak, and the
-   end-to-end gates at T=65 against the non-tiled f32 plain run.
+   request whose peak memory may be at most 1.25x the T=65 peak, one T=65
+   request in the ``merged`` subpixel and ``taps`` tail forms (I 15, D' 5),
+   and the end-to-end gates at T=65 against the non-tiled f32 plain run
+   (the forms' request against the tiled f32 plain run);
+8. serve the v1.0 flagship in the forms ``KernelForms("merged", "merged",
+   "taps")``: 3 requests (launches per forward A 20, B 20, H 2, I 3, D' 1,
+   C, D, E and G 0), a profile of one, then one request in the ``split``
+   parity form (G 2), and the end-to-end gate for both forms.
 
 It never falls back to the CPU or to a plain version. The last two lines of
 standard output are a JSON object with the per-kernel results (launches
-from phase 3's kernel-path run for A-E and phase 7's for F) and
-``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
+from phase 3's kernel-path run for A-E, phase 7's for F, and phase 8's for
+G (its ``split`` request), H, I and D') and ``{"ok": true, "device":
+{...}}``. Needs one CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -95,12 +107,65 @@ V1_1_CFG = _model("AutoencodingEngineV1_1", "EncoderCausal3DV1_1",
 REQUEST = (1, 3, 17, 256, 256)
 LONG_REQUEST = (1, 3, 201, 256, 256)  # bench.py:46
 N_REQUESTS = 3
-PER_FORWARD = {"v1_0": {"fused_spatial_resblock": 20,
-                        "fused_temporal_resblock": 20,
-                        "subpixel_interleave": 3, "decoder_tail_rgb": 1,
-                        "parity_up2x_fused": 2,
-                        "fused_temporal_resblock_stream": 0}}
+SOURCES = {
+    "fused_spatial_resblock": ("vidtok_tpu_torch/csrc/fused_spatial.cu",
+                               "vidtok_tpu/ops/pallas/fused_spatial_v2.py:183"),
+    "fused_temporal_resblock": ("vidtok_tpu_torch/csrc/fused_temporal.cu",
+                                "vidtok_tpu/ops/pallas/fused_temporal.py:205"),
+    "subpixel_interleave": ("vidtok_tpu_torch/csrc/subpixel.cu",
+                            "vidtok_tpu/ops/pallas/subpixel_epilogue.py:100"),
+    "decoder_tail_rgb": ("vidtok_tpu_torch/csrc/decoder_tail.cu",
+                         "vidtok_tpu/ops/pallas/decoder_tail.py:245"),
+    "parity_up2x_fused": ("vidtok_tpu_torch/csrc/parity_upsample.cu",
+                          "vidtok_tpu/ops/pallas/parity_upsample_fused.py:108"),
+    "fused_temporal_resblock_stream": (
+        "vidtok_tpu_torch/csrc/fused_temporal_stream.cu",
+        "vidtok_tpu/ops/pallas/fused_temporal.py:274"),
+    "parity_blend_interleave": ("vidtok_tpu_torch/csrc/parity_blend.cu",
+                                "vidtok_tpu/ops/pallas/upsample_epilogue.py:49"),
+    "parity_blend_interleave4": ("vidtok_tpu_torch/csrc/parity_blend.cu",
+                                 "vidtok_tpu/ops/pallas/upsample_epilogue.py:96"),
+    "subpixel_interleave_z": ("vidtok_tpu_torch/csrc/subpixel.cu",
+                              "vidtok_tpu/ops/pallas/subpixel_epilogue.py:57"),
+    "decoder_tail_rgb_taps": ("vidtok_tpu_torch/csrc/decoder_tail_taps.cu",
+                              "vidtok_tpu/ops/pallas/decoder_tail.py:160"),
+}
+# The decoder's kernel forms, KernelForms(parity, subpixel, tail), served by
+# phase 8 (v1.0) and by the tiled forms request of phase 7, with the path
+# whose default-form run gives the same call shapes; and the kernel each
+# non-default form runs in place of the default form's.
+FORM_FIELDS = ("parity", "subpixel", "tail")
+FORMS = {"v1_0_forms": (("merged", "merged", "taps"), "v1_0"),
+         "v1_0_split": (("split", "split", "packed"), "v1_0"),
+         "tiled_forms": (("fused", "merged", "taps"), "tiled")}
+FORM_KERNEL = {("parity", "merged"): ("parity_up2x_fused", "parity_blend_interleave4"),
+               ("parity", "split"): ("parity_up2x_fused", "parity_blend_interleave"),
+               ("subpixel", "merged"): ("subpixel_interleave", "subpixel_interleave_z"),
+               ("tail", "taps"): ("decoder_tail_rgb", "decoder_tail_rgb_taps")}
+
+
+def form_swaps(path: str) -> dict:
+    """{default-form kernel: the kernel that replaces it} on a FORMS path."""
+    forms = FORMS[path][0]
+    return dict(FORM_KERNEL[f, v] for f, v in zip(FORM_FIELDS, forms)
+                if (f, v) in FORM_KERNEL)
+
+
+def in_forms(per: dict, path: str) -> dict:
+    """Launches per forward ``per`` of the default forms, moved to the
+    kernels of the FORMS ``path``."""
+    per = dict(per)
+    for default, kernel in form_swaps(path).items():
+        per[kernel], per[default] = per[default], 0
+    return per
+
+
+PER_FORWARD = {"v1_0": dict(dict.fromkeys(SOURCES, 0), fused_spatial_resblock=20,
+                            fused_temporal_resblock=20, subpixel_interleave=3,
+                            decoder_tail_rgb=1, parity_up2x_fused=2)}
 PER_FORWARD["v1_1"] = dict(PER_FORWARD["v1_0"], parity_up2x_fused=0)
+for _path in ("v1_0_forms", "v1_0_split"):
+    PER_FORWARD[_path] = in_forms(PER_FORWARD["v1_0"], _path)
 KERNEL_GATE = 1e-2
 # a kernel, and the kernel path, vs the f32 plain run may be at most
 # BF16_SLACK x as far from it as the plain version in bf16 is
@@ -148,32 +213,21 @@ TILED_MEM_RATIO = 1.25
 # room for it, and the kernel path is also held to the tiled f32 run.
 TILED_Z_GATE = 1e-4
 TILED_RECON_GATE = 1e-3
-PATHS = ("v1_0", "v1_1", "tiled")
+PATHS = ("v1_0", "v1_1", "tiled") + tuple(FORMS)
 # one H100 SXM at 700 W (NVIDIA's data sheet): dense bf16 tensor-core rate,
 # f32 rate outside the tensor cores, HBM rate
 PEAK_MMA_FLOPS = 989e12
 PEAK_VEC_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
-SOURCES = {
-    "fused_spatial_resblock": ("vidtok_tpu_torch/csrc/fused_spatial.cu",
-                               "vidtok_tpu/ops/pallas/fused_spatial_v2.py:183"),
-    "fused_temporal_resblock": ("vidtok_tpu_torch/csrc/fused_temporal.cu",
-                                "vidtok_tpu/ops/pallas/fused_temporal.py:205"),
-    "subpixel_interleave": ("vidtok_tpu_torch/csrc/subpixel.cu",
-                            "vidtok_tpu/ops/pallas/subpixel_epilogue.py:100"),
-    "decoder_tail_rgb": ("vidtok_tpu_torch/csrc/decoder_tail.cu",
-                         "vidtok_tpu/ops/pallas/decoder_tail.py:245"),
-    "parity_up2x_fused": ("vidtok_tpu_torch/csrc/parity_upsample.cu",
-                          "vidtok_tpu/ops/pallas/parity_upsample_fused.py:108"),
-    "fused_temporal_resblock_stream": (
-        "vidtok_tpu_torch/csrc/fused_temporal_stream.cu",
-        "vidtok_tpu/ops/pallas/fused_temporal.py:274"),
-}
 # the path whose serving run gives each kernel's launches and times in the
 # result line
 MAIN_PATH = dict.fromkeys(SOURCES, "v1_0")
-MAIN_PATH["fused_temporal_resblock_stream"] = "tiled"
+MAIN_PATH.update(fused_temporal_resblock_stream="tiled",
+                 parity_blend_interleave="v1_0_split",
+                 parity_blend_interleave4="v1_0_forms",
+                 subpixel_interleave_z="v1_0_forms",
+                 decoder_tail_rgb_taps="v1_0_forms")
 
 
 def _cut(n: int, chunk: int):
@@ -318,7 +372,8 @@ def work(name: str, key) -> tuple:
     each bf16 input read once, each output written once, the f32
     parameters read once; the FLOP of the function (E: the nearest 2x
     upsample and a 3x3x3 conv at the output rate, not E's own 36 C^2
-    MACs per half-rate position)."""
+    MACs per half-rate position; D and D': the 3-channel conv, not D''s
+    products padded to 8 channels)."""
     if name == "fused_spatial_resblock":
         n, h, w, cin, c = key
         m, k = n * h * w, 9 * cin * c + 9 * c * c + (cin * c if cin != c else 0)
@@ -329,10 +384,16 @@ def work(name: str, key) -> tuple:
         caches = 0 if name == "fused_temporal_resblock" else (2 if first else 4)
         return (2 * (2 * m * c + caches * b * 2 * h * w * c)
                 + 4 * (6 * c * c + 6 * c), 12 * m * c * c, 0)
-    if name == "subpixel_interleave":
+    if name in ("subpixel_interleave", "subpixel_interleave_z"):
+        # I: the 4HWC of z it needs (z holds 4(H+1)(W+1)C)
         n, h, w, c = key
         return 2 * 8 * n * h * w * c + 4 * c, 0, 4 * n * h * w * c
-    if name == "decoder_tail_rgb":
+    if name in ("parity_blend_interleave", "parity_blend_interleave4"):
+        # s, the cur and prev halves (4C) read, 2C written; 5 FLOP a value
+        b, t, h, w, c = key[0]
+        m = b * t * h * w
+        return 2 * 7 * m * c + 4 * (c + 1), 0, 5 * 2 * m * c
+    if name in ("decoder_tail_rgb", "decoder_tail_rgb_taps"):
         b, t, h, w, c = key[0]
         m = b * t * h * w
         return 2 * m * (c + 3) + 4 * (2 * c + 81 * c + 3), 2 * m * 81 * c, 0
@@ -375,10 +436,12 @@ def kernel_cases(device):
     from vidtok_tpu_torch.ops.kernels import (decoder_tail, fused_spatial,
                                               fused_temporal,
                                               parity_upsample as pu,
-                                              subpixel as sp)
+                                              subpixel as sp,
+                                              upsample_epilogue as ue)
 
     bf = torch.bfloat16
     p = Params(0, device)
+    q = Params(2, device)  # the other forms' own inputs: A-F's stay as they were
     tiled = tiled_calls(TILED_REQUEST[2])
     shapes = defaultdict(lambda: defaultdict(dict))  # kernel -> key -> calls
     for shape, calls in SPATIAL_SHAPES:
@@ -441,21 +504,52 @@ def kernel_cases(device):
         args = ys + (p.t(0.1 * p.rng.randn(key[-1])),)
         yield Case("subpixel_interleave", key, dict(calls), sp.subpixel_interleave,
                    sp.subpixel_interleave_plain, args)
+        n, h, w, c = key
+        yield Case("subpixel_interleave_z", key,
+                   form_calls(calls, "subpixel_interleave_z"),
+                   sp.subpixel_interleave_z, sp.subpixel_interleave_z_plain,
+                   (q.x((n, h + 1, w + 1, 4 * c), bf), args[-1]))
     for (shape, mode), calls in shapes["decoder_tail_rgb"].items():
         c = shape[-1]
         args = (p.x(shape, bf), p.norm(c), p.conv((3, c, 3, 3, 3)), mode)
         yield Case("decoder_tail_rgb", (shape, mode), dict(calls),
                    decoder_tail.decoder_tail_rgb,
                    decoder_tail.decoder_tail_rgb_plain, args)
+        yield Case("decoder_tail_rgb_taps", (shape, mode),
+                   form_calls(calls, "decoder_tail_rgb_taps"),
+                   decoder_tail.decoder_tail_rgb_taps,
+                   decoder_tail.decoder_tail_rgb_taps_plain, args)
     for shape, calls in PARITY_SHAPES:
-        c = shape[-1]
+        b, t, h, w, c = shape
         for mode in MODE_PATH:
             # v1.0 serves zero mode; replicate is checked, not timed
+            calls_e = {"v1_0": calls if mode == "zero" else 0}
             args = (p.x(shape, bf), *p.conv((c, c, 3, 3, 3)),
                     p.t(1 / (1 + np.exp(-(2.0 + 0.5 * p.rng.randn(1))))), mode)
-            yield Case("parity_up2x_fused", (shape, mode),
-                       {"v1_0": calls if mode == "zero" else 0},
+            yield Case("parity_up2x_fused", (shape, mode), calls_e,
                        pu.parity_up2x_fused, pu.parity_up2x_fused_plain, args)
+            # G and H on E's s, bias and alpha, with the parity convs'
+            # outputs drawn as activations
+            s, bias, alpha = args[0], args[2], args[3]
+            ys = tuple(q.x((b, t, h, w, 2 * c), bf) for _ in range(2))
+            yield Case("parity_blend_interleave", (shape, mode),
+                       form_calls(calls_e, "parity_blend_interleave"),
+                       ue.parity_blend_interleave,
+                       ue.parity_blend_interleave_plain, (s, *ys, bias, alpha, mode))
+            del ys
+            yield Case("parity_blend_interleave4", (shape, mode),
+                       form_calls(calls_e, "parity_blend_interleave4"),
+                       ue.parity_blend_interleave4,
+                       ue.parity_blend_interleave4_plain,
+                       (s, q.x((b, t, h, w, 4 * c), bf), bias, alpha, mode))
+
+
+def form_calls(calls: dict, kernel: str) -> dict:
+    """Calls per forward of ``kernel``, a non-default form's, on each FORMS
+    path that runs it, at a call shape whose default-form kernel has
+    ``calls`` (per path)."""
+    return {path: calls.get(base, 0) for path, (_, base) in FORMS.items()
+            if kernel in form_swaps(path).values()}
 
 
 def gate(what: str, rel: float, plain_rel: float) -> None:
@@ -676,7 +770,14 @@ def profile_request(tok, shape) -> None:
               f"x{e.count:<4d} {e.key[:100]}", flush=True)
 
 
-def e2e_check(core, meta, shape) -> dict:
+def kernel_forms(path: str = None):
+    """The ``KernelForms`` of a FORMS path; the default forms for None."""
+    from vidtok_tpu_torch import KernelForms
+
+    return KernelForms() if path is None else KernelForms(*FORMS[path][0])
+
+
+def e2e_check(core, meta, shape, kernels=("kernel",)) -> dict:
     """The kernel path against the plain path, in bf16 and in f32.
 
     Two bf16 evaluations of this 60-block network differ by 2-3% relative
@@ -685,7 +786,8 @@ def e2e_check(core, meta, shape) -> dict:
     own distance from the f32 plain run: it must be no further from f32
     than the plain bf16 path is (x BF16_SLACK), on z and on the
     reconstruction. The kernel path's distance from the plain bf16 path is
-    printed beside it.
+    printed beside it. ``kernels`` names the kernel-path runs: ``kernel``
+    in the default forms, or a FORMS path in its forms.
     """
     import torch
 
@@ -694,10 +796,12 @@ def e2e_check(core, meta, shape) -> dict:
     x = np.clip(np.random.RandomState(100).randn(*shape) * 0.5, -1, 1) \
         .astype(np.float32)
     outs = {}
-    for key, dtype, fused in (("kernel", torch.bfloat16, True),
-                              ("plain", torch.bfloat16, False),
-                              ("plain_f32", torch.float32, False)):
-        z, dec, log = VideoTokenizer(core, meta, dtype, fused=fused)(x)
+    runs = [(key, torch.bfloat16, True, None if key == "kernel" else key)
+            for key in kernels]
+    for key, dtype, fused, forms in runs + [("plain", torch.bfloat16, False, None),
+                                            ("plain_f32", torch.float32, False, None)]:
+        z, dec, log = VideoTokenizer(core, meta, dtype, fused=fused,
+                                     forms=kernel_forms(forms))(x)
         torch.cuda.synchronize()
         for t in (z, dec, log["kl_loss"]):
             if not torch.isfinite(t).all():
@@ -705,17 +809,19 @@ def e2e_check(core, meta, shape) -> dict:
         outs[key] = (z, dec)
     res = {}
     for i, what in enumerate(("z", "recon")):
-        res[f"{what}_kernel_vs_plain"] = rel_l2(outs["kernel"][i], outs["plain"][i])
-        res[f"{what}_kernel_vs_f32"] = rel_l2(outs["kernel"][i], outs["plain_f32"][i])
+        for key in kernels:
+            res[f"{what}_{key}_vs_plain"] = rel_l2(outs[key][i], outs["plain"][i])
+            res[f"{what}_{key}_vs_f32"] = rel_l2(outs[key][i], outs["plain_f32"][i])
         res[f"{what}_plain_vs_f32"] = rel_l2(outs["plain"][i], outs["plain_f32"][i])
     print("e2e rel_l2 " + json.dumps(res), flush=True)
     for what in ("z", "recon"):
-        k_f32 = res[f"{what}_kernel_vs_f32"]
         p_f32 = res[f"{what}_plain_vs_f32"]
-        if not k_f32 <= BF16_SLACK * p_f32:
-            raise AssertionError(
-                f"e2e {what}: kernel vs f32 {k_f32} > {BF16_SLACK} x plain "
-                f"bf16 vs f32 {p_f32}")
+        for key in kernels:
+            k_f32 = res[f"{what}_{key}_vs_f32"]
+            if not k_f32 <= BF16_SLACK * p_f32:
+                raise AssertionError(
+                    f"e2e {what}: {key} vs f32 {k_f32} > {BF16_SLACK} x plain "
+                    f"bf16 vs f32 {p_f32}")
     return res
 
 
@@ -810,6 +916,8 @@ def tiled_e2e_check(core, meta, shape) -> dict:
       plain run than BF16_SLACK x the tiled plain bf16 path is, on z and on
       the reconstruction; the same against the tiled f32 plain run, which
       takes tiling's own departure out of the comparison.
+    * The tiled kernel path in the forms of ``tiled_forms``, the same
+      against the tiled f32 plain run.
     * The tiled f32 plain run is within TILED_Z_GATE of the non-tiled one
       on z, and within TILED_RECON_GATE on the reconstruction (see there).
     """
@@ -821,10 +929,12 @@ def tiled_e2e_check(core, meta, shape) -> dict:
         .astype(np.float32)
     outs = {}
     for key, dtype, fused, tiled in (("kernel", torch.bfloat16, True, True),
+                                     ("tiled_forms", torch.bfloat16, True, True),
                                      ("plain", torch.bfloat16, False, True),
                                      ("tiled_f32", torch.float32, False, True),
                                      ("untiled_f32", torch.float32, False, False)):
-        tok = VideoTokenizer(core, meta, dtype, fused=fused)
+        tok = VideoTokenizer(core, meta, dtype, fused=fused,
+                             forms=kernel_forms(key if key in FORMS else None))
         tok.use_tiling, tok.use_overlap = tiled, True
         z, dec, log = tok(x)
         torch.cuda.synchronize()
@@ -837,16 +947,17 @@ def tiled_e2e_check(core, meta, shape) -> dict:
     res = {}
     for i, what in enumerate(("z", "recon")):
         for ref in ("untiled_f32", "tiled_f32"):
-            for key in ("kernel", "plain"):
+            for key in ("kernel", "tiled_forms", "plain"):
                 res[f"{what}_{key}_vs_{ref}"] = rel_l2(outs[key][i], outs[ref][i])
         res[f"{what}_tiled_f32_vs_untiled_f32"] = rel_l2(outs["tiled_f32"][i],
                                                          outs["untiled_f32"][i])
     print("tiled e2e rel_l2 " + json.dumps(res), flush=True)
     for what, bound in (("z", TILED_Z_GATE), ("recon", TILED_RECON_GATE)):
-        for ref in ("untiled_f32", "tiled_f32"):
-            k, pl = res[f"{what}_kernel_vs_{ref}"], res[f"{what}_plain_vs_{ref}"]
+        for key, ref in (("kernel", "untiled_f32"), ("kernel", "tiled_f32"),
+                         ("tiled_forms", "tiled_f32")):
+            k, pl = res[f"{what}_{key}_vs_{ref}"], res[f"{what}_plain_vs_{ref}"]
             if not k <= BF16_SLACK * pl:
-                raise AssertionError(f"tiled e2e {what}: kernel vs {ref} {k} > "
+                raise AssertionError(f"tiled e2e {what}: {key} vs {ref} {k} > "
                                      f"{BF16_SLACK} x plain bf16 vs {ref} {pl}")
         d = res[f"{what}_tiled_f32_vs_untiled_f32"]
         if not d <= bound:
@@ -855,12 +966,14 @@ def tiled_e2e_check(core, meta, shape) -> dict:
     return res
 
 
-def serve_tiled(device) -> dict:
+def serve_tiled(device) -> tuple:
     """Phase 7: the v1.1 tokenizer with ``use_tiling`` and ``use_overlap``:
     N_REQUESTS requests of TILED_REQUEST with the launches per forward of
     ``tiled_per_forward``, a profile of one, one TILED_LONG request whose
-    peak memory may be at most TILED_MEM_RATIO x the TILED_REQUEST peak, and
-    the end-to-end gates. Returns the TILED_REQUEST ``serve`` result."""
+    peak memory may be at most TILED_MEM_RATIO x the TILED_REQUEST peak, one
+    TILED_REQUEST in the forms of ``tiled_forms``, and the end-to-end
+    gates. Returns the ``serve`` results of the TILED_REQUEST runs in the
+    default forms and in ``tiled_forms``."""
     import torch
 
     tok = make_tokenizer(V1_1_CFG, device)
@@ -890,8 +1003,104 @@ def serve_tiled(device) -> dict:
         raise AssertionError(f"tiled peak memory grows with the clip: {ratio}")
     del long
     torch.cuda.empty_cache()
+    tok.forms = kernel_forms("tiled_forms")
+    r_forms = serve(tok, 1, TILED_REQUEST,
+                    in_forms(tiled_per_forward(TILED_REQUEST[2]), "tiled_forms"))
+    report(f"{name}, {tok.forms}", r_forms, TILED_REQUEST)
+    tok.forms = kernel_forms()
+    torch.cuda.empty_cache()
     tiled_e2e_check(tok.core, tok.meta, TILED_REQUEST)
-    return r
+    return r, r_forms
+
+
+def compare_forms(device, card: str) -> None:
+    """The decoder's kernel forms against each other at the v1.0 flagship's
+    shapes, zero mode, bf16, by CUDA events, per call and per forward, the
+    convs included: TimeUpsampleRes2x (nearest) with E, with one C->4C
+    conv + H and with two C->2C convs + G; SpatialUpsample with four
+    parity convs + C and with one VALID 2x2 conv + I; the tail with D and
+    with D'. Each form's output is held to the default form's (relative L2
+    <= KERNEL_GATE), and the parity convs' cuDNN output must already be
+    the channels-last layout the kernels read (no copy between)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vidtok_tpu_torch import KernelForms
+    from vidtok_tpu_torch.modules.blocks import SpatialUpsample, TimeUpsampleRes2x
+    from vidtok_tpu_torch.ops.kernels import decoder_tail
+
+    bf = torch.bfloat16
+    p = Params(3, device)
+    per_fwd = defaultdict(float)
+    rows = []
+
+    def compare(site, key, calls, runs):
+        outs, ms = {}, {}
+        with torch.no_grad():
+            for form, fn in runs.items():
+                outs[form] = fn()
+                ms[form] = cuda_ms(fn)
+                per_fwd[site, form] += calls * ms[form]
+        torch.cuda.synchronize()
+        default = next(iter(outs.values()))
+        rels = {f: rel_l2(o.float(), default.float()) for f, o in outs.items()}
+        print(f"forms {site} {key} x{calls}/forward: " + "; ".join(
+            f"{f} {ms[f]:.4f} ms (rel_l2 vs {next(iter(runs))} {rels[f]:.3g})"
+            for f in runs), flush=True)
+        for f, rel in rels.items():
+            if not rel <= KERNEL_GATE:
+                raise AssertionError(f"forms {site}{key}: {f} vs default {rel}")
+        rows.append((site, key))
+
+    for shape, calls in PARITY_SHAPES:
+        b, t, h, w, c = shape
+        m = TimeUpsampleRes2x(c, c, first_pad_mode="zero",
+                              interpolation_mode="nearest").to(device)
+        m.conv.reset_params(torch.Generator().manual_seed(3))
+        x = p.x(shape, bf)
+        xf = x.reshape(b * t, h, w, c).permute(0, 3, 1, 2)
+        y = F.conv2d(xf, torch.zeros(4 * c, c, 3, 3, device=device, dtype=bf), None, 1, 1)
+        if not y.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError(f"parity conv at {shape}: cuDNN output is not "
+                                 "channels-last; the kernels would read a copy")
+        del y
+        compare("parity", shape, calls, {
+            f: (lambda f=f: m(x, fused=True, forms=KernelForms(parity=f)))
+            for f in ("fused", "merged", "split")})
+    for shape, calls in SUBPIXEL_SHAPES:
+        m = SpatialUpsample(shape[-1]).to(device)
+        m.conv.reset_params(torch.Generator().manual_seed(4))
+        x = p.x((1,) + shape, bf)
+        compare("subpixel", shape, calls, {
+            f: (lambda f=f: m(x, fused=True, forms=KernelForms(subpixel=f)))
+            for f in ("split", "merged")})
+    for shape, calls in TAIL_SHAPES:
+        c = shape[-1]
+        args = (p.x(shape, bf), p.norm(c), p.conv((3, c, 3, 3, 3)), "zero")
+        compare("tail", shape, calls, {
+            "packed": lambda: decoder_tail.decoder_tail_rgb(*args),
+            "taps": lambda: decoder_tail.decoder_tail_rgb_taps(*args)})
+    print(f"forms per v1.0 forward ({card}): " + "; ".join(
+        f"{site} {form} {v:.4f} ms" for (site, form), v in per_fwd.items()),
+        flush=True)
+
+
+def serve_forms(device) -> dict:
+    """Phase 8: the v1.0 flagship in the forms of ``v1_0_forms`` (N_REQUESTS
+    requests and a profile of one) and of ``v1_0_split`` (one request),
+    each with its launches per forward, then the end-to-end gate for both.
+    Returns the ``serve`` results by FORMS path."""
+    tok = make_tokenizer(V1_0_CFG, device)
+    runs = {}
+    for path, n in (("v1_0_forms", N_REQUESTS), ("v1_0_split", 1)):
+        tok.forms = kernel_forms(path)
+        runs[path] = serve(tok, n, REQUEST, PER_FORWARD[path])
+        report(f"forms {tok.forms}, kernel path: v1.0 kl 4x8x8 16chn", runs[path],
+               REQUEST)
+        if path == "v1_0_forms":
+            profile_request(tok, REQUEST)
+    e2e_check(tok.core, tok.meta, REQUEST, kernels=("v1_0_forms", "v1_0_split"))
+    return runs
 
 
 def phase(name: str, t0: float) -> float:
@@ -932,6 +1141,8 @@ def main() -> int:
     kres = check_kernels(device)
     check_parity_long(device)
     t = phase("kernels", t)
+    compare_forms(device, card)
+    t = phase("forms", t)
     main_path = serve_both_paths("v1.0 kl 4x8x8 16chn", V1_0_CFG, "v1_0", device)
     torch.cuda.empty_cache()
     t = phase("v1.0 kl serve", t)
@@ -944,8 +1155,12 @@ def main() -> int:
     serve_both_paths("v1.1 kl 4x8x8 16chn", V1_1_CFG, "v1_1", device)
     torch.cuda.empty_cache()
     t = phase("v1.1 kl serve", t)
-    runs = {"v1_0": main_path, "tiled": serve_tiled(device)}
-    phase("v1.1 kl tiled serve", t)
+    runs = {"v1_0": main_path}
+    runs["tiled"], runs["tiled_forms"] = serve_tiled(device)
+    torch.cuda.empty_cache()
+    t = phase("v1.1 kl tiled serve", t)
+    runs.update(serve_forms(device))
+    phase("v1.0 kl forms serve", t)
     phase("total", t0)
 
     kernels = []

@@ -23,6 +23,7 @@ from ..modules.decoder import Decoder
 from ..modules.encoder import Encoder
 from ..modules.regularizers import DiagonalGaussianRegularizer, FSQRegularizer
 from ..modules.stream import Stream
+from ..ops.kernels import KernelForms
 
 # reference and alias target names -> variant (vidtok_tpu/registry.py)
 _ENC_VARIANTS = {
@@ -154,21 +155,23 @@ class TokenizerCore(nn.Module):
 
     def decode(self, z, fused: bool = False, streaming: bool = False,
                first_chunk: bool = True, use_cache_offset: bool = False,
-               cache: Optional[dict] = None):
-        """Frames; with ``streaming``, (frames, cache) for one chunk."""
+               cache: Optional[dict] = None, forms: KernelForms = KernelForms()):
+        """Frames; with ``streaming``, (frames, cache) for one chunk.
+        ``forms``: the decoder's kernel forms when ``fused``."""
         if not streaming:
-            return self.decoder(z, fused=fused)
+            return self.decoder(z, fused=fused, forms=forms)
         stream = Stream(self.decoder, cache, first_chunk, use_cache_offset)
-        return self.decoder(z, fused=fused, stream=stream), stream.new
+        return self.decoder(z, fused=fused, stream=stream, forms=forms), stream.new
 
     def decode_indices(self, indices):
         """FSQ indices -> channels-last f32 latent."""
         return self.regularization.decode_indices(indices)
 
     def forward(self, x, sample: Optional[bool] = None, fused: bool = False,
-                generator: torch.Generator = None):
+                generator: torch.Generator = None,
+                forms: KernelForms = KernelForms()):
         z, log = self.encode(x, sample=sample, fused=fused, generator=generator)
-        dec = self.decode(z, fused=fused)
+        dec = self.decode(z, fused=fused, forms=forms)
         # v1.1 decodes tdf*T' frames: crop to the input length (v1.0 crops
         # in the decoder)
         if dec.shape[1] != x.shape[1]:
@@ -189,7 +192,9 @@ class VideoTokenizer:
     computation is channels-last in ``compute_dtype`` with f32 norm
     statistics; outputs are f32. ``fused`` (default: on for a CUDA device
     in bf16, which the kernels need) routes the kernels' call sites
-    through their wrappers.
+    through their wrappers. ``forms`` (a :class:`KernelForms`, settable;
+    default JAX's default forms) picks the kernel form of the decoder's
+    upsamples and tail where ``fused`` is on.
 
     Tiled inference (``autoencoder.py:440-699``): ``use_tiling`` (from the
     config, settable) makes ``encode``, ``decode`` and ``forward`` run
@@ -204,7 +209,8 @@ class VideoTokenizer:
 
     def __init__(self, core: TokenizerCore, meta: dict,
                  compute_dtype: torch.dtype = torch.float32,
-                 fused: Optional[bool] = None, seed: int = 0):
+                 fused: Optional[bool] = None, seed: int = 0,
+                 forms: Optional[KernelForms] = None):
         self.core = core.eval()
         self.meta = meta
         self.compute_dtype = compute_dtype
@@ -216,6 +222,9 @@ class VideoTokenizer:
             raise ValueError("the CUDA kernels take bf16 activations: fused=True "
                              "on a CUDA device needs compute_dtype=torch.bfloat16")
         self.fused = bool(fused)
+        if forms is not None and not isinstance(forms, KernelForms):
+            raise TypeError(f"forms must be a KernelForms, got {forms!r}")
+        self.forms = forms or KernelForms()
         self.time_downsample_factor = meta["time_downsample_factor"]
         self.use_tiling = meta.get("use_tiling", False)
         self.t_chunk_enc = meta.get("t_chunk_enc", 16)
@@ -226,11 +235,13 @@ class VideoTokenizer:
     @classmethod
     def from_config(cls, config, seed: int = 0, device="cuda",
                     compute_dtype: torch.dtype = torch.float32,
-                    fused: Optional[bool] = None):
+                    fused: Optional[bool] = None,
+                    forms: Optional[KernelForms] = None):
         """``config``: a dict or a YAML path (which needs PyYAML). Weights
         are random from ``seed``; no checkpoint loading yet. The model is
         placed on ``device``, the card unless the caller names another: a
-        machine without CUDA raises rather than fall back to the CPU."""
+        machine without CUDA raises rather than fall back to the CPU.
+        ``forms``: the decoder's kernel forms (default ``KernelForms()``)."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to build "
@@ -241,7 +252,7 @@ class VideoTokenizer:
             raise NotImplementedError("checkpoint loading is not ported yet")
         core, meta = build_core_from_config(model_cfg)
         reset_params_(core, torch.Generator().manual_seed(seed))
-        return cls(core.to(device), meta, compute_dtype, fused, seed)
+        return cls(core.to(device), meta, compute_dtype, fused, seed, forms)
 
     def _input(self, x):
         if isinstance(x, np.ndarray):
@@ -268,7 +279,7 @@ class VideoTokenizer:
             z = self.indices_to_latent(z)
         if self.use_tiling:
             return self._tile_decode(z)
-        dec = self.core.decode(self._input(z), fused=self.fused)
+        dec = self.core.decode(self._input(z), fused=self.fused, forms=self.forms)
         return _to_ncthw(dec.float())
 
     @torch.no_grad()
@@ -287,7 +298,7 @@ class VideoTokenizer:
             # v1.1 decodes tdf*T' frames: keep the last T (autoencoder.py:390-395)
             return z, dec[:, :, -x.shape[2]:], log
         z, dec, log = self.core(self._input(x), sample=sample, fused=self.fused,
-                                generator=self.generator)
+                                generator=self.generator, forms=self.forms)
         return _to_ncthw(z.float()), _to_ncthw(dec.float()), log
 
     __call__ = forward
@@ -348,7 +359,7 @@ class VideoTokenizer:
             chunk = self._input(z[:, :, s:e + 1] if overlap else z[:, :, s:e])
             dec, cache = self.core.decode(
                 chunk, fused=self.fused, streaming=True, first_chunk=idx == 0,
-                use_cache_offset=self.use_overlap, cache=cache)
+                use_cache_offset=self.use_overlap, cache=cache, forms=self.forms)
             outs.append(dec[:, :dec.shape[1] - tdf] if overlap else dec)
         return _to_ncthw(torch.cat(outs, dim=1).float())
 

@@ -3,11 +3,13 @@
 Counterpart of ``vidtok_tpu/modules/blocks.py`` for the causal layernorm
 blocks. ``fused=True`` routes the spatial and temporal resblocks, the
 spatial-upsample tail and the nearest temporal upsample through kernels A,
-B (F on a stream), C and E (``ops/kernels``); their wrappers run the plain
-forms on CPU tensors. ``fused`` alone decides: where the JAX module takes a
-Pallas kernel with ``fused`` off (the nearest temporal upsample whenever
-``deterministic``, ``blocks.py:529-533``), the port's plain path launches
-none. JAX's separate ``fused_streaming`` switch is not carried over.
+B (F on a stream), C (or I) and E (or H, or G) (``ops/kernels``), the
+upsamples in the forms a :class:`~..ops.kernels.KernelForms` names; the
+wrappers run the plain forms on CPU tensors. ``fused`` alone decides: where
+the JAX module takes a Pallas kernel with ``fused`` off (the nearest
+temporal upsample whenever ``deterministic``, ``blocks.py:529-533``), the
+port's plain path launches none. JAX's separate ``fused_streaming`` switch
+is not carried over.
 
 A block given a :class:`~.stream.Stream` runs one chunk of a stream; the
 time-causal ones carry their state in it (the spatial blocks and attention
@@ -21,9 +23,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels import (fused_spatial_resblock, fused_temporal_resblock,
-                           fused_temporal_resblock_stream, parity_up2x_fused,
-                           subpixel_interleave)
+from ..ops.kernels import (KernelForms, fused_spatial_resblock,
+                           fused_temporal_resblock,
+                           fused_temporal_resblock_stream,
+                           parity_blend_interleave, parity_blend_interleave4,
+                           parity_up2x_fused, subpixel_interleave,
+                           subpixel_interleave_z)
 from ..ops.kernels.parity_upsample import parity_up2x_fused_plain
 from .conv import CausalConv1d, CausalConv3d, SpatialConv, pad_time_front
 from .interp import temporal_avg_pool3_stride2, temporal_linear_up2x
@@ -32,6 +37,16 @@ from .norms import make_norm, silu
 
 def _norm_args(norm):
     return (norm.norm.weight, norm.norm.bias)
+
+
+def _frame_conv(x, weight, padding):
+    """Per-frame 2D conv of ``[B, T, H, W, C]`` (or ``[N, H, W, C]``) in
+    x.dtype, as cuDNN runs it on the channels-last view: the NHWC result
+    comes back without a layout copy."""
+    lead = x.shape[:-3]
+    xf = x.reshape((-1,) + tuple(x.shape[-3:])).permute(0, 3, 1, 2)
+    y = F.conv2d(xf, weight.to(x.dtype), None, 1, padding).permute(0, 2, 3, 1)
+    return y.reshape(tuple(lead) + tuple(y.shape[1:]))
 
 
 class ResnetBlockSpatial(nn.Module):
@@ -172,13 +187,16 @@ class SpatialDownsample(nn.Module):
 class SpatialUpsample(nn.Module):
     """Per-frame nearest 2x upsample + 3x3 conv (``blocks.py:286-385``), as
     four 2x2 parity convs on the source grid whose outputs are interleaved
-    by parity (kernel C when ``fused``)."""
+    by parity (kernel C when ``fused``). With ``fused`` and the ``merged``
+    subpixel form, one VALID 2x2 conv of the once-padded input with the
+    four parity kernels on output-channel groups, then kernel I
+    (``blocks.py:350-364``)."""
 
     def __init__(self, c: int):
         super().__init__()
         self.conv = SpatialConv(c, c, 3)
 
-    def forward(self, x, fused: bool = False):
+    def forward(self, x, fused: bool = False, forms: KernelForms = KernelForms()):
         b, t, h, w, c = x.shape
         k = self.conv.weight.to(x.dtype)                     # [O, I, 3, 3]
         # row-combined taps: parity 0 reads rows a-1, a; parity 1 rows a, a+1
@@ -191,6 +209,10 @@ class SpatialUpsample(nn.Module):
 
         (e00, e01), (e10, e11) = colmix(r0), colmix(r1)
         xp = F.pad(x.reshape(b * t, h, w, c), (0, 0, 1, 1, 1, 1))
+        if fused and forms.subpixel == "merged":
+            z = _frame_conv(xp, torch.cat([e00, e01, e10, e11]), 0)
+            y = subpixel_interleave_z(z, self.conv.bias)     # z: [N, H+1, W+1, 4C]
+            return y.reshape(b, t, 2 * h, 2 * w, c)
         xp = xp.permute(0, 3, 1, 2)                          # [N, C, H+2, W+2]
 
         def parity(e, pr, pc):
@@ -252,8 +274,12 @@ class TimeUpsampleRes2x(nn.Module):
     the JAX module's duplicate-then-conv form for other widths fails at the
     same blend, so it is not ported.
 
-    ``fused`` alone decides whether kernel E runs. The JAX module takes its
-    Pallas kernel whenever ``deterministic`` is set, ``fused`` or not
+    ``fused`` alone decides whether a kernel runs, in the parity form that
+    ``forms`` names: ``fused`` kernel E; ``merged`` one per-frame C->4C conv
+    with ``[k_cur | k_prev]`` + kernel H; ``split`` two C->2C convs + kernel
+    G (``blocks.py:633-660``), where ``k_cur = [K2 | K1+K2]`` and ``k_prev =
+    [K0+K1 | K0]`` are summed in the activation dtype. The JAX module takes
+    its Pallas kernel whenever ``deterministic`` is set, ``fused`` or not
     (``blocks.py:529-533``); here the plain path launches no kernel.
     """
 
@@ -272,16 +298,30 @@ class TimeUpsampleRes2x(nn.Module):
         self.conv = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode,
                                  cache_offset=cache_offset)
 
-    def forward(self, x, fused: bool = False, stream=None):
+    def forward(self, x, fused: bool = False, stream=None,
+                forms: KernelForms = KernelForms()):
         alpha = torch.sigmoid(self.mix_factor).to(x.dtype)
         ntu = self.ntu
         if self.parity:
             if stream is not None:
                 raise NotImplementedError(
                     "the nearest (v1.0) temporal upsample has no streaming form")
-            up = parity_up2x_fused if fused else parity_up2x_fused_plain
-            return up(x, self.conv.conv.weight, self.conv.conv.bias, alpha,
-                      self.first_pad_mode)
+            weight, bias = self.conv.conv.weight, self.conv.conv.bias
+            if not fused:
+                return parity_up2x_fused_plain(x, weight, bias, alpha,
+                                               self.first_pad_mode)
+            if forms.parity == "fused":
+                return parity_up2x_fused(x, weight, bias, alpha, self.first_pad_mode)
+            k0, k1, k2 = weight.to(x.dtype).unbind(2)       # [C, C, 3, 3] each
+            k_cur = torch.cat([k2, k1 + k2])
+            k_prev = torch.cat([k0 + k1, k0])
+            if forms.parity == "merged":
+                y4 = _frame_conv(x, torch.cat([k_cur, k_prev]), 1)
+                return parity_blend_interleave4(x, y4, bias, alpha,
+                                                self.first_pad_mode)
+            return parity_blend_interleave(x, _frame_conv(x, k_cur, 1),
+                                           _frame_conv(x, k_prev, 1), bias,
+                                           alpha, self.first_pad_mode)
         if stream is not None and not stream.first_chunk:
             xc = torch.cat([stream.get(self).to(x.dtype), x], dim=1)
             stream.put(self, xc[:, -2 * ntu:-ntu].clone())

@@ -5,7 +5,9 @@ conv_in -> mid (3D resblock, attention, 3D resblock) -> levels from the
 deepest up, each ``num_res_blocks + 1`` x [spatial + temporal resblock],
 a spatial 2x upsample at ``spatial_us`` levels and a temporal 2x upsample
 at the ``tempo_us`` levels among them -> norm_out + SiLU + conv_out to RGB
-(kernel D when ``fused``).
+(kernel D when ``fused``, or D' in the ``taps`` tail form). ``forms``
+(:class:`~..ops.kernels.KernelForms`) picks the upsamples' and the tail's
+kernel forms when ``fused`` is set.
 
 * ``causal`` (v1.0): zero stream-start pads; the temporal upsample is
   nearest whatever ``interpolation_mode`` says (kernel E when ``fused``);
@@ -30,7 +32,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..ops.kernels import decoder_tail_rgb
+from ..ops.kernels import KernelForms, decoder_tail_rgb, decoder_tail_rgb_taps
 from .blocks import (ResnetBlockSpatial, ResnetBlockTemporal, SpatialUpsample,
                      TimeUpsampleRes2x)
 from .conv import CausalConv3d
@@ -106,16 +108,17 @@ class Decoder(nn.Module):
                 cur *= 2
         return 1, level_offs, up_offs, cur
 
-    def forward(self, z, fused: bool = False, stream=None):
+    def forward(self, z, fused: bool = False, stream=None,
+                forms: KernelForms = KernelForms()):
         """z: [B, T', H', W', Cz] -> [B, tdf*T' - crop, H, W, out_ch]."""
         h = self.mid(self.conv_in(z, stream), stream)
         for level, tlevel in zip(reversed(self.up), reversed(self.up_temporal)):
             for sp, tm in zip(level.block, tlevel.block):
                 h = tm(sp(h, fused=fused), fused=fused, stream=stream)
             if hasattr(level, "upsample"):
-                h = level.upsample(h, fused=fused)
+                h = level.upsample(h, fused=fused, forms=forms)
             if hasattr(tlevel, "upsample"):
-                h = tlevel.upsample(h, fused=fused, stream=stream)
+                h = tlevel.upsample(h, fused=fused, stream=stream, forms=forms)
         if stream is not None:
             front = (h[:, :1].expand(-1, 2, *h.shape[2:]) if stream.first_chunk
                      else stream.get(self.conv_out).to(h.dtype))
@@ -124,8 +127,9 @@ class Decoder(nn.Module):
         if fused:
             norm = self.norm_out.norm
             conv = self.conv_out.conv
-            h = decoder_tail_rgb(h, (norm.weight, norm.bias),
-                                 (conv.weight, conv.bias), self.first_pad_mode)
+            rgb = decoder_tail_rgb_taps if forms.tail == "taps" else decoder_tail_rgb
+            h = rgb(h, (norm.weight, norm.bias), (conv.weight, conv.bias),
+                    self.first_pad_mode)
         else:
             h = self.conv_out(silu(self.norm_out(h)))
         if stream is not None:

@@ -49,6 +49,12 @@ _SIGNATURES = {
     "vt_decoder_tail_rgb": [_P] * 7 + [_I] * 6 + [_P],
     # s, out, w, bias, alpha, B, T, H, W, C, replicate, stream
     "vt_parity_up2x": [_P] * 5 + [_I] * 6 + [_P],
+    # s, ycur, yprev, bias, alpha, out, ld, B, T, S, C, replicate, stream
+    "vt_parity_blend": [_P] * 6 + [_I] * 6 + [_P],
+    # z, bias, out, N, H, W, C, stream
+    "vt_subpixel_interleave_z": [_P] * 3 + [_I] * 4 + [_P],
+    # x, out, g, b, w, bias, B, T, H, W, C, replicate, stream
+    "vt_decoder_tail_rgb_taps": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 

@@ -1,9 +1,11 @@
-"""LayerNorm + SiLU as the kernels compute it (``vidtok_tpu/ops/pallas/act.py``
-``ln_silu_fast``, the JAX kernels' default epilogue).
+"""LayerNorm + SiLU as the kernels compute it.
 
-The CUDA form is the ``ln_silu`` device function and the ``ln_stats``
-kernel of ``csrc/common.cuh``. This is its plain PyTorch form, used by the
-plain version beside each kernel.
+``ln_silu_fast`` is ``vidtok_tpu/ops/pallas/act.py``'s, the JAX kernels'
+default epilogue; its CUDA form is the ``ln_silu`` device function and the
+``ln_stats`` kernel of ``csrc/common.cuh``. ``ln_silu_exact`` is the
+decoder tail's ``_ln_silu`` (``vidtok_tpu/ops/pallas/decoder_tail.py:42``),
+which kernel D' computes (``csrc/decoder_tail_taps.cu``). These are the
+plain PyTorch forms, used by the plain version beside each kernel.
 """
 
 from __future__ import annotations
@@ -26,3 +28,15 @@ def ln_silu_fast(x, g, b, eps: float = 1e-6):
     rs = torch.rsqrt(var.clamp_min(0.0) + eps)
     y = (xf - mu) * rs * g.float() + b.float()
     return (y * (torch.tanh(0.5 * y) * 0.5 + 0.5)).to(x.dtype)
+
+
+def ln_silu_exact(x, g, b, eps: float = 1e-6):
+    """x: ``[..., C]``; g, b: ``[C]``. The mean, then the mean of
+    ``(x - mean)^2``, in f32; the affine result is rounded to x.dtype, then
+    ``y * sigmoid(y)`` rounded to x.dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) / torch.sqrt(var + eps) * g.float() + b.float()
+    y = y.to(x.dtype).float()
+    return (y * torch.sigmoid(y)).to(x.dtype)

@@ -1,12 +1,18 @@
-"""Kernel C: subpixel-upsample bias + interleave.
+"""Kernels C and I: subpixel-upsample bias + interleave.
 
-Replaces ``vidtok_tpu/ops/pallas/subpixel_epilogue.py:100``
+C replaces ``vidtok_tpu/ops/pallas/subpixel_epilogue.py:100``
 (``subpixel_interleave``)::
 
     out[n, 2a+pr, 2b+pc, :] = y_{pr,pc}[n, a, b, :] + bias
 
-with the bias added in the tile dtype. CUDA: ``csrc/subpixel.cu``. The four
-2x2 parity convs that make ``y_pq`` run outside it, as in JAX.
+with the bias added in the tile dtype. I replaces ``:57``
+(``subpixel_interleave_z``), the merged form: one VALID 2x2 conv of the
+once-padded input gives ``z [N, H+1, W+1, 4C]`` with the output-channel
+groups ``e00 | e01 | e10 | e11``, and::
+
+    out[n, 2a+pr, 2b+pc, :] = z[n, a+pr, b+pc, (2pr+pc)*C:(2pr+pc+1)*C] + bias
+
+CUDA: ``csrc/subpixel.cu``. The parity convs run outside both, as in JAX.
 """
 
 from __future__ import annotations
@@ -47,3 +53,37 @@ def subpixel_interleave(y00, y01, y10, y11, bias):
 
 subpixel_interleave.calls = 0
 subpixel_interleave.launches = 0
+
+
+def subpixel_interleave_z_plain(z, bias):
+    """Plain PyTorch form of I. z: ``[N, H+1, W+1, 4C]`` -> ``[N, 2H, 2W, C]``."""
+    _, h1, w1, c4 = z.shape
+    h, w, c = h1 - 1, w1 - 1, c4 // 4
+    return subpixel_interleave_plain(z[:, :h, :w, :c], z[:, :h, 1:, c:2 * c],
+                                     z[:, 1:, :w, 2 * c:3 * c], z[:, 1:, 1:, 3 * c:],
+                                     bias)
+
+
+def subpixel_interleave_z(z, bias):
+    """Kernel I. A CPU tensor runs :func:`subpixel_interleave_z_plain`; a
+    CUDA tensor (contiguous bf16, C % 8 == 0) runs the kernel or raises."""
+    subpixel_interleave_z.calls += 1
+    n, h1, w1, c4 = z.shape
+    c = bias.shape[0]
+    if c4 != 4 * c:
+        raise ValueError(f"z has {c4} channels, not 4 x {c}")
+    if z.device.type == "cpu":
+        return subpixel_interleave_z_plain(z, bias)
+    _lib.require(z, torch.bfloat16, (n, h1, w1, c4))
+    if c % 8:
+        raise ValueError(f"kernel I takes C % 8 == 0, got C={c}")
+    bias = _lib.f32(bias)
+    _lib.same_device(bias, z)
+    out = z.new_empty((n, 2 * (h1 - 1), 2 * (w1 - 1), c))
+    _lib.call("vt_subpixel_interleave_z", z, bias, out, n, h1 - 1, w1 - 1, c)
+    subpixel_interleave_z.launches += 1
+    return out
+
+
+subpixel_interleave_z.calls = 0
+subpixel_interleave_z.launches = 0
