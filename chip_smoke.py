@@ -5,8 +5,8 @@
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
-1. build the ten hand-written kernels from ``vidtok_tpu_torch/csrc`` (nvcc,
-   sm_90a, one process per source) and print the build time and the
+1. build the fourteen hand-written kernels from ``vidtok_tpu_torch/csrc``
+   (nvcc, sm_90a, one process per source) and print the build time and the
    ``-Xptxas -v`` report;
 2. hold every kernel against its plain PyTorch version at every shape the
    serving paths give it, in both stream-start modes where it has them
@@ -26,6 +26,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    them; then the forms against each other per call and per v1.0 forward at
    the flagship's shapes, the convs included: E against one conv + H
    against two convs + G, four convs + C against one conv + I, D against D';
+   then the tools' kernels (``vidtok_tpu_torch/tools``): kernel B in zero
+   mode, T1 (``fused_fat``), T2 (``fused_diag``, modes mm, ln, copy) and T3
+   (``copy_min``, the five tilings that divide) at the temporal
+   microbenchmark's default [1, 9, 64, 64, 512] and at B's
+   [1, 20, 256, 256, 128], T4 (``silu_probe``, three modes) at
+   [64, 512, 512], each gated as above (T4's bf16 modes against f32 SiLU
+   and value by value against the plain bf16 version, see SILU_UNITS;
+   every copy equal to x), the plain version and ``x.clone()`` (T3, T2's
+   copy) or ``F.silu`` (T4's f32 form) timed with the L2 flushed before
+   each call; then both tools' mains on the card at the same shapes, whose
+   rows give the kernels' times and bounds and whose launches of T1-T4 the
+   result line reports;
 3. serve the causal v1.0 KL 4x8x8 16-channel flagship at full width with
    seeded random weights in bf16: 3 requests of [1, 3, 17, 256, 256],
    per-request latency, frames/s and peak memory, and the kernels' launch
@@ -56,8 +68,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 It never falls back to the CPU or to a plain version. The last two lines of
 standard output are a JSON object with the per-kernel results (launches
 from phase 3's kernel-path run for A-E, phase 7's for F, and phase 8's for
-G (its ``split`` request), H, I and D') and ``{"ok": true, "device":
-{...}}``. Needs one CUDA device; imports no JAX.
+G (its ``split`` request), H, I and D', and the tools' runs for T1-T4,
+whose numbers are those of one row of the tool at its first shape, with
+every row beside) and ``{"ok": true, "device": {...}}``. Needs one CUDA device;
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -70,6 +84,10 @@ from collections import Counter, defaultdict
 from typing import Callable, NamedTuple
 
 import numpy as np
+
+# the bound of a call: bytes over the HBM rate or FLOP over the peak rate
+# of their type, of one H100 SXM at 700 W
+from vidtok_tpu_torch.tools import bound_ms
 
 # Model sections, resolved, so no YAML parser is needed. The v1.0 KL 4x8x8
 # 16-channel flagship (configs/vidtok_kl_causal_488_16chn.yaml, the model of
@@ -214,11 +232,6 @@ TILED_MEM_RATIO = 1.25
 TILED_Z_GATE = 1e-4
 TILED_RECON_GATE = 1e-3
 PATHS = ("v1_0", "v1_1", "tiled") + tuple(FORMS)
-# one H100 SXM at 700 W (NVIDIA's data sheet): dense bf16 tensor-core rate,
-# f32 rate outside the tensor cores, HBM rate
-PEAK_MMA_FLOPS = 989e12
-PEAK_VEC_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 # the path whose serving run gives each kernel's launches and times in the
 # result line
@@ -228,6 +241,40 @@ MAIN_PATH.update(fused_temporal_resblock_stream="tiled",
                  parity_blend_interleave4="v1_0_forms",
                  subpixel_interleave_z="v1_0_forms",
                  decoder_tail_rgb_taps="v1_0_forms")
+
+# The tools' kernels (vidtok_tpu_torch/tools), run by the tools' mains, not
+# by a serving path: T1-T3 at the temporal microbenchmark's default shape
+# and at kernel B's heaviest serving shape, T4 at the SiLU probe's. Each
+# kernel's entry in the result line takes its numbers from the named row of
+# its tool at the first shape, and lists every row.
+TOOL_SOURCES = {
+    "fused_fat": ("vidtok_tpu_torch/csrc/microbench_temporal.cu",
+                  "tools/microbench_temporal.py:53", "v1 fat"),
+    "fused_diag": ("vidtok_tpu_torch/csrc/microbench_temporal.cu",
+                   "tools/microbench_temporal.py:102", "v2 mm-only"),
+    "copy_min": ("vidtok_tpu_torch/csrc/microbench_temporal.cu",
+                 "tools/microbench_temporal.py:130", "copy min128"),
+    "silu_probe": ("vidtok_tpu_torch/csrc/probe_silu.cu", "tools/probe_silu_bf16.py:48",
+                   "f32_logistic"),
+}
+TOOL_SHAPES = ((1, 9, 64, 64, 512), TEMPORAL_SHAPES[0][0])
+# the microbenchmark's [C T S] for each of TOOL_SHAPES (the first is its default)
+TOOL_RUNS = tuple([str(c), str(t), str(h)] for _, t, h, _, c in TOOL_SHAPES)
+SILU_SHAPE = (64, 512, 512)
+# T4's bf16 forms against their plain version, value by value. Both compute
+# y = x * s(x) in bf16 steps; tanh.approx.bf16x2 and the bf16 exp and
+# reciprocal may land one grid step of s away from torch's correctly
+# rounded steps. So a difference is counted in units of |x| times s's grid
+# step at that x, plus one ulp of the plain output: bf16_tanh's s is
+# (1 + t) / 2 with t = tanh(x / 2) in bf16, whose step is max(ulp(t),
+# ulp(1 + t)) / 2 (near t = -1 the sum is exact and t's own last place
+# limits it); bf16_logistic's steps carry no cancellation, so its unit is
+# one ulp of the output alone. The bound, in those units: one step of s,
+# plus the rounding of y on both sides (half an ulp of y each, k's ulp up
+# to twice p's where they straddle a power of 2). It catches bf16_tanh
+# wrong by one more step of s wherever its s is 2 or more steps from 0,
+# so a zero output for x < -4.5 (PERF.md).
+SILU_UNITS = 1.5
 
 
 def _cut(n: int, chunk: int):
@@ -400,15 +447,6 @@ def work(name: str, key) -> tuple:
     b, t, h, w, c = key[0]  # parity_up2x_fused
     m = b * t * h * w
     return 2 * 3 * m * c + 4 * (27 * c * c + c + 1), 2 * 2 * m * 27 * c * c, 0
-
-
-def bound_ms(w: tuple) -> tuple:
-    """(bound in ms, "bytes" or "operations"): the larger of the bytes
-    over the HBM rate and the FLOP over the peak rate of their type."""
-    nbytes, mma, vec = w
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = (mma / PEAK_MMA_FLOPS + vec / PEAK_VEC_FLOPS) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 class Case(NamedTuple):
@@ -601,7 +639,7 @@ def check_kernels(device) -> dict:
             plain_ms = cuda_ms(lambda: case.plain(*args))
             if case.convs is not None:
                 convs_ms = cuda_ms(case.convs)
-        bound, by = bound_ms(work(name, case.key))
+        bound, by = bound_ms(*work(name, case.key))
         print(f"kernel {name} {case.key}: max_abs_err "
               + "/".join(f"{e:.4g}" for e in errs) + " rel_l2 "
               + "/".join(f"{r:.4g}" for r in rels) + " plain_bf16_rel_l2 "
@@ -1103,6 +1141,177 @@ def serve_forms(device) -> dict:
     return runs
 
 
+def tool_cases(device):
+    """Yield (kernel, row, shape, wrapper, plain version, bf16 args,
+    library call or None): kernel B in zero mode (the tool's ``v0
+    shipped``), T1, T2 in its three modes and T3 at every tiling that
+    divides the shape, at each of TOOL_SHAPES with ``Params`` inputs (random
+    norm and conv parameters); T4 in its three modes at SILU_SHAPE. Rows
+    are named as the tools' mains name them."""
+    import torch
+    import torch.nn.functional as F
+
+    from vidtok_tpu_torch.ops.kernels import fused_temporal
+    from vidtok_tpu_torch.tools import microbench_temporal as tm
+    from vidtok_tpu_torch.tools import probe_silu_bf16 as tp
+
+    p = Params(5, device)
+    for shape in TOOL_SHAPES:
+        c = shape[-1]
+        x = p.x(shape, torch.bfloat16)
+        params = {"norm1": p.norm(c), "conv1": p.conv((c, c, 3)),
+                  "norm2": p.norm(c), "conv2": p.conv((c, c, 3))}
+        yield ("fused_temporal_resblock", "v0 shipped", shape,
+               fused_temporal.fused_temporal_resblock,
+               fused_temporal.fused_temporal_resblock_plain,
+               (x, *(params[n] for n in ("norm1", "conv1", "norm2", "conv2")), "zero"),
+               None)
+        yield ("fused_fat", "v1 fat", shape, tm.fused_fat, tm.fused_fat_plain,
+               (x, params), None)
+        for row, mode in tm.DIAG_ROWS:
+            lib = (lambda x=x: x.clone()) if mode == "copy" else None
+            yield ("fused_diag", row, shape, tm.fused_diag, tm.fused_diag_plain,
+                   (x, params, mode), lib)
+        b, t, h, w, _ = shape
+        for row, tile_s, tile_t in tm.COPY_TILINGS:
+            if (h * w) % tile_s or t % (tile_t or t):
+                print(f"tools copy_min {shape} {row}: not run, the tile does not "
+                      "divide the shape", flush=True)
+                continue
+            yield ("copy_min", row, shape, tm.copy_min, tm.copy_min_plain,
+                   (x, tile_s, tile_t), lambda x=x: x.clone())
+        del x
+    x = tp.probe_input(SILU_SHAPE, device)
+    for mode in tp.MODES:
+        lib = (lambda: F.silu(x)) if mode == "f32_logistic" else None
+        yield ("silu_probe", mode, SILU_SHAPE, tp.silu_probe, tp.silu_probe_plain,
+               (x, mode), lib)
+
+
+def ulp_bf16(a):
+    """The spacing of bf16 values at |a| (8 significant bits), in f32."""
+    import torch
+
+    e = torch.floor(torch.log2(a.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def silu_units(x, plain_out, mode: str):
+    """The unit of SILU_UNITS at each value of bf16 x: one ulp of the plain
+    output, plus for ``bf16_tanh`` |x| times the grid step of its s, from
+    t = tanh(x / 2) in bf16 steps as its plain form takes it."""
+    import torch
+
+    unit = ulp_bf16(plain_out)
+    if mode == "bf16_tanh":
+        t = torch.tanh(x * 0.5)
+        unit = unit + x.float().abs() * torch.maximum(ulp_bf16(t), ulp_bf16(t + 1.0)) / 2
+    return unit
+
+
+def check_tools(device) -> dict:
+    """The tools' kernels (B, T1-T4) against their plain versions at the
+    shapes of ``tool_cases``: relative L2 <= KERNEL_GATE against the plain
+    version run in f32 (TF32 off) and <= BF16_SLACK x the plain bf16
+    version's own, and every copy equal to x. T4's bf16 forms: relative L2
+    <= KERNEL_GATE against SiLU in f32, and every value within SILU_UNITS
+    of the plain bf16 version (``silu_units``). Times (the tools'
+    ``Timer``: the median of CUDA event pairs, the L2 flushed before each
+    call) of the plain version in bf16 and of the library call; the
+    kernels' own times are their tools' rows (``run_tools``). Returns
+    {kernel: {(shape, row): {max_abs_err, plain_ms, library_ms}}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from vidtok_tpu_torch.tools import Timer
+
+    timer = Timer(device)
+    results = {}
+    for name, row, shape, kernel, plain, args, lib in tool_cases(device):
+        out = kernel(*args)
+        plain_bf16 = plain(*args)
+        x = args[0]
+        bf16_silu = name == "silu_probe" and row != "f32_logistic"
+        ref = F.silu(x.float()) if bf16_silu else plain(*f32(args))
+        torch.cuda.synchronize()
+        if out.shape != x.shape or out.dtype != x.dtype:
+            raise AssertionError(f"{name} {shape} {row}: {out.shape}/{out.dtype}")
+        err = float((out.float() - ref).abs().max())
+        rel, plain_rel = rel_l2(out.float(), ref), rel_l2(plain_bf16.float(), ref)
+        note = ""
+        if bf16_silu:
+            diff = (out.float() - plain_bf16.float()).abs()
+            units = float((diff / silu_units(x, plain_bf16, row)).max())
+            ulps = float((diff / ulp_bf16(plain_bf16)).max())
+            note = (f" max |kernel - plain bf16| {units:.3g} units ({ulps:.3g} ulps of "
+                    "the plain output)")
+            if not (rel <= KERNEL_GATE and units <= SILU_UNITS):
+                raise AssertionError(f"silu_probe {row}: rel_l2 vs f32 silu {rel} > "
+                                     f"{KERNEL_GATE}, or {units} > {SILU_UNITS} units")
+        else:
+            gate(f"{name}{shape} {row}", rel, plain_rel)
+            if name == "copy_min" or row == "v4 copy-only":
+                if not torch.equal(out, x):
+                    raise AssertionError(f"{name} {shape} {row}: the copy differs from x")
+        del out, plain_bf16, ref
+        plain_ms = timer(lambda: plain(*args), iters=10)
+        lib_ms = timer(lib, iters=10) if lib is not None else None
+        print(f"tools {name} {shape} {row}: max_abs_err {err:.4g} rel_l2 {rel:.4g} "
+              f"plain_bf16_rel_l2 {plain_rel:.4g}{note} plain_bf16_ms {plain_ms:.4f} "
+              f"library_ms {'none' if lib_ms is None else f'{lib_ms:.4f}'} "
+              "(median, L2 flushed)", flush=True)
+        results.setdefault(name, {})[shape, row] = dict(
+            max_abs_err=err, plain_ms=plain_ms, library_ms=lib_ms)
+        del args
+    return results
+
+
+def run_tools() -> tuple:
+    """Both tools' mains on the card (the microbenchmark at TOOL_RUNS, the
+    probe at its default), their rows printed. Returns the T1-T4 launches
+    of these runs, each of which must be > 0, and the rows by (shape, row
+    name)."""
+    from vidtok_tpu_torch.tools import microbench_temporal as tm
+    from vidtok_tpu_torch.tools import probe_silu_bf16 as tp
+
+    wrappers = {**tm.WRAPPERS, **tp.WRAPPERS}
+    for fn in wrappers.values():
+        fn.calls = fn.launches = 0
+    rows = {}
+    for shape, argv in zip(TOOL_SHAPES, TOOL_RUNS):
+        print(f"tool microbench_temporal {' '.join(argv)}:", flush=True)
+        rows.update(((shape, r["name"]), r) for r in tm.main(argv))
+    print("tool probe_silu_bf16 (defaults):", flush=True)
+    rows.update(((SILU_SHAPE, r["name"]), r) for r in tp.main([]))
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"tools launches {launches}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name}: no launch in the tools' run")
+    return launches, rows
+
+
+def tool_entry(name: str, checked: dict, launches: int, rows: dict) -> dict:
+    """The result line's entry of a tool kernel: its numbers from its row
+    named in TOOL_SOURCES at its first shape (T1-T3: TOOL_SHAPES[0], T4:
+    SILU_SHAPE), and each of its rows under ``rows``: the time and bound
+    from the tool's run, the error, plain and library times from
+    ``check_tools``."""
+    source, replaces, first_row = TOOL_SOURCES[name]
+    first = SILU_SHAPE if name == "silu_probe" else TOOL_SHAPES[0]
+    per_row = []
+    for (shape, row), c in checked.items():
+        r = rows[shape, row]
+        per_row.append(dict(shape=list(shape), row=row, ms=r["ms"], plain_ms=c["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=c["library_ms"], max_abs_err=c["max_abs_err"]))
+    head = next(r for r in per_row if r["shape"] == list(first) and r["row"] == first_row)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": head["max_abs_err"],
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": list(first), "row": first_row, "rows": per_row}
+
+
 def phase(name: str, t0: float) -> float:
     t = time.perf_counter()
     print(f"phase {name}: {t - t0:.1f} s", flush=True)
@@ -1143,6 +1352,10 @@ def main() -> int:
     t = phase("kernels", t)
     compare_forms(device, card)
     t = phase("forms", t)
+    tool_checks = check_tools(device)
+    tool_launches, tool_rows = run_tools()
+    torch.cuda.empty_cache()
+    t = phase("tools", t)
     main_path = serve_both_paths("v1.0 kl 4x8x8 16chn", V1_0_CFG, "v1_0", device)
     torch.cuda.empty_cache()
     t = phase("v1.0 kl serve", t)
@@ -1174,6 +1387,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"][path], "bound_ms": r["bound_ms"][path],
             "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": None})
+    kernels += [tool_entry(name, tool_checks[name], tool_launches[name], tool_rows)
+                for name in TOOL_SOURCES]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -161,7 +161,8 @@ def test_full_width_v1_1_16chn_shapes():
 
 def test_import_hygiene(tmp_path):
     """The port imports torch and numpy only: no jax, flax or yaml when it
-    builds a model from a config dict (v1.1 KL, v1.0 KL and FSQ), and no
+    builds a model from a config dict (v1.1 KL, v1.0 KL and FSQ) beside its
+    two tool modules (the temporal microbenchmark, the SiLU probe), and no
     jax, flax or ``vidtok_tpu`` module when it loads a YAML file (PyYAML is
     allowed there) whose ``${...}`` reference its own resolver follows."""
     import yaml
@@ -183,6 +184,8 @@ def test_import_hygiene(tmp_path):
     code = (
         "import sys, vidtok_tpu_torch, vidtok_tpu_torch.convert\n"
         "import vidtok_tpu_torch.ops.kernels\n"
+        "import vidtok_tpu_torch.tools.microbench_temporal\n"
+        "import vidtok_tpu_torch.tools.probe_silu_bf16\n"
         f"for m in ({CFG!r}, {v1_0!r}, {fsq!r}):\n"
         "    tok = vidtok_tpu_torch.load_model_from_config({'model': m}, "
         "device='cpu')\n"

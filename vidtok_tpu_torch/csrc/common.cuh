@@ -10,6 +10,11 @@
 // position's channels with one warp and writes the activated row, which a
 // conv then reads once per tap from L2; ln_stats_kernel only writes the
 // (mean, rstd) pair, for a consumer that activates while loading its tile.
+//
+// ln_silu_exact_f32 and row_stats_exact are the exact form of
+// vidtok_tpu/ops/pallas/fused_temporal.py:32 _ln_silu (the mean, then the
+// mean of squared deviations, y * sigmoid(y), all in f32), which the
+// temporal microbenchmark's kernels compute (microbench_temporal.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +36,14 @@ __device__ __forceinline__ float ln_silu(float x, float mu, float rs, float g,
                                          float b) {
   float y = (x - mu) * rs * g + b;
   return y * (0.5f * tanh_fast(0.5f * y) + 0.5f);
+}
+
+// The exact form, vidtok_tpu/ops/pallas/fused_temporal.py:32 _ln_silu:
+// affine, then y * sigmoid(y), all in f32; (mu, rs) from row_stats_exact.
+__device__ __forceinline__ float ln_silu_exact_f32(float x, float mu, float rs,
+                                                   float g, float b) {
+  const float y = (x - mu) * rs * g + b;
+  return y / (1.f + __expf(-y));
 }
 
 __device__ __forceinline__ uint4 ld_u4(const __nv_bfloat16* p) {
@@ -77,6 +90,34 @@ __device__ __forceinline__ float2 row_stats(const __nv_bfloat16* p, int C,
   }
   const float mu = s / C;
   return make_float2(mu, rsqrtf(fmaxf(ss / C - mu * mu, 0.f) + kLnEps));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// (mean, rsqrt(mean((x - mean)^2) + eps)) in f32, two passes, of a row that
+// one warp holds in registers: lane l has v[i][e] = channel 256i + 8l + e;
+// channels >= C are ignored. Every lane gets the pair.
+template <int NV>
+__device__ __forceinline__ float2 row_stats_exact(const float (&v)[NV][8], int C,
+                                                  int lane) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (256 * i + 8 * lane < C)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += v[i][e];
+  const float mu = warp_sum(s) / C;
+  float d = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (256 * i + 8 * lane < C)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d += (v[i][e] - mu) * (v[i][e] - mu);
+  return make_float2(mu, rsqrtf(warp_sum(d) / C + kLnEps));
 }
 
 // stats[row] = row_stats(x[row]); one warp per row.

@@ -1,7 +1,8 @@
 // Implicit-GEMM conv over channels-last rows, shared by kernel A (3x3
 // spatial taps, fused_spatial.cu), kernels B and F (k=3 causal temporal
-// taps, fused_temporal.cu, fused_temporal_stream.cu) and kernel E (2 frames
-// x 3x3 taps, parity_upsample.cu):
+// taps, fused_temporal.cu, fused_temporal_stream.cu), kernel E (2 frames
+// x 3x3 taps, parity_upsample.cu) and the temporal microbenchmark's dense
+// product (kDense: one tap, row m reads a[m]; microbench_temporal.cu):
 //
 //   out[m, n] = bf16( bias[n] + res[m, n]
 //                     + sum_{tap, c} a[src(m, tap), c] * w[tap*Cin + c, n]
@@ -22,6 +23,7 @@
 //                             + (1 - alpha) * (acc[m, pC + c] + bias[pC + c]) )
 // for m = f*H*W + r, and the taps of frame f-1 (the first 9) read frame f
 // itself at a clip's frame 0 in replicate mode, zeros in zero mode.
+// kDense may write bias + acc in f32 to ``outf`` instead of bf16 to ``out``.
 //
 // Tiling: a 128 x 128 output tile per 128-thread block; K in steps of 32
 // channels of one tap. Each step's A tile (gathered rows, zero-filled when
@@ -41,8 +43,9 @@
 namespace vt {
 namespace igemm {
 
-// tap sets: 3x3 spatial, causal k=3 temporal, previous + current frame 3x3
-enum Taps { kSpatial = 0, kTemporal = 1, kParity = 2 };
+// tap sets: 3x3 spatial, causal k=3 temporal, previous + current frame 3x3,
+// one tap (a dense product)
+enum Taps { kSpatial = 0, kTemporal = 1, kParity = 2, kDense = 3 };
 
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
 constexpr int WGM = 2, WGN = 2, kMinBlocks = 2;  // warp grid: 64 x 64 tiles
@@ -72,6 +75,7 @@ struct Params {
   long long M;
   int Cin, Cout, Cs;
   const float* alpha;        // kParity: the blend weight, else unused
+  float* outf;               // kDense: [M, Cout] f32 in place of out, or null
 };
 
 // 16-byte global -> shared copy; zero-fills the destination when !valid
@@ -110,7 +114,7 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
   long long base = 0;
   int pa = 0, pb = 0;  // spatial, parity (y, x); temporal (t, s)
   int pt = 0;          // parity: frame within the clip
-  if (arow) {
+  if (arow && TAPS != kDense) {
     if (TAPS != kTemporal) {
       const long long n = am / hw;
       const int r = (int)(am - n * hw);
@@ -131,7 +135,7 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int br = tid / (BN / 8), bc = (tid % (BN / 8)) * 8;
   constexpr int kBRowStep = kThreads / (BN / 8);
 
-  constexpr int kTaps = TAPS == kSpatial ? 9 : TAPS == kTemporal ? 3 : 18;
+  constexpr int kTaps = TAPS == kSpatial ? 9 : TAPS == kTemporal ? 3 : TAPS == kParity ? 18 : 1;
   const int kmain = kTaps * p.Cin;
   const int nk = (kmain + p.Cs) / BK;
 
@@ -145,7 +149,9 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const int tap = k0 / p.Cin;
       const int c = k0 - tap * p.Cin + ac;
       long long row = -1;
-      if (arow) {
+      if (arow && TAPS == kDense) {
+        row = am;
+      } else if (arow) {
         if (TAPS != kTemporal) {
           const int st = tap % 9;
           const int sy = pa + st / 3 - 1, sx = pb + st % 3 - 1;
@@ -233,23 +239,29 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
         float v[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = ep[er * 16 + ec + e] + p.bias[n + e];
-        __nv_bfloat16* dst = p.out + m * p.Cout + n;
-        if (TAPS == kParity) {
-          // 8 columns never straddle the parity halves: C % 64 == 0
-          const int C = p.Cout / 2, par = n >= C, c = n - par * C;
-          const long long f = m / hw, r = m - f * hw;
-          float x[8];
-          unpack8(ld_u4(p.a + m * C + c), x);
+        if (TAPS == kDense && p.outf != nullptr) {
+          float4* d = reinterpret_cast<float4*>(p.outf + m * p.Cout + n);
+          d[0] = make_float4(v[0], v[1], v[2], v[3]);
+          d[1] = make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+          __nv_bfloat16* dst = p.out + m * p.Cout + n;
+          if (TAPS == kParity) {
+            // 8 columns never straddle the parity halves: C % 64 == 0
+            const int C = p.Cout / 2, par = n >= C, c = n - par * C;
+            const long long f = m / hw, r = m - f * hw;
+            float x[8];
+            unpack8(ld_u4(p.a + m * C + c), x);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] = alpha * x[e] + (1.f - alpha) * v[e];
-          dst = p.out + ((2 * f + par) * hw + r) * C + c;
-        } else if (p.res != nullptr) {
-          float r[8];
-          unpack8(ld_u4(p.res + m * p.Cout + n), r);
+            for (int e = 0; e < 8; ++e) v[e] = alpha * x[e] + (1.f - alpha) * v[e];
+            dst = p.out + ((2 * f + par) * hw + r) * C + c;
+          } else if (p.res != nullptr) {
+            float r[8];
+            unpack8(ld_u4(p.res + m * p.Cout + n), r);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) v[e] += r[e];
+            for (int e = 0; e < 8; ++e) v[e] += r[e];
+          }
+          *reinterpret_cast<uint4*>(dst) = pack8(v);
         }
-        *reinterpret_cast<uint4*>(dst) = pack8(v);
       }
       __syncwarp();
     }

@@ -55,6 +55,15 @@ _SIGNATURES = {
     "vt_subpixel_interleave_z": [_P] * 3 + [_I] * 4 + [_P],
     # x, out, g, b, w, bias, B, T, H, W, C, replicate, stream
     "vt_decoder_tail_rgb_taps": [_P] * 6 + [_I] * 6 + [_P],
+    # the tools' kernels (vidtok_tpu_torch/tools):
+    # x, out, B, T, S, C, tile_t, tile_s, stream
+    "vt_copy_units": [_P] * 2 + [_I] * 6 + [_P],
+    # x, out, h, g1, b1, w1, g2, b2, w2, zero_bias, B, T, S, C, mode, stream
+    "vt_microbench_diag": [_P] * 10 + [_I] * 5 + [_P],
+    # x, out, fat, h, g1, b1, w1, bias1, g2, b2, w2, bias2, B, T, S, C, stream
+    "vt_microbench_fat": [_P] * 12 + [_I] * 4 + [_P],
+    # x, out, n, mode, stream
+    "vt_silu_probe": [_P] * 2 + [ctypes.c_longlong, _I, _P],
 }
 
 

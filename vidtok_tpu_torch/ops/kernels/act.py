@@ -4,8 +4,11 @@
 default epilogue; its CUDA form is the ``ln_silu`` device function and the
 ``ln_stats`` kernel of ``csrc/common.cuh``. ``ln_silu_exact`` is the
 decoder tail's ``_ln_silu`` (``vidtok_tpu/ops/pallas/decoder_tail.py:42``),
-which kernel D' computes (``csrc/decoder_tail_taps.cu``). These are the
-plain PyTorch forms, used by the plain version beside each kernel.
+which kernel D' computes (``csrc/decoder_tail_taps.cu``).
+``ln_silu_exact_f32`` is ``vidtok_tpu/ops/pallas/fused_temporal.py:32``'s
+``_ln_silu``, the exact form the temporal microbenchmark's kernels compute
+(``ln_silu_exact_f32`` and ``row_stats_exact`` of ``csrc/common.cuh``). These
+are the plain PyTorch forms, used by the plain version beside each kernel.
 """
 
 from __future__ import annotations
@@ -39,4 +42,15 @@ def ln_silu_exact(x, g, b, eps: float = 1e-6):
     var = (xf - mu).square().mean(-1, keepdim=True)
     y = (xf - mu) / torch.sqrt(var + eps) * g.float() + b.float()
     y = y.to(x.dtype).float()
+    return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+def ln_silu_exact_f32(x, g, b, eps: float = 1e-6):
+    """x: ``[..., C]``; g, b: ``[C]``. The mean, then the mean of
+    ``(x - mean)^2``, ``rsqrt``, the affine and ``y * sigmoid(y)``, all in
+    f32, rounded once to x.dtype (an f32 x is not rounded)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
     return (y * torch.sigmoid(y)).to(x.dtype)

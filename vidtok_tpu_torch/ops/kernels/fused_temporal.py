@@ -32,6 +32,12 @@ def _tconv3(a, weight, mode):
     return conv3d_cl(pad_time_front(a, 2, mode), weight[..., None, None])
 
 
+def gemm_weight(weight, dtype=torch.bfloat16):
+    """Conv1d weight ``[Co, Ci, k]`` -> the kernels' GEMM operand
+    ``[(k, ci), co]``, tap-major, contiguous, in ``dtype``."""
+    return weight.permute(2, 1, 0).reshape(-1, weight.shape[0]).to(dtype).contiguous()
+
+
 def fused_temporal_resblock_plain(x, norm1, conv1, norm2, conv2,
                                   first_pad_mode: str = "zero",
                                   eps: float = 1e-6):
@@ -66,10 +72,7 @@ def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
     for cw in (conv1[0], conv2[0]):
         if tuple(cw.shape) != (c, c, 3):
             raise ValueError("kernel B takes two causal k=3 convs C->C")
-    bf = torch.bfloat16
-    # Conv1d [O, I, k] -> GEMM operand [(k, ci), co]
-    w1 = conv1[0].permute(2, 1, 0).reshape(3 * c, c).to(bf).contiguous()
-    w2 = conv2[0].permute(2, 1, 0).reshape(3 * c, c).to(bf).contiguous()
+    w1, w2 = gemm_weight(conv1[0]), gemm_weight(conv2[0])
     g1, b1, g2, b2, bias1, bias2 = (
         _lib.f32(v) for v in (norm1[0], norm1[1], norm2[0], norm2[1],
                               conv1[1], conv2[1]))
@@ -141,10 +144,7 @@ def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
     else:
         for cache in (c1, c2):
             _lib.require(cache, torch.bfloat16, (b, 2, h, w, c))
-    bf = torch.bfloat16
-    # Conv1d [O, I, k] -> GEMM operand [(k, ci), co]
-    w1 = conv1[0].permute(2, 1, 0).reshape(3 * c, c).to(bf).contiguous()
-    w2 = conv2[0].permute(2, 1, 0).reshape(3 * c, c).to(bf).contiguous()
+    w1, w2 = gemm_weight(conv1[0]), gemm_weight(conv2[0])
     g1, b1, g2, b2, bias1, bias2 = (
         _lib.f32(v) for v in (norm1[0], norm1[1], norm2[0], norm2[1],
                               conv1[1], conv2[1]))
