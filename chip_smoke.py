@@ -16,7 +16,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    events) and, for A, B and F, cuDNN's convs of the block alone; compute
    each call's bound (bytes over 3.35 TB/s, FLOP over 989 TFLOP/s); and
    hold kernel E at bench.py's T=201 shape, whose output passes 2^31
-   elements, against its plain version on a window of frames. Kernel F
+   elements, and kernel A at its T=201 call whose input does, against
+   their plain versions on a window of frames. A and F also at frames
+   whose sides are not multiples of their tiles (PARTIAL_SPATIAL,
+   PARTIAL_TEMPORAL: 33² to 264², F at both ``first_chunk`` values and
+   offsets 1 and 4), checked, not timed. Kernel F
    (the streaming temporal resblock) is held at every chunk shape of the
    tiled T=65 request, with ``first_chunk`` True and False at each of its
    cache offsets (0, 1, 2, 4), on y and both new caches; A, C and D also
@@ -45,7 +49,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the plain path (no kernel launched), a torch.profiler breakdown of one
    kernel-path request, and the end-to-end gate: on z and on the
    reconstruction the kernel path (bf16) must be no further from the f32
-   plain run than the plain bf16 path is (x 1.1);
+   plain run than the plain bf16 path is (x 1.1); then A's GEMMs' TFLOP/s
+   and its row passes' share of their byte bound at 128, 256 and 512
+   channels (``loop_rates``, torch.profiler);
 4. serve one [1, 3, 201, 256, 256] clip (bench.py's protocol) through the
    v1.0 kernel path after one warm-up of the same shape;
 5. serve one request through the v1.0 FSQ 4096 tokenizer's kernel path and
@@ -58,15 +64,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    D 5, B and E 0), a profile of one request, one [1, 3, 201, 256, 256]
    request whose peak memory may be at most 1.25x the T=65 peak, one T=65
    request in the ``merged`` subpixel and ``taps`` tail forms (I 15, D' 5),
-   and the end-to-end gates at T=65 against the non-tiled f32 plain run
-   (the forms' request against the tiled f32 plain run);
+   the end-to-end gates at T=65 against the non-tiled f32 plain run (the
+   forms' request against the tiled f32 plain run), and one tiled
+   [1, 3, 17, 264, 264] request (a 33² latent: partial tiles in A, C, D,
+   F; launches A 40, C 6, D 2, F 40) held to the tiled f32 plain run by
+   the same rule;
 8. serve the v1.0 flagship in the forms ``KernelForms("merged", "merged",
    "taps")``: 3 requests (launches per forward A 20, B 20, H 2, I 3, D' 1,
    C, D, E and G 0), a profile of one, then one request in the ``split``
    parity form (G 2), and the end-to-end gate for both forms.
 
 It never falls back to the CPU or to a plain version. The last two lines of
-standard output are a JSON object with the per-kernel results (launches
+standard output are a JSON object with the per-kernel results (``headers``:
+the shared GEMM loop a kernel is built on besides its source; launches
 from phase 3's kernel-path run for A-E, phase 7's for F, and phase 8's for
 G (its ``split`` request), H, I and D', and the tools' runs for T1-T4,
 whose numbers are those of one row of the tool at its first shape, with
@@ -125,28 +135,32 @@ V1_1_CFG = _model("AutoencodingEngineV1_1", "EncoderCausal3DV1_1",
 REQUEST = (1, 3, 17, 256, 256)
 LONG_REQUEST = (1, 3, 201, 256, 256)  # bench.py:46
 N_REQUESTS = 3
+# kernel -> (its source, the TPU kernel it replaces, the shared GEMM loop
+# it is built on besides)
+_WGMMA = ("vidtok_tpu_torch/csrc/wgmma_conv.cuh",)
+_WMMA = ("vidtok_tpu_torch/csrc/igemm_conv.cuh",)
 SOURCES = {
     "fused_spatial_resblock": ("vidtok_tpu_torch/csrc/fused_spatial.cu",
-                               "vidtok_tpu/ops/pallas/fused_spatial_v2.py:183"),
+                               "vidtok_tpu/ops/pallas/fused_spatial_v2.py:183", _WGMMA),
     "fused_temporal_resblock": ("vidtok_tpu_torch/csrc/fused_temporal.cu",
-                                "vidtok_tpu/ops/pallas/fused_temporal.py:205"),
+                                "vidtok_tpu/ops/pallas/fused_temporal.py:205", _WMMA),
     "subpixel_interleave": ("vidtok_tpu_torch/csrc/subpixel.cu",
-                            "vidtok_tpu/ops/pallas/subpixel_epilogue.py:100"),
+                            "vidtok_tpu/ops/pallas/subpixel_epilogue.py:100", ()),
     "decoder_tail_rgb": ("vidtok_tpu_torch/csrc/decoder_tail.cu",
-                         "vidtok_tpu/ops/pallas/decoder_tail.py:245"),
+                         "vidtok_tpu/ops/pallas/decoder_tail.py:245", ()),
     "parity_up2x_fused": ("vidtok_tpu_torch/csrc/parity_upsample.cu",
-                          "vidtok_tpu/ops/pallas/parity_upsample_fused.py:108"),
+                          "vidtok_tpu/ops/pallas/parity_upsample_fused.py:108", _WMMA),
     "fused_temporal_resblock_stream": (
         "vidtok_tpu_torch/csrc/fused_temporal_stream.cu",
-        "vidtok_tpu/ops/pallas/fused_temporal.py:274"),
+        "vidtok_tpu/ops/pallas/fused_temporal.py:274", _WGMMA),
     "parity_blend_interleave": ("vidtok_tpu_torch/csrc/parity_blend.cu",
-                                "vidtok_tpu/ops/pallas/upsample_epilogue.py:49"),
+                                "vidtok_tpu/ops/pallas/upsample_epilogue.py:49", ()),
     "parity_blend_interleave4": ("vidtok_tpu_torch/csrc/parity_blend.cu",
-                                 "vidtok_tpu/ops/pallas/upsample_epilogue.py:96"),
+                                 "vidtok_tpu/ops/pallas/upsample_epilogue.py:96", ()),
     "subpixel_interleave_z": ("vidtok_tpu_torch/csrc/subpixel.cu",
-                              "vidtok_tpu/ops/pallas/subpixel_epilogue.py:57"),
+                              "vidtok_tpu/ops/pallas/subpixel_epilogue.py:57", ()),
     "decoder_tail_rgb_taps": ("vidtok_tpu_torch/csrc/decoder_tail_taps.cu",
-                              "vidtok_tpu/ops/pallas/decoder_tail.py:160"),
+                              "vidtok_tpu/ops/pallas/decoder_tail.py:160", ()),
 }
 # The decoder's kernel forms, KernelForms(parity, subpixel, tail), served by
 # phase 8 (v1.0) and by the tiled forms request of phase 7, with the path
@@ -213,6 +227,25 @@ MODE_PATH = {"zero": "v1_0", "replicate": "v1_1"}
 # window s[95:] gives output frames 192-203 once its first pair is dropped
 PARITY_LONG = (1, 102, 256, 256, 256)
 PARITY_WINDOW = 95
+# kernel A's call at T=201 (204 frames) whose input has 3.42e9 elements;
+# A is per frame, so its last SPATIAL_WINDOW frames are held against the
+# plain version of those frames alone
+SPATIAL_LONG = (204, 256, 256, 256, 128)
+SPATIAL_WINDOW = 2
+# Partial tiles: frames whose sides are not multiples of the tiles (33² is
+# the latent of a 264² request), for A and F, checked, not timed. F at both
+# ``first_chunk`` values and cache offsets 1 and 4.
+PARTIAL_SPATIAL = [(5, 33, 33, 512, 512), (10, 66, 66, 512, 512),
+                   (20, 132, 132, 256, 256), (16, 264, 264, 128, 128)]
+PARTIAL_TEMPORAL = [(1, 5, 33, 33, 512), (1, 20, 264, 264, 128)]
+PARTIAL_OFFSETS = (1, 4)
+# one tiled v1.1 request at a 33² latent, held to the tiled f32 plain run
+PARTIAL_REQUEST = (1, 3, 17, 264, 264)
+# kernel A's calls (no nin_shortcut) at which ``loop_rates`` reads the
+# wgmma loop's rate and the row pass's share of its byte bound, at 128, 256
+# and 512 channels
+LOOP_SHAPES = ((20, 256, 256, 128, 128), (10, 128, 128, 256, 256),
+               (10, 64, 64, 512, 512))
 
 # Tiled v1.1 serving (phase 7): 65 = 1 + 4 x 16 frames give 5 encoder and
 # 5 decoder chunks (T' = 17); 201 is bench.py's length, whose last encoder
@@ -296,43 +329,54 @@ def chunk_schedule(t: int):
     return enc, dec
 
 
-def tiled_calls(t: int) -> Counter:
-    """Kernel calls of one tiled forward of a [1, 3, t, 256, 256] clip, by
-    (kernel, call key). Per encoder chunk of f frames: 2 spatial and 2
-    temporal blocks at each of the levels (f, 256², 128), (f, 128², 256),
-    (f/2, 64², 512), (f/4, 32², 512). Per decoder chunk of n latents: 3 of
-    each at (n, 32², 512), (n, 64², 512), (2n, 128², 256), (4n, 256², 128)
-    with cache offsets 1, 1, 2, 4; a spatial upsample after each of the
-    first three; the tail on 4n + 2 frames (2 cached)."""
+def tiled_calls(t: int, size: int = 256) -> Counter:
+    """Kernel calls of one tiled forward of a [1, 3, t, size, size] clip,
+    by (kernel, call key); with s = size: per encoder chunk of f frames, 2
+    spatial and 2 temporal blocks at each of the levels (f, s², 128),
+    (f, (s/2)², 256), (f/2, (s/4)², 512), (f/4, (s/8)², 512). Per decoder
+    chunk of n latents: 3 of each at (n, (s/8)², 512), (n, (s/4)², 512),
+    (2n, (s/2)², 256), (4n, s², 128) with cache offsets 1, 1, 2, 4; a
+    spatial upsample after each of the first three; the tail on 4n + 2
+    frames (2 cached)."""
     enc, dec = chunk_schedule(t)
+    s2, s4, s8 = size // 2, size // 4, size // 8
     calls = Counter()
     for i, f in enumerate(enc):
-        for n, hw, cin, c in ((f, 256, 128, 128), (f, 128, 128, 256),
-                              (f // 2, 64, 256, 512), (f // 4, 32, 512, 512)):
+        for n, hw, cin, c in ((f, size, 128, 128), (f, s2, 128, 256),
+                              (f // 2, s4, 256, 512), (f // 4, s8, 512, 512)):
             calls["fused_spatial_resblock", (n, hw, hw, cin, c)] += 1
             calls["fused_spatial_resblock", (n, hw, hw, c, c)] += 1
             calls["fused_temporal_resblock_stream", ((1, n, hw, hw, c), i == 0, 0)] += 2
     for i, n in enumerate(dec):
-        for frames, hw, cin, c, off in ((n, 32, 512, 512, 1), (n, 64, 512, 512, 1),
-                                        (2 * n, 128, 512, 256, 2),
-                                        (4 * n, 256, 256, 128, 4)):
+        for frames, hw, cin, c, off in ((n, s8, 512, 512, 1), (n, s4, 512, 512, 1),
+                                        (2 * n, s2, 512, 256, 2),
+                                        (4 * n, size, 256, 128, 4)):
             calls["fused_spatial_resblock", (frames, hw, hw, cin, c)] += 1
             calls["fused_spatial_resblock", (frames, hw, hw, c, c)] += 2
             calls["fused_temporal_resblock_stream",
                   ((1, frames, hw, hw, c), i == 0, off)] += 3
-            if hw < 256:
+            if hw < size:
                 calls["subpixel_interleave", (frames, hw, hw, c)] += 1
-        calls["decoder_tail_rgb", ((1, 4 * n + 2, 256, 256, 128), "replicate")] += 1
+        calls["decoder_tail_rgb", ((1, 4 * n + 2, size, size, 128), "replicate")] += 1
     return calls
 
 
-def tiled_per_forward(t: int) -> dict:
+def long_spatial_shapes() -> list:
+    """Kernel A's call shapes and calls in one non-tiled v1.0 forward of
+    LONG_REQUEST: SPATIAL_SHAPES with their frames scaled from REQUEST's 20
+    (17 padded by TDF - 1) to LONG_REQUEST's 204."""
+    frames, long_frames = REQUEST[2] + TDF - 1, LONG_REQUEST[2] + TDF - 1
+    return [((k[0] * long_frames // frames,) + k[1:], calls)
+            for k, calls in SPATIAL_SHAPES]
+
+
+def tiled_per_forward(t: int, size: int = 256) -> dict:
     """Launches per tiled forward, summed from ``tiled_calls`` and checked
     against the formula: with E encoder and D decoder chunks, F = A =
     8E + 12D, C = 3D, D's tail D, B = E's kernel = 0 (T=65: 100, 100, 15,
     5, 0, 0)."""
     per = dict.fromkeys(SOURCES, 0)
-    for (name, _), n in tiled_calls(t).items():
+    for (name, _), n in tiled_calls(t, size).items():
         per[name] += n
     n_enc, n_dec = map(len, chunk_schedule(t))
     want = dict(per, fused_temporal_resblock_stream=8 * n_enc + 12 * n_dec,
@@ -580,6 +624,26 @@ def kernel_cases(device):
                        ue.parity_blend_interleave4,
                        ue.parity_blend_interleave4_plain,
                        (s, q.x((b, t, h, w, 4 * c), bf), bias, alpha, mode))
+    # partial tiles of A and F, on inputs of their own: checked, not timed
+    r = Params(4, device)
+    for key in PARTIAL_SPATIAL:
+        n, h, w, cin, c = key
+        nin = r.conv((c, cin, 1, 1)) if cin != c else None
+        yield Case("fused_spatial_resblock", key, {}, fused_spatial.fused_spatial_resblock,
+                   fused_spatial.fused_spatial_resblock_plain,
+                   (r.x((n, h, w, cin), bf), r.norm(cin), r.conv((c, cin, 3, 3)),
+                    r.norm(c), r.conv((c, c, 3, 3)), nin))
+    for shape in PARTIAL_TEMPORAL:
+        b, t, h, w, c = shape
+        for first in (True, False):
+            for off in PARTIAL_OFFSETS:
+                caches = ((None, None) if first else
+                          tuple(r.x((b, 2, h, w, c), bf) for _ in range(2)))
+                yield Case("fused_temporal_resblock_stream", (shape, first, off), {},
+                           fused_temporal.fused_temporal_resblock_stream,
+                           fused_temporal.fused_temporal_resblock_stream_plain,
+                           (r.x(shape, bf), r.norm(c), r.conv((c, c, 3)), r.norm(c),
+                            r.conv((c, c, 3)), *caches, first, off))
 
 
 def form_calls(calls: dict, kernel: str) -> dict:
@@ -699,6 +763,82 @@ def check_parity_long(device) -> None:
           f"{rel:.4g} plain_bf16_rel_l2 {plain_rel:.4g} kernel_ms {ms:.4f} "
           "(plain not timed at this shape)", flush=True)
     gate(f"parity_up2x_fused{PARITY_LONG} window", rel, plain_rel)
+
+
+def check_spatial_long(device) -> None:
+    """Kernel A at SPATIAL_LONG with its nin_shortcut (an input of 3.42e9
+    elements): its last SPATIAL_WINDOW frames against the plain version of
+    those input frames, in f32 and in bf16; A's time at this shape."""
+    import torch
+
+    from vidtok_tpu_torch.ops.kernels import fused_spatial as fs
+
+    n, h, w, cin, c = SPATIAL_LONG
+    p = Params(6, device)
+    params = (p.norm(cin), p.conv((c, cin, 3, 3)), p.norm(c), p.conv((c, c, 3, 3)),
+              p.conv((c, cin, 1, 1)))
+    x = p.x((n, h, w, cin), torch.bfloat16)
+    out = fs.fused_spatial_resblock(x, *params)
+    got = out[-SPATIAL_WINDOW:].float()
+    win = x[-SPATIAL_WINDOW:]
+    ref = fs.fused_spatial_resblock_plain(win.float(), *params)
+    plain_bf16 = fs.fused_spatial_resblock_plain(win, *params)
+    torch.cuda.synchronize()
+    if out.shape != (n, h, w, c) or got.shape != ref.shape:
+        raise AssertionError(f"spatial long: {tuple(out.shape)}, window "
+                             f"{tuple(got.shape)} vs {tuple(ref.shape)}")
+    rel, plain_rel = rel_l2(got, ref), rel_l2(plain_bf16.float(), ref)
+    del out, got, ref, plain_bf16, win
+    ms = cuda_ms(lambda: fs.fused_spatial_resblock(x, *params), warmup=1, iters=3)
+    print(f"kernel fused_spatial_resblock {SPATIAL_LONG} nin, frames {n - SPATIAL_WINDOW}-"
+          f"{n - 1} (input past 2^31 elements): rel_l2 {rel:.4g} plain_bf16_rel_l2 "
+          f"{plain_rel:.4g} kernel_ms {ms:.4f} (plain not timed at this shape)", flush=True)
+    gate(f"fused_spatial_resblock{SPATIAL_LONG} window", rel, plain_rel)
+
+
+def loop_rates(device) -> None:
+    """Kernel A at LOOP_SHAPES, 5 calls each under torch.profiler after a
+    warm-up: the device time per call of its two GEMM launches
+    (``wg::conv_kernel``) and of its two row passes (``act_rows_kernel``);
+    the GEMMs' rate, 2 * 2 * M * 9 * C^2 FLOP over their time, and the row
+    passes' share of their byte bound (each reads and writes M * C bf16,
+    over 3.35 TB/s)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vidtok_tpu_torch.ops.kernels import fused_spatial as fs
+    from vidtok_tpu_torch.tools import PEAK_BYTES
+
+    p = Params(7, device)
+    iters = 5
+    for key in LOOP_SHAPES:
+        n, h, w, _, c = key
+        args = (p.x((n, h, w, c), torch.bfloat16), p.norm(c), p.conv((c, c, 3, 3)),
+                p.norm(c), p.conv((c, c, 3, 3)), None)
+        for _ in range(2):
+            fs.fused_spatial_resblock(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fs.fused_spatial_resblock(*args)
+            torch.cuda.synchronize()
+        ms = defaultdict(float)
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                part = ("gemm" if "wg::conv_kernel" in e.key else
+                        "rows" if "act_rows_kernel" in e.key else "other")
+                ms[part] += e.self_device_time_total / 1e3 / iters
+        if not (ms["gemm"] and ms["rows"]):
+            print(f"loop {key}: no device time recorded (not measured)", flush=True)
+            continue
+        m = n * h * w
+        tflops = 2 * 2 * m * 9 * c * c / ms["gemm"] / 1e9
+        share = 2 * 2 * m * c * 2 / PEAK_BYTES * 1e3 / ms["rows"]
+        print(f"loop {key}: gemm {ms['gemm']:.4f} ms/call ({tflops:.1f} TFLOP/s), "
+              f"row passes {ms['rows']:.4f} ms/call ({share:.3f} of the byte bound), "
+              f"other {ms['other']:.4f}", flush=True)
+        del args
 
 
 def randomize_(core, seed: int) -> None:
@@ -1048,7 +1188,59 @@ def serve_tiled(device) -> tuple:
     tok.forms = kernel_forms()
     torch.cuda.empty_cache()
     tiled_e2e_check(tok.core, tok.meta, TILED_REQUEST)
+    torch.cuda.empty_cache()
+    tiled_partial_check(tok.core, tok.meta)
     return r, r_forms
+
+
+def tiled_partial_check(core, meta) -> dict:
+    """One tiled PARTIAL_REQUEST (a 33² latent: partial tiles in every
+    kernel of the tiled path) on the kernel path, with the launches of
+    ``tiled_per_forward``, against the tiled f32 plain run: no further from
+    it than BF16_SLACK x the tiled plain bf16 path, on z and on the
+    reconstruction."""
+    import torch
+
+    from vidtok_tpu_torch.models.autoencoder import VideoTokenizer
+    from vidtok_tpu_torch.ops import kernels
+
+    x = np.clip(np.random.RandomState(101).randn(*PARTIAL_REQUEST) * 0.5, -1, 1) \
+        .astype(np.float32)
+    want = tiled_per_forward(PARTIAL_REQUEST[2], PARTIAL_REQUEST[3])
+    outs = {}
+    for key, dtype, fused in (("kernel", torch.bfloat16, True),
+                              ("plain", torch.bfloat16, False),
+                              ("tiled_f32", torch.float32, False)):
+        tok = VideoTokenizer(core, meta, dtype, fused=fused)
+        tok.use_tiling, tok.use_overlap = True, True
+        kernels.reset_counts()
+        z, dec, log = tok(x)
+        torch.cuda.synchronize()
+        launches = kernels.counts()
+        if launches != (want if fused else dict.fromkeys(want, 0)):
+            raise AssertionError(f"partial request, {key}: launches {launches}")
+        t_lat = -(-PARTIAL_REQUEST[2] // TDF)
+        if (tuple(dec.shape) != PARTIAL_REQUEST or tuple(z.shape)[2:]
+                != (t_lat, PARTIAL_REQUEST[3] // 8, PARTIAL_REQUEST[4] // 8)):
+            raise AssertionError(f"partial request: z {tuple(z.shape)} dec {tuple(dec.shape)}")
+        for t in (z, dec, log["kl_loss"]):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"partial request, {key}: non-finite output")
+        outs[key] = (z.cpu(), dec.cpu())
+        del tok, z, dec, log
+        torch.cuda.empty_cache()
+    res = {}
+    for i, what in enumerate(("z", "recon")):
+        for key in ("kernel", "plain"):
+            res[f"{what}_{key}_vs_tiled_f32"] = rel_l2(outs[key][i], outs["tiled_f32"][i])
+    print(f"tiled partial request {list(PARTIAL_REQUEST)} launches {want}; rel_l2 "
+          + json.dumps(res), flush=True)
+    for what in ("z", "recon"):
+        k, pl = res[f"{what}_kernel_vs_tiled_f32"], res[f"{what}_plain_vs_tiled_f32"]
+        if not k <= BF16_SLACK * pl:
+            raise AssertionError(f"tiled partial {what}: kernel vs tiled f32 {k} > "
+                                 f"{BF16_SLACK} x plain bf16 vs tiled f32 {pl}")
+    return res
 
 
 def compare_forms(device, card: str) -> None:
@@ -1349,6 +1541,8 @@ def main() -> int:
 
     kres = check_kernels(device)
     check_parity_long(device)
+    check_spatial_long(device)
+    torch.cuda.empty_cache()
     t = phase("kernels", t)
     compare_forms(device, card)
     t = phase("forms", t)
@@ -1359,6 +1553,8 @@ def main() -> int:
     main_path = serve_both_paths("v1.0 kl 4x8x8 16chn", V1_0_CFG, "v1_0", device)
     torch.cuda.empty_cache()
     t = phase("v1.0 kl serve", t)
+    loop_rates(device)  # after serve's profile: the profiler is started
+    t = phase("loop rates", t)
     serve_long_clip(device)
     torch.cuda.empty_cache()
     t = phase("long clip", t)
@@ -1377,12 +1573,12 @@ def main() -> int:
     phase("total", t0)
 
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
+    for name, (source, replaces, headers) in SOURCES.items():
         r, path = kres[name], MAIN_PATH[name]
         by_bytes = r["bound_by_bytes_ms"][path] >= r["bound_by_ops_ms"][path]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": runs[path]["launches"][name],
+            "headers": list(headers), "launches": runs[path]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"][path],
             "plain_ms": r["plain_ms"][path], "bound_ms": r["bound_ms"][path],
             "bound_by": "bytes" if by_bytes else "operations",

@@ -1,0 +1,348 @@
+"""The wgmma loop's tile plans and the kernels' cached weight operands.
+
+Kernels A and F of the port run the warp-specialised TMA + wgmma conv of
+``csrc/wgmma_conv.cuh`` with a plan made in ``ops/kernels/plan.py``, and
+A, B and F read their weights from ``_lib.operands``, relaid out once per
+parameter. Neither needs the card: the plans are checked at every A and F
+call shape ``chip_smoke.py`` serves (each output position in exactly one
+tile, BN dividing Cout, the shared memory and the grid within the H100's
+limits), the cache against the relayouts it stands for and against the
+ways a parameter changes. The wrappers' refusals follow the plan (the meta
+device stands in for a card: a wrapper given a tensor off the CPU launches
+its kernel or raises).
+"""
+
+import copy
+import gc
+import weakref
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+import vidtok_tpu.modules.blocks as JB
+from vidtok_tpu_torch.convert import state_dict_from_jax
+from vidtok_tpu_torch.modules import blocks as TB
+from vidtok_tpu_torch.ops import kernels as K
+from vidtok_tpu_torch.ops.kernels import _lib, plan
+from vidtok_tpu_torch.ops.kernels.fused_spatial import spatial_operands
+from vidtok_tpu_torch.ops.kernels.fused_temporal import (gemm_weight, kmajor_weight,
+                                                         stream_operands,
+                                                         temporal_operands)
+
+torch.set_num_threads(2)
+
+
+def _spatial_sources(m):
+    nin = m.nin_shortcut if hasattr(m, "nin_shortcut") else None
+    return (m.conv1.weight, m.norm1.norm.weight, m.norm1.norm.bias, m.conv1.bias,
+            m.norm2.norm.weight, m.norm2.norm.bias, m.conv2.weight, m.conv2.bias,
+            None if nin is None else nin.weight, None if nin is None else nin.bias)
+
+
+def _temporal_sources(m):
+    return (m.conv1.conv.weight, m.norm1.norm.weight, m.norm1.norm.bias,
+            m.conv1.conv.bias, m.norm2.norm.weight, m.norm2.norm.bias,
+            m.conv2.conv.weight, m.conv2.conv.bias)
+
+
+def _randomized(m, seed):
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
+    return m
+
+
+# -- the operands, as the kernels read them ---------------------------------
+
+@pytest.mark.parametrize("cin,c", [(64, 128), (128, 128)])
+def test_spatial_operands_layout(cin, c):
+    """A's operands: K-major [C, (dy, dx, ci)] bf16, the nin_shortcut's Cin
+    columns after conv2's and its bias folded into conv2's; f32 vectors."""
+    m = _randomized(TB.ResnetBlockSpatial(cin, c), 0)
+    op = spatial_operands(*_spatial_sources(m))
+    w1, w2 = m.conv1.weight, m.conv2.weight
+    assert op["w1"].dtype == op["w2"].dtype == torch.bfloat16
+    assert op["w1"].is_contiguous() and op["w2"].is_contiguous()
+    for dy in range(3):
+        for dx in range(3):
+            tap = dy * 3 + dx
+            assert torch.equal(op["w1"][:, tap * cin:(tap + 1) * cin],
+                               w1[:, :, dy, dx].to(torch.bfloat16))
+            assert torch.equal(op["w2"][:, tap * c:(tap + 1) * c],
+                               w2[:, :, dy, dx].to(torch.bfloat16))
+    bias2 = m.conv2.bias.float()
+    if cin != c:
+        assert op["w2"].shape == (c, 9 * c + cin)
+        assert torch.equal(op["w2"][:, 9 * c:],
+                           m.nin_shortcut.weight[:, :, 0, 0].to(torch.bfloat16))
+        bias2 = bias2 + m.nin_shortcut.bias.float()
+    else:
+        assert op["w2"].shape == (c, 9 * c)
+    assert torch.equal(op["bias2"], bias2)
+    for k, t in (("g1", m.norm1.norm.weight), ("b2", m.norm2.norm.bias),
+                 ("bias1", m.conv1.bias)):
+        assert op[k].dtype == torch.float32 and torch.equal(op[k], t)
+
+
+def test_temporal_operands_layout():
+    """B's operands are ``gemm_weight`` (tap-major [(k, ci), co]); F's are
+    its transpose, K-major [co, (k, ci)]."""
+    m = _randomized(TB.ResnetBlockTemporal(32, 32), 1)
+    b = temporal_operands(*_temporal_sources(m))
+    f = stream_operands(*_temporal_sources(m))
+    for name, conv in (("w1", m.conv1), ("w2", m.conv2)):
+        w = conv.conv.weight
+        assert torch.equal(b[name], gemm_weight(w))
+        assert torch.equal(f[name], kmajor_weight(w))
+        assert torch.equal(f[name], gemm_weight(w).t())
+        for k in range(3):
+            assert torch.equal(f[name][:, 32 * k:32 * (k + 1)],
+                               w[:, :, k].to(torch.bfloat16))
+    assert f["maps"] == {} and "maps" not in b
+    assert torch.equal(f["bias2"], m.conv2.conv.bias)
+
+
+# -- the cache ----------------------------------------------------------------
+
+def _jax_update(m, seed):
+    """New weights for m through ``state_dict_from_jax``, as a JAX
+    checkpoint reaches the port."""
+    x = jnp.zeros((1, 1, 8, 8, 32))
+    p = JB.ResnetBlockSpatial(32, norm_type="layernorm").init(
+        jax.random.PRNGKey(seed), x)["params"]
+    rng = np.random.RandomState(seed)
+    p = jax.tree_util.tree_map(lambda a: rng.randn(*a.shape).astype(np.float32), p)
+    prefix = "encoder.down.0.block.0."
+    sd = state_dict_from_jax({"encoder": {"down_0_block_0": p}})
+    m.load_state_dict({k[len(prefix):]: torch.from_numpy(np.array(v))
+                       for k, v in sd.items()})
+
+
+UPDATES = {
+    "no_grad_copy": lambda m: _no_grad(lambda: m.conv1.weight.copy_(
+        torch.randn(m.conv1.weight.shape))),
+    "detach_copy": lambda m: m.conv2.bias.detach().copy_(torch.randn(32)),
+    "in_place_op": lambda m: _no_grad(lambda: m.norm1.norm.weight.mul_(2.0)),
+    "load_state_dict": lambda m: m.load_state_dict(
+        _randomized(TB.ResnetBlockSpatial(32, 32), 7).state_dict()),
+    "state_dict_from_jax": lambda m: _jax_update(m, 3),
+    "to_dtype": lambda m: m.to(torch.float64),
+    "data_copy_then_clear": lambda m: (m.conv1.weight.data.copy_(
+        torch.randn(m.conv1.weight.shape)), _lib.clear_operands()),
+}
+
+
+def _no_grad(fn):
+    with torch.no_grad():
+        fn()
+
+
+@pytest.mark.parametrize("update", sorted(UPDATES))
+def test_operands_cached_then_rebuilt(update):
+    """Served from the cache while the parameters stand still; rebuilt, and
+    equal to a fresh relayout, after each way they change. A write through
+    ``param.data`` bypasses PyTorch's version counter, so it needs
+    ``clear_operands``."""
+    m = _randomized(TB.ResnetBlockSpatial(32, 32), 2)
+    first = _lib.operands("test_spatial", _spatial_sources(m), spatial_operands)
+    assert _lib.operands("test_spatial", _spatial_sources(m), spatial_operands) is first
+    UPDATES[update](m)
+    again = _lib.operands("test_spatial", _spatial_sources(m), spatial_operands)
+    assert again is not first
+    fresh = spatial_operands(*_spatial_sources(m))
+    for k in ("w1", "w2", "g1", "b1", "bias1", "g2", "b2", "bias2"):
+        assert torch.equal(again[k], fresh[k]), k
+
+
+def test_operands_stale_data_write_is_not_seen():
+    """The limit of the key, stated: PyTorch does not count a write through
+    ``param.data``, so the cached operand stays as it was."""
+    m = _randomized(TB.ResnetBlockSpatial(32, 32), 4)
+    first = _lib.operands("test_spatial", _spatial_sources(m), spatial_operands)
+    m.conv1.weight.data.mul_(2.0)
+    assert _lib.operands("test_spatial", _spatial_sources(m), spatial_operands) is first
+
+
+def test_operands_per_device_dtype_and_kind():
+    """Two copies of the same weights on two devices or in two dtypes, and
+    one parameter under two kinds, are separate entries; an entry does not
+    keep its parameter alive."""
+    m = _randomized(TB.ResnetBlockTemporal(32, 32), 5)
+    m64 = copy.deepcopy(m).double()
+    meta = copy.deepcopy(m).to("meta")
+    b = _lib.operands("test_b", _temporal_sources(m), temporal_operands)
+    b64 = _lib.operands("test_b", _temporal_sources(m64), temporal_operands)
+    bmeta = _lib.operands("test_b", _temporal_sources(meta), temporal_operands)
+    f = _lib.operands("test_f", _temporal_sources(m), stream_operands)
+    assert len({id(b), id(b64), id(bmeta), id(f)}) == 4
+    assert bmeta["w1"].device.type == "meta" and b["w1"].device.type == "cpu"
+    assert torch.equal(b["w1"], b64["w1"])  # the same bf16 operand
+    assert b64["g1"].dtype == torch.float32
+    assert _lib.operands("test_b", _temporal_sources(m), temporal_operands) is b
+    assert _lib.operands("test_f", _temporal_sources(m), stream_operands) is f
+    key = weakref.ref(m.conv1.conv.weight)
+    del m, b, f
+    gc.collect()
+    assert key() is None
+
+
+# -- the plans ----------------------------------------------------------------
+
+def _spatial_keys(which):
+    if which == "serving":
+        return [k for k, _ in cs.SPATIAL_SHAPES]
+    if which == "long":
+        return [k for k, _ in cs.long_spatial_shapes()] + [cs.SPATIAL_LONG]
+    if which == "partial":
+        return list(cs.PARTIAL_SPATIAL)
+    t, size = {"tiled65": (65, 256), "tiled201": (201, 256),
+               "tiled264": (cs.PARTIAL_REQUEST[2], cs.PARTIAL_REQUEST[3])}[which]
+    return [k for (name, k) in cs.tiled_calls(t, size) if name == "fused_spatial_resblock"]
+
+
+def _temporal_keys(which):
+    if which == "partial":
+        return list(cs.PARTIAL_TEMPORAL)
+    t, size = {"tiled65": (65, 256), "tiled201": (201, 256),
+               "tiled264": (cs.PARTIAL_REQUEST[2], cs.PARTIAL_REQUEST[3])}[which]
+    return sorted({k[0] for (name, k) in cs.tiled_calls(t, size)
+                   if name == "fused_temporal_resblock_stream"})
+
+
+def _check_limits(pl, cout):
+    assert pl.bn in (128, 256) and cout % pl.bn == 0 and pl.n_tiles * pl.bn == cout
+    assert pl.smem <= plan.SMEM_LIMIT
+    assert plan.BLOCKS_PER_SM[pl.bn] * (pl.smem + 1024) <= plan.SMEM_PER_SM
+    assert pl.smem >= plan.smem_bytes(pl.bn, pl.stages)
+    assert pl.stages * plan.stage_bytes(pl.bn) >= plan.epilogue_bytes(pl.bn)
+    assert 0 < pl.grid <= plan.GRID_LIMIT and pl.grid == pl.m_tiles * pl.n_tiles
+    assert pl.th * pl.tw == plan.BM
+
+
+def _count(counts, idx):
+    np.add.at(counts, idx, 1)
+
+
+CHUNK = 4096  # blocks per numpy pass
+
+
+@pytest.mark.parametrize("which", ["serving", "tiled65", "tiled201", "tiled264",
+                                   "partial", "long"])
+def test_spatial_plans_cover_each_position_once(which):
+    """Every output position of every frame in exactly one M tile of N tile
+    0 (the N tiles repeat the M tiles), at every kernel-A call shape of the
+    served paths. Shapes past 2M positions are checked on their first and
+    last two frames, whose tiles the decode reaches last."""
+    keys = _spatial_keys(which)
+    assert keys
+    for key in keys:
+        n, h, w, cin, c = key
+        cs_ = cin if cin != c else 0
+        pl = plan.conv_plan_spatial(n, h, w, cin, c, cs_)
+        _check_limits(pl, c)
+        assert pl.tiles_x == -(-w // pl.tw) and pl.tiles_y == -(-h // pl.th)
+        assert pl.m_tiles == n * pl.tiles_x * pl.tiles_y
+        frames = range(n) if n * h * w <= 2_000_000 else [0, 1, n - 2, n - 1]
+        per = pl.tiles_x * pl.tiles_y
+        counts = np.zeros(len(frames) * h * w, np.int32)
+        slot = {f: i for i, f in enumerate(frames)}
+        blocks = np.concatenate([np.arange(f * per, (f + 1) * per) for f in frames])
+        r = np.arange(plan.BM)
+        for i in range(0, len(blocks), CHUNK):
+            (img, y0, x0), n0 = plan.tile_origin(pl, blocks[i:i + CHUNK] * pl.n_tiles)
+            assert (n0 == 0).all()
+            y = y0[:, None] + r[None, :] // pl.tw
+            x = x0[:, None] + r[None, :] % pl.tw
+            ok = (y < h) & (x < w)
+            s = np.vectorize(slot.get)(img)
+            _count(counts, ((s[:, None] * h + y) * w + x)[ok])
+        assert counts.min() == 1 and counts.max() == 1, key
+        # the N tiles of one M tile: neighbouring blocks, every channel once
+        _, n0s = plan.tile_origin(pl, np.arange(pl.n_tiles))
+        assert sorted(n0s.tolist()) == list(range(0, c, pl.bn))
+
+
+@pytest.mark.parametrize("which", ["tiled65", "tiled201", "tiled264", "partial"])
+def test_temporal_plans_cover_each_row_once(which):
+    """Every output row of every clip in exactly one M tile, at every
+    kernel-F call shape of the tiled paths and the partial shapes."""
+    keys = _temporal_keys(which)
+    assert keys
+    for key in keys:
+        b, t, h, w, c = key
+        pl = plan.conv_plan_temporal(b, t, h * w, c)
+        _check_limits(pl, c)
+        rows = t * h * w
+        assert pl.tiles_x * plan.BM >= rows > (pl.tiles_x - 1) * plan.BM
+        (clip, r0), n0 = plan.tile_origin(pl, np.arange(0, pl.grid, pl.n_tiles))
+        rr = r0[:, None] + np.arange(plan.BM)[None, :]
+        ok = rr < rows
+        counts = np.zeros(b * rows, np.int32)
+        _count(counts, (clip[:, None] * rows + rr)[ok])
+        assert (n0 == 0).all() and counts.min() == 1 and counts.max() == 1, key
+
+
+def test_plan_picks():
+    """BN 256 only where the grid still fills the card; the patch with the
+    fewest tiles; the ring's stages by BN."""
+    small = plan.conv_plan_spatial(5, 32, 32, 512, 512)
+    assert (small.bn, small.grid, small.stages) == (128, 160, 3)
+    big = plan.conv_plan_spatial(5, 64, 64, 512, 512)
+    assert (big.bn, big.grid, big.stages) == (256, 320, 4)
+    assert plan.conv_plan_spatial(20, 256, 256, 128, 128).bn == 128
+    assert (plan.conv_plan_spatial(1, 4, 128, 64, 128).th,
+            plan.conv_plan_spatial(1, 4, 128, 64, 128).tw) == (4, 32)
+    assert plan.conv_plan_temporal(1, 2, 32 * 32, 512).grid == 16 * 4
+
+
+# -- refusals -------------------------------------------------------------------
+
+def _meta(*shape):
+    return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+
+def _spatial_args(cin, c, nin):
+    return (_meta(1, 8, 8, cin), (_meta(cin), _meta(cin)), (_meta(c, cin, 3, 3), _meta(c)),
+            (_meta(c), _meta(c)), (_meta(c, c, 3, 3), _meta(c)),
+            (_meta(c, cin, 1, 1), _meta(c)) if nin else None)
+
+
+def _stream_args(c):
+    return (_meta(1, 2, 8, 8, c), (_meta(c), _meta(c)), (_meta(c, c, 3), _meta(c)),
+            (_meta(c), _meta(c)), (_meta(c, c, 3), _meta(c)), None, None, True, 1)
+
+
+@pytest.mark.parametrize("name,args,match", [
+    ("fused_spatial_resblock", _spatial_args(96, 128, True), "Cin % 64"),
+    ("fused_spatial_resblock", _spatial_args(128, 192, True), "Cout % 128"),
+    ("fused_spatial_resblock", _spatial_args(1280, 1280, False), "row pass"),
+    ("fused_spatial_resblock", _spatial_args(128, 256, True), "CUDA tensor"),
+    ("fused_temporal_resblock_stream", _stream_args(192), "Cout % 128"),
+    ("fused_temporal_resblock_stream", _stream_args(1280), "row pass"),
+    ("fused_temporal_resblock_stream", _stream_args(128), "CUDA tensor"),
+])
+def test_wrappers_refuse_what_the_plan_cannot_take(name, args, match):
+    """Off the CPU, A and F raise on a shape their plan refuses before they
+    look at the device; a shape the plan takes goes on to the device check.
+    Nothing is launched and no plain version runs."""
+    fn = K.WRAPPERS[name]
+    K.reset_counts()
+    with pytest.raises(ValueError, match=match):
+        fn(*args)
+    assert K.counts("calls")[name] == 1 and K.counts()[name] == 0
+
+
+def test_plan_refuses_empty_and_odd_shapes():
+    with pytest.raises(ValueError, match="Cin % 64"):
+        plan.conv_plan_spatial(1, 8, 8, 128, 128, cs=32)
+    with pytest.raises(ValueError, match="empty"):
+        plan.conv_plan_spatial(0, 8, 8, 128, 128)
+    with pytest.raises(ValueError, match="empty"):
+        plan.conv_plan_temporal(1, 0, 64, 128)
+    for c in plan.ROW_CHANNELS:
+        plan.check_row_channels(c)

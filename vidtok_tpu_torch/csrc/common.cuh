@@ -168,4 +168,139 @@ static inline void launch_ln_silu_rows(const __nv_bfloat16* x, const float* g,
   ln_silu_rows_kernel<<<(unsigned)blocks, warps * 32, 0, s>>>(x, g, b, act, rows, C);
 }
 
+// The rows of act_rows_kernel. Plain form: act row r = LN+SiLU of src row
+// r. Stream form (kernel F's prep): act holds clips of T + 2 frames of S
+// rows; frames 0-1 are the cache's rows copied as they are (LN+SiLU of src
+// frame 0 when ``first``), frame f >= 2 is LN+SiLU of src frame f - 2, and
+// frames [T - offset, T - offset + 2) are also written to ``copy``
+// [B, 2, S, C], the new cache.
+struct RowArgs {
+  const __nv_bfloat16* src;
+  const float* g;
+  const float* b;
+  __nv_bfloat16* act;
+  const __nv_bfloat16* cache;  // stream form, unless ``first``
+  __nv_bfloat16* copy;         // stream form
+  int T, S, first, offset;     // stream form
+};
+
+// LN+SiLU rows with the whole warp busy: a row takes LPR = min(C/8, 32)
+// lanes, VPL 16-byte vectors a lane, so at C = 128 a warp holds two rows;
+// each thread loads its RPT rows before it reduces any, keeping RPT * VPL
+// loads in flight. The statistics are row_stats' to the bit: each lane sums
+// channels 8l + 8 LPR i in the same order, and the lanes past LPR that
+// row_stats reduces hold zeros.
+template <int LPR, int VPL, int RPT, bool STREAM>
+static __global__ void __launch_bounds__(256)
+    act_rows_kernel(const RowArgs a, long long rows, int C) {
+  constexpr int RPW = 32 / LPR;  // rows a warp holds at once
+  const int lane = threadIdx.x & 31, l = lane % LPR;
+  const long long row0 =
+      ((long long)blockIdx.x * 8 + (threadIdx.x >> 5)) * (RPW * RPT) + lane / LPR;
+  uint4 v[RPT][VPL];
+  long long dst[RPT], cp[RPT];  // act row (-1 past the end), copy row or -1
+  bool raw[RPT];                // a cache row: copied, not activated
+  // stream form: clip, frame and position of the first row, then stepped
+  // RPW rows at a time (the divisions once a thread)
+  long long bi = 0, pos = 0;
+  int f = 0;
+  if (STREAM) {
+    const long long per = (long long)(a.T + 2) * a.S;
+    bi = row0 / per;
+    const long long r = row0 - bi * per;
+    f = (int)(r / a.S);
+    pos = r - (long long)f * a.S;
+  }
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const long long row = row0 + (long long)k * RPW;
+    dst[k] = row < rows ? row : -1;
+    cp[k] = -1;
+    raw[k] = false;
+    const __nv_bfloat16* p = a.src + row * C;
+    if (STREAM) {
+      if (k > 0)
+        for (pos += RPW; pos >= a.S; pos -= a.S)
+          if (++f == a.T + 2) {
+            f = 0;
+            ++bi;
+          }
+      raw[k] = f < 2 && !a.first;
+      p = raw[k] ? a.cache + ((bi * 2 + f) * a.S + pos) * C
+                 : a.src + ((bi * a.T + (f < 2 ? 0 : f - 2)) * a.S + pos) * C;
+      const int fc = f - (a.T - a.offset);
+      if (fc >= 0 && fc < 2) cp[k] = (bi * 2 + fc) * a.S + pos;
+    }
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+      v[k][i] = dst[k] >= 0 ? ld_u4(p + 8 * l + 8 * LPR * i) : make_uint4(0, 0, 0, 0);
+  }
+  float g[VPL][8], b[VPL][8];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      g[i][e] = a.g[8 * l + 8 * LPR * i + e];
+      b[i][e] = a.b[8 * l + 8 * LPR * i + e];
+    }
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    float f[VPL][8];
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      unpack8(v[k][i], f[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += f[i][e];
+        ss += f[i][e] * f[i][e];
+      }
+    }
+#pragma unroll
+    for (int o = LPR / 2; o; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    const float mu = s / C;
+    const float rs = rsqrtf(fmaxf(ss / C - mu * mu, 0.f) + kLnEps);
+    if (dst[k] < 0) continue;
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = 8 * l + 8 * LPR * i;
+      uint4 o = v[k][i];
+      if (!raw[k]) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[i][e] = ln_silu(f[i][e], mu, rs, g[i][e], b[i][e]);
+        o = pack8(f[i]);
+      }
+      *reinterpret_cast<uint4*>(a.act + dst[k] * C + c) = o;
+      if (STREAM && cp[k] >= 0) *reinterpret_cast<uint4*>(a.copy + cp[k] * C + c) = o;
+    }
+  }
+}
+
+// act_rows_kernel over ``rows`` rows of C channels, C in {64, 128, 256, 512,
+// 768, 1024} (ops/kernels/plan.py: ROW_CHANNELS); cudaErrorInvalidValue for
+// another C.
+template <bool STREAM>
+static inline int launch_act_rows(const RowArgs& a, long long rows, int C, cudaStream_t s) {
+#define VT_ACT_ROWS(L, V, R)                                                              \
+  {                                                                                       \
+    const long long per = 8LL * (32 / L) * R;                                             \
+    act_rows_kernel<L, V, R, STREAM><<<(unsigned)((rows + per - 1) / per), 256, 0, s>>>( \
+        a, rows, C);                                                                      \
+    return (int)cudaGetLastError();                                                       \
+  }
+  if (C % 8 == 0) switch (C / 8) {
+      case 8: VT_ACT_ROWS(8, 1, 4)
+      case 16: VT_ACT_ROWS(16, 1, 4)
+      case 32: VT_ACT_ROWS(32, 1, 4)
+      case 64: VT_ACT_ROWS(32, 2, 2)
+      case 96: VT_ACT_ROWS(32, 3, 1)
+      case 128: VT_ACT_ROWS(32, 4, 1)
+    }
+#undef VT_ACT_ROWS
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace vt

@@ -15,45 +15,69 @@
 // ridge, and 2-4x above it at 256-512 channels.
 //
 // Design: four stream-ordered launches, counted as one call by the
-// wrapper: LayerNorm+SiLU of x into a bf16 scratch (one warp per
-// position), conv1 as an implicit GEMM over it with bias, the same
-// activation of conv1's output, and conv2 with the 1x1 shortcut appended
-// as extra K rows over raw x (its bias folded into conv2's) or x added in
-// the epilogue. Padding taps are zero-filled copies, so both convs' SAME
-// padding is a true zero after the activation. Each position is activated
-// once and its activation read from L2 by the 9 taps; the TPU kernel kept
-// the activation in VMEM instead, which here would cost recomputing it per
-// tap (measured 2-3x slower: the first version of this kernel). There is
-// no halo tiling; wgmma/TMA pipelines are later work.
-#include "igemm_conv.cuh"
+// wrapper: LayerNorm+SiLU of x into a bf16 scratch (act_rows_kernel, the
+// whole warp busy), conv1 as the warp-specialised TMA + wgmma implicit
+// GEMM over it (wgmma_conv.cuh, kSpatial) with bias, the same activation of
+// conv1's output, and conv2 with the 1x1 shortcut appended as extra K steps
+// over raw x (its bias folded into conv2's) or x added in the epilogue.
+// TMA zero-fills the taps outside the frame, so both convs' SAME padding is
+// a true zero after the activation. Each position is activated once and
+// its activation read from L2 by the 9 taps; the TPU kernel kept the
+// activation in VMEM instead, which here would cost recomputing it per tap
+// (measured 2-3x slower: the first version of this kernel).
+//
+// The weights come as tensor maps of K-major operands [C, 9*Cin] and
+// [C, 9*C (+ Cin)], encoded once per parameter by the wrapper; the
+// scratch's maps are encoded here, per call. The plan (th x tw patch, BN,
+// stages, shared memory, grid) is ops/kernels/plan.py's conv_plan_spatial.
+#include "wgmma_conv.cuh"
 
 extern "C" int vt_fused_spatial_resblock(
-    const void* x, void* out, void* h1, void* act, const void* g1,
-    const void* b1, const void* w1, const void* bias1, const void* g2,
-    const void* b2, const void* w2, const void* bias2, int N, int H, int W,
-    int Cin, int C, int has_nin, void* stream) {
+    const void* x, void* out, void* h1, void* act, const void* g1, const void* b1,
+    const void* w1map, const void* bias1, const void* g2, const void* b2,
+    const void* w2map, const void* bias2, int N, int H, int W, int Cin, int C,
+    int has_nin, int th, int tw, int bn, int stages, int smem, int grid, void* stream) {
   using namespace vt;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = (long long)N * H * W;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* hb = static_cast<__nv_bfloat16*>(h1);
   auto* ab = static_cast<__nv_bfloat16*>(act);
-  const igemm::Geometry geo{H, W, 1, 1, 0};
+  CUtensorMap mw1, mw2, ma1, ma2, mx;
+  memcpy(&mw1, w1map, sizeof(CUtensorMap));
+  memcpy(&mw2, w2map, sizeof(CUtensorMap));
+  int e;
+  if ((e = wg::spatial_map(&ma1, ab, N, H, W, Cin, th, tw)) ||
+      (e = wg::spatial_map(&ma2, ab, N, H, W, C, th, tw)) ||
+      (e = wg::spatial_map(&mx, xb, N, H, W, Cin, th, tw)))
+    return e;
 
-  launch_ln_silu_rows(xb, static_cast<const float*>(g1),
-                      static_cast<const float*>(b1), ab, M, Cin, s);
-  const igemm::Params p1{ab, static_cast<const __nv_bfloat16*>(w1),
-                         static_cast<const float*>(bias1), nullptr, nullptr,
-                         hb, M, Cin, C, 0};
-  igemm::launch_conv<igemm::kSpatial>(p1, geo, s);
+  wg::Params p{};
+  p.H = H;
+  p.W = W;
+  p.th = th;
+  p.tw = tw;
+  p.tiles_x = (W + tw - 1) / tw;
+  p.tiles_y = (H + th - 1) / th;
+  p.n_tiles = C / bn;
+  p.Cout = C;
+  p.stages = stages;
 
-  launch_ln_silu_rows(hb, static_cast<const float*>(g2),
-                      static_cast<const float*>(b2), ab, M, C, s);
-  const igemm::Params p2{ab, static_cast<const __nv_bfloat16*>(w2),
-                         static_cast<const float*>(bias2),
-                         has_nin ? xb : nullptr, has_nin ? nullptr : xb,
-                         static_cast<__nv_bfloat16*>(out), M, C, C,
-                         has_nin ? Cin : 0};
-  igemm::launch_conv<igemm::kSpatial>(p2, geo, s);
-  return (int)cudaGetLastError();
+  RowArgs r{xb, static_cast<const float*>(g1), static_cast<const float*>(b1), ab};
+  if ((e = launch_act_rows<false>(r, M, Cin, s))) return e;
+  p.bias = static_cast<const float*>(bias1);
+  p.out = hb;
+  p.cin_steps = Cin / wg::BK;
+  p.k_main = p.k_total = 9 * p.cin_steps;
+  if ((e = wg::launch_conv<wg::kSpatial>(ma1, mw1, mx, p, bn, smem, grid, s))) return e;
+
+  r = RowArgs{hb, static_cast<const float*>(g2), static_cast<const float*>(b2), ab};
+  if ((e = launch_act_rows<false>(r, M, C, s))) return e;
+  p.bias = static_cast<const float*>(bias2);
+  p.res = has_nin ? nullptr : xb;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.cin_steps = C / wg::BK;
+  p.k_main = 9 * p.cin_steps;
+  p.k_total = p.k_main + (has_nin ? Cin / wg::BK : 0);
+  return wg::launch_conv<wg::kSpatial>(ma2, mw2, mx, p, bn, smem, grid, s);
 }

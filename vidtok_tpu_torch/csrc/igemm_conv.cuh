@@ -1,21 +1,19 @@
-// Implicit-GEMM conv over channels-last rows, shared by kernel A (3x3
-// spatial taps, fused_spatial.cu), kernels B and F (k=3 causal temporal
-// taps, fused_temporal.cu, fused_temporal_stream.cu), kernel E (2 frames
-// x 3x3 taps, parity_upsample.cu) and the temporal microbenchmark's dense
-// product (kDense: one tap, row m reads a[m]; microbench_temporal.cu):
+// Implicit-GEMM conv over channels-last rows on the wmma loop, shared by
+// kernel B (k=3 causal temporal taps, fused_temporal.cu), kernel E (2 frames
+// x 3x3 taps, parity_upsample.cu) and the temporal microbenchmark
+// (microbench_temporal.cu: B's taps, and kDense, one tap where row m reads
+// a[m]). Kernels A and F run the warp-specialised TMA + wgmma loop of
+// wgmma_conv.cuh instead.
 //
 //   out[m, n] = bf16( bias[n] + res[m, n]
 //                     + sum_{tap, c} a[src(m, tap), c] * w[tap*Cin + c, n]
 //                     + sum_{c < Cs} xs[m, c] * w[taps*Cin + c, n] )
 //
 // M = positions, N = Cout, K = taps x Cin (+ Cs channels of an extra 1x1
-// term over other rows, the nin_shortcut). ``a`` is the ALREADY activated
-// tensor (ln_silu_rows_kernel), so a tap outside the frame (spatial) or
-// before frame 0 in zero mode (temporal) reads zero: the conv's padding
-// after the activation. Replicate mode reads frame 0 instead. A temporal
-// input may instead hold ``pre`` = 2 frames before each clip's first output
-// frame (kernel F's cached front): then every tap reads a frame of ``a``,
-// whose clips are T + 2 frames long.
+// term over other rows). ``a`` is the ALREADY activated tensor
+// (ln_silu_rows_kernel), so a tap before frame 0 in zero mode (temporal)
+// or outside the frame (parity) reads zero: the conv's padding after the
+// activation. Replicate mode reads frame 0 instead.
 //
 // kParity (kernel E) has its own epilogue: N = 2C columns are the even and
 // odd output frames of half-rate row m, blended with the row's own input,
@@ -43,9 +41,9 @@
 namespace vt {
 namespace igemm {
 
-// tap sets: 3x3 spatial, causal k=3 temporal, previous + current frame 3x3,
-// one tap (a dense product)
-enum Taps { kSpatial = 0, kTemporal = 1, kParity = 2, kDense = 3 };
+// tap sets: causal k=3 temporal, previous + current frame 3x3, one tap (a
+// dense product)
+enum Taps { kTemporal = 1, kParity = 2, kDense = 3 };
 
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
 constexpr int WGM = 2, WGN = 2, kMinBlocks = 2;  // warp grid: 64 x 64 tiles
@@ -58,11 +56,10 @@ constexpr int kStageElems = BM * A_LD + BK * B_LD;
 constexpr int kSmemBytes = STAGES * kStageElems * 2;
 
 struct Geometry {
-  int H, W;       // spatial, parity: frames of H x W, taps (dy, dx) in 3 x 3
+  int H, W;       // parity: frames of H x W, taps (dy, dx) in 3 x 3
   int T, S;       // temporal: clips of T frames of S positions, taps t-2..t;
                   // parity: clips of T frames
   int replicate;  // stream start: 1 = frame 0, 0 = zeros
-  int pre = 0;    // temporal: frames of ``a`` before each clip's frame 0
 };
 
 struct Params {
@@ -112,30 +109,30 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const bool arow = am < p.M;
   const long long hw = (long long)g.H * g.W;
   long long base = 0;
-  int pa = 0, pb = 0;  // spatial, parity (y, x); temporal (t, s)
+  int pa = 0, pb = 0;  // parity (y, x); temporal (t, s)
   int pt = 0;          // parity: frame within the clip
   if (arow && TAPS != kDense) {
-    if (TAPS != kTemporal) {
+    if (TAPS == kParity) {
       const long long n = am / hw;
       const int r = (int)(am - n * hw);
       base = n * hw;
       pa = r / g.W;
       pb = r - pa * g.W;
-      if (TAPS == kParity) pt = (int)(n % g.T);
+      pt = (int)(n % g.T);
     } else {
       const long long ts = (long long)g.T * g.S;
       const long long b = am / ts;
       const long long r = am - b * ts;
       pa = (int)(r / g.S);
       pb = (int)(r - (long long)pa * g.S);
-      base = b * (ts + (long long)g.pre * g.S) + pb;
+      base = b * ts + pb;
     }
   }
   // B copier: 8 columns from bc of rows br, br + kThreads/16, ...
   const int br = tid / (BN / 8), bc = (tid % (BN / 8)) * 8;
   constexpr int kBRowStep = kThreads / (BN / 8);
 
-  constexpr int kTaps = TAPS == kSpatial ? 9 : TAPS == kTemporal ? 3 : TAPS == kParity ? 18 : 1;
+  constexpr int kTaps = TAPS == kTemporal ? 3 : TAPS == kParity ? 18 : 1;
   const int kmain = kTaps * p.Cin;
   const int nk = (kmain + p.Cs) / BK;
 
@@ -152,17 +149,17 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
       if (arow && TAPS == kDense) {
         row = am;
       } else if (arow) {
-        if (TAPS != kTemporal) {
+        if (TAPS == kParity) {
           const int st = tap % 9;
           const int sy = pa + st / 3 - 1, sx = pb + st % 3 - 1;
-          // parity: taps 0-8 read frame f-1 (frame f at a clip's frame 0
-          // in replicate mode), taps 9-17 frame f
-          const bool prev = TAPS == kParity && tap < 9 && !(pt == 0 && g.replicate);
+          // taps 0-8 read frame f-1 (frame f at a clip's frame 0 in
+          // replicate mode), taps 9-17 frame f
+          const bool prev = tap < 9 && !(pt == 0 && g.replicate);
           const bool none = prev && pt == 0;
           if (!none && sy >= 0 && sy < g.H && sx >= 0 && sx < g.W)
             row = base - (prev ? hw : 0) + (long long)sy * g.W + sx;
         } else {
-          int sf = pa + tap - 2 + g.pre;
+          int sf = pa + tap - 2;
           if (sf < 0 && g.replicate) sf = 0;
           if (sf >= 0) row = base + (long long)sf * g.S;
         }

@@ -9,7 +9,12 @@ the sources and flags, so an edited source rebuilds and an unchanged one
 is loaded as it is. A failed build raises. Nothing here runs at import.
 
 Every C entry launches on the stream it is given, allocates nothing and
-returns ``cudaGetLastError()``; :func:`call` raises when that is not 0.
+returns ``cudaGetLastError()`` (or, for the wgmma loop of kernels A and F,
+a refused tensor map or plan); :func:`call` raises when that is not 0.
+
+:func:`operands` caches the weights of A, B and F as their kernels read
+them, per parameter; :func:`weight_map` encodes the tensor map of such a
+weight for the wgmma loop.
 """
 
 from __future__ import annotations
@@ -34,15 +39,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry -> argument types (pointers and the stream as void*, sizes as int)
 _SIGNATURES = {
-    # x, out, h1, act, g1, b1, w1, bias1, g2, b2, w2, bias2,
-    # N, H, W, Cin, C, has_nin, stream
-    "vt_fused_spatial_resblock": [_P] * 12 + [_I] * 6 + [_P],
+    # x, out, h1, act, g1, b1, w1 map, bias1, g2, b2, w2 map, bias2,
+    # N, H, W, Cin, C, has_nin, th, tw, bn, stages, smem, grid, stream
+    "vt_fused_spatial_resblock": [_P] * 12 + [_I] * 12 + [_P],
     # x, out, h1, act, g1, b1, w1, bias1, g2, b2, w2, bias2,
     # B, T, S, C, replicate, stream
     "vt_fused_temporal_resblock": [_P] * 12 + [_I] * 5 + [_P],
-    # x, c1, c2, out, nc1, nc2, h1, act, g1, b1, w1, bias1, g2, b2, w2,
-    # bias2, B, T, S, C, first, offset, stream
-    "vt_fused_temporal_resblock_stream": [_P] * 16 + [_I] * 6 + [_P],
+    # x, c1, c2, out, nc1, nc2, h1, act, g1, b1, w1 map, bias1, g2, b2,
+    # w2 map, bias2, B, T, S, C, first, offset, bn, stages, smem, grid, stream
+    "vt_fused_temporal_resblock_stream": [_P] * 16 + [_I] * 10 + [_P],
     # y00, y01, y10, y11, bias, out, N, H, W, C, stream
     "vt_subpixel_interleave": [_P] * 6 + [_I] * 4 + [_P],
     # x, out, stats, g, b, w, bias, B, T, H, W, C, replicate, stream
@@ -64,7 +69,10 @@ _SIGNATURES = {
     "vt_microbench_fat": [_P] * 12 + [_I] * 4 + [_P],
     # x, out, n, mode, stream
     "vt_silu_probe": [_P] * 2 + [ctypes.c_longlong, _I, _P],
+    # w [Cout, K], K, Cout, bn, map (128 bytes, written); no stream
+    "vt_weight_map": [_P, _I, _I, _I, _P],
 }
+TENSOR_MAP_BYTES = 128  # sizeof(CUtensorMap)
 
 
 @dataclass
@@ -131,18 +139,81 @@ def library() -> KernelLibrary:
     return KernelLibrary(lib, so, log, seconds)
 
 
+def _raise_on(name: str, rc: int) -> None:
+    if rc != 0:
+        msg = library().lib.vt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+
+
 def call(name: str, *args) -> None:
     """Run C entry ``name`` on the current CUDA stream; raise on error.
-    Tensors are passed as their data pointers."""
+    Tensors are passed as their data pointers, tensor maps (ctypes buffers)
+    as their addresses."""
     import torch
 
     lib = library().lib
     stream = torch.cuda.current_stream().cuda_stream
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        msg = lib.vt_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
+    args = [a.data_ptr() if isinstance(a, torch.Tensor)
+            else ctypes.addressof(a) if isinstance(a, ctypes.Array) else a
+            for a in args]
+    _raise_on(name, getattr(lib, name)(*args, stream))
+
+
+def weight_map(w, bn: int):
+    """The tensor map (a 128-byte ctypes buffer) of the K-major bf16 weight
+    ``w`` ``[Cout, K]`` for the wgmma loop's loads of ``bn`` rows; raises
+    when the CUDA driver refuses it."""
+    buf = ctypes.create_string_buffer(TENSOR_MAP_BYTES)
+    _raise_on("vt_weight_map", library().lib.vt_weight_map(
+        w.data_ptr(), w.shape[1], w.shape[0], bn, ctypes.addressof(buf)))
+    return buf
+
+
+_OPERANDS = None  # parameter (weakly) -> {kind: (stamp, other sources, value)}
+
+
+def _stamp(t):
+    return None if t is None else (id(t), t._version, t.data_ptr(), t.device,
+                                   t.dtype, tuple(t.shape))
+
+
+def operands(kind: str, sources: tuple, build):
+    """``build(*sources)`` under ``torch.no_grad()``, cached on
+    ``sources[0]`` (a parameter, held weakly) under ``kind``.
+
+    The cache is the kernels' relayout of a block's weights (K-major or
+    tap-major bf16 GEMM operands, f32 vectors, the tensor maps the caller
+    adds to the value), made once instead of at every call. An entry is
+    served while every source is the same tensor at the same
+    ``_version``, data pointer, device, dtype and shape; an in-place update
+    under ``no_grad`` (``load_state_dict``, ``nn.init``,
+    ``state_dict_from_jax`` loaded into the module), ``.to()`` or a new
+    tensor rebuilds it. A write through ``param.data`` is outside PyTorch's
+    version counter and is not seen: call :func:`clear_operands` after one.
+    ``None`` sources stand for absent parameters."""
+    import torch
+
+    global _OPERANDS
+    if _OPERANDS is None:
+        from torch.utils.weak import WeakIdKeyDictionary
+
+        _OPERANDS = WeakIdKeyDictionary()
+    stamp = tuple(map(_stamp, sources))
+    per = _OPERANDS.setdefault(sources[0], {})
+    hit = per.get(kind)
+    if hit is not None and hit[0] == stamp:
+        return hit[2]
+    with torch.no_grad():
+        value = build(*sources)
+    # the other sources are held so that their ids stay theirs
+    per[kind] = (stamp, sources[1:], value)
+    return value
+
+
+def clear_operands() -> None:
+    """Drop every cached operand."""
+    if _OPERANDS is not None:
+        _OPERANDS.clear()
 
 
 def f32(t):

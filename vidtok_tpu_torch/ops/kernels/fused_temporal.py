@@ -14,14 +14,18 @@ F replaces ``fused_temporal.py:274`` (``fused_temporal_resblock_stream``):
 the same block over one chunk of a stream, each conv's front being its
 2-frame cache of activated frames (activated frame 0 twice on the first
 chunk), the new caches stored ``offset`` frames back. CUDA:
-``csrc/fused_temporal_stream.cu``.
+``csrc/fused_temporal_stream.cu`` on the TMA + wgmma loop of
+``csrc/wgmma_conv.cuh``, launched with ``plan.conv_plan_temporal``'s plan.
+
+Both take their weights from ``_lib.operands``: relaid out once per
+parameter, not at every call.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _lib
+from . import _lib, plan
 from .act import ln_silu_fast
 from ...modules.conv import conv3d_cl, pad_time_front
 from ...modules.stream import tail
@@ -33,9 +37,44 @@ def _tconv3(a, weight, mode):
 
 
 def gemm_weight(weight, dtype=torch.bfloat16):
-    """Conv1d weight ``[Co, Ci, k]`` -> the kernels' GEMM operand
+    """Conv1d weight ``[Co, Ci, k]`` -> the wmma loop's GEMM operand
     ``[(k, ci), co]``, tap-major, contiguous, in ``dtype``."""
     return weight.permute(2, 1, 0).reshape(-1, weight.shape[0]).to(dtype).contiguous()
+
+
+def kmajor_weight(weight, dtype=torch.bfloat16):
+    """Conv1d weight ``[Co, Ci, k]`` -> the wgmma loop's K-major operand
+    ``[co, (k, ci)]``, contiguous, in ``dtype``."""
+    return weight.permute(0, 2, 1).reshape(weight.shape[0], -1).to(dtype).contiguous()
+
+
+def _vectors(g1, b1, bias1, g2, b2, bias2) -> dict:
+    return {k: _lib.f32(v) for k, v in (("g1", g1), ("b1", b1), ("bias1", bias1),
+                                        ("g2", g2), ("b2", b2), ("bias2", bias2))}
+
+
+def temporal_operands(w1, g1, b1, bias1, g2, b2, w2, bias2) -> dict:
+    """Kernel B's parameters as it reads them (conv1's weight, norm1, conv1's
+    bias, norm2, conv2): the tap-major bf16 ``gemm_weight`` of each conv and
+    the f32 vectors."""
+    return {"w1": gemm_weight(w1), "w2": gemm_weight(w2),
+            **_vectors(g1, b1, bias1, g2, b2, bias2)}
+
+
+def stream_operands(w1, g1, b1, bias1, g2, b2, w2, bias2) -> dict:
+    """Kernel F's, in the order of :func:`temporal_operands`: the K-major
+    bf16 ``kmajor_weight`` of each conv and the f32 vectors; ``maps`` holds
+    the weights' tensor maps by BN."""
+    return {"w1": kmajor_weight(w1), "w2": kmajor_weight(w2),
+            **_vectors(g1, b1, bias1, g2, b2, bias2), "maps": {}}
+
+
+def _block_operands(kind, norm1, conv1, norm2, conv2, build, x) -> dict:
+    op = _lib.operands(kind, (conv1[0], *norm1, conv1[1], *norm2, *conv2), build)
+    for k, v in op.items():
+        if k != "maps":
+            _lib.same_device(v, x)
+    return op
 
 
 def fused_temporal_resblock_plain(x, norm1, conv1, norm2, conv2,
@@ -72,18 +111,14 @@ def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
     for cw in (conv1[0], conv2[0]):
         if tuple(cw.shape) != (c, c, 3):
             raise ValueError("kernel B takes two causal k=3 convs C->C")
-    w1, w2 = gemm_weight(conv1[0]), gemm_weight(conv2[0])
-    g1, b1, g2, b2, bias1, bias2 = (
-        _lib.f32(v) for v in (norm1[0], norm1[1], norm2[0], norm2[1],
-                              conv1[1], conv2[1]))
-    for v in (w1, w2, g1, b1, g2, b2, bias1, bias2):
-        _lib.same_device(v, x)
+    op = _block_operands("fused_temporal_resblock", norm1, conv1, norm2, conv2,
+                         temporal_operands, x)
     h1 = torch.empty_like(x)
     out = torch.empty_like(x)
     act = torch.empty_like(x)  # activation scratch
-    _lib.call("vt_fused_temporal_resblock", x, out, h1, act, g1, b1, w1,
-              bias1, g2, b2, w2, bias2, b, t, h * w, c,
-              int(first_pad_mode == "replicate"))
+    _lib.call("vt_fused_temporal_resblock", x, out, h1, act, op["g1"], op["b1"],
+              op["w1"], op["bias1"], op["g2"], op["b2"], op["w2"], op["bias2"],
+              b, t, h * w, c, int(first_pad_mode == "replicate"))
     fused_temporal_resblock.launches += 1
     return out
 
@@ -122,9 +157,11 @@ def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
     new c2); raises when ``t < offset`` (the new cache would reach into the
     previous chunk).
 
-    A CPU tensor runs :func:`fused_temporal_resblock_stream_plain`. A CUDA
-    tensor must be contiguous bf16 with C % 128 == 0, and so must the
-    caches after the first chunk; it runs the kernel or raises.
+    A CPU tensor runs :func:`fused_temporal_resblock_stream_plain`.
+    Otherwise x must be a contiguous bf16 CUDA tensor whose channels the
+    plan takes (``plan.conv_plan_temporal``: C % 128 == 0, C in
+    ``plan.ROW_CHANNELS``), and so must the caches after the first chunk;
+    it runs the kernel or raises.
     """
     fused_temporal_resblock_stream.calls += 1
     b, t, h, w, c = x.shape
@@ -133,9 +170,9 @@ def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
     if x.device.type == "cpu":
         return fused_temporal_resblock_stream_plain(
             x, norm1, conv1, norm2, conv2, c1, c2, first_chunk, offset)
+    pl = plan.conv_plan_temporal(b, t, h * w, c)
+    plan.check_row_channels(c)
     _lib.require(x, torch.bfloat16, (b, t, h, w, c))
-    if c % 128:
-        raise ValueError(f"kernel F takes C % 128 == 0, got C={c}")
     for cw in (conv1[0], conv2[0]):
         if tuple(cw.shape) != (c, c, 3):
             raise ValueError("kernel F takes two causal k=3 convs C->C")
@@ -144,20 +181,21 @@ def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
     else:
         for cache in (c1, c2):
             _lib.require(cache, torch.bfloat16, (b, 2, h, w, c))
-    w1, w2 = gemm_weight(conv1[0]), gemm_weight(conv2[0])
-    g1, b1, g2, b2, bias1, bias2 = (
-        _lib.f32(v) for v in (norm1[0], norm1[1], norm2[0], norm2[1],
-                              conv1[1], conv2[1]))
-    for v in (w1, w2, g1, b1, g2, b2, bias1, bias2):
-        _lib.same_device(v, x)
+    op = _block_operands("fused_temporal_resblock_stream", norm1, conv1, norm2,
+                         conv2, stream_operands, x)
+    if pl.bn not in op["maps"]:
+        op["maps"][pl.bn] = (_lib.weight_map(op["w1"], pl.bn),
+                             _lib.weight_map(op["w2"], pl.bn))
+    map1, map2 = op["maps"][pl.bn]
     out = torch.empty_like(x)
     h1 = torch.empty_like(x)
     act = x.new_empty((b, t + 2, h, w, c))  # [front | activated chunk]
     nc1 = x.new_empty((b, 2, h, w, c))
     nc2 = torch.empty_like(nc1)
     _lib.call("vt_fused_temporal_resblock_stream", x, c1, c2, out, nc1, nc2,
-              h1, act, g1, b1, w1, bias1, g2, b2, w2, bias2, b, t, h * w, c,
-              int(first_chunk), offset)
+              h1, act, op["g1"], op["b1"], map1, op["bias1"], op["g2"], op["b2"],
+              map2, op["bias2"], b, t, h * w, c, int(first_chunk), offset, pl.bn,
+              pl.stages, pl.smem, pl.grid)
     fused_temporal_resblock_stream.launches += 1
     return out, nc1, nc2
 

@@ -1,0 +1,128 @@
+"""Tile plans of the wgmma implicit-GEMM conv (``csrc/wgmma_conv.cuh``).
+
+Kernels A and F launch that loop with a plan made here from the call's
+shape, so the shapes stay where the CPU tests reach them: the patch of an
+M tile, BN, the ring's stages, the shared memory and the grid. The C entry
+takes the plan as it is and refuses one it cannot run. :func:`tile_origin`
+mirrors how a block finds its tile from ``blockIdx.x``.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+BM, BK = 128, 64                   # rows of an M tile; channels of a K step
+PATCHES = ((8, 16), (4, 32))      # th x tw = BM
+# the ring's stages: BN 256 one block per SM (192 KB of ring), BN 128 two
+# (96 KB each: one block's epilogue overlaps the other's products)
+STAGES = {128: 3, 256: 4}
+BLOCKS_PER_SM = {128: 2, 256: 1}   # as wgmma_conv.cuh's kBlocksPerSM
+SMEM_LIMIT = 232_448               # bytes of shared memory a block can use
+SMEM_PER_SM = 233_472              # of an SM, 1 KB of it reserved per block
+SMS = 132                          # streaming multiprocessors of an H100
+GRID_LIMIT = 2 ** 31 - 1
+# Channel counts the row pass (act_rows_kernel) takes: C / 8 lanes' worth
+# of 16-byte vectors spread over at most a warp.
+ROW_CHANNELS = (64, 128, 256, 512, 768, 1024)
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """One launch of the wgmma loop. ``th`` x ``tw`` is the patch of a
+    spatial M tile (temporal: 1 x BM rows of a clip); ``tiles_x`` /
+    ``tiles_y`` the patches across / down a frame (temporal: ``tiles_x``
+    M tiles per clip, ``tiles_y`` 1); ``m_tiles`` all M tiles; ``n_tiles``
+    = Cout / ``bn``; ``grid`` the blocks, one per (M tile, N tile)."""
+    taps: str
+    th: int
+    tw: int
+    tiles_x: int
+    tiles_y: int
+    m_tiles: int
+    bn: int
+    n_tiles: int
+    stages: int
+    smem: int
+    grid: int
+
+
+def stage_bytes(bn: int) -> int:
+    return BM * BK * 2 + bn * BK * 2
+
+
+def smem_bytes(bn: int, stages: int) -> int:
+    """The ring, 1 KB to align it for the 128-byte swizzle, the barriers."""
+    return 1024 + stages * stage_bytes(bn) + 16 * stages
+
+
+def epilogue_bytes(bn: int) -> int:
+    """The f32 tile the epilogue stages in the ring: BM rows of bn + 8."""
+    return BM * (bn + 8) * 4
+
+
+def _check_channels(cin: int, cout: int, cs: int = 0) -> None:
+    if cin % BK or cs % BK:
+        raise ValueError(f"the wgmma loop takes Cin % {BK} == 0, got Cin={cin}"
+                         + (f", Cs={cs}" if cs else ""))
+    if cout % 128:
+        raise ValueError(f"the wgmma loop takes Cout % 128 == 0, got Cout={cout}")
+
+
+def _plan(taps, th, tw, tiles_x, tiles_y, m_tiles, cout) -> ConvPlan:
+    # BN 256 reads each A tile once for two N tiles' worth of products, but
+    # halves the blocks: take it only when the grid still fills the card
+    bn = 256 if cout % 256 == 0 and m_tiles * (cout // 256) >= SMS else 128
+    stages = STAGES[bn]
+    plan = ConvPlan(taps, th, tw, tiles_x, tiles_y, m_tiles, bn, cout // bn,
+                    stages, smem_bytes(bn, stages), m_tiles * (cout // bn))
+    if (plan.smem > SMEM_LIMIT or stages * stage_bytes(bn) < epilogue_bytes(bn)
+            or BLOCKS_PER_SM[bn] * (plan.smem + 1024) > SMEM_PER_SM):
+        raise AssertionError(f"plan {plan} does not fit shared memory")
+    if plan.grid > GRID_LIMIT:
+        raise ValueError(f"{plan.grid} blocks exceed the grid limit")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan_spatial(n: int, h: int, w: int, cin: int, cout: int,
+                      cs: int = 0) -> ConvPlan:
+    """A 3x3 SAME conv of ``[n, h, w, cin]`` to ``cout`` channels (plus a
+    1x1 term of ``cs`` channels): the patch that covers the frame with the
+    fewest tiles, the first of PATCHES on a tie."""
+    _check_channels(cin, cout, cs)
+    if min(n, h, w) < 1:
+        raise ValueError(f"empty frames: {(n, h, w)}")
+    th, tw = min(PATCHES, key=lambda p: -(-h // p[0]) * -(-w // p[1]))
+    tiles_x, tiles_y = -(-w // tw), -(-h // th)
+    return _plan("spatial", th, tw, tiles_x, tiles_y, n * tiles_x * tiles_y, cout)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan_temporal(b: int, t: int, s: int, c: int) -> ConvPlan:
+    """A k=3 time conv of ``b`` clips of ``t`` output frames of ``s`` rows,
+    C -> C, over a scratch of ``t + 2`` frames per clip."""
+    _check_channels(c, c)
+    if min(b, t, s) < 1:
+        raise ValueError(f"empty clips: {(b, t, s)}")
+    per_clip = -(-t * s // BM)
+    return _plan("temporal", 1, BM, per_clip, 1, b * per_clip, c)
+
+
+def tile_origin(plan: ConvPlan, block: int) -> tuple:
+    """(M tile origin, first output channel) of block ``block``, as the
+    kernel decodes ``blockIdx.x``: spatial ``(frame, y0, x0)``, temporal
+    ``(clip, r0)``."""
+    n0 = (block % plan.n_tiles) * plan.bn
+    mt = block // plan.n_tiles
+    if plan.taps == "spatial":
+        q, tx = divmod(mt, plan.tiles_x)
+        img, ty = divmod(q, plan.tiles_y)
+        return (img, ty * plan.th, tx * plan.tw), n0
+    clip, t = divmod(mt, plan.tiles_x)
+    return (clip, t * BM), n0
+
+
+def check_row_channels(c: int) -> None:
+    if c not in ROW_CHANNELS:
+        raise ValueError(f"the LN+SiLU row pass takes C in {ROW_CHANNELS}, got C={c}")
