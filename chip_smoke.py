@@ -17,10 +17,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    each call's bound (bytes over 3.35 TB/s, FLOP over 989 TFLOP/s); and
    hold kernel E at bench.py's T=201 shape, whose output passes 2^31
    elements, and kernel A at its T=201 call whose input does, against
-   their plain versions on a window of frames. A and F also at frames
-   whose sides are not multiples of their tiles (PARTIAL_SPATIAL,
-   PARTIAL_TEMPORAL: 33² to 264², F at both ``first_chunk`` values and
-   offsets 1 and 4), checked, not timed. Kernel F
+   their plain versions on a window of frames. A, F, B and E also at
+   frames whose sides are not multiples of their tiles (PARTIAL_SPATIAL,
+   PARTIAL_TEMPORAL, PARTIAL_B, PARTIAL_PARITY: 33² to 264², F at both
+   ``first_chunk`` values and offsets 1 and 4, B and E in both modes and
+   with two clips), checked, not timed. Kernel F
    (the streaming temporal resblock) is held at every chunk shape of the
    tiled T=65 request, with ``first_chunk`` True and False at each of its
    cache offsets (0, 1, 2, 4), on y and both new caches; A, C and D also
@@ -49,9 +50,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    the plain path (no kernel launched), a torch.profiler breakdown of one
    kernel-path request, and the end-to-end gate: on z and on the
    reconstruction the kernel path (bf16) must be no further from the f32
-   plain run than the plain bf16 path is (x 1.1); then A's GEMMs' TFLOP/s
-   and its row passes' share of their byte bound at 128, 256 and 512
-   channels (``loop_rates``, torch.profiler);
+   plain run than the plain bf16 path is (x 1.1), the kernel path with
+   the launches above, at REQUEST and at PARTIAL_REQUEST ([1, 3, 17, 264,
+   264], a 33² latent: partial tiles in A-E); then the wgmma loop's GEMM
+   TFLOP/s and the row passes' share of their byte bound in A at 128, 256
+   and 512 channels, in B at its two heaviest shapes and in E at both of
+   its shapes (``loop_rates``, torch.profiler);
 4. serve one [1, 3, 201, 256, 256] clip (bench.py's protocol) through the
    v1.0 kernel path after one warm-up of the same shape;
 5. serve one request through the v1.0 FSQ 4096 tokenizer's kernel path and
@@ -76,7 +80,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 
 It never falls back to the CPU or to a plain version. The last two lines of
 standard output are a JSON object with the per-kernel results (``headers``:
-the shared GEMM loop a kernel is built on besides its source; launches
+the shared GEMM loop, and B's and F's shared block, a kernel is built on
+besides its source; launches
 from phase 3's kernel-path run for A-E, phase 7's for F, and phase 8's for
 G (its ``split`` request), H, I and D', and the tools' runs for T1-T4,
 whose numbers are those of one row of the tool at its first shape, with
@@ -138,21 +143,21 @@ N_REQUESTS = 3
 # kernel -> (its source, the TPU kernel it replaces, the shared GEMM loop
 # it is built on besides)
 _WGMMA = ("vidtok_tpu_torch/csrc/wgmma_conv.cuh",)
-_WMMA = ("vidtok_tpu_torch/csrc/igemm_conv.cuh",)
+_TEMPORAL = _WGMMA + ("vidtok_tpu_torch/csrc/temporal_block.cuh",)
 SOURCES = {
     "fused_spatial_resblock": ("vidtok_tpu_torch/csrc/fused_spatial.cu",
                                "vidtok_tpu/ops/pallas/fused_spatial_v2.py:183", _WGMMA),
     "fused_temporal_resblock": ("vidtok_tpu_torch/csrc/fused_temporal.cu",
-                                "vidtok_tpu/ops/pallas/fused_temporal.py:205", _WMMA),
+                                "vidtok_tpu/ops/pallas/fused_temporal.py:205", _TEMPORAL),
     "subpixel_interleave": ("vidtok_tpu_torch/csrc/subpixel.cu",
                             "vidtok_tpu/ops/pallas/subpixel_epilogue.py:100", ()),
     "decoder_tail_rgb": ("vidtok_tpu_torch/csrc/decoder_tail.cu",
                          "vidtok_tpu/ops/pallas/decoder_tail.py:245", ()),
     "parity_up2x_fused": ("vidtok_tpu_torch/csrc/parity_upsample.cu",
-                          "vidtok_tpu/ops/pallas/parity_upsample_fused.py:108", _WMMA),
+                          "vidtok_tpu/ops/pallas/parity_upsample_fused.py:108", _WGMMA),
     "fused_temporal_resblock_stream": (
         "vidtok_tpu_torch/csrc/fused_temporal_stream.cu",
-        "vidtok_tpu/ops/pallas/fused_temporal.py:274", _WGMMA),
+        "vidtok_tpu/ops/pallas/fused_temporal.py:274", _TEMPORAL),
     "parity_blend_interleave": ("vidtok_tpu_torch/csrc/parity_blend.cu",
                                 "vidtok_tpu/ops/pallas/upsample_epilogue.py:49", ()),
     "parity_blend_interleave4": ("vidtok_tpu_torch/csrc/parity_blend.cu",
@@ -233,17 +238,21 @@ PARITY_WINDOW = 95
 SPATIAL_LONG = (204, 256, 256, 256, 128)
 SPATIAL_WINDOW = 2
 # Partial tiles: frames whose sides are not multiples of the tiles (33² is
-# the latent of a 264² request), for A and F, checked, not timed. F at both
-# ``first_chunk`` values and cache offsets 1 and 4.
+# the latent of a 264² request), checked, not timed: A and F; F at both
+# ``first_chunk`` values and cache offsets 1 and 4; B and E (the v1.0
+# decoder's shapes at 264², and two clips) in both stream-start modes.
 PARTIAL_SPATIAL = [(5, 33, 33, 512, 512), (10, 66, 66, 512, 512),
                    (20, 132, 132, 256, 256), (16, 264, 264, 128, 128)]
 PARTIAL_TEMPORAL = [(1, 5, 33, 33, 512), (1, 20, 264, 264, 128)]
 PARTIAL_OFFSETS = (1, 4)
-# one tiled v1.1 request at a 33² latent, held to the tiled f32 plain run
+PARTIAL_B = [(2, 5, 33, 33, 512), (1, 20, 264, 264, 128)]
+PARTIAL_PARITY = [(2, 5, 33, 33, 512), (1, 10, 132, 132, 256)]
+# one request at a 33² latent, tiled v1.1 and non-tiled v1.0, each held to
+# its f32 plain run
 PARTIAL_REQUEST = (1, 3, 17, 264, 264)
 # kernel A's calls (no nin_shortcut) at which ``loop_rates`` reads the
 # wgmma loop's rate and the row pass's share of its byte bound, at 128, 256
-# and 512 channels
+# and 512 channels; then B's at its two heaviest serving shapes and E's
 LOOP_SHAPES = ((20, 256, 256, 128, 128), (10, 128, 128, 256, 256),
                (10, 64, 64, 512, 512))
 
@@ -461,10 +470,11 @@ def _nel(*shapes) -> int:
 def work(name: str, key) -> tuple:
     """(bytes, tensor-core FLOP, other FLOP) one call must move and do:
     each bf16 input read once, each output written once, the f32
-    parameters read once; the FLOP of the function (E: the nearest 2x
-    upsample and a 3x3x3 conv at the output rate, not E's own 36 C^2
-    MACs per half-rate position; D and D': the 3-channel conv, not D''s
-    products padded to 8 channels)."""
+    parameters read once; the FLOP of the function (E: the three base 3x3
+    convs of each input frame, 27 C^2 MACs per half-rate position, which
+    give both output frames as ``parity_up2x_fused_plain`` computes them,
+    not E's own 36 C^2 nor a 3x3x3 conv at the output rate, 54 C^2; D and
+    D': the 3-channel conv, not D''s products padded to 8 channels)."""
     if name == "fused_spatial_resblock":
         n, h, w, cin, c = key
         m, k = n * h * w, 9 * cin * c + 9 * c * c + (cin * c if cin != c else 0)
@@ -490,7 +500,7 @@ def work(name: str, key) -> tuple:
         return 2 * m * (c + 3) + 4 * (2 * c + 81 * c + 3), 2 * m * 81 * c, 0
     b, t, h, w, c = key[0]  # parity_up2x_fused
     m = b * t * h * w
-    return 2 * 3 * m * c + 4 * (27 * c * c + c + 1), 2 * 2 * m * 27 * c * c, 0
+    return 2 * 3 * m * c + 4 * (27 * c * c + c + 1), 2 * m * 27 * c * c, 0
 
 
 class Case(NamedTuple):
@@ -624,7 +634,8 @@ def kernel_cases(device):
                        ue.parity_blend_interleave4,
                        ue.parity_blend_interleave4_plain,
                        (s, q.x((b, t, h, w, 4 * c), bf), bias, alpha, mode))
-    # partial tiles of A and F, on inputs of their own: checked, not timed
+    # partial tiles of A, F, B and E, on inputs of their own: checked, not
+    # timed
     r = Params(4, device)
     for key in PARTIAL_SPATIAL:
         n, h, w, cin, c = key
@@ -644,6 +655,20 @@ def kernel_cases(device):
                            fused_temporal.fused_temporal_resblock_stream_plain,
                            (r.x(shape, bf), r.norm(c), r.conv((c, c, 3)), r.norm(c),
                             r.conv((c, c, 3)), *caches, first, off))
+    for shape in PARTIAL_B:
+        c = shape[-1]
+        for mode in MODE_PATH:
+            yield Case("fused_temporal_resblock", (shape, mode), {},
+                       fused_temporal.fused_temporal_resblock,
+                       fused_temporal.fused_temporal_resblock_plain,
+                       (r.x(shape, bf), r.norm(c), r.conv((c, c, 3)), r.norm(c),
+                        r.conv((c, c, 3)), mode))
+    for shape in PARTIAL_PARITY:
+        c = shape[-1]
+        for mode in MODE_PATH:
+            yield Case("parity_up2x_fused", (shape, mode), {}, pu.parity_up2x_fused,
+                       pu.parity_up2x_fused_plain,
+                       (r.x(shape, bf), *r.conv((c, c, 3, 3, 3)), r.t([0.88]), mode))
 
 
 def form_calls(calls: dict, kernel: str) -> dict:
@@ -797,48 +822,87 @@ def check_spatial_long(device) -> None:
 
 
 def loop_rates(device) -> None:
-    """Kernel A at LOOP_SHAPES, 5 calls each under torch.profiler after a
-    warm-up: the device time per call of its two GEMM launches
-    (``wg::conv_kernel``) and of its two row passes (``act_rows_kernel``);
-    the GEMMs' rate, 2 * 2 * M * 9 * C^2 FLOP over their time, and the row
-    passes' share of their byte bound (each reads and writes M * C bf16,
-    over 3.35 TB/s)."""
+    """The wgmma loop inside the kernels that run it with row passes or an
+    epilogue of their own, 5 calls each under torch.profiler after a
+    warm-up: the device time per call of the GEMM launches
+    (``wg::conv_kernel``) and of the row passes (``act_rows_kernel``), the
+    mean of the launches the trace recorded times the launches of a call
+    (a trace may miss some, which a sum over 5 calls would count as time
+    not spent: the recorded counts are printed beside); the
+    GEMMs' rate, each kernel's own GEMM FLOP over their time, and the row
+    passes' share of their byte bound (what they read and write, bf16, over
+    3.35 TB/s). Kernel A at LOOP_SHAPES: 2 * 2 * M * 9 * C^2 FLOP, two
+    passes reading and writing M * C. Kernel B at TEMPORAL_SHAPES[0] and
+    [1], zero mode: 2 * 2 * M * 3 * C^2 FLOP, two passes reading M * C and
+    writing the scratch, B * (T + 2) * H * W * C (the 2-frame front
+    included). Kernel E at PARITY_SHAPES, zero mode: its own products,
+    2 * M * 18C * 2C FLOP (not the 27 C^2 MACs of ``work``), no row
+    pass."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from vidtok_tpu_torch.ops.kernels import fused_spatial as fs
+    from vidtok_tpu_torch.ops.kernels import fused_temporal as ft
+    from vidtok_tpu_torch.ops.kernels import parity_upsample as pu
     from vidtok_tpu_torch.tools import PEAK_BYTES
 
+    bf = torch.bfloat16
     p = Params(7, device)
     iters = 5
-    for key in LOOP_SHAPES:
-        n, h, w, _, c = key
-        args = (p.x((n, h, w, c), torch.bfloat16), p.norm(c), p.conv((c, c, 3, 3)),
-                p.norm(c), p.conv((c, c, 3, 3)), None)
+
+    def runs():
+        # (kernel, key, call, GEMM FLOP, row-pass bytes, launches per call
+        # of the GEMM and of the row pass)
+        for key in LOOP_SHAPES:
+            n, h, w, _, c = key
+            m = n * h * w
+            args = (p.x((n, h, w, c), bf), p.norm(c), p.conv((c, c, 3, 3)),
+                    p.norm(c), p.conv((c, c, 3, 3)), None)
+            yield ("A", key, lambda args=args: fs.fused_spatial_resblock(*args),
+                   2 * 2 * m * 9 * c * c, 2 * 2 * m * c * 2, {"gemm": 2, "rows": 2})
+        for key, _ in TEMPORAL_SHAPES[:2]:
+            b, t, h, w, c = key
+            m = b * t * h * w
+            args = (p.x(key, bf), p.norm(c), p.conv((c, c, 3)), p.norm(c),
+                    p.conv((c, c, 3)), "zero")
+            yield ("B", key, lambda args=args: ft.fused_temporal_resblock(*args),
+                   2 * 2 * m * 3 * c * c, 2 * (m + b * (t + 2) * h * w) * c * 2,
+                   {"gemm": 2, "rows": 2})
+        for key, _ in PARITY_SHAPES:
+            b, t, h, w, c = key
+            args = (p.x(key, bf), *p.conv((c, c, 3, 3, 3)), p.t([0.88]), "zero")
+            yield ("E", key, lambda args=args: pu.parity_up2x_fused(*args),
+                   2 * (b * t * h * w) * 18 * c * 2 * c, 0, {"gemm": 1})
+
+    for kernel, key, call, flop, row_bytes, per_call in runs():
         for _ in range(2):
-            fs.fused_spatial_resblock(*args)
+            call()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                fs.fused_spatial_resblock(*args)
+                call()
             torch.cuda.synchronize()
-        ms = defaultdict(float)
+        total, count = defaultdict(float), Counter()
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
                 part = ("gemm" if "wg::conv_kernel" in e.key else
                         "rows" if "act_rows_kernel" in e.key else "other")
-                ms[part] += e.self_device_time_total / 1e3 / iters
-        if not (ms["gemm"] and ms["rows"]):
-            print(f"loop {key}: no device time recorded (not measured)", flush=True)
+                total[part] += e.self_device_time_total / 1e3
+                count[part] += e.count
+        if any(not count[part] for part in per_call):
+            print(f"loop {kernel} {key}: no device time recorded (not measured)",
+                  flush=True)
             continue
-        m = n * h * w
-        tflops = 2 * 2 * m * 9 * c * c / ms["gemm"] / 1e9
-        share = 2 * 2 * m * c * 2 / PEAK_BYTES * 1e3 / ms["rows"]
-        print(f"loop {key}: gemm {ms['gemm']:.4f} ms/call ({tflops:.1f} TFLOP/s), "
-              f"row passes {ms['rows']:.4f} ms/call ({share:.3f} of the byte bound), "
-              f"other {ms['other']:.4f}", flush=True)
-        del args
+        ms = {part: total[part] / count[part] * n for part, n in per_call.items()}
+        seen = ", ".join(f"{part} {count[part]} of {iters * n}"
+                         for part, n in per_call.items())
+        rows = (f"row passes {ms['rows']:.4f} ms/call "
+                f"({row_bytes / PEAK_BYTES * 1e3 / ms['rows']:.3f} of the byte bound)"
+                if row_bytes else "no row pass")
+        print(f"loop {kernel} {key}: gemm {ms['gemm']:.4f} ms/call "
+              f"({flop / ms['gemm'] / 1e9:.1f} TFLOP/s), {rows}; launches recorded: "
+              f"{seen}", flush=True)
 
 
 def randomize_(core, seed: int) -> None:
@@ -955,7 +1019,7 @@ def kernel_forms(path: str = None):
     return KernelForms() if path is None else KernelForms(*FORMS[path][0])
 
 
-def e2e_check(core, meta, shape, kernels=("kernel",)) -> dict:
+def e2e_check(core, meta, shape, path: str, kernels=("kernel",)) -> dict:
     """The kernel path against the plain path, in bf16 and in f32.
 
     Two bf16 evaluations of this 60-block network differ by 2-3% relative
@@ -965,11 +1029,13 @@ def e2e_check(core, meta, shape, kernels=("kernel",)) -> dict:
     than the plain bf16 path is (x BF16_SLACK), on z and on the
     reconstruction. The kernel path's distance from the plain bf16 path is
     printed beside it. ``kernels`` names the kernel-path runs: ``kernel``
-    in the default forms, or a FORMS path in its forms.
+    in the default forms, whose launches must be PER_FORWARD[path], or a
+    FORMS path in its forms, with its own.
     """
     import torch
 
     from vidtok_tpu_torch.models.autoencoder import VideoTokenizer
+    from vidtok_tpu_torch.ops import kernels as K
 
     x = np.clip(np.random.RandomState(100).randn(*shape) * 0.5, -1, 1) \
         .astype(np.float32)
@@ -978,9 +1044,14 @@ def e2e_check(core, meta, shape, kernels=("kernel",)) -> dict:
             for key in kernels]
     for key, dtype, fused, forms in runs + [("plain", torch.bfloat16, False, None),
                                             ("plain_f32", torch.float32, False, None)]:
+        K.reset_counts()
         z, dec, log = VideoTokenizer(core, meta, dtype, fused=fused,
                                      forms=kernel_forms(forms))(x)
         torch.cuda.synchronize()
+        want = PER_FORWARD[forms or path] if fused else dict.fromkeys(K.WRAPPERS, 0)
+        if K.counts() != want:
+            raise AssertionError(f"e2e {list(shape)} {key}: launches {K.counts()} "
+                                 f"!= {want}")
         for t in (z, dec, log["kl_loss"]):
             if not torch.isfinite(t).all():
                 raise AssertionError(f"{key}: non-finite output")
@@ -991,7 +1062,7 @@ def e2e_check(core, meta, shape, kernels=("kernel",)) -> dict:
             res[f"{what}_{key}_vs_plain"] = rel_l2(outs[key][i], outs["plain"][i])
             res[f"{what}_{key}_vs_f32"] = rel_l2(outs[key][i], outs["plain_f32"][i])
         res[f"{what}_plain_vs_f32"] = rel_l2(outs["plain"][i], outs["plain_f32"][i])
-    print("e2e rel_l2 " + json.dumps(res), flush=True)
+    print(f"e2e {list(shape)} rel_l2 " + json.dumps(res), flush=True)
     for what in ("z", "recon"):
         p_f32 = res[f"{what}_plain_vs_f32"]
         for key in kernels:
@@ -1037,7 +1108,10 @@ def serve_both_paths(name: str, cfg: dict, path: str, device) -> dict:
             raise AssertionError(f"{kernel}: {n} launches in the serving run")
     tok.fused = True
     profile_request(tok, REQUEST)
-    e2e_check(tok.core, tok.meta, REQUEST)
+    e2e_check(tok.core, tok.meta, REQUEST, path)
+    if path == "v1_0":
+        # a 33² latent: partial tiles in A, B, C, D and E
+        e2e_check(tok.core, tok.meta, PARTIAL_REQUEST, path)
     return k
 
 
@@ -1329,7 +1403,7 @@ def serve_forms(device) -> dict:
                REQUEST)
         if path == "v1_0_forms":
             profile_request(tok, REQUEST)
-    e2e_check(tok.core, tok.meta, REQUEST, kernels=("v1_0_forms", "v1_0_split"))
+    e2e_check(tok.core, tok.meta, REQUEST, "v1_0", kernels=("v1_0_forms", "v1_0_split"))
     return runs
 
 

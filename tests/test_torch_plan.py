@@ -1,15 +1,16 @@
 """The wgmma loop's tile plans and the kernels' cached weight operands.
 
-Kernels A and F of the port run the warp-specialised TMA + wgmma conv of
-``csrc/wgmma_conv.cuh`` with a plan made in ``ops/kernels/plan.py``, and
-A, B and F read their weights from ``_lib.operands``, relaid out once per
-parameter. Neither needs the card: the plans are checked at every A and F
-call shape ``chip_smoke.py`` serves (each output position in exactly one
-tile, BN dividing Cout, the shared memory and the grid within the H100's
-limits), the cache against the relayouts it stands for and against the
-ways a parameter changes. The wrappers' refusals follow the plan (the meta
-device stands in for a card: a wrapper given a tensor off the CPU launches
-its kernel or raises).
+Kernels A, B, E and F of the port run the warp-specialised TMA + wgmma
+conv of ``csrc/wgmma_conv.cuh`` with a plan made in ``ops/kernels/plan.py``,
+and read their weights from ``_lib.operands``, relaid out once per
+parameter. Neither needs the card: the plans are checked at every A, B, E
+and F call shape ``chip_smoke.py`` serves or gates (each output position,
+and for E each output frame, in exactly one tile, BN dividing Cout (E: C),
+the shared memory and the grid within the H100's limits), the cache
+against the relayouts it stands for and against the ways a parameter
+changes. The wrappers' refusals follow the plan (the meta device stands in
+for a card: a wrapper given a tensor off the CPU launches its kernel or
+raises).
 """
 
 import copy
@@ -30,8 +31,8 @@ from vidtok_tpu_torch.ops import kernels as K
 from vidtok_tpu_torch.ops.kernels import _lib, plan
 from vidtok_tpu_torch.ops.kernels.fused_spatial import spatial_operands
 from vidtok_tpu_torch.ops.kernels.fused_temporal import (gemm_weight, kmajor_weight,
-                                                         stream_operands,
                                                          temporal_operands)
+from vidtok_tpu_torch.ops.kernels.parity_upsample import parity_operands
 
 torch.set_num_threads(2)
 
@@ -90,21 +91,93 @@ def test_spatial_operands_layout(cin, c):
 
 
 def test_temporal_operands_layout():
-    """B's operands are ``gemm_weight`` (tap-major [(k, ci), co]); F's are
-    its transpose, K-major [co, (k, ci)]."""
+    """B's and F's operands (one cache entry per block, which both read)
+    are K-major [co, (k, ci)] bf16, the transpose of the tools'
+    ``gemm_weight`` (tap-major [(k, ci), co]), beside the f32 vectors."""
     m = _randomized(TB.ResnetBlockTemporal(32, 32), 1)
-    b = temporal_operands(*_temporal_sources(m))
-    f = stream_operands(*_temporal_sources(m))
+    op = temporal_operands(*_temporal_sources(m))
     for name, conv in (("w1", m.conv1), ("w2", m.conv2)):
         w = conv.conv.weight
-        assert torch.equal(b[name], gemm_weight(w))
-        assert torch.equal(f[name], kmajor_weight(w))
-        assert torch.equal(f[name], gemm_weight(w).t())
+        assert op[name].is_contiguous() and op[name].dtype == torch.bfloat16
+        assert torch.equal(op[name], kmajor_weight(w))
+        assert torch.equal(op[name], gemm_weight(w).t())
         for k in range(3):
-            assert torch.equal(f[name][:, 32 * k:32 * (k + 1)],
+            assert torch.equal(op[name][:, 32 * k:32 * (k + 1)],
                                w[:, :, k].to(torch.bfloat16))
-    assert f["maps"] == {} and "maps" not in b
-    assert torch.equal(f["bias2"], m.conv2.conv.bias)
+    assert op["maps"] == {}
+    assert torch.equal(op["bias2"], m.conv2.conv.bias)
+    assert op["g1"].dtype == torch.float32
+
+
+def _parity_relayout(weight):
+    """E's GEMM operand as its wmma form built it at every call:
+    ``[(frame, dy, dx, ci), (parity, co)]``, frame 0 = s[a-1], the weights
+    ``[[K0+K1, K0], [K2, K1+K2]]`` summed in f32, rounded to bf16 once."""
+    c = weight.shape[0]
+    k0, k1, k2 = weight.float().permute(2, 3, 4, 1, 0)
+    wm = torch.stack([torch.cat([k0 + k1, k0], dim=-1),
+                      torch.cat([k2, k1 + k2], dim=-1)])
+    return wm.reshape(18 * c, 2 * c).to(torch.bfloat16).contiguous()
+
+
+def test_parity_operands_layout():
+    """E's operand is K-major [(parity, co), (frame, dy, dx, ci)] [2C, 18C]:
+    the transpose of the tap-major relayout, block by block the summed time
+    taps of each parity and frame; the bias once per parity, f32."""
+    c = 16
+    g = torch.Generator().manual_seed(8)
+    weight = torch.randn((c, c, 3, 3, 3), generator=g)
+    bias = torch.randn((c,), generator=g)
+    op = parity_operands(weight, bias)
+    assert op["w"].shape == (2 * c, 18 * c) and op["w"].is_contiguous()
+    assert op["w"].dtype == torch.bfloat16
+    assert torch.equal(op["w"], _parity_relayout(weight).t())
+    k = weight.float()
+    want = {(0, 0): k[:, :, 0] + k[:, :, 1], (1, 0): k[:, :, 0],
+            (0, 1): k[:, :, 2], (1, 1): k[:, :, 1] + k[:, :, 2]}
+    for (par, f), kk in want.items():
+        for dy in range(3):
+            for dx in range(3):
+                col = ((f * 3 + dy) * 3 + dx) * c
+                assert torch.equal(op["w"][par * c:(par + 1) * c, col:col + c],
+                                   kk[:, :, dy, dx].to(torch.bfloat16))
+    assert op["bias"].dtype == torch.float32
+    assert torch.equal(op["bias"], torch.cat([bias, bias])) and op["maps"] == {}
+
+
+PARITY_UPDATES = {
+    "weight": lambda m: _no_grad(lambda: m.conv.conv.weight.mul_(-0.5)),
+    "bias": lambda m: _no_grad(lambda: m.conv.conv.bias.add_(1.0)),
+    "mix_factor": lambda m: _no_grad(lambda: m.mix_factor.add_(1.0)),
+}
+
+
+@pytest.mark.parametrize("update", sorted(PARITY_UPDATES))
+def test_parity_operands_cached_then_rebuilt(update):
+    """E's cache entry, keyed as its wrapper keys it (the conv's weight and
+    bias), is served while they stand still and rebuilt, equal to a fresh
+    relayout, after an in-place update of either. The blend weight alpha =
+    sigmoid(mix_factor) is a new tensor at every forward and is read by the
+    kernel at every call, so it is not in the entry: an update of the mix
+    factor keeps the entry."""
+    m = TB.TimeUpsampleRes2x(16, 16, interpolation_mode="nearest")
+    _randomized(m, 9)
+
+    def get():
+        return _lib.operands("parity_up2x_fused", (m.conv.conv.weight, m.conv.conv.bias),
+                             parity_operands)
+
+    first = get()
+    assert get() is first
+    PARITY_UPDATES[update](m)
+    again = get()
+    if update == "mix_factor":
+        assert again is first
+        return
+    assert again is not first
+    fresh = parity_operands(m.conv.conv.weight, m.conv.conv.bias)
+    assert torch.equal(again["w"], fresh["w"]) and torch.equal(again["bias"], fresh["bias"])
+    assert torch.equal(again["w"], _parity_relayout(m.conv.conv.weight).t())
 
 
 # -- the cache ----------------------------------------------------------------
@@ -178,13 +251,13 @@ def test_operands_per_device_dtype_and_kind():
     b = _lib.operands("test_b", _temporal_sources(m), temporal_operands)
     b64 = _lib.operands("test_b", _temporal_sources(m64), temporal_operands)
     bmeta = _lib.operands("test_b", _temporal_sources(meta), temporal_operands)
-    f = _lib.operands("test_f", _temporal_sources(m), stream_operands)
+    f = _lib.operands("test_f", _temporal_sources(m), temporal_operands)
     assert len({id(b), id(b64), id(bmeta), id(f)}) == 4
     assert bmeta["w1"].device.type == "meta" and b["w1"].device.type == "cpu"
     assert torch.equal(b["w1"], b64["w1"])  # the same bf16 operand
     assert b64["g1"].dtype == torch.float32
     assert _lib.operands("test_b", _temporal_sources(m), temporal_operands) is b
-    assert _lib.operands("test_f", _temporal_sources(m), stream_operands) is f
+    assert _lib.operands("test_f", _temporal_sources(m), temporal_operands) is f
     key = weakref.ref(m.conv1.conv.weight)
     del m, b, f
     gc.collect()
@@ -206,8 +279,20 @@ def _spatial_keys(which):
 
 
 def _temporal_keys(which):
+    """Kernel F's shapes (tiled, partial) and kernel B's (serving, its
+    partial and two-clip shapes, and its calls in one non-tiled forward of
+    LONG_REQUEST: TEMPORAL_SHAPES with their 20 frames scaled to 204)."""
     if which == "partial":
         return list(cs.PARTIAL_TEMPORAL)
+    if which == "b_serving":
+        return [k for k, _ in cs.TEMPORAL_SHAPES] + [k for k in cs.TOOL_SHAPES]
+    if which == "b_partial":
+        return list(cs.PARTIAL_B)
+    if which == "b_long":
+        frames = cs.REQUEST[2] + cs.TDF - 1
+        long_frames = cs.LONG_REQUEST[2] + cs.TDF - 1
+        return [(b, t * long_frames // frames, h, w, c)
+                for (b, t, h, w, c), _ in cs.TEMPORAL_SHAPES]
     t, size = {"tiled65": (65, 256), "tiled201": (201, 256),
                "tiled264": (cs.PARTIAL_REQUEST[2], cs.PARTIAL_REQUEST[3])}[which]
     return sorted({k[0] for (name, k) in cs.tiled_calls(t, size)
@@ -267,10 +352,12 @@ def test_spatial_plans_cover_each_position_once(which):
         assert sorted(n0s.tolist()) == list(range(0, c, pl.bn))
 
 
-@pytest.mark.parametrize("which", ["tiled65", "tiled201", "tiled264", "partial"])
+@pytest.mark.parametrize("which", ["tiled65", "tiled201", "tiled264", "partial",
+                                   "b_serving", "b_partial", "b_long"])
 def test_temporal_plans_cover_each_row_once(which):
     """Every output row of every clip in exactly one M tile, at every
-    kernel-F call shape of the tiled paths and the partial shapes."""
+    kernel-F call shape of the tiled paths and the partial shapes, and at
+    every kernel-B shape served, gated or run at T=201."""
     keys = _temporal_keys(which)
     assert keys
     for key in keys:
@@ -287,6 +374,49 @@ def test_temporal_plans_cover_each_row_once(which):
         assert (n0 == 0).all() and counts.min() == 1 and counts.max() == 1, key
 
 
+def _parity_keys(which):
+    return {"serving": [k for k, _ in cs.PARITY_SHAPES],
+            "partial": list(cs.PARTIAL_PARITY), "long": [cs.PARITY_LONG]}[which]
+
+
+@pytest.mark.parametrize("which", ["serving", "partial", "long"])
+def test_parity_plans_cover_each_output_once(which):
+    """Kernel E: every position of each input frame in exactly one M tile
+    per N tile, so every position of both output frames (2a: the N tiles
+    below C, 2a+1: those from C) in C / BN blocks, whose columns are each
+    parity's C channels once. At every E shape served, gated at partial
+    tiles and with two clips, and at its T=201 call (whose first and last
+    two input frames are checked)."""
+    for key in _parity_keys(which):
+        b, t, h, w, c = key
+        pl = plan.conv_plan_parity(b, t, h, w, c)
+        _check_limits(pl, 2 * c)
+        assert pl.taps == "parity" and c % pl.bn == 0
+        per = pl.tiles_x * pl.tiles_y
+        assert pl.tiles_x == -(-w // pl.tw) and pl.tiles_y == -(-h // pl.th)
+        assert pl.m_tiles == b * t * per
+        n = b * t
+        frames = range(n) if n * h * w <= 1_000_000 else [0, 1, n - 2, n - 1]
+        slot = {f: i for i, f in enumerate(frames)}
+        counts = np.zeros(len(frames) * 2 * h * w, np.int32)
+        blocks = np.concatenate([np.arange(f * per * pl.n_tiles, (f + 1) * per * pl.n_tiles)
+                                 for f in frames])
+        r = np.arange(plan.BM)
+        for i in range(0, len(blocks), CHUNK):
+            (img, y0, x0), n0 = plan.tile_origin(pl, blocks[i:i + CHUNK])
+            par = (n0 >= c).astype(np.int64)
+            y = y0[:, None] + r[None, :] // pl.tw
+            x = x0[:, None] + r[None, :] % pl.tw
+            ok = (y < h) & (x < w)
+            out_frame = np.vectorize(slot.get)(img) * 2 + par
+            _count(counts, ((out_frame[:, None] * h + y) * w + x)[ok])
+        assert counts.min() == counts.max() == c // pl.bn, key
+        _, n0s = plan.tile_origin(pl, np.arange(pl.n_tiles))
+        for par in (0, 1):
+            cols = sorted(n0 - par * c for n0 in n0s.tolist() if (n0 >= c) == par)
+            assert cols == list(range(0, c, pl.bn)), key
+
+
 def test_plan_picks():
     """BN 256 only where the grid still fills the card; the patch with the
     fewest tiles; the ring's stages by BN."""
@@ -298,6 +428,12 @@ def test_plan_picks():
     assert (plan.conv_plan_spatial(1, 4, 128, 64, 128).th,
             plan.conv_plan_spatial(1, 4, 128, 64, 128).tw) == (4, 32)
     assert plan.conv_plan_temporal(1, 2, 32 * 32, 512).grid == 16 * 4
+    # E: 10,240 and 2,560 blocks at BN 256; BN 128 where C is 128
+    e = plan.conv_plan_parity(1, 10, 256, 256, 256)
+    assert (e.bn, e.grid, e.n_tiles, e.th, e.tw) == (256, 10240, 2, 8, 16)
+    assert (plan.conv_plan_parity(1, 5, 128, 128, 512).bn,
+            plan.conv_plan_parity(1, 5, 128, 128, 512).grid) == (256, 2560)
+    assert plan.conv_plan_parity(4, 10, 64, 64, 128).bn == 128
 
 
 # -- refusals -------------------------------------------------------------------
@@ -317,6 +453,15 @@ def _stream_args(c):
             (_meta(c), _meta(c)), (_meta(c, c, 3), _meta(c)), None, None, True, 1)
 
 
+def _temporal_args(c):
+    return (_meta(1, 2, 8, 8, c), (_meta(c), _meta(c)), (_meta(c, c, 3), _meta(c)),
+            (_meta(c), _meta(c)), (_meta(c, c, 3), _meta(c)), "zero")
+
+
+def _parity_args(c):
+    return (_meta(1, 2, 8, 8, c), _meta(c, c, 3, 3, 3), _meta(c), _meta(1), "zero")
+
+
 @pytest.mark.parametrize("name,args,match", [
     ("fused_spatial_resblock", _spatial_args(96, 128, True), "Cin % 64"),
     ("fused_spatial_resblock", _spatial_args(128, 192, True), "Cout % 128"),
@@ -325,10 +470,16 @@ def _stream_args(c):
     ("fused_temporal_resblock_stream", _stream_args(192), "Cout % 128"),
     ("fused_temporal_resblock_stream", _stream_args(1280), "row pass"),
     ("fused_temporal_resblock_stream", _stream_args(128), "CUDA tensor"),
+    ("fused_temporal_resblock", _temporal_args(192), "Cout % 128"),
+    ("fused_temporal_resblock", _temporal_args(1280), "row pass"),
+    ("fused_temporal_resblock", _temporal_args(128), "CUDA tensor"),
+    ("parity_up2x_fused", _parity_args(192), "C % 128"),
+    ("parity_up2x_fused", _parity_args(256), "CUDA tensor"),
 ])
 def test_wrappers_refuse_what_the_plan_cannot_take(name, args, match):
-    """Off the CPU, A and F raise on a shape their plan refuses before they
-    look at the device; a shape the plan takes goes on to the device check.
+    """Off the CPU, A, B, E and F raise on a shape their plan refuses before
+    they look at the device; a shape the plan takes goes on to the device
+    check.
     Nothing is launched and no plain version runs."""
     fn = K.WRAPPERS[name]
     K.reset_counts()
@@ -344,5 +495,7 @@ def test_plan_refuses_empty_and_odd_shapes():
         plan.conv_plan_spatial(0, 8, 8, 128, 128)
     with pytest.raises(ValueError, match="empty"):
         plan.conv_plan_temporal(1, 0, 64, 128)
+    with pytest.raises(ValueError, match="empty"):
+        plan.conv_plan_parity(1, 2, 0, 8, 128)
     for c in plan.ROW_CHANNELS:
         plan.check_row_channels(c)

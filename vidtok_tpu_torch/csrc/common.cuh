@@ -6,10 +6,10 @@
 // The JAX form rounds each pointwise step to the tile dtype; here the
 // pointwise math runs in f32 and rounds once, to the bf16 a conv consumes.
 //
-// Statistics depend on a position only. ln_silu_rows_kernel normalizes a
-// position's channels with one warp and writes the activated row, which a
-// conv then reads once per tap from L2; ln_stats_kernel only writes the
-// (mean, rstd) pair, for a consumer that activates while loading its tile.
+// Statistics depend on a position only. act_rows_kernel normalizes a
+// position's channels and writes the activated row, which a conv then reads
+// once per tap from L2; ln_stats_kernel only writes the (mean, rstd) pair,
+// for a consumer that activates while loading its tile.
 //
 // ln_silu_exact_f32 and row_stats_exact are the exact form of
 // vidtok_tpu/ops/pallas/fused_temporal.py:32 _ln_silu (the mean, then the
@@ -138,50 +138,26 @@ static inline void launch_ln_stats(const __nv_bfloat16* x, float2* stats,
   ln_stats_kernel<<<(unsigned)blocks, warps * 32, 0, s>>>(x, stats, rows, C);
 }
 
-// act[row] = bf16(ln_silu(x[row])): the row's statistics, then the row is
-// read again (from L1) and its activation written. One warp per row,
-// 16-byte accesses. C % 8 == 0.
-static __global__ void ln_silu_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                                           const float* __restrict__ g,
-                                           const float* __restrict__ b,
-                                           __nv_bfloat16* __restrict__ act,
-                                           long long rows, int C) {
-  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // whole warp leaves together
-  const __nv_bfloat16* p = x + row * C;
-  const float2 st = row_stats(p, C, lane);
-  for (int c = lane * 8; c < C; c += 256) {
-    float f[8];
-    unpack8(ld_u4(p + c), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = ln_silu(f[i], st.x, st.y, g[c + i], b[c + i]);
-    *reinterpret_cast<uint4*>(act + row * C + c) = pack8(f);
-  }
-}
-
-static inline void launch_ln_silu_rows(const __nv_bfloat16* x, const float* g,
-                                       const float* b, __nv_bfloat16* act,
-                                       long long rows, int C, cudaStream_t s) {
-  const int warps = 8;
-  const long long blocks = (rows + warps - 1) / warps;
-  ln_silu_rows_kernel<<<(unsigned)blocks, warps * 32, 0, s>>>(x, g, b, act, rows, C);
-}
+// The front of a temporal scratch (act_rows_kernel's stream form): the
+// cache's rows as they are (kernel F after its first chunk), LN+SiLU of src
+// frame 0 twice (F's first chunk, kernel B in replicate mode), or zeros
+// (B in zero mode).
+enum Front { kFrontCache = 0, kFrontReplicate = 1, kFrontZero = 2 };
 
 // The rows of act_rows_kernel. Plain form: act row r = LN+SiLU of src row
-// r. Stream form (kernel F's prep): act holds clips of T + 2 frames of S
-// rows; frames 0-1 are the cache's rows copied as they are (LN+SiLU of src
-// frame 0 when ``first``), frame f >= 2 is LN+SiLU of src frame f - 2, and
-// frames [T - offset, T - offset + 2) are also written to ``copy``
-// [B, 2, S, C], the new cache.
+// r. Stream form (the prep of kernels B and F): act holds clips of T + 2
+// frames of S rows; frames 0-1 are the front (``front``), frame f >= 2 is
+// LN+SiLU of src frame f - 2, and when ``copy`` is not null frames
+// [T - offset, T - offset + 2) are also written to it, [B, 2, S, C], the
+// new cache.
 struct RowArgs {
   const __nv_bfloat16* src;
   const float* g;
   const float* b;
   __nv_bfloat16* act;
-  const __nv_bfloat16* cache;  // stream form, unless ``first``
-  __nv_bfloat16* copy;         // stream form
-  int T, S, first, offset;     // stream form
+  const __nv_bfloat16* cache;  // stream form, kFrontCache
+  __nv_bfloat16* copy;         // stream form: the new cache, or null
+  int T, S, front, offset;     // stream form
 };
 
 // LN+SiLU rows with the whole warp busy: a row takes LPR = min(C/8, 32)
@@ -199,7 +175,7 @@ static __global__ void __launch_bounds__(256)
       ((long long)blockIdx.x * 8 + (threadIdx.x >> 5)) * (RPW * RPT) + lane / LPR;
   uint4 v[RPT][VPL];
   long long dst[RPT], cp[RPT];  // act row (-1 past the end), copy row or -1
-  bool raw[RPT];                // a cache row: copied, not activated
+  bool raw[RPT];                // a front row of the cache or zeros: not activated
   // stream form: clip, frame and position of the first row, then stepped
   // RPW rows at a time (the divisions once a thread)
   long long bi = 0, pos = 0;
@@ -218,6 +194,7 @@ static __global__ void __launch_bounds__(256)
     cp[k] = -1;
     raw[k] = false;
     const __nv_bfloat16* p = a.src + row * C;
+    bool zero = false;
     if (STREAM) {
       if (k > 0)
         for (pos += RPW; pos >= a.S; pos -= a.S)
@@ -225,15 +202,16 @@ static __global__ void __launch_bounds__(256)
             f = 0;
             ++bi;
           }
-      raw[k] = f < 2 && !a.first;
-      p = raw[k] ? a.cache + ((bi * 2 + f) * a.S + pos) * C
-                 : a.src + ((bi * a.T + (f < 2 ? 0 : f - 2)) * a.S + pos) * C;
+      raw[k] = f < 2 && a.front != kFrontReplicate;
+      zero = f < 2 && a.front == kFrontZero;
+      p = raw[k] && !zero ? a.cache + ((bi * 2 + f) * a.S + pos) * C
+                          : a.src + ((bi * a.T + (f < 2 ? 0 : f - 2)) * a.S + pos) * C;
       const int fc = f - (a.T - a.offset);
-      if (fc >= 0 && fc < 2) cp[k] = (bi * 2 + fc) * a.S + pos;
+      if (a.copy != nullptr && fc >= 0 && fc < 2) cp[k] = (bi * 2 + fc) * a.S + pos;
     }
 #pragma unroll
     for (int i = 0; i < VPL; ++i)
-      v[k][i] = dst[k] >= 0 ? ld_u4(p + 8 * l + 8 * LPR * i) : make_uint4(0, 0, 0, 0);
+      v[k][i] = dst[k] >= 0 && !zero ? ld_u4(p + 8 * l + 8 * LPR * i) : make_uint4(0, 0, 0, 0);
   }
   float g[VPL][8], b[VPL][8];
 #pragma unroll

@@ -14,26 +14,23 @@
 //   y     = x + conv2_t(full2) + b2    residual in f32
 //   new c1, c2 = full1, full2 frames [L-off-2, L-off), L = t + 2
 //
-// Bound on the H100: that of kernel B (fused_temporal.cu), memory at 128
-// channels and math at 512. The step does 12*C FLOP per element of x and
+// Bound on the H100: memory at 128 channels for short chunks, math at 512.
+// The step does 12*C FLOP per element of x and
 // must move x and y and read and write 4 cache frames: 4 + 16/t bytes per
 // element, so 77-320 FLOP/byte at C=128 for t = 1..20, under the ~295
 // FLOP/byte bf16 ridge below t = 14, and 4x that at C=512. The scratch
 // passes below add ~10 bytes per element of traffic, much of it from L2
 // at the decoder's small chunks.
 //
-// Design: a prep pass (act_rows_kernel's stream form, the whole warp busy)
-// writes the cache (or activated frame 0) into frames 0-1 of a scratch of
+// Design: temporal_block.cuh with the caches as the front (activated frame
+// 0 twice on the first chunk): a prep pass (act_rows_kernel's stream form,
+// the whole warp busy) writes the front into frames 0-1 of a scratch of
 // t + 2 frames per clip and LN+SiLU of the input into frames 2.., and
 // writes the frames that make the new cache a second time, into it. conv1
 // is the warp-specialised TMA + wgmma implicit GEMM (wgmma_conv.cuh) with
-// kTemporal taps, tap k reading the scratch k frames on, so every tap
-// reads a real frame and no tap needs the stream-start rule. The prep pass
-// then refills the scratch from h and c2 (writing the new c2), and conv2
-// adds x in its epilogue. The weights come as tensor maps encoded once per
-// parameter by the wrapper; the plan (BN, stages, shared memory, grid) is
-// ops/kernels/plan.py's conv_plan_temporal.
-#include "wgmma_conv.cuh"
+// kTemporal taps. The prep pass then refills the scratch from h and c2
+// (writing the new c2), and conv2 adds x in its epilogue.
+#include "temporal_block.cuh"
 
 extern "C" int vt_fused_temporal_resblock_stream(
     const void* x, const void* c1, const void* c2, void* out, void* nc1, void* nc2,
@@ -42,43 +39,7 @@ extern "C" int vt_fused_temporal_resblock_stream(
     const void* bias2, int B, int T, int S, int C, int first, int offset, int bn,
     int stages, int smem, int grid, void* stream) {
   using namespace vt;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* hb = static_cast<__nv_bfloat16*>(h1);
-  auto* ab = static_cast<__nv_bfloat16*>(act);
-  const long long rows = (long long)B * (T + 2) * S;  // of the scratch
-  CUtensorMap mw1, mw2, ma;
-  memcpy(&mw1, w1map, sizeof(CUtensorMap));
-  memcpy(&mw2, w2map, sizeof(CUtensorMap));
-  int e = wg::temporal_map(&ma, ab, B, (long long)(T + 2) * S, C);
-  if (e) return e;
-
-  wg::Params p{};
-  p.T = T;
-  p.S = S;
-  p.tiles_x = (int)(((long long)T * S + wg::BM - 1) / wg::BM);
-  p.n_tiles = C / bn;
-  p.Cout = C;
-  p.cin_steps = C / wg::BK;
-  p.k_main = p.k_total = 3 * p.cin_steps;
-  p.stages = stages;
-
-  RowArgs r{xb, static_cast<const float*>(g1), static_cast<const float*>(b1), ab,
-            static_cast<const __nv_bfloat16*>(c1), static_cast<__nv_bfloat16*>(nc1),
-            T, S, first, offset};
-  if ((e = launch_act_rows<true>(r, rows, C, s))) return e;
-  p.bias = static_cast<const float*>(bias1);
-  p.out = hb;
-  if ((e = wg::launch_conv<wg::kTemporal>(ma, mw1, ma, p, bn, smem, grid, s))) return e;
-
-  r.src = hb;
-  r.g = static_cast<const float*>(g2);
-  r.b = static_cast<const float*>(b2);
-  r.cache = static_cast<const __nv_bfloat16*>(c2);
-  r.copy = static_cast<__nv_bfloat16*>(nc2);
-  if ((e = launch_act_rows<true>(r, rows, C, s))) return e;
-  p.bias = static_cast<const float*>(bias2);
-  p.res = xb;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  return wg::launch_conv<wg::kTemporal>(ma, mw2, ma, p, bn, smem, grid, s);
+  return temporal_block(x, c1, c2, out, nc1, nc2, h1, act, g1, b1, w1map, bias1, g2, b2,
+                        w2map, bias2, B, T, S, C, first ? kFrontReplicate : kFrontCache,
+                        offset, bn, stages, smem, grid, static_cast<cudaStream_t>(stream));
 }

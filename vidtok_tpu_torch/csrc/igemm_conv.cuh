@@ -1,27 +1,18 @@
-// Implicit-GEMM conv over channels-last rows on the wmma loop, shared by
-// kernel B (k=3 causal temporal taps, fused_temporal.cu), kernel E (2 frames
-// x 3x3 taps, parity_upsample.cu) and the temporal microbenchmark
-// (microbench_temporal.cu: B's taps, and kDense, one tap where row m reads
-// a[m]). Kernels A and F run the warp-specialised TMA + wgmma loop of
-// wgmma_conv.cuh instead.
+// Implicit-GEMM conv over channels-last rows on the wmma loop, used only by
+// the temporal microbenchmark's kernels T1 and T2 (microbench_temporal.cu:
+// kTemporal, B's k=3 causal taps in zero mode, and kDense, one tap where row
+// m reads a[m]); no serving path runs it. The serving kernels (A, B, E, F)
+// run the warp-specialised TMA + wgmma loop of wgmma_conv.cuh.
 //
 //   out[m, n] = bf16( bias[n] + res[m, n]
 //                     + sum_{tap, c} a[src(m, tap), c] * w[tap*Cin + c, n]
 //                     + sum_{c < Cs} xs[m, c] * w[taps*Cin + c, n] )
 //
 // M = positions, N = Cout, K = taps x Cin (+ Cs channels of an extra 1x1
-// term over other rows). ``a`` is the ALREADY activated tensor
-// (ln_silu_rows_kernel), so a tap before frame 0 in zero mode (temporal)
-// or outside the frame (parity) reads zero: the conv's padding after the
-// activation. Replicate mode reads frame 0 instead.
-//
-// kParity (kernel E) has its own epilogue: N = 2C columns are the even and
-// odd output frames of half-rate row m, blended with the row's own input,
-//   out[2f + p, r, c] = bf16( alpha * a[m, c]
-//                             + (1 - alpha) * (acc[m, pC + c] + bias[pC + c]) )
-// for m = f*H*W + r, and the taps of frame f-1 (the first 9) read frame f
-// itself at a clip's frame 0 in replicate mode, zeros in zero mode.
-// kDense may write bias + acc in f32 to ``outf`` instead of bf16 to ``out``.
+// term over other rows). ``a`` is the ALREADY activated tensor, so a tap
+// before frame 0 reads zero: the conv's zero-mode padding after the
+// activation. kDense may write bias + acc in f32 to ``outf`` instead of
+// bf16 to ``out``.
 //
 // Tiling: a 128 x 128 output tile per 128-thread block; K in steps of 32
 // channels of one tap. Each step's A tile (gathered rows, zero-filled when
@@ -41,9 +32,8 @@
 namespace vt {
 namespace igemm {
 
-// tap sets: causal k=3 temporal, previous + current frame 3x3, one tap (a
-// dense product)
-enum Taps { kTemporal = 1, kParity = 2, kDense = 3 };
+// tap sets: causal k=3 temporal, one tap (a dense product)
+enum Taps { kTemporal = 1, kDense = 3 };
 
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
 constexpr int WGM = 2, WGN = 2, kMinBlocks = 2;  // warp grid: 64 x 64 tiles
@@ -56,10 +46,7 @@ constexpr int kStageElems = BM * A_LD + BK * B_LD;
 constexpr int kSmemBytes = STAGES * kStageElems * 2;
 
 struct Geometry {
-  int H, W;       // parity: frames of H x W, taps (dy, dx) in 3 x 3
-  int T, S;       // temporal: clips of T frames of S positions, taps t-2..t;
-                  // parity: clips of T frames
-  int replicate;  // stream start: 1 = frame 0, 0 = zeros
+  int T, S;  // temporal: clips of T frames of S positions, taps t-2..t
 };
 
 struct Params {
@@ -68,10 +55,9 @@ struct Params {
   const float* bias;         // [Cout]
   const __nv_bfloat16* xs;   // [M, Cs] rows of the 1x1 term, or null
   const __nv_bfloat16* res;  // [M, Cout] residual, or null
-  __nv_bfloat16* out;        // [M, Cout]; kParity: [2M, Cout / 2]
+  __nv_bfloat16* out;        // [M, Cout]
   long long M;
   int Cin, Cout, Cs;
-  const float* alpha;        // kParity: the blend weight, else unused
   float* outf;               // kDense: [M, Cout] f32 in place of out, or null
 };
 
@@ -107,32 +93,20 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int ar = tid / TPR, ac = (tid % TPR) * (BK / TPR);
   const long long am = m0 + ar;
   const bool arow = am < p.M;
-  const long long hw = (long long)g.H * g.W;
   long long base = 0;
-  int pa = 0, pb = 0;  // parity (y, x); temporal (t, s)
-  int pt = 0;          // parity: frame within the clip
+  int pa = 0;  // temporal: frame within the clip
   if (arow && TAPS != kDense) {
-    if (TAPS == kParity) {
-      const long long n = am / hw;
-      const int r = (int)(am - n * hw);
-      base = n * hw;
-      pa = r / g.W;
-      pb = r - pa * g.W;
-      pt = (int)(n % g.T);
-    } else {
-      const long long ts = (long long)g.T * g.S;
-      const long long b = am / ts;
-      const long long r = am - b * ts;
-      pa = (int)(r / g.S);
-      pb = (int)(r - (long long)pa * g.S);
-      base = b * ts + pb;
-    }
+    const long long ts = (long long)g.T * g.S;
+    const long long b = am / ts;
+    const long long r = am - b * ts;
+    pa = (int)(r / g.S);
+    base = b * ts + (r - (long long)pa * g.S);
   }
   // B copier: 8 columns from bc of rows br, br + kThreads/16, ...
   const int br = tid / (BN / 8), bc = (tid % (BN / 8)) * 8;
   constexpr int kBRowStep = kThreads / (BN / 8);
 
-  constexpr int kTaps = TAPS == kTemporal ? 3 : TAPS == kParity ? 18 : 1;
+  constexpr int kTaps = TAPS == kTemporal ? 3 : 1;
   const int kmain = kTaps * p.Cin;
   const int nk = (kmain + p.Cs) / BK;
 
@@ -149,20 +123,8 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
       if (arow && TAPS == kDense) {
         row = am;
       } else if (arow) {
-        if (TAPS == kParity) {
-          const int st = tap % 9;
-          const int sy = pa + st / 3 - 1, sx = pb + st % 3 - 1;
-          // taps 0-8 read frame f-1 (frame f at a clip's frame 0 in
-          // replicate mode), taps 9-17 frame f
-          const bool prev = tap < 9 && !(pt == 0 && g.replicate);
-          const bool none = prev && pt == 0;
-          if (!none && sy >= 0 && sy < g.H && sx >= 0 && sx < g.W)
-            row = base - (prev ? hw : 0) + (long long)sy * g.W + sx;
-        } else {
-          int sf = pa + tap - 2;
-          if (sf < 0 && g.replicate) sf = 0;
-          if (sf >= 0) row = base + (long long)sf * g.S;
-        }
+        const int sf = pa + tap - 2;
+        if (sf >= 0) row = base + (long long)sf * g.S;
       }
       valid = row >= 0;
       if (valid) src = p.a + row * p.Cin + c;
@@ -219,11 +181,9 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: reuse it for the epilogue
 
-  // epilogue through a per-warp 16 x 16 f32 scratch: bias, residual or
-  // blend, bf16
+  // epilogue through a per-warp 16 x 16 f32 scratch: bias, residual, bf16
   float* ep = reinterpret_cast<float*>(smem_raw) + warp * 256;
   const int er = lane >> 1, ec = (lane & 1) * 8;
-  const float alpha = TAPS == kParity ? *p.alpha : 0.f;
 #pragma unroll
   for (int i = 0; i < FM; ++i) {
 #pragma unroll
@@ -242,16 +202,7 @@ static __global__ void __launch_bounds__(kThreads, kMinBlocks)
           d[1] = make_float4(v[4], v[5], v[6], v[7]);
         } else {
           __nv_bfloat16* dst = p.out + m * p.Cout + n;
-          if (TAPS == kParity) {
-            // 8 columns never straddle the parity halves: C % 64 == 0
-            const int C = p.Cout / 2, par = n >= C, c = n - par * C;
-            const long long f = m / hw, r = m - f * hw;
-            float x[8];
-            unpack8(ld_u4(p.a + m * C + c), x);
-#pragma unroll
-            for (int e = 0; e < 8; ++e) v[e] = alpha * x[e] + (1.f - alpha) * v[e];
-            dst = p.out + ((2 * f + par) * hw + r) * C + c;
-          } else if (p.res != nullptr) {
+          if (p.res != nullptr) {
             float r[8];
             unpack8(ld_u4(p.res + m * p.Cout + n), r);
 #pragma unroll

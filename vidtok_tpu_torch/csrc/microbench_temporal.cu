@@ -16,8 +16,9 @@
 // modes:
 //   copy: out = x, T3's copy with one unit per clip;
 //   mm:   h = bf16(conv1_t(x)), out = x + conv2_t(h), the two causal k=3
-//         time convs with a zero front, no bias and no LN: the shared
-//         implicit GEMM (igemm_conv.cuh, kTemporal) twice, given a zero bias
+//         time convs with a zero front, no bias and no LN: the wmma loop's
+//         implicit GEMM (igemm_conv.cuh, kTemporal; kernel B itself now runs
+//         the wgmma loop of wgmma_conv.cuh) twice, given a zero bias
 //         vector, with the residual in the second epilogue. Bound:
 //         operations at C = 512 (12 C^2 FLOP per position), bytes at 128;
 //   ln:   a1 = bf16(ln_silu(x; norm1)), a2 = bf16(ln_silu(a1; norm2)),
@@ -31,7 +32,7 @@
 // the TPU's question, one fat product or three accumulated taps, asked of
 // the card. A row pass writes each activated row into the three places of
 // the fat operand [a(t-2) | a(t-1) | a(t)] (zeros before frame 0; a [M, 3C]
-// bf16 scratch); the shared wmma loop as a dense GEMM (kDense) adds the bias
+// bf16 scratch); the wmma loop as a dense GEMM (kDense) adds the bias
 // and writes h in f32, because the TPU kernel's second LN reads h unrounded;
 // the row pass again, from h; the dense GEMM adds the bias and x. Kernel B
 // gives the other answer: implicit taps, nothing materialised.
@@ -223,7 +224,7 @@ extern "C" int vt_microbench_diag(const void* x, void* out, void* h, const void*
   if (mode == 0) {
     launch_copy(x, out, B, T, S, C, T, S, s);
   } else if (mode == 1) {
-    const igemm::Geometry geo{1, 1, T, S, 0};
+    const igemm::Geometry geo{T, S};
     const auto* zb = static_cast<const float*>(zero_bias);
     auto* hb = static_cast<__nv_bfloat16*>(h);
     const igemm::Params p1{xb, static_cast<const __nv_bfloat16*>(w1), zb, nullptr, nullptr,
@@ -253,7 +254,7 @@ extern "C" int vt_microbench_fat(const void* x, void* out, void* fat, void* h,
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* fb = static_cast<__nv_bfloat16*>(fat);
   auto* hf = static_cast<float*>(h);
-  const igemm::Geometry dense{1, 1, 1, 1, 0};
+  const igemm::Geometry dense{1, 1};
 
   launch_fat_rows(xb, g1, b1, fb, T, S, C, M, s);
   igemm::Params p1{fb, static_cast<const __nv_bfloat16*>(w1),

@@ -9,36 +9,62 @@
 //   y[2a+1]   = (K1+K2) (*) s[a] + K0 (*) s[a-1]
 //   out[2a+p] = alpha * s[a] + (1 - alpha) * (y[2a+p] + bias)
 //
-// Bound on the H100: the tensor cores. Per half-rate position it does
-// 2 * 18 * C * 2C FLOP and moves about 6C bytes (s read for the taps and
-// the blend, two output frames written): 12C FLOP/byte, 3,072 at C=256.
+// Bound on the H100: the tensor cores. The function needs three base convs
+// of each input frame, 2 * 27 * C^2 FLOP per half-rate position, and must
+// move s in and two output frames out, 6C bytes: 9C FLOP/byte, 2,304 at
+// C=256.
 //
-// Design: one implicit GEMM (igemm_conv.cuh, kParity) with M = B*T*H*W
-// half-rate positions, K = 18 taps x C (frame a-1, then frame a) and
-// N = 2C (even, then odd output frame); the weight operand
-// [[K0+K1, K0], [K2, K1+K2]] is summed in f32 and rounded to bf16 once by
-// the wrapper. Every block gathers frame a-1 from device memory itself, so
-// nothing carries over between blocks: the TPU kernel's 2-slot VMEM ring of
-// the previous frame's taps needs its grid to run t in order, which Hopper
-// blocks do not. The epilogue adds the bias in f32, blends with alpha *
-// s[a] and writes columns [0, C) to frame 2a and [C, 2C) to frame 2a+1.
-// The price is 36 C^2 MACs per position where the TPU kernel's three base
-// convs do 27 C^2. One f32 accumulator holds both frames' taps; the TPU
-// kernel rounds the previous-frame taps to the activation dtype first.
+// Design: one implicit GEMM on the warp-specialised TMA + wgmma loop
+// (wgmma_conv.cuh, kParity) with M = B*T*H*W half-rate positions in th x tw
+// patches of one frame, K = 18 taps x C (frame a-1, then frame a) and
+// N = 2C (even, then odd output frame). s is read through a 5-D tensor map
+// {C, W, H, T, B}: each tap is one box shifted in (x, y, t), TMA's zero
+// fill is the spatial padding and, at a = 0, the zero-mode front (t = -1
+// is outside the clip, so no tap reads the clip before); replicate mode
+// reads frame 0 there. The K-major weight [[K0+K1, K0], [K2, K1+K2]]^T
+// [2C, 18C] is summed in f32 and rounded to bf16 once, per parameter, by
+// the wrapper, which also encodes its tensor map. The epilogue adds the
+// bias in f32, blends with alpha * s[a] (s read with row stride C) and
+// writes columns [0, C) to frame 2a and [C, 2C) to frame 2a+1; BN divides
+// C. One f32 accumulator holds both frames' taps; the TPU kernel rounds
+// the previous-frame taps to the activation dtype first. Nothing carries
+// over between blocks, so the price is 36 C^2 MACs per position where the
+// TPU kernel's 2-slot VMEM ring of the previous frame's base convs does
+// 27 C^2: that ring needs a block that walks its patch through time.
 // Offsets are 64-bit: the output passes 2^31 elements at T=102, C=256.
-#include "igemm_conv.cuh"
+// The plan (patch, BN, stages, shared memory, grid) is
+// ops/kernels/plan.py's conv_plan_parity.
+#include "wgmma_conv.cuh"
 
-extern "C" int vt_parity_up2x(const void* s, void* out, const void* w,
-                              const void* bias, const void* alpha, int B, int T,
-                              int H, int W, int C, int replicate, void* stream) {
+extern "C" int vt_parity_up2x(const void* s, void* out, const void* wmap, const void* bias,
+                              const void* alpha, int B, int T, int H, int W, int C,
+                              int replicate, int th, int tw, int bn, int stages, int smem,
+                              int grid, void* stream) {
   using namespace vt;
-  const igemm::Geometry geo{H, W, T, 1, replicate};
-  igemm::Params p{static_cast<const __nv_bfloat16*>(s),
-                  static_cast<const __nv_bfloat16*>(w),
-                  static_cast<const float*>(bias), nullptr, nullptr,
-                  static_cast<__nv_bfloat16*>(out),
-                  (long long)B * T * H * W, C, 2 * C, 0,
-                  static_cast<const float*>(alpha)};
-  igemm::launch_conv<igemm::kParity>(p, geo, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  if (C % 128 != 0) return wg::kErrPlan;
+  CUtensorMap mw, ms;
+  memcpy(&mw, wmap, sizeof(CUtensorMap));
+  int e = wg::parity_map(&ms, s, B, T, H, W, C, th, tw);
+  if (e) return e;
+
+  wg::Params p{};
+  p.bias = static_cast<const float*>(bias);
+  p.res = static_cast<const __nv_bfloat16*>(s);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.alpha = static_cast<const float*>(alpha);
+  p.H = H;
+  p.W = W;
+  p.T = T;
+  p.replicate = replicate;
+  p.th = th;
+  p.tw = tw;
+  p.tiles_x = (W + tw - 1) / tw;
+  p.tiles_y = (H + th - 1) / th;
+  p.n_tiles = 2 * C / bn;
+  p.Cout = 2 * C;
+  p.cin_steps = C / wg::BK;
+  p.k_main = p.k_total = 18 * p.cin_steps;
+  p.stages = stages;
+  return wg::launch_conv<wg::kParity>(ms, mw, ms, p, bn, smem, grid,
+                                      static_cast<cudaStream_t>(stream));
 }

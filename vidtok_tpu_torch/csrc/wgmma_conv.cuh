@@ -1,7 +1,7 @@
 // Implicit-GEMM conv for Hopper: a warp-specialised ring of TMA loads
-// feeding wgmma, used by kernel A (3x3 spatial taps, fused_spatial.cu) and
-// kernel F (k=3 temporal taps over its stream scratch,
-// fused_temporal_stream.cu):
+// feeding wgmma, used by kernel A (3x3 spatial taps, fused_spatial.cu),
+// kernels B and F (k=3 temporal taps over a scratch with a 2-frame front,
+// temporal_block.cuh) and kernel E (2 frames x 3x3 taps, parity_upsample.cu):
 //
 //   out[m, n] = bf16( bias[n] + res[m, n]
 //                     + sum_{tap, c} a[src(m, tap), c] * w[n, tap*Cin + c]
@@ -18,10 +18,21 @@
 // a true zero after LayerNorm+SiLU with no index arithmetic per row. The
 // 1x1 term is a second 4-D map over the raw input, unshifted.
 // kTemporal: ``a`` is [B, (T + 2) * S, Cin], a 3-D map, clips holding two
-// frames before each output frame (kernel F's cache front); an M tile is
-// 128 consecutive rows of one clip and tap k is the same box k*S rows on,
-// so every tap reads a real frame. Rows past a clip's end read zeros; their
-// outputs are not stored.
+// frames before each output frame (F's cache, or B's stream-start front);
+// an M tile is 128 consecutive rows of one clip and tap k is the same box
+// k*S rows on, so every tap reads a real frame. Rows past a clip's end read
+// zeros; their outputs are not stored.
+// kParity (kernel E): ``a`` is the raw input s [B, T, H, W, C], a 5-D map
+// {C, W, H, T, B}; an M tile is a th x tw patch of frame t of clip b, and
+// tap (f, dy, dx), f = 0 for frame t-1 and 1 for frame t, is the box at
+// (c0, x0 + dx - 1, y0 + dy - 1, t - 1 + f, b). TMA's zero fill is the
+// spatial SAME padding (exact: s is not activated) and, at t = 0, the
+// zero-mode front: t = -1 lies outside the clip, so no tap ever reads the
+// previous clip. Replicate mode clamps that frame to 0. N = 2C columns are
+// the even and odd output frames; the epilogue blends them with s:
+//   out[2 img + p, y, x, c] = bf16( alpha * s[img, y, x, c]
+//                                   + (1 - alpha) * (acc[m, pC + c] + bias[pC + c]) )
+// for img = b*T + t. BN divides C, so an N tile is one parity's.
 //
 // Shape of the loop (warp-specialised, as CUTLASS's Hopper GEMMs): two
 // consumer warpgroups and a producer, one thread of which issues, for each
@@ -34,7 +45,8 @@
 // through the (then idle) ring: accumulators to an f32 tile in shared
 // memory, then whole rows with the bias and the residual added, rounded to
 // bf16, in 16-byte stores; positions outside the frame or past the clip
-// are not stored. Offsets that can pass 2^31 are 64-bit.
+// are not stored (kParity: written to the parity's frame). Offsets that
+// can pass 2^31 are 64-bit.
 //
 // The plan (patch, BN in {128, 256}, stages, shared memory, grid) comes
 // from ops/kernels/plan.py, which the CPU tests check; launch_conv refuses
@@ -56,7 +68,7 @@
 namespace vt {
 namespace wg {
 
-enum Taps { kSpatial = 0, kTemporal = 1 };
+enum Taps { kSpatial = 0, kTemporal = 1, kParity = 2 };
 
 constexpr int BM = 128, BK = 64;
 constexpr int kConsumers = 2;
@@ -67,12 +79,15 @@ __host__ __device__ constexpr int stage_bytes(int bn) { return kTileA + bn * BK 
 
 struct Params {
   const float* bias;         // [Cout]
-  const __nv_bfloat16* res;  // [M, Cout] residual, or null
-  __nv_bfloat16* out;        // [M, Cout]
-  int H, W;                  // kSpatial: the frame
-  int T, S;                  // kTemporal: output frames per clip, rows per frame
-  int th, tw;                // kSpatial: the patch of an M tile
-  int tiles_x, tiles_y;      // kSpatial: patches per frame row / column;
+  const __nv_bfloat16* res;  // [M, Cout] residual, or null; kParity: s [M, Cout / 2]
+  __nv_bfloat16* out;        // [M, Cout]; kParity: [2M, Cout / 2]
+  const float* alpha;        // kParity: the blend weight
+  int H, W;                  // kSpatial, kParity: the frame
+  int T, S;                  // kTemporal: output frames per clip, rows per frame;
+                             // kParity: T frames per clip
+  int replicate;             // kParity: the front at t = 0 is frame 0 (else zeros)
+  int th, tw;                // kSpatial, kParity: the patch of an M tile
+  int tiles_x, tiles_y;      // kSpatial, kParity: patches per frame row / column;
                              // kTemporal: tiles_x = M tiles per clip
   int n_tiles;               // Cout / BN
   int Cout;
@@ -136,6 +151,16 @@ __device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uin
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+        "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -258,13 +283,18 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
   // this block's tile: N tiles of one M tile are neighbours in launch order
   const int n0 = (blockIdx.x % p.n_tiles) * BN;
   const int mt = blockIdx.x / p.n_tiles;
-  int x0 = 0, y0 = 0, img = 0;  // kSpatial: patch origin and frame
-  int r0 = 0, clip = 0;         // kTemporal: first row within the clip, clip
-  if (TAPS == kSpatial) {
+  int x0 = 0, y0 = 0, img = 0;  // kSpatial, kParity: patch origin and frame
+  int r0 = 0, clip = 0;         // kTemporal: first row within the clip; clip
+  int t = 0;                    // kParity: frame within the clip
+  if (TAPS != kTemporal) {
     const int q = mt / p.tiles_x;
     x0 = (mt - q * p.tiles_x) * p.tw;
     img = q / p.tiles_y;
     y0 = (q - img * p.tiles_y) * p.th;
+    if (TAPS == kParity) {
+      clip = img / p.T;
+      t = img - clip * p.T;
+    }
   } else {
     clip = mt / p.tiles_x;
     r0 = (mt - clip * p.tiles_x) * BM;
@@ -296,10 +326,16 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
         if (ks < p.k_main) {
           const int tap = ks / p.cin_steps;
           const int c = (ks - tap * p.cin_steps) * BK;
-          if (TAPS == kSpatial)
+          if (TAPS == kSpatial) {
             tma_4d(dst, &map_a, bar, c, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img);
-          else
+          } else if (TAPS == kParity) {
+            const int st = tap % 9;
+            int f = t - 1 + tap / 9;  // taps 0-8 frame t-1, 9-17 frame t
+            if (f < 0 && p.replicate) f = 0;
+            tma_5d(dst, &map_a, bar, c, x0 + st % 3 - 1, y0 + st / 3 - 1, f, clip);
+          } else {
             tma_3d(dst, &map_a, bar, c, r0 + tap * p.S, clip);
+          }
         } else {
           tma_4d(dst, &map_x, bar, (ks - p.k_main) * BK, x0, y0, img);
         }
@@ -344,8 +380,8 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
     // spreads a warp's 8 rows over the banks)
     constexpr int LD = BN + 8;
     float* tile = reinterpret_cast<float*>(smem);
-    const int t = threadIdx.x & 127;
-    const int row = wg * 64 + (t >> 5) * 16 + (lane >> 2);
+    const int tid = threadIdx.x & 127;
+    const int row = wg * 64 + (tid >> 5) * 16 + (lane >> 2);
     const int cq = (lane & 3) * 2;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
@@ -356,15 +392,19 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
     }
     named_sync(2 + wg, 128);  // this warpgroup's 64 rows are in place
 
-    // whole rows: 8 columns a thread, bias and residual in f32, bf16 out
+    // whole rows: 8 columns a thread, bias and residual (or blend) in f32,
+    // bf16 out
     constexpr int TPR = BN / 8, RPP = 128 / TPR;
-    const int col = (t % TPR) * 8;
+    const int col = (tid % TPR) * 8;
     float bias[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) bias[e] = p.bias[n0 + col + e];
-    for (int r = wg * 64 + t / TPR; r < wg * 64 + 64; r += RPP) {
+    // kParity: this N tile's parity and channels, and the blend weight
+    const int half = p.Cout / 2, par = n0 >= half, c0 = n0 - par * half + col;
+    const float alpha = TAPS == kParity ? *p.alpha : 0.f;
+    for (int r = wg * 64 + tid / TPR; r < wg * 64 + 64; r += RPP) {
       long long m;
-      if (TAPS == kSpatial) {
+      if (TAPS != kTemporal) {
         const int y = y0 + r / p.tw, x = x0 + r % p.tw;
         if (y >= p.H || x >= p.W) continue;
         m = ((long long)img * p.H + y) * p.W + x;
@@ -378,6 +418,17 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
       float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] += bias[e];
+      if (TAPS == kParity) {
+        // s row m, then output frame 2 img + par at the same position
+        float sv[8];
+        unpack8(ld_u4(p.res + m * half + c0), sv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = alpha * sv[e] + (1.f - alpha) * v[e];
+        const long long hw = (long long)p.H * p.W;
+        const long long off = ((2 * img + par) * hw + (m - img * hw)) * half + c0;
+        *reinterpret_cast<uint4*>(p.out + off) = pack8(v);
+        continue;
+      }
       const long long off = m * p.Cout + n0 + col;
       if (p.res != nullptr) {
         float rv[8];
@@ -449,6 +500,17 @@ static inline int spatial_map(CUtensorMap* map, const void* x, int N, int H, int
   return encode_map(map, x, 4, dims, box);
 }
 
+// The map of ``s`` [B, T, H, W, C] for kParity loads of a th x tw patch of
+// one frame.
+static inline int parity_map(CUtensorMap* map, const void* s, int B, int T, int H, int W,
+                             int C, int th, int tw) {
+  const unsigned long long dims[5] = {(unsigned long long)C, (unsigned long long)W,
+                                      (unsigned long long)H, (unsigned long long)T,
+                                      (unsigned long long)B};
+  const unsigned box[5] = {BK, (unsigned)tw, (unsigned)th, 1, 1};
+  return encode_map(map, s, 5, dims, box);
+}
+
 // The map of ``a`` [B, rows, C] for kTemporal loads of BM rows.
 static inline int temporal_map(CUtensorMap* map, const void* a, int B, long long rows, int C) {
   const unsigned long long dims[3] = {(unsigned long long)C, (unsigned long long)rows,
@@ -476,7 +538,8 @@ static inline int launch_conv(const CUtensorMap& map_a, const CUtensorMap& map_w
                               int grid, cudaStream_t s) {
   const int epilogue = BM * (bn + 8) * 4;
   if ((bn != 128 && bn != 256) || p.stages < 2 || smem < smem_needed(bn, p.stages) ||
-      p.stages * stage_bytes(bn) < epilogue || p.Cout != p.n_tiles * bn || grid <= 0)
+      p.stages * stage_bytes(bn) < epilogue || p.Cout != p.n_tiles * bn || grid <= 0 ||
+      (TAPS == kParity && (p.Cout / 2) % bn != 0))
     return kErrPlan;
   auto kernel = bn == 256 ? conv_kernel<TAPS, 256> : conv_kernel<TAPS, 128>;
   cudaError_t e =

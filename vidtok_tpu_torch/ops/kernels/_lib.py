@@ -9,10 +9,11 @@ the sources and flags, so an edited source rebuilds and an unchanged one
 is loaded as it is. A failed build raises. Nothing here runs at import.
 
 Every C entry launches on the stream it is given, allocates nothing and
-returns ``cudaGetLastError()`` (or, for the wgmma loop of kernels A and F,
-a refused tensor map or plan); :func:`call` raises when that is not 0.
+returns ``cudaGetLastError()`` (or, for the wgmma loop of kernels A, B, E
+and F, a refused tensor map or plan); :func:`call` raises when that is not
+0.
 
-:func:`operands` caches the weights of A, B and F as their kernels read
+:func:`operands` caches the weights of A, B, E and F as their kernels read
 them, per parameter; :func:`weight_map` encodes the tensor map of such a
 weight for the wgmma loop.
 """
@@ -42,9 +43,9 @@ _SIGNATURES = {
     # x, out, h1, act, g1, b1, w1 map, bias1, g2, b2, w2 map, bias2,
     # N, H, W, Cin, C, has_nin, th, tw, bn, stages, smem, grid, stream
     "vt_fused_spatial_resblock": [_P] * 12 + [_I] * 12 + [_P],
-    # x, out, h1, act, g1, b1, w1, bias1, g2, b2, w2, bias2,
-    # B, T, S, C, replicate, stream
-    "vt_fused_temporal_resblock": [_P] * 12 + [_I] * 5 + [_P],
+    # x, out, h1, act, g1, b1, w1 map, bias1, g2, b2, w2 map, bias2,
+    # B, T, S, C, replicate, bn, stages, smem, grid, stream
+    "vt_fused_temporal_resblock": [_P] * 12 + [_I] * 9 + [_P],
     # x, c1, c2, out, nc1, nc2, h1, act, g1, b1, w1 map, bias1, g2, b2,
     # w2 map, bias2, B, T, S, C, first, offset, bn, stages, smem, grid, stream
     "vt_fused_temporal_resblock_stream": [_P] * 16 + [_I] * 10 + [_P],
@@ -52,8 +53,9 @@ _SIGNATURES = {
     "vt_subpixel_interleave": [_P] * 6 + [_I] * 4 + [_P],
     # x, out, stats, g, b, w, bias, B, T, H, W, C, replicate, stream
     "vt_decoder_tail_rgb": [_P] * 7 + [_I] * 6 + [_P],
-    # s, out, w, bias, alpha, B, T, H, W, C, replicate, stream
-    "vt_parity_up2x": [_P] * 5 + [_I] * 6 + [_P],
+    # s, out, w map, bias, alpha, B, T, H, W, C, replicate, th, tw, bn,
+    # stages, smem, grid, stream
+    "vt_parity_up2x": [_P] * 5 + [_I] * 12 + [_P],
     # s, ycur, yprev, bias, alpha, out, ld, B, T, S, C, replicate, stream
     "vt_parity_blend": [_P] * 6 + [_I] * 6 + [_P],
     # z, bias, out, N, H, W, C, stream
@@ -169,6 +171,15 @@ def weight_map(w, bn: int):
     return buf
 
 
+def weight_maps(op: dict, bn: int, *names) -> tuple:
+    """The tensor maps of the K-major weights ``op[name]`` for loads of
+    ``bn`` rows, encoded at the first call for ``bn`` and kept in
+    ``op["maps"]`` beside them."""
+    if bn not in op["maps"]:
+        op["maps"][bn] = tuple(weight_map(op[n], bn) for n in names)
+    return op["maps"][bn]
+
+
 _OPERANDS = None  # parameter (weakly) -> {kind: (stamp, other sources, value)}
 
 
@@ -181,9 +192,9 @@ def operands(kind: str, sources: tuple, build):
     """``build(*sources)`` under ``torch.no_grad()``, cached on
     ``sources[0]`` (a parameter, held weakly) under ``kind``.
 
-    The cache is the kernels' relayout of a block's weights (K-major or
-    tap-major bf16 GEMM operands, f32 vectors, the tensor maps the caller
-    adds to the value), made once instead of at every call. An entry is
+    The cache is the kernels' relayout of a block's weights (K-major bf16
+    GEMM operands, f32 vectors, the tensor maps :func:`weight_maps` adds to
+    the value), made once instead of at every call. An entry is
     served while every source is the same tensor at the same
     ``_version``, data pointer, device, dtype and shape; an in-place update
     under ``no_grad`` (``load_state_dict``, ``nn.init``,

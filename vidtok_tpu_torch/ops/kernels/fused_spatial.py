@@ -89,10 +89,7 @@ def fused_spatial_resblock(x, norm1, conv1, norm2, conv2, nin=None):
                        spatial_operands)
     for v in (op["w1"], op["w2"], op["g1"], op["bias2"]):
         _lib.same_device(v, x)
-    if pl.bn not in op["maps"]:
-        op["maps"][pl.bn] = (_lib.weight_map(op["w1"], pl.bn),
-                             _lib.weight_map(op["w2"], pl.bn))
-    map1, map2 = op["maps"][pl.bn]
+    map1, map2 = _lib.weight_maps(op, pl.bn, "w1", "w2")
     h1 = x.new_empty((n, h, w, c))
     out = torch.empty_like(h1)
     act = x.new_empty((n * h * w, max(cin, c)))  # activation scratch

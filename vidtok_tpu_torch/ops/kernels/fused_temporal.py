@@ -14,11 +14,14 @@ F replaces ``fused_temporal.py:274`` (``fused_temporal_resblock_stream``):
 the same block over one chunk of a stream, each conv's front being its
 2-frame cache of activated frames (activated frame 0 twice on the first
 chunk), the new caches stored ``offset`` frames back. CUDA:
-``csrc/fused_temporal_stream.cu`` on the TMA + wgmma loop of
-``csrc/wgmma_conv.cuh``, launched with ``plan.conv_plan_temporal``'s plan.
+``csrc/fused_temporal_stream.cu``.
 
-Both take their weights from ``_lib.operands``: relaid out once per
-parameter, not at every call.
+Both run ``csrc/temporal_block.cuh`` on the TMA + wgmma loop of
+``csrc/wgmma_conv.cuh``, launched with ``plan.conv_plan_temporal``'s plan
+over a scratch of ``t + 2`` frames per clip whose first two are the front
+(B: the stream-start rule; F: the caches). Both take their weights from
+``_lib.operands`` (one entry per block, shared by B and F): relaid out
+once per parameter, not at every call.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ def _tconv3(a, weight, mode):
 
 def gemm_weight(weight, dtype=torch.bfloat16):
     """Conv1d weight ``[Co, Ci, k]`` -> the wmma loop's GEMM operand
-    ``[(k, ci), co]``, tap-major, contiguous, in ``dtype``."""
+    ``[(k, ci), co]``, tap-major, contiguous, in ``dtype`` (the tools' T1
+    and T2)."""
     return weight.permute(2, 1, 0).reshape(-1, weight.shape[0]).to(dtype).contiguous()
 
 
@@ -48,33 +52,34 @@ def kmajor_weight(weight, dtype=torch.bfloat16):
     return weight.permute(0, 2, 1).reshape(weight.shape[0], -1).to(dtype).contiguous()
 
 
-def _vectors(g1, b1, bias1, g2, b2, bias2) -> dict:
-    return {k: _lib.f32(v) for k, v in (("g1", g1), ("b1", b1), ("bias1", bias1),
-                                        ("g2", g2), ("b2", b2), ("bias2", bias2))}
-
-
 def temporal_operands(w1, g1, b1, bias1, g2, b2, w2, bias2) -> dict:
-    """Kernel B's parameters as it reads them (conv1's weight, norm1, conv1's
-    bias, norm2, conv2): the tap-major bf16 ``gemm_weight`` of each conv and
-    the f32 vectors."""
-    return {"w1": gemm_weight(w1), "w2": gemm_weight(w2),
-            **_vectors(g1, b1, bias1, g2, b2, bias2)}
-
-
-def stream_operands(w1, g1, b1, bias1, g2, b2, w2, bias2) -> dict:
-    """Kernel F's, in the order of :func:`temporal_operands`: the K-major
-    bf16 ``kmajor_weight`` of each conv and the f32 vectors; ``maps`` holds
-    the weights' tensor maps by BN."""
+    """Kernels B's and F's parameters as they read them (conv1's weight,
+    norm1, conv1's bias, norm2, conv2): the K-major bf16 ``kmajor_weight``
+    of each conv and the f32 vectors; ``maps`` holds the weights' tensor
+    maps by BN."""
     return {"w1": kmajor_weight(w1), "w2": kmajor_weight(w2),
-            **_vectors(g1, b1, bias1, g2, b2, bias2), "maps": {}}
+            **{k: _lib.f32(v) for k, v in (("g1", g1), ("b1", b1), ("bias1", bias1),
+                                           ("g2", g2), ("b2", b2), ("bias2", bias2))},
+            "maps": {}}
 
 
-def _block_operands(kind, norm1, conv1, norm2, conv2, build, x) -> dict:
-    op = _lib.operands(kind, (conv1[0], *norm1, conv1[1], *norm2, *conv2), build)
+def _block_operands(name, norm1, conv1, norm2, conv2, x) -> tuple:
+    """(operands, plan, weight maps) of kernel ``name`` (B or F) for x
+    ``[B, t, H, W, C]``: the plan's refusals first, then the device, dtype,
+    shape and weights' checks."""
+    b, t, h, w, c = x.shape
+    pl = plan.conv_plan_temporal(b, t, h * w, c)
+    plan.check_row_channels(c)
+    _lib.require(x, torch.bfloat16, (b, t, h, w, c))
+    for cw in (conv1[0], conv2[0]):
+        if tuple(cw.shape) != (c, c, 3):
+            raise ValueError(f"kernel {name} takes two causal k=3 convs C->C")
+    op = _lib.operands("fused_temporal_resblock",
+                       (conv1[0], *norm1, conv1[1], *norm2, *conv2), temporal_operands)
     for k, v in op.items():
         if k != "maps":
             _lib.same_device(v, x)
-    return op
+    return op, pl, _lib.weight_maps(op, pl.bn, "w1", "w2")
 
 
 def fused_temporal_resblock_plain(x, norm1, conv1, norm2, conv2,
@@ -94,9 +99,10 @@ def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
                             first_pad_mode: str = "zero"):
     """x: ``[B, T, H, W, C]`` -> same shape.
 
-    A CPU tensor runs :func:`fused_temporal_resblock_plain`. A CUDA tensor
-    must be contiguous bf16 with C % 128 == 0; it runs the kernel or
-    raises.
+    A CPU tensor runs :func:`fused_temporal_resblock_plain`. Otherwise x
+    must be a contiguous bf16 CUDA tensor whose channels the plan takes
+    (``plan.conv_plan_temporal``: C % 128 == 0, C in
+    ``plan.ROW_CHANNELS``); it runs the kernel or raises.
     """
     fused_temporal_resblock.calls += 1
     if first_pad_mode not in ("zero", "replicate"):
@@ -104,21 +110,14 @@ def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
     if x.device.type == "cpu":
         return fused_temporal_resblock_plain(x, norm1, conv1, norm2, conv2,
                                              first_pad_mode)
+    op, pl, (map1, map2) = _block_operands("B", norm1, conv1, norm2, conv2, x)
     b, t, h, w, c = x.shape
-    _lib.require(x, torch.bfloat16, (b, t, h, w, c))
-    if c % 128:
-        raise ValueError(f"kernel B takes C % 128 == 0, got C={c}")
-    for cw in (conv1[0], conv2[0]):
-        if tuple(cw.shape) != (c, c, 3):
-            raise ValueError("kernel B takes two causal k=3 convs C->C")
-    op = _block_operands("fused_temporal_resblock", norm1, conv1, norm2, conv2,
-                         temporal_operands, x)
-    h1 = torch.empty_like(x)
     out = torch.empty_like(x)
-    act = torch.empty_like(x)  # activation scratch
-    _lib.call("vt_fused_temporal_resblock", x, out, h1, act, op["g1"], op["b1"],
-              op["w1"], op["bias1"], op["g2"], op["b2"], op["w2"], op["bias2"],
-              b, t, h * w, c, int(first_pad_mode == "replicate"))
+    h1 = torch.empty_like(x)
+    act = x.new_empty((b, t + 2, h, w, c))  # [front | activated clip]
+    _lib.call("vt_fused_temporal_resblock", x, out, h1, act, op["g1"], op["b1"], map1,
+              op["bias1"], op["g2"], op["b2"], map2, op["bias2"], b, t, h * w, c,
+              int(first_pad_mode == "replicate"), pl.bn, pl.stages, pl.smem, pl.grid)
     fused_temporal_resblock.launches += 1
     return out
 
@@ -170,23 +169,12 @@ def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
     if x.device.type == "cpu":
         return fused_temporal_resblock_stream_plain(
             x, norm1, conv1, norm2, conv2, c1, c2, first_chunk, offset)
-    pl = plan.conv_plan_temporal(b, t, h * w, c)
-    plan.check_row_channels(c)
-    _lib.require(x, torch.bfloat16, (b, t, h, w, c))
-    for cw in (conv1[0], conv2[0]):
-        if tuple(cw.shape) != (c, c, 3):
-            raise ValueError("kernel F takes two causal k=3 convs C->C")
+    op, pl, (map1, map2) = _block_operands("F", norm1, conv1, norm2, conv2, x)
     if first_chunk:
         c1 = c2 = None
     else:
         for cache in (c1, c2):
             _lib.require(cache, torch.bfloat16, (b, 2, h, w, c))
-    op = _block_operands("fused_temporal_resblock_stream", norm1, conv1, norm2,
-                         conv2, stream_operands, x)
-    if pl.bn not in op["maps"]:
-        op["maps"][pl.bn] = (_lib.weight_map(op["w1"], pl.bn),
-                             _lib.weight_map(op["w2"], pl.bn))
-    map1, map2 = op["maps"][pl.bn]
     out = torch.empty_like(x)
     h1 = torch.empty_like(x)
     act = x.new_empty((b, t + 2, h, w, c))  # [front | activated chunk]

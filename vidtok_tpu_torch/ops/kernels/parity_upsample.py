@@ -12,9 +12,12 @@ nearest mode (``vidtok_tpu/modules/blocks.py:598-668``). With ``Kj`` the
 spatial SAME padding with zeros (``s`` is not activated, so zero is exact);
 ``s[-1]`` is zeros (``zero``, v1.0) or ``s[0]`` (``replicate``). CUDA:
 ``csrc/parity_upsample.cu``, one implicit GEMM over 18 taps (2 frames x
-3x3) with the weights ``[[K0+K1, K0], [K2, K1+K2]]`` summed in f32 and
-rounded to bf16 once; one f32 accumulator per output, where the TPU kernel
-rounds the previous-frame taps to the activation dtype before adding them.
+3x3) on the TMA + wgmma loop of ``csrc/wgmma_conv.cuh`` (tap set
+``kParity``), launched with ``plan.conv_plan_parity``'s plan, with the
+weights ``[[K0+K1, K0], [K2, K1+K2]]`` summed in f32 and rounded to bf16
+once, K-major, per parameter (``_lib.operands``); one f32 accumulator per
+output, where the TPU kernel rounds the previous-frame taps to the
+activation dtype before adding them.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _lib
+from . import _lib, plan
 
 
 def parity_up2x_fused_plain(s, weight, bias, alpha, first_pad_mode: str):
@@ -49,11 +52,29 @@ def parity_up2x_fused_plain(s, weight, bias, alpha, first_pad_mode: str):
     return out.permute(0, 1, 4, 2, 3, 5).reshape(b, 2 * t, h, w, c)
 
 
+def parity_operands(weight, bias) -> dict:
+    """Kernel E's parameters as it reads them: the K-major bf16 weight
+    ``[(parity, co), (frame, dy, dx, ci)]`` ``[2C, 18C]``, frame 0 being
+    s[a-1], the transpose of ``[[K0+K1, K0], [K2, K1+K2]]`` summed in f32
+    and rounded once; the bias once per parity, f32; ``maps`` holds the
+    weight's tensor maps by BN."""
+    c = weight.shape[0]
+    k0, k1, k2 = weight.float().permute(2, 3, 4, 1, 0)      # [3, 3, Ci, Co]
+    wm = torch.stack([torch.cat([k0 + k1, k0], dim=-1),
+                      torch.cat([k2, k1 + k2], dim=-1)])    # [2, 3, 3, Ci, 2Co]
+    return {"w": wm.reshape(18 * c, 2 * c).t().to(torch.bfloat16).contiguous(),
+            "bias": _lib.f32(torch.cat([bias, bias])), "maps": {}}
+
+
 def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
     """s: ``[B, T, H, W, C]`` -> ``[B, 2T, H, W, C]``.
 
-    A CPU tensor runs :func:`parity_up2x_fused_plain`. A CUDA tensor must
-    be contiguous bf16 with C % 64 == 0; it runs the kernel or raises.
+    A CPU tensor runs :func:`parity_up2x_fused_plain`. Otherwise s must be
+    a contiguous bf16 CUDA tensor whose channels the plan takes
+    (``plan.conv_plan_parity``: C % 128 == 0); it runs the kernel or
+    raises. ``alpha`` is read at every call (the module computes it from
+    its mix factor at every forward); the weight and bias are relaid out
+    once per parameter.
     """
     parity_up2x_fused.calls += 1
     if first_pad_mode not in ("zero", "replicate"):
@@ -61,22 +82,20 @@ def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
     if s.device.type == "cpu":
         return parity_up2x_fused_plain(s, weight, bias, alpha, first_pad_mode)
     b, t, h, w, c = s.shape
+    pl = plan.conv_plan_parity(b, t, h, w, c)
     _lib.require(s, torch.bfloat16, (b, t, h, w, c))
-    if c % 64 or tuple(weight.shape) != (c, c, 3, 3, 3):
-        raise ValueError(f"kernel E takes C % 64 == 0 and a [C, C, 3, 3, 3] "
-                         f"conv, got C={c}, {tuple(weight.shape)}")
-    # GEMM operand [(frame, dy, dx, ci), (parity, co)], frame 0 = s[a-1]
-    k0, k1, k2 = weight.float().permute(2, 3, 4, 1, 0)      # [3, 3, Ci, Co]
-    wm = torch.stack([torch.cat([k0 + k1, k0], dim=-1),
-                      torch.cat([k2, k1 + k2], dim=-1)])
-    wm = wm.reshape(18 * c, 2 * c).to(torch.bfloat16).contiguous()
-    bias2 = _lib.f32(torch.cat([bias, bias]))
+    if tuple(weight.shape) != (c, c, 3, 3, 3):
+        raise ValueError(f"kernel E takes a [C, C, 3, 3, 3] conv, got C={c}, "
+                         f"{tuple(weight.shape)}")
+    op = _lib.operands("parity_up2x_fused", (weight, bias), parity_operands)
     alpha = _lib.f32(alpha.reshape(1))
-    for v in (wm, bias2, alpha):
+    for v in (op["w"], op["bias"], alpha):
         _lib.same_device(v, s)
+    (wmap,) = _lib.weight_maps(op, pl.bn, "w")
     out = s.new_empty((b, 2 * t, h, w, c))
-    _lib.call("vt_parity_up2x", s, out, wm, bias2, alpha, b, t, h, w, c,
-              int(first_pad_mode == "replicate"))
+    _lib.call("vt_parity_up2x", s, out, wmap, op["bias"], alpha, b, t, h, w, c,
+              int(first_pad_mode == "replicate"), pl.th, pl.tw, pl.bn, pl.stages,
+              pl.smem, pl.grid)
     parity_up2x_fused.launches += 1
     return out
 

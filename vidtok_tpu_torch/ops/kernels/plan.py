@@ -1,6 +1,6 @@
 """Tile plans of the wgmma implicit-GEMM conv (``csrc/wgmma_conv.cuh``).
 
-Kernels A and F launch that loop with a plan made here from the call's
+Kernels A, B, E and F launch that loop with a plan made here from the call's
 shape, so the shapes stay where the CPU tests reach them: the patch of an
 M tile, BN, the ring's stages, the shared memory and the grid. The C entry
 takes the plan as it is and refuses one it cannot run. :func:`tile_origin`
@@ -30,8 +30,8 @@ ROW_CHANNELS = (64, 128, 256, 512, 768, 1024)
 @dataclass(frozen=True)
 class ConvPlan:
     """One launch of the wgmma loop. ``th`` x ``tw`` is the patch of a
-    spatial M tile (temporal: 1 x BM rows of a clip); ``tiles_x`` /
-    ``tiles_y`` the patches across / down a frame (temporal: ``tiles_x``
+    spatial or parity M tile (temporal: 1 x BM rows of a clip); ``tiles_x``
+    / ``tiles_y`` the patches across / down a frame (temporal: ``tiles_x``
     M tiles per clip, ``tiles_y`` 1); ``m_tiles`` all M tiles; ``n_tiles``
     = Cout / ``bn``; ``grid`` the blocks, one per (M tile, N tile)."""
     taps: str
@@ -69,10 +69,12 @@ def _check_channels(cin: int, cout: int, cs: int = 0) -> None:
         raise ValueError(f"the wgmma loop takes Cout % 128 == 0, got Cout={cout}")
 
 
-def _plan(taps, th, tw, tiles_x, tiles_y, m_tiles, cout) -> ConvPlan:
+def _plan(taps, th, tw, tiles_x, tiles_y, m_tiles, cout, unit=None) -> ConvPlan:
     # BN 256 reads each A tile once for two N tiles' worth of products, but
-    # halves the blocks: take it only when the grid still fills the card
-    bn = 256 if cout % 256 == 0 and m_tiles * (cout // 256) >= SMS else 128
+    # halves the blocks: take it only when the grid still fills the card.
+    # BN divides ``unit`` (parity: C, so an N tile is one parity's columns).
+    unit = cout if unit is None else unit
+    bn = 256 if unit % 256 == 0 and m_tiles * (cout // 256) >= SMS else 128
     stages = STAGES[bn]
     plan = ConvPlan(taps, th, tw, tiles_x, tiles_y, m_tiles, bn, cout // bn,
                     stages, smem_bytes(bn, stages), m_tiles * (cout // bn))
@@ -84,18 +86,34 @@ def _plan(taps, th, tw, tiles_x, tiles_y, m_tiles, cout) -> ConvPlan:
     return plan
 
 
+def _patch(n: int, h: int, w: int) -> tuple:
+    """(th, tw, tiles_x, tiles_y): the patch that covers an h x w frame with
+    the fewest tiles, the first of PATCHES on a tie."""
+    if min(n, h, w) < 1:
+        raise ValueError(f"empty frames: {(n, h, w)}")
+    th, tw = min(PATCHES, key=lambda p: -(-h // p[0]) * -(-w // p[1]))
+    return th, tw, -(-w // tw), -(-h // th)
+
+
 @functools.lru_cache(maxsize=None)
 def conv_plan_spatial(n: int, h: int, w: int, cin: int, cout: int,
                       cs: int = 0) -> ConvPlan:
     """A 3x3 SAME conv of ``[n, h, w, cin]`` to ``cout`` channels (plus a
-    1x1 term of ``cs`` channels): the patch that covers the frame with the
-    fewest tiles, the first of PATCHES on a tie."""
+    1x1 term of ``cs`` channels), in ``_patch``'s patches."""
     _check_channels(cin, cout, cs)
-    if min(n, h, w) < 1:
-        raise ValueError(f"empty frames: {(n, h, w)}")
-    th, tw = min(PATCHES, key=lambda p: -(-h // p[0]) * -(-w // p[1]))
-    tiles_x, tiles_y = -(-w // tw), -(-h // th)
+    th, tw, tiles_x, tiles_y = _patch(n, h, w)
     return _plan("spatial", th, tw, tiles_x, tiles_y, n * tiles_x * tiles_y, cout)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan_parity(b: int, t: int, h: int, w: int, c: int) -> ConvPlan:
+    """Kernel E over ``[b, t, h, w, c]``: 18 taps of C channels (two frames
+    x 3x3) to N = 2C columns, the even then the odd output frame, in
+    ``_patch``'s patches of one frame; BN divides C, so C % 128 == 0."""
+    if c % 128:
+        raise ValueError(f"kernel E takes C % 128 == 0, got C={c}")
+    th, tw, tiles_x, tiles_y = _patch(b * t, h, w)
+    return _plan("parity", th, tw, tiles_x, tiles_y, b * t * tiles_x * tiles_y, 2 * c, c)
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,12 +128,12 @@ def conv_plan_temporal(b: int, t: int, s: int, c: int) -> ConvPlan:
 
 
 def tile_origin(plan: ConvPlan, block: int) -> tuple:
-    """(M tile origin, first output channel) of block ``block``, as the
-    kernel decodes ``blockIdx.x``: spatial ``(frame, y0, x0)``, temporal
-    ``(clip, r0)``."""
+    """(M tile origin, first output column) of block ``block``, as the
+    kernel decodes ``blockIdx.x``: spatial and parity ``(frame, y0, x0)``
+    (parity: frame ``b * t + a`` of the input), temporal ``(clip, r0)``."""
     n0 = (block % plan.n_tiles) * plan.bn
     mt = block // plan.n_tiles
-    if plan.taps == "spatial":
+    if plan.taps != "temporal":
         q, tx = divmod(mt, plan.tiles_x)
         img, ty = divmod(q, plan.tiles_y)
         return (img, ty * plan.th, tx * plan.tw), n0

@@ -11,7 +11,10 @@ the two LN+SiLU passes alone, the copy alone), each with its bound and the
 share of it reached. Then ``v1 == v0`` within 3e-2: v0 takes the fast
 LN+SiLU, v1 the exact one.
 
-Kernels: ``csrc/microbench_temporal.cu``. Each wrapper runs its plain
+Kernels: ``csrc/microbench_temporal.cu``. T1's and T2's products run the
+wmma loop (``csrc/igemm_conv.cuh``); kernel B runs the wgmma loop
+(``csrc/wgmma_conv.cuh``), so T2's ``mm`` row times the older loop on B's
+products, not B's own. Each wrapper runs its plain
 PyTorch version for a CPU tensor and its kernel for a CUDA tensor (or
 raises), and counts ``calls`` and ``launches``. One deliberate divergence:
 JAX's grids (``s // tile_s``, ``t // tile_t``) leave a non-dividing tile's
