@@ -16,12 +16,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    events) and, for A, B and F, cuDNN's convs of the block alone; compute
    each call's bound (bytes over 3.35 TB/s, FLOP over 989 TFLOP/s); and
    hold kernel E at bench.py's T=201 shape, whose output passes 2^31
-   elements, and kernel A at its T=201 call whose input does, against
-   their plain versions on a window of frames. A, F, B and E also at
+   elements, kernel A at its T=201 call whose input does, and kernel D at
+   its T=201 call (TAIL_LONG, runs of frames with warm-up) against their
+   plain versions on a window of frames. A, F, B, E, D and D' also at
    frames whose sides are not multiples of their tiles (PARTIAL_SPATIAL,
-   PARTIAL_TEMPORAL, PARTIAL_B, PARTIAL_PARITY: 33² to 264², F at both
-   ``first_chunk`` values and offsets 1 and 4, B and E in both modes and
-   with two clips), checked, not timed. Kernel F
+   PARTIAL_TEMPORAL, PARTIAL_B, PARTIAL_PARITY, PARTIAL_TAIL: 33² to 264²,
+   F at both ``first_chunk`` values and offsets 1 and 4, B, E, D and D' in
+   both modes and with two clips), checked, not timed. Kernel F
    (the streaming temporal resblock) is held at every chunk shape of the
    tiled T=65 request, with ``first_chunk`` True and False at each of its
    cache offsets (0, 1, 2, 4), on y and both new caches; A, C and D also
@@ -55,7 +56,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    264], a 33² latent: partial tiles in A-E); then the wgmma loop's GEMM
    TFLOP/s and the row passes' share of their byte bound in A at 128, 256
    and 512 channels, in B at its two heaviest shapes and in E at both of
-   its shapes (``loop_rates``, torch.profiler);
+   its shapes, and D's and D''s share of their byte bound at their v1.0
+   shape (``loop_rates``, torch.profiler);
 4. serve one [1, 3, 201, 256, 256] clip (bench.py's protocol) through the
    v1.0 kernel path after one warm-up of the same shape;
 5. serve one request through the v1.0 FSQ 4096 tokenizer's kernel path and
@@ -77,6 +79,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    "taps")``: 3 requests (launches per forward A 20, B 20, H 2, I 3, D' 1,
    C, D, E and G 0), a profile of one, then one request in the ``split``
    parity form (G 2), and the end-to-end gate for both forms.
+
+``python3 chip_smoke.py --kernels NAME[,NAME...]`` runs phases 1 and 2 for
+the named kernels of SOURCES alone (and D's T=201 window when D is named),
+reports every gate that fails and exits 1 if any did, with no result line:
+the check to run from a copy of the checkout with a planted fault.
 
 It never falls back to the CPU or to a plain version. The last two lines of
 standard output are a JSON object with the per-kernel results (``headers``:
@@ -164,7 +171,7 @@ SOURCES = {
                                  "vidtok_tpu/ops/pallas/upsample_epilogue.py:96", ()),
     "subpixel_interleave_z": ("vidtok_tpu_torch/csrc/subpixel.cu",
                               "vidtok_tpu/ops/pallas/subpixel_epilogue.py:57", ()),
-    "decoder_tail_rgb_taps": ("vidtok_tpu_torch/csrc/decoder_tail_taps.cu",
+    "decoder_tail_rgb_taps": ("vidtok_tpu_torch/csrc/decoder_tail.cu",
                               "vidtok_tpu/ops/pallas/decoder_tail.py:160", ()),
 }
 # The decoder's kernel forms, KernelForms(parity, subpixel, tail), served by
@@ -247,6 +254,14 @@ PARTIAL_TEMPORAL = [(1, 5, 33, 33, 512), (1, 20, 264, 264, 128)]
 PARTIAL_OFFSETS = (1, 4)
 PARTIAL_B = [(2, 5, 33, 33, 512), (1, 20, 264, 264, 128)]
 PARTIAL_PARITY = [(2, 5, 33, 33, 512), (1, 10, 132, 132, 256)]
+# kernels D and D' at partial patches (two clips of a 33² frame; the
+# 264² frame of the v1.0 decoder), both modes
+PARTIAL_TAIL = [(2, 6, 33, 33, 128), (1, 20, 264, 264, 128)]
+# kernel D's tail call of a non-tiled T=201 v1.0 request (204 frames, 3.4 GB
+# of input, in runs of frames that start with 2 warm-up frames): its last
+# run's output frames against the plain version of those frames and the 2
+# before them
+TAIL_LONG = (1, 204, 256, 256, 128)
 # one request at a 33² latent, tiled v1.1 and non-tiled v1.0, each held to
 # its f32 plain run
 PARTIAL_REQUEST = (1, 3, 17, 264, 264)
@@ -634,8 +649,8 @@ def kernel_cases(device):
                        ue.parity_blend_interleave4,
                        ue.parity_blend_interleave4_plain,
                        (s, q.x((b, t, h, w, 4 * c), bf), bias, alpha, mode))
-    # partial tiles of A, F, B and E, on inputs of their own: checked, not
-    # timed
+    # partial tiles of A, F, B, E, D and D', on inputs of their own:
+    # checked, not timed
     r = Params(4, device)
     for key in PARTIAL_SPATIAL:
         n, h, w, cin, c = key
@@ -669,6 +684,15 @@ def kernel_cases(device):
             yield Case("parity_up2x_fused", (shape, mode), {}, pu.parity_up2x_fused,
                        pu.parity_up2x_fused_plain,
                        (r.x(shape, bf), *r.conv((c, c, 3, 3, 3)), r.t([0.88]), mode))
+    for shape in PARTIAL_TAIL:
+        c = shape[-1]
+        for mode in MODE_PATH:
+            args = (r.x(shape, bf), r.norm(c), r.conv((3, c, 3, 3, 3)), mode)
+            yield Case("decoder_tail_rgb", (shape, mode), {}, decoder_tail.decoder_tail_rgb,
+                       decoder_tail.decoder_tail_rgb_plain, args)
+            yield Case("decoder_tail_rgb_taps", (shape, mode), {},
+                       decoder_tail.decoder_tail_rgb_taps,
+                       decoder_tail.decoder_tail_rgb_taps_plain, args)
 
 
 def form_calls(calls: dict, kernel: str) -> dict:
@@ -690,8 +714,9 @@ def _outs(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
-def check_kernels(device) -> dict:
-    """Phase 2: every kernel against its plain version; returns {kernel:
+def check_kernels(device, names=None) -> dict:
+    """Phase 2: every kernel (or those in ``names``) against its plain
+    version, every gate checked before the first failure is raised; returns {kernel:
     {max_abs_err, max_rel_l2, and per path: ms, plain_ms, convs_ms (cuDNN's
     convs of the block alone), bound_ms, and bound_by_bytes_ms /
     bound_by_ops_ms (the part of the bound from calls that bytes or
@@ -707,9 +732,11 @@ def check_kernels(device) -> dict:
 
     sums = ("ms", "plain_ms", "convs_ms", "bound_ms", "bound_by_bytes_ms",
             "bound_by_ops_ms")
-    results = {}
+    results, failed = {}, []
     for case in kernel_cases(device):
         name, args = case.name, case.args
+        if names is not None and name not in names:
+            continue
         out = _outs(case.kernel(*args))
         ref = _outs(case.plain(*f32(args)))
         plain_bf16 = _outs(case.plain(*args))
@@ -737,7 +764,11 @@ def check_kernels(device) -> dict:
               f"{convs_ms:.4f} bound_ms {bound:.4f} ({by}) calls/forward "
               f"{case.calls}", flush=True)
         for i, (rel, plain_rel) in enumerate(zip(rels, plain_rels)):
-            gate(f"{name}{case.key} output {i}", rel, plain_rel)
+            try:
+                gate(f"{name}{case.key} output {i}", rel, plain_rel)
+            except AssertionError as e:
+                print(f"GATE FAILED {e}", flush=True)
+                failed.append(str(e))
         r = results.setdefault(name, dict(
             max_abs_err=0.0, max_rel_l2=0.0,
             **{k: dict.fromkeys(PATHS, 0.0) for k in sums}))
@@ -753,6 +784,8 @@ def check_kernels(device) -> dict:
         print(f"kernel {name} per forward: " + "; ".join(
             f"{path} " + " ".join(f"{k} {r[k][path]:.4f}" for k in sums)
             for path in PATHS if r["bound_ms"][path]), flush=True)
+    if failed:
+        raise AssertionError(f"{len(failed)} kernel gates failed:\n" + "\n".join(failed))
     return results
 
 
@@ -821,6 +854,42 @@ def check_spatial_long(device) -> None:
     gate(f"fused_spatial_resblock{SPATIAL_LONG} window", rel, plain_rel)
 
 
+def check_tail_long(device) -> None:
+    """Kernel D at TAIL_LONG, zero mode (its input 3.4 GB, in runs of frames
+    that start with warm-up frames): the output frames of its last run
+    against the plain version of the input window that holds them and the
+    two warm-up frames before, whose outputs are dropped, in f32 and in
+    bf16; D's time at this shape."""
+    import torch
+
+    from vidtok_tpu_torch.ops.kernels import decoder_tail, plan
+
+    b, t, h, w, c = TAIL_LONG
+    pl = plan.tail_plan(*TAIL_LONG)
+    p = Params(8, device)
+    params = (p.norm(c), p.conv((3, c, 3, 3, 3)), "zero")
+    x = p.x(TAIL_LONG, torch.bfloat16)
+    out = decoder_tail.decoder_tail_rgb(x, *params)
+    t0 = (pl.runs - 1) * pl.run  # the last run's first output frame
+    s0 = max(t0 - 2, 0)
+    win = x[:, s0:]
+    ref = decoder_tail.decoder_tail_rgb_plain(win.float(), *params)[:, t0 - s0:]
+    plain_bf16 = decoder_tail.decoder_tail_rgb_plain(win, *params)[:, t0 - s0:]
+    got = out[:, t0:].float()
+    torch.cuda.synchronize()
+    if out.shape != (b, t, h, w, 3) or got.shape != ref.shape:
+        raise AssertionError(f"tail long: {tuple(out.shape)}, window "
+                             f"{tuple(got.shape)} vs {tuple(ref.shape)}")
+    rel, plain_rel = rel_l2(got, ref), rel_l2(plain_bf16.float(), ref)
+    del out, got, ref, plain_bf16, win
+    ms = cuda_ms(lambda: decoder_tail.decoder_tail_rgb(x, *params), warmup=1, iters=3)
+    print(f"kernel decoder_tail_rgb {TAIL_LONG} zero, output frames {t0}-{t - 1} "
+          f"(the last of {pl.runs} runs of {pl.run} frames): rel_l2 {rel:.4g} "
+          f"plain_bf16_rel_l2 {plain_rel:.4g} kernel_ms {ms:.4f} (plain not timed at "
+          "this shape)", flush=True)
+    gate(f"decoder_tail_rgb{TAIL_LONG} window", rel, plain_rel)
+
+
 def loop_rates(device) -> None:
     """The wgmma loop inside the kernels that run it with row passes or an
     epilogue of their own, 5 calls each under torch.profiler after a
@@ -837,11 +906,14 @@ def loop_rates(device) -> None:
     writing the scratch, B * (T + 2) * H * W * C (the 2-frame front
     included). Kernel E at PARITY_SHAPES, zero mode: its own products,
     2 * M * 18C * 2C FLOP (not the 27 C^2 MACs of ``work``), no row
-    pass."""
+    pass. Kernels D and D' at TAIL_SHAPES, zero mode: one launch
+    (``tail_kernel``) a call, and its share of the call's byte bound
+    (``work``: x read once, the RGB output written once)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from vidtok_tpu_torch.ops.kernels import decoder_tail as dt
     from vidtok_tpu_torch.ops.kernels import fused_spatial as fs
     from vidtok_tpu_torch.ops.kernels import fused_temporal as ft
     from vidtok_tpu_torch.ops.kernels import parity_upsample as pu
@@ -852,8 +924,8 @@ def loop_rates(device) -> None:
     iters = 5
 
     def runs():
-        # (kernel, key, call, GEMM FLOP, row-pass bytes, launches per call
-        # of the GEMM and of the row pass)
+        # (kernel, key, call, GEMM FLOP, bytes of the row passes or of the
+        # tail, launches per call of each part)
         for key in LOOP_SHAPES:
             n, h, w, _, c = key
             m = n * h * w
@@ -874,8 +946,16 @@ def loop_rates(device) -> None:
             args = (p.x(key, bf), *p.conv((c, c, 3, 3, 3)), p.t([0.88]), "zero")
             yield ("E", key, lambda args=args: pu.parity_up2x_fused(*args),
                    2 * (b * t * h * w) * 18 * c * 2 * c, 0, {"gemm": 1})
+        for key, _ in TAIL_SHAPES:
+            c = key[-1]
+            args = (p.x(key, bf), p.norm(c), p.conv((3, c, 3, 3, 3)), "zero")
+            nbytes = work("decoder_tail_rgb", (key, "zero"))[0]
+            yield ("D", key, lambda args=args: dt.decoder_tail_rgb(*args), 0, nbytes,
+                   {"tail": 1})
+            yield ("D'", key, lambda args=args: dt.decoder_tail_rgb_taps(*args), 0, nbytes,
+                   {"tail": 1})
 
-    for kernel, key, call, flop, row_bytes, per_call in runs():
+    for kernel, key, call, flop, nbytes, per_call in runs():
         for _ in range(2):
             call()
         torch.cuda.synchronize()
@@ -887,7 +967,8 @@ def loop_rates(device) -> None:
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
                 part = ("gemm" if "wg::conv_kernel" in e.key else
-                        "rows" if "act_rows_kernel" in e.key else "other")
+                        "rows" if "act_rows_kernel" in e.key else
+                        "tail" if "tail_kernel" in e.key else "other")
                 total[part] += e.self_device_time_total / 1e3
                 count[part] += e.count
         if any(not count[part] for part in per_call):
@@ -897,12 +978,18 @@ def loop_rates(device) -> None:
         ms = {part: total[part] / count[part] * n for part, n in per_call.items()}
         seen = ", ".join(f"{part} {count[part]} of {iters * n}"
                          for part, n in per_call.items())
-        rows = (f"row passes {ms['rows']:.4f} ms/call "
-                f"({row_bytes / PEAK_BYTES * 1e3 / ms['rows']:.3f} of the byte bound)"
-                if row_bytes else "no row pass")
-        print(f"loop {kernel} {key}: gemm {ms['gemm']:.4f} ms/call "
-              f"({flop / ms['gemm'] / 1e9:.1f} TFLOP/s), {rows}; launches recorded: "
-              f"{seen}", flush=True)
+        parts = []
+        if "gemm" in per_call:
+            parts.append(f"gemm {ms['gemm']:.4f} ms/call "
+                         f"({flop / ms['gemm'] / 1e9:.1f} TFLOP/s)")
+        for part, label in (("rows", "row passes"), ("tail", "tail")):
+            if part in per_call:
+                parts.append(f"{label} {ms[part]:.4f} ms/call "
+                             f"({nbytes / PEAK_BYTES * 1e3 / ms[part]:.3f} of the byte bound)")
+        if per_call.keys() == {"gemm"}:
+            parts.append("no row pass")
+        print(f"loop {kernel} {key}: {', '.join(parts)}; launches recorded: {seen}",
+              flush=True)
 
 
 def randomize_(core, seed: int) -> None:
@@ -1584,9 +1671,36 @@ def phase(name: str, t0: float) -> float:
     return t
 
 
-def main() -> int:
+def check_only(device, names) -> int:
+    """``--kernels``: phase 2 for the named kernels alone (D's T=201 window
+    too when D is named), every gate reported; 1 if any failed."""
+    checks = [lambda: check_kernels(device, names)]
+    if "decoder_tail_rgb" in names:
+        checks.append(lambda: check_tail_long(device))
+    failed = 0
+    for check in checks:
+        try:
+            check()
+        except AssertionError as e:
+            print(f"FAILED: {e}", flush=True)
+            failed += 1
+    print(f"checked {', '.join(names)}: {'FAILED' if failed else 'every gate passed'}",
+          flush=True)
+    return int(failed > 0)
+
+
+def main(argv=None) -> int:
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    names = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--kernels" or not set(argv[1].split(",")) <= set(
+                SOURCES):
+            print(f"usage: chip_smoke.py [--kernels NAME[,NAME...]], names from "
+                  f"{', '.join(SOURCES)}", file=sys.stderr)
+            return 2
+        names = argv[1].split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1612,10 +1726,13 @@ def main() -> int:
                 or "spill" in line):
             print(line, flush=True)
     t = phase("build", t0)
+    if names is not None:
+        return check_only(device, names)
 
     kres = check_kernels(device)
     check_parity_long(device)
     check_spatial_long(device)
+    check_tail_long(device)
     torch.cuda.empty_cache()
     t = phase("kernels", t)
     compare_forms(device, card)

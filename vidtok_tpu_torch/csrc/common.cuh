@@ -8,8 +8,8 @@
 //
 // Statistics depend on a position only. act_rows_kernel normalizes a
 // position's channels and writes the activated row, which a conv then reads
-// once per tap from L2; ln_stats_kernel only writes the (mean, rstd) pair,
-// for a consumer that activates while loading its tile.
+// once per tap from L2; the decoder tail (decoder_tail.cu) takes them in
+// registers while it activates its own halo boxes.
 //
 // ln_silu_exact_f32 and row_stats_exact are the exact form of
 // vidtok_tpu/ops/pallas/fused_temporal.py:32 _ln_silu (the mean, then the
@@ -68,30 +68,6 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return v;
 }
 
-// (mean, rsqrt(max(E[x^2]-mean^2, 0) + eps)) over the C channels of row p,
-// in f32; every lane of the calling warp gets the pair. 16-byte loads,
-// C % 8 == 0.
-__device__ __forceinline__ float2 row_stats(const __nv_bfloat16* p, int C,
-                                            int lane) {
-  float s = 0.f, ss = 0.f;
-  for (int c = lane * 8; c < C; c += 256) {
-    float f[8];
-    unpack8(ld_u4(p + c), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s += f[i];
-      ss += f[i] * f[i];
-    }
-  }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  }
-  const float mu = s / C;
-  return make_float2(mu, rsqrtf(fmaxf(ss / C - mu * mu, 0.f) + kLnEps));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -120,24 +96,6 @@ __device__ __forceinline__ float2 row_stats_exact(const float (&v)[NV][8], int C
   return make_float2(mu, rsqrtf(warp_sum(d) / C + kLnEps));
 }
 
-// stats[row] = row_stats(x[row]); one warp per row.
-static __global__ void ln_stats_kernel(const __nv_bfloat16* __restrict__ x,
-                                       float2* __restrict__ stats,
-                                       long long rows, int C) {
-  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // whole warp leaves together
-  const float2 st = row_stats(x + row * C, C, lane);
-  if (lane == 0) stats[row] = st;
-}
-
-static inline void launch_ln_stats(const __nv_bfloat16* x, float2* stats,
-                                   long long rows, int C, cudaStream_t s) {
-  const int warps = 8;
-  const long long blocks = (rows + warps - 1) / warps;
-  ln_stats_kernel<<<(unsigned)blocks, warps * 32, 0, s>>>(x, stats, rows, C);
-}
-
 // The front of a temporal scratch (act_rows_kernel's stream form): the
 // cache's rows as they are (kernel F after its first chunk), LN+SiLU of src
 // frame 0 twice (F's first chunk, kernel B in replicate mode), or zeros
@@ -163,9 +121,8 @@ struct RowArgs {
 // LN+SiLU rows with the whole warp busy: a row takes LPR = min(C/8, 32)
 // lanes, VPL 16-byte vectors a lane, so at C = 128 a warp holds two rows;
 // each thread loads its RPT rows before it reduces any, keeping RPT * VPL
-// loads in flight. The statistics are row_stats' to the bit: each lane sums
-// channels 8l + 8 LPR i in the same order, and the lanes past LPR that
-// row_stats reduces hold zeros.
+// loads in flight. The statistics are ln_silu_fast's: the mean and E[x^2]
+// in f32, var = max(E[x^2] - mean^2, 0).
 template <int LPR, int VPL, int RPT, bool STREAM>
 static __global__ void __launch_bounds__(256)
     act_rows_kernel(const RowArgs a, long long rows, int C) {

@@ -10,11 +10,11 @@ is loaded as it is. A failed build raises. Nothing here runs at import.
 
 Every C entry launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()`` (or, for the wgmma loop of kernels A, B, E
-and F, a refused tensor map or plan); :func:`call` raises when that is not
-0.
+and F and the tail of D and D', a refused tensor map or plan); :func:`call`
+raises when that is not 0.
 
-:func:`operands` caches the weights of A, B, E and F as their kernels read
-them, per parameter; :func:`weight_map` encodes the tensor map of such a
+:func:`operands` caches the weights of A, B, D, D', E and F as their
+kernels read them, per parameter; :func:`weight_map` encodes the tensor map of such a
 weight for the wgmma loop.
 """
 
@@ -51,8 +51,9 @@ _SIGNATURES = {
     "vt_fused_temporal_resblock_stream": [_P] * 16 + [_I] * 10 + [_P],
     # y00, y01, y10, y11, bias, out, N, H, W, C, stream
     "vt_subpixel_interleave": [_P] * 6 + [_I] * 4 + [_P],
-    # x, out, stats, g, b, w, bias, B, T, H, W, C, replicate, stream
-    "vt_decoder_tail_rgb": [_P] * 7 + [_I] * 6 + [_P],
+    # x, out, g, b, w, bias, B, T, H, W, C, replicate, th, tw, run, stages,
+    # smem, grid, stream (D; D' the same)
+    "vt_decoder_tail_rgb": [_P] * 6 + [_I] * 12 + [_P],
     # s, out, w map, bias, alpha, B, T, H, W, C, replicate, th, tw, bn,
     # stages, smem, grid, stream
     "vt_parity_up2x": [_P] * 5 + [_I] * 12 + [_P],
@@ -60,8 +61,7 @@ _SIGNATURES = {
     "vt_parity_blend": [_P] * 6 + [_I] * 6 + [_P],
     # z, bias, out, N, H, W, C, stream
     "vt_subpixel_interleave_z": [_P] * 3 + [_I] * 4 + [_P],
-    # x, out, g, b, w, bias, B, T, H, W, C, replicate, stream
-    "vt_decoder_tail_rgb_taps": [_P] * 6 + [_I] * 6 + [_P],
+    "vt_decoder_tail_rgb_taps": [_P] * 6 + [_I] * 12 + [_P],
     # the tools' kernels (vidtok_tpu_torch/tools):
     # x, out, B, T, S, C, tile_t, tile_s, stream
     "vt_copy_units": [_P] * 2 + [_I] * 6 + [_P],

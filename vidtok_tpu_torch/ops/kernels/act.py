@@ -1,10 +1,10 @@
 """LayerNorm + SiLU as the kernels compute it.
 
 ``ln_silu_fast`` is ``vidtok_tpu/ops/pallas/act.py``'s, the JAX kernels'
-default epilogue; its CUDA form is the ``ln_silu`` device function and the
-``ln_stats`` kernel of ``csrc/common.cuh``. ``ln_silu_exact`` is the
-decoder tail's ``_ln_silu`` (``vidtok_tpu/ops/pallas/decoder_tail.py:42``),
-which kernel D' computes (``csrc/decoder_tail_taps.cu``).
+default epilogue; its CUDA form is the ``ln_silu`` device function of
+``csrc/common.cuh``. ``ln_silu_exact`` is the decoder tail's ``_ln_silu``
+(``vidtok_tpu/ops/pallas/decoder_tail.py:42``), which kernel D' computes
+(``csrc/decoder_tail.cu``).
 ``ln_silu_exact_f32`` is ``vidtok_tpu/ops/pallas/fused_temporal.py:32``'s
 ``_ln_silu``, the exact form the temporal microbenchmark's kernels compute
 (``ln_silu_exact_f32`` and ``row_stats_exact`` of ``csrc/common.cuh``). These

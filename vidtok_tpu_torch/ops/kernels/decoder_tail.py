@@ -2,28 +2,29 @@
 C -> RGB.
 
 D replaces ``vidtok_tpu/ops/pallas/decoder_tail.py:245``
-(``decoder_tail_rgb``, default body ``_kernel_tap_pack``), CUDA
-``csrc/decoder_tail.cu``. D' replaces the same call with ``tap_pack=False``,
-body ``_kernel`` (``:160``), CUDA ``csrc/decoder_tail_taps.cu``; it applies
-the exact LayerNorm + SiLU (``_ln_silu``, ``:42``) where D applies the
-kernels' fast form, and keeps the activated frames in the activation dtype.
-For both the conv's spatial SAME padding is zero after LayerNorm+SiLU; the
-stream start repeats activated frame 0 (``replicate``) or masks the missing
-frames (``zero``). The output has exactly 3 channels.
+(``decoder_tail_rgb``, default body ``_kernel_tap_pack``); D' the same call
+with ``tap_pack=False``, body ``_kernel`` (``:160``). D' applies the exact
+LayerNorm + SiLU (``_ln_silu``, ``:42``) where D applies the kernels' fast
+form. For both the conv's spatial SAME padding is zero after LayerNorm+SiLU;
+the stream start repeats activated frame 0 (``replicate``) or masks the
+missing frames (``zero``). The output has exactly 3 channels.
+
+Both are one CUDA kernel template (``csrc/decoder_tail.cu``), launched with
+``plan.tail_plan``'s plan: a block walks the frames of one output patch,
+reads and activates each input frame's halo box once and runs its products
+on the tensor cores with the 27 (time tap, dx, out channel) columns packed
+onto N, the weights relaid out once per parameter (:func:`tail_operands`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _lib
+from . import _lib, plan
 from .act import ln_silu_exact, ln_silu_fast
 from ...modules.conv import conv3d_cl, pad_time_front
 
 COUT = 3
-# kernel D' keeps a ring of three (C + 8)-channel halo frames and the
-# weights in one block's shared memory
-TAPS_MAX_C = 128
 
 
 def _tail_conv(a, conv, first_pad_mode):
@@ -48,38 +49,51 @@ def decoder_tail_rgb_taps_plain(x, norm, conv, first_pad_mode: str,
                       first_pad_mode)
 
 
-def _weights(x, conv, kernel):
-    """OIDHW -> ``[kt, kh, kw, C, 3]`` bf16; raises unless C % 16 == 0 and
-    the conv is ``[3, C, 3, 3, 3]``."""
-    c = x.shape[-1]
-    if c % 16 or tuple(conv[0].shape) != (COUT, c, 3, 3, 3):
-        raise ValueError(f"kernel {kernel} takes C % 16 == 0 and a [3, C, 3, 3, 3] "
-                         f"conv, got C={c}, {tuple(conv[0].shape)}")
-    return conv[0].permute(2, 3, 4, 1, 0).to(torch.bfloat16).contiguous()
+def tail_operands(weight, bias, g, b) -> dict:
+    """Kernels D and D''s parameters as they read them: the bf16 weight
+    ``[3 dy, TAIL_BN, C]`` whose row ``n = 9j + 3dx + co`` is the OIDHW
+    weight's ``[co, :, j, dy, dx]`` (rows 27 on zero), and the conv bias
+    and norm scale and bias as f32 vectors."""
+    c = weight.shape[1]
+    w = weight.float().permute(3, 2, 4, 0, 1).reshape(3, plan.TAIL_COLS, c)
+    w = torch.cat([w, w.new_zeros(3, plan.TAIL_BN - plan.TAIL_COLS, c)], dim=1)
+    return {"w": w.to(torch.bfloat16).contiguous(), "bias": _lib.f32(bias),
+            "g": _lib.f32(g), "b": _lib.f32(b)}
+
+
+def _launch(entry: str, kernel: str, x, norm, conv, first_pad_mode: str):
+    """Launch ``entry`` on a CUDA ``x``, or raise on what the plan and the
+    kernel do not take."""
+    b, t, h, w, c = x.shape
+    pl = plan.tail_plan(b, t, h, w, c)
+    _lib.require(x, torch.bfloat16, (b, t, h, w, c))
+    if tuple(conv[0].shape) != (COUT, c, 3, 3, 3):
+        raise ValueError(f"kernel {kernel} takes a [3, C, 3, 3, 3] conv, got C={c}, "
+                         f"{tuple(conv[0].shape)}")
+    op = _lib.operands("decoder_tail", (conv[0], conv[1], norm[0], norm[1]),
+                       tail_operands)
+    for v in op.values():
+        _lib.same_device(v, x)
+    out = x.new_empty((b, t, h, w, COUT))
+    _lib.call(entry, x, out, op["g"], op["b"], op["w"], op["bias"], b, t, h, w, c,
+              int(first_pad_mode == "replicate"), pl.th, pl.tw, pl.run, pl.stages,
+              pl.smem, pl.grid)
+    return out
 
 
 def decoder_tail_rgb(x, norm, conv, first_pad_mode: str):
     """x: ``[B, T, H, W, C]`` -> ``[B, T, H, W, 3]``.
 
     A CPU tensor runs :func:`decoder_tail_rgb_plain`; a CUDA tensor
-    (contiguous bf16, C % 16 == 0) runs the kernel or raises.
+    (contiguous bf16, C that ``plan.tail_plan`` takes: 64 or 128) runs the
+    kernel or raises.
     """
     decoder_tail_rgb.calls += 1
     if first_pad_mode not in ("zero", "replicate"):
         raise ValueError(f"unknown first_pad_mode {first_pad_mode!r}")
     if x.device.type == "cpu":
         return decoder_tail_rgb_plain(x, norm, conv, first_pad_mode)
-    b, t, h, w, c = x.shape
-    _lib.require(x, torch.bfloat16, (b, t, h, w, c))
-    wt = _weights(x, conv, "D")
-    g, bb, bias = (_lib.f32(v) for v in (norm[0], norm[1], conv[1]))
-    for v in (wt, g, bb, bias):
-        _lib.same_device(v, x)
-    out = x.new_empty((b, t, h, w, COUT))
-    stats = torch.empty((b * t * h * w, 2), device=x.device,
-                        dtype=torch.float32)
-    _lib.call("vt_decoder_tail_rgb", x, out, stats, g, bb, wt, bias,
-              b, t, h, w, c, int(first_pad_mode == "replicate"))
+    out = _launch("vt_decoder_tail_rgb", "D", x, norm, conv, first_pad_mode)
     decoder_tail_rgb.launches += 1
     return out
 
@@ -92,24 +106,15 @@ def decoder_tail_rgb_taps(x, norm, conv, first_pad_mode: str):
     """Kernel D': x ``[B, T, H, W, C]`` -> ``[B, T, H, W, 3]``.
 
     A CPU tensor runs :func:`decoder_tail_rgb_taps_plain`; a CUDA tensor
-    (contiguous bf16, C % 16 == 0, C <= 128) runs the kernel or raises.
+    (contiguous bf16, C that ``plan.tail_plan`` takes: 64 or 128) runs the
+    kernel or raises.
     """
     decoder_tail_rgb_taps.calls += 1
     if first_pad_mode not in ("zero", "replicate"):
         raise ValueError(f"unknown first_pad_mode {first_pad_mode!r}")
     if x.device.type == "cpu":
         return decoder_tail_rgb_taps_plain(x, norm, conv, first_pad_mode)
-    b, t, h, w, c = x.shape
-    _lib.require(x, torch.bfloat16, (b, t, h, w, c))
-    wt = _weights(x, conv, "D'")
-    if c > TAPS_MAX_C:
-        raise ValueError(f"kernel D' takes C <= {TAPS_MAX_C}, got C={c}")
-    g, bb, bias = (_lib.f32(v) for v in (norm[0], norm[1], conv[1]))
-    for v in (wt, g, bb, bias):
-        _lib.same_device(v, x)
-    out = x.new_empty((b, t, h, w, COUT))
-    _lib.call("vt_decoder_tail_rgb_taps", x, out, g, bb, wt, bias,
-              b, t, h, w, c, int(first_pad_mode == "replicate"))
+    out = _launch("vt_decoder_tail_rgb_taps", "D'", x, norm, conv, first_pad_mode)
     decoder_tail_rgb_taps.launches += 1
     return out
 

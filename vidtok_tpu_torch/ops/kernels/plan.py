@@ -1,10 +1,13 @@
-"""Tile plans of the wgmma implicit-GEMM conv (``csrc/wgmma_conv.cuh``).
+"""Tile plans of the wgmma implicit-GEMM conv (``csrc/wgmma_conv.cuh``)
+and of the decoder tail (``csrc/decoder_tail.cu``).
 
 Kernels A, B, E and F launch that loop with a plan made here from the call's
 shape, so the shapes stay where the CPU tests reach them: the patch of an
-M tile, BN, the ring's stages, the shared memory and the grid. The C entry
-takes the plan as it is and refuses one it cannot run. :func:`tile_origin`
-mirrors how a block finds its tile from ``blockIdx.x``.
+M tile, BN, the ring's stages, the shared memory and the grid. Kernels D
+and D' launch the tail with :func:`tail_plan`'s patch, run of frames,
+stages, shared memory and grid. Each C entry takes the plan as it is and
+refuses one it cannot run. :func:`tile_origin` and :func:`tail_block`
+mirror how a block finds its work from ``blockIdx.x``.
 """
 
 from __future__ import annotations
@@ -144,3 +147,97 @@ def tile_origin(plan: ConvPlan, block: int) -> tuple:
 def check_row_channels(c: int) -> None:
     if c not in ROW_CHANNELS:
         raise ValueError(f"the LN+SiLU row pass takes C in {ROW_CHANNELS}, got C={c}")
+
+
+# The decoder tail (kernels D and D'). A block walks the frames of one
+# TAIL_TH x TAIL_TW output patch of one clip; each input frame's halo box,
+# (TAIL_TH + 2) x (TAIL_TW + 2) positions (16 wide, so a dy shift of the
+# GEMM's A rows is 16 rows of 128 B, a whole number of swizzle atoms), is
+# loaded once per 64 channels, activated once, and multiplied once per dy
+# by [C, TAIL_BN] weights: 27 (time tap, dx, out channel) columns padded to
+# TAIL_BN. A run that starts at frame t0 > 0 first takes TAIL_WARMUP
+# frames before it.
+TAIL_TH, TAIL_TW = 8, 14
+TAIL_HALO = (TAIL_TH + 2) * (TAIL_TW + 2)      # positions of a halo box
+TAIL_M = TAIL_TH * (TAIL_TW + 2)               # GEMM rows: two m64 tiles
+TAIL_COLS, TAIL_BN = 27, 32
+TAIL_CHANNELS = (64, 128)                     # C / 64 boxes of 128 B a position
+TAIL_WARMUP = 2
+TAIL_MAX_STAGES = 4
+TAIL_BLOCKS_PER_SM = 1
+
+
+@dataclass(frozen=True)
+class TailPlan:
+    """One launch of the decoder tail: ``tiles_x`` x ``tiles_y`` patches of
+    ``th`` x ``tw`` per frame, each clip's frames cut into ``runs`` runs of
+    ``run`` frames (the last may be shorter); ``grid`` blocks, one per
+    (patch, clip, run); ``stages`` halo boxes in flight; ``smem`` bytes."""
+    th: int
+    tw: int
+    tiles_x: int
+    tiles_y: int
+    run: int
+    runs: int
+    stages: int
+    smem: int
+    grid: int
+
+
+def tail_stage_bytes(c: int) -> int:
+    """One frame's halo box: C / 64 channel slices of TAIL_HALO rows of 128 B."""
+    return (c // 64) * TAIL_HALO * 128
+
+
+def tail_smem_bytes(c: int, stages: int) -> int:
+    """1 KB to align the swizzled boxes, the ring of halo boxes, the
+    weights (3 dy x C / 64 tiles of TAIL_BN rows of 128 B), two f32 partial
+    buffers [TAIL_M, TAIL_COLS], the full, activated and empty barriers of
+    each stage."""
+    return (1024 + stages * tail_stage_bytes(c) + 3 * (c // 64) * TAIL_BN * 128
+            + 2 * TAIL_M * TAIL_COLS * 4 + 24 * stages)
+
+
+@functools.lru_cache(maxsize=None)
+def tail_plan(b: int, t: int, h: int, w: int, c: int) -> TailPlan:
+    """Kernels D and D' over ``[b, t, h, w, c]``. The run is the one that
+    finishes first if every block takes as long as its frames, warm-up
+    included, and blocks go out in waves of SMS x TAIL_BLOCKS_PER_SM; the
+    longest such run on a tie (fewer warm-up frames)."""
+    if min(b, t, h, w) < 1:
+        raise ValueError(f"empty clips: {(b, t, h, w)}")
+    if c % 16:
+        raise ValueError(f"the decoder tail takes C % 16 == 0, got C={c}")
+    if c not in TAIL_CHANNELS:
+        raise ValueError(f"the decoder tail takes C in {TAIL_CHANNELS}, got C={c}")
+    tiles_x, tiles_y = -(-w // TAIL_TW), -(-h // TAIL_TH)
+    patches = b * tiles_x * tiles_y
+    best = None
+    for run in range(t, 0, -1):
+        runs = -(-t // run)
+        waves = -(-patches * runs // (SMS * TAIL_BLOCKS_PER_SM))
+        cost = waves * (run + (TAIL_WARMUP if runs > 1 else 0))
+        if best is None or cost < best[0]:
+            best = (cost, run, runs)
+    _, run, runs = best
+    fixed = tail_smem_bytes(c, 0)
+    stages = min(TAIL_MAX_STAGES, (SMEM_LIMIT - fixed) // (tail_stage_bytes(c) + 24))
+    plan = TailPlan(TAIL_TH, TAIL_TW, tiles_x, tiles_y, run, runs, stages,
+                    tail_smem_bytes(c, stages), patches * runs)
+    if stages < 2 or plan.smem > SMEM_LIMIT:
+        raise AssertionError(f"plan {plan} does not fit shared memory")
+    if plan.grid > GRID_LIMIT:
+        raise ValueError(f"{plan.grid} blocks exceed the grid limit")
+    return plan
+
+
+def tail_block(plan: TailPlan, block: int, t: int) -> tuple:
+    """(clip, y0, x0, t0, t1, first frame read) of block ``block``, as the
+    kernel decodes ``blockIdx.x``: it writes output frames [t0, t1) of its
+    patch and reads input frames from max(t0 - TAIL_WARMUP, 0)."""
+    q, tx = divmod(block, plan.tiles_x)
+    q, ty = divmod(q, plan.tiles_y)
+    clip, r = divmod(q, plan.runs)
+    t0 = r * plan.run
+    return (clip, ty * plan.th, tx * plan.tw, t0, min(t, t0 + plan.run),
+            max(t0 - TAIL_WARMUP, 0))

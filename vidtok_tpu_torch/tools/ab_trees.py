@@ -7,9 +7,10 @@ DIR is a checkout (its own ``vidtok_tpu_torch`` and ``chip_smoke.py``),
 run in the order given, each in a process of its own that builds the
 checkout's kernels and measures, with ``chip_smoke``'s own functions:
 
-* kernels A, B, E and F: ms per forward of the v1.0, v1.1 and tiled T=65
-  paths, each call shape timed by CUDA events (``chip_smoke.cuda_ms``)
-  and weighted by its calls per forward (``chip_smoke.kernel_cases``);
+* kernels A, B, C, D, E, F and D': ms per forward of the v1.0, v1.1 and
+  tiled T=65 paths (D' in the forms that run it), each call shape timed by
+  CUDA events (``chip_smoke.cuda_ms``) and weighted by its calls per
+  forward (``chip_smoke.kernel_cases``);
 * the request latency, s: ``chip_smoke.N_REQUESTS`` requests of
   ``REQUEST`` on the v1.0 kernel path and of ``TILED_REQUEST`` on the
   tiled v1.1 kernel path (``chip_smoke.serve``), the best after the first.
@@ -25,9 +26,10 @@ import subprocess
 import sys
 from collections import defaultdict
 
-KERNELS = ("fused_spatial_resblock", "fused_temporal_resblock", "parity_up2x_fused",
-           "fused_temporal_resblock_stream")
-PATHS = ("v1_0", "v1_1", "tiled")
+KERNELS = ("fused_spatial_resblock", "fused_temporal_resblock", "subpixel_interleave",
+           "decoder_tail_rgb", "parity_up2x_fused", "fused_temporal_resblock_stream",
+           "decoder_tail_rgb_taps")
+PATHS = ("v1_0", "v1_1", "tiled", "v1_0_forms", "tiled_forms")
 
 # What each run executes, from the root of its checkout.
 CHILD = r'''
@@ -41,10 +43,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 dev = torch.device("cuda", 0)
 _lib.library()
-kernels = set(json.loads(sys.argv[1]))
+kernels, paths = json.loads(sys.argv[1])
 per = defaultdict(lambda: defaultdict(float))
 for case in cs.kernel_cases(dev):
-    if case.name in kernels and any(case.calls.get(p, 0) for p in ("v1_0", "v1_1", "tiled")):
+    if case.name in kernels and any(case.calls.get(p, 0) for p in paths):
         ms = cs.cuda_ms(lambda: case.kernel(*case.args))
         for path, n in case.calls.items():
             per[case.name][path] += n * ms
@@ -68,7 +70,7 @@ print("AB " + json.dumps(out), flush=True)
 
 
 def run(directory: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", CHILD, json.dumps(KERNELS)],
+    proc = subprocess.run([sys.executable, "-c", CHILD, json.dumps([KERNELS, PATHS])],
                           cwd=directory, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"run in {directory} failed:\n{proc.stdout[-4000:]}"
