@@ -36,14 +36,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    mode, T1 (``fused_fat``), T2 (``fused_diag``, modes mm, ln, copy) and T3
    (``copy_min``, the five tilings that divide) at the temporal
    microbenchmark's default [1, 9, 64, 64, 512] and at B's
-   [1, 20, 256, 256, 128], T4 (``silu_probe``, three modes) at
-   [64, 512, 512], each gated as above (T4's bf16 modes against f32 SiLU
-   and value by value against the plain bf16 version, see SILU_UNITS;
-   every copy equal to x), the plain version and ``x.clone()`` (T3, T2's
-   copy) or ``F.silu`` (T4's f32 form) timed with the L2 flushed before
-   each call; then both tools' mains on the card at the same shapes, whose
-   rows give the kernels' times and bounds and whose launches of T1-T4 the
-   result line reports;
+   [1, 20, 256, 256, 128], T1 and T2's mm and ln also at two clips of
+   33 x 33 (TOOL_PARTIAL, checked, not timed), T4 (``silu_probe``, three
+   modes) at [64, 512, 512], each gated as above (T4's bf16 modes against
+   f32 SiLU and value by value against the plain bf16 version, see
+   SILU_UNITS; every copy equal to x), the plain version and ``x.clone()``
+   (T3, T2's copy) or ``F.silu`` (T4's f32 form) timed with the L2 flushed
+   before each call, and for T2's mm a cuDNN yardstick (two k=(3,1,1)
+   convs and the add, ``mm_yardstick``); then both tools' mains on the card
+   at the same shapes, whose rows give the kernels' times and bounds and
+   whose launches of T1-T4 the result line reports;
 3. serve the causal v1.0 KL 4x8x8 16-channel flagship at full width with
    seeded random weights in bf16: 3 requests of [1, 3, 17, 256, 256],
    per-request latency, frames/s and peak memory, and the kernels' launch
@@ -81,7 +83,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    parity form (G 2), and the end-to-end gate for both forms.
 
 ``python3 chip_smoke.py --kernels NAME[,NAME...]`` runs phases 1 and 2 for
-the named kernels of SOURCES alone (and D's T=201 window when D is named),
+the named kernels of SOURCES and TOOL_SOURCES alone (and D's T=201 window
+when D is named; a tool's kernel at the tools' shapes),
 reports every gate that fails and exits 1 if any did, with no result line:
 the check to run from a copy of the checkout with a planted fault.
 
@@ -306,15 +309,20 @@ MAIN_PATH.update(fused_temporal_resblock_stream="tiled",
 # its tool at the first shape, and lists every row.
 TOOL_SOURCES = {
     "fused_fat": ("vidtok_tpu_torch/csrc/microbench_temporal.cu",
-                  "tools/microbench_temporal.py:53", "v1 fat"),
+                  "tools/microbench_temporal.py:53", "v1 fat", _WGMMA),
     "fused_diag": ("vidtok_tpu_torch/csrc/microbench_temporal.cu",
-                   "tools/microbench_temporal.py:102", "v2 mm-only"),
+                   "tools/microbench_temporal.py:102", "v2 mm-only", _WGMMA),
     "copy_min": ("vidtok_tpu_torch/csrc/microbench_temporal.cu",
-                 "tools/microbench_temporal.py:130", "copy min128"),
+                 "tools/microbench_temporal.py:130", "copy min128", ()),
     "silu_probe": ("vidtok_tpu_torch/csrc/probe_silu.cu", "tools/probe_silu_bf16.py:48",
-                   "f32_logistic"),
+                   "f32_logistic", ()),
 }
 TOOL_SHAPES = ((1, 9, 64, 64, 512), TEMPORAL_SHAPES[0][0])
+# T1 and T2's mm and ln also at two clips of 33 x 33 (S = 1089, not a
+# multiple of the loop's 128-row tiles, so M tiles straddle frames): checked,
+# not timed
+TOOL_PARTIAL = (2, 5, 33, 33, 256)
+TOOL_PARTIAL_ROWS = ("v1 fat", "v2 mm-only", "v3 ln-only")
 # the microbenchmark's [C T S] for each of TOOL_SHAPES (the first is its default)
 TOOL_RUNS = tuple([str(c), str(t), str(h)] for _, t, h, _, c in TOOL_SHAPES)
 SILU_SHAPE = (64, 512, 512)
@@ -908,7 +916,11 @@ def loop_rates(device) -> None:
     2 * M * 18C * 2C FLOP (not the 27 C^2 MACs of ``work``), no row
     pass. Kernels D and D' at TAIL_SHAPES, zero mode: one launch
     (``tail_kernel``) a call, and its share of the call's byte bound
-    (``work``: x read once, the RGB output written once)."""
+    (``work``: x read once, the RGB output written once). The tools' T1
+    and T2 ``mm`` at TOOL_SHAPES: 2 * 2 * M * 3 * C^2 FLOP (T1's over the
+    explicit [M, 3C] operand), and T1's two fat-row passes
+    (``fat_rows_kernel``), reading x (bf16) and h (f32) and writing the fat
+    operand (bf16, 3C a row): 18 * M * C bytes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -918,6 +930,7 @@ def loop_rates(device) -> None:
     from vidtok_tpu_torch.ops.kernels import fused_temporal as ft
     from vidtok_tpu_torch.ops.kernels import parity_upsample as pu
     from vidtok_tpu_torch.tools import PEAK_BYTES
+    from vidtok_tpu_torch.tools import microbench_temporal as tm
 
     bf = torch.bfloat16
     p = Params(7, device)
@@ -954,6 +967,17 @@ def loop_rates(device) -> None:
                    {"tail": 1})
             yield ("D'", key, lambda args=args: dt.decoder_tail_rgb_taps(*args), 0, nbytes,
                    {"tail": 1})
+        for key in TOOL_SHAPES:
+            b, t, h, w, c = key
+            m = b * t * h * w
+            x = p.x(key, bf)
+            params = {"norm1": p.norm(c), "conv1": p.conv((c, c, 3)),
+                      "norm2": p.norm(c), "conv2": p.conv((c, c, 3))}
+            yield ("T1", key, lambda x=x, params=params: tm.fused_fat(x, params),
+                   tm.block_flops(key), 18 * m * c, {"gemm": 2, "rows": 2})
+            yield ("T2 mm", key, lambda x=x, params=params: tm.fused_diag(x, params, "mm"),
+                   tm.block_flops(key), 0, {"gemm": 2})
+            del x, params
 
     for kernel, key, call, flop, nbytes, per_call in runs():
         for _ in range(2):
@@ -967,7 +991,7 @@ def loop_rates(device) -> None:
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
                 part = ("gemm" if "wg::conv_kernel" in e.key else
-                        "rows" if "act_rows_kernel" in e.key else
+                        "rows" if "_rows_kernel" in e.key else  # act_rows, fat_rows
                         "tail" if "tail_kernel" in e.key else "other")
                 total[part] += e.self_device_time_total / 1e3
                 count[part] += e.count
@@ -1494,13 +1518,47 @@ def serve_forms(device) -> dict:
     return runs
 
 
-def tool_cases(device):
-    """Yield (kernel, row, shape, wrapper, plain version, bf16 args,
-    library call or None): kernel B in zero mode (the tool's ``v0
-    shipped``), T1, T2 in its three modes and T3 at every tiling that
-    divides the shape, at each of TOOL_SHAPES with ``Params`` inputs (random
-    norm and conv parameters); T4 in its three modes at SILU_SHAPE. Rows
-    are named as the tools' mains name them."""
+class ToolCase(NamedTuple):
+    """One row of a tool at one shape: the wrapper and plain version on the
+    same bf16 arguments, one PyTorch call for the same function (or None),
+    a cuDNN yardstick (or None), and whether the row is timed (the tools'
+    mains run it) or only checked."""
+    name: str
+    row: str
+    shape: tuple
+    kernel: Callable
+    plain: Callable
+    args: tuple
+    library: Callable = None
+    yardstick: Callable = None
+    timed: bool = True
+
+
+def mm_yardstick(x, params):
+    """T2 ``mm``'s function as cuDNN runs it: two ``F.conv3d`` k=(3, 1, 1)
+    on the zero-front-padded input (x padded once, here; h in the call),
+    plus the residual add."""
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 4, 1, 2, 3)  # [B, C, T, H, W], channels last in memory
+    xp = F.pad(xc, (0, 0, 0, 0, 2, 0))
+    w1, w2 = (params[n][0][..., None, None].to(x.dtype) for n in ("conv1", "conv2"))
+
+    def run():
+        h = F.conv3d(xp, w1)
+        return xc + F.conv3d(F.pad(h, (0, 0, 0, 0, 2, 0)), w2)
+
+    return run
+
+
+def tool_cases(device, names=None):
+    """Yield a ``ToolCase`` for kernel B in zero mode (the tool's ``v0
+    shipped``), T1, T2 in its three modes (``mm`` with ``mm_yardstick``) and
+    T3 at every tiling that divides the shape, at each of TOOL_SHAPES with
+    ``Params`` inputs (random norm and conv parameters); T1, T2 ``mm`` and
+    ``ln`` at TOOL_PARTIAL, not timed; T4 in its three modes at SILU_SHAPE.
+    Rows are named as the tools' mains name them; ``names`` keeps those
+    kernels' cases alone."""
     import torch
     import torch.nn.functional as F
 
@@ -1508,37 +1566,48 @@ def tool_cases(device):
     from vidtok_tpu_torch.tools import microbench_temporal as tm
     from vidtok_tpu_torch.tools import probe_silu_bf16 as tp
 
+    def keep(name):
+        return names is None or name in names
+
     p = Params(5, device)
-    for shape in TOOL_SHAPES:
+    for shape in TOOL_SHAPES + (TOOL_PARTIAL,):
+        timed = shape != TOOL_PARTIAL
         c = shape[-1]
         x = p.x(shape, torch.bfloat16)
         params = {"norm1": p.norm(c), "conv1": p.conv((c, c, 3)),
                   "norm2": p.norm(c), "conv2": p.conv((c, c, 3))}
-        yield ("fused_temporal_resblock", "v0 shipped", shape,
-               fused_temporal.fused_temporal_resblock,
-               fused_temporal.fused_temporal_resblock_plain,
-               (x, *(params[n] for n in ("norm1", "conv1", "norm2", "conv2")), "zero"),
-               None)
-        yield ("fused_fat", "v1 fat", shape, tm.fused_fat, tm.fused_fat_plain,
-               (x, params), None)
+        cases = [ToolCase("fused_temporal_resblock", "v0 shipped", shape,
+                          fused_temporal.fused_temporal_resblock,
+                          fused_temporal.fused_temporal_resblock_plain,
+                          (x, *(params[n] for n in ("norm1", "conv1", "norm2", "conv2")),
+                           "zero")),
+                 ToolCase("fused_fat", "v1 fat", shape, tm.fused_fat, tm.fused_fat_plain,
+                          (x, params))]
         for row, mode in tm.DIAG_ROWS:
-            lib = (lambda x=x: x.clone()) if mode == "copy" else None
-            yield ("fused_diag", row, shape, tm.fused_diag, tm.fused_diag_plain,
-                   (x, params, mode), lib)
+            cases.append(ToolCase(
+                "fused_diag", row, shape, tm.fused_diag, tm.fused_diag_plain,
+                (x, params, mode), (lambda x=x: x.clone()) if mode == "copy" else None,
+                mm_yardstick(x, params) if mode == "mm" and timed else None))
         b, t, h, w, _ = shape
-        for row, tile_s, tile_t in tm.COPY_TILINGS:
+        for row, tile_s, tile_t in tm.COPY_TILINGS if timed else ():
             if (h * w) % tile_s or t % (tile_t or t):
-                print(f"tools copy_min {shape} {row}: not run, the tile does not "
-                      "divide the shape", flush=True)
+                if keep("copy_min"):
+                    print(f"tools copy_min {shape} {row}: not run, the tile does not "
+                          "divide the shape", flush=True)
                 continue
-            yield ("copy_min", row, shape, tm.copy_min, tm.copy_min_plain,
-                   (x, tile_s, tile_t), lambda x=x: x.clone())
-        del x
+            cases.append(ToolCase("copy_min", row, shape, tm.copy_min, tm.copy_min_plain,
+                                  (x, tile_s, tile_t), lambda x=x: x.clone()))
+        for case in cases:
+            if keep(case.name) and (timed or case.row in TOOL_PARTIAL_ROWS):
+                yield case._replace(timed=timed)
+        del x, cases
     x = tp.probe_input(SILU_SHAPE, device)
     for mode in tp.MODES:
         lib = (lambda: F.silu(x)) if mode == "f32_logistic" else None
-        yield ("silu_probe", mode, SILU_SHAPE, tp.silu_probe, tp.silu_probe_plain,
-               (x, mode), lib)
+        case = ToolCase("silu_probe", mode, SILU_SHAPE, tp.silu_probe, tp.silu_probe_plain,
+                        (x, mode), lib)
+        if keep(case.name):
+            yield case
 
 
 def ulp_bf16(a):
@@ -1562,36 +1631,40 @@ def silu_units(x, plain_out, mode: str):
     return unit
 
 
-def check_tools(device) -> dict:
-    """The tools' kernels (B, T1-T4) against their plain versions at the
-    shapes of ``tool_cases``: relative L2 <= KERNEL_GATE against the plain
-    version run in f32 (TF32 off) and <= BF16_SLACK x the plain bf16
-    version's own, and every copy equal to x. T4's bf16 forms: relative L2
-    <= KERNEL_GATE against SiLU in f32, and every value within SILU_UNITS
-    of the plain bf16 version (``silu_units``). Times (the tools'
-    ``Timer``: the median of CUDA event pairs, the L2 flushed before each
-    call) of the plain version in bf16 and of the library call; the
-    kernels' own times are their tools' rows (``run_tools``). Returns
-    {kernel: {(shape, row): {max_abs_err, plain_ms, library_ms}}}."""
+def check_tools(device, names=None) -> dict:
+    """The tools' kernels (B, T1-T4; or those in ``names``) against their
+    plain versions at the shapes of ``tool_cases``: relative L2 <=
+    KERNEL_GATE against the plain version run in f32 (TF32 off) and <=
+    BF16_SLACK x the plain bf16 version's own, and every copy equal to x.
+    T4's bf16 forms: relative L2 <= KERNEL_GATE against SiLU in f32, and
+    every value within SILU_UNITS of the plain bf16 version
+    (``silu_units``). Every gate is checked before the first failure is
+    raised. Times (the tools' ``Timer``: the median of CUDA event pairs, the
+    L2 flushed before each call) of the plain version in bf16, of the
+    library call and of the yardstick, for the timed rows; the kernels' own
+    times are their tools' rows (``run_tools``). Returns {kernel: {(shape,
+    row): {max_abs_err, plain_ms, library_ms, yardstick_ms}}} of the timed
+    rows."""
     import torch
     import torch.nn.functional as F
 
     from vidtok_tpu_torch.tools import Timer
 
     timer = Timer(device)
-    results = {}
-    for name, row, shape, kernel, plain, args, lib in tool_cases(device):
-        out = kernel(*args)
-        plain_bf16 = plain(*args)
+    results, failed = {}, []
+    for case in tool_cases(device, names):
+        name, row, shape, args = case.name, case.row, case.shape, case.args
+        out = case.kernel(*args)
+        plain_bf16 = case.plain(*args)
         x = args[0]
         bf16_silu = name == "silu_probe" and row != "f32_logistic"
-        ref = F.silu(x.float()) if bf16_silu else plain(*f32(args))
+        ref = F.silu(x.float()) if bf16_silu else case.plain(*f32(args))
         torch.cuda.synchronize()
         if out.shape != x.shape or out.dtype != x.dtype:
             raise AssertionError(f"{name} {shape} {row}: {out.shape}/{out.dtype}")
         err = float((out.float() - ref).abs().max())
         rel, plain_rel = rel_l2(out.float(), ref), rel_l2(plain_bf16.float(), ref)
-        note = ""
+        note, problem = "", None
         if bf16_silu:
             diff = (out.float() - plain_bf16.float()).abs()
             units = float((diff / silu_units(x, plain_bf16, row)).max())
@@ -1599,23 +1672,35 @@ def check_tools(device) -> dict:
             note = (f" max |kernel - plain bf16| {units:.3g} units ({ulps:.3g} ulps of "
                     "the plain output)")
             if not (rel <= KERNEL_GATE and units <= SILU_UNITS):
-                raise AssertionError(f"silu_probe {row}: rel_l2 vs f32 silu {rel} > "
-                                     f"{KERNEL_GATE}, or {units} > {SILU_UNITS} units")
+                problem = (f"silu_probe {row}: rel_l2 vs f32 silu {rel} > {KERNEL_GATE}, "
+                           f"or {units} > {SILU_UNITS} units")
         else:
-            gate(f"{name}{shape} {row}", rel, plain_rel)
-            if name == "copy_min" or row == "v4 copy-only":
-                if not torch.equal(out, x):
-                    raise AssertionError(f"{name} {shape} {row}: the copy differs from x")
+            try:
+                gate(f"{name}{shape} {row}", rel, plain_rel)
+            except AssertionError as e:
+                problem = str(e)
+            if (name == "copy_min" or row == "v4 copy-only") and not torch.equal(out, x):
+                problem = f"{name} {shape} {row}: the copy differs from x"
+        if problem is not None:
+            print(f"GATE FAILED {problem}", flush=True)
+            failed.append(problem)
         del out, plain_bf16, ref
-        plain_ms = timer(lambda: plain(*args), iters=10)
-        lib_ms = timer(lib, iters=10) if lib is not None else None
+        times = ""
+        if case.timed:
+            plain_ms = timer(lambda: case.plain(*args), iters=10)
+            lib_ms, yard_ms = (None if fn is None else timer(fn, iters=10)
+                               for fn in (case.library, case.yardstick))
+            times = "".join(f" {k} {'none' if v is None else f'{v:.4f}'}" for k, v in (
+                ("plain_bf16_ms", plain_ms), ("library_ms", lib_ms),
+                ("cudnn_yardstick_ms", yard_ms))) + " (median, L2 flushed)"
+            results.setdefault(name, {})[shape, row] = dict(
+                max_abs_err=err, plain_ms=plain_ms, library_ms=lib_ms, yardstick_ms=yard_ms)
         print(f"tools {name} {shape} {row}: max_abs_err {err:.4g} rel_l2 {rel:.4g} "
-              f"plain_bf16_rel_l2 {plain_rel:.4g}{note} plain_bf16_ms {plain_ms:.4f} "
-              f"library_ms {'none' if lib_ms is None else f'{lib_ms:.4f}'} "
-              "(median, L2 flushed)", flush=True)
-        results.setdefault(name, {})[shape, row] = dict(
-            max_abs_err=err, plain_ms=plain_ms, library_ms=lib_ms)
-        del args
+              f"plain_bf16_rel_l2 {plain_rel:.4g}{note}{times or ' (checked, not timed)'}",
+              flush=True)
+        del args, case
+    if failed:
+        raise AssertionError(f"{len(failed)} tool gates failed:\n" + "\n".join(failed))
     return results
 
 
@@ -1650,17 +1735,18 @@ def tool_entry(name: str, checked: dict, launches: int, rows: dict) -> dict:
     SILU_SHAPE), and each of its rows under ``rows``: the time and bound
     from the tool's run, the error, plain and library times from
     ``check_tools``."""
-    source, replaces, first_row = TOOL_SOURCES[name]
+    source, replaces, first_row, headers = TOOL_SOURCES[name]
     first = SILU_SHAPE if name == "silu_probe" else TOOL_SHAPES[0]
     per_row = []
     for (shape, row), c in checked.items():
         r = rows[shape, row]
         per_row.append(dict(shape=list(shape), row=row, ms=r["ms"], plain_ms=c["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=c["library_ms"], max_abs_err=c["max_abs_err"]))
+                            library_ms=c["library_ms"], yardstick_ms=c["yardstick_ms"],
+                            max_abs_err=c["max_abs_err"]))
     head = next(r for r in per_row if r["shape"] == list(first) and r["row"] == first_row)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": head["max_abs_err"],
+            "headers": list(headers), "launches": launches, "max_abs_err": head["max_abs_err"],
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape": list(first), "row": first_row, "rows": per_row}
 
@@ -1673,10 +1759,15 @@ def phase(name: str, t0: float) -> float:
 
 def check_only(device, names) -> int:
     """``--kernels``: phase 2 for the named kernels alone (D's T=201 window
-    too when D is named), every gate reported; 1 if any failed."""
-    checks = [lambda: check_kernels(device, names)]
+    too when D is named; a tool's kernels at the tools' shapes), every gate
+    reported; 1 if any failed."""
+    checks = []
+    if set(names) & set(SOURCES):
+        checks.append(lambda: check_kernels(device, names))
     if "decoder_tail_rgb" in names:
         checks.append(lambda: check_tail_long(device))
+    if set(names) & set(TOOL_SOURCES):
+        checks.append(lambda: check_tools(device, names))
     failed = 0
     for check in checks:
         try:
@@ -1695,10 +1786,10 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     names = None
     if argv:
-        if len(argv) != 2 or argv[0] != "--kernels" or not set(argv[1].split(",")) <= set(
-                SOURCES):
+        known = set(SOURCES) | set(TOOL_SOURCES)
+        if len(argv) != 2 or argv[0] != "--kernels" or not set(argv[1].split(",")) <= known:
             print(f"usage: chip_smoke.py [--kernels NAME[,NAME...]], names from "
-                  f"{', '.join(SOURCES)}", file=sys.stderr)
+                  f"{', '.join(list(SOURCES) + list(TOOL_SOURCES))}", file=sys.stderr)
             return 2
         names = argv[1].split(",")
     if not torch.cuda.is_available():

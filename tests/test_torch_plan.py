@@ -499,3 +499,64 @@ def test_plan_refuses_empty_and_odd_shapes():
         plan.conv_plan_parity(1, 2, 0, 8, 128)
     for c in plan.ROW_CHANNELS:
         plan.check_row_channels(c)
+
+
+# -- the temporal microbenchmark's products (T1 dense, T2 mm temporal) -------
+
+TOOL_PLANS = {
+    # shape: (dense (bn, grid, stages, smem), T2's temporal (bn, grid))
+    (1, 9, 64, 64, 512): ((256, 576, 4, 197_696), (256, 576)),
+    (1, 20, 256, 256, 128): ((128, 10_240, 3, 99_376), (128, 10_240)),
+    (2, 5, 33, 33, 256): ((128, 172, 3, 99_376), (128, 172)),
+}
+
+
+@pytest.mark.parametrize("shape", list(cs.TOOL_SHAPES) + [cs.TOOL_PARTIAL])
+def test_tool_plans(shape):
+    """T1's dense plan (``[M, 3C] x [3C, C]``) and T2 ``mm``'s temporal
+    plan at the tools' shapes and the two-clip partial one: BN, grid,
+    stages and shared memory as the picks give them, within the H100's
+    limits, every output row in exactly one M tile (T2: per clip; M tiles
+    straddle frames where S % 128 != 0)."""
+    assert set(TOOL_PLANS) == set(cs.TOOL_SHAPES) | {cs.TOOL_PARTIAL}
+    b, t, h, w, c = shape
+    m = b * t * h * w
+    (bn, grid, stages, smem), (tbn, tgrid) = TOOL_PLANS[shape]
+    dense = plan.conv_plan_dense(m, 3 * c, c)
+    _check_limits(dense, c)
+    assert (dense.taps, dense.bn, dense.grid, dense.stages, dense.smem) == (
+        "dense", bn, grid, stages, smem)
+    assert dense.m_tiles == dense.tiles_x == -(-m // plan.BM)
+    (clip, r0), n0 = plan.tile_origin(dense, np.arange(0, dense.grid, dense.n_tiles))
+    assert (clip == 0).all() and (n0 == 0).all()
+    rr = r0[:, None] + np.arange(plan.BM)[None, :]
+    counts = np.zeros(m, np.int32)
+    _count(counts, rr[rr < m])
+    assert counts.min() == counts.max() == 1
+    temporal = plan.conv_plan_temporal(b, t, h * w, c)
+    _check_limits(temporal, c)
+    assert (temporal.bn, temporal.grid, temporal.stages) == (tbn, tgrid, plan.STAGES[tbn])
+    assert temporal.tiles_x == -(-t * h * w // plan.BM)
+    _, n0s = plan.tile_origin(dense, np.arange(dense.n_tiles))
+    assert sorted(n0s.tolist()) == list(range(0, c, dense.bn))
+
+
+@pytest.mark.parametrize("args,match", [
+    ((100, 96, 128), "Cin % 64"),
+    ((100, 384, 192), "Cout % 128"),
+    ((0, 384, 128), "empty"),
+    ((plan.ROW_COORD_LIMIT + 1, 384, 128), "row coordinate"),
+])
+def test_dense_plan_refusals(args, match):
+    with pytest.raises(ValueError, match=match):
+        plan.conv_plan_dense(*args)
+    assert plan.conv_plan_dense(plan.ROW_COORD_LIMIT, 384, 128).bn == 128
+
+
+def test_temporal_plan_refuses_a_clip_past_the_row_coordinate():
+    """A clip (with B's and F's 2-frame front) must stay inside TMA's
+    32-bit row coordinate."""
+    s = 2 ** 20
+    with pytest.raises(ValueError, match="row coordinate"):
+        plan.conv_plan_temporal(1, 2 ** 31 // s - 1, s, 128)
+    assert plan.conv_plan_temporal(1, 2 ** 31 // s - 3, s, 128).bn == 128

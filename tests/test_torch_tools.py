@@ -9,6 +9,7 @@ bf16, its own tolerance below.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -21,8 +22,9 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from vidtok_tpu.ops.pallas.fused_temporal import _ln_silu
+from vidtok_tpu_torch.ops.kernels import plan
 from vidtok_tpu_torch.ops.kernels.act import ln_silu_exact_f32
-from vidtok_tpu_torch.ops.kernels.fused_temporal import gemm_weight
+from vidtok_tpu_torch.ops.kernels.fused_temporal import gemm_weight, kmajor_weight
 from vidtok_tpu_torch.tools import microbench_temporal as TM
 from vidtok_tpu_torch.tools import probe_silu_bf16 as TP
 
@@ -35,6 +37,7 @@ import probe_silu_bf16 as PS  # noqa: E402  (the JAX tool)
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-4, atol=2e-4)
 SHAPE = (1, 5, 8, 8, 32)  # S = 64 positions: one tile_s = 64 grid step
+TWO_CLIPS = (2, 5, 8, 8, 32)  # no tap may reach into the other clip
 TILE_S = 64
 
 
@@ -100,8 +103,9 @@ def test_gemm_weight_layout():
     assert gemm_weight(w).dtype == torch.bfloat16
 
 
-def test_t1_fused_fat():
-    x, _, jp, tp = inputs(0)
+@pytest.mark.parametrize("shape", [SHAPE, TWO_CLIPS])
+def test_t1_fused_fat(shape):
+    x, _, jp, tp = inputs(0, shape)
     want = MT.fused_fat(jnp.asarray(x), jp, tile_s=TILE_S)
     calls, launches = TM.fused_fat.calls, TM.fused_fat.launches
     got = TM.fused_fat(torch.from_numpy(x), tp)
@@ -109,9 +113,10 @@ def test_t1_fused_fat():
     assert (TM.fused_fat.calls, TM.fused_fat.launches) == (calls + 1, launches)
 
 
+@pytest.mark.parametrize("shape", [SHAPE, TWO_CLIPS])
 @pytest.mark.parametrize("mode", ["copy", "mm", "ln"])
-def test_t2_fused_diag(mode):
-    x, _, jp, tp = inputs(1)
+def test_t2_fused_diag(mode, shape):
+    x, _, jp, tp = inputs(1, shape)
     want = MT.fused_diag(jnp.asarray(x), jp, tile_s=TILE_S, mode=mode)
     calls, launches = TM.fused_diag.calls, TM.fused_diag.launches
     got = TM.fused_diag(torch.from_numpy(x), tp, mode)
@@ -232,3 +237,199 @@ def test_tools_run_as_modules():
                            text=True, timeout=300)
         assert r.returncode == 0, r.stdout + r.stderr
         assert "host (cpu, plain version)" in r.stdout
+
+
+# -- CPU models of the card's walks (the kernels themselves run on the card) --
+
+def _row_walk(rows, c, t, s):
+    """(row, frame, channels) for every row a thread of the exact row passes
+    (``csrc/microbench_temporal.cu``) touches, as it walks: blocks of
+    ``plan.ROW_WARPS`` warps, a row on LPR lanes, RPT rows a thread RPW
+    apart, the frame of its first row by one division and then stepped."""
+    lpr, vpl, rpt = plan.ROW_LAYOUT[c]
+    rpw = 32 // lpr
+    per_block = plan.ROW_WARPS * rpw * rpt
+    for block in range(-(-rows // per_block)):
+        for warp in range(plan.ROW_WARPS):
+            for lane in range(32):
+                row0 = (block * plan.ROW_WARPS + warp) * rpw * rpt + lane // lpr
+                q = row0 // s
+                pos, f = row0 - q * s, q % t
+                for k in range(rpt):
+                    if k:
+                        pos += rpw
+                        while pos >= s:
+                            pos -= s
+                            f = (f + 1) % t
+                    row = row0 + k * rpw
+                    if row < rows:
+                        l = lane % lpr
+                        yield row, f, [8 * l + 8 * lpr * i + e for i in range(vpl)
+                                       for e in range(8)]
+
+
+def fat_rows_model(a, t, s):
+    """T1's fat-row pass on activated rows ``a`` ``[M, C]``: each row into
+    block 2 of its own row, block 1 of the next frame's, block 0 of the one
+    after, the blocks before frame 0 zeroed; NaN where nothing wrote."""
+    m, c = a.shape
+    fat = torch.full((m, 3 * c), float("nan"))
+    for row, f, ch in _row_walk(m, c, t, s):
+        assert f == (row // s) % t
+        ch = torch.tensor(ch)
+        fat[row, 2 * c + ch] = a[row, ch]
+        if f + 1 < t:
+            fat[row + s, c + ch] = a[row, ch]
+        if f + 2 < t:
+            fat[row + 2 * s, ch] = a[row, ch]
+        if f < 2:
+            fat[row, ch] = 0.0
+        if f < 1:
+            fat[row, c + ch] = 0.0
+    return fat
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 3, 3, 128), (1, 4, 1, 1, 64), (2, 3, 2, 5, 512),
+                                   (1, 3, 2, 2, 768)])
+def test_fat_rows_model_places_each_row(shape):
+    """The fat-row walk fills the whole operand exactly as ``_fat`` lays
+    it out, with several clips, frames shorter than a warp's rows (S = 1)
+    and each row layout of ``plan.ROW_LAYOUT``."""
+    b, t, h, w, c = shape
+    a = torch.randn(shape)
+    got = fat_rows_model(a.reshape(-1, c), t, h * w)
+    want = TM._fat(a).reshape(-1, 3 * c)
+    assert not torch.isnan(got).any()
+    assert torch.equal(got, want)
+
+
+def causal_conv_model(x, weight, pl):
+    """T2 ``mm``'s products as the ``kCausal`` loop reads them, tile by tile
+    of ``plan.conv_plan_temporal``'s plan: tap k of tile row r is row
+    r0 + r + (k - 2) S of the same clip, zero below row 0 (TMA's zero fill)
+    or past the clip; rows past the clip are not stored."""
+    b, t, h, w, c = x.shape
+    s = h * w
+    rows = x.reshape(b, t * s, c)
+    wk = kmajor_weight(weight, torch.float32)  # [C, 3C], the K-major operand
+    out = torch.full((b, t * s, c), float("nan"))
+    (clip, r0), n0 = plan.tile_origin(pl, np.arange(0, pl.grid, pl.n_tiles))
+    assert (n0 == 0).all()
+    r = torch.arange(plan.BM)
+    for cl, start in zip(clip.tolist(), r0.tolist()):
+        acc = torch.zeros(plan.BM, c)
+        for k in range(3):
+            src = start + r + (k - 2) * s
+            ok = (src >= 0) & (src < t * s)
+            tile = torch.zeros(plan.BM, c)
+            tile[ok] = rows[cl, src[ok]]
+            acc += tile @ wk[:, k * c:(k + 1) * c].t()
+        keep = start + r < t * s
+        out[cl, (start + r)[keep]] = acc[keep]
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 33, 33, 128), (2, 5, 3, 3, 128), (1, 4, 16, 16, 256)])
+def test_causal_model_matches_the_plain_mm(shape):
+    """T2 ``mm`` built from the ``kCausal`` reads (h rounded as the kernel
+    stores it, x added in the second epilogue) against
+    ``fused_diag_plain``: M tiles that straddle frames (S = 1089, 9), a
+    clip shorter than a tile, two clips, in f32."""
+    b, t, h, w, c = shape
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    tp = TM.params_from_jax(block_params(c, rng))
+    pl = plan.conv_plan_temporal(b, t, h * w, c)
+    hh = causal_conv_model(x, tp["conv1"][0], pl)
+    got = x + causal_conv_model(hh, tp["conv2"][0], pl)
+    want = TM.fused_diag_plain(x, tp, "mm")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_dense_model_matches_the_fat_product():
+    """T1's ``kDense`` product over ``conv_plan_dense``'s M tiles of the
+    fat operand (rows past M not stored) equals the plain fat product."""
+    b, t, h, w, c = 2, 5, 3, 3, 128
+    rng = np.random.RandomState(7)
+    a = torch.from_numpy(rng.randn(b, t, h, w, c).astype(np.float32))
+    weight = torch.from_numpy(rng.randn(c, c, 3).astype(np.float32) * 0.1)
+    fat = TM._fat(a).reshape(-1, 3 * c)
+    m = fat.shape[0]
+    pl = plan.conv_plan_dense(m, 3 * c, c)
+    (clip, r0), _ = plan.tile_origin(pl, np.arange(0, pl.grid, pl.n_tiles))
+    assert (clip == 0).all()
+    out = torch.full((m, c), float("nan"))
+    wk = kmajor_weight(weight, torch.float32)
+    for start in r0.tolist():
+        rows = torch.arange(start, min(start + plan.BM, m))
+        out[rows] = fat[rows] @ wk.t()
+    want = TM._tconv(a, weight).reshape(m, c)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), **TOL)
+
+
+def row_stats_model(x, lpr):
+    """The exact two-pass statistics of ``row_stats_exact`` (``common.cuh``)
+    over rows ``x`` ``[R, C]`` in f32: lane l sums channels 8l + 8 LPR i + e
+    in order, the lanes' sums reduced by xor shuffles over LPR lanes; the
+    mean, then the mean of squared deviations. Returns (mu, rs), each
+    ``[R, LPR]``: every lane's copy."""
+    x = x.astype(np.float32)
+    r, c = x.shape
+    vpl = c // (8 * lpr)
+    lanes = x.reshape(r, vpl, lpr, 8).transpose(0, 2, 1, 3).reshape(r, lpr, 8 * vpl)
+
+    def reduce(v):
+        s = np.zeros((r, lpr), np.float32)
+        for j in range(v.shape[-1]):
+            s = s + v[..., j]
+        o = lpr // 2
+        while o:
+            s = s + s[:, np.arange(lpr) ^ o]
+            o //= 2
+        return s
+
+    mu = reduce(lanes) / np.float32(c)
+    d = reduce((lanes - mu[..., None]) ** 2)
+    rs = np.float32(1) / np.sqrt(d / np.float32(c) + np.float32(1e-6))
+    return mu, rs
+
+
+@pytest.mark.parametrize("c", sorted(plan.ROW_LAYOUT))
+def test_row_stats_model_matches_ln_silu_exact(c):
+    """The exact statistics split over LPR lanes (every lane of a row with
+    the same pair) give ``ln_silu_exact_f32`` at each row layout, on rows
+    whose mean is far from 0 (the two-pass form's case)."""
+    rng = np.random.RandomState(c)
+    x = (rng.randn(6, c) * 3 + 40).astype(np.float32)
+    g = (1 + 0.2 * rng.randn(c)).astype(np.float32)
+    b = (0.1 * rng.randn(c)).astype(np.float32)
+    lpr = plan.ROW_LAYOUT[c][0]
+    mu, rs = row_stats_model(x, lpr)
+    assert (mu == mu[:, :1]).all() and (rs == rs[:, :1]).all()
+    y = (x - mu[:, :1]) * rs[:, :1] * g + b
+    got = y / (1 + np.exp(-y))
+    want = ln_silu_exact_f32(*(torch.from_numpy(v) for v in (x, g, b))).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_row_layout_matches_the_source():
+    """``plan.ROW_LAYOUT`` is ``common.cuh``'s VT_ROW_LAYOUTS, which every
+    row pass (``act_rows_kernel``, T1's and T2's exact passes) launches
+    with; LPR = min(C / 8, 32), the lanes a row fills."""
+    src = open(os.path.join(ROOT, "vidtok_tpu_torch", "csrc", "common.cuh")).read()
+    macro = src[src.index("#define VT_ROW_LAYOUTS"):]
+    macro = macro[:macro.index("\n\n")]
+    cases = re.findall(r"case (\d+): CASE\((\d+), (\d+), (\d+)\)", macro)
+    got = {8 * int(n): tuple(int(v) for v in lvr) for n, *lvr in cases}
+    assert got == plan.ROW_LAYOUT
+    for c, (lpr, vpl, _) in plan.ROW_LAYOUT.items():
+        assert lpr == min(c // 8, 32) and 8 * lpr * vpl == c
+
+
+def test_no_wmma_loop_left():
+    """T1 and T2 run the TMA + wgmma loop: no source of the port uses the
+    older ``wmma`` loop."""
+    csrc = os.path.join(ROOT, "vidtok_tpu_torch", "csrc")
+    for name in os.listdir(csrc):
+        text = open(os.path.join(csrc, name)).read()
+        assert "wmma::" not in text and "igemm" not in text, name

@@ -14,7 +14,8 @@
 // ln_silu_exact_f32 and row_stats_exact are the exact form of
 // vidtok_tpu/ops/pallas/fused_temporal.py:32 _ln_silu (the mean, then the
 // mean of squared deviations, y * sigmoid(y), all in f32), which the
-// temporal microbenchmark's kernels compute (microbench_temporal.cu).
+// temporal microbenchmark's row passes compute (microbench_temporal.cu) in
+// act_rows_kernel's layout.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,11 +40,15 @@ __device__ __forceinline__ float ln_silu(float x, float mu, float rs, float g,
 }
 
 // The exact form, vidtok_tpu/ops/pallas/fused_temporal.py:32 _ln_silu:
-// affine, then y * sigmoid(y), all in f32; (mu, rs) from row_stats_exact.
+// affine, then y * sigmoid(y) = y / (1 + exp(-y)), all in f32; (mu, rs) from
+// row_stats_exact. The exp and the division are the SFU's (ex2 and rcp,
+// each within 2 ulp of f32: far inside the bf16 the value is rounded to);
+// an IEEE division would add about 8 instructions a value to passes the
+// issue rate already bounds. For y < -87 the exp is inf and the value -0.
 __device__ __forceinline__ float ln_silu_exact_f32(float x, float mu, float rs,
                                                    float g, float b) {
   const float y = (x - mu) * rs * g + b;
-  return y / (1.f + __expf(-y));
+  return __fdividef(y, 1.f + __expf(-y));
 }
 
 __device__ __forceinline__ uint4 ld_u4(const __nv_bfloat16* p) {
@@ -68,33 +73,47 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// (mean, rsqrt(mean((x - mean)^2) + eps)) in f32, two passes, of a row that
-// one warp holds in registers: lane l has v[i][e] = channel 256i + 8l + e;
-// channels >= C are ignored. Every lane gets the pair.
-template <int NV>
-__device__ __forceinline__ float2 row_stats_exact(const float (&v)[NV][8], int C,
-                                                  int lane) {
+// (mean, rsqrt(mean((x - mean)^2) + eps)) in f32, two passes, of a row of
+// C = 8 * LPR * VPL channels held by LPR neighbouring lanes (the row passes'
+// layout: lane l of the row has v[i][e] = channel 8l + 8 LPR i + e), each
+// sum reduced over those lanes by xor shuffles; every lane of the row gets
+// the pair. The whole warp must call it.
+template <int LPR, int VPL>
+__device__ __forceinline__ float2 row_stats_exact(const float (&v)[VPL][8]) {
+  constexpr int C = 8 * LPR * VPL;
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < NV; ++i)
-    if (256 * i + 8 * lane < C)
+  for (int i = 0; i < VPL; ++i)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) s += v[i][e];
-  const float mu = warp_sum(s) / C;
+    for (int e = 0; e < 8; ++e) s += v[i][e];
+#pragma unroll
+  for (int o = LPR / 2; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  const float mu = s / C;
   float d = 0.f;
 #pragma unroll
-  for (int i = 0; i < NV; ++i)
-    if (256 * i + 8 * lane < C)
+  for (int i = 0; i < VPL; ++i)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) d += (v[i][e] - mu) * (v[i][e] - mu);
-  return make_float2(mu, rsqrtf(warp_sum(d) / C + kLnEps));
+    for (int e = 0; e < 8; ++e) d += (v[i][e] - mu) * (v[i][e] - mu);
+#pragma unroll
+  for (int o = LPR / 2; o; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+  return make_float2(mu, rsqrtf(d / C + kLnEps));
 }
+
+// The row passes' layout of C channels (ops/kernels/plan.py: ROW_LAYOUT):
+// CASE(LPR, VPL, RPT) for C in plan.ROW_CHANNELS, nothing for another C. A
+// row takes LPR = min(C/8, 32) lanes, VPL 16-byte vectors of 8 channels a
+// lane, and a thread RPT rows, loaded before any is reduced.
+#define VT_ROW_LAYOUTS(C, CASE)  \
+  if ((C) % 8 == 0) {            \
+    switch ((C) / 8) {           \
+      case 8: CASE(8, 1, 4)      \
+      case 16: CASE(16, 1, 4)    \
+      case 32: CASE(32, 1, 4)    \
+      case 64: CASE(32, 2, 2)    \
+      case 96: CASE(32, 3, 1)    \
+      case 128: CASE(32, 4, 1)   \
+    }                            \
+  }
 
 // The front of a temporal scratch (act_rows_kernel's stream form): the
 // cache's rows as they are (kernel F after its first chunk), LN+SiLU of src
@@ -214,9 +233,8 @@ static __global__ void __launch_bounds__(256)
   }
 }
 
-// act_rows_kernel over ``rows`` rows of C channels, C in {64, 128, 256, 512,
-// 768, 1024} (ops/kernels/plan.py: ROW_CHANNELS); cudaErrorInvalidValue for
-// another C.
+// act_rows_kernel over ``rows`` rows of C channels in VT_ROW_LAYOUTS's
+// layout; cudaErrorInvalidValue for another C.
 template <bool STREAM>
 static inline int launch_act_rows(const RowArgs& a, long long rows, int C, cudaStream_t s) {
 #define VT_ACT_ROWS(L, V, R)                                                              \
@@ -226,14 +244,7 @@ static inline int launch_act_rows(const RowArgs& a, long long rows, int C, cudaS
         a, rows, C);                                                                      \
     return (int)cudaGetLastError();                                                       \
   }
-  if (C % 8 == 0) switch (C / 8) {
-      case 8: VT_ACT_ROWS(8, 1, 4)
-      case 16: VT_ACT_ROWS(16, 1, 4)
-      case 32: VT_ACT_ROWS(32, 1, 4)
-      case 64: VT_ACT_ROWS(32, 2, 2)
-      case 96: VT_ACT_ROWS(32, 3, 1)
-      case 128: VT_ACT_ROWS(32, 4, 1)
-    }
+  VT_ROW_LAYOUTS(C, VT_ACT_ROWS)
 #undef VT_ACT_ROWS
   return (int)cudaErrorInvalidValue;
 }

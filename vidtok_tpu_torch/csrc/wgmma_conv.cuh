@@ -1,7 +1,8 @@
 // Implicit-GEMM conv for Hopper: a warp-specialised ring of TMA loads
 // feeding wgmma, used by kernel A (3x3 spatial taps, fused_spatial.cu),
 // kernels B and F (k=3 temporal taps over a scratch with a 2-frame front,
-// temporal_block.cuh) and kernel E (2 frames x 3x3 taps, parity_upsample.cu):
+// temporal_block.cuh), kernel E (2 frames x 3x3 taps, parity_upsample.cu)
+// and the temporal microbenchmark's T1 and T2 (microbench_temporal.cu):
 //
 //   out[m, n] = bf16( bias[n] + res[m, n]
 //                     + sum_{tap, c} a[src(m, tap), c] * w[n, tap*Cin + c]
@@ -22,6 +23,16 @@
 // an M tile is 128 consecutive rows of one clip and tap k is the same box
 // k*S rows on, so every tap reads a real frame. Rows past a clip's end read
 // zeros; their outputs are not stored.
+// kCausal (the temporal microbenchmark's T2 ``mm``): kTemporal's taps over
+// an unpadded [B, T * S, Cin] clip: tap k of row r reads row r + (k - 2) * S
+// of the same clip, and TMA's zero fill below row 0 is the zero-mode front,
+// so nothing is copied to make one. A box may start below row 0 (an M tile
+// that straddles frame 0's start, or a whole box before it) and is filled
+// row by row; the clip is a map dimension of its own, so no tap reads the
+// previous clip.
+// kDense (the microbenchmark's T1): one tap over a 2-D map of an explicit
+// [M, K] operand, K-major like the weights; an M tile is 128 consecutive
+// rows. It walks as one kTemporal clip of T = 1 frame of S = M rows.
 // kParity (kernel E): ``a`` is the raw input s [B, T, H, W, C], a 5-D map
 // {C, W, H, T, B}; an M tile is a th x tw patch of frame t of clip b, and
 // tap (f, dy, dx), f = 0 for frame t-1 and 1 for frame t, is the box at
@@ -45,8 +56,11 @@
 // through the (then idle) ring: accumulators to an f32 tile in shared
 // memory, then whole rows with the bias and the residual added, rounded to
 // bf16, in 16-byte stores; positions outside the frame or past the clip
-// are not stored (kParity: written to the parity's frame). Offsets that
-// can pass 2^31 are 64-bit.
+// are not stored (kParity: written to the parity's frame). kCausal and
+// kDense take a null bias (none added), and kDense writes bias + acc (+ res)
+// in f32 to ``outf`` when it is not null. Their branches are ``if
+// constexpr`` on the tap set, so A, B, E and F compile as before. Offsets
+// that can pass 2^31 are 64-bit.
 //
 // The plan (patch, BN in {128, 256}, stages, shared memory, grid) comes
 // from ops/kernels/plan.py, which the CPU tests check; launch_conv refuses
@@ -68,7 +82,7 @@
 namespace vt {
 namespace wg {
 
-enum Taps { kSpatial = 0, kTemporal = 1, kParity = 2 };
+enum Taps { kSpatial = 0, kTemporal = 1, kParity = 2, kCausal = 3, kDense = 4 };
 
 constexpr int BM = 128, BK = 64;
 constexpr int kConsumers = 2;
@@ -78,22 +92,23 @@ constexpr int kErrNoEncoder = 1001, kErrEncode = 1002, kErrPlan = 1003;
 __host__ __device__ constexpr int stage_bytes(int bn) { return kTileA + bn * BK * 2; }
 
 struct Params {
-  const float* bias;         // [Cout]
+  const float* bias;         // [Cout]; kCausal, kDense: or null
   const __nv_bfloat16* res;  // [M, Cout] residual, or null; kParity: s [M, Cout / 2]
   __nv_bfloat16* out;        // [M, Cout]; kParity: [2M, Cout / 2]
   const float* alpha;        // kParity: the blend weight
   int H, W;                  // kSpatial, kParity: the frame
-  int T, S;                  // kTemporal: output frames per clip, rows per frame;
-                             // kParity: T frames per clip
+  int T, S;                  // kTemporal, kCausal: output frames per clip, rows
+                             // per frame; kParity: T frames per clip; kDense: 1, M
   int replicate;             // kParity: the front at t = 0 is frame 0 (else zeros)
   int th, tw;                // kSpatial, kParity: the patch of an M tile
   int tiles_x, tiles_y;      // kSpatial, kParity: patches per frame row / column;
-                             // kTemporal: tiles_x = M tiles per clip
+                             // kTemporal, kCausal, kDense: tiles_x = M tiles per clip
   int n_tiles;               // Cout / BN
   int Cout;
   int cin_steps;             // Cin / BK: K steps per tap
   int k_main, k_total;       // K steps of the taps; with the 1x1 term
   int stages;
+  float* outf;               // kDense: [M, Cout] f32 in place of out, or null
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -284,9 +299,10 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
   const int n0 = (blockIdx.x % p.n_tiles) * BN;
   const int mt = blockIdx.x / p.n_tiles;
   int x0 = 0, y0 = 0, img = 0;  // kSpatial, kParity: patch origin and frame
-  int r0 = 0, clip = 0;         // kTemporal: first row within the clip; clip
+  int r0 = 0, clip = 0;         // kTemporal, kCausal, kDense: first row within
+                                // the clip; clip
   int t = 0;                    // kParity: frame within the clip
-  if (TAPS != kTemporal) {
+  if constexpr (TAPS == kSpatial || TAPS == kParity) {
     const int q = mt / p.tiles_x;
     x0 = (mt - q * p.tiles_x) * p.tw;
     img = q / p.tiles_y;
@@ -326,15 +342,19 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
         if (ks < p.k_main) {
           const int tap = ks / p.cin_steps;
           const int c = (ks - tap * p.cin_steps) * BK;
-          if (TAPS == kSpatial) {
+          if constexpr (TAPS == kSpatial) {
             tma_4d(dst, &map_a, bar, c, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img);
-          } else if (TAPS == kParity) {
+          } else if constexpr (TAPS == kParity) {
             const int st = tap % 9;
             int f = t - 1 + tap / 9;  // taps 0-8 frame t-1, 9-17 frame t
             if (f < 0 && p.replicate) f = 0;
             tma_5d(dst, &map_a, bar, c, x0 + st % 3 - 1, y0 + st / 3 - 1, f, clip);
-          } else {
+          } else if constexpr (TAPS == kTemporal) {
             tma_3d(dst, &map_a, bar, c, r0 + tap * p.S, clip);
+          } else if constexpr (TAPS == kCausal) {
+            tma_3d(dst, &map_a, bar, c, r0 + (tap - 2) * p.S, clip);  // < 0: zeros
+          } else {
+            tma_2d(dst, &map_a, bar, c, r0);  // kDense: one tap, c runs over K
           }
         } else {
           tma_4d(dst, &map_x, bar, (ks - p.k_main) * BK, x0, y0, img);
@@ -396,15 +416,16 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
     // bf16 out
     constexpr int TPR = BN / 8, RPP = 128 / TPR;
     const int col = (tid % TPR) * 8;
+    const bool has_bias = TAPS <= kParity || p.bias != nullptr;  // A, B, E, F: always
     float bias[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) bias[e] = p.bias[n0 + col + e];
+    for (int e = 0; e < 8; ++e) bias[e] = has_bias ? p.bias[n0 + col + e] : 0.f;
     // kParity: this N tile's parity and channels, and the blend weight
     const int half = p.Cout / 2, par = n0 >= half, c0 = n0 - par * half + col;
     const float alpha = TAPS == kParity ? *p.alpha : 0.f;
     for (int r = wg * 64 + tid / TPR; r < wg * 64 + 64; r += RPP) {
       long long m;
-      if (TAPS != kTemporal) {
+      if constexpr (TAPS == kSpatial || TAPS == kParity) {
         const int y = y0 + r / p.tw, x = x0 + r % p.tw;
         if (y >= p.H || x >= p.W) continue;
         m = ((long long)img * p.H + y) * p.W + x;
@@ -435,6 +456,14 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
         unpack8(ld_u4(p.res + off), rv);
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] += rv[e];
+      }
+      if constexpr (TAPS == kDense) {
+        if (p.outf != nullptr) {  // f32, unrounded: T1's h, read by its second LN
+          float4* o = reinterpret_cast<float4*>(p.outf + off);
+          o[0] = make_float4(v[0], v[1], v[2], v[3]);
+          o[1] = make_float4(v[4], v[5], v[6], v[7]);
+          continue;
+        }
       }
       *reinterpret_cast<uint4*>(p.out + off) = pack8(v);
     }
@@ -519,7 +548,8 @@ static inline int temporal_map(CUtensorMap* map, const void* a, int B, long long
   return encode_map(map, a, 3, dims, box);
 }
 
-// The map of a K-major weight [Cout, K] for loads of BN rows x 64 channels.
+// The map of a K-major weight [Cout, K] for loads of BN rows x 64 channels;
+// with bn = BM, of kDense's operand [M, K] (rows < 2^31).
 static inline int weight_map(CUtensorMap* map, const void* w, int K, int Cout, int bn) {
   const unsigned long long dims[2] = {(unsigned long long)K, (unsigned long long)Cout};
   const unsigned box[2] = {BK, (unsigned)bn};
@@ -539,7 +569,8 @@ static inline int launch_conv(const CUtensorMap& map_a, const CUtensorMap& map_w
   const int epilogue = BM * (bn + 8) * 4;
   if ((bn != 128 && bn != 256) || p.stages < 2 || smem < smem_needed(bn, p.stages) ||
       p.stages * stage_bytes(bn) < epilogue || p.Cout != p.n_tiles * bn || grid <= 0 ||
-      (TAPS == kParity && (p.Cout / 2) % bn != 0))
+      (TAPS == kParity && (p.Cout / 2) % bn != 0) ||
+      ((TAPS == kCausal || TAPS == kDense) && p.k_total != p.k_main))
     return kErrPlan;
   auto kernel = bn == 256 ? conv_kernel<TAPS, 256> : conv_kernel<TAPS, 128>;
   cudaError_t e =

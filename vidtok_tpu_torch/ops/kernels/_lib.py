@@ -9,13 +9,14 @@ the sources and flags, so an edited source rebuilds and an unchanged one
 is loaded as it is. A failed build raises. Nothing here runs at import.
 
 Every C entry launches on the stream it is given, allocates nothing and
-returns ``cudaGetLastError()`` (or, for the wgmma loop of kernels A, B, E
-and F and the tail of D and D', a refused tensor map or plan); :func:`call`
-raises when that is not 0.
+returns ``cudaGetLastError()`` (or, for the wgmma loop of kernels A, B, E,
+F, T1 and T2 and the tail of D and D', a refused tensor map or plan);
+:func:`call` raises when that is not 0.
 
-:func:`operands` caches the weights of A, B, D, D', E and F as their
-kernels read them, per parameter; :func:`weight_map` encodes the tensor map of such a
-weight for the wgmma loop.
+:func:`operands` caches the weights of A, B, D, D', E and F (and of B's
+parts, T1 and T2) as their kernels read them, per parameter;
+:func:`weight_map` encodes the tensor map of such a weight for the wgmma
+loop.
 """
 
 from __future__ import annotations
@@ -65,10 +66,12 @@ _SIGNATURES = {
     # the tools' kernels (vidtok_tpu_torch/tools):
     # x, out, B, T, S, C, tile_t, tile_s, stream
     "vt_copy_units": [_P] * 2 + [_I] * 6 + [_P],
-    # x, out, h, g1, b1, w1, g2, b2, w2, zero_bias, B, T, S, C, mode, stream
-    "vt_microbench_diag": [_P] * 10 + [_I] * 5 + [_P],
-    # x, out, fat, h, g1, b1, w1, bias1, g2, b2, w2, bias2, B, T, S, C, stream
-    "vt_microbench_fat": [_P] * 12 + [_I] * 4 + [_P],
+    # x, out, h, g1, b1, w1 map, g2, b2, w2 map, B, T, S, C, mode, bn,
+    # stages, smem, grid, stream
+    "vt_microbench_diag": [_P] * 9 + [_I] * 9 + [_P],
+    # x, out, fat, h, g1, b1, w1 map, bias1, g2, b2, w2 map, bias2, B, T, S,
+    # C, bn, stages, smem, grid, stream
+    "vt_microbench_fat": [_P] * 12 + [_I] * 8 + [_P],
     # x, out, n, mode, stream
     "vt_silu_probe": [_P] * 2 + [ctypes.c_longlong, _I, _P],
     # w [Cout, K], K, Cout, bn, map (128 bytes, written); no stream

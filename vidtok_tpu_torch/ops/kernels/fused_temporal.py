@@ -40,9 +40,10 @@ def _tconv3(a, weight, mode):
 
 
 def gemm_weight(weight, dtype=torch.bfloat16):
-    """Conv1d weight ``[Co, Ci, k]`` -> the wmma loop's GEMM operand
-    ``[(k, ci), co]``, tap-major, contiguous, in ``dtype`` (the tools' T1
-    and T2)."""
+    """Conv1d weight ``[Co, Ci, k]`` -> ``[(k, ci), co]``, tap-major,
+    contiguous, in ``dtype``: the right factor of the fat product
+    ``[a(t-2) | a(t-1) | a(t)] @ w`` of the tools' plain T1 and T2, the
+    transpose of :func:`kmajor_weight`."""
     return weight.permute(2, 1, 0).reshape(-1, weight.shape[0]).to(dtype).contiguous()
 
 
@@ -63,6 +64,14 @@ def temporal_operands(w1, g1, b1, bias1, g2, b2, w2, bias2) -> dict:
             "maps": {}}
 
 
+def block_operands(norm1, conv1, norm2, conv2) -> dict:
+    """A block's ``temporal_operands``, built once per parameter
+    (``_lib.operands``): one entry per block, which B, F and the temporal
+    microbenchmark's T1 and T2 all read."""
+    return _lib.operands("fused_temporal_resblock",
+                         (conv1[0], *norm1, conv1[1], *norm2, *conv2), temporal_operands)
+
+
 def _block_operands(name, norm1, conv1, norm2, conv2, x) -> tuple:
     """(operands, plan, weight maps) of kernel ``name`` (B or F) for x
     ``[B, t, H, W, C]``: the plan's refusals first, then the device, dtype,
@@ -74,8 +83,7 @@ def _block_operands(name, norm1, conv1, norm2, conv2, x) -> tuple:
     for cw in (conv1[0], conv2[0]):
         if tuple(cw.shape) != (c, c, 3):
             raise ValueError(f"kernel {name} takes two causal k=3 convs C->C")
-    op = _lib.operands("fused_temporal_resblock",
-                       (conv1[0], *norm1, conv1[1], *norm2, *conv2), temporal_operands)
+    op = block_operands(norm1, conv1, norm2, conv2)
     for k, v in op.items():
         if k != "maps":
             _lib.same_device(v, x)

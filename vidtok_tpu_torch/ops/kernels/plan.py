@@ -1,9 +1,11 @@
 """Tile plans of the wgmma implicit-GEMM conv (``csrc/wgmma_conv.cuh``)
 and of the decoder tail (``csrc/decoder_tail.cu``).
 
-Kernels A, B, E and F launch that loop with a plan made here from the call's
-shape, so the shapes stay where the CPU tests reach them: the patch of an
-M tile, BN, the ring's stages, the shared memory and the grid. Kernels D
+Kernels A, B, E and F, and the temporal microbenchmark's T1 and T2
+(``tools/microbench_temporal.py``), launch that loop with a plan made here
+from the call's shape, so the shapes stay where the CPU tests reach them:
+the patch of an M tile, BN, the ring's stages, the shared memory and the
+grid. Kernels D
 and D' launch the tail with :func:`tail_plan`'s patch, run of frames,
 stages, shared memory and grid. Each C entry takes the plan as it is and
 refuses one it cannot run. :func:`tile_origin` and :func:`tail_block`
@@ -25,9 +27,16 @@ SMEM_LIMIT = 232_448               # bytes of shared memory a block can use
 SMEM_PER_SM = 233_472              # of an SM, 1 KB of it reserved per block
 SMS = 132                          # streaming multiprocessors of an H100
 GRID_LIMIT = 2 ** 31 - 1
-# Channel counts the row pass (act_rows_kernel) takes: C / 8 lanes' worth
-# of 16-byte vectors spread over at most a warp.
-ROW_CHANNELS = (64, 128, 256, 512, 768, 1024)
+# The row passes' layout (common.cuh: VT_ROW_LAYOUTS; act_rows_kernel and
+# the microbenchmark's exact passes): C -> (LPR lanes a row, VPL 16-byte
+# vectors of 8 channels a lane, RPT rows a thread). LPR = min(C / 8, 32).
+ROW_LAYOUT = {64: (8, 1, 4), 128: (16, 1, 4), 256: (32, 1, 4), 512: (32, 2, 2),
+              768: (32, 3, 1), 1024: (32, 4, 1)}
+ROW_CHANNELS = tuple(ROW_LAYOUT)  # the channel counts the row passes take
+ROW_WARPS = 8                     # warps of a row pass's 256-thread block
+# TMA's row coordinate is a signed 32-bit int: the rows of one clip
+# (temporal) or of a dense operand, plus a tile, must stay below 2^31.
+ROW_COORD_LIMIT = 2 ** 31 - 1 - BM
 
 
 @dataclass(frozen=True)
@@ -122,21 +131,39 @@ def conv_plan_parity(b: int, t: int, h: int, w: int, c: int) -> ConvPlan:
 @functools.lru_cache(maxsize=None)
 def conv_plan_temporal(b: int, t: int, s: int, c: int) -> ConvPlan:
     """A k=3 time conv of ``b`` clips of ``t`` output frames of ``s`` rows,
-    C -> C, over a scratch of ``t + 2`` frames per clip."""
+    C -> C: over a scratch of ``t + 2`` frames per clip (B, F), or over the
+    clips themselves, the zero front from TMA's zero fill (T2 ``mm``)."""
     _check_channels(c, c)
     if min(b, t, s) < 1:
         raise ValueError(f"empty clips: {(b, t, s)}")
+    if (t + 2) * s > ROW_COORD_LIMIT:
+        raise ValueError(f"a clip of {(t + 2) * s} rows passes TMA's row coordinate")
     per_clip = -(-t * s // BM)
     return _plan("temporal", 1, BM, per_clip, 1, b * per_clip, c)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan_dense(m: int, k: int, cout: int) -> ConvPlan:
+    """A dense product ``[m, k] x [k, cout]`` (T1's fat product: k = 3C),
+    in M tiles of BM consecutive rows: the temporal walk over one clip of
+    ``m`` rows."""
+    _check_channels(k, cout)
+    if m < 1:
+        raise ValueError(f"empty product: {m} rows")
+    if m > ROW_COORD_LIMIT:
+        raise ValueError(f"{m} rows pass TMA's row coordinate")
+    m_tiles = -(-m // BM)
+    return _plan("dense", 1, BM, m_tiles, 1, m_tiles, cout)
 
 
 def tile_origin(plan: ConvPlan, block: int) -> tuple:
     """(M tile origin, first output column) of block ``block``, as the
     kernel decodes ``blockIdx.x``: spatial and parity ``(frame, y0, x0)``
-    (parity: frame ``b * t + a`` of the input), temporal ``(clip, r0)``."""
+    (parity: frame ``b * t + a`` of the input), temporal and dense
+    ``(clip, r0)`` (dense: clip 0)."""
     n0 = (block % plan.n_tiles) * plan.bn
     mt = block // plan.n_tiles
-    if plan.taps != "temporal":
+    if plan.taps in ("spatial", "parity"):
         q, tx = divmod(mt, plan.tiles_x)
         img, ty = divmod(q, plan.tiles_y)
         return (img, ty * plan.th, tx * plan.tw), n0

@@ -13,7 +13,11 @@ checkout's kernels and measures, with ``chip_smoke``'s own functions:
   forward (``chip_smoke.kernel_cases``);
 * the request latency, s: ``chip_smoke.N_REQUESTS`` requests of
   ``REQUEST`` on the v1.0 kernel path and of ``TILED_REQUEST`` on the
-  tiled v1.1 kernel path (``chip_smoke.serve``), the best after the first.
+  tiled v1.1 kernel path (``chip_smoke.serve``), the best after the first;
+* the temporal microbenchmark's rows of kernel B, T1 and T2 (``v0
+  shipped``, ``v1 fat``, ``v2 mm-only``, ``v3 ln-only``), ms per call, at
+  each of ``chip_smoke.TOOL_RUNS`` (the tool's ``main``: median, L2
+  flushed).
 
 Prints one JSON line per run, then a table of the runs side by side with
 each run's ratio to the first name's mean. Needs a CUDA card.
@@ -30,6 +34,7 @@ KERNELS = ("fused_spatial_resblock", "fused_temporal_resblock", "subpixel_interl
            "decoder_tail_rgb", "parity_up2x_fused", "fused_temporal_resblock_stream",
            "decoder_tail_rgb_taps")
 PATHS = ("v1_0", "v1_1", "tiled", "v1_0_forms", "tiled_forms")
+TOOL_ROWS = ("v0 shipped", "v1 fat", "v2 mm-only", "v3 ln-only")
 
 # What each run executes, from the root of its checkout.
 CHILD = r'''
@@ -43,7 +48,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 dev = torch.device("cuda", 0)
 _lib.library()
-kernels, paths = json.loads(sys.argv[1])
+kernels, paths, TOOL_ROWS = json.loads(sys.argv[1])
 per = defaultdict(lambda: defaultdict(float))
 for case in cs.kernel_cases(dev):
     if case.name in kernels and any(case.calls.get(p, 0) for p in paths):
@@ -65,12 +70,19 @@ tok = cs.make_tokenizer(cs.V1_1_CFG, dev)
 tok.use_tiling, tok.use_overlap = True, True
 out["tiled_latency_s"] = cs.serve(tok, cs.N_REQUESTS, cs.TILED_REQUEST,
                                   cs.tiled_per_forward(cs.TILED_REQUEST[2]))["latency_s"]
+del tok
+torch.cuda.empty_cache()
+from vidtok_tpu_torch.tools import microbench_temporal as tm
+out["tool_ms"] = {" ".join(argv): {r["name"]: r["ms"] for r in tm.main(argv)
+                                   if r["name"] in TOOL_ROWS}
+                  for argv in cs.TOOL_RUNS}
 print("AB " + json.dumps(out), flush=True)
 '''
 
 
 def run(directory: str) -> dict:
-    proc = subprocess.run([sys.executable, "-c", CHILD, json.dumps([KERNELS, PATHS])],
+    proc = subprocess.run([sys.executable, "-c", CHILD,
+                           json.dumps([KERNELS, PATHS, TOOL_ROWS])],
                           cwd=directory, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"run in {directory} failed:\n{proc.stdout[-4000:]}"
@@ -90,6 +102,9 @@ def rows(result: dict) -> dict:
                 out[f"{name} {path} ms/fwd"] = v
     for key in ("v1_0_latency_s", "tiled_latency_s"):
         out[key] = min(result[key][1:])
+    for argv, per in result["tool_ms"].items():
+        for name in TOOL_ROWS:
+            out[f"{name} [{argv}] ms"] = per[name]
     return out
 
 

@@ -11,10 +11,17 @@ the two LN+SiLU passes alone, the copy alone), each with its bound and the
 share of it reached. Then ``v1 == v0`` within 3e-2: v0 takes the fast
 LN+SiLU, v1 the exact one.
 
-Kernels: ``csrc/microbench_temporal.cu``. T1's and T2's products run the
-wmma loop (``csrc/igemm_conv.cuh``); kernel B runs the wgmma loop
-(``csrc/wgmma_conv.cuh``), so T2's ``mm`` row times the older loop on B's
-products, not B's own. Each wrapper runs its plain
+Kernels: ``csrc/microbench_temporal.cu``. T1's and T2's products run
+kernel B's own loop, the TMA + wgmma implicit GEMM of
+``csrc/wgmma_conv.cuh``, with B's weight operands and tensor maps
+(``_lib.operands``, one entry per block, shared with B): T2's ``mm`` row
+(tap set ``kCausal``, ``plan.conv_plan_temporal``) times B's two products
+as B runs them, its zero front read from TMA's zero fill; T1's (tap set
+``kDense``, ``plan.conv_plan_dense``) two dense ``[M, 3C] x [3C, C]``
+products over an explicit fat operand. T1's fat-row pass and T2's ``ln``
+run whole-warp exact row passes in ``act_rows_kernel``'s layout
+(``plan.ROW_LAYOUT``), so T2's ``ln`` row times the row pass B uses with
+the exact statistics in place of the fast ones. Each wrapper runs its plain
 PyTorch version for a CPU tensor and its kernel for a CUDA tensor (or
 raises), and counts ``calls`` and ``launches``. One deliberate divergence:
 JAX's grids (``s // tile_s``, ``t // tile_t``) leave a non-dividing tile's
@@ -29,9 +36,10 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.kernels import _lib
+from ..ops.kernels import _lib, plan
 from ..ops.kernels.act import ln_silu_exact_f32
-from ..ops.kernels.fused_temporal import fused_temporal_resblock, gemm_weight
+from ..ops.kernels.fused_temporal import (block_operands, fused_temporal_resblock,
+                                          gemm_weight)
 from . import Timer, bound_ms, parse_args, report
 
 DIAG_MODES = {"copy": 0, "mm": 1, "ln": 2}
@@ -42,7 +50,6 @@ COPY_TILINGS = (("copy min128", 128, None), ("copy min256", 256, None),
 # (row name, mode) of fused_diag's rows, as the JAX tool's main
 DIAG_ROWS = (("v2 mm-only", "mm"), ("v3 ln-only", "ln"), ("v4 copy-only", "copy"))
 V1_V0_ATOL = 3e-2
-MAX_ROW_C = 1024  # the row kernels hold a position's channels in registers
 
 
 def params_from_jax(params, device="cpu") -> dict:
@@ -113,20 +120,15 @@ def copy_min_plain(x, tile_s: int = 128, tile_t: int = None):
     return out
 
 
-def _check_clip(x, params=None, gemm=False, rows=False) -> None:
+def _check_clip(x, params=None) -> None:
     """Raise unless x is a contiguous bf16 CUDA ``[B, T, H, W, C]`` with
-    C % 8 == 0 (``gemm``: C % 128 == 0, ``rows``: C <= MAX_ROW_C), and
-    ``params`` (if given) the block's at C on x's device."""
+    C % 8 == 0, and ``params`` (if given) the block's at C on x's device."""
     if x.dim() != 5:
         raise ValueError(f"x must be [B, T, H, W, C], got {tuple(x.shape)}")
     _lib.require(x, torch.bfloat16, x.shape)
     c = x.shape[-1]
     if c % 8:
         raise ValueError(f"the kernels take C % 8 == 0, got C={c}")
-    if gemm and c % 128:
-        raise ValueError(f"the product takes C % 128 == 0, got C={c}")
-    if rows and c > MAX_ROW_C:
-        raise ValueError(f"the row kernels take C <= {MAX_ROW_C}, got C={c}")
     if params is None:
         return
     for name, shape in (("norm1", (c,)), ("norm2", (c,)), ("conv1", (c, c, 3)),
@@ -137,6 +139,11 @@ def _check_clip(x, params=None, gemm=False, rows=False) -> None:
             _lib.same_device(v, x)
 
 
+def _operands(params) -> dict:
+    """The block's parameters as kernel B reads them, shared with B."""
+    return block_operands(*(params[n] for n in ("norm1", "conv1", "norm2", "conv2")))
+
+
 def fused_fat(x, params):
     """T1, replacing ``tools/microbench_temporal.py:53`` ``fused_fat``: kernel
     B in zero mode with the exact LN+SiLU and each conv's three taps as one
@@ -144,24 +151,26 @@ def fused_fat(x, params):
     :func:`params_from_jax` gives them.
 
     A CPU tensor runs :func:`fused_fat_plain`. A CUDA tensor must be
-    contiguous bf16 with C % 128 == 0 and C <= 1024; it runs the kernel
-    (scratch: the fat operand ``[M, 3C]`` bf16 and h ``[M, C]`` f32) or
-    raises.
+    contiguous bf16 with C % 128 == 0 and C in ``plan.ROW_CHANNELS``
+    (``plan.conv_plan_dense``, the row pass); it runs the kernel (scratch:
+    the fat operand ``[M, 3C]`` bf16 and h ``[M, C]`` f32) or raises.
     """
     fused_fat.calls += 1
     if x.device.type == "cpu":
         return fused_fat_plain(x, params)
-    _check_clip(x, params, gemm=True, rows=True)
+    _check_clip(x, params)
     b, t, h, w, c = x.shape
     m = b * t * h * w
+    pl = plan.conv_plan_dense(m, 3 * c, c)
+    plan.check_row_channels(c)
+    op = _operands(params)
+    map1, map2 = _lib.weight_maps(op, pl.bn, "w1", "w2")
     fat = x.new_empty((m, 3 * c))
     hf = torch.empty((m, c), device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
-    _lib.call("vt_microbench_fat", x, out, fat, hf, _lib.f32(params["norm1"][0]),
-              _lib.f32(params["norm1"][1]), gemm_weight(params["conv1"][0]),
-              _lib.f32(params["conv1"][1]), _lib.f32(params["norm2"][0]),
-              _lib.f32(params["norm2"][1]), gemm_weight(params["conv2"][0]),
-              _lib.f32(params["conv2"][1]), b, t, h * w, c)
+    _lib.call("vt_microbench_fat", x, out, fat, hf, op["g1"], op["b1"], map1, op["bias1"],
+              op["g2"], op["b2"], map2, op["bias2"], b, t, h * w, c, pl.bn, pl.stages,
+              pl.smem, pl.grid)
     fused_fat.launches += 1
     return out
 
@@ -175,26 +184,31 @@ def fused_diag(x, params, mode: str = "mm"):
     ``out = x + a2`` in f32.
 
     A CPU tensor runs :func:`fused_diag_plain`. A CUDA tensor must be
-    contiguous bf16 with C % 8 == 0 (``mm``: C % 128 == 0; ``ln``:
-    C <= 1024); it runs the kernel or raises. An unknown mode raises.
+    contiguous bf16 with C % 8 == 0 (``mm``: C % 128 == 0,
+    ``plan.conv_plan_temporal``; ``ln``: C in ``plan.ROW_CHANNELS``); it
+    runs the kernel or raises. An unknown mode raises.
     """
     fused_diag.calls += 1
     if mode not in DIAG_MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {tuple(DIAG_MODES)}")
     if x.device.type == "cpu":
         return fused_diag_plain(x, params, mode)
-    _check_clip(x, params, gemm=mode == "mm", rows=mode == "ln")
+    _check_clip(x, params)
     b, t, h, w, c = x.shape
     out = torch.empty_like(x)
-    hb = g1 = b1 = w1 = g2 = b2 = w2 = zero_bias = None  # what the mode reads
+    hb = g1 = b1 = map1 = g2 = b2 = map2 = None  # what the mode reads
+    bn = stages = smem = grid = 0
     if mode == "mm":
+        pl = plan.conv_plan_temporal(b, t, h * w, c)
+        bn, stages, smem, grid = pl.bn, pl.stages, pl.smem, pl.grid
+        map1, map2 = _lib.weight_maps(_operands(params), bn, "w1", "w2")
         hb = torch.empty_like(x)
-        w1, w2 = (gemm_weight(params[n][0]) for n in ("conv1", "conv2"))
-        zero_bias = torch.zeros(c, device=x.device)
     elif mode == "ln":
-        g1, b1, g2, b2 = (_lib.f32(v) for v in (*params["norm1"], *params["norm2"]))
-    _lib.call("vt_microbench_diag", x, out, hb, g1, b1, w1, g2, b2, w2, zero_bias,
-              b, t, h * w, c, DIAG_MODES[mode])
+        plan.check_row_channels(c)
+        op = _operands(params)
+        g1, b1, g2, b2 = (op[k] for k in ("g1", "b1", "g2", "b2"))
+    _lib.call("vt_microbench_diag", x, out, hb, g1, b1, map1, g2, b2, map2,
+              b, t, h * w, c, DIAG_MODES[mode], bn, stages, smem, grid)
     fused_diag.launches += 1
     return out
 
