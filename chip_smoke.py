@@ -80,7 +80,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 8. serve the v1.0 flagship in the forms ``KernelForms("merged", "merged",
    "taps")``: 3 requests (launches per forward A 20, B 20, H 2, I 3, D' 1,
    C, D, E and G 0), a profile of one, then one request in the ``split``
-   parity form (G 2), and the end-to-end gate for both forms.
+   parity form (G 2), and the end-to-end gate for both forms;
+9. the non-causal KL 4x8x8 16-channel model as in 3 at [1, 3, 16, 256,
+   256] (launches A 20, C 3, B, D, E and F 0: they are causal-only);
+10. one [1, 3, 17, 256, 256] request through the v1.1 FSQ 4x16x16 262144
+    model (a fifth level, a 16² latent; A 25, B 25, C 4, D 1), checked as
+    in 5 (indices in [0, 262144)), with its peak memory beside the entropy
+    loss's [positions, 262144] f32 matrix;
+11. the v1.1 FSQ 8x8x8 32768 model tiled (``t_chunk_dec`` 2, cache offsets
+    up to 8): one [1, 3, 33, 256, 256] request (A 60, F 60, C 9, D 3)
+    checked as in 5, then its latent before quantization and its
+    reconstruction from the f32 run's codes held to the tiled f32 plain
+    run (``serve_tiled_888``);
+12. one [1, 3, 17, 256, 256] request through the v1.0 KL 4x4x4 model
+    (256² at two levels, a 64² latent; A 20, B 20, C 2, D 1, E 2) and the
+    end-to-end gate;
+13. the checkpoint round trip: the flagship saved with
+    ``VideoTokenizer.save``, loaded back through ``load_model_from_config(
+    cfg, ckpt=...)``, its reconstruction bit-equal; the load time.
+
+Phase 2 also holds every call shape of phases 9-12 that the earlier
+phases do not give (``model_calls``: A at 16² x 512 channels and at 256²
+with 128 -> 256 channels, B at the 41616 and 444 shapes, F at the 888
+chunks' shapes and offsets, C, and D on [2 cached | chunk] with
+``t_chunk_dec`` 2), timed per forward of its path.
 
 ``python3 chip_smoke.py --kernels NAME[,NAME...]`` runs phases 1 and 2 for
 the named kernels of SOURCES and TOOL_SOURCES alone (and D's T=201 window
@@ -126,6 +149,9 @@ _ENC = {"double_z": True, "z_channels": 16, "in_channels": 3, "out_ch": 3,
         "init_pad_mode": "replicate"}
 _ENC_FSQ = dict(_ENC, double_z=False, z_channels=4)
 _ENC_V1_1 = dict(_ENC, interpolation_mode="trilinear")
+_FSQ_LOSSES = {"entropy_loss_weight": 0.1, "entropy_loss_annealing_steps": 2000,
+               "entropy_loss_annealing_factor": 3, "commitment_loss_weight": 0.25}
+_KL = {"target": "DiagonalGaussianRegularizer"}
 
 
 def _model(target: str, enc: str, dec: str, params: dict, reg: dict,
@@ -137,16 +163,34 @@ def _model(target: str, enc: str, dec: str, params: dict, reg: dict,
 
 
 V1_0_CFG = _model("AutoencodingEngine", "EncoderCausal3D", "DecoderCausal3D",
-                  _ENC, {"target": "DiagonalGaussianRegularizer"})
+                  _ENC, _KL)
 FSQ_CFG = _model("AutoencodingEngine", "EncoderCausal3D", "DecoderCausal3D",
                  _ENC_FSQ, {"target": "FSQRegularizer", "params": {
-        "levels": [8, 8, 8, 8], "entropy_loss_weight": 0.1,
-        "entropy_loss_annealing_steps": 2000,
-        "entropy_loss_annealing_factor": 3, "commitment_loss_weight": 0.25}})
+                     "levels": [8, 8, 8, 8], **_FSQ_LOSSES}})
 V1_1_CFG = _model("AutoencodingEngineV1_1", "EncoderCausal3DV1_1",
-                  "DecoderCausal3DV1_1", _ENC_V1_1,
-                  {"target": "DiagonalGaussianRegularizer"},
-                  use_tiling=False, t_chunk_enc=16)
+                  "DecoderCausal3DV1_1", _ENC_V1_1, _KL, use_tiling=False, t_chunk_enc=16)
+# The other configurations' shapes (phases 9-12): the non-causal KL 4x8x8
+# 16-channel model (configs/vidtok_kl_noncausal_488_16chn.yaml), the v1.1
+# FSQ 4x16x16 262144 model with a fifth level (configs/v1_1/vidtok_fsq_causal_
+# 41616_262144_v1_1.yaml), the v1.1 FSQ 8x8x8 32768 model (configs/v1_1/
+# vidtok_fsq_causal_888_32768_v1_1.yaml: tdf 8, so t_chunk_dec 2 when tiled)
+# and the v1.0 KL 4x4x4 4-channel model (configs/vidtok_kl_causal_444_4chn
+# .yaml: levels 0 and 1 at full resolution).
+NONCAUSAL_CFG = _model("AutoencodingEngine", "Encoder3D", "Decoder3D",
+                       {k: v for k, v in _ENC.items() if k != "init_pad_mode"}, _KL)
+FSQ_41616_CFG = _model(
+    "AutoencodingEngineV1_1", "EncoderCausal3DV1_1", "DecoderCausal3DV1_1",
+    dict(_ENC_V1_1, double_z=False, z_channels=6, ch_mult=[1, 2, 4, 4, 4]),
+    {"target": "FSQRegularizer", "params": {"levels": [8] * 6, **_FSQ_LOSSES}},
+    use_tiling=False, t_chunk_enc=16)
+FSQ_888_CFG = _model(
+    "AutoencodingEngineV1_1", "EncoderCausal3DV1_1", "DecoderCausal3DV1_1",
+    dict(_ENC_V1_1, double_z=False, z_channels=5, tempo_ds=[0, 1, 2], tempo_us=[1, 2, 3],
+         time_downsample_factor=8),
+    {"target": "FSQRegularizer", "params": {"levels": [8] * 5, **_FSQ_LOSSES}},
+    use_tiling=False, t_chunk_enc=16)
+KL_444_CFG = _model("AutoencodingEngine", "EncoderCausal3D", "DecoderCausal3D",
+                    dict(_ENC, z_channels=4, spatial_ds=[1, 2], spatial_us=[1, 2]), _KL)
 REQUEST = (1, 3, 17, 256, 256)
 LONG_REQUEST = (1, 3, 201, 256, 256)  # bench.py:46
 N_REQUESTS = 3
@@ -217,7 +261,6 @@ KERNEL_GATE = 1e-2
 # a kernel, and the kernel path, vs the f32 plain run may be at most
 # BF16_SLACK x as far from it as the plain version in bf16 is
 BF16_SLACK = 1.1
-FSQ_CODES = 4096
 FSQ_DECODE_GATE = 1e-6
 
 # Every call shape of each kernel in one forward of REQUEST (17 frames are
@@ -291,7 +334,17 @@ TILED_MEM_RATIO = 1.25
 # room for it, and the kernel path is also held to the tiled f32 run.
 TILED_Z_GATE = 1e-4
 TILED_RECON_GATE = 1e-3
-PATHS = ("v1_0", "v1_1", "tiled") + tuple(FORMS)
+# The other configurations' serving paths, path -> (config, request, tiled):
+# the non-causal model (no input padding: 16 frames), the FSQ 262144 model
+# and the 444 model at REQUEST, the 888 model tiled over 33 = 1 + 2 x 16
+# frames (3 encoder chunks of 8, 16, 16 frames, 3 decoder chunks of 2, 3, 2
+# latents). Their launches per forward and call shapes come from
+# ``model_calls``; the serving runs check the launches against the counters.
+CONFIG_PATHS = {"noncausal": (NONCAUSAL_CFG, (1, 3, 16, 256, 256), False),
+                "fsq_41616": (FSQ_41616_CFG, REQUEST, False),
+                "tiled_888": (FSQ_888_CFG, (1, 3, 33, 256, 256), True),
+                "kl_444": (KL_444_CFG, REQUEST, False)}
+PATHS = ("v1_0", "v1_1", "tiled") + tuple(FORMS) + tuple(CONFIG_PATHS)
 
 # the path whose serving run gives each kernel's launches and times in the
 # result line
@@ -351,46 +404,122 @@ def _cut(n: int, chunk: int):
     return se
 
 
-def chunk_schedule(t: int):
+def chunk_schedule(t: int, tdf: int = TDF):
     """A tiled, overlapped forward of ``t`` frames: frames per encoder
-    chunk (the first is frame 0 padded to TDF) and latent frames per
+    chunk (the first is frame 0 padded to ``tdf``) and latent frames per
     decoder chunk (one look-ahead frame on each but the last)."""
-    enc = [TDF] + [e - s for s, e in _cut(t, T_CHUNK_ENC)[1:]]
-    t_lat = sum(f // TDF for f in enc)
-    dec = [e - s + (e + 1 <= t_lat) for s, e in _cut(t_lat, T_CHUNK_ENC // TDF)]
+    enc = [tdf] + [e - s for s, e in _cut(t, T_CHUNK_ENC)[1:]]
+    t_lat = sum(f // tdf for f in enc)
+    dec = [e - s + (e + 1 <= t_lat) for s, e in _cut(t_lat, T_CHUNK_ENC // tdf)]
     return enc, dec
 
 
-def tiled_calls(t: int, size: int = 256) -> Counter:
-    """Kernel calls of one tiled forward of a [1, 3, t, size, size] clip,
-    by (kernel, call key); with s = size: per encoder chunk of f frames, 2
-    spatial and 2 temporal blocks at each of the levels (f, s², 128),
-    (f, (s/2)², 256), (f/2, (s/4)², 512), (f/4, (s/8)², 512). Per decoder
-    chunk of n latents: 3 of each at (n, (s/8)², 512), (n, (s/4)², 512),
-    (2n, (s/2)², 256), (4n, s², 128) with cache offsets 1, 1, 2, 4; a
-    spatial upsample after each of the first three; the tail on 4n + 2
-    frames (2 cached)."""
-    enc, dec = chunk_schedule(t)
-    s2, s4, s8 = size // 2, size // 4, size // 8
+def model_calls(cfg: dict, shape, tiled: bool = False) -> Counter:
+    """Kernel calls of one forward of a ``[B, 3, T, H, H]`` request through
+    the model of ``cfg`` (a resolved config, layernorm) with ``fused`` on,
+    by (kernel, call key) as ``kernel_cases`` keys them: the walk of
+    ``modules/encoder.py`` and ``modules/decoder.py``, or with ``tiled``
+    the chunk loop with overlap (``chunk_schedule``, each decoder stage at
+    its cache offset). Kernel A at every spatial resblock (N, H, W, Cin,
+    C); in a causal model B (non-tiled; key (shape, mode)) or F (tiled;
+    (shape, first_chunk, offset)) at every temporal resblock, E (v1.0) at
+    every temporal upsample and D on the decoder's last activations
+    (tiled: with the 2 cached frames); C at every spatial upsample."""
+    from vidtok_tpu_torch.models.autoencoder import _ENC_VARIANTS
+
+    p = cfg["model"]["params"]
+    ep, dp = p["encoder_config"]["params"], p["decoder_config"]["params"]
+    variant = _ENC_VARIANTS[p["encoder_config"]["target"]]
+    causal = variant != "noncausal"
+    mode = "replicate" if variant == "causal_v1_1" else "zero"
+    ch, mult, nrb, tdf = ep["ch"], ep["ch_mult"], ep["num_res_blocks"], ep["time_downsample_factor"]
+    n = len(mult)
+    last = range(n - 1)
+    s_ds = tuple(last if ep.get("spatial_ds") is None or not causal else ep["spatial_ds"])
+    t_ds = tuple(ep.get("tempo_ds") or (n - 2, n - 3))
+    s_us = tuple(range(1, n) if dp.get("spatial_us") is None or not causal
+                 else dp["spatial_us"])
+    t_us = tuple(dp.get("tempo_us") or (1, 2))
+    b, _, t, size, _ = shape
     calls = Counter()
-    for i, f in enumerate(enc):
-        for n, hw, cin, c in ((f, size, 128, 128), (f, s2, 128, 256),
-                              (f // 2, s4, 256, 512), (f // 4, s8, 512, 512)):
-            calls["fused_spatial_resblock", (n, hw, hw, cin, c)] += 1
-            calls["fused_spatial_resblock", (n, hw, hw, c, c)] += 1
-            calls["fused_temporal_resblock_stream", ((1, n, hw, hw, c), i == 0, 0)] += 2
-    for i, n in enumerate(dec):
-        for frames, hw, cin, c, off in ((n, s8, 512, 512, 1), (n, s4, 512, 512, 1),
-                                        (2 * n, s2, 512, 256, 2),
-                                        (4 * n, size, 256, 128, 4)):
-            calls["fused_spatial_resblock", (frames, hw, hw, cin, c)] += 1
-            calls["fused_spatial_resblock", (frames, hw, hw, c, c)] += 2
-            calls["fused_temporal_resblock_stream",
-                  ((1, frames, hw, hw, c), i == 0, off)] += 3
-            if hw < size:
-                calls["subpixel_interleave", (frames, hw, hw, c)] += 1
-        calls["decoder_tail_rgb", ((1, 4 * n + 2, size, size, 128), "replicate")] += 1
+
+    def temporal(f, s, c, first, off):
+        if not causal:
+            return
+        x = (b, f, s, s, c)
+        if tiled:
+            calls["fused_temporal_resblock_stream", (x, first, off)] += 1
+        else:
+            calls["fused_temporal_resblock", (x, mode)] += 1
+
+    def encode(f, first):
+        s, c = size, ch
+        for i in range(n):
+            for _ in range(nrb):
+                calls["fused_spatial_resblock", (b * f, s, s, c, ch * mult[i])] += 1
+                c = ch * mult[i]
+                temporal(f, s, c, first, 0)
+            if i in s_ds:
+                s //= 2
+                f //= 2 if i in t_ds else 1
+        return f, s
+
+    def decode(f, s, first):
+        c, cur, offs = ch * mult[-1], 1, {}
+        for i in reversed(range(n)):
+            offs[i] = cur
+            cur *= 2 if i in t_us else 1
+        for i in reversed(range(n)):
+            for _ in range(nrb + 1):
+                calls["fused_spatial_resblock", (b * f, s, s, c, ch * mult[i])] += 1
+                c = ch * mult[i]
+                temporal(f, s, c, first, offs[i])
+            if i in s_us:
+                calls["subpixel_interleave", (b * f, s, s, c)] += 1
+                s *= 2
+                if i in t_us:
+                    if variant == "causal":
+                        calls["parity_up2x_fused", ((b, f, s, s, c), mode)] += 1
+                    f *= 2
+        if causal:
+            frames = f + 2 if tiled else f
+            calls["decoder_tail_rgb", ((b, frames, s, s, c), mode)] += 1
+
+    if not tiled:
+        if variant == "causal" and t % tdf:
+            t += tdf - 1
+        elif variant == "causal_v1_1":
+            t = -(-t // tdf) * tdf
+        decode(*encode(t, True), True)
+        return calls
+    enc, dec = chunk_schedule(t, tdf)
+    lat = [encode(f, i == 0) for i, f in enumerate(enc)][0][1]
+    for i, f in enumerate(dec):
+        decode(f, lat, i == 0)
     return calls
+
+
+def per_forward(calls: Counter) -> dict:
+    """Launches per forward of each kernel of SOURCES, from ``model_calls``."""
+    per = dict.fromkeys(SOURCES, 0)
+    for (name, _), k in calls.items():
+        per[name] += k
+    return per
+
+
+def tiled_calls(t: int, size: int = 256) -> Counter:
+    """``model_calls`` of one tiled forward of a [1, 3, t, size, size] clip
+    through the v1.1 model: per encoder chunk of f frames, 2 spatial and 2
+    temporal blocks at each of the levels (f, s², 128), (f, (s/2)², 256),
+    (f/2, (s/4)², 512), (f/4, (s/8)², 512). Per decoder chunk of n
+    latents: 3 of each at (n, (s/8)², 512), (n, (s/4)², 512), (2n, (s/2)²,
+    256), (4n, s², 128) with cache offsets 1, 1, 2, 4; a spatial upsample
+    after each of the first three; the tail on 4n + 2 frames (2 cached)."""
+    return model_calls(V1_1_CFG, (1, 3, t, size, size), tiled=True)
+
+
+for _path, (_cfg, _shape, _tiled) in CONFIG_PATHS.items():
+    PER_FORWARD[_path] = per_forward(model_calls(_cfg, _shape, _tiled))
 
 
 def long_spatial_shapes() -> list:
@@ -403,13 +532,11 @@ def long_spatial_shapes() -> list:
 
 
 def tiled_per_forward(t: int, size: int = 256) -> dict:
-    """Launches per tiled forward, summed from ``tiled_calls`` and checked
-    against the formula: with E encoder and D decoder chunks, F = A =
-    8E + 12D, C = 3D, D's tail D, B = E's kernel = 0 (T=65: 100, 100, 15,
-    5, 0, 0)."""
-    per = dict.fromkeys(SOURCES, 0)
-    for (name, _), n in tiled_calls(t, size).items():
-        per[name] += n
+    """Launches per tiled forward of the v1.1 model, summed from
+    ``tiled_calls`` and checked against the formula: with E encoder and D
+    decoder chunks, F = A = 8E + 12D, C = 3D, D's tail D, B = E's kernel =
+    0 (T=65: 100, 100, 15, 5, 0, 0)."""
+    per = per_forward(tiled_calls(t, size))
     n_enc, n_dec = map(len, chunk_schedule(t))
     want = dict(per, fused_temporal_resblock_stream=8 * n_enc + 12 * n_dec,
                 fused_spatial_resblock=8 * n_enc + 12 * n_dec,
@@ -566,10 +693,18 @@ def kernel_cases(device):
     for shape, calls in TAIL_SHAPES:
         for mode, path in MODE_PATH.items():
             shapes["decoder_tail_rgb"][shape, mode][path] = calls
-    for (name, key), calls in tiled.items():
-        shapes[name][key]["tiled"] = calls
-        if name == "fused_temporal_resblock_stream":
-            shapes[name][key[0], not key[1], key[2]].setdefault("tiled", 0)
+    for shape, calls in TEMPORAL_SHAPES:
+        for mode, path in MODE_PATH.items():
+            shapes["fused_temporal_resblock"][shape, mode][path] = calls
+    for shape, calls in PARITY_SHAPES:
+        for mode in MODE_PATH:  # v1.0 serves zero mode; replicate is checked
+            shapes["parity_up2x_fused"][shape, mode]["v1_0"] = calls if mode == "zero" else 0
+    runs = [("tiled", tiled)] + [(path, model_calls(*run)) for path, run in CONFIG_PATHS.items()]
+    for path, run in runs:
+        for (name, key), calls in run.items():
+            shapes[name][key][path] = calls
+            if name == "fused_temporal_resblock_stream":
+                shapes[name][key[0], not key[1], key[2]].setdefault(path, 0)
 
     def tconvs(x, conv1, conv2):
         # the two k=3 time convs as cuDNN runs them (symmetric pad 1: the
@@ -595,15 +730,14 @@ def kernel_cases(device):
         yield Case("fused_spatial_resblock", key, dict(calls),
                    fused_spatial.fused_spatial_resblock,
                    fused_spatial.fused_spatial_resblock_plain, args, convs)
-    for shape, calls in TEMPORAL_SHAPES:
+    for (shape, mode), calls in shapes["fused_temporal_resblock"].items():
         c = shape[-1]
-        for mode, path in MODE_PATH.items():
-            args = (p.x(shape, bf), p.norm(c), p.conv((c, c, 3)), p.norm(c),
-                    p.conv((c, c, 3)), mode)
-            yield Case("fused_temporal_resblock", (shape, mode), {path: calls},
-                       fused_temporal.fused_temporal_resblock,
-                       fused_temporal.fused_temporal_resblock_plain, args,
-                       tconvs(args[0], args[2], args[4]))
+        args = (p.x(shape, bf), p.norm(c), p.conv((c, c, 3)), p.norm(c),
+                p.conv((c, c, 3)), mode)
+        yield Case("fused_temporal_resblock", (shape, mode), dict(calls),
+                   fused_temporal.fused_temporal_resblock,
+                   fused_temporal.fused_temporal_resblock_plain, args,
+                   tconvs(args[0], args[2], args[4]))
     for key, calls in shapes["fused_temporal_resblock_stream"].items():
         (b, t, h, w, c), first, off = key
         cache = None if first else p.x((b, 2, h, w, c), bf)
@@ -634,29 +768,26 @@ def kernel_cases(device):
                    form_calls(calls, "decoder_tail_rgb_taps"),
                    decoder_tail.decoder_tail_rgb_taps,
                    decoder_tail.decoder_tail_rgb_taps_plain, args)
-    for shape, calls in PARITY_SHAPES:
+    for (shape, mode), calls_e in shapes["parity_up2x_fused"].items():
         b, t, h, w, c = shape
-        for mode in MODE_PATH:
-            # v1.0 serves zero mode; replicate is checked, not timed
-            calls_e = {"v1_0": calls if mode == "zero" else 0}
-            args = (p.x(shape, bf), *p.conv((c, c, 3, 3, 3)),
-                    p.t(1 / (1 + np.exp(-(2.0 + 0.5 * p.rng.randn(1))))), mode)
-            yield Case("parity_up2x_fused", (shape, mode), calls_e,
-                       pu.parity_up2x_fused, pu.parity_up2x_fused_plain, args)
-            # G and H on E's s, bias and alpha, with the parity convs'
-            # outputs drawn as activations
-            s, bias, alpha = args[0], args[2], args[3]
-            ys = tuple(q.x((b, t, h, w, 2 * c), bf) for _ in range(2))
-            yield Case("parity_blend_interleave", (shape, mode),
-                       form_calls(calls_e, "parity_blend_interleave"),
-                       ue.parity_blend_interleave,
-                       ue.parity_blend_interleave_plain, (s, *ys, bias, alpha, mode))
-            del ys
-            yield Case("parity_blend_interleave4", (shape, mode),
-                       form_calls(calls_e, "parity_blend_interleave4"),
-                       ue.parity_blend_interleave4,
-                       ue.parity_blend_interleave4_plain,
-                       (s, q.x((b, t, h, w, 4 * c), bf), bias, alpha, mode))
+        args = (p.x(shape, bf), *p.conv((c, c, 3, 3, 3)),
+                p.t(1 / (1 + np.exp(-(2.0 + 0.5 * p.rng.randn(1))))), mode)
+        yield Case("parity_up2x_fused", (shape, mode), dict(calls_e),
+                   pu.parity_up2x_fused, pu.parity_up2x_fused_plain, args)
+        # G and H on E's s, bias and alpha, with the parity convs' outputs
+        # drawn as activations
+        s, bias, alpha = args[0], args[2], args[3]
+        ys = tuple(q.x((b, t, h, w, 2 * c), bf) for _ in range(2))
+        yield Case("parity_blend_interleave", (shape, mode),
+                   form_calls(calls_e, "parity_blend_interleave"),
+                   ue.parity_blend_interleave,
+                   ue.parity_blend_interleave_plain, (s, *ys, bias, alpha, mode))
+        del ys
+        yield Case("parity_blend_interleave4", (shape, mode),
+                   form_calls(calls_e, "parity_blend_interleave4"),
+                   ue.parity_blend_interleave4,
+                   ue.parity_blend_interleave4_plain,
+                   (s, q.x((b, t, h, w, 4 * c), bf), bias, alpha, mode))
     # partial tiles of A, F, B, E, D and D', on inputs of their own:
     # checked, not timed
     r = Params(4, device)
@@ -1053,7 +1184,8 @@ def serve(tok, n_requests: int, shape, per_forward: dict) -> dict:
 
     from vidtok_tpu_torch.ops import kernels
 
-    z_ch = tok.core.decoder.conv_in.conv.in_channels
+    z_ch = next(tok.core.decoder.conv_in.parameters()).shape[1]
+    down = 2 ** len(tok.core.encoder.spatial_ds)
     loss = "aux_loss" if tok.meta["discrete"] else "kl_loss"
     reqs = [np.clip(np.random.RandomState(1 + i).randn(*shape) * 0.5, -1, 1)
             .astype(np.float32) for i in range(n_requests)]
@@ -1070,10 +1202,10 @@ def serve(tok, n_requests: int, shape, per_forward: dict) -> dict:
         per = {k: after[k] - before[k] for k in after}
         if per != per_forward:
             raise AssertionError(f"launches per forward {per} != {per_forward}")
-        t_lat = shape[2] // 4 + (shape[2] % 4 > 0)
+        t_lat = -(-shape[2] // tok.time_downsample_factor)
         if (tuple(dec.shape) != tuple(shape)
-                or tuple(z.shape) != (shape[0], z_ch, t_lat, shape[3] // 8,
-                                      shape[4] // 8)):
+                or tuple(z.shape) != (shape[0], z_ch, t_lat, shape[3] // down,
+                                      shape[4] // down)):
             raise AssertionError(f"shapes z {tuple(z.shape)} dec {tuple(dec.shape)}")
         if not (torch.isfinite(z).all() and torch.isfinite(dec).all()
                 and torch.isfinite(log[loss])):
@@ -1200,10 +1332,10 @@ def make_tokenizer(cfg: dict, device, seed: int = 0):
                           fused=True)
 
 
-def serve_both_paths(name: str, cfg: dict, path: str, device) -> dict:
-    """Phases 3 and 6: N_REQUESTS requests on the kernel path, then on the
-    plain path, a profile of one kernel-path request and the end-to-end
-    gate. Returns the kernel path's ``serve`` result."""
+def serve_both_paths(name: str, cfg: dict, path: str, device, shape=REQUEST) -> dict:
+    """Phases 3, 6 and 9: N_REQUESTS requests of ``shape`` on the kernel
+    path, then on the plain path, a profile of one kernel-path request and
+    the end-to-end gate. Returns the kernel path's ``serve`` result."""
     tok = make_tokenizer(cfg, device)
     n_params = sum(p.numel() for p in tok.core.parameters())
     per = PER_FORWARD[path]
@@ -1211,15 +1343,15 @@ def serve_both_paths(name: str, cfg: dict, path: str, device) -> dict:
     for label, fused, want in (("kernel path", True, per),
                                ("plain path", False, dict.fromkeys(per, 0))):
         tok.fused = fused
-        runs[label] = serve(tok, N_REQUESTS, REQUEST, want)
-        report(f"{label}: {name}, {n_params} params", runs[label], REQUEST)
+        runs[label] = serve(tok, N_REQUESTS, shape, want)
+        report(f"{label}: {name}, {n_params} params", runs[label], shape)
     k = runs["kernel path"]
     for kernel, n in k["launches"].items():
         if n != N_REQUESTS * per[kernel]:
             raise AssertionError(f"{kernel}: {n} launches in the serving run")
     tok.fused = True
-    profile_request(tok, REQUEST)
-    e2e_check(tok.core, tok.meta, REQUEST, path)
+    profile_request(tok, shape)
+    e2e_check(tok.core, tok.meta, shape, path)
     if path == "v1_0":
         # a 33² latent: partial tiles in A, B, C, D and E
         e2e_check(tok.core, tok.meta, PARTIAL_REQUEST, path)
@@ -1235,27 +1367,33 @@ def serve_long_clip(device) -> None:
            "warm-up)", r, LONG_REQUEST)
 
 
-def check_fsq(device) -> None:
-    """Phase 5: N_REQUESTS requests through the v1.0 FSQ 4096 kernel path
-    (the first pays cuDNN's algorithm search, so the latency to compare is
-    the best after it); on the last, integer indices in [0, 4096) of the
-    latent's shape, ``indices_to_latent`` equal to the quantized z,
+def check_fsq(device, name="fsq 4096, kernel path: v1.0 fsq 4x8x8 4096 codes",
+              path="v1_0", n_requests=N_REQUESTS, tok=None) -> dict:
+    """Phase 5 (and 10, 11): ``n_requests`` requests through an FSQ kernel
+    path (the v1.0 FSQ 4096 model's at REQUEST, or a CONFIG_PATHS path's;
+    the first pays cuDNN's algorithm search, so the latency to compare is
+    the best after it); on the last, integer indices in [0, codebook size)
+    of the latent's shape, ``indices_to_latent`` equal to the quantized z,
     decoding from indices equal to the reconstruction (relative L2 <=
-    FSQ_DECODE_GATE), a finite ``aux_loss``."""
+    FSQ_DECODE_GATE), a finite ``aux_loss``. Returns the ``serve``
+    result."""
     import torch
 
-    tok = make_tokenizer(FSQ_CFG, device)
-    r = serve(tok, N_REQUESTS, REQUEST, PER_FORWARD["v1_0"])
-    report("fsq 4096, kernel path: v1.0 fsq 4x8x8 4096 codes", r, REQUEST)
+    cfg, shape, _ = CONFIG_PATHS.get(path, (FSQ_CFG, REQUEST, False))
+    tok = tok or make_tokenizer(cfg, device)
+    codes = tok.core.regularization.fsq.codebook_size
+    r = serve(tok, n_requests, shape, PER_FORWARD[path])
+    report(name, r, shape)
     x, z, dec, log = r["last"]
     idx = log["indices"]
-    want = (REQUEST[0], z.shape[2], REQUEST[3] // 8, REQUEST[4] // 8)
+    want = (shape[0],) + tuple(z.shape[2:])
     if (idx.dtype not in (torch.int32, torch.int64) or tuple(idx.shape) != want
-            or int(idx.min()) < 0 or int(idx.max()) >= FSQ_CODES):
+            or int(idx.min()) < 0 or int(idx.max()) >= codes):
         raise AssertionError(f"fsq indices {idx.dtype} {tuple(idx.shape)} "
                              f"[{int(idx.min())}, {int(idx.max())}]")
     latent = tok.indices_to_latent(idx)
-    dec_idx = tok.decode(idx, decode_from_indices=True)
+    # v1.1 decodes tdf * T' frames, of which the forward keeps the last T
+    dec_idx = tok.decode(idx, decode_from_indices=True)[:, :, -dec.shape[2]:]
     torch.cuda.synchronize()
     rel = rel_l2(dec_idx, dec)
     print(f"fsq: indices {tuple(idx.shape)} in [{int(idx.min())}, "
@@ -1269,6 +1407,137 @@ def check_fsq(device) -> None:
         raise AssertionError(f"fsq: decode from indices rel_l2 {rel}")
     if not torch.isfinite(log["aux_loss"]):
         raise AssertionError("fsq: non-finite aux_loss")
+    return r
+
+
+def check_fsq_41616(device) -> None:
+    """Phase 10: one request through the v1.1 FSQ 262144 model's kernel
+    path (five levels, a 16² latent), checked as in ``check_fsq``; its peak
+    memory beside the f32 ``[positions, 262144]`` matrix of the entropy
+    loss, which it computes on every call as JAX does."""
+    r = check_fsq(device, "fsq 262144, kernel path: v1.1 fsq 4x16x16 262144 codes",
+                  "fsq_41616", n_requests=1)
+    positions, codes = int(np.prod(r["last"][1].shape[2:])), 8 ** 6
+    print(f"fsq 262144: {positions} latent positions, entropy-loss matrix "
+          f"[{positions}, {codes}] f32 = {positions * codes * 4} bytes; "
+          f"peak_mem_bytes {r['peak_mem_bytes']}", flush=True)
+
+
+class _Unquantized:
+    """A stand-in regularizer that returns the encoder's output as it is,
+    so the tiled engine's encode gives the latent before quantization."""
+
+    def __call__(self, z, sample=None, generator=None):
+        return z, {"kl_loss": z.new_zeros(())}
+
+
+def serve_tiled_888(device) -> None:
+    """Phase 11: the v1.1 FSQ 8x8x8 32768 model tiled (``use_tiling``,
+    ``use_overlap``, ``t_chunk_enc`` 16, so ``t_chunk_dec`` 2): one request
+    of its CONFIG_PATHS shape, checked as in ``check_fsq``, then held to the
+    tiled f32 plain run with the encoder and the decoder apart (a code that
+    flips at a rounding boundary would swamp a comparison of codes): the
+    latent before quantization, and the reconstruction decoded from the f32
+    run's codes, of the kernel path (bf16) no further from the f32 plain
+    run than BF16_SLACK x the plain bf16 path is."""
+    import torch
+
+    from vidtok_tpu_torch.models.autoencoder import TokenizerCore, VideoTokenizer
+
+    tok = make_tokenizer(FSQ_888_CFG, device)
+    tok.use_tiling, tok.use_overlap = True, True
+    if (tok.t_chunk_enc, tok.t_chunk_dec) != (T_CHUNK_ENC, T_CHUNK_ENC // 8):
+        raise AssertionError(f"chunks {tok.t_chunk_enc}/{tok.t_chunk_dec}")
+    shape = CONFIG_PATHS["tiled_888"][1]
+    print(f"tiled 888 T={shape[2]}: encoder and decoder chunks "
+          f"{chunk_schedule(shape[2], 8)}", flush=True)
+    check_fsq(device, "tiled 888, kernel path: v1.1 fsq 8x8x8 32768 codes, use_overlap, "
+              "t_chunk_enc 16", "tiled_888", n_requests=1, tok=tok)
+    core, meta = tok.core, tok.meta
+    raw = TokenizerCore(core.encoder, core.decoder, _Unquantized())
+    x = np.clip(np.random.RandomState(102).randn(*shape) * 0.5, -1, 1).astype(np.float32)
+    ref = VideoTokenizer(core, meta, torch.float32, fused=False)
+    ref.use_tiling, ref.use_overlap = True, True
+    codes = ref.encode(x)
+    del ref
+    outs = {}
+    for key, dtype, fused in (("kernel", torch.bfloat16, True),
+                              ("plain", torch.bfloat16, False),
+                              ("tiled_f32", torch.float32, False)):
+        t = VideoTokenizer(raw, dict(meta, discrete=False), dtype, fused=fused)
+        t.use_tiling, t.use_overlap = True, True
+        latent, dec = t.encode(x), t.decode(codes)
+        torch.cuda.synchronize()
+        for v in (latent, dec):
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"tiled 888, {key}: non-finite output")
+        outs[key] = (latent.cpu(), dec.cpu())
+        del t, latent, dec
+        torch.cuda.empty_cache()
+    res = {f"{what}_{key}_vs_tiled_f32": rel_l2(outs[key][i], outs["tiled_f32"][i])
+           for i, what in enumerate(("latent", "recon")) for key in ("kernel", "plain")}
+    print(f"tiled 888 {list(shape)} rel_l2 " + json.dumps(res), flush=True)
+    for what in ("latent", "recon"):
+        k, pl = res[f"{what}_kernel_vs_tiled_f32"], res[f"{what}_plain_vs_tiled_f32"]
+        if not k <= BF16_SLACK * pl:
+            raise AssertionError(f"tiled 888 {what}: kernel vs tiled f32 {k} > "
+                                 f"{BF16_SLACK} x plain bf16 vs tiled f32 {pl}")
+
+
+def serve_444(device) -> None:
+    """Phase 12: one request through the v1.0 KL 4x4x4 model's kernel path
+    (levels 0 and 1 at 256², a 64² latent) with its launches, then the
+    end-to-end gate."""
+    tok = make_tokenizer(KL_444_CFG, device)
+    r = serve(tok, 1, REQUEST, PER_FORWARD["kl_444"])
+    report("kl 444, kernel path: v1.0 kl 4x4x4 4chn", r, REQUEST)
+    e2e_check(tok.core, tok.meta, REQUEST, "kl_444")
+
+
+# where the checkpoint phase writes its file: inside the checkout, git-ignored
+CKPT_DIR = "build/chip_smoke"
+
+
+def checkpoint_round_trip(device) -> None:
+    """Phase 13: the v1.0 flagship saved with ``VideoTokenizer.save`` and
+    loaded back through ``load_model_from_config(cfg, ckpt=...)`` (read on
+    the CPU, moved to the card); the weights and one request's z and
+    reconstruction bit-equal to the model it was saved from; the save and
+    load times and the file's size. The file is removed."""
+    import os
+
+    import torch
+
+    from vidtok_tpu_torch import load_model_from_config
+
+    tok = make_tokenizer(V1_0_CFG, device)
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    path = os.path.join(CKPT_DIR, "flagship.ckpt")
+    try:
+        t0 = time.perf_counter()
+        tok.save(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = load_model_from_config(V1_0_CFG, ckpt=path, device=device,
+                                      compute_dtype=torch.bfloat16, fused=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    same_weights = all(torch.equal(a, b) for a, b in zip(
+        tok.core.state_dict().values(), back.core.state_dict().values()))
+    x = np.clip(np.random.RandomState(103).randn(*REQUEST) * 0.5, -1, 1).astype(np.float32)
+    z, dec, _ = tok(x)
+    z2, dec2, _ = back(x)
+    torch.cuda.synchronize()
+    same = torch.equal(z, z2) and torch.equal(dec, dec2)
+    print(f"checkpoint: {size} bytes; save {save_s:.3f} s, load_model_from_config "
+          f"with ckpt {load_s:.3f} s; weights equal {same_weights}; z and "
+          f"reconstruction bit-equal {same}", flush=True)
+    if not (same_weights and same):
+        raise AssertionError("checkpoint round trip changed the model")
 
 
 def tiled_e2e_check(core, meta, shape) -> dict:
@@ -1851,7 +2120,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t = phase("v1.1 kl tiled serve", t)
     runs.update(serve_forms(device))
-    phase("v1.0 kl forms serve", t)
+    torch.cuda.empty_cache()
+    t = phase("v1.0 kl forms serve", t)
+    serve_both_paths("non-causal kl 4x8x8 16chn", NONCAUSAL_CFG, "noncausal", device,
+                     CONFIG_PATHS["noncausal"][1])
+    torch.cuda.empty_cache()
+    t = phase("non-causal kl serve", t)
+    check_fsq_41616(device)
+    torch.cuda.empty_cache()
+    t = phase("v1.1 fsq 41616 262144 serve", t)
+    serve_tiled_888(device)
+    torch.cuda.empty_cache()
+    t = phase("v1.1 fsq 888 tiled serve", t)
+    serve_444(device)
+    torch.cuda.empty_cache()
+    t = phase("v1.0 kl 444 serve", t)
+    checkpoint_round_trip(device)
+    phase("checkpoint", t)
     phase("total", t0)
 
     kernels = []

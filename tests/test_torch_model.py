@@ -161,10 +161,12 @@ def test_full_width_v1_1_16chn_shapes():
 
 def test_import_hygiene(tmp_path):
     """The port imports torch and numpy only: no jax, flax or yaml when it
-    builds a model from a config dict (v1.1 KL, v1.0 KL and FSQ) beside its
-    two tool modules (the temporal microbenchmark, the SiLU probe), and no
-    jax, flax or ``vidtok_tpu`` module when it loads a YAML file (PyYAML is
-    allowed there) whose ``${...}`` reference its own resolver follows."""
+    builds a model from a config dict (v1.1 KL, v1.0 KL and FSQ, the
+    non-causal KL) beside its two tool modules (the temporal
+    microbenchmark, the SiLU probe), saves a ``.ckpt`` and loads it back,
+    and no jax, flax or ``vidtok_tpu`` module when it loads a YAML file
+    (PyYAML is allowed there) whose ``${...}`` reference its own resolver
+    follows."""
     import yaml
 
     env = dict(os.environ)
@@ -176,6 +178,12 @@ def test_import_hygiene(tmp_path):
         "regularizer_config": {"target": "DiagonalGaussianRegularizer"}}}
     fsq = {"params": dict(v1_0["params"], regularizer_config={
         "target": "FSQRegularizer", "params": {"levels": [8, 8, 8, 8]}})}
+    noncausal = {"params": dict(
+        v1_0["params"],
+        encoder_config={"target": "Encoder3D", "params": dict(_P)},
+        decoder_config={"target": "vidtok.modules.model_3dnoncausal.Decoder3D",
+                        "params": dict(_P)})}
+    ckpt = str(tmp_path / "tiny.ckpt")
     yaml_cfg = {"model": {"params": dict(CFG["params"], decoder_config={
         "target": "DecoderCausal3DV1_1",
         "params": "${model.params.encoder_config.params}"})}}
@@ -190,6 +198,15 @@ def test_import_hygiene(tmp_path):
         "    tok = vidtok_tpu_torch.load_model_from_config({'model': m}, "
         "device='cpu')\n"
         "assert tok.meta['variant'] == 'causal' and tok.meta['discrete']\n"
+        f"tok = vidtok_tpu_torch.load_model_from_config({{'model': {noncausal!r}}}, "
+        "device='cpu')\n"
+        "assert tok.meta['variant'] == 'noncausal'\n"
+        f"tok.save({ckpt!r})\n"
+        f"back = vidtok_tpu_torch.load_model_from_config({{'model': {noncausal!r}}}, "
+        f"device='cpu', ckpt={ckpt!r})\n"
+        "import torch\n"
+        "assert all(torch.equal(a, b) for a, b in zip(\n"
+        "    tok.core.state_dict().values(), back.core.state_dict().values()))\n"
         "bad = [m for m in ('jax', 'flax', 'yaml') if m in sys.modules]\n"
         "assert not bad, bad\n"
         f"tok = vidtok_tpu_torch.load_model_from_config({str(path)!r}, "

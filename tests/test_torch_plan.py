@@ -33,6 +33,7 @@ from vidtok_tpu_torch.ops.kernels.fused_spatial import spatial_operands
 from vidtok_tpu_torch.ops.kernels.fused_temporal import (gemm_weight, kmajor_weight,
                                                          temporal_operands)
 from vidtok_tpu_torch.ops.kernels.parity_upsample import parity_operands
+from vidtok_tpu_torch.utils.checkpoint import load_into
 
 torch.set_num_threads(2)
 
@@ -204,6 +205,8 @@ UPDATES = {
     "load_state_dict": lambda m: m.load_state_dict(
         _randomized(TB.ResnetBlockSpatial(32, 32), 7).state_dict()),
     "state_dict_from_jax": lambda m: _jax_update(m, 3),
+    "load_into": lambda m: load_into(
+        m, _randomized(TB.ResnetBlockSpatial(32, 32), 8).state_dict()),
     "to_dtype": lambda m: m.to(torch.float64),
     "data_copy_then_clear": lambda m: (m.conv1.weight.data.copy_(
         torch.randn(m.conv1.weight.shape)), _lib.clear_operands()),
@@ -273,6 +276,9 @@ def _spatial_keys(which):
         return [k for k, _ in cs.long_spatial_shapes()] + [cs.SPATIAL_LONG]
     if which == "partial":
         return list(cs.PARTIAL_SPATIAL)
+    if which in cs.CONFIG_PATHS:
+        return [k for (name, k) in cs.model_calls(*cs.CONFIG_PATHS[which])
+                if name == "fused_spatial_resblock"]
     t, size = {"tiled65": (65, 256), "tiled201": (201, 256),
                "tiled264": (cs.PARTIAL_REQUEST[2], cs.PARTIAL_REQUEST[3])}[which]
     return [k for (name, k) in cs.tiled_calls(t, size) if name == "fused_spatial_resblock"]
@@ -293,6 +299,9 @@ def _temporal_keys(which):
         long_frames = cs.LONG_REQUEST[2] + cs.TDF - 1
         return [(b, t * long_frames // frames, h, w, c)
                 for (b, t, h, w, c), _ in cs.TEMPORAL_SHAPES]
+    if which in cs.CONFIG_PATHS:
+        return sorted({k[0] for (name, k) in cs.model_calls(*cs.CONFIG_PATHS[which])
+                       if name.startswith("fused_temporal_resblock")})
     t, size = {"tiled65": (65, 256), "tiled201": (201, 256),
                "tiled264": (cs.PARTIAL_REQUEST[2], cs.PARTIAL_REQUEST[3])}[which]
     return sorted({k[0] for (name, k) in cs.tiled_calls(t, size)
@@ -317,7 +326,7 @@ CHUNK = 4096  # blocks per numpy pass
 
 
 @pytest.mark.parametrize("which", ["serving", "tiled65", "tiled201", "tiled264",
-                                   "partial", "long"])
+                                   "partial", "long"] + sorted(cs.CONFIG_PATHS))
 def test_spatial_plans_cover_each_position_once(which):
     """Every output position of every frame in exactly one M tile of N tile
     0 (the N tiles repeat the M tiles), at every kernel-A call shape of the
@@ -353,7 +362,8 @@ def test_spatial_plans_cover_each_position_once(which):
 
 
 @pytest.mark.parametrize("which", ["tiled65", "tiled201", "tiled264", "partial",
-                                   "b_serving", "b_partial", "b_long"])
+                                   "b_serving", "b_partial", "b_long", "fsq_41616",
+                                   "tiled_888", "kl_444"])
 def test_temporal_plans_cover_each_row_once(which):
     """Every output row of every clip in exactly one M tile, at every
     kernel-F call shape of the tiled paths and the partial shapes, and at

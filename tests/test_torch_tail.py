@@ -144,10 +144,14 @@ def _tail_keys(which):
                        if name == "decoder_tail_rgb"})
     if which == "long":
         return [cs.TAIL_LONG]
+    if which in cs.CONFIG_PATHS:
+        return sorted({k[0] for (name, k) in cs.model_calls(*cs.CONFIG_PATHS[which])
+                       if name == "decoder_tail_rgb"})
     return list(cs.PARTIAL_TAIL)
 
 
-@pytest.mark.parametrize("which", ["serving", "tiled", "tiled201", "long", "partial"])
+@pytest.mark.parametrize("which", ["serving", "tiled", "tiled201", "long", "partial",
+                                   "fsq_41616", "tiled_888", "kl_444"])
 def test_tail_plans_cover_each_output_once(which):
     for key in _tail_keys(which):
         b, t, h, w, c = key

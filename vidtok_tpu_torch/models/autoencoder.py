@@ -7,7 +7,10 @@
 * ``VideoTokenizer``: the serving engine over ``[B, C, T, H, W]`` tensors in
   [-1, 1]; it casts the input to ``compute_dtype`` and returns f32. With
   ``use_tiling`` it encodes and decodes chunk by chunk (v1.1 only), so
-  memory does not grow with the clip.
+  memory does not grow with the clip. ``from_config`` builds any of the
+  repo's VidTok configs (causal v1.0 and v1.1, non-causal; KL or FSQ;
+  layernorm or groupnorm) with random weights or from a checkpoint, and
+  ``save`` writes a reference-layout ``.ckpt``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..modules.encoder import Encoder
 from ..modules.regularizers import DiagonalGaussianRegularizer, FSQRegularizer
 from ..modules.stream import Stream
 from ..ops.kernels import KernelForms
+from ..utils import checkpoint
 
 # reference and alias target names -> variant (vidtok_tpu/registry.py)
 _ENC_VARIANTS = {
@@ -31,12 +35,16 @@ _ENC_VARIANTS = {
     "vidtok.modules.model_3dcausal.EncoderCausal3DPadding": "causal",
     "EncoderCausal3DV1_1": "causal_v1_1",
     "vidtok.modules.model_3dcausal_v1_1.EncoderCausal3DPadding": "causal_v1_1",
+    "Encoder3D": "noncausal",
+    "vidtok.modules.model_3dnoncausal.Encoder3D": "noncausal",
 }
 _DEC_VARIANTS = {
     "DecoderCausal3D": "causal",
     "vidtok.modules.model_3dcausal.DecoderCausal3DPadding": "causal",
     "DecoderCausal3DV1_1": "causal_v1_1",
     "vidtok.modules.model_3dcausal_v1_1.DecoderCausal3DPadding": "causal_v1_1",
+    "Decoder3D": "noncausal",
+    "vidtok.modules.model_3dnoncausal.Decoder3D": "noncausal",
 }
 _REGULARIZERS = {
     "DiagonalGaussianRegularizer": "kl",
@@ -48,9 +56,8 @@ _REGULARIZERS = {
 
 def _variant(table: dict, target: str) -> str:
     if target not in table:
-        raise NotImplementedError(
-            f"{target!r}: only the causal v1.0 and v1.1 encoder/decoder "
-            "are ported")
+        raise ValueError(f"unknown encoder/decoder target {target!r}; one of "
+                         f"{sorted(table)}")
     return table[target]
 
 
@@ -112,7 +119,7 @@ def build_core_from_config(model_cfg: dict) -> Tuple["TokenizerCore", dict]:
         time_downsample_factor=dp.get("time_downsample_factor", 4), **common(dp))
     regularizer, discrete = _regularizer(reg_cfg)
     core = TokenizerCore(encoder, decoder, regularizer)
-    meta = dict(variant=variant, is_causal=True, discrete=discrete,
+    meta = dict(variant=variant, is_causal=variant != "noncausal", discrete=discrete,
                 time_downsample_factor=tdf, use_tiling=p.get("use_tiling", False),
                 t_chunk_enc=p.get("t_chunk_enc", 16))
     return core, meta
@@ -233,26 +240,39 @@ class VideoTokenizer:
         self.generator = torch.Generator(self.device).manual_seed(seed)
 
     @classmethod
-    def from_config(cls, config, seed: int = 0, device="cuda",
-                    compute_dtype: torch.dtype = torch.float32,
+    def from_config(cls, config, ckpt: Optional[str] = None, seed: int = 0,
+                    device="cuda", compute_dtype: torch.dtype = torch.float32,
                     fused: Optional[bool] = None,
                     forms: Optional[KernelForms] = None):
-        """``config``: a dict or a YAML path (which needs PyYAML). Weights
-        are random from ``seed``; no checkpoint loading yet. The model is
-        placed on ``device``, the card unless the caller names another: a
-        machine without CUDA raises rather than fall back to the CPU.
-        ``forms``: the decoder's kernel forms (default ``KernelForms()``)."""
+        """``config``: a dict or a YAML path (which needs PyYAML). The
+        weights come from ``ckpt``, else from the config's
+        ``model.params.ckpt_path``, less the keys its ``ignore_keys``
+        patterns match (:func:`~..utils.checkpoint.load_checkpoint`: a
+        ``.ckpt`` / ``.pt`` torch file, a JAX ``.npz`` or a
+        ``.safetensors`` file; loaded strictly, on the CPU); with neither
+        they are random from ``seed``. The model is then placed on
+        ``device``, the card unless the caller names another: a machine
+        without CUDA raises rather than fall back to the CPU. ``forms``:
+        the decoder's kernel forms (default ``KernelForms()``)."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to build "
                                "the model on the CPU")
         config = load_config(config)
         model_cfg = config.get("model", config)
-        if (model_cfg.get("params", {}) or {}).get("ckpt_path"):
-            raise NotImplementedError("checkpoint loading is not ported yet")
+        params = model_cfg.get("params", {}) or {}
+        ckpt = ckpt or params.get("ckpt_path")
         core, meta = build_core_from_config(model_cfg)
-        reset_params_(core, torch.Generator().manual_seed(seed))
+        if ckpt:
+            checkpoint.load_checkpoint(core, ckpt, tuple(params.get("ignore_keys") or ()))
+        else:
+            reset_params_(core, torch.Generator().manual_seed(seed))
         return cls(core.to(device), meta, compute_dtype, fused, seed, forms)
+
+    def save(self, path: str) -> None:
+        """Write the weights as a reference-layout ``{"state_dict": ...}``
+        torch file (``ckpt=`` here, and JAX's ``load_params``, read it)."""
+        checkpoint.save_checkpoint(self.core, path)
 
     def _input(self, x):
         if isinstance(x, np.ndarray):
@@ -318,6 +338,11 @@ class VideoTokenizer:
         return start_end
 
     def _check_tiling_supported(self):
+        if self.meta.get("variant") == "noncausal":
+            raise ValueError(
+                "tiled/streaming inference needs a causal model: the "
+                "non-causal model's convs see the whole clip, so chunks "
+                "encoded apart would not equal it")
         if self.meta.get("variant") == "causal":
             raise ValueError(
                 "tiled/streaming inference requires a v1.1 model "

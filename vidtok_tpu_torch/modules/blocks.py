@@ -1,15 +1,19 @@
 """Residual, attention and resampling blocks on ``[B, T, H, W, C]``.
 
-Counterpart of ``vidtok_tpu/modules/blocks.py`` for the causal layernorm
-blocks. ``fused=True`` routes the spatial and temporal resblocks, the
-spatial-upsample tail and the nearest temporal upsample through kernels A,
-B (F on a stream), C (or I) and E (or H, or G) (``ops/kernels``), the
-upsamples in the forms a :class:`~..ops.kernels.KernelForms` names; the
-wrappers run the plain forms on CPU tensors. ``fused`` alone decides: where
-the JAX module takes a Pallas kernel with ``fused`` off (the nearest
-temporal upsample whenever ``deterministic``, ``blocks.py:529-533``), the
-port's plain path launches none. JAX's separate ``fused_streaming`` switch
-is not carried over.
+Counterpart of ``vidtok_tpu/modules/blocks.py``: the causal blocks (v1.0
+and v1.1) and, with ``causal=False``, the non-causal ones (symmetric
+convs, ``column`` and ``video`` GroupNorm statistics), each with
+``layernorm`` or ``groupnorm``. ``fused=True`` routes the spatial and
+temporal resblocks, the spatial-upsample tail and the nearest temporal
+upsample through kernels A, B (F on a stream), C (or I) and E (or H, or G)
+(``ops/kernels``), the upsamples in the forms a
+:class:`~..ops.kernels.KernelForms` names, where JAX would take its Pallas
+kernel: A only with layernorm, B and F only in a causal layernorm block,
+E only in the causal nearest upsample; the wrappers run the plain forms on
+CPU tensors. ``fused`` alone decides: where the JAX module takes a Pallas
+kernel with ``fused`` off (the nearest temporal upsample whenever
+``deterministic``, ``blocks.py:529-533``), the port's plain path launches
+none. JAX's separate ``fused_streaming`` switch is not carried over.
 
 A block given a :class:`~.stream.Stream` runs one chunk of a stream; the
 time-causal ones carry their state in it (the spatial blocks and attention
@@ -30,8 +34,10 @@ from ..ops.kernels import (KernelForms, fused_spatial_resblock,
                            parity_up2x_fused, subpixel_interleave,
                            subpixel_interleave_z)
 from ..ops.kernels.parity_upsample import parity_up2x_fused_plain
-from .conv import CausalConv1d, CausalConv3d, SpatialConv, pad_time_front
-from .interp import temporal_avg_pool3_stride2, temporal_linear_up2x
+from .conv import (CausalConv1d, CausalConv3d, Conv1d, Conv3d, SpatialConv,
+                   pad_time_front)
+from .interp import (temporal_avg_pool3_stride2, temporal_linear_up2x,
+                     temporal_nearest_up2x)
 from .norms import make_norm, silu
 
 
@@ -50,10 +56,12 @@ def _frame_conv(x, weight, padding):
 
 
 class ResnetBlockSpatial(nn.Module):
-    """Per-frame 2D residual block (``blocks.py:37-72``); kernel A."""
+    """Per-frame 2D residual block (``blocks.py:37-72``); kernel A with
+    layernorm."""
 
     def __init__(self, cin: int, cout: int, norm_type: str = "layernorm"):
         super().__init__()
+        self.kernel_ok = norm_type == "layernorm"
         self.norm1 = make_norm(norm_type, cin)
         self.conv1 = SpatialConv(cin, cout, 3)
         self.norm2 = make_norm(norm_type, cout)
@@ -62,7 +70,7 @@ class ResnetBlockSpatial(nn.Module):
             self.nin_shortcut = SpatialConv(cin, cout, 1)
 
     def forward(self, x, fused: bool = False):
-        if fused:
+        if fused and self.kernel_ok:
             b, t = x.shape[:2]
             nin = self.nin_shortcut if hasattr(self, "nin_shortcut") else None
             y = fused_spatial_resblock(
@@ -79,28 +87,39 @@ class ResnetBlockSpatial(nn.Module):
 
 
 class ResnetBlockTemporal(nn.Module):
-    """Causal temporal residual block (``blocks.py:75-189``); kernel B, or
-    kernel F on a stream. ``conv2`` is zero-initialized so the block starts
-    as the identity. On a stream each conv caches 2 frames of its activated
-    input (``cache_offset`` frames back with offsets) under its own path,
-    on both paths."""
+    """Temporal residual block (``blocks.py:75-189``). Causal: k=3 causal
+    convs, GroupNorm mode ``position``; kernel B, or kernel F on a stream,
+    with layernorm. Non-causal: symmetric k=3 convs (``Conv1d``), mode
+    ``column``, no kernel. ``conv2`` is zero-initialized so the block
+    starts as the identity. On a stream each causal conv caches 2 frames
+    of its activated input (``cache_offset`` frames back with offsets)
+    under its own path, on both paths."""
 
     def __init__(self, cin: int, cout: int, norm_type: str = "layernorm",
-                 first_pad_mode: str = "zero", cache_offset: int = 0):
+                 first_pad_mode: str = "zero", cache_offset: int = 0,
+                 causal: bool = True):
         super().__init__()
         self.first_pad_mode = first_pad_mode
-        self.norm1 = make_norm(norm_type, cin)
-        self.conv1 = CausalConv1d(cin, cout, 3, first_pad_mode=first_pad_mode,
-                                  cache_offset=cache_offset)
-        self.norm2 = make_norm(norm_type, cout)
-        self.conv2 = CausalConv1d(cout, cout, 3, first_pad_mode=first_pad_mode,
-                                  zero_init=True, cache_offset=cache_offset)
-        if cin != cout:
-            self.nin_shortcut = CausalConv1d(cin, cout, 1,
-                                             first_pad_mode=first_pad_mode)
+        self.kernel_ok = causal and norm_type == "layernorm" and cin == cout
+        mode = "position" if causal else "column"
+        self.norm1 = make_norm(norm_type, cin, mode)
+        self.norm2 = make_norm(norm_type, cout, mode)
+        if causal:
+            self.conv1 = CausalConv1d(cin, cout, 3, first_pad_mode=first_pad_mode,
+                                      cache_offset=cache_offset)
+            self.conv2 = CausalConv1d(cout, cout, 3, first_pad_mode=first_pad_mode,
+                                      zero_init=True, cache_offset=cache_offset)
+            if cin != cout:
+                self.nin_shortcut = CausalConv1d(cin, cout, 1,
+                                                 first_pad_mode=first_pad_mode)
+        else:
+            self.conv1 = Conv1d(cin, cout, 3)
+            self.conv2 = Conv1d(cout, cout, 3, zero_init=True)
+            if cin != cout:
+                self.nin_shortcut = Conv1d(cin, cout, 1)
 
     def forward(self, x, fused: bool = False, stream=None):
-        if fused and not hasattr(self, "nin_shortcut"):
+        if fused and self.kernel_ok:
             args = (x, _norm_args(self.norm1),
                     (self.conv1.conv.weight, self.conv1.conv.bias),
                     _norm_args(self.norm2),
@@ -118,54 +137,64 @@ class ResnetBlockTemporal(nn.Module):
         h = self.conv1(silu(self.norm1(x)), stream)
         h = self.conv2(silu(self.norm2(h)), stream)
         if hasattr(self, "nin_shortcut"):
-            x = self.nin_shortcut(x)
+            x = self.nin_shortcut(x, stream)
         return x + h
 
 
 class ResnetBlock3D(nn.Module):
-    """Full 3D causal residual block of the mid stack (``blocks.py:192-236``)."""
+    """Full 3D residual block of the mid stack (``blocks.py:192-236``):
+    causal convs and GroupNorm mode ``frame``, or symmetric ``Conv3d`` and
+    mode ``video``."""
 
     def __init__(self, cin: int, cout: int, norm_type: str = "layernorm",
-                 first_pad_mode: str = "zero", cache_offset: int = 0):
+                 first_pad_mode: str = "zero", cache_offset: int = 0,
+                 causal: bool = True):
         super().__init__()
-        self.norm1 = make_norm(norm_type, cin)
-        self.conv1 = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode,
-                                  cache_offset=cache_offset)
-        self.norm2 = make_norm(norm_type, cout)
-        self.conv2 = CausalConv3d(cout, cout, 3, first_pad_mode=first_pad_mode,
-                                  cache_offset=cache_offset)
-        if cin != cout:
-            self.nin_shortcut = CausalConv3d(cin, cout, 1,
-                                             first_pad_mode=first_pad_mode)
+        mode = "frame" if causal else "video"
+        self.norm1 = make_norm(norm_type, cin, mode)
+        self.norm2 = make_norm(norm_type, cout, mode)
+        if causal:
+            self.conv1 = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode,
+                                      cache_offset=cache_offset)
+            self.conv2 = CausalConv3d(cout, cout, 3, first_pad_mode=first_pad_mode,
+                                      cache_offset=cache_offset)
+            if cin != cout:
+                self.nin_shortcut = CausalConv3d(cin, cout, 1,
+                                                 first_pad_mode=first_pad_mode)
+        else:
+            self.conv1 = Conv3d(cin, cout, 3)
+            self.conv2 = Conv3d(cout, cout, 3)
+            if cin != cout:
+                self.nin_shortcut = Conv3d(cin, cout, 1)
 
     def forward(self, x, stream=None):
         h = self.conv1(silu(self.norm1(x)), stream)
         h = self.conv2(silu(self.norm2(h)), stream)
         if hasattr(self, "nin_shortcut"):
-            x = self.nin_shortcut(x)
+            x = self.nin_shortcut(x, stream)
         return x + h
 
 
 class AttnBlock(nn.Module):
     """Per-frame single-head spatial self-attention (``blocks.py:239-268``):
-    q/k/v/proj are 1x1 convs, q, k and v are cast to f32, the softmax runs
-    in f32 and the scale is C^-1/2."""
+    q/k/v/proj are 1x1 convs (causal wrappers, or plain ``Conv3d`` in the
+    non-causal model), q, k and v are cast to f32, the softmax runs in f32
+    and the scale is C^-1/2. GroupNorm mode ``frame``, non-causal
+    ``video``."""
 
-    def __init__(self, c: int, norm_type: str = "layernorm"):
+    def __init__(self, c: int, norm_type: str = "layernorm", causal: bool = True):
         super().__init__()
-        self.norm = make_norm(norm_type, c)
-        self.q = CausalConv3d(c, c, 1)
-        self.k = CausalConv3d(c, c, 1)
-        self.v = CausalConv3d(c, c, 1)
-        self.proj_out = CausalConv3d(c, c, 1)
+        self.norm = make_norm(norm_type, c, "frame" if causal else "video")
+        conv = (lambda: CausalConv3d(c, c, 1)) if causal else (lambda: Conv3d(c, c, 1))
+        self.q, self.k, self.v, self.proj_out = conv(), conv(), conv(), conv()
 
     def forward(self, x):
         b, t, hh, ww, c = x.shape
         h = self.norm(x)
 
         def proj(m, v):
-            return F.linear(v, m.conv.weight[:, :, 0, 0, 0].to(v.dtype),
-                            m.conv.bias.to(v.dtype))
+            m = m if isinstance(m, Conv3d) else m.conv
+            return F.linear(v, m.weight[:, :, 0, 0, 0].to(v.dtype), m.bias.to(v.dtype))
 
         q, k, v = (proj(m, h).reshape(b * t, 1, hh * ww, c).float()
                    for m in (self.q, self.k, self.v))
@@ -231,22 +260,33 @@ class SpatialUpsample(nn.Module):
 
 
 class TimeDownsampleRes2x(nn.Module):
-    """Causal blended temporal 2x downsample (``blocks.py:388-438``):
-    ``a*avgpool3s2(front + x) + (1-a)*conv3d_s2(x)``, a = sigmoid(mix).
-    On a stream the pool's front after the first chunk is its cache, the
-    last frame of the previous ``[front | x]`` (no offset), and the first
-    chunk's front follows ``first_pad_mode``."""
+    """Blended temporal 2x downsample (``blocks.py:388-438``):
+    ``a*avgpool3s2(pad(x)) + (1-a)*conv3d_s2(...)``, a = sigmoid(mix).
+    Causal: the pool pads one front frame and the conv is causal. On a
+    stream the pool's front after the first chunk is its cache, the last
+    frame of the previous ``[front | x]`` (no offset), and the first
+    chunk's front follows ``first_pad_mode``. Non-causal: one zero frame
+    at the end, and a stride-(2,1,1) ``Conv3d`` padded (0,1,1) of the same
+    padded clip (``blocks.py:411-417``)."""
 
     def __init__(self, cin: int, cout: int, first_pad_mode: str = "zero",
-                 mix_factor_init: float = 2.0):
+                 mix_factor_init: float = 2.0, causal: bool = True):
         super().__init__()
         self.first_pad_mode = first_pad_mode
+        self.causal = causal
         self.mix_factor = nn.Parameter(torch.full((1,), mix_factor_init))
-        self.conv = CausalConv3d(cin, cout, 3, stride=(2, 1, 1),
-                                 first_pad_mode=first_pad_mode)
+        if causal:
+            self.conv = CausalConv3d(cin, cout, 3, stride=(2, 1, 1),
+                                     first_pad_mode=first_pad_mode)
+        else:
+            self.conv = Conv3d(cin, cout, 3, stride=(2, 1, 1), padding=(0, 1, 1))
 
     def forward(self, x, stream=None):
         alpha = torch.sigmoid(self.mix_factor).to(x.dtype)
+        if not self.causal:
+            x_pad = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+            return (alpha * temporal_avg_pool3_stride2(x_pad)
+                    + (1 - alpha) * self.conv(x_pad))
         if stream is None or stream.first_chunk:
             x_pad = pad_time_front(x, 1, self.first_pad_mode)
         else:
@@ -259,8 +299,11 @@ class TimeDownsampleRes2x(nn.Module):
 
 
 class TimeUpsampleRes2x(nn.Module):
-    """Causal blended temporal 2x upsample (``blocks.py:441-571``):
-    ``a*up + (1-a)*conv(up)``, a = sigmoid(mix).
+    """Blended temporal 2x upsample (``blocks.py:441-571``):
+    ``a*up + (1-a)*conv(up)``, a = sigmoid(mix). With ``causal=False`` (the
+    non-causal model): nearest ``up``, a symmetric 3x3x3 ``Conv3d``, no
+    parity form and no kernel (``blocks.py:536``, ``:569-570``); the rest
+    of this docstring is the causal module.
 
     ``trilinear`` (v1.1): the first ``num_temp_upsample`` (ntu) frames are
     interpolated apart from the rest. On a stream (``blocks.py:538-553``)
@@ -285,23 +328,31 @@ class TimeUpsampleRes2x(nn.Module):
 
     def __init__(self, cin: int, cout: int, num_temp_upsample: int = 1,
                  first_pad_mode: str = "zero", mix_factor_init: float = 2.0,
-                 interpolation_mode: str = "trilinear", cache_offset: int = 0):
+                 interpolation_mode: str = "trilinear", cache_offset: int = 0,
+                 causal: bool = True):
         super().__init__()
         if interpolation_mode not in ("trilinear", "nearest"):
             raise ValueError(f"unknown interpolation_mode {interpolation_mode!r}")
         if cin != cout:
             raise ValueError(f"the blend needs cin == cout, got {cin}, {cout}")
         self.ntu = num_temp_upsample
-        self.parity = interpolation_mode == "nearest"
+        self.causal = causal
+        self.parity = causal and interpolation_mode == "nearest"
         self.first_pad_mode = first_pad_mode
         self.mix_factor = nn.Parameter(torch.full((1,), mix_factor_init))
-        self.conv = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode,
-                                 cache_offset=cache_offset)
+        if causal:
+            self.conv = CausalConv3d(cin, cout, 3, first_pad_mode=first_pad_mode,
+                                     cache_offset=cache_offset)
+        else:
+            self.conv = Conv3d(cin, cout, 3)
 
     def forward(self, x, fused: bool = False, stream=None,
                 forms: KernelForms = KernelForms()):
         alpha = torch.sigmoid(self.mix_factor).to(x.dtype)
         ntu = self.ntu
+        if not self.causal:
+            x = temporal_nearest_up2x(x)
+            return alpha * x + (1 - alpha) * self.conv(x)
         if self.parity:
             if stream is not None:
                 raise NotImplementedError(

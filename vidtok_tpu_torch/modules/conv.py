@@ -2,7 +2,9 @@
 
 Counterpart of ``vidtok_tpu/modules/conv.py``. Weights keep the reference
 torch layouts (Conv3d OIDHW, Conv2d OIHW, Conv1d OIk) and names, so a
-released torch state dict loads as it is. Each conv runs as one
+released torch state dict loads as it is. The non-causal model's convs
+(``Conv3d``, ``Conv1d``) pad symmetrically and hold their weights
+directly; the causal wrappers nest theirs in ``.conv``. Each conv runs as one
 ``F.conv3d`` on the ``permute(0, 4, 1, 2, 3)`` view of the channels-last
 tensor; that view is already ``channels_last_3d``, so cuDNN takes it
 without a copy and returns a tensor whose inverse permute is contiguous.
@@ -87,8 +89,30 @@ class Conv3d(nn.Conv3d):
     def reset_params(self, generator=None):
         reset_conv_(self.weight, self.bias, generator)
 
-    def forward(self, x):
+    def forward(self, x, stream=None):
+        """``stream`` is None: the non-causal model has no streaming form
+        (its encoder and decoder refuse one)."""
         return conv3d_cl(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class Conv1d(nn.Conv1d):
+    """Plain temporal conv with symmetric zero padding ``(k-1)//2`` (the
+    non-causal temporal resblock's ``nn.Conv1d(..., padding=p)`` over
+    ``(b h w) c t``), run as a (k,1,1) 3D conv on channels-last tensors;
+    the weight keeps the reference's ``[O, I, k]``."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 zero_init: bool = False):
+        super().__init__(cin, cout, kernel_size, padding=(kernel_size - 1) // 2)
+        self.zero_init = zero_init
+
+    def reset_params(self, generator=None):
+        reset_conv_(self.weight, self.bias, generator, self.zero_init)
+
+    def forward(self, x, stream=None):
+        """``stream`` is None, as for ``Conv3d``."""
+        return conv3d_cl(x, self.weight[..., None, None], self.bias, (1, 1, 1),
+                         (self.padding[0], 0, 0))
 
 
 def _front(conv, x, stream):

@@ -1,11 +1,11 @@
-"""Video decoder, causal v1.0 and v1.1 variants
-(``vidtok_tpu/modules/decoder.py``).
+"""Video decoder, all three variants (``vidtok_tpu/modules/decoder.py``).
 
 conv_in -> mid (3D resblock, attention, 3D resblock) -> levels from the
 deepest up, each ``num_res_blocks + 1`` x [spatial + temporal resblock],
 a spatial 2x upsample at ``spatial_us`` levels and a temporal 2x upsample
 at the ``tempo_us`` levels among them -> norm_out + SiLU + conv_out to RGB
-(kernel D when ``fused``, or D' in the ``taps`` tail form). ``forms``
+(kernel D when ``fused`` in a causal layernorm decoder, or D' in the
+``taps`` tail form). ``forms``
 (:class:`~..ops.kernels.KernelForms`) picks the upsamples' and the tail's
 kernel forms when ``fused`` is set.
 
@@ -15,6 +15,11 @@ kernel forms when ``fused`` is set.
 * ``causal_v1_1``: replicate pads, ``interpolation_mode`` (trilinear in
   the released configs); every decoded frame is returned and the model
   crops to the input length.
+* ``noncausal`` (``Decoder3D``): symmetric convs, a spatial upsample at
+  every level but the first whatever ``spatial_us`` says, a nearest
+  temporal upsample with no parity form, ``video`` GroupNorm statistics
+  in the mid stack and ``norm_out``, no crop and no tail kernel
+  (``decoder.py:60-78``, ``:100-293``); no streaming form.
 
 Given a :class:`~.stream.Stream`, ``forward`` decodes one chunk of a
 stream. Each stage's ``cache_offset`` (:meth:`Decoder.stage_offsets`)
@@ -35,8 +40,7 @@ from torch import nn
 from ..ops.kernels import KernelForms, decoder_tail_rgb, decoder_tail_rgb_taps
 from .blocks import (ResnetBlockSpatial, ResnetBlockTemporal, SpatialUpsample,
                      TimeUpsampleRes2x)
-from .conv import CausalConv3d
-from .encoder import _Mid, first_pad_mode
+from .encoder import _Mid, conv3, first_pad_mode, no_stream
 from .norms import make_norm, silu
 from .stream import tail
 
@@ -53,18 +57,21 @@ class Decoder(nn.Module):
         n = len(ch_mult)
         self.tanh_out = tanh_out
         self.first_pad_mode = pad = first_pad_mode(variant)
+        self.causal = causal = variant != "noncausal"
+        self.tail_kernel = causal and norm_type == "layernorm"
         # v1.0 drops its first tdf-1 output frames
         self.crop = time_downsample_factor - 1 if variant == "causal" else 0
-        if variant == "causal":
+        if variant != "causal_v1_1":
             interpolation_mode = "nearest"
-        self.spatial_us = tuple(range(1, n) if spatial_us is None else spatial_us)
+        if spatial_us is None or not causal:
+            spatial_us = range(1, n)
+        self.spatial_us = tuple(spatial_us)
         self.tempo_us = tuple((1, 2) if tempo_us is None else tempo_us)
         mid_off, level_offs, up_offs, out_off = self.stage_offsets(n)
 
         c = ch * ch_mult[n - 1]
-        self.conv_in = CausalConv3d(z_channels, c, 3, first_pad_mode=pad,
-                                    cache_offset=mid_off)
-        self.mid = _Mid(c, norm_type, pad, mid_off)
+        self.conv_in = conv3(z_channels, c, causal, pad, mid_off)
+        self.mid = _Mid(c, norm_type, pad, mid_off, causal)
         levels = {}
         ntu = 1
         for i in reversed(range(n)):
@@ -75,22 +82,21 @@ class Decoder(nn.Module):
             for _ in range(num_res_blocks + 1):
                 level.block.append(ResnetBlockSpatial(c, c_out, norm_type))
                 tlevel.block.append(ResnetBlockTemporal(c_out, c_out, norm_type, pad,
-                                                        level_offs[i]))
+                                                        level_offs[i], causal))
                 c = c_out
             if i in self.spatial_us:
                 level.upsample = SpatialUpsample(c)
                 if i in self.tempo_us:
                     tlevel.upsample = TimeUpsampleRes2x(
                         c, c, ntu, pad, interpolation_mode=interpolation_mode,
-                        cache_offset=up_offs[i])
+                        cache_offset=up_offs[i], causal=causal)
                     ntu *= 2
             levels[i] = (level, tlevel)
         # indexed by level, as the reference's ``up.insert(0, ...)``
         self.up = nn.ModuleList(levels[i][0] for i in range(n))
         self.up_temporal = nn.ModuleList(levels[i][1] for i in range(n))
-        self.norm_out = make_norm(norm_type, c)
-        self.conv_out = CausalConv3d(c, out_ch, 3, first_pad_mode=pad,
-                                     cache_offset=out_off)
+        self.norm_out = make_norm(norm_type, c, "frame" if causal else "video")
+        self.conv_out = conv3(c, out_ch, causal, pad, out_off)
 
     def stage_offsets(self, n: int):
         """Per-stage cache offsets for overlap-tiled decode (``decoder.py:
@@ -111,6 +117,7 @@ class Decoder(nn.Module):
     def forward(self, z, fused: bool = False, stream=None,
                 forms: KernelForms = KernelForms()):
         """z: [B, T', H', W', Cz] -> [B, tdf*T' - crop, H, W, out_ch]."""
+        no_stream(self, stream)
         h = self.mid(self.conv_in(z, stream), stream)
         for level, tlevel in zip(reversed(self.up), reversed(self.up_temporal)):
             for sp, tm in zip(level.block, tlevel.block):
@@ -124,7 +131,7 @@ class Decoder(nn.Module):
                      else stream.get(self.conv_out).to(h.dtype))
             h = torch.cat([front, h], dim=1)
             stream.put(self.conv_out, tail(h, 2, stream.offset(self.conv_out)))
-        if fused:
+        if fused and self.tail_kernel:
             norm = self.norm_out.norm
             conv = self.conv_out.conv
             rgb = decoder_tail_rgb_taps if forms.tail == "taps" else decoder_tail_rgb

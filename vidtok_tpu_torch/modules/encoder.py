@@ -1,5 +1,4 @@
-"""Video encoder, causal v1.0 and v1.1 variants
-(``vidtok_tpu/modules/encoder.py``).
+"""Video encoder, all three variants (``vidtok_tpu/modules/encoder.py``).
 
 Per level: ``num_res_blocks`` x [spatial resblock + temporal resblock],
 a spatial 2x downsample at ``spatial_ds`` levels and a temporal 2x
@@ -15,6 +14,11 @@ model (``down.{i}.block.{j}``, ``down_temporal.{i}.downsample``,
   gets ``tdf - 1`` front frames whenever ``T % tdf != 0``.
 * ``causal_v1_1``: interior convs repeat frame 0; the input is padded to
   the next multiple of ``tdf``.
+* ``noncausal`` (``Encoder3D``): symmetric convs, no input padding (T must
+  be a multiple of ``tdf``), a spatial downsample at every level but the
+  last whatever ``spatial_ds`` says, GroupNorm statistics over the whole
+  clip in the mid stack and ``norm_out`` (``video``) and over time in the
+  temporal blocks (``column``); no streaming form.
 
 Given a :class:`~.stream.Stream`, ``forward`` encodes one chunk of a
 stream: it skips ``pad_input`` (the engine pads the first chunk only,
@@ -31,27 +35,42 @@ from torch import nn
 from .blocks import (AttnBlock, ResnetBlock3D, ResnetBlockSpatial,
                      ResnetBlockTemporal, SpatialDownsample,
                      TimeDownsampleRes2x)
-from .conv import CausalConv3d, pad_time_front
+from .conv import CausalConv3d, Conv3d, pad_time_front
 from .norms import make_norm, silu
 
-VARIANTS = ("causal", "causal_v1_1")
+VARIANTS = ("causal", "causal_v1_1", "noncausal")
 
 
 def first_pad_mode(variant: str) -> str:
-    """The interior convs' stream-start pad of a variant."""
+    """The interior causal convs' stream-start pad of a variant (the
+    non-causal variant has none; ``zero`` as in JAX)."""
     if variant not in VARIANTS:
-        raise NotImplementedError(
-            f"variant {variant!r}: only {VARIANTS} are ported")
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     return "replicate" if variant == "causal_v1_1" else "zero"
+
+
+def conv3(cin: int, cout: int, causal: bool, pad: str, cache_offset: int = 0):
+    """conv_in / conv_out: a causal 3x3x3 conv, or a symmetric one."""
+    if causal:
+        return CausalConv3d(cin, cout, 3, first_pad_mode=pad, cache_offset=cache_offset)
+    return Conv3d(cin, cout, 3)
+
+
+def no_stream(module: nn.Module, stream) -> None:
+    if stream is not None and not module.causal:
+        raise ValueError("the non-causal model has no streaming form: its convs "
+                         "see the whole clip")
 
 
 class _Mid(nn.Module):
     def __init__(self, c: int, norm_type: str, first_pad_mode: str,
-                 cache_offset: int = 0):
+                 cache_offset: int = 0, causal: bool = True):
         super().__init__()
-        self.block_1 = ResnetBlock3D(c, c, norm_type, first_pad_mode, cache_offset)
-        self.attn_1 = AttnBlock(c, norm_type)
-        self.block_2 = ResnetBlock3D(c, c, norm_type, first_pad_mode, cache_offset)
+        self.block_1 = ResnetBlock3D(c, c, norm_type, first_pad_mode, cache_offset,
+                                     causal)
+        self.attn_1 = AttnBlock(c, norm_type, causal)
+        self.block_2 = ResnetBlock3D(c, c, norm_type, first_pad_mode, cache_offset,
+                                     causal)
 
     def forward(self, h, stream=None):
         return self.block_2(self.attn_1(self.block_1(h, stream)), stream)
@@ -70,12 +89,15 @@ class Encoder(nn.Module):
         n = len(ch_mult)
         self.tdf = time_downsample_factor
         self.init_pad_mode = init_pad_mode
-        self.spatial_ds = tuple(range(n - 1) if spatial_ds is None else spatial_ds)
-        self.tempo_ds = tuple((n - 2, n - 3) if tempo_ds is None else tempo_ds)
         self.variant = variant
         pad = first_pad_mode(variant)
+        self.causal = causal = variant != "noncausal"
+        if spatial_ds is None or not causal:
+            spatial_ds = range(n - 1)
+        self.spatial_ds = tuple(spatial_ds)
+        self.tempo_ds = tuple((n - 2, n - 3) if tempo_ds is None else tempo_ds)
 
-        self.conv_in = CausalConv3d(in_channels, ch, 3, first_pad_mode=pad)
+        self.conv_in = conv3(in_channels, ch, causal, pad)
         self.down = nn.ModuleList()
         self.down_temporal = nn.ModuleList()
         c = ch
@@ -86,25 +108,26 @@ class Encoder(nn.Module):
             tlevel.block = nn.ModuleList()
             for _ in range(num_res_blocks):
                 level.block.append(ResnetBlockSpatial(c, c_out, norm_type))
-                tlevel.block.append(ResnetBlockTemporal(c_out, c_out, norm_type, pad))
+                tlevel.block.append(ResnetBlockTemporal(c_out, c_out, norm_type, pad,
+                                                        causal=causal))
                 c = c_out
             if i in self.spatial_ds:
                 level.downsample = SpatialDownsample(c)
                 if i in self.tempo_ds:
-                    tlevel.downsample = TimeDownsampleRes2x(c, c, pad)
+                    tlevel.downsample = TimeDownsampleRes2x(c, c, pad, causal=causal)
             self.down.append(level)
             self.down_temporal.append(tlevel)
-        self.mid = _Mid(c, norm_type, pad)
-        self.norm_out = make_norm(norm_type, c)
-        self.conv_out = CausalConv3d(
-            c, 2 * z_channels if double_z else z_channels, 3, first_pad_mode=pad)
+        self.mid = _Mid(c, norm_type, pad, causal=causal)
+        self.norm_out = make_norm(norm_type, c, "frame" if causal else "video")
+        self.conv_out = conv3(c, 2 * z_channels if double_z else z_channels, causal, pad)
 
     def pad_input(self, x):
         """Front-pad T with ``init_pad_mode`` frames when it is not a
         multiple of the time downsample factor (``encoder.py:80-101``):
-        ``tdf - 1`` frames (v1.0), or up to the next multiple (v1.1)."""
+        ``tdf - 1`` frames (v1.0), or up to the next multiple (v1.1); the
+        non-causal model pads nothing."""
         t = x.shape[1]
-        if t % self.tdf == 0:
+        if t % self.tdf == 0 or not self.causal:
             return x
         n = self.tdf - t % self.tdf if self.variant == "causal_v1_1" else self.tdf - 1
         mode = "replicate" if self.init_pad_mode == "replicate" else "zero"
@@ -112,6 +135,7 @@ class Encoder(nn.Module):
 
     def forward(self, x, fused: bool = False, stream=None):
         """x: [B, T, H, W, C] -> posterior parameters [B, T', H', W', 2Cz]."""
+        no_stream(self, stream)
         if stream is None:
             x = self.pad_input(x)
         h = self.conv_in(x, stream)
