@@ -15,10 +15,17 @@ against ``vidtok_tpu``'s.
 * ``ignore_keys`` drops what it matches; a missing, unexpected or
   mis-shaped key raises; the reference's training-only keys are dropped.
 * ``model.params.ckpt_path`` is honoured, and ``ckpt=`` wins over it.
+* A Lightning ``.ckpt`` whose other entries need the full pickle (a
+  ``np.float64`` in ``callbacks``, an ``argparse.Namespace`` in
+  ``hyper_parameters``) is refused by the default weights-only load with a
+  message naming ``full_pickle``, and loads with it, to JAX's outputs.
 
 Tiny models, fp32; the port against JAX at rtol 1e-4, atol 2e-4, the port
 against itself exactly.
 """
+
+import argparse
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -211,3 +218,20 @@ def test_ckpt_wins_over_ckpt_path(tmp_path):
                                                         ckpt_path=pa))}
     same(port_out(a), port_out(load_model_from_config(cfg, device="cpu")))
     same(port_out(b), port_out(load_model_from_config(cfg, device="cpu", ckpt=pb)))
+
+
+@pytest.mark.parametrize("extra", [
+    {"callbacks": {"ModelCheckpoint": {"best_model_score": np.float64(0.25)}}},
+    {"hyper_parameters": argparse.Namespace(base_learning_rate=1e-5)}],
+    ids=["np_float64", "namespace"])
+def test_full_pickle_opt_in(tmp_path, extra):
+    tok = port(seed=7)
+    path = str(tmp_path / "lightning.ckpt")
+    torch.save({"state_dict": tok.core.state_dict(), "global_step": 5, **extra}, path)
+    with pytest.raises(pickle.UnpicklingError, match="full_pickle=True"):
+        port(ckpt=path)
+    with pytest.raises(pickle.UnpicklingError, match="full_pickle"):
+        C.read_state_dict(path)
+    loaded = port(ckpt=path, full_pickle=True)
+    same(port_out(tok), port_out(loaded))
+    near(port_out(loaded), jax_out("v1_1", load_params(path, verbose=False)))

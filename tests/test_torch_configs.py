@@ -247,7 +247,9 @@ def test_chip_smoke_call_shapes(path, monkeypatch):
     ("NONCAUSAL_CFG", "vidtok_kl_noncausal_488_16chn.yaml"),
     ("FSQ_41616_CFG", "v1_1/vidtok_fsq_causal_41616_262144_v1_1.yaml"),
     ("FSQ_888_CFG", "v1_1/vidtok_fsq_causal_888_32768_v1_1.yaml"),
-    ("KL_444_CFG", "vidtok_kl_causal_444_4chn.yaml")])
+    ("KL_444_CFG", "vidtok_kl_causal_444_4chn.yaml"),
+    ("FSQ_262144_CFG", "vidtok_fsq_causal_488_262144.yaml"),
+    ("FSQ_32768_V1_1_CFG", "v1_1/vidtok_fsq_causal_488_32768_v1_1.yaml")])
 def test_chip_smoke_configs_are_the_files(name, path):
     """``chip_smoke.py`` holds its model sections resolved, so the card
     needs no YAML parser: each equals its config file's."""

@@ -163,10 +163,11 @@ def test_import_hygiene(tmp_path):
     """The port imports torch and numpy only: no jax, flax or yaml when it
     builds a model from a config dict (v1.1 KL, v1.0 KL and FSQ, the
     non-causal KL) beside its two tool modules (the temporal
-    microbenchmark, the SiLU probe), saves a ``.ckpt`` and loads it back,
-    and no jax, flax or ``vidtok_tpu`` module when it loads a YAML file
-    (PyYAML is allowed there) whose ``${...}`` reference its own resolver
-    follows."""
+    microbenchmark, the SiLU probe), its three CLIs, its data package,
+    metrics and LPIPS, saves a ``.ckpt`` and loads it back, and no jax,
+    flax or ``vidtok_tpu`` module when it loads a YAML file (PyYAML is
+    allowed there) whose ``${...}`` reference its own resolver follows.
+    Neither pulls in cv2, PIL or pandas: importing the port needs none."""
     import yaml
 
     env = dict(os.environ)
@@ -194,6 +195,11 @@ def test_import_hygiene(tmp_path):
         "import vidtok_tpu_torch.ops.kernels\n"
         "import vidtok_tpu_torch.tools.microbench_temporal\n"
         "import vidtok_tpu_torch.tools.probe_silu_bf16\n"
+        "import vidtok_tpu_torch.data, vidtok_tpu_torch.ops.metrics\n"
+        "import vidtok_tpu_torch.modules.lpips\n"
+        "import vidtok_tpu_torch.scripts.inference_evaluate\n"
+        "import vidtok_tpu_torch.scripts.inference_reconstruct\n"
+        "import vidtok_tpu_torch.scripts.stream_tokens\n"
         f"for m in ({CFG!r}, {v1_0!r}, {fsq!r}):\n"
         "    tok = vidtok_tpu_torch.load_model_from_config({'model': m}, "
         "device='cpu')\n"
@@ -207,13 +213,15 @@ def test_import_hygiene(tmp_path):
         "import torch\n"
         "assert all(torch.equal(a, b) for a, b in zip(\n"
         "    tok.core.state_dict().values(), back.core.state_dict().values()))\n"
-        "bad = [m for m in ('jax', 'flax', 'yaml') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'yaml', 'cv2', 'PIL', 'pandas')\n"
+        "       if m in sys.modules]\n"
         "assert not bad, bad\n"
         f"tok = vidtok_tpu_torch.load_model_from_config({str(path)!r}, "
         "device='cpu')\n"
         "assert tok.meta['variant'] == 'causal_v1_1'\n"
         "assert tok.core.decoder.conv_in.conv.in_channels == 4\n"
-        "bad = [m for m in ('jax', 'flax', 'vidtok_tpu') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'vidtok_tpu', 'cv2', 'PIL', 'pandas')\n"
+        "       if m in sys.modules]\n"
         "assert not bad and 'yaml' in sys.modules, bad\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -5,11 +5,14 @@ It sits beside ``vidtok_tpu`` (JAX), which stays the reference. Ported:
 the serving path of every VidTok tokenizer config (causal v1.0 and v1.1,
 non-causal; KL and FSQ without projections; layernorm and groupnorm), the
 v1.1 tiled (chunked, streaming) inference, checkpoint loading and saving
-(``utils/checkpoint.py``), and the fourteen Pallas kernels of the JAX
-package as CUDA kernels (``ops/kernels``, ``csrc``, ``tools``), four of
-them alternative forms of the decoder's call sites (``KernelForms``).
+(``utils/checkpoint.py``), the quality metrics, LPIPS, the video data
+path and the three serving CLIs (``scripts``), and the fourteen Pallas
+kernels of the JAX package as CUDA kernels (``ops/kernels``, ``csrc``,
+``tools``), four of them alternative forms of the decoder's call sites
+(``KernelForms``).
 Imports torch and numpy only (and PyYAML for a YAML config, safetensors
-for such a file).
+for such a file, OpenCV where a video is read without the native
+library or written).
 
     from vidtok_tpu_torch import load_model_from_config
     tok = load_model_from_config(cfg, ckpt=None, compute_dtype=torch.bfloat16)

@@ -232,6 +232,8 @@ class VideoTokenizer:
         if forms is not None and not isinstance(forms, KernelForms):
             raise TypeError(f"forms must be a KernelForms, got {forms!r}")
         self.forms = forms or KernelForms()
+        self.is_causal = meta["is_causal"]
+        self.discrete = meta["discrete"]
         self.time_downsample_factor = meta["time_downsample_factor"]
         self.use_tiling = meta.get("use_tiling", False)
         self.t_chunk_enc = meta.get("t_chunk_enc", 16)
@@ -243,17 +245,19 @@ class VideoTokenizer:
     def from_config(cls, config, ckpt: Optional[str] = None, seed: int = 0,
                     device="cuda", compute_dtype: torch.dtype = torch.float32,
                     fused: Optional[bool] = None,
-                    forms: Optional[KernelForms] = None):
+                    forms: Optional[KernelForms] = None,
+                    full_pickle: bool = False):
         """``config``: a dict or a YAML path (which needs PyYAML). The
         weights come from ``ckpt``, else from the config's
         ``model.params.ckpt_path``, less the keys its ``ignore_keys``
         patterns match (:func:`~..utils.checkpoint.load_checkpoint`: a
-        ``.ckpt`` / ``.pt`` torch file, a JAX ``.npz`` or a
-        ``.safetensors`` file; loaded strictly, on the CPU); with neither
-        they are random from ``seed``. The model is then placed on
-        ``device``, the card unless the caller names another: a machine
-        without CUDA raises rather than fall back to the CPU. ``forms``:
-        the decoder's kernel forms (default ``KernelForms()``)."""
+        ``.ckpt`` / ``.pt`` torch file, weights-only unless
+        ``full_pickle``, a JAX ``.npz`` or a ``.safetensors`` file;
+        loaded strictly, on the CPU); with neither they are random from
+        ``seed``. The model is then placed on ``device``, the card unless
+        the caller names another: a machine without CUDA raises rather
+        than fall back to the CPU. ``forms``: the decoder's kernel forms
+        (default ``KernelForms()``)."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to build "
@@ -264,7 +268,8 @@ class VideoTokenizer:
         ckpt = ckpt or params.get("ckpt_path")
         core, meta = build_core_from_config(model_cfg)
         if ckpt:
-            checkpoint.load_checkpoint(core, ckpt, tuple(params.get("ignore_keys") or ()))
+            checkpoint.load_checkpoint(core, ckpt, tuple(params.get("ignore_keys") or ()),
+                                       full_pickle)
         else:
             reset_params_(core, torch.Generator().manual_seed(seed))
         return cls(core.to(device), meta, compute_dtype, fused, seed, forms)
@@ -350,24 +355,37 @@ class VideoTokenizer:
                 "call, which breaks chunk stitching (reference only "
                 "implements tiling in autoencoder_v1_1.py)")
 
-    def _tile_encode(self, x, sample: bool = False):
-        """x [B,C,T,H,W] -> (f32 z [B,Cz,T',H',W'], reg_log). Each chunk is
-        moved to the device and cast on its own. KL: the mean of the
-        chunks' kl_loss; FSQ: the chunks' indices along time and the mean
-        of their aux_loss."""
+    @torch.no_grad()
+    def encode_chunk(self, x, cache: Optional[dict] = None, sample: bool = False):
+        """One step of the causal encoder stream (v1.1): ``x`` [B,C,t,H,W]
+        is the clip's first chunk when ``cache`` is None (front-padded as
+        ``pad_input`` pads it; frame 0 alone in the tiled schedule), else
+        the chunk after the one that returned ``cache``. Returns (f32 z
+        [B,Cz,t',H',W'], reg_log, cache for the next chunk); the chunk is
+        moved to the device and cast on its own. ``_tile_encode`` is a
+        loop of this step over ``build_chunk_start_end``."""
         self._check_tiling_supported()
+        first = cache is None
+        chunk = self._input(x)
+        if first:
+            chunk = self.core.encoder.pad_input(chunk)
+        z, log, cache = self.core.encode(
+            chunk, sample=sample, fused=self.fused, generator=self.generator,
+            streaming=True, first_chunk=first, cache=cache)
+        return _to_ncthw(z.float()), log, cache
+
+    def _tile_encode(self, x, sample: bool = False):
+        """x [B,C,T,H,W] -> (f32 z [B,Cz,T',H',W'], reg_log), chunk by
+        chunk (``encode_chunk``). KL: the mean of the chunks' kl_loss;
+        FSQ: the chunks' indices along time and the mean of their
+        aux_loss."""
         zs, logs, cache = [], [], None
-        for idx, (s, e) in enumerate(self.build_chunk_start_end(x.shape[2])):
-            chunk = self._input(x[:, :, s:e])
-            if idx == 0:
-                chunk = self.core.encoder.pad_input(chunk)
-            z, log, cache = self.core.encode(
-                chunk, sample=sample, fused=self.fused, generator=self.generator,
-                streaming=True, first_chunk=idx == 0, cache=cache)
+        for s, e in self.build_chunk_start_end(x.shape[2]):
+            z, log, cache = self.encode_chunk(x[:, :, s:e], cache, sample)
             zs.append(z)
             logs.append(log)
-        z = _to_ncthw(torch.cat(zs, dim=1).float())
-        if self.meta["discrete"]:
+        z = torch.cat(zs, dim=2)
+        if self.discrete:
             log = {"aux_loss": torch.stack([l["aux_loss"] for l in logs]).mean(),
                    "indices": torch.cat([l["indices"] for l in logs], dim=1)}
         else:

@@ -4,7 +4,13 @@
 :func:`read_state_dict` reads a flat state dict from
 
 * a torch file (``.ckpt`` / ``.pt``, anything not named below):
-  ``torch.load`` on the CPU, its ``["state_dict"]`` when it has one;
+  ``torch.load`` on the CPU, its ``["state_dict"]`` when it has one.
+  The load is weights-only (tensors and plain containers) unless the
+  caller passes ``full_pickle=True``: a Lightning ``.ckpt`` whose other
+  entries hold objects (a ``np.float64`` in ``callbacks``, an
+  ``argparse.Namespace`` in ``hyper_parameters``) needs the full pickle,
+  which runs code from the file, as JAX's reader always does
+  (``weights_only=False``);
 * JAX's ``.npz``: ``save_params``' flat ``a/b/c`` keys, or the ``core``
   section of a full-checkpoint npz (``core//a/b/c``, ``save_full_npz``),
   through :func:`unflatten_params` and ``convert.state_dict_from_jax``;
@@ -28,6 +34,7 @@ on, which would serve a partly random model.
 
 from __future__ import annotations
 
+import pickle
 import re
 from typing import Dict, Iterable
 
@@ -70,9 +77,11 @@ def _read_npz(path: str) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
-def read_state_dict(path: str, ignore_keys: Iterable[str] = ()) -> Dict[str, torch.Tensor]:
+def read_state_dict(path: str, ignore_keys: Iterable[str] = (),
+                    full_pickle: bool = False) -> Dict[str, torch.Tensor]:
     """The tokenizer's weights in ``path`` as a flat state dict of CPU
-    tensors in the reference's key layout (module docstring)."""
+    tensors in the reference's key layout (module docstring). A torch file
+    that a weights-only load refuses raises, naming ``full_pickle``."""
     path = str(path)
     if path.endswith(".npz"):
         sd = _read_npz(path)
@@ -84,7 +93,16 @@ def read_state_dict(path: str, ignore_keys: Iterable[str] = ()) -> Dict[str, tor
                               "which is not installed") from e
         sd = load_file(path, device="cpu")
     else:
-        obj = torch.load(path, map_location="cpu")
+        try:
+            obj = torch.load(path, map_location="cpu", weights_only=not full_pickle)
+        except pickle.UnpicklingError as e:
+            if full_pickle:
+                raise
+            raise pickle.UnpicklingError(
+                f"{path}: a weights-only load refused this file, which holds "
+                "more than tensors. If you trust it, load its full pickle "
+                "(it runs code from the file): full_pickle=True, or "
+                "--full_pickle on the command line.") from e
         sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
     sd = {k: v for k, v in sd.items()
           if k.split(".")[0] not in ("loss", "model_ema")
@@ -152,9 +170,10 @@ def load_into(module: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
     module.load_state_dict(matched, strict=True)
 
 
-def load_checkpoint(module: nn.Module, path: str, ignore_keys: Iterable[str] = ()) -> None:
+def load_checkpoint(module: nn.Module, path: str, ignore_keys: Iterable[str] = (),
+                    full_pickle: bool = False) -> None:
     """:func:`read_state_dict` of ``path`` into ``module`` by :func:`load_into`."""
-    load_into(module, read_state_dict(path, ignore_keys))
+    load_into(module, read_state_dict(path, ignore_keys, full_pickle))
 
 
 def save_checkpoint(module: nn.Module, path: str) -> None:
