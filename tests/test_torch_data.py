@@ -3,7 +3,8 @@
 
 * ``sample_frames_with_fps`` equal over drawn totals, fps and starts.
 * ``read_frames_at`` bit-equal to JAX's on written clips, through the
-  native FFmpeg library and through OpenCV alone.
+  native FFmpeg library (built by the test from ``native/video_ingest.cc``)
+  and through OpenCV alone.
 * ``default_transform`` bit-equal to JAX's Pillow pipeline: downscaling
   (both aspect ratios), upscaling a video smaller than the target, and
   unchanged sizes (no resize, no quantization), on decoded and on
@@ -16,7 +17,9 @@
   short rows, blank lines, quoted commas, pandas' implicit index).
 """
 
+import os
 import random
+import subprocess
 
 import numpy as np
 import pytest
@@ -34,6 +37,7 @@ from vidtok_tpu_torch.data import transforms as PT
 from vidtok_tpu_torch.data import video_reader as PV
 
 torch.set_num_threads(2)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -68,9 +72,27 @@ def test_sample_frames_with_fps(total, video_fps, n, sample_fps, start, seed):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.fixture(scope="module")
+def native_lib(tmp_path_factory):
+    """``native/video_ingest.cc`` built with ``native/build.sh``'s own
+    command into a directory of this test's (the repo's library is
+    git-ignored, and another test process may or may not have built it);
+    a build failure is a failure."""
+    src = os.path.join(ROOT, "native", "video_ingest.cc")
+    out = str(tmp_path_factory.mktemp("native") / "libvidtok_ingest.so")
+    r = subprocess.run(["g++", "-O2", "-fPIC", "-shared", "-o", out, src,
+                        "-lavformat", "-lavcodec", "-lavutil", "-lswscale"],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, f"native ingest build failed:\n{r.stdout}\n{r.stderr}"
+    return out
+
+
 @pytest.mark.parametrize("backend", ["native", "cv2"])
-def test_read_frames_at(videos, backend, monkeypatch):
+def test_read_frames_at(videos, backend, monkeypatch, request):
     if backend == "native":
+        lib = request.getfixturevalue("native_lib")
+        for mod in (PN, JN):
+            monkeypatch.setattr(mod, "_LIB_PATHS", [lib] + list(mod._LIB_PATHS))
         assert PN.available() and JN.available()
     else:
         monkeypatch.setattr(JN, "available", lambda: False)

@@ -163,8 +163,11 @@ def test_import_hygiene(tmp_path):
     """The port imports torch and numpy only: no jax, flax or yaml when it
     builds a model from a config dict (v1.1 KL, v1.0 KL and FSQ, the
     non-causal KL) beside its two tool modules (the temporal
-    microbenchmark, the SiLU probe), its three CLIs, its data package,
-    metrics and LPIPS, saves a ``.ckpt`` and loads it back, and no jax,
+    microbenchmark, the SiLU probe), its four CLIs, its data package
+    (the training pipeline and data module too), metrics and LPIPS, the
+    registry, the loggers, the distributed helpers, builds a trainer (its
+    discriminator, losses and optimizers), saves a ``.ckpt`` and loads it
+    back, and no jax,
     flax or ``vidtok_tpu`` module when it loads a YAML file (PyYAML is
     allowed there) whose ``${...}`` reference its own resolver follows.
     Neither pulls in cv2, PIL or pandas: importing the port needs none."""
@@ -200,6 +203,11 @@ def test_import_hygiene(tmp_path):
         "import vidtok_tpu_torch.scripts.inference_evaluate\n"
         "import vidtok_tpu_torch.scripts.inference_reconstruct\n"
         "import vidtok_tpu_torch.scripts.stream_tokens\n"
+        "import vidtok_tpu_torch.scripts.train, vidtok_tpu_torch.registry\n"
+        "import vidtok_tpu_torch.data.pipeline, vidtok_tpu_torch.data.datamodule\n"
+        "import vidtok_tpu_torch.utils.logging, vidtok_tpu_torch.parallel.distributed\n"
+        "from vidtok_tpu_torch.train.trainer import VidTokTrainer\n"
+        f"VidTokTrainer({{'model': {fsq!r}}}, device='cpu').init_state()\n"
         f"for m in ({CFG!r}, {v1_0!r}, {fsq!r}):\n"
         "    tok = vidtok_tpu_torch.load_model_from_config({'model': m}, "
         "device='cpu')\n"

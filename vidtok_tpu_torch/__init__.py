@@ -6,7 +6,9 @@ the serving path of every VidTok tokenizer config (causal v1.0 and v1.1,
 non-causal; KL and FSQ without projections; layernorm and groupnorm), the
 v1.1 tiled (chunked, streaming) inference, checkpoint loading and saving
 (``utils/checkpoint.py``), the quality metrics, LPIPS, the video data
-path and the three serving CLIs (``scripts``), and the fourteen Pallas
+path and the three serving CLIs (``scripts``), the GAN training stack
+(``train``: losses, discriminators, the trainer, train-state checkpoints,
+data parallelism, the train CLI), and the fourteen Pallas
 kernels of the JAX package as CUDA kernels (``ops/kernels``, ``csrc``,
 ``tools``), four of them alternative forms of the decoder's call sites
 (``KernelForms``).

@@ -73,3 +73,48 @@ def state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
         _walk(tree, name + ".", "3d", out)
     return out
 
+
+
+def _disc_index(name: str, n_layers: int) -> int:
+    """JAX's discriminator module name -> its index in the reference's
+    ``main`` Sequential (the inverse of ``checkpoint.py``'s
+    ``_DISC_SEQ_NAMES``, for any depth)."""
+    if name == "conv_out":
+        return 3 * n_layers + 2
+    n = int(name[4:])
+    return 0 if name == "conv0" else 3 * n - 1 if name.startswith("conv") else 3 * n
+
+
+def discriminator_state_dict_from_jax(params: dict, batch_stats: dict = None,
+                                      n_layers: int = 3) -> Dict[str, np.ndarray]:
+    """JAX ``NLayerDiscriminator(3D)`` params and batch stats -> the
+    reference torch module's state dict (``main.<i>.*``; the inverse of
+    ``vidtok_tpu/utils/checkpoint.py:162-207``): kernels HWIO / DHWIO
+    become OIHW / OIDHW, BatchNorm ``scale``/``bias``/``mean``/``var``
+    become ``weight``/``bias``/``running_mean``/``running_var`` (with
+    ``num_batches_tracked`` 0; no buffers without ``batch_stats``, for a
+    tree shaped like the params, such as Adam's moments), ActNorm's ``[C]`` ``loc``/``scale`` become
+    ``[1, C, 1, ...]`` with ``initialized`` 1."""
+    out: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        pre = f"main.{_disc_index(name, n_layers)}."
+        if "kernel" in p:
+            k = np.asarray(p["kernel"])
+            out[pre + "weight"] = np.ascontiguousarray(
+                np.moveaxis(k, (-1, -2), (0, 1)))
+            if "bias" in p:
+                out[pre + "bias"] = np.asarray(p["bias"])
+        elif "loc" in p:
+            # the input's rank is the kernel's (HWIO: 4, DHWIO: 5)
+            shape = (1, -1) + (1,) * (np.ndim(params["conv0"]["kernel"]) - 2)
+            out[pre + "loc"] = np.asarray(p["loc"]).reshape(shape)
+            out[pre + "scale"] = np.asarray(p["scale"]).reshape(shape)
+            out[pre + "initialized"] = np.array(1, np.uint8)
+        else:
+            out[pre + "weight"] = np.asarray(p["scale"])
+            out[pre + "bias"] = np.asarray(p["bias"])
+            if batch_stats is not None:
+                out[pre + "running_mean"] = np.asarray(batch_stats[name]["mean"])
+                out[pre + "running_var"] = np.asarray(batch_stats[name]["var"])
+                out[pre + "num_batches_tracked"] = np.array(0, np.int64)
+    return out

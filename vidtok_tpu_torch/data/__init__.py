@@ -1,7 +1,8 @@
 """Video data for the port's CLIs and datasets (``vidtok_tpu/data``):
 decoding (the native FFmpeg library, else OpenCV, imported only when a
-video is read or written), frame transforms on tensors, and the datasets.
-The training pipeline and data module come with the training stack."""
+video is read or written), frame transforms on tensors, the datasets,
+and the training input pipeline (:mod:`.pipeline`) and data module
+(:mod:`.datamodule`)."""
 
 from .dataset import VidTokDataset, VidTokValDataset, window_frame_ids
 from .transforms import default_transform

@@ -81,9 +81,12 @@ def _regularizer(reg_cfg: dict):
         commitment_loss_weight=rp.get("commitment_loss_weight", 0.0)), True
 
 
-def build_core_from_config(model_cfg: dict) -> Tuple["TokenizerCore", dict]:
+def build_core_from_config(model_cfg: dict, use_checkpoint: Optional[bool] = None
+                           ) -> Tuple["TokenizerCore", dict]:
     """Reference-style ``model:`` section (already resolved: no ``${...}``)
-    -> (TokenizerCore, meta)."""
+    -> (TokenizerCore, meta). ``use_checkpoint`` (the config's
+    ``training.use_checkpoint``, ``trainer.py:37-46``) overrides the
+    encoder's and decoder's own flags when it is not None."""
     p = model_cfg.get("params", model_cfg)
     enc_cfg = p["encoder_config"]
     dec_cfg = p.get("decoder_config", enc_cfg)
@@ -103,25 +106,33 @@ def build_core_from_config(model_cfg: dict) -> Tuple["TokenizerCore", dict]:
     def opt(d, key):
         return tuple(d[key]) if d.get(key) is not None else None
 
+    def remat(d):
+        return bool(d.get("use_checkpoint", False) if use_checkpoint is None
+                    else use_checkpoint)
+
     tdf = ep.get("time_downsample_factor", 4)
     variant = _variant(_ENC_VARIANTS, enc_cfg["target"])
     encoder = Encoder(
         in_channels=ep.get("in_channels", 3), double_z=ep.get("double_z", True),
         spatial_ds=opt(ep, "spatial_ds"), tempo_ds=opt(ep, "tempo_ds"),
         variant=variant, time_downsample_factor=tdf,
-        init_pad_mode=ep.get("init_pad_mode", "replicate"), **common(ep))
+        init_pad_mode=ep.get("init_pad_mode", "replicate"),
+        use_checkpoint=remat(ep), **common(ep))
     decoder = Decoder(
         out_ch=dp.get("out_ch", 3), spatial_us=opt(dp, "spatial_us"),
         tempo_us=opt(dp, "tempo_us"),
         variant=_variant(_DEC_VARIANTS, dec_cfg["target"]),
         interpolation_mode=dp.get("interpolation_mode", "nearest"),
         tanh_out=dp.get("tanh_out", False),
-        time_downsample_factor=dp.get("time_downsample_factor", 4), **common(dp))
+        time_downsample_factor=dp.get("time_downsample_factor", 4),
+        use_checkpoint=remat(dp), **common(dp))
     regularizer, discrete = _regularizer(reg_cfg)
     core = TokenizerCore(encoder, decoder, regularizer)
     meta = dict(variant=variant, is_causal=variant != "noncausal", discrete=discrete,
                 time_downsample_factor=tdf, use_tiling=p.get("use_tiling", False),
-                t_chunk_enc=p.get("t_chunk_enc", 16))
+                t_chunk_enc=p.get("t_chunk_enc", 16),
+                fix_encoder=ep.get("fix_encoder", False),
+                fix_decoder=dp.get("fix_decoder", False), monitor=p.get("monitor"))
     return core, meta
 
 
@@ -173,6 +184,27 @@ class TokenizerCore(nn.Module):
     def decode_indices(self, indices):
         """FSQ indices -> channels-last f32 latent."""
         return self.regularization.decode_indices(indices)
+
+    def forward_train(self, x, n_steps: int = 0, fix_encoder: bool = False,
+                      generator: torch.Generator = None):
+        """The training forward (``autoencoder.py:180-192``): (z, xrec,
+        conv_out's input, reg_log). The regularizer samples as its config
+        says (from ``generator``), anneals by ``n_steps`` and reduces
+        FSQ's codebook entropy over the processes' global batch; under
+        ``fix_encoder`` z and reg_log carry no gradient. Plain path (no
+        kernel), activation checkpointing where the config sets
+        ``use_checkpoint``; xrec is cropped to x's frames."""
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not fix_encoder):
+            zp = self.encoder(x, train=True)
+            z, reg_log = self.regularization(zp, generator=generator, n_steps=n_steps,
+                                             global_batch=True)
+        if fix_encoder:
+            z = z.detach()
+            reg_log = {k: v.detach() for k, v in reg_log.items()}
+        dec, pre = self.decoder(z, train=True, return_features=True)
+        if dec.shape[1] != x.shape[1]:
+            dec = dec[:, -x.shape[1]:]
+        return z, dec, pre, reg_log
 
     def forward(self, x, sample: Optional[bool] = None, fused: bool = False,
                 generator: torch.Generator = None,

@@ -28,6 +28,13 @@ caches the last two RAW pre-norm frames (``decoder.py:205-250``), on both
 paths: it runs on ``[2 cached | chunk]`` (the first chunk: frame 0 twice)
 and drops the first two output frames, which equals the activated-input
 cache of a streaming conv_out because LayerNorm+SiLU is per position.
+
+The training forward (``train=True``, no stream) recomputes every
+resblock, mid block, the attention and the upsamples in the backward when
+``use_checkpoint`` is set (``decoder.py:120-143``), and with
+``return_features`` also returns ``conv_out``'s input (norm_out + SiLU),
+which the adaptive GAN weight differentiates through ``conv_out``. It
+runs the plain path: the kernels have no backward.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from torch import nn
 from ..ops.kernels import KernelForms, decoder_tail_rgb, decoder_tail_rgb_taps
 from .blocks import (ResnetBlockSpatial, ResnetBlockTemporal, SpatialUpsample,
                      TimeUpsampleRes2x)
-from .encoder import _Mid, conv3, first_pad_mode, no_stream
+from .encoder import _Mid, call, conv3, first_pad_mode, no_stream
 from .norms import make_norm, silu
 from .stream import tail
 
@@ -52,9 +59,10 @@ class Decoder(nn.Module):
                  tempo_us: Optional[Sequence[int]] = None,
                  variant: str = "causal_v1_1", norm_type: str = "layernorm",
                  interpolation_mode: str = "trilinear", tanh_out: bool = False,
-                 time_downsample_factor: int = 4):
+                 time_downsample_factor: int = 4, use_checkpoint: bool = False):
         super().__init__()
         n = len(ch_mult)
+        self.use_checkpoint = use_checkpoint
         self.tanh_out = tanh_out
         self.first_pad_mode = pad = first_pad_mode(variant)
         self.causal = causal = variant != "noncausal"
@@ -115,32 +123,43 @@ class Decoder(nn.Module):
         return 1, level_offs, up_offs, cur
 
     def forward(self, z, fused: bool = False, stream=None,
-                forms: KernelForms = KernelForms()):
-        """z: [B, T', H', W', Cz] -> [B, tdf*T' - crop, H, W, out_ch]."""
+                forms: KernelForms = KernelForms(), train: bool = False,
+                return_features: bool = False):
+        """z: [B, T', H', W', Cz] -> [B, tdf*T' - crop, H, W, out_ch]; with
+        ``return_features`` (no stream), (that, conv_out's input)."""
         no_stream(self, stream)
-        h = self.mid(self.conv_in(z, stream), stream)
+        if return_features and stream is not None:
+            raise ValueError("return_features has no streaming form")
+        remat = train and self.use_checkpoint and stream is None
+        h = self.mid(self.conv_in(z, stream), stream, remat)
         for level, tlevel in zip(reversed(self.up), reversed(self.up_temporal)):
             for sp, tm in zip(level.block, tlevel.block):
-                h = tm(sp(h, fused=fused), fused=fused, stream=stream)
+                h = call(remat, sp, h, fused=fused)
+                h = call(remat, tm, h, fused=fused, stream=stream)
             if hasattr(level, "upsample"):
-                h = level.upsample(h, fused=fused, forms=forms)
+                h = call(remat, level.upsample, h, fused=fused, forms=forms)
             if hasattr(tlevel, "upsample"):
-                h = tlevel.upsample(h, fused=fused, stream=stream, forms=forms)
+                h = call(remat, tlevel.upsample, h, fused=fused, stream=stream,
+                         forms=forms)
         if stream is not None:
             front = (h[:, :1].expand(-1, 2, *h.shape[2:]) if stream.first_chunk
                      else stream.get(self.conv_out).to(h.dtype))
             h = torch.cat([front, h], dim=1)
             stream.put(self.conv_out, tail(h, 2, stream.offset(self.conv_out)))
-        if fused and self.tail_kernel:
+        pre = None
+        if fused and self.tail_kernel and not return_features:
             norm = self.norm_out.norm
             conv = self.conv_out.conv
             rgb = decoder_tail_rgb_taps if forms.tail == "taps" else decoder_tail_rgb
             h = rgb(h, (norm.weight, norm.bias), (conv.weight, conv.bias),
                     self.first_pad_mode)
         else:
-            h = self.conv_out(silu(self.norm_out(h)))
+            pre = silu(self.norm_out(h))
+            h = self.conv_out(pre)
         if stream is not None:
             h = h[:, 2:]
         if self.tanh_out:
             h = torch.tanh(h)
+        if return_features:
+            return h[:, self.crop:], pre
         return h[:, self.crop:]

@@ -24,6 +24,13 @@ Given a :class:`~.stream.Stream`, ``forward`` encodes one chunk of a
 stream: it skips ``pad_input`` (the engine pads the first chunk only,
 ``autoencoder.py:461``), and the causal convs, temporal blocks and
 downsamples carry their caches in the stream.
+
+``use_checkpoint`` (activation checkpointing, ``encoder.py:117-171``):
+on the training forward (``train=True``, no stream) every resblock,
+resampling block, mid block and the attention are recomputed in the
+backward instead of keeping their activations
+(``torch.utils.checkpoint``, non-reentrant); values and gradients are
+unchanged.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import (AttnBlock, ResnetBlock3D, ResnetBlockSpatial,
                      ResnetBlockTemporal, SpatialDownsample,
@@ -56,6 +64,13 @@ def conv3(cin: int, cout: int, causal: bool, pad: str, cache_offset: int = 0):
     return Conv3d(cin, cout, 3)
 
 
+def call(remat: bool, module: nn.Module, h, **kwargs):
+    """``module(h, **kwargs)``, recomputed in the backward when ``remat``."""
+    if remat:
+        return checkpoint(module, h, use_reentrant=False, **kwargs)
+    return module(h, **kwargs)
+
+
 def no_stream(module: nn.Module, stream) -> None:
     if stream is not None and not module.causal:
         raise ValueError("the non-causal model has no streaming form: its convs "
@@ -72,8 +87,10 @@ class _Mid(nn.Module):
         self.block_2 = ResnetBlock3D(c, c, norm_type, first_pad_mode, cache_offset,
                                      causal)
 
-    def forward(self, h, stream=None):
-        return self.block_2(self.attn_1(self.block_1(h, stream)), stream)
+    def forward(self, h, stream=None, remat: bool = False):
+        h = call(remat, self.block_1, h, stream=stream)
+        h = call(remat, self.attn_1, h)
+        return call(remat, self.block_2, h, stream=stream)
 
 
 class Encoder(nn.Module):
@@ -84,9 +101,10 @@ class Encoder(nn.Module):
                  tempo_ds: Optional[Sequence[int]] = None,
                  variant: str = "causal_v1_1", norm_type: str = "layernorm",
                  time_downsample_factor: int = 4,
-                 init_pad_mode: str = "replicate"):
+                 init_pad_mode: str = "replicate", use_checkpoint: bool = False):
         super().__init__()
         n = len(ch_mult)
+        self.use_checkpoint = use_checkpoint
         self.tdf = time_downsample_factor
         self.init_pad_mode = init_pad_mode
         self.variant = variant
@@ -133,19 +151,23 @@ class Encoder(nn.Module):
         mode = "replicate" if self.init_pad_mode == "replicate" else "zero"
         return pad_time_front(x, n, mode)
 
-    def forward(self, x, fused: bool = False, stream=None):
-        """x: [B, T, H, W, C] -> posterior parameters [B, T', H', W', 2Cz]."""
+    def forward(self, x, fused: bool = False, stream=None, train: bool = False):
+        """x: [B, T, H, W, C] -> posterior parameters [B, T', H', W', 2Cz].
+        ``train``: the training forward (activation checkpointing when
+        ``use_checkpoint``)."""
         no_stream(self, stream)
         if stream is None:
             x = self.pad_input(x)
+        remat = train and self.use_checkpoint and stream is None
         h = self.conv_in(x, stream)
         for level, tlevel in zip(self.down, self.down_temporal):
             for sp, tm in zip(level.block, tlevel.block):
-                h = tm(sp(h, fused=fused), fused=fused, stream=stream)
+                h = call(remat, sp, h, fused=fused)
+                h = call(remat, tm, h, fused=fused, stream=stream)
             if hasattr(level, "downsample"):
-                h = level.downsample(h)
+                h = call(remat, level.downsample, h)
             if hasattr(tlevel, "downsample"):
-                h = tlevel.downsample(h, stream)
-        h = self.mid(h, stream)
+                h = call(remat, tlevel.downsample, h, stream=stream)
+        h = self.mid(h, stream, remat)
         return self.conv_out(silu(self.norm_out(h)), stream)
 

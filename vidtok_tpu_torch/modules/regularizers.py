@@ -13,6 +13,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.distributed import global_mean
+
 
 class DiagonalGaussian:
     """Posterior over channels-last parameters ``[..., 2C]``."""
@@ -50,12 +52,21 @@ class DiagonalGaussianRegularizer(nn.Module):
         self.sample = sample
 
     def forward(self, z, sample: Optional[bool] = None,
-                generator: torch.Generator = None) -> Tuple[torch.Tensor, dict]:
+                generator: torch.Generator = None, n_steps: int = 0,
+                global_batch: bool = False) -> Tuple[torch.Tensor, dict]:
+        """``n_steps`` and ``global_batch`` are unused (FSQ's losses read
+        them)."""
         posterior = DiagonalGaussian(z)
         do_sample = self.sample if sample is None else sample
         out = posterior.sample(generator) if do_sample else posterior.mode()
         kl = posterior.kl()
         return out, {"kl_loss": kl.sum() / kl.shape[0]}
+
+
+def round_ste(z):
+    """``round(z)`` forward, identity backward (the straight-through
+    estimator, ``regularizers.py:84-86``)."""
+    return z + (torch.round(z) - z).detach()
 
 
 class FSQ:
@@ -85,7 +96,7 @@ class FSQ:
 
     def quantize(self, z):
         _, _, half_width = self._consts(z.device)
-        return torch.round(self.bound(z)) / half_width
+        return round_ste(self.bound(z)) / half_width
 
     def codes_to_indices(self, codes):
         _, basis, half_width = self._consts(codes.device)
@@ -113,7 +124,13 @@ class FSQRegularizer(nn.Module):
     ``aux_loss``}). The entropy and commitment losses are computed on every
     call whose weights are > 0, as in JAX (a ``[positions, codebook_size]``
     f32 softmax); the entropy weight anneals from ``annealing_factor`` x
-    weight to weight over ``annealing_steps`` steps of ``n_steps``."""
+    weight to weight over ``annealing_steps`` steps of ``n_steps``. Codes
+    pass gradients straight through the rounding; the commitment loss
+    stops the codes' gradient. With ``global_batch`` (the training
+    forward) the codebook entropy's average probability is the global
+    batch's in a multi-process run (an autograd all-reduce), as JAX's mean
+    over the sharded batch is; any other call stays local, so serving runs
+    no collective."""
 
     def __init__(self, levels: Sequence[int], dim: Optional[int] = None,
                  num_codebooks: int = 1, entropy_loss_weight: float = 0.0,
@@ -140,7 +157,8 @@ class FSQRegularizer(nn.Module):
         return start - (n_steps / self.annealing_steps) * (start - w)
 
     def forward(self, z, sample: Optional[bool] = None,
-                generator: torch.Generator = None, n_steps: int = 0):
+                generator: torch.Generator = None, n_steps: int = 0,
+                global_batch: bool = False):
         """``sample`` and ``generator`` are unused (FSQ is deterministic)."""
         zf = z.float()
         codes = self.fsq.quantize(zf)
@@ -153,10 +171,12 @@ class FSQRegularizer(nn.Module):
             logp = torch.log(prob.clamp_min(1e-5))
             per_sample_entropy = (-prob * logp).sum(-1).mean()
             avg_prob = prob.reshape(-1, prob.shape[-1]).mean(0)
+            if global_batch:
+                avg_prob = global_mean(avg_prob)
             avg_logp = torch.log(avg_prob.clamp_min(1e-5))
             codebook_entropy = (-avg_prob * avg_logp).sum()
             entropy = per_sample_entropy - _DIVERSITY_GAMMA * codebook_entropy
-            commit = (zf - codes).square().mean()
+            commit = (zf - codes.detach()).square().mean()
             aux = (entropy * self.entropy_weight(n_steps)
                    + commit * self.commitment_loss_weight)
         return codes.to(z.dtype), {"indices": indices, "aux_loss": aux}
