@@ -141,7 +141,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     v1.1 step at batch 2 of [33, 256, 256] and its peak memory; (f) the
     train CLI as a subprocess on written clips: the tiny model 3 steps with
     a checkpoint and a validation, ``--resume`` to step 5 (the JSONL holds
-    steps 1-5), and the flagship's config for 2 steps.
+    steps 1-5), and the flagship's config for 2 steps;
+16. VidTwin (``vidtok_tpu_torch/models/vidtwin``, ``serve_vidtwin``) at
+    the full width of configs/vidtwin/vidtwin_structure_7_7_8_dynamics_7_8
+    .yaml (311,518,770 parameters; VIDTWIN_CFG), seeded weights with the
+    zero-initialised ones drawn too (``fill_zero_init_``): (a) 3 requests
+    of [4, 3, 16, 224, 224] in bf16 (weights bf16 at rest): latency,
+    frames/s, peak memory, no launch of the fourteen kernels, a profile of
+    one; one request in f32 (f32 attention, TF32 off), the bf16 run within
+    VIDTWIN_BF16_GATE of it on z and the reconstruction; ``only_part``
+    and ``cross_reenact`` shapes, the cross result unlike both
+    self-reconstructions; the encoder's causality in f32; the model cut to
+    depth 2 in f32 on the card against the CPU (relative L2 1e-4); (b) a
+    reference-named ``.ckpt`` with the keys JAX's converter drops, loaded
+    through ``load_model_from_config(cfg, ckpt=...)``, bit-equal; (c)
+    ``vidtwin_evaluate`` and ``vidtwin_reconstruct`` (and its
+    cross-reenactment) as subprocesses on two written mp4s, finite PSNR
+    and SSIM; (d) ``VidTwinTrainer`` at the config's recipe with
+    ``disc_start`` 0 and ``warmup_steps`` 2: one fp32 step, 6 bf16-mixed
+    steps at batch 2 of [16, 224, 224] (s/step, peak memory, a profile),
+    gated as phase 15a (finite logs, parameters moved by step 2,
+    ``d_weight`` > 0 inside its clip, first-step losses within the
+    reconstruction's bf16 spread of fp32's).
 
 Phase 2 also holds every call shape of phases 9-12 that the earlier
 phases do not give (``model_calls``: A at 16² x 512 channels and at 256²
@@ -2938,6 +2959,452 @@ def serve_training(device, t: float) -> float:
     return t
 
 
+# VidTwin (phase 16, ``vidtok_tpu_torch/models/vidtwin``): the model section
+# of configs/vidtwin/vidtwin_structure_7_7_8_dynamics_7_8.yaml, resolved, and
+# its training precision. Full width, seeded random weights.
+_STT = {"in_channels": 3, "input_size": [16, 224, 224], "patch_size": [1, 16, 16],
+        "hidden_size": 768, "depth": 16, "num_heads": 12, "temporal_casual": True}
+_WARMUP_COSINE = "LambdaWarmUpCosineScheduler"
+VIDTWIN_CFG = {"model": {"base_learning_rate": 1.6e-4, "target": "VidTwinVAE", "params": {
+    "monitor": "val/rec_loss", "expect_ch": 8, "cont_num_blocks": 1,
+    "downsample_motion": True, "motion_num_blocks": 1, "d_dim": 8,
+    "temporal_qformer_config": {"target": "QFormerInterface", "params": {
+        "num_query_tokens": 16, "query_hidden_size": 64, "encoder_hidden_size": 768}},
+    "encoder_config": {"target": "STTEncoder", "params": dict(_STT)},
+    "decoder_config": {"target": "STTDecoder", "params": dict(_STT)},
+    "regularizer_config": {"target": "DiagonalGaussianRegularizer",
+                           "params": {"sample": True}},
+    "loss_config": {"target": "GeneralLPIPSWithDiscriminator", "params": {
+        "perceptual_weight": 0.05, "disc_start": 20001, "disc_weight": 0.05,
+        "learn_logvar": True, "dims": 3, "disc_type": "2d",
+        "regularization_weights": {"kl_loss": 0.001}}},
+    "lr_scheduler_config_g": {"target": _WARMUP_COSINE, "params": {
+        "lr_min": 0, "lr_max": 3.0e-5, "lr_start": 0, "warmup_steps": 5000}},
+    "lr_scheduler_config_d": {"target": _WARMUP_COSINE, "params": {
+        "lr_min": 0, "lr_max": 1.5e-5, "lr_start": 1.0e-5, "warmup_steps": 5000}},
+    "optimizer_config": {"target": "torch.optim.AdamW", "params": {
+        "betas": [0, 0.9], "weight_decay": 0.0001}}}},
+    "training": {"precision": "bf16-mixed"}}
+VIDTWIN_REQUEST = (4, 3, 16, 224, 224)
+VIDTWIN_Z = (4, 768, 16, 14, 14)
+VIDTWIN_LATENTS = ((4, 16, 7, 7, 8), (4, 8, 16, 7), (4, 8, 16, 7))
+# bf16 serving (weights bf16 at rest) against the f32 run (f32 attention,
+# TF32 off), relative L2 on z and on the reconstruction. Measured on an
+# NVIDIA H100 80GB HBM3 at 700 W: 0.0118 on z, 0.0188 on the
+# reconstruction, equal in two runs (the weights and the request are
+# seeded). The gate is about twice the larger, so a cast or precision
+# fault that doubles the error fails, and a wrong layout, attention
+# pattern or cast (O(1)) fails by far; the run prints the spread beside it.
+VIDTWIN_BF16_GATE = 4e-2
+VIDTWIN_DEPTH_CUT = 2      # the depth of the card-against-CPU check
+VIDTWIN_CPU_GATE = 1e-4    # f32 on the card against f32 on the CPU, relative L2
+VIDTWIN_CAUSAL_FRAME = 8   # frames from here on are zeroed in the causality check
+VIDTWIN_TRAIN_BATCH = (2, 16, 224, 224, 3)
+VIDTWIN_TRAIN_STEPS = 6    # bf16-mixed; the first held to the f32 step
+VIDTWIN_CLI_SIZE = (240, 320)
+VIDTWIN_CLI_FRAMES = 72    # 18 frames at the CLIs' 8 fps from 30 fps
+
+
+def vidtwin_cfg(depth: int = None, precision: str = None, disc_start: int = None,
+                warmup_steps: int = None) -> dict:
+    """VIDTWIN_CFG with the given changes."""
+    import copy
+
+    cfg = copy.deepcopy(VIDTWIN_CFG)
+    p = cfg["model"]["params"]
+    if depth is not None:
+        for part in ("encoder_config", "decoder_config"):
+            p[part]["params"]["depth"] = depth
+    if precision is not None:
+        cfg["training"]["precision"] = precision
+    if disc_start is not None:
+        p["loss_config"]["params"]["disc_start"] = disc_start
+    if warmup_steps is not None:
+        for part in ("lr_scheduler_config_g", "lr_scheduler_config_d"):
+            p[part]["params"]["warmup_steps"] = warmup_steps
+    return cfg
+
+
+def fill_zero_init_(model, generator) -> None:
+    """Draw what ``vidtok_tpu``'s init leaves at zero, so that every
+    parameter matters: the decoder's final linear and every temporal
+    attention's output projection (xavier uniform), and every bias
+    (N(0, 0.02²))."""
+    import torch
+
+    from vidtok_tpu_torch.models.vidtwin import st_transformer as S
+
+    for m in model.modules():
+        if isinstance(m, S.Attention) and m.zero_init_proj:
+            S.init_(m.proj.weight, "xavier", generator)
+        elif isinstance(m, S.T2IFinalLayer):
+            S.init_(m.linear.weight, "xavier", generator)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias") and not p.any():
+                S.init_(p, "normal", generator, 0.02)
+
+
+def make_vidtwin(cfg: dict, device, dtype, seed: int = 0, f32_attention: bool = False):
+    """A VidTwin engine with seeded weights (``vidtok_tpu``'s init, then
+    ``fill_zero_init_``), built on the CPU and moved to ``device`` in
+    ``dtype``; ``f32_attention`` sets the attention's dtype to f32."""
+    import torch
+
+    from vidtok_tpu_torch.models.vidtwin.engine import VidTwinTokenizer
+    from vidtok_tpu_torch.models.vidtwin.vidtwin_ae import (build_vidtwin_from_config,
+                                                            reset_params_)
+
+    model, meta = build_vidtwin_from_config(cfg["model"])
+    g = torch.Generator().manual_seed(seed)
+    reset_params_(model, g)
+    fill_zero_init_(model, g)
+    if f32_attention:
+        model.encoder.set_attn_dtype(None)
+        model.decoder.set_attn_dtype(None)
+    return VidTwinTokenizer(model.to(device, dtype), meta, dtype)
+
+
+def _check_finite(what: str, *tensors) -> None:
+    import torch
+
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        raise AssertionError(f"{what}: non-finite output")
+
+
+def vidtwin_serve(device):
+    """Phase 16a: VIDTWIN_REQUEST requests in bf16 (weights bf16 at rest):
+    host-clock latency ending in a synchronize, frames/s, peak memory, no
+    launch of the fourteen kernels, a profile of one; one request in f32
+    (f32 attention, TF32 off) and the bf16 gate; ``only_part`` and
+    ``cross_reenact`` shapes, the cross result unlike both
+    self-reconstructions; causality of the encoder in f32. Returns the f32
+    engine and the last request."""
+    import torch
+
+    from vidtok_tpu_torch.ops import kernels as K
+
+    reqs = [np.clip(np.random.RandomState(300 + i).randn(*VIDTWIN_REQUEST) * 0.5, -1, 1)
+            .astype(np.float32) for i in range(N_REQUESTS)]
+    tok = make_vidtwin(VIDTWIN_CFG, device, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    lat = []
+    for x in reqs:
+        t0 = time.perf_counter()
+        z, dec, log = tok(x)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        _check_finite("vidtwin bf16 request", z, dec, log["kl_loss"])
+        if tuple(z.shape) != VIDTWIN_Z or tuple(dec.shape) != VIDTWIN_REQUEST:
+            raise AssertionError(f"vidtwin shapes z {tuple(z.shape)} dec {tuple(dec.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+    if any(K.counts().values()):
+        raise AssertionError(f"vidtwin launched kernels {K.counts()}")
+    b, _, t = VIDTWIN_REQUEST[:3]
+    n = sum(p.numel() for p in tok.model.parameters())
+    print(f"serve vidtwin 7x7x8 / 7x8 ({n} parameters); request "
+          f"{list(VIDTWIN_REQUEST)} bf16, weights bf16; latency_s "
+          + " ".join(f"{v:.4f}" for v in lat)
+          + f"; frames_per_s (best after the first) {b * t / min(lat[1:]):.2f}; "
+          f"peak_mem_bytes {peak}; launches of the fourteen kernels 0", flush=True)
+    profile_call(lambda: tok(x), "profile vidtwin bf16 request")
+
+    tok32 = make_vidtwin(VIDTWIN_CFG, device, torch.float32, f32_attention=True)
+    t0 = time.perf_counter()
+    z32, dec32, log32 = tok32(x)
+    torch.cuda.synchronize()
+    t32 = time.perf_counter() - t0
+    _check_finite("vidtwin f32 request", z32, dec32)
+    spread = {"z": rel_l2(z, z32), "reconstruction": rel_l2(dec, dec32),
+              "kl_loss": abs(float(log["kl_loss"]) / float(log32["kl_loss"]) - 1)}
+    print(f"serve vidtwin f32 (attention f32, TF32 off): first request {t32:.4f} s; "
+          f"bf16 against it (relative): {json.dumps(spread)}; gate "
+          f"{VIDTWIN_BF16_GATE}", flush=True)
+    if not max(spread["z"], spread["reconstruction"]) <= VIDTWIN_BF16_GATE:
+        raise AssertionError(f"vidtwin bf16 against f32: {spread}")
+
+    u_s, u_dx, u_dy, _ = tok.encode(x)
+    if (tuple(u_s.shape), tuple(u_dx.shape), tuple(u_dy.shape)) != VIDTWIN_LATENTS:
+        raise AssertionError(f"vidtwin latents {u_s.shape} {u_dx.shape} {u_dy.shape}")
+    for part in ("content", "motion"):
+        out = tok.decode(u_s, u_dx, u_dy, only_part=part)
+        _check_finite(f"vidtwin only_part {part}", out)
+        if tuple(out.shape) != VIDTWIN_REQUEST:
+            raise AssertionError(f"vidtwin only_part {part}: {tuple(out.shape)}")
+    xa, xb = x[:2], x[2:]
+    cross = tok.cross_reenact(xa, xb)
+    self_a, self_b = tok(xa)[1], tok(xb)[1]
+    apart = (rel_l2(cross, self_a), rel_l2(cross, self_b))
+    print(f"serve vidtwin: only_part content and motion {list(VIDTWIN_REQUEST)}; "
+          f"cross_reenact {list(cross.shape)}, relative L2 from the self-reconstructions "
+          f"{apart[0]:.4f} (structure's clip) {apart[1]:.4f} (dynamics' clip)", flush=True)
+    _check_finite("vidtwin cross_reenact", cross)
+    if tuple(cross.shape) != (2,) + VIDTWIN_REQUEST[1:] or not min(apart) > 1e-3:
+        raise AssertionError(f"vidtwin cross_reenact: shape {tuple(cross.shape)}, {apart}")
+
+    x1 = torch.from_numpy(x[:1]).to(device)
+    x2 = x1.clone()
+    x2[:, :, VIDTWIN_CAUSAL_FRAME:] = 0.0
+    with torch.no_grad():
+        z1, z2 = tok32.model.encoder(x1), tok32.model.encoder(x2)
+    k = VIDTWIN_CAUSAL_FRAME
+    before = float((z1[:, :, :k] - z2[:, :, :k]).abs().max())
+    after = float((z1[:, :, k:] - z2[:, :, k:]).abs().max())
+    print(f"serve vidtwin causality (f32): frames {k}.. zeroed; tokens of frames "
+          f"0..{k - 1} max |change| {before:.3g}, of later frames {after:.3g}", flush=True)
+    if not (before <= 1e-5 * float(z1.abs().max()) and after > 1e-3):
+        raise AssertionError(f"vidtwin causality: before {before}, after {after}")
+    return tok32, x
+
+
+def vidtwin_cpu_check(device, x) -> None:
+    """Phase 16a: the full-width model cut to VIDTWIN_DEPTH_CUT blocks, f32
+    (attention too), on the card against the CPU, one clip."""
+    import torch
+
+    cfg = vidtwin_cfg(depth=VIDTWIN_DEPTH_CUT)
+    cpu = make_vidtwin(cfg, "cpu", torch.float32, seed=5, f32_attention=True)
+    card = make_vidtwin(cfg, device, torch.float32, seed=5, f32_attention=True)
+    t0 = time.perf_counter()
+    zc, dc, _ = cpu(x[:1])
+    t_cpu = time.perf_counter() - t0
+    zg, dg, _ = card(x[:1])
+    rel = {"z": rel_l2(zg.cpu(), zc), "reconstruction": rel_l2(dg.cpu(), dc)}
+    print(f"serve vidtwin depth {VIDTWIN_DEPTH_CUT} f32, card against CPU ({t_cpu:.1f} s "
+          f"there): relative L2 {json.dumps(rel)}; gate {VIDTWIN_CPU_GATE}", flush=True)
+    if not max(rel.values()) <= VIDTWIN_CPU_GATE:
+        raise AssertionError(f"vidtwin card against CPU: {rel}")
+
+
+def vidtwin_checkpoint(device, tok32, x, tmp: str) -> str:
+    """Phase 16b: the f32 engine's weights as a reference-named ``.ckpt``
+    with the keys JAX's converter drops (loss, EMA, sincos buffers, the
+    encoder's final layer, the decoder's patch embedding, the Q-Former's
+    text FFN), loaded through ``load_model_from_config(cfg, ckpt=...)``
+    (strict): weights equal, one clip's z and reconstruction bit-equal.
+    Returns the file's path (the CLIs read it)."""
+    import os
+
+    import torch
+
+    from vidtok_tpu_torch import load_model_from_config
+
+    hidden = _STT["hidden_size"]
+    extra = {"loss.logvar": torch.zeros(()), "model_ema.decay": torch.tensor(0.9999),
+             "encoder.pos_embed": torch.zeros(1, 196, hidden),
+             "decoder.pos_embed_temporal": torch.zeros(1, 16, hidden),
+             "encoder.final_layer.linear.weight": torch.zeros(hidden, hidden),
+             "decoder.x_embedder.proj.weight": torch.zeros(hidden, 3, 1, 16, 16),
+             "temporal_qformer.qformer.encoder.layer.0.intermediate.dense.weight":
+                 torch.zeros(hidden, 64)}
+    path = os.path.join(tmp, "vidtwin.ckpt")
+    sd = {k: v.detach().cpu() for k, v in tok32.model.state_dict().items()}
+    t0 = time.perf_counter()
+    torch.save({"state_dict": {**sd, **extra}}, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_model_from_config(VIDTWIN_CFG, ckpt=path, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    back.model.encoder.set_attn_dtype(None)
+    back.model.decoder.set_attn_dtype(None)
+    same_w = all(torch.equal(a, b) for a, b in zip(tok32.model.state_dict().values(),
+                                                   back.model.state_dict().values()))
+    (za, da, _), (zb, db, _) = tok32(x[:1]), back(x[:1])
+    same = torch.equal(za, zb) and torch.equal(da, db)
+    print(f"checkpoint vidtwin: {os.path.getsize(path)} bytes with "
+          f"{len(extra)} reference keys the loader drops; save {save_s:.3f} s, "
+          f"load_model_from_config with ckpt {load_s:.3f} s; weights equal {same_w}; "
+          f"z and reconstruction bit-equal {same}", flush=True)
+    if not (same_w and same):
+        raise AssertionError("vidtwin checkpoint round trip changed the model")
+    return path
+
+
+def vidtwin_clis(device, ckpt: str, tmp: str) -> None:
+    """Phase 16c: ``vidtwin_evaluate`` and ``vidtwin_reconstruct`` (a
+    reconstruction and a cross-reenactment) as subprocesses, side by side,
+    on two written mp4s of VIDTWIN_CLI_FRAMES frames of VIDTWIN_CLI_SIZE at
+    30 fps, with the ``.ckpt`` of 16b, when OpenCV and PyYAML import (as in
+    phase 14f); gates: exit 0, finite mean PSNR and SSIM, both mp4s
+    written."""
+    import importlib.util
+    import os
+
+    missing = [m for m in ("cv2", "yaml") if importlib.util.find_spec(m) is None]
+    if missing:
+        print(f"cli vidtwin: the CLIs did not run on this machine: it lacks "
+              f"{' and '.join(missing)}", flush=True)
+        return
+    import yaml
+
+    from vidtok_tpu_torch.data import write_video
+
+    videos = os.path.join(tmp, "vidtwin_videos")
+    os.makedirs(videos, exist_ok=True)
+    clips = [os.path.join(videos, f"clip{i}.mp4") for i in range(2)]
+    for i, path in enumerate(clips):
+        write_video(path, cli_clip(40 + i, VIDTWIN_CLI_FRAMES, VIDTWIN_CLI_SIZE), fps=CLI_FPS)
+    cfg = os.path.join(tmp, "vidtwin.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(VIDTWIN_CFG, f)
+    common = ["--config", cfg, "--ckpt", ckpt, "--device", str(device)]
+    out = os.path.join(tmp, "vidtwin_out")
+    runs = {"vidtwin_evaluate": ["--data_dir", videos],
+            "vidtwin_reconstruct": ["--input_video_path", clips[0], "--output_video_dir", out],
+            "vidtwin_reconstruct cross": ["--input_video_path", clips[0],
+                                          "--dynamics_video_path", clips[1],
+                                          "--output_video_dir", out]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"vidtok_tpu_torch.scripts.{name.split()[0]}"] + common + args,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in runs.items()}
+    results = {name: p.communicate(timeout=600) + (p.returncode,) for name, p in procs.items()}
+    wall = time.perf_counter() - t0
+    for name, (stdout, stderr, rc) in results.items():
+        print(f"cli subprocess {name}: rc {rc} (three side by side, {wall:.1f} s): "
+              + " | ".join(stdout.strip().splitlines()[-3:]), flush=True)
+        if rc:
+            raise AssertionError(f"cli {name} failed: {stderr[-2000:]}")
+    means = {line.split()[1].rstrip(":"): float(line.split()[-1])
+             for line in results["vidtwin_evaluate"][0].splitlines()
+             if line.startswith("mean ")}
+    written = [os.path.exists(os.path.join(out, f"clip0_{tag}.mp4")) for tag in ("recon", "cross")]
+    if set(means) != {"PSNR", "SSIM"} or not all(np.isfinite(list(means.values()))):
+        raise AssertionError(f"cli vidtwin_evaluate: means {means}")
+    if not all(written):
+        raise AssertionError(f"cli vidtwin_reconstruct: mp4s written {written}")
+
+
+def make_vidtwin_trainer(cfg: dict, device, lpips: str, seed: int = 0):
+    """A VidTwin trainer at ``cfg`` with seeded weights (its init, then
+    ``fill_zero_init_``), f32 attention when it trains in fp32, and the
+    discriminator's last conv at TRAIN_DISC_GAIN x its init (phase 15's
+    reason)."""
+    import torch
+
+    from vidtok_tpu_torch.models.vidtwin.trainer import VidTwinTrainer
+
+    tr = VidTwinTrainer(cfg, device=device, lpips_weights=lpips, seed=seed).init_state()
+    fill_zero_init_(tr.model, torch.Generator().manual_seed(seed + 7))
+    if tr.compute_dtype is None:
+        tr.model.encoder.set_attn_dtype(None)
+        tr.model.decoder.set_attn_dtype(None)
+    with torch.no_grad():
+        tr.disc.main[-1].weight.mul_(TRAIN_DISC_GAIN)
+    return tr
+
+
+VIDTWIN_TRAIN_LOGS = ("train/aeloss", "train/nll_loss", "train/rec_loss", "train/p_loss",
+                      "train/kl_loss", "train/d_weight", "train/discloss")
+
+
+def vidtwin_train(device, lpips: str) -> None:
+    """Phase 16d: ``VidTwinTrainer`` at the config's recipe (AdamW betas
+    (0, 0.9), weight decay 1e-4, clip 20, bf16-mixed) with two changes so
+    that every term runs and the generator moves: ``disc_start`` 0 and
+    ``warmup_steps`` 2 in both schedules. Batch VIDTWIN_TRAIN_BATCH of
+    ``train_clip``s. One fp32 step (f32 attention, TF32 off), then
+    VIDTWIN_TRAIN_STEPS bf16-mixed steps on the same weights: s/step, peak
+    memory, a profile of one more step. Gates: finite logs; the generator,
+    discriminator and logvar moved by step 2; ``d_weight`` > 0 and the
+    adaptive weight's norm ratio inside (0, 1e4) in both runs; each first
+    step loss of VIDTWIN_TRAIN_LOGS and that ratio within TRAIN_SLACK x
+    the reconstruction's bf16 spread (floored at TRAIN_FLOOR) of fp32's."""
+    import torch
+
+    x = torch.from_numpy(train_clip(VIDTWIN_TRAIN_BATCH, seed=17)).to(device)
+    xin = x.permute(0, 4, 1, 2, 3)
+    f32 = make_vidtwin_trainer(vidtwin_cfg(precision="fp32", disc_start=0, warmup_steps=2),
+                               device, lpips)
+    with torch.no_grad():
+        rec32 = f32.model(xin, sample=False)[1].float()
+    t0 = time.perf_counter()
+    logs32, (ratio32,) = recorded_ratios(lambda: _finite_logs(f32.fit_step(x), "fp32 step"))
+    torch.cuda.synchronize()
+    t32 = time.perf_counter() - t0
+    del f32
+    torch.cuda.empty_cache()
+    tr = make_vidtwin_trainer(vidtwin_cfg(disc_start=0, warmup_steps=2), device, lpips)
+    with torch.no_grad():
+        rec16 = tr.model(xin.bfloat16(), sample=False)[1]
+    spread = rel_l2(rec16.float(), rec32)
+    del rec16, rec32
+    g0, d0, lv0 = _flat(tr.model), _flat(tr.disc), float(tr.logvar.detach())
+    torch.cuda.reset_peak_memory_stats()
+    lat, moved = [], None
+    for i in range(VIDTWIN_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        if i == 0:
+            logs, (ratio16,) = recorded_ratios(lambda: _finite_logs(tr.fit_step(x), "bf16 step"))
+            logs16 = dict(logs)
+        else:
+            logs = _finite_logs(tr.fit_step(x), "bf16 step")
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        if i == 1:
+            moved = {"generator": float((_flat(tr.model) - g0).abs().max()),
+                     "discriminator": float((_flat(tr.disc) - d0).abs().max()),
+                     "logvar": abs(float(tr.logvar.detach()) - lv0)}
+            del g0, d0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train vidtwin: batch {list(VIDTWIN_TRAIN_BATCH)}; fp32 first step {t32:.3f} s; "
+          f"bf16-mixed s/step " + " ".join(f"{v:.4f}" for v in lat)
+          + f" (mean after the first {np.mean(lat[1:]):.4f}); peak_mem_bytes {peak}; "
+          f"moved by step 2 (max |change|) {json.dumps(moved)}; bf16 spread of the "
+          f"reconstruction {spread:.5f}; last logs "
+          + json.dumps({k: round(v, 6) for k, v in logs.items()}), flush=True)
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"train vidtwin: parameters did not move: {moved}")
+    for what, r in (("fp32", ratio32), ("bf16", ratio16)):
+        if not 0 < r < 1e4:
+            raise AssertionError(f"train vidtwin: {what} adaptive weight ratio {r}")
+    if not logs16["train/d_weight"] > 0:
+        raise AssertionError(f"train vidtwin: d_weight {logs16['train/d_weight']}")
+    logs16["adaptive_ratio"], logs32["adaptive_ratio"] = ratio16, ratio32
+    for k in ("adaptive_ratio",) + VIDTWIN_TRAIN_LOGS:
+        a, b = logs16[k], logs32[k]
+        bound = max(TRAIN_SLACK * spread, TRAIN_FLOOR) * abs(b)
+        print(f"train vidtwin: {k} bf16 {a:.6g} fp32 {b:.6g} |diff| {abs(a - b):.4g} "
+              f"bound {bound:.4g}", flush=True)
+        if not abs(a - b) <= bound:
+            raise AssertionError(f"train vidtwin {k}: bf16 {a} vs fp32 {b} beyond {bound}")
+    profile_call(lambda: tr.fit_step(x), "profile vidtwin train step")
+
+
+def serve_vidtwin(device, t: float) -> float:
+    """Phase 16: VidTwin (16a-16d); its files under CKPT_DIR, removed after."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=CKPT_DIR)
+    try:
+        tok32, x = vidtwin_serve(device)
+        vidtwin_cpu_check(device, x)
+        t = phase("vidtwin serve", t)
+        ckpt = vidtwin_checkpoint(device, tok32, x, tmp)
+        del tok32
+        torch.cuda.empty_cache()
+        t = phase("vidtwin checkpoint", t)
+        vidtwin_clis(device, ckpt, tmp)
+        t = phase("vidtwin clis", t)
+        lpips = os.path.join(tmp, "lpips.npz")
+        lpips_npz(lpips)
+        vidtwin_train(device, lpips)
+        torch.cuda.empty_cache()
+        t = phase("vidtwin train", t)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return t
+
+
 def phase(name: str, t0: float) -> float:
     t = time.perf_counter()
     print(f"phase {name}: {t - t0:.1f} s", flush=True)
@@ -3061,7 +3528,8 @@ def main(argv=None) -> int:
     checkpoint_round_trip(device)
     t = phase("checkpoint", t)
     t = serve_clis(device, t)
-    serve_training(device, t)
+    t = serve_training(device, t)
+    serve_vidtwin(device, t)
     phase("total", t0)
 
     kernels = []

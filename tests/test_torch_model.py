@@ -42,6 +42,17 @@ CFG = {"params": {
     "decoder_config": {"target": "DecoderCausal3DV1_1", "params": dict(_P)},
     "regularizer_config": {"target": "DiagonalGaussianRegularizer"},
 }}
+# tests/test_vidtwin.py's small VidTwin (its small_cfg), resolved
+_STT = {"in_channels": 3, "input_size": [4, 32, 32], "patch_size": [1, 8, 8],
+        "hidden_size": 64, "depth": 2, "num_heads": 4, "temporal_casual": True}
+VIDTWIN = {"target": "VidTwinVAE", "params": {
+    "expect_ch": 8, "cont_num_blocks": 1, "downsample_motion": True, "motion_num_blocks": 1,
+    "d_dim": 8, "init_ch": 16,
+    "temporal_qformer_config": {"target": "QFormerInterface", "params": {
+        "num_query_tokens": 4, "query_hidden_size": 32, "encoder_hidden_size": 64}},
+    "encoder_config": {"target": "STTEncoder", "params": dict(_STT)},
+    "decoder_config": {"target": "STTDecoder", "params": dict(_STT)},
+    "regularizer_config": {"target": "DiagonalGaussianRegularizer"}}}
 V11_16CHN = os.path.join(ROOT, "configs", "v1_1",
                          "vidtok_kl_causal_488_16chn_v1_1.yaml")
 
@@ -162,8 +173,9 @@ def test_full_width_v1_1_16chn_shapes():
 def test_import_hygiene(tmp_path):
     """The port imports torch and numpy only: no jax, flax or yaml when it
     builds a model from a config dict (v1.1 KL, v1.0 KL and FSQ, the
-    non-causal KL) beside its two tool modules (the temporal
-    microbenchmark, the SiLU probe), its four CLIs, its data package
+    non-causal KL, a VidTwin through ``load_model_from_config``, and a
+    VidTwin trainer) beside its two tool modules (the temporal
+    microbenchmark, the SiLU probe), its six CLIs, its data package
     (the training pipeline and data module too), metrics and LPIPS, the
     registry, the loggers, the distributed helpers, builds a trainer (its
     discriminator, losses and optimizers), saves a ``.ckpt`` and loads it
@@ -208,6 +220,13 @@ def test_import_hygiene(tmp_path):
         "import vidtok_tpu_torch.utils.logging, vidtok_tpu_torch.parallel.distributed\n"
         "from vidtok_tpu_torch.train.trainer import VidTokTrainer\n"
         f"VidTokTrainer({{'model': {fsq!r}}}, device='cpu').init_state()\n"
+        "import vidtok_tpu_torch.scripts.vidtwin_evaluate\n"
+        "import vidtok_tpu_torch.scripts.vidtwin_reconstruct\n"
+        "from vidtok_tpu_torch.models.vidtwin.trainer import VidTwinTrainer\n"
+        f"twin = vidtok_tpu_torch.load_model_from_config({{'model': {VIDTWIN!r}}}, "
+        "device='cpu')\n"
+        "assert type(twin).__name__ == 'VidTwinTokenizer'\n"
+        f"VidTwinTrainer({{'model': {VIDTWIN!r}}}, device='cpu').init_state()\n"
         f"for m in ({CFG!r}, {v1_0!r}, {fsq!r}):\n"
         "    tok = vidtok_tpu_torch.load_model_from_config({'model': m}, "
         "device='cpu')\n"

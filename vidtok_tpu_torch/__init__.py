@@ -8,7 +8,9 @@ v1.1 tiled (chunked, streaming) inference, checkpoint loading and saving
 (``utils/checkpoint.py``), the quality metrics, LPIPS, the video data
 path and the three serving CLIs (``scripts``), the GAN training stack
 (``train``: losses, discriminators, the trainer, train-state checkpoints,
-data parallelism, the train CLI), and the fourteen Pallas
+data parallelism, the train CLI), VidTwin (``models/vidtwin``: the
+structure/dynamics tokenizer, its weights, engine, CLIs, schedules and
+trainer), and the fourteen Pallas
 kernels of the JAX package as CUDA kernels (``ops/kernels``, ``csrc``,
 ``tools``), four of them alternative forms of the decoder's call sites
 (``KernelForms``).
@@ -22,8 +24,11 @@ library or written).
     tok.use_tiling = True; tok.use_overlap = True   # v1.1: chunk by chunk
     tok.forms = KernelForms(parity="merged", subpixel="merged", tail="taps")
     tok.save("model.ckpt")
+    twin = load_model_from_config("configs/vidtwin/vidtwin_structure_7_7_8_dynamics_7_8.yaml")
+    u_s, u_dx, u_dy, reg_log = twin.encode(x)   # x: [B, 3, 16, 224, 224]
 """
 
+from .config import load_config
 from .models.autoencoder import (TokenizerCore, VideoTokenizer,
                                  build_core_from_config)
 from .ops.kernels import KernelForms
@@ -32,10 +37,20 @@ __all__ = ["load_model_from_config", "VideoTokenizer", "TokenizerCore",
            "build_core_from_config", "KernelForms"]
 
 
-def load_model_from_config(config, ckpt=None, device="cuda", **kwargs) -> VideoTokenizer:
+def load_model_from_config(config, ckpt=None, device="cuda", **kwargs):
     """Build a tokenizer engine from a config dict or a YAML path (a path
     needs PyYAML) on ``device``, the card unless the caller names the CPU;
-    without CUDA it raises. Weights from ``ckpt``, else the config's
-    ``ckpt_path``, else random. ``kwargs`` go to
-    :meth:`VideoTokenizer.from_config` (seed, compute_dtype, fused, forms)."""
-    return VideoTokenizer.from_config(config, ckpt=ckpt, device=device, **kwargs)
+    without CUDA it raises. A VidTwin target gives a
+    :class:`~.models.vidtwin.engine.VidTwinTokenizer` (weights from
+    ``ckpt``, else random; ``kwargs``: seed, compute_dtype, full_pickle),
+    any other a :class:`VideoTokenizer` (weights from ``ckpt``, else the
+    config's ``ckpt_path``, else random; ``kwargs`` go to
+    :meth:`VideoTokenizer.from_config`: seed, compute_dtype, fused, forms,
+    full_pickle)."""
+    cfg = load_config(config)
+    target = str((cfg.get("model", cfg) or {}).get("target", ""))
+    if "VidTwin" in target or "vidtwin" in target:
+        from .models.vidtwin.engine import VidTwinTokenizer
+
+        return VidTwinTokenizer.from_config(cfg, ckpt=ckpt, device=device, **kwargs)
+    return VideoTokenizer.from_config(cfg, ckpt=ckpt, device=device, **kwargs)

@@ -18,6 +18,10 @@ _ALIASES = {
     "vidtok.data.vidtok.VidTokDataset": "VidTokDataset",
     "vidtok.data.vidtok.VidTokValDataset": "VidTokValDataset",
     "vidtok.modules.logger.ImageVideoLogger": "ImageVideoLogger",
+    "vidtwin.models.vidtwin_ae.VidAutoEncoderQformerCompactSymVidVAE": "VidTwinVAE",
+    "vidtwin.modules.st_transformer.STTEncoder": "STTEncoder",
+    "vidtwin.modules.st_transformer.STTDecoder": "STTDecoder",
+    "vidtwin.modules.qformer.MyQformerInterface": "QFormerInterface",
 }
 
 # registered name -> the module of this package that defines it
@@ -33,6 +37,10 @@ _LAZY = {
     "NLayerDiscriminator": "vidtok_tpu_torch.modules.discriminator",
     "NLayerDiscriminator3D": "vidtok_tpu_torch.modules.discriminator",
     "LPIPS": "vidtok_tpu_torch.modules.lpips",
+    "VidTwinVAE": "vidtok_tpu_torch.models.vidtwin.vidtwin_ae",
+    "STTEncoder": "vidtok_tpu_torch.models.vidtwin.st_transformer",
+    "STTDecoder": "vidtok_tpu_torch.models.vidtwin.st_transformer",
+    "QFormerInterface": "vidtok_tpu_torch.models.vidtwin.qformer",
 }
 
 

@@ -8,8 +8,9 @@ model's; the discriminator and LPIPS take channels-first tensors (the 2D
 discriminator and LPIPS per frame). Loss arithmetic is f32.
 
 The adaptive GAN weight is the reference's: the norms of the gradients of
-the NLL and of the generator loss with respect to the decoder's
-``conv_out`` weight (``torch.autograd.grad(..., retain_graph=True)``),
+the NLL and of the generator loss with respect to the decoder's last
+weight (``conv_out``, VidTwin's ``final_layer.linear``;
+``torch.autograd.grad(..., retain_graph=True)``),
 which equals JAX's split through the reconstruction's cotangent
 (``losses.py:189-230``). In a multi-process run the two gradients are
 averaged over the processes first, and LeCAM's EMAs take the global
@@ -140,9 +141,10 @@ def adaptive_ratio(nll_loss, g_loss, last_layer):
 def generator_loss(*, cfg: LossConfig, lpips, disc, last_layer, logvar, x, xrec,
                    reg_log: dict, global_step: int, split: str = "train",
                    compute_dtype=None):
-    """(loss, logs). ``last_layer`` is the decoder's ``conv_out`` weight,
-    whose gradients give the adaptive weight; ``xrec`` must depend on it
-    through the graph."""
+    """(loss, logs). ``last_layer`` is the weight the model's adaptive GAN
+    weight reads (VidTok's decoder ``conv_out``, VidTwin's decoder
+    ``final_layer.linear``), whose gradients give the adaptive weight;
+    ``xrec`` must depend on it through the graph."""
     xf, rf = fold_frames(x).float(), fold_frames(xrec)
     rec = (xf - rf.float()).abs()
     if cfg.perceptual_weight > 0:

@@ -20,6 +20,10 @@ and drops what JAX's ``convert_torch_state_dict`` drops (``loss.*``,
 ``model_ema.*``, FSQ's non-persistent buffers) and every key that an
 ``ignore_keys`` pattern ``re.match``-es.
 
+:func:`read_vidtwin_state_dict` reads a VidTwin model's weights from the
+same three sources (the ``.npz`` through ``vidtwin_state_dict_from_jax``)
+and drops what JAX's ``convert_vidtwin_state_dict`` drops.
+
 :func:`load_into` loads such a dict into a module strictly. The
 reference's torch modules may spell a key two ways that JAX's converter
 maps to one leaf (``checkpoint.py:80-86``, ``:117-122``): a causal conv
@@ -54,6 +58,8 @@ import torch
 from torch import nn
 
 from ..convert import state_dict_from_jax
+from ..models.vidtwin.convert import DROPPED as VIDTWIN_DROPPED
+from ..models.vidtwin.convert import vidtwin_state_dict_from_jax
 
 # JAX's converter (vidtok_tpu/utils/checkpoint.py:33-37): a ``conv`` level
 # under one of these names, and a ``norm`` level under a norm's, is dropped
@@ -79,12 +85,12 @@ def unflatten_params(flat: Dict[str, np.ndarray]) -> dict:
     return params
 
 
-def _read_npz(path: str) -> Dict[str, torch.Tensor]:
+def _read_npz(path: str, from_jax=state_dict_from_jax) -> Dict[str, torch.Tensor]:
     with np.load(path, allow_pickle=False) as f:
         flat = {k: f[k] for k in f.files}
     if any("//" in k for k in flat):  # a full checkpoint: its core section
         flat = {k[len("core//"):]: v for k, v in flat.items() if k.startswith("core//")}
-    sd = state_dict_from_jax(unflatten_params(flat))
+    sd = from_jax(unflatten_params(flat))
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
@@ -132,6 +138,19 @@ def read_state_dict(path: str, ignore_keys: Iterable[str] = (),
         print(f"[checkpoint] deleted {len(dropped)} keys matching ignore_keys "
               f"(first: {dropped[0]})")
     return sd
+
+
+def read_vidtwin_state_dict(path: str, full_pickle: bool = False) -> Dict[str, torch.Tensor]:
+    """A VidTwin model's weights in ``path`` in the reference's key layout:
+    a torch or ``.safetensors`` file less the keys JAX's converter drops
+    (``models.vidtwin.convert.DROPPED``), or JAX's ``.npz`` through
+    ``vidtwin_state_dict_from_jax`` (the same three sources as JAX's
+    ``VidTwinTokenizer.from_config``)."""
+    path = str(path)
+    if path.endswith(".npz"):
+        return _read_npz(path, vidtwin_state_dict_from_jax)
+    return {k: v for k, v in read_torch_file(path, full_pickle).items()
+            if not VIDTWIN_DROPPED.search(k)}
 
 
 def canonical(key: str) -> str:
