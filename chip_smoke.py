@@ -163,6 +163,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     gated as phase 15a (finite logs, parameters moved by step 2,
     ``d_weight`` > 0 inside its clip, first-step losses within the
     reconstruction's bf16 spread of fp32's).
+17. the last modules of the port (``serve_ladder_and_sharding``; no
+    launch of the fourteen kernels but (b)'s E): (a) VidTwin's ablation ladder,
+    each of ABLATION_TARGETS at VIDTWIN_CFG's width with its target
+    changed (the other Q-Formers at JAX's defaults), seeded weights with
+    the zero-initialised ones drawn: its parameter count, one cold and
+    ABLATION_TIMED bf16 requests of VIDTWIN_REQUEST (latency, frames/s,
+    peak memory), one f32 request (f32 attention) with the bf16 run
+    within VIDTWIN_BF16_GATE of it, and the model cut to depth 2 on the
+    card against the CPU (VIDTWIN_CPU_GATE); the Qformer's reference-named
+    ``.ckpt`` through ``load_model_from_config(cfg, ckpt=...)``,
+    bit-equal; ``VidTwinTrainer`` on SymDis, one fp32 and
+    ABLATION_TRAIN_STEPS bf16-mixed steps at batch 2 (finite logs,
+    parameters moved, ``d_weight`` > 0, ``kl_loss`` 0); (b)
+    ``forward_sharded`` of the v1.0 flagship and the FSQ 4096 model at
+    SHARDED_REQUEST in f32 (TF32 off), SHARDED_WORLD gloo processes on the
+    card (NCCL refuses two ranks on one device), against the
+    single-process plain f32 run: z and the reconstruction within
+    SHARDED_GATE, kl_loss and aux_loss too, FSQ's indices but for
+    SHARDED_FLIP_SHARE of them, each rank's whole results equal; the
+    flagship also in bf16 with the nearest temporal upsample's kernel E on
+    each rank's slab (its halo rows included), as JAX's sharded graph takes
+    Pallas E: E launched PER_FORWARD["v1_0"] times a rank and no other
+    kernel, no further from the f32 run than BF16_SLACK x the plain bf16
+    run is; the wall times (two ranks on one card measure correctness, not
+    scaling); (c)
+    ``utils/profiling.trace`` around one flagship f32 request writes a
+    trace file, ``device_memory_report()``'s peak equals
+    ``max_memory_allocated``.
 
 Phase 2 also holds every call shape of phases 9-12 that the earlier
 phases do not give (``model_calls``: A at 16² x 512 channels and at 256²
@@ -888,6 +916,12 @@ def kernel_cases(device):
             yield Case("parity_up2x_fused", (shape, mode), {}, pu.parity_up2x_fused,
                        pu.parity_up2x_fused_plain,
                        (r.x(shape, bf), *r.conv((c, c, 3, 3, 3)), r.t([0.88]), mode))
+    for b, t, h, w, c in (shape for shape, _ in PARITY_SHAPES):
+        # phase 17b's calls: a rank's slab of SHARDED_REQUEST with its halo rows
+        shape = (b, t, h // SHARDED_WORLD + 2, w, c)
+        yield Case("parity_up2x_fused", (shape, "zero"), {}, pu.parity_up2x_fused,
+                   pu.parity_up2x_fused_plain,
+                   (r.x(shape, bf), *r.conv((c, c, 3, 3, 3)), r.t([0.88]), "zero"))
     for shape in PARTIAL_TAIL:
         c = shape[-1]
         for mode in MODE_PATH:
@@ -3405,6 +3439,462 @@ def serve_vidtwin(device, t: float) -> float:
     return t
 
 
+# Phase 17: the last modules of the port. VidTwin's ablation ladder
+# (``models/vidtwin/ablations.py``) at the shipped VidTwin width (VIDTWIN_CFG
+# with the target changed; the other Q-Formers at JAX's defaults); the
+# H-sharded forward (``VideoTokenizer.forward_sharded`` over
+# ``parallel/mesh.py``) of the v1.0 flagship and the FSQ 4096 model in
+# SHARDED_WORLD gloo processes on the one card (NCCL refuses two ranks on one
+# device), in f32 on the plain path and the flagship in bf16 with kernel E on
+# each slab; the profiling helpers (``utils/profiling.py``). Nothing else of
+# it runs a kernel of the fourteen.
+ABLATION_TARGETS = ("VidAutoEncoderQformer", "VidAutoEncoderQformerCompact",
+                    "VidAutoEncoderQformerCompactSym", "VidAutoEncoderQformerCompactSymDis")
+ABLATION_TIMED = 2            # bf16 requests after a cold one
+ABLATION_TRAIN_STEPS = 3      # bf16-mixed, after one fp32 step
+SHARDED_WORLD = 2
+SHARDED_REQUEST = (1, 3, 17, 256, 256)
+# the flagship's sharded run on the kernel path: bf16, kernel E on each slab
+SHARDED_KERNEL = "v1.0 kl 4x8x8 16chn, kernel E"
+# the sharded f32 run against the single-process f32 plain run (TF32 off),
+# relative L2 on z and the reconstruction and relative on kl_loss: the two
+# differ only where cuDNN picks another algorithm for a slab's shape
+SHARDED_GATE = 1e-4
+# FSQ indices of the sharded run that may differ from the single process's:
+# a code whose latent lies within rounding of a level boundary flips
+SHARDED_FLIP_SHARE = 1e-3
+
+
+def ablation_cfg(target: str, **changes) -> dict:
+    """``vidtwin_cfg(**changes)`` with the model's target changed to the
+    reference's dotted path of ``target``, as a reference config names it
+    (``load_model_from_config`` dispatches VidTwin targets by it)."""
+    cfg = vidtwin_cfg(**changes)
+    cfg["model"]["target"] = f"vidtwin.models.vidtwin_ae.{target}"
+    return cfg
+
+
+def make_ablation(cfg: dict, seed: int):
+    """The ladder model of ``cfg`` on the CPU in f32 with ``vidtok_tpu``'s
+    init, then ``fill_zero_init_``; and its meta."""
+    import torch
+
+    from vidtok_tpu_torch.models.vidtwin.vidtwin_ae import (build_vidtwin_from_config,
+                                                            reset_params_)
+
+    model, meta = build_vidtwin_from_config(cfg["model"])
+    g = torch.Generator().manual_seed(seed)
+    reset_params_(model, g)
+    fill_zero_init_(model, g)
+    return model, meta
+
+
+def _f32_attention(model):
+    model.encoder.set_attn_dtype(None)
+    model.decoder.set_attn_dtype(None)
+    return model
+
+
+def serve_ablation(target: str, device, seed: int, x):
+    """Phase 17a, one target: its parameter count; one cold and
+    ABLATION_TIMED timed bf16 requests of VIDTWIN_REQUEST (weights bf16 at
+    rest; host clock ending in a synchronize), frames/s, peak memory, no
+    launch of the fourteen kernels; one f32 request (f32 attention) on the
+    same weights and draws, the bf16 run within VIDTWIN_BF16_GATE of it;
+    the model cut to VIDTWIN_DEPTH_CUT blocks in f32 on the card against
+    the CPU within VIDTWIN_CPU_GATE (SymDis at ``shuffle_ratio`` 0 there:
+    the CPU's and the card's generators draw different permutations).
+    Returns the f32 engine."""
+    import copy
+
+    import torch
+
+    from vidtok_tpu_torch.models.vidtwin.engine import VidTwinTokenizer
+    from vidtok_tpu_torch.ops import kernels as K
+
+    model, meta = make_ablation(ablation_cfg(target), seed)
+    n = sum(p.numel() for p in model.parameters())
+    tok = VidTwinTokenizer(copy.deepcopy(model).to(device, torch.bfloat16), meta,
+                           torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    lat = []
+    for _ in range(1 + ABLATION_TIMED):
+        t0 = time.perf_counter()
+        z, dec, log = tok(x)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        _check_finite(f"{target} bf16 request", z, dec)
+    peak = torch.cuda.max_memory_allocated()
+    if any(K.counts().values()):
+        raise AssertionError(f"{target} launched kernels {K.counts()}")
+    want_z = (2 * VIDTWIN_REQUEST[0] if target.endswith("Dis") else VIDTWIN_REQUEST[0],)
+    if tuple(dec.shape) != VIDTWIN_REQUEST or tuple(z.shape) != want_z + VIDTWIN_Z[1:]:
+        raise AssertionError(f"{target} shapes z {tuple(z.shape)} dec {tuple(dec.shape)}")
+    if float(log["kl_loss"]) != 0.0:
+        raise AssertionError(f"{target} kl_loss {float(log['kl_loss'])}")
+    b, _, t = VIDTWIN_REQUEST[:3]
+    print(f"serve ablation {target} ({n} parameters): request {list(VIDTWIN_REQUEST)} "
+          f"bf16, weights bf16; latency_s " + " ".join(f"{v:.4f}" for v in lat)
+          + f"; frames_per_s (best after the cold one) {b * t / min(lat[1:]):.2f}; "
+          f"peak_mem_bytes {peak}; launches of the fourteen kernels 0", flush=True)
+
+    tok32 = VidTwinTokenizer(_f32_attention(model).to(device), meta)
+    tok.generator.manual_seed(0)  # the same draws (SymDis) in both runs
+    z16, dec16, _ = tok(x)
+    t0 = time.perf_counter()
+    z32, dec32, _ = tok32(x)
+    torch.cuda.synchronize()
+    t32 = time.perf_counter() - t0
+    _check_finite(f"{target} f32 request", z32, dec32)
+    spread = {"z": rel_l2(z16, z32), "reconstruction": rel_l2(dec16, dec32)}
+    del tok, z16, dec16
+    torch.cuda.empty_cache()
+
+    cut = ablation_cfg(target, depth=VIDTWIN_DEPTH_CUT)
+    cpu, cpu_meta = make_ablation(cut, seed + 1)
+    card = VidTwinTokenizer(_f32_attention(copy.deepcopy(cpu)).to(device), cpu_meta)
+    cpu = VidTwinTokenizer(_f32_attention(cpu), cpu_meta)
+    for m in (cpu.model, card.model):
+        if hasattr(m, "shuffle_ratio"):
+            m.shuffle_ratio = 0.0
+    zc, dc, _ = cpu(x[:1])
+    zg, dg, _ = card(x[:1])
+    spread_cpu = {"z": rel_l2(zg.cpu(), zc), "reconstruction": rel_l2(dg.cpu(), dc)}
+    print(f"serve ablation {target}: f32 request (attention f32) {t32:.4f} s; bf16 "
+          f"against it (relative L2) {json.dumps(spread)}, gate {VIDTWIN_BF16_GATE}; "
+          f"depth {VIDTWIN_DEPTH_CUT} f32 card against CPU {json.dumps(spread_cpu)}, "
+          f"gate {VIDTWIN_CPU_GATE}", flush=True)
+    if not max(spread.values()) <= VIDTWIN_BF16_GATE:
+        raise AssertionError(f"{target} bf16 against f32: {spread}")
+    if not max(spread_cpu.values()) <= VIDTWIN_CPU_GATE:
+        raise AssertionError(f"{target} card against CPU: {spread_cpu}")
+    return tok32
+
+
+def ablation_checkpoint(device, tok32, target: str, x, tmp: str) -> None:
+    """Phase 17a: the f32 ablation's weights as a reference-named ``.ckpt``
+    with keys the reader drops (its Q-Formers' text FFN, the loss, the
+    sincos buffers), loaded through ``load_model_from_config(cfg,
+    ckpt=...)`` (strict): one clip's reconstruction bit-equal."""
+    import os
+
+    import torch
+
+    from vidtok_tpu_torch import load_model_from_config
+
+    extra = {"loss.logvar": torch.zeros(()), "encoder.pos_embed": torch.zeros(1, 196, 768)}
+    for name, m in tok32.model.named_children():
+        if name.endswith("_qformer") and hasattr(m, "query_embeds"):
+            extra[f"{name}.qformer.encoder.layer.0.intermediate.dense.weight"] = \
+                torch.zeros(768, 64)
+    path = os.path.join(tmp, "ablation.ckpt")
+    sd = {k: v.detach().cpu() for k, v in tok32.model.state_dict().items()}
+    torch.save({"state_dict": {**sd, **extra}}, path)
+    t0 = time.perf_counter()
+    back = load_model_from_config(ablation_cfg(target), ckpt=path, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    _f32_attention(back.model)
+    tok32.generator.manual_seed(0)
+    (_, da, _), (_, db, _) = tok32(x[:1]), back(x[:1])
+    same = torch.equal(da, db)
+    print(f"checkpoint ablation {target}: {os.path.getsize(path)} bytes with "
+          f"{len(extra)} keys the reader drops (the Q-Formers' text FFN among them); "
+          f"load_model_from_config with ckpt {load_s:.3f} s; reconstruction bit-equal "
+          f"{same}", flush=True)
+    if not same:
+        raise AssertionError(f"{target} checkpoint round trip changed the model")
+
+
+def ablation_train(device, lpips: str) -> None:
+    """Phase 17a: ``VidTwinTrainer`` on SymDis at VidTwin's recipe with
+    ``disc_start`` 0 and ``warmup_steps`` 2 (as phase 16d): one fp32 step
+    (f32 attention), then ABLATION_TRAIN_STEPS bf16-mixed steps at batch
+    VIDTWIN_TRAIN_BATCH; gates: finite logs, generator, discriminator and
+    logvar moved by step 2, ``d_weight`` > 0, ``kl_loss`` 0."""
+    import torch
+
+    target = ABLATION_TARGETS[-1]
+    x = torch.from_numpy(train_clip(VIDTWIN_TRAIN_BATCH, seed=18)).to(device)
+    f32 = make_vidtwin_trainer(ablation_cfg(target, precision="fp32", disc_start=0,
+                                            warmup_steps=2), device, lpips)
+    t0 = time.perf_counter()
+    logs32 = _finite_logs(f32.fit_step(x), f"{target} fp32 step")
+    torch.cuda.synchronize()
+    t32 = time.perf_counter() - t0
+    del f32
+    torch.cuda.empty_cache()
+    tr = make_vidtwin_trainer(ablation_cfg(target, disc_start=0, warmup_steps=2), device,
+                              lpips)
+    g0, d0, lv0 = _flat(tr.model), _flat(tr.disc), float(tr.logvar.detach())
+    torch.cuda.reset_peak_memory_stats()
+    lat, moved, logs = [], None, None
+    for i in range(ABLATION_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        logs = _finite_logs(tr.fit_step(x), f"{target} bf16 step")
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        if i == 1:
+            moved = {"generator": float((_flat(tr.model) - g0).abs().max()),
+                     "discriminator": float((_flat(tr.disc) - d0).abs().max()),
+                     "logvar": abs(float(tr.logvar.detach()) - lv0)}
+            del g0, d0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train ablation {target}: batch {list(VIDTWIN_TRAIN_BATCH)}; fp32 first step "
+          f"{t32:.3f} s (d_weight {logs32['train/d_weight']:.6g}); bf16-mixed s/step "
+          + " ".join(f"{v:.4f}" for v in lat) + f"; peak_mem_bytes {peak}; moved by step 2 "
+          f"{json.dumps(moved)}; last logs "
+          + json.dumps({k: round(v, 6) for k, v in logs.items()}), flush=True)
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"train {target}: parameters did not move: {moved}")
+    for what, lg in (("fp32", logs32), ("bf16", logs)):
+        if not (lg["train/d_weight"] > 0 and lg["train/kl_loss"] == 0.0):
+            raise AssertionError(f"train {target} {what}: d_weight {lg['train/d_weight']}, "
+                                 f"kl_loss {lg['train/kl_loss']}")
+
+
+def sharded_clip() -> np.ndarray:
+    return np.clip(np.random.RandomState(170).randn(*SHARDED_REQUEST) * 0.5, -1, 1
+                   ).astype(np.float32)
+
+
+def plain_f32_tokenizer(cfg: dict, device, seed: int = 0):
+    """``make_tokenizer``'s weights in f32 on the plain path."""
+    import torch
+
+    from vidtok_tpu_torch import load_model_from_config
+    from vidtok_tpu_torch.models.autoencoder import VideoTokenizer
+
+    tok = load_model_from_config(cfg, seed=seed, device="cpu")
+    randomize_(tok.core, seed=seed)
+    return VideoTokenizer(tok.core.to(device), tok.meta, torch.float32, fused=False)
+
+
+SHARDED_MODELS = (("v1.0 kl 4x8x8 16chn", V1_0_CFG), ("v1.0 fsq 4096", FSQ_CFG))
+
+
+def _sharded_runs(name: str, tok):
+    """(key, tokenizer) of phase 17b's runs of SHARDED_MODELS' ``name``:
+    its f32 plain tokenizer; the flagship's also on the kernel path in
+    bf16 (SHARDED_KERNEL), where the nearest temporal upsample takes
+    kernel E on each slab."""
+    import torch
+
+    from vidtok_tpu_torch.models.autoencoder import VideoTokenizer
+
+    runs = [(name, tok)]
+    if name == SHARDED_MODELS[0][0]:
+        runs.append((SHARDED_KERNEL, VideoTokenizer(tok.core, tok.meta, torch.bfloat16,
+                                                    fused=True)))
+    return runs
+
+
+def _sharded_worker(rank: int, world: int, init: str, out: str) -> None:
+    """One rank of phase 17b: each of ``_sharded_runs`` (TF32 off)
+    through ``forward_sharded`` on the whole SHARDED_REQUEST, once to warm
+    up and once timed; its whole results, wall time and the timed run's
+    kernel launches to ``out.{rank}``."""
+    import torch
+    import torch.distributed as dist
+
+    from vidtok_tpu_torch.ops import kernels as K
+    from vidtok_tpu_torch.parallel.distributed import init_distributed
+    from vidtok_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("gloo", init, world, rank, device_index=0)
+    device = torch.device("cuda", 0)
+    mesh = make_mesh(n_spatial=world)
+    x = sharded_clip()
+    got = {}
+    for name, cfg in SHARDED_MODELS:
+        for key, tok in _sharded_runs(name, plain_f32_tokenizer(cfg, device)):
+            tok.forward_sharded(x, mesh)
+            torch.cuda.synchronize()
+            dist.barrier()
+            K.reset_counts()
+            t0 = time.perf_counter()
+            z, dec, log = tok.forward_sharded(x, mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got[key] = {"z": z.float().cpu(), "dec": dec.float().cpu(), "wall": wall,
+                        "launches": dict(K.counts()),
+                        **{k: v.cpu() for k, v in log.items()}}
+            del tok, z, dec
+        torch.cuda.empty_cache()
+    got["mesh"] = (tuple(mesh.shape), mesh.index, mesh.size)
+    torch.save(got, f"{out}.{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def serve_sharded(device, tmp: str) -> None:
+    """Phases 17b and 17c. The single-process f32 plain run of each of
+    SHARDED_MODELS on SHARDED_REQUEST (TF32 off), the flagship's inside
+    ``profiling.trace`` (17c: a trace file written;
+    ``device_memory_report()``'s peak equal to ``max_memory_allocated``),
+    and the flagship's plain bf16 run; then SHARDED_WORLD gloo processes
+    on the card (``torch.multiprocessing``, a file ``init_method``) run
+    ``forward_sharded`` (``_sharded_runs``); gates: every rank's whole
+    results equal; the f32 runs' z and reconstruction within SHARDED_GATE
+    (relative L2) of the single process, kl_loss and FSQ's aux_loss within
+    it (relative), FSQ's indices equal but for at most SHARDED_FLIP_SHARE
+    of them (the count printed), no kernel launched; the bf16 kernel run
+    no further from the single-process f32 run than BF16_SLACK x the plain
+    bf16 run is, on z and the reconstruction, each rank launching kernel E
+    PER_FORWARD["v1_0"] times and no other kernel."""
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from vidtok_tpu_torch.models.autoencoder import VideoTokenizer
+    from vidtok_tpu_torch.ops import kernels as K
+    from vidtok_tpu_torch.utils import profiling
+
+    x = sharded_clip()
+    single = {}
+    K.reset_counts()
+    for name, cfg in SHARDED_MODELS:
+        tok = plain_f32_tokenizer(cfg, device)
+        tok(x)  # warm up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok(x)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        if name == SHARDED_MODELS[0][0]:
+            torch.cuda.reset_peak_memory_stats()
+            logdir = os.path.join(tmp, "trace")
+            t0 = time.perf_counter()
+            with profiling.trace(logdir):
+                z, dec, log = tok(x)
+            trace_s = time.perf_counter() - t0
+            report = profiling.device_memory_report()
+            peak = torch.cuda.max_memory_allocated()
+            files = sorted(os.listdir(logdir))
+            size = sum(os.path.getsize(os.path.join(logdir, f)) for f in files)
+            mem = report.get(str(device), {})
+            print(f"profiling: trace of one {name} f32 request {list(SHARDED_REQUEST)} "
+                  f"({trace_s:.3f} s with the profiler on): {files} {size} bytes; "
+                  f"device_memory_report {json.dumps(report)}; max_memory_allocated "
+                  f"{peak}; {profiling.param_memory_report(tok.core)}", flush=True)
+            if not files or size == 0 or mem.get("peak_bytes_in_use") != peak:
+                raise AssertionError(f"profiling: trace files {files} ({size} bytes), "
+                                     f"report {report} against peak {peak}")
+            zb, decb, _ = VideoTokenizer(tok.core, tok.meta, torch.bfloat16, fused=False)(x)
+            single[SHARDED_KERNEL] = {"z": zb.float().cpu(), "dec": decb.float().cpu()}
+            del zb, decb
+        else:
+            z, dec, log = tok(x)
+        single[name] = {"z": z.cpu(), "dec": dec.cpu(), "wall": single_s,
+                        **{k: v.cpu() for k, v in log.items()}}
+        del tok, z, dec
+        torch.cuda.empty_cache()
+    if any(K.counts().values()):
+        raise AssertionError(f"phase 17 single-process runs launched kernels {K.counts()}")
+
+    out = os.path.join(tmp, "sharded")
+    t0 = time.perf_counter()
+    mp.spawn(_sharded_worker, args=(SHARDED_WORLD, f"file://{os.path.abspath(tmp)}/init",
+                                    out), nprocs=SHARDED_WORLD, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{out}.{r}", weights_only=True) for r in range(SHARDED_WORLD)]
+    keys = [name for name, _ in SHARDED_MODELS] + [SHARDED_KERNEL]
+    e_only = dict(dict.fromkeys(K.WRAPPERS, 0),
+                  parity_up2x_fused=PER_FORWARD["v1_0"]["parity_up2x_fused"])
+    for r, got in enumerate(ranks):
+        if tuple(got["mesh"]) != ((1, SHARDED_WORLD), r, SHARDED_WORLD):
+            raise AssertionError(f"sharded rank {r}: mesh {got['mesh']}")
+        for key in keys:
+            want = e_only if key == SHARDED_KERNEL else dict.fromkeys(K.WRAPPERS, 0)
+            if got[key]["launches"] != want:
+                raise AssertionError(f"sharded rank {r} {key}: launches "
+                                     f"{got[key]['launches']} != {want}")
+            for k, v in got[key].items():
+                if k not in ("wall", "launches") and not torch.equal(v, ranks[0][key][k]):
+                    raise AssertionError(f"sharded rank {r} {key} {k} differs from rank 0's")
+
+    def walls(key):
+        return ("wall per rank " + " ".join(f"{r[key]['wall']:.3f}" for r in ranks)
+                + " s (two ranks on one card measure correctness, not scaling)")
+
+    slabs = (f"over {SHARDED_WORLD} gloo ranks on one card (H {SHARDED_REQUEST[3]} in "
+             f"slabs of {SHARDED_REQUEST[3] // SHARDED_WORLD})")
+    for name, _ in SHARDED_MODELS:
+        got, want = ranks[0][name], single[name]
+        loss = "aux_loss" if "aux_loss" in want else "kl_loss"
+        err = {"z": rel_l2(got["z"], want["z"]), "reconstruction": rel_l2(got["dec"], want["dec"]),
+               loss: abs(float(got[loss]) / float(want[loss]) - 1)}
+        line = (f"sharded {name}: forward_sharded {slabs}, f32, TF32 off: {walls(name)}, "
+                f"one process {want['wall']:.3f} s; meshes "
+                f"{[tuple(r['mesh']) for r in ranks]}; against the single process "
+                f"{json.dumps(err)}, gate {SHARDED_GATE}")
+        if "indices" in want:
+            flips = int((got["indices"] != want["indices"]).sum())
+            line += (f"; indices differing {flips} of {want['indices'].numel()}, gate "
+                     f"{SHARDED_FLIP_SHARE} of them")
+            if flips > SHARDED_FLIP_SHARE * want["indices"].numel():
+                raise AssertionError(f"sharded {name}: {flips} indices differ")
+        print(line, flush=True)
+        if not max(err.values()) <= SHARDED_GATE:
+            raise AssertionError(f"sharded {name}: {err}")
+    got, f32, plain = ranks[0][SHARDED_KERNEL], single[SHARDED_MODELS[0][0]], \
+        single[SHARDED_KERNEL]
+    err = {}
+    for k, what in (("z", "z"), ("dec", "recon")):
+        err[f"{what}_sharded_vs_f32"] = rel_l2(got[k], f32[k])
+        err[f"{what}_plain_vs_f32"] = rel_l2(plain[k], f32[k])
+        err[f"{what}_sharded_vs_plain"] = rel_l2(got[k], plain[k])
+    print(f"sharded {SHARDED_KERNEL}: forward_sharded {slabs}, bf16, kernel E on each "
+          f"slab ({got['launches']['parity_up2x_fused']} launches a rank): {walls(SHARDED_KERNEL)}; "
+          f"kl_loss {float(got['kl_loss']):.6g} (f32 single process "
+          f"{float(f32['kl_loss']):.6g}); rel_l2 {json.dumps(err)}, gate {BF16_SLACK} x plain "
+          f"bf16 vs f32", flush=True)
+    for what in ("z", "recon"):
+        if not err[f"{what}_sharded_vs_f32"] <= BF16_SLACK * err[f"{what}_plain_vs_f32"]:
+            raise AssertionError(f"sharded {SHARDED_KERNEL} {what}: {err}")
+    print(f"sharded: {SHARDED_WORLD} processes spawned, built and run in {spawn_s:.1f} s",
+          flush=True)
+
+
+def serve_ladder_and_sharding(device, t: float) -> float:
+    """Phase 17 (17a-17c); its files under CKPT_DIR, removed after."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    t17 = t
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=CKPT_DIR)
+    try:
+        x = np.clip(np.random.RandomState(310).randn(*VIDTWIN_REQUEST) * 0.5, -1, 1
+                    ).astype(np.float32)
+        for i, target in enumerate(ABLATION_TARGETS):
+            tok32 = serve_ablation(target, device, 20 + i, x)
+            if i == 0:
+                ablation_checkpoint(device, tok32, target, x, tmp)
+            del tok32
+            torch.cuda.empty_cache()
+        t = phase("ablation serve", t)
+        lpips = os.path.join(tmp, "lpips.npz")
+        lpips_npz(lpips)
+        ablation_train(device, lpips)
+        torch.cuda.empty_cache()
+        t = phase("ablation train", t)
+        serve_sharded(device, tmp)
+        t = phase("sharded and profiling", t)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("17 (ablations, sharded forward, profiling)", t17)
+    return t
+
+
 def phase(name: str, t0: float) -> float:
     t = time.perf_counter()
     print(f"phase {name}: {t - t0:.1f} s", flush=True)
@@ -3529,7 +4019,8 @@ def main(argv=None) -> int:
     t = phase("checkpoint", t)
     t = serve_clis(device, t)
     t = serve_training(device, t)
-    serve_vidtwin(device, t)
+    t = serve_vidtwin(device, t)
+    serve_ladder_and_sharding(device, t)
     phase("total", t0)
 
     kernels = []

@@ -53,6 +53,10 @@ VIDTWIN = {"target": "VidTwinVAE", "params": {
     "encoder_config": {"target": "STTEncoder", "params": dict(_STT)},
     "decoder_config": {"target": "STTDecoder", "params": dict(_STT)},
     "regularizer_config": {"target": "DiagonalGaussianRegularizer"}}}
+# the Sym ablation on the same backbone (a spatial Q-Former beside)
+VIDTWIN_SYM = {"target": "vidtwin.models.vidtwin_ae.VidAutoEncoderQformerCompactSym",
+               "params": dict(VIDTWIN["params"], space_qformer_config=VIDTWIN["params"][
+                   "temporal_qformer_config"])}
 V11_16CHN = os.path.join(ROOT, "configs", "v1_1",
                          "vidtok_kl_causal_488_16chn_v1_1.yaml")
 
@@ -177,7 +181,9 @@ def test_import_hygiene(tmp_path):
     VidTwin trainer) beside its two tool modules (the temporal
     microbenchmark, the SiLU probe), its six CLIs, its data package
     (the training pipeline and data module too), metrics and LPIPS, the
-    registry, the loggers, the distributed helpers, builds a trainer (its
+    registry, the loggers, the distributed helpers and the mesh, the
+    profiling helpers and the sharded-scaling tool, builds a VidTwin
+    ablation (Sym), builds a trainer (its
     discriminator, losses and optimizers), saves a ``.ckpt`` and loads it
     back, and no jax,
     flax or ``vidtok_tpu`` module when it loads a YAML file (PyYAML is
@@ -218,6 +224,9 @@ def test_import_hygiene(tmp_path):
         "import vidtok_tpu_torch.scripts.train, vidtok_tpu_torch.registry\n"
         "import vidtok_tpu_torch.data.pipeline, vidtok_tpu_torch.data.datamodule\n"
         "import vidtok_tpu_torch.utils.logging, vidtok_tpu_torch.parallel.distributed\n"
+        "import vidtok_tpu_torch.parallel.mesh, vidtok_tpu_torch.utils.profiling\n"
+        "import vidtok_tpu_torch.tools.sharded_scaling\n"
+        "import vidtok_tpu_torch.models.vidtwin.ablations\n"
         "from vidtok_tpu_torch.train.trainer import VidTokTrainer\n"
         f"VidTokTrainer({{'model': {fsq!r}}}, device='cpu').init_state()\n"
         "import vidtok_tpu_torch.scripts.vidtwin_evaluate\n"
@@ -226,6 +235,9 @@ def test_import_hygiene(tmp_path):
         f"twin = vidtok_tpu_torch.load_model_from_config({{'model': {VIDTWIN!r}}}, "
         "device='cpu')\n"
         "assert type(twin).__name__ == 'VidTwinTokenizer'\n"
+        f"sym = vidtok_tpu_torch.load_model_from_config({{'model': {VIDTWIN_SYM!r}}}, "
+        "device='cpu')\n"
+        "assert type(sym.model).__name__ == 'VidTwinSym'\n"
         f"VidTwinTrainer({{'model': {VIDTWIN!r}}}, device='cpu').init_state()\n"
         f"for m in ({CFG!r}, {v1_0!r}, {fsq!r}):\n"
         "    tok = vidtok_tpu_torch.load_model_from_config({'model': m}, "

@@ -290,10 +290,36 @@ def test_symvid_vae_false():
 
 
 def test_ablations_raise():
-    for target in ("VidAutoEncoderQformer", "VidAutoEncoderQformerCompact",
-                   "VidAutoEncoderQformerCompactSym", "VidAutoEncoderQformerCompactSymDis"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_vidtwin_from_config(dict(small_cfg(), target=target))
+    """The ablation ladder builds (``ablations.py``; held to JAX in
+    ``test_torch_vidtwin_ablations*.py``), and the engine serves it
+    through ``forward`` only: ``encode``, ``decode`` and ``cross_reenact``
+    are ``VidTwinVAE``'s and raise on an ablation, as JAX's engine cannot
+    run them (it calls ``VidTwinVAE.encode`` by name)."""
+    from vidtok_tpu_torch.models.vidtwin import ablations as A
+    from vidtok_tpu_torch.models.vidtwin.engine import VidTwinTokenizer
+
+    q = {"target": "q", "params": {"num_query_tokens": 2, "query_hidden_size": 32,
+                                   "encoder_hidden_size": 64}}
+    classes = {"VidAutoEncoderQformer": A.VidTwinQformer,
+               "VidAutoEncoderQformerCompact": A.VidTwinCompact,
+               "VidAutoEncoderQformerCompactSym": A.VidTwinSym,
+               "VidAutoEncoderQformerCompactSymDis": A.VidTwinSym}
+    x = t(ncthw(clip(16)))
+    for target, cls in classes.items():
+        cfg = dict(small_cfg(), target=f"vidtwin.models.vidtwin_ae.{target}")
+        cfg["params"] = dict(cfg["params"], height_qformer_config=q, width_qformer_config=q,
+                             space_qformer_config=q)
+        model, meta = build_vidtwin_from_config(cfg)
+        assert type(model) is cls and meta["kind"] == "vidtwin"
+        assert getattr(model, "dis", False) == target.endswith("Dis")
+        reset_params_(model, torch.Generator().manual_seed(0))
+        tok = VidTwinTokenizer(model, meta)
+        z, dec, log = tok(x)
+        assert dec.shape == x.shape and float(log["kl_loss"]) == 0.0
+        for call in (lambda: tok.encode(x), lambda: tok.cross_reenact(x, x),
+                     lambda: tok.decode(x, x, x)):
+            with pytest.raises(TypeError, match="serves forward only"):
+                call()
 
 
 def test_bf16_attention_default():

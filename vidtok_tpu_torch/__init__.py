@@ -9,8 +9,10 @@ v1.1 tiled (chunked, streaming) inference, checkpoint loading and saving
 path and the three serving CLIs (``scripts``), the GAN training stack
 (``train``: losses, discriminators, the trainer, train-state checkpoints,
 data parallelism, the train CLI), VidTwin (``models/vidtwin``: the
-structure/dynamics tokenizer, its weights, engine, CLIs, schedules and
-trainer), and the fourteen Pallas
+structure/dynamics tokenizer and its ablation ladder, their weights,
+engine, CLIs, schedules and trainer), the H-sharded forward
+(``VideoTokenizer.forward_sharded`` over ``parallel/mesh.py``), the
+profiling helpers (``utils/profiling.py``), and the fourteen Pallas
 kernels of the JAX package as CUDA kernels (``ops/kernels``, ``csrc``,
 ``tools``), four of them alternative forms of the decoder's call sites
 (``KernelForms``).

@@ -10,7 +10,8 @@
   memory does not grow with the clip. ``from_config`` builds any of the
   repo's VidTok configs (causal v1.0 and v1.1, non-causal; KL or FSQ;
   layernorm or groupnorm) with random weights or from a checkpoint, and
-  ``save`` writes a reference-layout ``.ckpt``.
+  ``save`` writes a reference-layout ``.ckpt``. ``forward_sharded`` runs
+  one clip with its height split over the ranks of a mesh.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..modules.encoder import Encoder
 from ..modules.regularizers import DiagonalGaussianRegularizer, FSQRegularizer
 from ..modules.stream import Stream
 from ..ops.kernels import KernelForms
+from ..parallel.mesh import HeightShard, Mesh
 from ..utils import checkpoint
 
 # reference and alias target names -> variant (vidtok_tpu/registry.py)
@@ -359,6 +361,52 @@ class VideoTokenizer:
         return _to_ncthw(z.float()), _to_ncthw(dec.float()), log
 
     __call__ = forward
+
+    # -- H-sharded inference (``autoencoder.py:404-438``)
+
+    @torch.no_grad()
+    def forward_sharded(self, x, mesh: Mesh, sample: bool = False):
+        """(z, x_rec, reg_log) of ``forward`` with the frame height split over
+        all of ``mesh``'s ranks, rank ``mesh.index`` computing slab
+        ``mesh.index`` of every activation. Every rank passes the whole x
+        ``[B, C, T, H, W]`` and gets the whole results. JAX lets GSPMD insert
+        the exchanges; here each operation that reads across H does its own
+        (``parallel/mesh.py``'s ``HeightShard``, set on every module of the
+        core for the call). The plain path (``fused=False``), as JAX's, but
+        for the nearest temporal upsample, which takes kernel E on each
+        slab where the tokenizer's ``fused`` is on: JAX's deterministic
+        graph takes its Pallas E there too (``blocks.py:529-533``).
+        ``sample`` draws the whole latent's noise on every rank from the
+        tokenizer's generator, so equal seeds give one process's draw. H
+        must divide into ``mesh.size`` slabs of a multiple of 8 rows (JAX's
+        rule; of the encoder's whole spatial factor where that is larger),
+        so every level's slab is whole, at least its one-row halo, and
+        starts on an even row where it is downsampled."""
+        if self.use_tiling:
+            raise ValueError("forward_sharded runs the whole clip at once: a tiled "
+                             "model has no sharded form (JAX never tiles in it)")
+        if mesh.index is None:
+            raise ValueError("this rank is not in the mesh")
+        xs = self._input(x)
+        h = xs.shape[2]
+        unit = mesh.size * max(8, 2 ** len(self.core.encoder.spatial_ds))
+        if h % unit:
+            raise ValueError(f"H={h} does not split into {mesh.size} slabs of a "
+                             f"multiple of {unit // mesh.size} rows")
+        shard = HeightShard(mesh.group, mesh.index, mesh.size, parity_kernel=self.fused)
+        modules = list(self.core.modules())
+        for m in modules:
+            m.shard = shard
+        try:
+            z, dec, log = self.core(shard.slab(xs, 2), sample=sample, fused=False,
+                                    generator=self.generator)
+        finally:
+            for m in modules:
+                m.__dict__.pop("shard", None)
+        if "indices" in log:
+            log = dict(log, indices=shard.gather(log["indices"], 2))
+        z, dec = shard.gather(z, 2), shard.gather(dec, 2)
+        return _to_ncthw(z.float()), _to_ncthw(dec.float()), log
 
     # -- tiled inference: a Python loop of chunk steps over an explicit cache
 

@@ -2,19 +2,22 @@
 reference torch layout this package's modules use.
 
 :func:`vidtwin_state_dict_from_jax` inverts
-``vidtok_tpu/models/vidtwin/convert.py``'s ``convert_vidtwin_state_dict``:
+``vidtok_tpu/models/vidtwin/convert.py``'s ``convert_vidtwin_state_dict``,
+:func:`vidtwin_ablation_state_dict_from_jax` its
+``convert_vidtwin_ablation_state_dict`` (the ablation ladder):
 Dense kernels ``[in, out]`` become Linear ``[out, in]``, Conv HWIO becomes
 OIHW, the patch embedding's DHWIO becomes OIDHW, the token mix's
 ``[out, in]`` becomes a Conv1d ``[out, in, 1]``, ``scale`` becomes
 ``weight``, and module names regain the reference's (``content_down_0``
 -> ``content_downsample_blocks.0``, ``qformer/layer_2/output`` ->
-``temporal_qformer.qformer.encoder.layer.2.output_query.dense``).
+``temporal_qformer.qformer.encoder.layer.2.output_query.dense``,
+``height_qformer`` -> ``hight_qformer``, the reference's spelling).
 
 :data:`DROPPED` names the reference keys that JAX's converter drops and
 that no module here holds: the loss and EMA sections, the regularizer,
 the sincos buffers, the encoder's unused final layer and the decoder's
-unused patch embedding, and the Q-Former's text-branch FFN. It needs numpy
-only.
+unused patch embedding, and every Q-Former's text-branch FFN. It needs
+numpy only.
 """
 
 from __future__ import annotations
@@ -28,24 +31,38 @@ DROPPED = re.compile(
     r"^(loss|model_ema|regularization)\."
     r"|\.(pos_embed|pos_embed_temporal)$"
     r"|^encoder\.final_layer\.|^decoder\.x_embedder\."
-    r"|^temporal_qformer\.qformer\.encoder\.layer\.\d+\.(intermediate|output)\.")
+    r"|^\w+_qformer\.qformer\.encoder\.layer\.\d+\.(intermediate|output)\.")
 
-_QF = "temporal_qformer.qformer."
-# JAX module name -> (reference prefix, layout of its kernel)
-_GLUE = [
-    (r"conv_in", "conv_in", "conv"),
-    (r"content_down_(\d+)", lambda i: f"content_downsample_blocks.{2 * i}", "conv"),
-    (r"content_up_(\d+)", lambda i: f"content_upsample_blocks.{3 * i}", "conv"),
-    (r"bottle_down", "bottle_down", "conv"),
-    (r"bottle_up", "bottle_up", "conv"),
-    (r"conv_out", "conv_out", "conv"),
-    (r"cont_emb_dense", "cont_emb.0", "linear"),
-    (r"cont_emb_mix", "cont_emb.2", "mix"),
-    (r"motion_emb_(\d)", lambda i: f"motion_emb.{2 * (i - 1)}", "linear"),
-    (r"motion_head", "motion_head", "conv"),
-    (r"motion_down_(\d+)", lambda i: f"downsample_motion_module.{2 * i}", "conv"),
-    (r"up_motion_(\d)", lambda i: f"up_motion.{2 * (i - 1)}", "linear"),
+# JAX module name (``/`` between levels) -> (its reference prefix from the
+# name's match, layout of its kernel)
+_PYRAMID = [
+    (r"conv_in|bottle_down|bottle_up|conv_out", lambda m: m[0], "conv"),
+    (r"content_down_(\d+)", lambda m: f"content_downsample_blocks.{2 * int(m[1])}", "conv"),
+    (r"content_up_(\d+)", lambda m: f"content_upsample_blocks.{3 * int(m[1])}", "conv"),
 ]
+_GLUE = _PYRAMID + [
+    (r"cont_emb_dense", lambda m: "cont_emb.0", "linear"),
+    (r"cont_emb_mix", lambda m: "cont_emb.2", "mix"),
+    (r"motion_emb_(\d)", lambda m: f"motion_emb.{2 * (int(m[1]) - 1)}", "linear"),
+    (r"motion_head", lambda m: m[0], "conv"),
+    (r"motion_down_(\d+)", lambda m: f"downsample_motion_module.{2 * int(m[1])}", "conv"),
+    (r"up_motion_(\d)", lambda m: f"up_motion.{2 * (int(m[1]) - 1)}", "linear"),
+]
+# the ablation ladder (JAX ``convert.py:183-282``): EmbSeq heads as
+# ``{name}/dense`` and ``{name}/mix`` (indices 0, 2), the six-element heads
+# flat as ``{cont|spatial}_{dense_1|dense_2|mix}`` (0, 2, 4)
+_ABLATION_GLUE = _PYRAMID + [
+    (r"(\w+_emb)/dense", lambda m: f"{m[1]}.0", "linear"),
+    (r"(\w+_emb)/mix", lambda m: f"{m[1]}.2", "mix"),
+    (r"(cont|spatial)_dense_(\d)", lambda m: f"{m[1]}_emb.{2 * (int(m[2]) - 1)}", "linear"),
+    (r"(cont|spatial)_mix", lambda m: f"{m[1]}_emb.4", "mix"),
+    (r"pre_spatial_(\d)", lambda m: f"pre_spatial_qformer.{2 * (int(m[1]) - 1)}", "linear"),
+    (r"pre_temporal_qformer", lambda m: "pre_temporal_qformer.0", "linear"),
+    (r"down_channel_temp|up_channel_temp", lambda m: m[0], "linear"),
+]
+# JAX Q-Former root -> reference attribute
+_QFORMERS = {"temporal_qformer": "temporal_qformer", "height_qformer": "hight_qformer",
+             "width_qformer": "width_qformer", "space_qformer": "space_qformer"}
 
 
 def _weight(k, kind: str) -> np.ndarray:
@@ -92,13 +109,14 @@ def _stt(root: str, tree: dict, out: dict) -> None:
             raise KeyError(f"unexpected JAX leaf {root}/{name}")
 
 
-def _qformer(tree: dict, out: dict) -> None:
-    out["temporal_qformer.query_embeds"] = np.asarray(tree["query_embeds"])
-    _put(out, _QF + "layernorm", tree["layernorm"])
+def _qformer(tree: dict, out: dict, root: str = "temporal_qformer") -> None:
+    qf = f"{root}.qformer."
+    out[f"{root}.query_embeds"] = np.asarray(tree["query_embeds"])
+    _put(out, qf + "layernorm", tree["layernorm"])
     for name, layer in tree.items():
         if not name.startswith("layer_"):
             continue
-        base = f"{_QF}encoder.layer.{name[len('layer_'):]}"
+        base = f"{qf}encoder.layer.{name[len('layer_'):]}"
         for part, p in layer.items():
             if part in ("attention", "crossattention"):
                 for proj in ("query", "key", "value"):
@@ -115,6 +133,21 @@ def _qformer(tree: dict, out: dict) -> None:
                 raise KeyError(f"unexpected JAX leaf qformer/{name}/{part}")
 
 
+def _glue(name: str, sub: dict, table, out: dict) -> None:
+    """One glue module of JAX's tree (a Dense / Conv / TokenMix, or a head
+    whose children are) into ``out`` by ``table``."""
+    if "kernel" not in sub:
+        for child, p in sub.items():
+            _glue(f"{name}/{child}", p, table, out)
+        return
+    for pat, prefix, kind in table:
+        m = re.fullmatch(pat, name)
+        if m:
+            _put(out, prefix(m), sub, kind)
+            return
+    raise KeyError(f"unexpected JAX module {name}")
+
+
 def vidtwin_state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
     """A JAX ``VidTwinVAE`` parameter tree (numpy leaves) -> a flat state
     dict in the reference's keys and layouts."""
@@ -122,16 +155,23 @@ def vidtwin_state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
     for name, sub in params.items():
         if name in ("encoder", "decoder"):
             _stt(name, sub, out)
-            continue
-        if name == "qformer":
+        elif name == "qformer":
             _qformer(sub, out)
-            continue
-        for pat, prefix, kind in _GLUE:
-            m = re.fullmatch(pat, name)
-            if m:
-                key = prefix(int(m.group(1))) if callable(prefix) else prefix
-                _put(out, key, sub, kind)
-                break
         else:
-            raise KeyError(f"unexpected JAX module {name}")
+            _glue(name, sub, _GLUE, out)
+    return out
+
+
+def vidtwin_ablation_state_dict_from_jax(params: dict) -> Dict[str, np.ndarray]:
+    """A JAX ablation-ladder parameter tree (``VidTwinQformer``,
+    ``VidTwinCompact``, ``VidTwinSym``; numpy leaves) -> a flat state dict
+    in the reference's keys and layouts."""
+    out: Dict[str, np.ndarray] = {}
+    for name, sub in params.items():
+        if name in ("encoder", "decoder"):
+            _stt(name, sub, out)
+        elif name in _QFORMERS:
+            _qformer(sub, out, _QFORMERS[name])
+        else:
+            _glue(name, sub, _ABLATION_GLUE, out)
     return out

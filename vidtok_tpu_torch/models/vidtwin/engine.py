@@ -5,7 +5,10 @@ of one clip with the dynamics of another; reference
 inference_vidtwin_cross_reconstruct.py:232-239).
 
 The model runs in ``compute_dtype`` (f32, or bf16 with the weights cast at
-rest) on ``device``, the card unless the caller names the CPU. Sampling
+rest) on ``device``, the card unless the caller names the CPU. An ablation
+of the ladder (``ablations.py``) serves ``forward`` only: ``encode``,
+``decode`` and ``cross_reenact`` are ``VidTwinVAE``'s (JAX's engine calls
+``VidTwinVAE.encode`` by name) and raise on it. Sampling
 (``sample=True``) draws from the engine's ``torch.Generator`` on the
 device, which advances with every ``encode`` and ``forward`` as JAX's
 engine splits its key.
@@ -46,7 +49,9 @@ class VidTwinTokenizer:
         cfg = load_config(config)
         model, meta = build_vidtwin_from_config(cfg.get("model", cfg))
         if ckpt:
-            checkpoint.load_into(model, checkpoint.read_vidtwin_state_dict(ckpt, full_pickle))
+            ablation = not isinstance(model, VidTwinVAE)
+            sd = checkpoint.read_vidtwin_state_dict(ckpt, full_pickle, ablation)
+            checkpoint.load_into(model, sd, model.unused_keys() if ablation else ())
         else:
             reset_params_(model, torch.Generator().manual_seed(seed))
         dtype = compute_dtype or torch.float32
@@ -62,23 +67,31 @@ class VidTwinTokenizer:
             x = torch.from_numpy(x)
         return x.to(self.device, self.compute_dtype)
 
+    def _vae(self, what: str) -> None:
+        if not isinstance(self.model, VidTwinVAE):
+            raise TypeError(f"{what} is VidTwinVAE's; the ablation "
+                            f"{type(self.model).__name__} serves forward only")
+
     @torch.no_grad()
     def encode(self, x, sample: bool = False):
         """x [B, C, T, H, W] -> (u_S [B, Fq, h, w, c], u_Dx [B, d, F, W'],
         u_Dy [B, d, F, H'], reg_log), f32."""
+        self._vae("encode")
         _, u_s, u_dx, u_dy, log = self.model.encode(self._input(x), sample, self.generator)
         return u_s.float(), u_dx.float(), u_dy.float(), log
 
     @torch.no_grad()
     def decode(self, u_s, u_dx, u_dy, only_part: Optional[str] = None):
         """-> x_rec [B, C, T, H, W], f32."""
+        self._vae("decode")
         dec = self.model.decode(self._input(u_s), self._input(u_dx), self._input(u_dy),
                                 only_part=only_part)
         return dec.float()
 
     @torch.no_grad()
     def forward(self, x, sample: bool = False):
-        """(z [B, hidden, F, H', W'], x_rec [B, C, T, H, W], reg_log), f32."""
+        """(z [B, hidden, F, H', W'] (SymDis: 2B), x_rec [B, C, T, H, W],
+        reg_log), f32."""
         z, dec, log, _ = self.model(self._input(x), sample, generator=self.generator)
         return z.float(), dec.float(), log
 

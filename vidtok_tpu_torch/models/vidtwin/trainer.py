@@ -15,7 +15,9 @@ its learning rate set to its schedule at the step (counted from 0) before
 each update. ``training.precision: bf16-mixed`` runs the model on a bf16
 clip through f32 master weights and the discriminator and LPIPS under
 ``torch.autocast``, as ``VidTokTrainer`` does. One process; the model's
-plain path (VidTwin has no kernel).
+plain path (VidTwin has no kernel). The model is the config's target:
+``VidTwinVAE`` or a class of the ablation ladder (whose ``kl_loss`` is 0),
+as JAX's trainer takes any.
 """
 
 from __future__ import annotations

@@ -15,6 +15,16 @@ kernel with ``fused`` off (the nearest temporal upsample whenever
 ``deterministic``, ``blocks.py:529-533``), the port's plain path launches
 none. JAX's separate ``fused_streaming`` switch is not carried over.
 
+On an H slab of ``VideoTokenizer.forward_sharded`` the operations that
+read across H take what they need from the other slabs
+(``parallel/mesh.py``): the convs their halo rows (``modules/conv.py``),
+the plain spatial upsample's pad and the parity upsample one halo row
+each side, the attention the whole frame's keys and values, GroupNorm its
+sums (``modules/norms.py``). The parity upsample runs its kernel form on
+the halo'd slab where the shard says so (as JAX's sharded graph takes
+Pallas E); the other fused forms do not run sharded. The temporal convs,
+resamplers and interpolation read within a slab.
+
 A block given a :class:`~.stream.Stream` runs one chunk of a stream; the
 time-causal ones carry their state in it (the spatial blocks and attention
 are per frame and carry none). Each module keeps one cache layout on both
@@ -34,6 +44,7 @@ from ..ops.kernels import (KernelForms, fused_spatial_resblock,
                            parity_up2x_fused, subpixel_interleave,
                            subpixel_interleave_z)
 from ..ops.kernels.parity_upsample import parity_up2x_fused_plain
+from ..parallel.mesh import shard_of
 from .conv import (CausalConv1d, CausalConv3d, Conv1d, Conv3d, SpatialConv,
                    pad_time_front)
 from .interp import (temporal_avg_pool3_stride2, temporal_linear_up2x,
@@ -196,8 +207,12 @@ class AttnBlock(nn.Module):
             m = m if isinstance(m, Conv3d) else m.conv
             return F.linear(v, m.weight[:, :, 0, 0, 0].to(v.dtype), m.bias.to(v.dtype))
 
-        q, k, v = (proj(m, h).reshape(b * t, 1, hh * ww, c).float()
-                   for m in (self.q, self.k, self.v))
+        q = proj(self.q, h).reshape(b * t, 1, hh * ww, c).float()
+        k, v = proj(self.k, h), proj(self.v, h)
+        shard = shard_of(self)
+        if shard is not None:  # H sharded: the whole frame's keys and values
+            k, v = shard.gather(torch.stack([k, v]), axis=3).unbind(0)
+        k, v = (a.reshape(b * t, 1, -1, c).float() for a in (k, v))
         out = F.scaled_dot_product_attention(q, k, v).to(x.dtype)
         return x + proj(self.proj_out, out.reshape(b, t, hh, ww, c))
 
@@ -237,7 +252,12 @@ class SpatialUpsample(nn.Module):
                     torch.stack([kr[..., 0] + kr[..., 1], kr[..., 2]], dim=-1))
 
         (e00, e01), (e10, e11) = colmix(r0), colmix(r1)
-        xp = F.pad(x.reshape(b * t, h, w, c), (0, 0, 1, 1, 1, 1))
+        xf = x.reshape(b * t, h, w, c)
+        shard = shard_of(self)
+        if shard is not None:  # H sharded: halo rows for the H padding
+            xp = F.pad(shard.halo(xf, 1, 1), (0, 0, 1, 1))
+        else:
+            xp = F.pad(xf, (0, 0, 1, 1, 1, 1))
         if fused and forms.subpixel == "merged":
             z = _frame_conv(xp, torch.cat([e00, e01, e10, e11]), 0)
             y = subpixel_interleave_z(z, self.conv.bias)     # z: [N, H+1, W+1, 4C]
@@ -323,7 +343,8 @@ class TimeUpsampleRes2x(nn.Module):
     G (``blocks.py:633-660``), where ``k_cur = [K2 | K1+K2]`` and ``k_prev =
     [K0+K1 | K0]`` are summed in the activation dtype. The JAX module takes
     its Pallas kernel whenever ``deterministic`` is set, ``fused`` or not
-    (``blocks.py:529-533``); here the plain path launches no kernel.
+    (``blocks.py:529-533``); here the plain path launches no kernel. On an
+    H slab the shard's ``parity_kernel`` takes the place of ``fused``.
     """
 
     def __init__(self, cin: int, cout: int, num_temp_upsample: int = 1,
@@ -357,22 +378,13 @@ class TimeUpsampleRes2x(nn.Module):
             if stream is not None:
                 raise NotImplementedError(
                     "the nearest (v1.0) temporal upsample has no streaming form")
-            weight, bias = self.conv.conv.weight, self.conv.conv.bias
-            if not fused:
-                return parity_up2x_fused_plain(x, weight, bias, alpha,
-                                               self.first_pad_mode)
-            if forms.parity == "fused":
-                return parity_up2x_fused(x, weight, bias, alpha, self.first_pad_mode)
-            k0, k1, k2 = weight.to(x.dtype).unbind(2)       # [C, C, 3, 3] each
-            k_cur = torch.cat([k2, k1 + k2])
-            k_prev = torch.cat([k0 + k1, k0])
-            if forms.parity == "merged":
-                y4 = _frame_conv(x, torch.cat([k_cur, k_prev]), 1)
-                return parity_blend_interleave4(x, y4, bias, alpha,
-                                                self.first_pad_mode)
-            return parity_blend_interleave(x, _frame_conv(x, k_cur, 1),
-                                           _frame_conv(x, k_prev, 1), bias,
-                                           alpha, self.first_pad_mode)
+            shard = shard_of(self)
+            if shard is None:
+                return self._parity_up(x, alpha, fused, forms)
+            # H sharded: its per-frame 3x3 convs read a halo row each side;
+            # the output rows of the halo are dropped
+            y = self._parity_up(shard.halo(x, 1, 1), alpha, shard.parity_kernel, forms)
+            return y[:, :, 1:-1]
         if stream is not None and not stream.first_chunk:
             xc = torch.cat([stream.get(self).to(x.dtype), x], dim=1)
             stream.put(self, xc[:, -2 * ntu:-ntu].clone())
@@ -385,3 +397,20 @@ class TimeUpsampleRes2x(nn.Module):
             if tail.shape[1] > 0:
                 x = torch.cat([x, temporal_linear_up2x(tail)], dim=1)
         return alpha * x + (1 - alpha) * self.conv(x, stream)
+
+    def _parity_up(self, x, alpha, fused: bool, forms: KernelForms):
+        """The nearest upsample's parity form on ``x`` ``[B, T, H, W, C]``."""
+        weight, bias = self.conv.conv.weight, self.conv.conv.bias
+        if not fused:
+            return parity_up2x_fused_plain(x, weight, bias, alpha, self.first_pad_mode)
+        if forms.parity == "fused":
+            return parity_up2x_fused(x, weight, bias, alpha, self.first_pad_mode)
+        k0, k1, k2 = weight.to(x.dtype).unbind(2)       # [C, C, 3, 3] each
+        k_cur = torch.cat([k2, k1 + k2])
+        k_prev = torch.cat([k0 + k1, k0])
+        if forms.parity == "merged":
+            y4 = _frame_conv(x, torch.cat([k_cur, k_prev]), 1)
+            return parity_blend_interleave4(x, y4, bias, alpha, self.first_pad_mode)
+        return parity_blend_interleave(x, _frame_conv(x, k_cur, 1),
+                                       _frame_conv(x, k_prev, 1), bias,
+                                       alpha, self.first_pad_mode)

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import shard_of
+
 
 def _triple(v) -> Tuple[int, int, int]:
     if isinstance(v, int):
@@ -92,7 +94,11 @@ class Conv3d(nn.Conv3d):
     def forward(self, x, stream=None):
         """``stream`` is None: the non-causal model has no streaming form
         (its encoder and decoder refuse one)."""
-        return conv3d_cl(x, self.weight, self.bias, self.stride, self.padding)
+        pad = self.padding
+        shard = shard_of(self)
+        if shard is not None:  # H sharded: halo rows for the H padding
+            x, pad = shard.halo(x, pad[1], pad[1]), (pad[0], 0, pad[2])
+        return conv3d_cl(x, self.weight, self.bias, self.stride, pad)
 
 
 class Conv1d(nn.Conv1d):
@@ -147,8 +153,12 @@ class CausalConv3d(nn.Module):
     def forward(self, x, stream=None):
         x = _front(self, x, stream)
         _, kh, kw = self.conv.kernel_size
+        ph = kh // 2
+        shard = shard_of(self)
+        if shard is not None:  # H sharded: halo rows for the H padding
+            x, ph = shard.halo(x, ph, ph), 0
         return conv3d_cl(x, self.conv.weight, self.conv.bias, self.stride,
-                         (0, kh // 2, kw // 2))
+                         (0, ph, kw // 2))
 
 
 class CausalConv1d(nn.Module):
@@ -191,6 +201,12 @@ class SpatialConv(nn.Conv2d):
 
     def forward(self, x):
         top, bottom, left, right = self.pad4
+        shard = shard_of(self)
+        if shard is not None:
+            # H sharded: halo rows for the H padding (the downsample's
+            # (0, 1) takes one row from the slab below; slabs start on even
+            # rows, so its stride-2 grid is the whole frame's)
+            x, top, bottom = shard.halo(x, top, bottom), 0, 0
         if top == bottom and left == right:
             pad = (0, top, left)
         else:

@@ -19,12 +19,21 @@ normalizing:
                                                          quirk, PARITY.md)
   'column'    (b, h, w, group)       (t, c/g)            non-causal temporal
                                                          resblocks
+
+On an H slab of ``VideoTokenizer.forward_sharded`` the ``frame`` and
+``video`` statistics, which span H, are sums over the slabs: the mean
+first, then the centred square sum. LayerNorm and the other modes are
+per position or per column and stay local.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+
+from ..parallel.mesh import shard_of
 
 # GroupNorm mode -> the axes of [B, T, H, W, G, C/G] its statistics span
 GROUP_AXES = {"frame": (2, 3, 5), "video": (1, 2, 3, 5), "position": (5,),
@@ -91,8 +100,14 @@ class GroupNorm(nn.Module):
         g = self.num_groups
         xg = x.float().reshape(b, t, h, w, g, c // g)
         axes = GROUP_AXES[self.mode]
-        mean = xg.mean(axes, keepdim=True)
-        var = (xg - mean).square().mean(axes, keepdim=True)
+        shard = shard_of(self)
+        if shard is not None and 2 in axes:  # H sharded: sums over the slabs
+            n = shard.size * math.prod(xg.shape[a] for a in axes)
+            mean = shard.sum(xg.sum(axes, keepdim=True)) / n
+            var = shard.sum((xg - mean).square().sum(axes, keepdim=True)) / n
+        else:
+            mean = xg.mean(axes, keepdim=True)
+            var = (xg - mean).square().mean(axes, keepdim=True)
         y = ((xg - mean) / torch.sqrt(var + self.eps)).reshape(x.shape)
         return (y * self.weight.float() + self.bias.float()).to(x.dtype)
 

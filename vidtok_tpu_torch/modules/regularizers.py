@@ -3,7 +3,10 @@ diagonal-Gaussian KL regularizer (``:22-81``) and Finite Scalar
 Quantization (``:84-236``).
 
 Latents are channels-last: ``[B, T', H', W', 2C]`` posterior parameters,
-or ``[B, T', H', W', D]`` for FSQ, whose math runs in f32 throughout.
+or ``[B, T', H', W', D]`` for FSQ, whose math runs in f32 throughout. On
+an H slab of ``VideoTokenizer.forward_sharded`` (``parallel/mesh.py``) the
+KL's per-sample sum and FSQ's means are taken over the slabs, and a
+sample draws the whole latent's noise and keeps the slab's rows.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 from torch import nn
 
 from ..parallel.distributed import global_mean
+from ..parallel.mesh import shard_of
 
 
 class DiagonalGaussian:
@@ -28,9 +32,17 @@ class DiagonalGaussian:
     def std(self):
         return torch.exp(0.5 * self.logvar.float())
 
-    def sample(self, generator: torch.Generator = None):
-        eps = torch.randn(self.mean.shape, generator=generator,
-                          dtype=torch.float32, device=self.mean.device)
+    def sample(self, generator: torch.Generator = None, shard=None):
+        """With a ``HeightShard``, the whole latent's noise is drawn and the
+        slab's rows kept, so that a sharded run draws what one process
+        does."""
+        shape = list(self.mean.shape)
+        if shard is not None:
+            shape[-3] *= shard.size
+        eps = torch.randn(shape, generator=generator, dtype=torch.float32,
+                          device=self.mean.device)
+        if shard is not None:
+            eps = shard.slab(eps)
         return (self.mean.float() + self.std * eps).to(self.mean.dtype)
 
     def mode(self):
@@ -56,10 +68,13 @@ class DiagonalGaussianRegularizer(nn.Module):
                 global_batch: bool = False) -> Tuple[torch.Tensor, dict]:
         """``n_steps`` and ``global_batch`` are unused (FSQ's losses read
         them)."""
+        shard = shard_of(self)
         posterior = DiagonalGaussian(z)
         do_sample = self.sample if sample is None else sample
-        out = posterior.sample(generator) if do_sample else posterior.mode()
+        out = posterior.sample(generator, shard) if do_sample else posterior.mode()
         kl = posterior.kl()
+        if shard is not None:  # H sharded: the per-sample sums over the slabs
+            kl = shard.sum(kl)
         return out, {"kl_loss": kl.sum() / kl.shape[0]}
 
 
@@ -160,6 +175,9 @@ class FSQRegularizer(nn.Module):
                 generator: torch.Generator = None, n_steps: int = 0,
                 global_batch: bool = False):
         """``sample`` and ``generator`` are unused (FSQ is deterministic)."""
+        shard = shard_of(self)
+        # H sharded: the means over positions are the slabs' (equal sizes)
+        over_slabs = shard.mean if shard is not None else (lambda t: t)
         zf = z.float()
         codes = self.fsq.quantize(zf)
         indices = self.fsq.codes_to_indices(codes)
@@ -169,14 +187,14 @@ class FSQRegularizer(nn.Module):
             distance = -2.0 * torch.einsum("...d,kd->...k", zf, codebook)
             prob = torch.softmax(-distance * _INV_TEMPERATURE, dim=-1)
             logp = torch.log(prob.clamp_min(1e-5))
-            per_sample_entropy = (-prob * logp).sum(-1).mean()
-            avg_prob = prob.reshape(-1, prob.shape[-1]).mean(0)
+            per_sample_entropy = over_slabs((-prob * logp).sum(-1).mean())
+            avg_prob = over_slabs(prob.reshape(-1, prob.shape[-1]).mean(0))
             if global_batch:
                 avg_prob = global_mean(avg_prob)
             avg_logp = torch.log(avg_prob.clamp_min(1e-5))
             codebook_entropy = (-avg_prob * avg_logp).sum()
             entropy = per_sample_entropy - _DIVERSITY_GAMMA * codebook_entropy
-            commit = (zf - codes.detach()).square().mean()
+            commit = over_slabs((zf - codes.detach()).square().mean())
             aux = (entropy * self.entropy_weight(n_steps)
                    + commit * self.commitment_loss_weight)
         return codes.to(z.dtype), {"indices": indices, "aux_loss": aux}

@@ -59,7 +59,8 @@ from torch import nn
 
 from ..convert import state_dict_from_jax
 from ..models.vidtwin.convert import DROPPED as VIDTWIN_DROPPED
-from ..models.vidtwin.convert import vidtwin_state_dict_from_jax
+from ..models.vidtwin.convert import (vidtwin_ablation_state_dict_from_jax,
+                                      vidtwin_state_dict_from_jax)
 
 # JAX's converter (vidtok_tpu/utils/checkpoint.py:33-37): a ``conv`` level
 # under one of these names, and a ``norm`` level under a norm's, is dropped
@@ -140,15 +141,18 @@ def read_state_dict(path: str, ignore_keys: Iterable[str] = (),
     return sd
 
 
-def read_vidtwin_state_dict(path: str, full_pickle: bool = False) -> Dict[str, torch.Tensor]:
+def read_vidtwin_state_dict(path: str, full_pickle: bool = False,
+                            ablation: bool = False) -> Dict[str, torch.Tensor]:
     """A VidTwin model's weights in ``path`` in the reference's key layout:
     a torch or ``.safetensors`` file less the keys JAX's converter drops
     (``models.vidtwin.convert.DROPPED``), or JAX's ``.npz`` through
-    ``vidtwin_state_dict_from_jax`` (the same three sources as JAX's
+    ``vidtwin_state_dict_from_jax`` (``vidtwin_ablation_state_dict_from_jax``
+    for an ``ablation`` model; the same three sources as JAX's
     ``VidTwinTokenizer.from_config``)."""
     path = str(path)
     if path.endswith(".npz"):
-        return _read_npz(path, vidtwin_state_dict_from_jax)
+        return _read_npz(path, vidtwin_ablation_state_dict_from_jax if ablation
+                         else vidtwin_state_dict_from_jax)
     return {k: v for k, v in read_torch_file(path, full_pickle).items()
             if not VIDTWIN_DROPPED.search(k)}
 
