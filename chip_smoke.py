@@ -87,6 +87,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     model (a fifth level, a 16² latent; A 25, B 25, C 4, D 1), checked as
     in 5 (indices in [0, 262144)), with its peak memory beside the entropy
     loss's [positions, 262144] f32 matrix;
+10b. the v1.0 FSQ 4096 flagship with FSQ's other options (FSQ_OPTIONS:
+    project_in 4 -> 8 onto two codebooks of 4096, project_out 8 -> 4,
+    ``diversity_gamma`` 0.5, ``inv_temperature`` 10): 3 requests of
+    [1, 3, 17, 256, 256] checked as in 5 (indices [1, 5, 32, 32, 2],
+    decoding from them equal to the forward's), latency and peak memory,
+    and the end-to-end gate, which also holds the kernel path's share of
+    indices unlike the f32 plain run's to 1.1x the plain bf16 path's;
+10c. one [1, 3, 16, 256, 256] request through the non-causal FSQ 262144
+    model (configs/vidtok_fsq_noncausal_488_262144.yaml; A 20, C 3),
+    checked as in 5, with its peak memory beside the entropy loss's
+    [4096, 262144] f32 matrix;
 11. the v1.1 FSQ 8x8x8 32768 model tiled (``t_chunk_dec`` 2, cache offsets
     up to 8): one [1, 3, 33, 256, 256] request (A 60, F 60, C 9, D 3)
     checked as in 5, then its latent before quantization and its
@@ -284,6 +295,22 @@ FSQ_888_CFG = _model(
     use_tiling=False, t_chunk_enc=16)
 KL_444_CFG = _model("AutoencodingEngine", "EncoderCausal3D", "DecoderCausal3D",
                     dict(_ENC, z_channels=4, spatial_ds=[1, 2], spatial_us=[1, 2]), _KL)
+# Phase 10b: the FSQ 4096 flagship with FSQ's other options, which no config
+# sets: z_channels 4 through project_in (4 -> 8) onto two codebooks of the
+# file's four levels, project_out (8 -> 4); ``dim`` is named because it
+# defaults to the codebooks' 8 values, which would leave out the projections.
+# Phase 10c: the non-causal FSQ 262144 model (configs/vidtok_fsq_noncausal_
+# 488_262144.yaml), the one configuration no earlier phase serves.
+FSQ_OPTIONS = {"dim": 4, "num_codebooks": 2, "diversity_gamma": 0.5,
+               "inv_temperature": 10.0}
+FSQ_OPTIONS_CFG = _model("AutoencodingEngine", "EncoderCausal3D", "DecoderCausal3D",
+                         _ENC_FSQ, {"target": "FSQRegularizer", "params": {
+                             "levels": [8, 8, 8, 8], **_FSQ_LOSSES, **FSQ_OPTIONS}})
+NONCAUSAL_FSQ_CFG = _model(
+    "AutoencodingEngine", "Encoder3D", "Decoder3D",
+    {k: v for k, v in _ENC.items() if k != "init_pad_mode"} | dict(double_z=False,
+                                                                    z_channels=6),
+    {"target": "FSQRegularizer", "params": {"levels": [8] * 6, **_FSQ_LOSSES}})
 REQUEST = (1, 3, 17, 256, 256)
 LONG_REQUEST = (1, 3, 201, 256, 256)  # bench.py:46
 N_REQUESTS = 3
@@ -1378,7 +1405,9 @@ def e2e_check(core, meta, shape, path: str, kernels=("kernel",)) -> dict:
     reconstruction. The kernel path's distance from the plain bf16 path is
     printed beside it. ``kernels`` names the kernel-path runs: ``kernel``
     in the default forms, whose launches must be PER_FORWARD[path], or a
-    FORMS path in its forms, with its own.
+    FORMS path in its forms, with its own. An FSQ model's result also
+    gives, for each bf16 run, the share of its indices unlike the f32
+    run's (``indices_{run}_vs_f32``).
     """
     import torch
 
@@ -1387,7 +1416,8 @@ def e2e_check(core, meta, shape, path: str, kernels=("kernel",)) -> dict:
 
     x = np.clip(np.random.RandomState(100).randn(*shape) * 0.5, -1, 1) \
         .astype(np.float32)
-    outs = {}
+    outs, indices = {}, {}
+    loss = "aux_loss" if meta["discrete"] else "kl_loss"
     runs = [(key, torch.bfloat16, True, None if key == "kernel" else key)
             for key in kernels]
     for key, dtype, fused, forms in runs + [("plain", torch.bfloat16, False, None),
@@ -1400,16 +1430,22 @@ def e2e_check(core, meta, shape, path: str, kernels=("kernel",)) -> dict:
         if K.counts() != want:
             raise AssertionError(f"e2e {list(shape)} {key}: launches {K.counts()} "
                                  f"!= {want}")
-        for t in (z, dec, log["kl_loss"]):
+        for t in (z, dec, log[loss]):
             if not torch.isfinite(t).all():
                 raise AssertionError(f"{key}: non-finite output")
         outs[key] = (z, dec)
+        if "indices" in log:
+            indices[key] = log["indices"]
     res = {}
     for i, what in enumerate(("z", "recon")):
         for key in kernels:
             res[f"{what}_{key}_vs_plain"] = rel_l2(outs[key][i], outs["plain"][i])
             res[f"{what}_{key}_vs_f32"] = rel_l2(outs[key][i], outs["plain_f32"][i])
         res[f"{what}_plain_vs_f32"] = rel_l2(outs["plain"][i], outs["plain_f32"][i])
+    for key in indices:
+        if key != "plain_f32":
+            res[f"indices_{key}_vs_f32"] = float(
+                (indices[key] != indices["plain_f32"]).float().mean())
     print(f"e2e {list(shape)} rel_l2 " + json.dumps(res), flush=True)
     for what in ("z", "recon"):
         p_f32 = res[f"{what}_plain_vs_f32"]
@@ -1474,10 +1510,10 @@ def serve_long_clip(device) -> None:
 
 def check_fsq(device, name="fsq 4096, kernel path: v1.0 fsq 4x8x8 4096 codes",
               path="v1_0", n_requests=N_REQUESTS, tok=None) -> dict:
-    """Phase 5 (and 10, 11): ``n_requests`` requests through an FSQ kernel
-    path (the v1.0 FSQ 4096 model's at REQUEST, or a CONFIG_PATHS path's;
-    the first pays cuDNN's algorithm search, so the latency to compare is
-    the best after it); on the last, integer indices in [0, codebook size)
+    """Phase 5 (and 10-11): ``n_requests`` requests through an FSQ kernel
+    path (the v1.0 FSQ 4096 model's at REQUEST, or a CONFIG_PATHS path's,
+    or ``tok``'s at the shape of ``path``; the first pays cuDNN's algorithm
+    search, so the latency to compare is the best after it); on the last, integer indices in [0, codebook size)
     of the latent's shape, ``indices_to_latent`` equal to the quantized z,
     decoding from indices equal to the reconstruction (relative L2 <=
     FSQ_DECODE_GATE), a finite ``aux_loss``. Returns the ``serve``
@@ -1486,17 +1522,21 @@ def check_fsq(device, name="fsq 4096, kernel path: v1.0 fsq 4x8x8 4096 codes",
 
     cfg, shape, _ = CONFIG_PATHS.get(path, (FSQ_CFG, REQUEST, False))
     tok = tok or make_tokenizer(cfg, device)
-    codes = tok.core.regularization.fsq.codebook_size
+    reg = tok.core.regularization
+    codes = reg.fsq.codebook_size
     r = serve(tok, n_requests, shape, PER_FORWARD[path])
     report(name, r, shape)
     x, z, dec, log = r["last"]
     idx = log["indices"]
-    want = (shape[0],) + tuple(z.shape[2:])
+    want = (shape[0],) + tuple(z.shape[2:]) + ((reg.num_codebooks,)
+                                               if reg.num_codebooks > 1 else ())
     if (idx.dtype not in (torch.int32, torch.int64) or tuple(idx.shape) != want
             or int(idx.min()) < 0 or int(idx.max()) >= codes):
         raise AssertionError(f"fsq indices {idx.dtype} {tuple(idx.shape)} "
                              f"[{int(idx.min())}, {int(idx.max())}]")
-    latent = tok.indices_to_latent(idx)
+    # the f32 latent, rounded as the forward rounds it (codes are exact in
+    # bf16; project_out's f32 output is not)
+    latent = tok.indices_to_latent(idx).to(tok.compute_dtype).float()
     # v1.1 decodes tdf * T' frames, of which the forward keeps the last T
     dec_idx = tok.decode(idx, decode_from_indices=True)[:, :, -dec.shape[2]:]
     torch.cuda.synchronize()
@@ -1504,8 +1544,9 @@ def check_fsq(device, name="fsq 4096, kernel path: v1.0 fsq 4x8x8 4096 codes",
     print(f"fsq: indices {tuple(idx.shape)} in [{int(idx.min())}, "
           f"{int(idx.max())}], {int(idx.unique().numel())} distinct codes; "
           f"indices_to_latent == z: {torch.equal(latent, z)}; decode from "
-          f"indices vs forward rel_l2 {rel:.4g}; aux_loss "
-          f"{float(log['aux_loss']):.6g}", flush=True)
+          f"indices vs forward rel_l2 {rel:.4g} (bit-equal: "
+          f"{torch.equal(dec_idx, dec)}); aux_loss {float(log['aux_loss']):.6g}",
+          flush=True)
     if not torch.equal(latent, z):
         raise AssertionError("fsq: indices_to_latent(indices) != quantized z")
     if not rel <= FSQ_DECODE_GATE:
@@ -1515,17 +1556,42 @@ def check_fsq(device, name="fsq 4096, kernel path: v1.0 fsq 4x8x8 4096 codes",
     return r
 
 
-def check_fsq_41616(device) -> None:
-    """Phase 10: one request through the v1.1 FSQ 262144 model's kernel
-    path (five levels, a 16² latent), checked as in ``check_fsq``; its peak
-    memory beside the f32 ``[positions, 262144]`` matrix of the entropy
-    loss, which it computes on every call as JAX does."""
-    r = check_fsq(device, "fsq 262144, kernel path: v1.1 fsq 4x16x16 262144 codes",
-                  "fsq_41616", n_requests=1)
+def check_fsq_262144(device, label: str, name: str, path: str, tok=None) -> None:
+    """Phases 10 and 10c: one request through an FSQ 262144 model's kernel
+    path (the v1.1 41616 model's, five levels and a 16² latent; or the
+    non-causal model's), checked as in ``check_fsq``; its peak memory
+    beside the f32 ``[positions, 262144]`` matrix of the entropy loss,
+    which it computes on every call as JAX does."""
+    r = check_fsq(device, name, path, n_requests=1, tok=tok)
     positions, codes = int(np.prod(r["last"][1].shape[2:])), 8 ** 6
-    print(f"fsq 262144: {positions} latent positions, entropy-loss matrix "
+    print(f"{label}: {positions} latent positions, entropy-loss matrix "
           f"[{positions}, {codes}] f32 = {positions * codes * 4} bytes; "
           f"peak_mem_bytes {r['peak_mem_bytes']}", flush=True)
+
+
+def serve_fsq_options(device) -> None:
+    """Phase 10b: FSQ_OPTIONS_CFG, the FSQ 4096 flagship with projections,
+    two codebooks, ``diversity_gamma`` and ``inv_temperature``: N_REQUESTS
+    requests checked as in ``check_fsq`` (indices ``[1, 5, 32, 32, 2]``,
+    decoding from them equal to the forward's), then ``e2e_check``: the
+    kernel path within BF16_SLACK x the plain bf16 distance from the f32
+    plain run on z and the reconstruction, and with at most BF16_SLACK x
+    the plain bf16 path's share of indices unlike the f32 run's (bf16's
+    spread moves 5-6% of them on either path: no fixed share holds)."""
+    tok = make_tokenizer(FSQ_OPTIONS_CFG, device)
+    reg = tok.core.regularization
+    if not (reg.has_projections and reg.num_codebooks == 2
+            and reg.inv_temperature == FSQ_OPTIONS["inv_temperature"]
+            and reg.diversity_gamma == FSQ_OPTIONS["diversity_gamma"]):
+        raise AssertionError(f"fsq options not built: {reg}")
+    check_fsq(device, "fsq options, kernel path: v1.0 fsq 4x8x8, project_in 4 -> 2 "
+              "codebooks of 4096, diversity_gamma 0.5, inv_temperature 10", tok=tok)
+    res = e2e_check(tok.core, tok.meta, REQUEST, "v1_0")
+    flips, plain = res["indices_kernel_vs_f32"], res["indices_plain_vs_f32"]
+    if not flips <= BF16_SLACK * plain:
+        raise AssertionError(f"fsq options: {flips} of the kernel path's indices differ "
+                             f"from the f32 plain run's, > {BF16_SLACK} x the plain "
+                             f"bf16 path's {plain}")
 
 
 class _Unquantized:
@@ -4006,9 +4072,18 @@ def main(argv=None) -> int:
                      CONFIG_PATHS["noncausal"][1])
     torch.cuda.empty_cache()
     t = phase("non-causal kl serve", t)
-    check_fsq_41616(device)
+    check_fsq_262144(device, "fsq 262144", "fsq 262144, kernel path: v1.1 fsq 4x16x16 "
+                     "262144 codes", "fsq_41616")
     torch.cuda.empty_cache()
     t = phase("v1.1 fsq 41616 262144 serve", t)
+    serve_fsq_options(device)
+    torch.cuda.empty_cache()
+    t = phase("v1.0 fsq options serve", t)
+    check_fsq_262144(device, "fsq 262144 non-causal", "fsq 262144 non-causal, kernel "
+                     "path: non-causal fsq 4x8x8 262144 codes", "noncausal",
+                     make_tokenizer(NONCAUSAL_FSQ_CFG, device))
+    torch.cuda.empty_cache()
+    t = phase("non-causal fsq 262144 serve", t)
     serve_tiled_888(device)
     torch.cuda.empty_cache()
     t = phase("v1.1 fsq 888 tiled serve", t)

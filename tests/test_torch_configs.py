@@ -249,7 +249,8 @@ def test_chip_smoke_call_shapes(path, monkeypatch):
     ("FSQ_888_CFG", "v1_1/vidtok_fsq_causal_888_32768_v1_1.yaml"),
     ("KL_444_CFG", "vidtok_kl_causal_444_4chn.yaml"),
     ("FSQ_262144_CFG", "vidtok_fsq_causal_488_262144.yaml"),
-    ("FSQ_32768_V1_1_CFG", "v1_1/vidtok_fsq_causal_488_32768_v1_1.yaml")])
+    ("FSQ_32768_V1_1_CFG", "v1_1/vidtok_fsq_causal_488_32768_v1_1.yaml"),
+    ("NONCAUSAL_FSQ_CFG", "vidtok_fsq_noncausal_488_262144.yaml")])
 def test_chip_smoke_configs_are_the_files(name, path):
     """``chip_smoke.py`` holds its model sections resolved, so the card
     needs no YAML parser: each equals its config file's."""
@@ -259,3 +260,20 @@ def test_chip_smoke_configs_are_the_files(name, path):
         assert got[part] == want[part], part
     for key in ("use_tiling", "t_chunk_enc"):
         assert got.get(key) == want.get(key), key
+
+
+def test_chip_smoke_fsq_options_config():
+    """Phase 10b's model is the FSQ 4096 file's with FSQ's other options
+    added to its regularizer, and builds projections onto two codebooks."""
+    from vidtok_tpu_torch.models.autoencoder import build_core_from_config
+
+    want = model_section("vidtok_fsq_causal_488_4096.yaml")["params"]
+    got = cs.FSQ_OPTIONS_CFG["model"]["params"]
+    for part in ("encoder_config", "decoder_config"):
+        assert got[part] == want[part], part
+    assert got["regularizer_config"] == dict(want["regularizer_config"], params=dict(
+        want["regularizer_config"]["params"], **cs.FSQ_OPTIONS))
+    reg = build_core_from_config(cs.FSQ_OPTIONS_CFG["model"])[0].regularization
+    assert reg.has_projections and reg.num_codebooks == 2
+    assert tuple(reg.project_in.weight.shape) == (8, 4)
+    assert (reg.diversity_gamma, reg.inv_temperature) == (0.5, 10.0)

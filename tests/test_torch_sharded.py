@@ -15,6 +15,9 @@ with the port's seeded init:
   one spatial level down, the nearest parity upsample);
 * ``fsq``: its FSQ model (levels 5, 3, 3, entropy and commitment losses
   on): indices exactly and ``aux_loss``;
+* ``fsq_proj``: the same model's bottleneck with projections and two
+  codebooks (``dim`` 3 -> 2 x 3 values, ``diversity_gamma`` 0.5), two
+  processes: indices ``[B, T', H', W', 2]`` gathered along H;
 * ``groupnorm``: a causal v1.0 groupnorm model at ``ch`` 128 (ROADMAP's
   trap: narrower groupnorm models amplify f32 rounding): the ``frame``
   statistics summed over the slabs;
@@ -75,6 +78,8 @@ FSQ = {"target": "FSQRegularizer", "params": {
     "levels": [5, 3, 3], "entropy_loss_weight": 0.1,
     "entropy_loss_annealing_steps": 10, "entropy_loss_annealing_factor": 3,
     "commitment_loss_weight": 0.25}}
+FSQ_PROJ = {"target": "FSQRegularizer", "params": dict(
+    FSQ["params"], dim=3, num_codebooks=2, diversity_gamma=0.5)}
 # name -> (config, clip shape, sample, worlds)
 CASES = {
     "kl": (_cfg(_P, KL), (1, 3, 5, 32, 32), False, (2, 4)),
@@ -84,10 +89,12 @@ CASES = {
     "flagship": (_cfg(_FLAGSHIP_P, KL), (1, 3, 5, 32, 32), False, (4,)),
     "sample": (_cfg(_P, KL), (1, 3, 5, 32, 32), True, (2,)),
     "kernel": (_cfg(_P, KL), (1, 3, 5, 32, 32), False, (2,)),
+    # last, so that the cases above keep their seeds (enumerated in ``runs``)
+    "fsq_proj": (_cfg(_FSQ_P, FSQ_PROJ), (1, 3, 5, 32, 32), False, (2,)),
 }
 # the cases held to JAX too (weights from JAX's tree); the others take the
 # port's seeded init
-JAX_CASES = ("kl", "fsq", "groupnorm")
+JAX_CASES = ("kl", "fsq", "fsq_proj", "groupnorm")
 TOL = dict(rtol=1e-4, atol=2e-4)
 ATOL_SINGLE = 1e-5
 
@@ -236,7 +243,7 @@ def test_sharded_equals_single(runs, case, world):
     np.testing.assert_allclose(got[case]["z"].numpy(), zj, **TOL)
     np.testing.assert_allclose(got[case]["dec"].numpy(), dj, **TOL)
     np.testing.assert_allclose(float(got[case][loss]), float(lj[loss]), rtol=1e-4)
-    if case == "fsq":
+    if "indices" in single:
         np.testing.assert_array_equal(got[case]["indices"].numpy(), single["indices"].numpy())
         np.testing.assert_array_equal(got[case]["indices"].numpy(), lj["indices"])
 

@@ -12,6 +12,8 @@
   codes exactly equal to JAX's, ``aux_loss`` within rtol 1e-4 (also under
   entropy-weight annealing), ``decode_indices`` exactly equal, and
   decoding from indices equal to the forward's reconstruction.
+* FSQ's options one by one (two codebooks, a projection, the diversity
+  gamma, the inverse temperature) against JAX's regularizer.
 * Weights: the converter round trip for v1.0, and the full-width shapes
   of the v1.0 KL 16-channel and FSQ 4096 models against ``jax.eval_shape``.
 
@@ -277,11 +279,13 @@ def test_tiny_v1_0_fsq():
     {"num_codebooks": 2}, {"dim": 8}, {"diversity_gamma": 0.5},
     {"inv_temperature": 10.0}])
 def test_fsq_unported_options_raise(extra):
-    """No config sets these; the port refuses them rather than ignore them."""
-    cfg = {"params": dict(FSQ_CFG["params"], regularizer_config={
-        "target": "FSQRegularizer", "params": dict(FSQ_PARAMS, **extra)})}
-    with pytest.raises(NotImplementedError):
-        build_core_from_config(cfg)
+    """No config sets these options, and the port once refused them; each is
+    now held to JAX's regularizer (``test_torch_fsq_options.py``'s
+    ``check_fsq_options``: indices, output, aux_loss, decode_indices and
+    the gradients)."""
+    from tests.test_torch_fsq_options import check_fsq_options
+
+    check_fsq_options(extra)
 
 
 def test_state_dict_round_trip_v1_0(tiny):

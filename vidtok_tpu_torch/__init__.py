@@ -3,7 +3,8 @@ CUDA kernels for NVIDIA Hopper (sm_90a).
 
 It sits beside ``vidtok_tpu`` (JAX), which stays the reference. Ported:
 the serving path of every VidTok tokenizer config (causal v1.0 and v1.1,
-non-causal; KL and FSQ without projections; layernorm and groupnorm), the
+non-causal; KL and FSQ, FSQ with its projections and codebooks; layernorm
+and groupnorm; the resblocks' dropout in training), the
 v1.1 tiled (chunked, streaming) inference, checkpoint loading and saving
 (``utils/checkpoint.py``), the quality metrics, LPIPS, the video data
 path and the three serving CLIs (``scripts``), the GAN training stack

@@ -4,9 +4,10 @@
 ``vidtok_tpu/utils/checkpoint.py`` (``convert_torch_state_dict``): JAX
 kernels DHWIO become the torch layouts the reference model uses (Conv3d
 OIDHW, Conv2d OIHW for the per-frame convs, Conv1d OIk for the temporal
-resblock convs), ``scale`` becomes ``weight`` under the LayerNorm wrapper's
-``.norm``, and module paths regain their dotted torch form
-(``down_0_block_1`` -> ``down.0.block.1``). It needs numpy only.
+resblock convs), Dense kernels IO become Linear weights OI (FSQ's
+``project_in`` / ``project_out``), ``scale`` becomes ``weight`` under the
+LayerNorm wrapper's ``.norm``, and module paths regain their dotted torch
+form (``down_0_block_1`` -> ``down.0.block.1``). It needs numpy only.
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ def _struct(name: str):
 
 def _conv(prefix: str, p: dict, kind: str, out: dict) -> None:
     k = np.asarray(p["kernel"])
-    if kind == "spatial":            # nn.Conv2d: (1,kh,kw,I,O) -> OIHW
+    if k.ndim == 2:                  # nn.Linear (FSQ's projections): IO -> OI
+        key, w = prefix, k.T
+    elif kind == "spatial":          # nn.Conv2d: (1,kh,kw,I,O) -> OIHW
         key, w = prefix, k[0].transpose(3, 2, 0, 1)
     elif kind == "temporal":         # CausalConv1d(.conv): (k,1,1,I,O) -> OIk
         key, w = prefix + ".conv", k[:, 0, 0].transpose(2, 1, 0)

@@ -4,17 +4,25 @@
 //
 // T3 replaces :130 copy_min (pallas_call at :140), the TPU's copy floor:
 // out = x, one unit at a time, a unit being tile_t frames x tile_s positions
-// x C channels. Bound: bytes (x read and written once). Design: a unit is
-// tile_t runs of tile_s * C contiguous values, one per frame; each run is
-// cut into 16 KB pieces, one per 256-thread block with four 16-byte loads in
-// flight per thread, so even the (tile_t 1, tile_s 4096) tiling of
-// [1, 9, 4096, 512], 9 units, puts 2304 blocks on the 132 SMs. Blocks are
-// numbered unit by unit, in the TPU grid's order; the card has no per-step
-// VMEM buffer to size, so the tiling only orders the work.
+// x C channels, i.e. tile_t runs of tile_s * C contiguous values, one per
+// frame. Bound: bytes, 2 |x| (x read and out written once) over 3.35 TB/s.
+// Design: Hopper's bulk async copies (the TMA's 1-D form). Each run is cut
+// into pieces of up to 32 KB; one 32-thread block a piece, numbered unit by
+// unit and frame by frame in the TPU grid's order, whose one thread loads
+// the piece into shared memory (cp.async.bulk ... mbarrier::complete_tx),
+// waits on the mbarrier and writes it back (cp.async.bulk ... bulk_group).
+// No registers hold data and no thread computes per-element addresses (the
+// 64-bit divisions run once a piece); a block takes 33 KB of shared memory
+// with its reserve, so six pieces are in flight on each SM; a small tile_s gives more,
+// shorter pieces, never half-empty blocks. A persistent grid (one or two
+// blocks per SM, each walking an equal contiguous share through a ring of
+// 3-12 stages) was slower at every tiling: 132 streams far apart in memory
+// read worse than blocks issued in order (PERF.md, Findings). The tiling
+// orders the work only: the card has no per-step VMEM buffer to size.
 //
 // T2 replaces :102 fused_diag (pallas_call at :111, body :81), in three
 // modes:
-//   copy: out = x, T3's copy with one unit per clip;
+//   copy: out = x, T3's bulk copy with one unit per clip;
 //   mm:   h = bf16(conv1_t(x)), out = bf16(x + conv2_t(h)), the two causal
 //         k=3 time convs with a zero front, no bias and no LN: kernel B's
 //         own GEMM loop (wgmma_conv.cuh, launched with
@@ -53,50 +61,84 @@
 // two-pass form (row_stats_exact) over the row's LPR lanes; g and b are
 // read as vectors, once per vector slot for all of a thread's rows. C in
 // plan.ROW_CHANNELS, else cudaErrorInvalidValue.
+#include <stdint.h>
 #include <string.h>
 
 #include "wgmma_conv.cuh"
 
 namespace {
 
-constexpr int kCopyThreads = 256, kCopyVec = 4;  // 16 KB per block
+constexpr int kCopyPiece = 32 * 1024;  // bytes of one bulk copy, one block
 
-// out = x over the units of a [B, T, S, C] tensor (C8 = C / 8 vectors per
-// position): block id = ((unit * tile_t + frame) * pieces + piece), unit =
-// (b, t // tile_t, s // tile_s) with the last fastest.
-__global__ void copy_units_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
-                                  int T, int S, int C8, int tile_t, int tile_s,
-                                  int nt, int ns, long long pieces) {
-  const long long bid = blockIdx.x;
-  const long long piece = bid % pieces, fr = bid / pieces;
-  const int f = (int)(fr % tile_t);
-  const long long unit = fr / tile_t;
-  const int ks = (int)(unit % ns);
-  const long long rest = unit / ns;
-  const int kt = (int)(rest % nt);
-  const long long b = rest / nt;
-  const long long run = (long long)tile_s * C8;
-  const long long start =
-      ((b * T + (long long)kt * tile_t + f) * S + (long long)ks * tile_s) * C8;
-  const long long v0 = piece * (kCopyThreads * kCopyVec) + threadIdx.x;
-  uint4 r[kCopyVec];
-#pragma unroll
-  for (int k = 0; k < kCopyVec; ++k)
-    if (v0 + k * kCopyThreads < run) r[k] = x[start + v0 + k * kCopyThreads];
-#pragma unroll
-  for (int k = 0; k < kCopyVec; ++k)
-    if (v0 + k * kCopyThreads < run) out[start + v0 + k * kCopyThreads] = r[k];
+// The runs of a [B, T, S, C] bf16 tensor in unit order: run r is frame
+// r % tile_t of unit r / tile_t, unit = (b, t // tile_t, s // tile_s) with
+// the last fastest; each run is ``run`` bytes, ``pieces`` pieces.
+struct CopyRuns {
+  int T, S, tile_t, tile_s, nt, ns;
+  long long row;     // bytes per position, 2 C
+  long long run;     // bytes per run, tile_s * row
+  long long pieces;  // pieces per run
+};
+
+// Byte offset of run r in x (and in out).
+__device__ __forceinline__ long long run_offset(const CopyRuns& w, long long r) {
+  const int f = (int)(r % w.tile_t);
+  const long long unit = r / w.tile_t;
+  const int ks = (int)(unit % w.ns);
+  const long long rest = unit / w.ns;
+  const int kt = (int)(rest % w.nt);
+  const long long b = rest / w.nt;
+  return ((b * w.T + (long long)kt * w.tile_t + f) * w.S + (long long)ks * w.tile_s) * w.row;
 }
 
-void launch_copy(const void* x, void* out, int B, int T, int S, int C, int tile_t,
-                 int tile_s, cudaStream_t s) {
-  const int nt = T / tile_t, ns = S / tile_s;
-  const long long run = (long long)tile_s * (C / 8);
-  const long long pieces = (run + kCopyThreads * kCopyVec - 1) / (kCopyThreads * kCopyVec);
-  const long long blocks = (long long)B * nt * ns * tile_t * pieces;
-  copy_units_kernel<<<(unsigned)blocks, kCopyThreads, 0, s>>>(
-      static_cast<const uint4*>(x), static_cast<uint4*>(out), T, S, C / 8, tile_t,
-      tile_s, nt, ns, pieces);
+// out = x over piece blockIdx.x: piece blockIdx.x % pieces of run
+// blockIdx.x / pieces.
+__global__ void __launch_bounds__(32) copy_bulk_kernel(const char* __restrict__ x,
+                                                       char* __restrict__ out, CopyRuns w) {
+  using namespace vt::wg;
+  extern __shared__ __align__(128) unsigned char piece[];
+  __shared__ __align__(8) uint64_t bar;
+  if (threadIdx.x != 0) return;
+  const long long r = blockIdx.x / w.pieces, j = blockIdx.x - r * w.pieces;
+  const long long off = run_offset(w, r) + j * kCopyPiece;
+  const long long left = w.run - j * kCopyPiece;
+  const int len = left < kCopyPiece ? (int)left : kCopyPiece;
+  const uint32_t dst = smem_u32(piece), b = smem_u32(&bar);
+  mbar_init(b, 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  mbar_expect_tx(b, len);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(x + off)), "r"(len), "r"(b)
+      : "memory");
+  mbar_wait(b, 0);
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(out + off)),
+               "r"(dst), "r"(len)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  // the piece's shared memory stays the block's until the store has read it
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// T3 over a [B, T, S, C] bf16 tensor; cudaErrorInvalidValue unless x and out
+// are 16-byte aligned and C % 8 == 0 (every run and piece is then a multiple
+// of 16 B, as bulk copies need).
+int launch_copy(const void* x, void* out, int B, int T, int S, int C, int tile_t,
+                int tile_s, cudaStream_t s) {
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 || C % 8 ||
+      tile_t <= 0 || tile_s <= 0 || T % tile_t || S % tile_s)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      copy_bulk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kCopyPiece);
+  if (e != cudaSuccess) return (int)e;
+  const long long run = 2LL * C * tile_s;
+  const CopyRuns w{T, S, tile_t, tile_s, T / tile_t, S / tile_s, 2LL * C, run,
+                   (run + kCopyPiece - 1) / kCopyPiece};
+  const long long blocks = (long long)B * T * (S / tile_s) * w.pieces;
+  copy_bulk_kernel<<<(unsigned)blocks, 32, kCopyPiece, s>>>(static_cast<const char*>(x),
+                                                            static_cast<char*>(out), w);
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
@@ -318,11 +360,10 @@ vt::wg::Params loop_params(int T, int S, int C, int tap_channels, int bn, int st
 
 }  // namespace
 
-// T3: C % 8 == 0, tile_t | T, tile_s | S.
+// T3: C % 8 == 0, tile_t | T, tile_s | S, x and out 16-byte aligned.
 extern "C" int vt_copy_units(const void* x, void* out, int B, int T, int S, int C,
                              int tile_t, int tile_s, void* stream) {
-  launch_copy(x, out, B, T, S, C, tile_t, tile_s, static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  return launch_copy(x, out, B, T, S, C, tile_t, tile_s, static_cast<cudaStream_t>(stream));
 }
 
 // T2: mode 0 copy, 1 mm, 2 ln. mm: h a [B, T, S, C] bf16 scratch, w1map and
@@ -338,10 +379,7 @@ extern "C" int vt_microbench_diag(const void* x, void* out, void* h, const void*
   const long long M = (long long)B * T * S;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* ob = static_cast<__nv_bfloat16*>(out);
-  if (mode == 0) {
-    launch_copy(x, out, B, T, S, C, T, S, s);
-    return (int)cudaGetLastError();
-  }
+  if (mode == 0) return launch_copy(x, out, B, T, S, C, T, S, s);
   if (mode == 2)
     return launch_ln_twice(xb, static_cast<const float*>(g1), static_cast<const float*>(b1),
                            static_cast<const float*>(g2), static_cast<const float*>(b2), ob,

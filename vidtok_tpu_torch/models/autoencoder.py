@@ -71,16 +71,17 @@ def _regularizer(reg_cfg: dict):
     rp = dict(reg_cfg.get("params") or {})
     if kind == "kl":
         return DiagonalGaussianRegularizer(sample=rp.get("sample", True)), False
-    for key, fixed in (("diversity_gamma", 1.0), ("inv_temperature", 100.0)):
-        if rp.get(key, fixed) != fixed:
-            raise NotImplementedError(f"FSQ {key} != {fixed} is not ported")
+    # inv_temperature is passed on too, where JAX's build_core_from_config
+    # drops it
     return FSQRegularizer(
         levels=tuple(rp["levels"]), dim=rp.get("dim"),
         num_codebooks=rp.get("num_codebooks", 1),
         entropy_loss_weight=rp.get("entropy_loss_weight", 0.0),
         entropy_loss_annealing_steps=rp.get("entropy_loss_annealing_steps", 0),
         entropy_loss_annealing_factor=rp.get("entropy_loss_annealing_factor", 1.0),
-        commitment_loss_weight=rp.get("commitment_loss_weight", 0.0)), True
+        commitment_loss_weight=rp.get("commitment_loss_weight", 0.0),
+        diversity_gamma=rp.get("diversity_gamma", 1.0),
+        inv_temperature=rp.get("inv_temperature", 100.0)), True
 
 
 def build_core_from_config(model_cfg: dict, use_checkpoint: Optional[bool] = None
@@ -95,15 +96,13 @@ def build_core_from_config(model_cfg: dict, use_checkpoint: Optional[bool] = Non
     reg_cfg = p["regularizer_config"]
     ep = dict(enc_cfg.get("params") or {})
     dp = dict(dec_cfg.get("params") or {})
-    for d in (ep, dp):
-        if d.get("dropout", 0.0) != 0.0:
-            raise NotImplementedError("dropout > 0 (training) is not ported")
 
     def common(d):
         return dict(ch=d.get("ch", 128), ch_mult=tuple(d.get("ch_mult", (1, 2, 4, 4))),
                     num_res_blocks=d.get("num_res_blocks", 2),
                     z_channels=d["z_channels"],
-                    norm_type=d.get("norm_type", "groupnorm"))
+                    norm_type=d.get("norm_type", "groupnorm"),
+                    dropout=d.get("dropout", 0.0))
 
     def opt(d, key):
         return tuple(d[key]) if d.get(key) is not None else None
@@ -190,20 +189,22 @@ class TokenizerCore(nn.Module):
     def forward_train(self, x, n_steps: int = 0, fix_encoder: bool = False,
                       generator: torch.Generator = None):
         """The training forward (``autoencoder.py:180-192``): (z, xrec,
-        conv_out's input, reg_log). The regularizer samples as its config
-        says (from ``generator``), anneals by ``n_steps`` and reduces
+        conv_out's input, reg_log). The resblocks' dropout draws its masks
+        and the regularizer samples as its config says, both from
+        ``generator``; the regularizer anneals by ``n_steps`` and reduces
         FSQ's codebook entropy over the processes' global batch; under
         ``fix_encoder`` z and reg_log carry no gradient. Plain path (no
         kernel), activation checkpointing where the config sets
         ``use_checkpoint``; xrec is cropped to x's frames."""
         with torch.set_grad_enabled(torch.is_grad_enabled() and not fix_encoder):
-            zp = self.encoder(x, train=True)
+            zp = self.encoder(x, train=True, generator=generator)
             z, reg_log = self.regularization(zp, generator=generator, n_steps=n_steps,
                                              global_batch=True)
         if fix_encoder:
             z = z.detach()
             reg_log = {k: v.detach() for k, v in reg_log.items()}
-        dec, pre = self.decoder(z, train=True, return_features=True)
+        dec, pre = self.decoder(z, train=True, return_features=True,
+                                generator=generator)
         if dec.shape[1] != x.shape[1]:
             dec = dec[:, -x.shape[1]:]
         return z, dec, pre, reg_log
@@ -331,9 +332,9 @@ class VideoTokenizer:
 
     @torch.no_grad()
     def decode(self, z, decode_from_indices: bool = False):
-        """z: [B,Cz,T',H',W'] (or FSQ indices [B,T',H',W'] with
-        ``decode_from_indices``) -> [B,C,T,H,W]: tdf*T' frames (v1.1) or
-        tdf*T' - (tdf-1) (v1.0)."""
+        """z: [B,Cz,T',H',W'] (or FSQ indices [B,T',H',W'], [B,T',H',W',c]
+        for c codebooks, with ``decode_from_indices``) -> [B,C,T,H,W]:
+        tdf*T' frames (v1.1) or tdf*T' - (tdf-1) (v1.0)."""
         if decode_from_indices:
             z = self.indices_to_latent(z)
         if self.use_tiling:
@@ -343,7 +344,8 @@ class VideoTokenizer:
 
     @torch.no_grad()
     def indices_to_latent(self, indices):
-        """FSQ indices [B,T',H',W'] -> f32 latent [B,Cz,T',H',W']."""
+        """FSQ indices [B,T',H',W'] ([B,T',H',W',c] for c codebooks) -> f32
+        latent [B,Cz,T',H',W'], through ``project_out`` where FSQ has it."""
         if isinstance(indices, np.ndarray):
             indices = torch.from_numpy(indices)
         return _to_ncthw(self.core.decode_indices(indices.to(self.device)))

@@ -25,6 +25,14 @@ the halo'd slab where the shard says so (as JAX's sharded graph takes
 Pallas E); the other fused forms do not run sharded. The temporal convs,
 resamplers and interpolation read within a slab.
 
+The three resblocks take ``dropout`` p, JAX's ``nn.Dropout`` between the
+second SiLU and ``conv2`` (``blocks.py:67-68``, ``:184-185``,
+``:231-232``), active only on the training forward (``train=True``), where
+its masks come from the caller's generator. Serving is unchanged by it,
+kernels included: JAX declines its Pallas resblocks for a model with
+dropout (``blocks.py:50``, ``:100``, ``:114``), but dropout is the identity
+there, and each kernel is held to the plain path it replaces.
+
 A block given a :class:`~.stream.Stream` runs one chunk of a stream; the
 time-causal ones carry their state in it (the spatial blocks and attention
 are per frame and carry none). Each module keeps one cache layout on both
@@ -66,12 +74,26 @@ def _frame_conv(x, weight, padding):
     return y.reshape(tuple(lead) + tuple(y.shape[1:]))
 
 
+def dropout(h, p: float, train: bool, generator: torch.Generator = None):
+    """JAX's ``nn.Dropout(p)`` on the training forward: each value kept where
+    ``torch.rand(..., generator=generator) >= p`` and scaled by 1 / (1 - p),
+    the rest zeroed; the identity when not ``train`` or p == 0. The mask
+    comes from ``generator`` (on h's device; None: torch's default one), so
+    equal generator states give equal masks."""
+    if not train or p == 0.0:
+        return h
+    keep = torch.rand(h.shape, generator=generator, device=h.device) >= p
+    return torch.where(keep, h / (1.0 - p), h.new_zeros(()))
+
+
 class ResnetBlockSpatial(nn.Module):
     """Per-frame 2D residual block (``blocks.py:37-72``); kernel A with
     layernorm."""
 
-    def __init__(self, cin: int, cout: int, norm_type: str = "layernorm"):
+    def __init__(self, cin: int, cout: int, norm_type: str = "layernorm",
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.kernel_ok = norm_type == "layernorm"
         self.norm1 = make_norm(norm_type, cin)
         self.conv1 = SpatialConv(cin, cout, 3)
@@ -80,7 +102,8 @@ class ResnetBlockSpatial(nn.Module):
         if cin != cout:
             self.nin_shortcut = SpatialConv(cin, cout, 1)
 
-    def forward(self, x, fused: bool = False):
+    def forward(self, x, fused: bool = False, train: bool = False,
+                generator: torch.Generator = None):
         if fused and self.kernel_ok:
             b, t = x.shape[:2]
             nin = self.nin_shortcut if hasattr(self, "nin_shortcut") else None
@@ -91,7 +114,7 @@ class ResnetBlockSpatial(nn.Module):
                 None if nin is None else (nin.weight, nin.bias))
             return y.reshape((b, t) + tuple(y.shape[1:]))
         h = self.conv1(silu(self.norm1(x)))
-        h = self.conv2(silu(self.norm2(h)))
+        h = self.conv2(dropout(silu(self.norm2(h)), self.dropout, train, generator))
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
@@ -108,9 +131,10 @@ class ResnetBlockTemporal(nn.Module):
 
     def __init__(self, cin: int, cout: int, norm_type: str = "layernorm",
                  first_pad_mode: str = "zero", cache_offset: int = 0,
-                 causal: bool = True):
+                 causal: bool = True, dropout: float = 0.0):
         super().__init__()
         self.first_pad_mode = first_pad_mode
+        self.dropout = dropout
         self.kernel_ok = causal and norm_type == "layernorm" and cin == cout
         mode = "position" if causal else "column"
         self.norm1 = make_norm(norm_type, cin, mode)
@@ -129,7 +153,8 @@ class ResnetBlockTemporal(nn.Module):
             if cin != cout:
                 self.nin_shortcut = Conv1d(cin, cout, 1)
 
-    def forward(self, x, fused: bool = False, stream=None):
+    def forward(self, x, fused: bool = False, stream=None, train: bool = False,
+                generator: torch.Generator = None):
         if fused and self.kernel_ok:
             args = (x, _norm_args(self.norm1),
                     (self.conv1.conv.weight, self.conv1.conv.bias),
@@ -146,7 +171,8 @@ class ResnetBlockTemporal(nn.Module):
             stream.put(self.conv2, c2)
             return y
         h = self.conv1(silu(self.norm1(x)), stream)
-        h = self.conv2(silu(self.norm2(h)), stream)
+        h = self.conv2(dropout(silu(self.norm2(h)), self.dropout, train, generator),
+                       stream)
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x, stream)
         return x + h
@@ -159,8 +185,9 @@ class ResnetBlock3D(nn.Module):
 
     def __init__(self, cin: int, cout: int, norm_type: str = "layernorm",
                  first_pad_mode: str = "zero", cache_offset: int = 0,
-                 causal: bool = True):
+                 causal: bool = True, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         mode = "frame" if causal else "video"
         self.norm1 = make_norm(norm_type, cin, mode)
         self.norm2 = make_norm(norm_type, cout, mode)
@@ -178,9 +205,11 @@ class ResnetBlock3D(nn.Module):
             if cin != cout:
                 self.nin_shortcut = Conv3d(cin, cout, 1)
 
-    def forward(self, x, stream=None):
+    def forward(self, x, stream=None, train: bool = False,
+                generator: torch.Generator = None):
         h = self.conv1(silu(self.norm1(x)), stream)
-        h = self.conv2(silu(self.norm2(h)), stream)
+        h = self.conv2(dropout(silu(self.norm2(h)), self.dropout, train, generator),
+                       stream)
         if hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x, stream)
         return x + h

@@ -29,7 +29,9 @@ paths: it runs on ``[2 cached | chunk]`` (the first chunk: frame 0 twice)
 and drops the first two output frames, which equals the activated-input
 cache of a streaming conv_out because LayerNorm+SiLU is per position.
 
-The training forward (``train=True``, no stream) recomputes every
+The training forward (``train=True``, no stream) applies the resblocks'
+``dropout`` (masks from its ``generator``; ``use_checkpoint`` needs
+``dropout`` 0, ``decoder.py:122``), recomputes every
 resblock, mid block, the attention and the upsamples in the backward when
 ``use_checkpoint`` is set (``decoder.py:120-143``), and with
 ``return_features`` also returns ``conv_out``'s input (norm_out + SiLU),
@@ -47,7 +49,7 @@ from torch import nn
 from ..ops.kernels import KernelForms, decoder_tail_rgb, decoder_tail_rgb_taps
 from .blocks import (ResnetBlockSpatial, ResnetBlockTemporal, SpatialUpsample,
                      TimeUpsampleRes2x)
-from .encoder import _Mid, call, conv3, first_pad_mode, no_stream
+from .encoder import _Mid, call, check_dropout, conv3, first_pad_mode, no_stream
 from .norms import make_norm, silu
 from .stream import tail
 
@@ -59,8 +61,10 @@ class Decoder(nn.Module):
                  tempo_us: Optional[Sequence[int]] = None,
                  variant: str = "causal_v1_1", norm_type: str = "layernorm",
                  interpolation_mode: str = "trilinear", tanh_out: bool = False,
-                 time_downsample_factor: int = 4, use_checkpoint: bool = False):
+                 time_downsample_factor: int = 4, use_checkpoint: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
+        check_dropout(dropout, use_checkpoint)
         n = len(ch_mult)
         self.use_checkpoint = use_checkpoint
         self.tanh_out = tanh_out
@@ -79,7 +83,7 @@ class Decoder(nn.Module):
 
         c = ch * ch_mult[n - 1]
         self.conv_in = conv3(z_channels, c, causal, pad, mid_off)
-        self.mid = _Mid(c, norm_type, pad, mid_off, causal)
+        self.mid = _Mid(c, norm_type, pad, mid_off, causal, dropout)
         levels = {}
         ntu = 1
         for i in reversed(range(n)):
@@ -88,9 +92,9 @@ class Decoder(nn.Module):
             level.block = nn.ModuleList()
             tlevel.block = nn.ModuleList()
             for _ in range(num_res_blocks + 1):
-                level.block.append(ResnetBlockSpatial(c, c_out, norm_type))
+                level.block.append(ResnetBlockSpatial(c, c_out, norm_type, dropout))
                 tlevel.block.append(ResnetBlockTemporal(c_out, c_out, norm_type, pad,
-                                                        level_offs[i], causal))
+                                                        level_offs[i], causal, dropout))
                 c = c_out
             if i in self.spatial_us:
                 level.upsample = SpatialUpsample(c)
@@ -124,18 +128,19 @@ class Decoder(nn.Module):
 
     def forward(self, z, fused: bool = False, stream=None,
                 forms: KernelForms = KernelForms(), train: bool = False,
-                return_features: bool = False):
+                return_features: bool = False, generator=None):
         """z: [B, T', H', W', Cz] -> [B, tdf*T' - crop, H, W, out_ch]; with
         ``return_features`` (no stream), (that, conv_out's input)."""
         no_stream(self, stream)
         if return_features and stream is not None:
             raise ValueError("return_features has no streaming form")
         remat = train and self.use_checkpoint and stream is None
-        h = self.mid(self.conv_in(z, stream), stream, remat)
+        h = self.mid(self.conv_in(z, stream), stream, remat, train, generator)
         for level, tlevel in zip(reversed(self.up), reversed(self.up_temporal)):
             for sp, tm in zip(level.block, tlevel.block):
-                h = call(remat, sp, h, fused=fused)
-                h = call(remat, tm, h, fused=fused, stream=stream)
+                h = call(remat, sp, h, fused=fused, train=train, generator=generator)
+                h = call(remat, tm, h, fused=fused, stream=stream, train=train,
+                         generator=generator)
             if hasattr(level, "upsample"):
                 h = call(remat, level.upsample, h, fused=fused, forms=forms)
             if hasattr(tlevel, "upsample"):

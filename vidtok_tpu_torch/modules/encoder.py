@@ -30,7 +30,10 @@ on the training forward (``train=True``, no stream) every resblock,
 resampling block, mid block and the attention are recomputed in the
 backward instead of keeping their activations
 (``torch.utils.checkpoint``, non-reentrant); values and gradients are
-unchanged.
+unchanged. ``dropout`` (the resblocks', active on the training forward,
+its masks drawn from the forward's ``generator``) and ``use_checkpoint``
+exclude each other, as JAX asserts (``encoder.py:126``): a recomputed
+block would draw another mask.
 """
 
 from __future__ import annotations
@@ -77,20 +80,28 @@ def no_stream(module: nn.Module, stream) -> None:
                          "see the whole clip")
 
 
+def check_dropout(dropout: float, use_checkpoint: bool) -> None:
+    if dropout > 0.0 and use_checkpoint:
+        raise ValueError("use_checkpoint requires dropout=0: a recomputed block "
+                         "would draw another dropout mask")
+
+
 class _Mid(nn.Module):
     def __init__(self, c: int, norm_type: str, first_pad_mode: str,
-                 cache_offset: int = 0, causal: bool = True):
+                 cache_offset: int = 0, causal: bool = True, dropout: float = 0.0):
         super().__init__()
         self.block_1 = ResnetBlock3D(c, c, norm_type, first_pad_mode, cache_offset,
-                                     causal)
+                                     causal, dropout)
         self.attn_1 = AttnBlock(c, norm_type, causal)
         self.block_2 = ResnetBlock3D(c, c, norm_type, first_pad_mode, cache_offset,
-                                     causal)
+                                     causal, dropout)
 
-    def forward(self, h, stream=None, remat: bool = False):
-        h = call(remat, self.block_1, h, stream=stream)
+    def forward(self, h, stream=None, remat: bool = False, train: bool = False,
+                generator=None):
+        h = call(remat, self.block_1, h, stream=stream, train=train, generator=generator)
         h = call(remat, self.attn_1, h)
-        return call(remat, self.block_2, h, stream=stream)
+        return call(remat, self.block_2, h, stream=stream, train=train,
+                    generator=generator)
 
 
 class Encoder(nn.Module):
@@ -101,8 +112,10 @@ class Encoder(nn.Module):
                  tempo_ds: Optional[Sequence[int]] = None,
                  variant: str = "causal_v1_1", norm_type: str = "layernorm",
                  time_downsample_factor: int = 4,
-                 init_pad_mode: str = "replicate", use_checkpoint: bool = False):
+                 init_pad_mode: str = "replicate", use_checkpoint: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
+        check_dropout(dropout, use_checkpoint)
         n = len(ch_mult)
         self.use_checkpoint = use_checkpoint
         self.tdf = time_downsample_factor
@@ -125,9 +138,9 @@ class Encoder(nn.Module):
             level.block = nn.ModuleList()
             tlevel.block = nn.ModuleList()
             for _ in range(num_res_blocks):
-                level.block.append(ResnetBlockSpatial(c, c_out, norm_type))
+                level.block.append(ResnetBlockSpatial(c, c_out, norm_type, dropout))
                 tlevel.block.append(ResnetBlockTemporal(c_out, c_out, norm_type, pad,
-                                                        causal=causal))
+                                                        causal=causal, dropout=dropout))
                 c = c_out
             if i in self.spatial_ds:
                 level.downsample = SpatialDownsample(c)
@@ -135,7 +148,7 @@ class Encoder(nn.Module):
                     tlevel.downsample = TimeDownsampleRes2x(c, c, pad, causal=causal)
             self.down.append(level)
             self.down_temporal.append(tlevel)
-        self.mid = _Mid(c, norm_type, pad, causal=causal)
+        self.mid = _Mid(c, norm_type, pad, causal=causal, dropout=dropout)
         self.norm_out = make_norm(norm_type, c, "frame" if causal else "video")
         self.conv_out = conv3(c, 2 * z_channels if double_z else z_channels, causal, pad)
 
@@ -151,10 +164,11 @@ class Encoder(nn.Module):
         mode = "replicate" if self.init_pad_mode == "replicate" else "zero"
         return pad_time_front(x, n, mode)
 
-    def forward(self, x, fused: bool = False, stream=None, train: bool = False):
+    def forward(self, x, fused: bool = False, stream=None, train: bool = False,
+                generator=None):
         """x: [B, T, H, W, C] -> posterior parameters [B, T', H', W', 2Cz].
         ``train``: the training forward (activation checkpointing when
-        ``use_checkpoint``)."""
+        ``use_checkpoint``, dropout masks from ``generator``)."""
         no_stream(self, stream)
         if stream is None:
             x = self.pad_input(x)
@@ -162,12 +176,13 @@ class Encoder(nn.Module):
         h = self.conv_in(x, stream)
         for level, tlevel in zip(self.down, self.down_temporal):
             for sp, tm in zip(level.block, tlevel.block):
-                h = call(remat, sp, h, fused=fused)
-                h = call(remat, tm, h, fused=fused, stream=stream)
+                h = call(remat, sp, h, fused=fused, train=train, generator=generator)
+                h = call(remat, tm, h, fused=fused, stream=stream, train=train,
+                         generator=generator)
             if hasattr(level, "downsample"):
                 h = call(remat, level.downsample, h)
             if hasattr(tlevel, "downsample"):
                 h = call(remat, tlevel.downsample, h, stream=stream)
-        h = self.mid(h, stream, remat)
+        h = self.mid(h, stream, remat, train, generator)
         return self.conv_out(silu(self.norm_out(h)), stream)
 

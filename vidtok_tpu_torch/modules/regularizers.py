@@ -1,6 +1,6 @@
 """Latent regularizers (``vidtok_tpu/modules/regularizers.py``): the
 diagonal-Gaussian KL regularizer (``:22-81``) and Finite Scalar
-Quantization (``:84-236``).
+Quantization (``:84-236``), with several codebooks and projections.
 
 Latents are channels-last: ``[B, T', H', W', 2C]`` posterior parameters,
 or ``[B, T', H', W', D]`` for FSQ, whose math runs in f32 throughout. On
@@ -11,9 +11,11 @@ sample draws the whole latent's noise and keeps the slab's rows.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.distributed import global_mean
@@ -86,10 +88,14 @@ def round_ste(z):
 
 class FSQ:
     """Finite Scalar Quantization math (``regularizers.py:88-130``) over a
-    static level structure; f32 codes, int32 indices."""
+    static level structure; f32 codes, int32 indices. The math is per
+    codebook on the last axis (``codebook_dim`` values); ``num_codebooks``
+    is the structure's count of them, which the regularizer lays out as
+    ``[..., num_codebooks, codebook_dim]``."""
 
-    def __init__(self, levels: Sequence[int]):
+    def __init__(self, levels: Sequence[int], num_codebooks: int = 1):
         self.levels = tuple(int(v) for v in levels)
+        self.num_codebooks = int(num_codebooks)
         self.codebook_dim = len(self.levels)
         basis = [1]
         for v in self.levels[:-1]:
@@ -127,42 +133,79 @@ class FSQ:
         return self.indices_to_codes(torch.arange(self.codebook_size, device=device))
 
 
-# the JAX regularizer's defaults, which no config overrides
-_DIVERSITY_GAMMA = 1.0
-_INV_TEMPERATURE = 100.0
+def _lecun_(linear: nn.Linear, generator: torch.Generator = None) -> None:
+    """flax's ``nn.Dense`` init: a lecun-normal kernel (a normal truncated
+    at 2 sigma, rescaled to unit variance, over fan-in) and a zero bias,
+    drawn in f32 on the CPU."""
+    w = torch.empty(linear.weight.shape, dtype=torch.float32)
+    w.normal_(0.0, 1.0, generator=generator).clamp_(-2.0, 2.0)
+    with torch.no_grad():
+        linear.weight.copy_(w.mul_(math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978))
+        linear.bias.zero_()
 
 
 class FSQRegularizer(nn.Module):
-    """FSQ bottleneck (``regularizers.py:133-236``) with one codebook and no
-    projections, as every FSQ config sets it. z ``[B, T', H', W', D]`` ->
-    (codes in z.dtype, {``indices`` int32 ``[B, T', H', W']``,
-    ``aux_loss``}). The entropy and commitment losses are computed on every
-    call whose weights are > 0, as in JAX (a ``[positions, codebook_size]``
-    f32 softmax); the entropy weight anneals from ``annealing_factor`` x
-    weight to weight over ``annealing_steps`` steps of ``n_steps``. Codes
-    pass gradients straight through the rounding; the commitment loss
-    stops the codes' gradient. With ``global_batch`` (the training
-    forward) the codebook entropy's average probability is the global
-    batch's in a multi-process run (an autograd all-reduce), as JAX's mean
-    over the sharded batch is; any other call stays local, so serving runs
-    no collective."""
+    """FSQ bottleneck (``regularizers.py:133-236``). z ``[B, T', H', W',
+    dim]`` -> (codes in z.dtype, {``indices`` int32, ``aux_loss``}).
+
+    With ``num_codebooks`` c > 1 the ``c * d`` channels (d = len(levels))
+    are c codebooks of d values each: codes ``[..., c, d]`` internally and
+    indices ``[B, T', H', W', c]`` (``[B, T', H', W']`` for one codebook).
+    ``dim`` defaults to ``c * d``; any other value puts ``project_in =
+    Linear(dim, c * d)`` before the quantizer and ``project_out =
+    Linear(c * d, dim)`` after it (the reference's names, so a reference
+    checkpoint loads). Everything runs in f32: the projections take f32
+    weights on the f32 latent and on the f32 codes, and the result is cast
+    to z.dtype at the end. JAX rounds the codes to z.dtype before
+    ``project_out`` and returns its f32 result; the two agree in f32, and
+    in bf16 wherever the codes are exact in bf16 (every level whose half
+    width is a power of two, as 8, 5 and 16).
+
+    The entropy and commitment losses are computed on every call whose
+    weights are > 0, as in JAX (a ``[positions, c, codebook_size]`` f32
+    softmax at ``inv_temperature``): the per-sample entropy is a mean over
+    positions and codebooks, the codebook entropy a mean over codebooks of
+    the entropy of each one's average probability (``[c, K]``), weighted by
+    ``diversity_gamma``; the entropy weight anneals from
+    ``annealing_factor`` x weight to weight over ``annealing_steps`` steps
+    of ``n_steps``. Codes pass gradients straight through the rounding;
+    the commitment loss stops the codes' gradient. With ``global_batch``
+    (the training forward) the average probability is the global batch's
+    in a multi-process run (an autograd all-reduce), as JAX's mean over the
+    sharded batch is; any other call stays local, so serving runs no
+    collective."""
 
     def __init__(self, levels: Sequence[int], dim: Optional[int] = None,
                  num_codebooks: int = 1, entropy_loss_weight: float = 0.0,
                  entropy_loss_annealing_steps: int = 0,
                  entropy_loss_annealing_factor: float = 1.0,
-                 commitment_loss_weight: float = 0.0):
+                 commitment_loss_weight: float = 0.0, diversity_gamma: float = 1.0,
+                 inv_temperature: float = 100.0):
         super().__init__()
-        if num_codebooks != 1:
-            raise NotImplementedError("FSQ with num_codebooks != 1 is not ported")
-        self.fsq = FSQ(levels)
-        if dim is not None and dim != self.fsq.codebook_dim:
-            raise NotImplementedError("FSQ projections (dim != len(levels)) "
-                                      "are not ported")
+        self.fsq = FSQ(levels, num_codebooks)
+        self.num_codebooks = self.fsq.num_codebooks
+        effective = self.num_codebooks * self.fsq.codebook_dim
+        self.dim = effective if dim is None else int(dim)
+        self.has_projections = self.dim != effective
+        if self.has_projections:
+            self.project_in = nn.Linear(self.dim, effective)
+            self.project_out = nn.Linear(effective, self.dim)
         self.entropy_loss_weight = entropy_loss_weight
         self.annealing_steps = entropy_loss_annealing_steps
         self.annealing_factor = entropy_loss_annealing_factor
         self.commitment_loss_weight = commitment_loss_weight
+        self.diversity_gamma = diversity_gamma
+        self.inv_temperature = inv_temperature
+
+    def reset_params(self, generator: torch.Generator = None) -> None:
+        """The projections as JAX initializes them (``_lecun_``)."""
+        if self.has_projections:
+            _lecun_(self.project_in, generator)
+            _lecun_(self.project_out, generator)
+
+    @staticmethod
+    def _linear(m: nn.Linear, x):
+        return F.linear(x, m.weight.float(), m.bias.float())
 
     def entropy_weight(self, n_steps) -> float:
         w = self.entropy_loss_weight
@@ -179,26 +222,42 @@ class FSQRegularizer(nn.Module):
         # H sharded: the means over positions are the slabs' (equal sizes)
         over_slabs = shard.mean if shard is not None else (lambda t: t)
         zf = z.float()
-        codes = self.fsq.quantize(zf)
-        indices = self.fsq.codes_to_indices(codes)
+        if self.has_projections:
+            zf = self._linear(self.project_in, zf)
+        lead = zf.shape[:-1]
+        c, d = self.num_codebooks, self.fsq.codebook_dim
+        zf = zf.reshape(lead + (c, d))
+        codes = self.fsq.quantize(zf)                            # [..., c, d]
+        indices = self.fsq.codes_to_indices(codes)               # [..., c]
         aux = zf.new_zeros(())
         if self.entropy_loss_weight > 0 or self.commitment_loss_weight > 0:
             codebook = self.fsq.implicit_codebook(z.device)      # [K, d]
-            distance = -2.0 * torch.einsum("...d,kd->...k", zf, codebook)
-            prob = torch.softmax(-distance * _INV_TEMPERATURE, dim=-1)
+            distance = -2.0 * torch.einsum("...cd,kd->...ck", zf, codebook)
+            prob = torch.softmax(-distance * self.inv_temperature, dim=-1)
             logp = torch.log(prob.clamp_min(1e-5))
             per_sample_entropy = over_slabs((-prob * logp).sum(-1).mean())
-            avg_prob = over_slabs(prob.reshape(-1, prob.shape[-1]).mean(0))
+            avg_prob = over_slabs(prob.reshape(-1, c, prob.shape[-1]).mean(0))
             if global_batch:
                 avg_prob = global_mean(avg_prob)
             avg_logp = torch.log(avg_prob.clamp_min(1e-5))
-            codebook_entropy = (-avg_prob * avg_logp).sum()
-            entropy = per_sample_entropy - _DIVERSITY_GAMMA * codebook_entropy
+            codebook_entropy = (-avg_prob * avg_logp).sum(-1).mean()
+            entropy = per_sample_entropy - self.diversity_gamma * codebook_entropy
             commit = over_slabs((zf - codes.detach()).square().mean())
             aux = (entropy * self.entropy_weight(n_steps)
                    + commit * self.commitment_loss_weight)
-        return codes.to(z.dtype), {"indices": indices, "aux_loss": aux}
+        out = codes.reshape(lead + (c * d,))
+        if self.has_projections:
+            out = self._linear(self.project_out, out)
+        if c == 1:
+            indices = indices.reshape(lead)
+        return out.to(z.dtype), {"indices": indices, "aux_loss": aux}
 
     def decode_indices(self, indices):
-        """indices ``[B, T', H', W']`` -> f32 latent ``[B, T', H', W', D]``."""
-        return self.fsq.indices_to_codes(indices)
+        """indices ``[B, T', H', W']`` (``[..., c]`` for c codebooks) -> f32
+        latent ``[B, T', H', W', dim]``, ``project_out`` included."""
+        codes = self.fsq.indices_to_codes(indices)
+        if self.num_codebooks > 1:
+            codes = codes.flatten(-2)
+        if self.has_projections:
+            codes = self._linear(self.project_out, codes)
+        return codes

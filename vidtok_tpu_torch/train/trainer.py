@@ -151,7 +151,7 @@ class VidTokTrainer:
         """One GAN step on ``x`` ``[B, T, H, W, C]`` (this process's share of
         the batch); returns the logs as 0-d tensors on the device (averaged
         over the processes). ``generator`` (default the trainer's) draws
-        the posterior sample."""
+        the posterior sample and the resblocks' dropout masks."""
         if self.opt_g is None:
             raise RuntimeError("init_state() before fit_step")
         x = x.to(self.device, torch.float32)
