@@ -202,6 +202,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``utils/profiling.trace`` around one flagship f32 request writes a
     trace file, ``device_memory_report()``'s peak equals
     ``max_memory_allocated``.
+18. the public surface (``serve_public_surface``): the v1.0 flagship built
+    from ``merge_configs(FLAGSHIP_YAML, DECODER_TARGET)`` (its decoder
+    target ``Decoder``, which names no variant and so takes the
+    encoder's, as JAX's ``build_core_from_config`` does) through ``load_model_from_config(...,
+    device="cuda", compute_dtype=torch.bfloat16)``, so the kernel path is on;
+    against the flagship built from the file alone with the same seed: both
+    157,949,351 parameters, the state dicts equal (as built, and after
+    ``randomize_``), z and the reconstruction bit-equal on N_REQUESTS
+    requests of REQUEST; the request latency, busy share (a profile of one
+    request) and peak memory on a line of their own, the launches per
+    forward (PER_FORWARD["v1_0"]) and the end-to-end gate of phase 3; then
+    ``core.regularize(core.encode_raw(x, fused=True))`` bit-equal to
+    ``core.encode(x, fused=True)`` (the mode: ``sample=False``), and the
+    posterior's ``var`` and ``nll(mode)`` finite.
 
 Phase 2 also holds every call shape of phases 9-12 that the earlier
 phases do not give (``model_calls``: A at 16² x 512 channels and at 256²
@@ -1352,17 +1366,18 @@ def report(what: str, r: dict, shape) -> None:
           flush=True)
 
 
-def profile_request(tok, shape) -> None:
+def profile_request(tok, shape):
     """Device time by kernel over one request (torch.profiler), and the
-    device's busy share of the request's wall time."""
+    device's busy share of the request's wall time, which it returns."""
     x = np.zeros(shape, np.float32)
     tok(x)
-    profile_call(lambda: tok(x))
+    return profile_call(lambda: tok(x))
 
 
-def profile_call(fn, label: str = "profile") -> None:
+def profile_call(fn, label: str = "profile"):
     """Device time by kernel over one call of ``fn`` (torch.profiler; warm
-    it up first), and the device's busy share of the call's wall time."""
+    it up first), and the device's busy share of the call's wall time,
+    which it returns (None where no device time was recorded)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1377,7 +1392,7 @@ def profile_call(fn, label: str = "profile") -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
         print(f"{label}: no device time recorded (not measured)", flush=True)
-        return
+        return None
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     kernels_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"{label}: wall {wall_ms:.2f} ms, device kernels {kernels_ms:.2f} ms "
@@ -1385,6 +1400,7 @@ def profile_call(fn, label: str = "profile") -> None:
     for e in rows[:12]:
         print(f"{label}: {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:100]}", flush=True)
+    return kernels_ms / wall_ms
 
 
 def kernel_forms(path: str = None):
@@ -1598,7 +1614,7 @@ class _Unquantized:
     """A stand-in regularizer that returns the encoder's output as it is,
     so the tiled engine's encode gives the latent before quantization."""
 
-    def __call__(self, z, sample=None, generator=None):
+    def __call__(self, z, sample=None, generator=None, n_steps=0, global_batch=False):
         return z, {"kl_loss": z.new_zeros(())}
 
 
@@ -1667,6 +1683,11 @@ def serve_444(device) -> None:
 
 # where the checkpoint phase writes its file: inside the checkout, git-ignored
 CKPT_DIR = "build/chip_smoke"
+# Phase 18: the flagship's own file, its decoder target replaced by a name
+# that is no variant's
+FLAGSHIP_YAML = "configs/vidtok_kl_causal_488_16chn.yaml"
+DECODER_TARGET = {"model": {"params": {"decoder_config": {"target": "Decoder"}}}}
+FLAGSHIP_PARAMS = 157_949_351
 
 
 def checkpoint_round_trip(device) -> None:
@@ -1709,6 +1730,75 @@ def checkpoint_round_trip(device) -> None:
           f"reconstruction bit-equal {same}", flush=True)
     if not (same_weights and same):
         raise AssertionError("checkpoint round trip changed the model")
+
+
+def serve_public_surface(device) -> None:
+    """Phase 18 (see the module's docstring)."""
+    import os
+
+    import torch
+
+    from vidtok_tpu_torch import load_model_from_config, merge_configs
+    from vidtok_tpu_torch.modules.regularizers import DiagonalGaussian
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), FLAGSHIP_YAML)
+    toks = {name: load_model_from_config(cfg, seed=0, device=device,
+                                         compute_dtype=torch.bfloat16)
+            for name, cfg in (("merged", merge_configs(path, DECODER_TARGET)),
+                              ("file", path))}
+    tok, ref = toks["merged"], toks["file"]
+    n_params = sum(p.numel() for p in tok.core.parameters())
+    variants = (tok.core.encoder.variant, tok.core.decoder.variant)
+    if not tok.fused or variants != ("causal", "causal") or n_params != FLAGSHIP_PARAMS:
+        raise AssertionError(f"merged flagship: fused {tok.fused}, variants {variants}, "
+                             f"{n_params} params")
+
+    def same_weights():
+        a, b = tok.core.state_dict(), ref.core.state_dict()
+        return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+    built_equal = same_weights()
+    for t in toks.values():
+        randomize_(t.core, seed=0)
+    if not (built_equal and same_weights()):
+        raise AssertionError(f"state dicts unlike: as built {built_equal}, randomized "
+                             f"{same_weights()}")
+    reqs = [np.clip(np.random.RandomState(1 + i).randn(*REQUEST) * 0.5, -1, 1)
+            .astype(np.float32) for i in range(N_REQUESTS)]
+    for i, x in enumerate(reqs):
+        z, dec, _ = tok(x)
+        z2, dec2, _ = ref(x)
+        if not (torch.equal(z, z2) and torch.equal(dec, dec2)):
+            raise AssertionError(f"request {i}: the merged flagship's z or "
+                                 "reconstruction unlike the file's")
+    r = serve(tok, N_REQUESTS, REQUEST, PER_FORWARD["v1_0"])
+    report(f"kernel path: v1.0 kl flagship merged with decoder target Decoder, "
+           f"{n_params} params", r, REQUEST)
+    busy = profile_request(tok, REQUEST)
+    print("public surface: request latency_s "
+          + " ".join(f"{v:.4f}" for v in r["latency_s"])
+          + f"; busy share {'not measured' if busy is None else f'{busy:.3f}'};"
+          f" peak_mem_bytes {r['peak_mem_bytes']}; state dicts equal; z and "
+          f"reconstruction bit-equal to the file's flagship on {N_REQUESTS} requests",
+          flush=True)
+    e2e_check(tok.core, tok.meta, REQUEST, "v1_0")
+    x = tok._input(reqs[0])
+    with torch.no_grad():
+        zp = tok.core.encode_raw(x, fused=True)
+        z_a, log_a = tok.core.regularize(zp, sample=False)
+        z_b, log_b = tok.core.encode(x, sample=False, fused=True)
+        post = DiagonalGaussian(zp)
+        nll, var = post.nll(post.mode()), post.var
+    torch.cuda.synchronize()
+    split_equal = torch.equal(z_a, z_b) and torch.equal(log_a["kl_loss"], log_b["kl_loss"])
+    finite = bool(torch.isfinite(nll).all() and torch.isfinite(var).all())
+    print(f"public surface: regularize(encode_raw(x)) bit-equal to encode(x) "
+          f"{split_equal}; moments {list(zp.shape)} {zp.dtype}; nll(mode) "
+          f"{[round(float(v), 1) for v in nll]}; var in [{float(var.min()):.4g}, "
+          f"{float(var.max()):.4g}]", flush=True)
+    if not (split_equal and finite and nll.shape == (REQUEST[0],)):
+        raise AssertionError("encode_raw / regularize unlike encode, or a non-finite "
+                             "nll or var")
 
 
 def tiled_e2e_check(core, meta, shape) -> dict:
@@ -4095,7 +4185,10 @@ def main(argv=None) -> int:
     t = serve_clis(device, t)
     t = serve_training(device, t)
     t = serve_vidtwin(device, t)
-    serve_ladder_and_sharding(device, t)
+    t = serve_ladder_and_sharding(device, t)
+    serve_public_surface(device)
+    torch.cuda.empty_cache()
+    phase("18 (public surface)", t)
     phase("total", t0)
 
     kernels = []

@@ -185,7 +185,10 @@ def test_import_hygiene(tmp_path):
     profiling helpers and the sharded-scaling tool, builds a VidTwin
     ablation (Sym), builds a trainer (its
     discriminator, losses and optimizers), saves a ``.ckpt`` and loads it
-    back, and no jax,
+    back, merges two config dicts (``merge_configs``, a ``Decoder`` target
+    that takes the encoder's variant) and builds a class it registered
+    (``register``, ``instantiate_from_config``), none of which pulls in
+    ``vidtok_tpu`` either; and no jax,
     flax or ``vidtok_tpu`` module when it loads a YAML file (PyYAML is
     allowed there) whose ``${...}`` reference its own resolver follows.
     Neither pulls in cv2, PIL or pandas: importing the port needs none."""
@@ -252,7 +255,16 @@ def test_import_hygiene(tmp_path):
         "import torch\n"
         "assert all(torch.equal(a, b) for a, b in zip(\n"
         "    tok.core.state_dict().values(), back.core.state_dict().values()))\n"
-        "bad = [m for m in ('jax', 'flax', 'yaml', 'cv2', 'PIL', 'pandas')\n"
+        "merged = vidtok_tpu_torch.merge_configs(\n"
+        f"    {{'model': {CFG!r}}},\n"
+        "    {'model': {'params': {'decoder_config': {'target': 'Decoder'}}}})\n"
+        "tok = vidtok_tpu_torch.load_model_from_config(merged, device='cpu')\n"
+        "assert tok.core.decoder.variant == 'causal_v1_1'\n"
+        "@vidtok_tpu_torch.register('Widget')\n"
+        "class W:\n"
+        "    pass\n"
+        "assert type(vidtok_tpu_torch.instantiate_from_config({'target': 'Widget'})) is W\n"
+        "bad = [m for m in ('jax', 'flax', 'yaml', 'vidtok_tpu', 'cv2', 'PIL', 'pandas')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n"
         f"tok = vidtok_tpu_torch.load_model_from_config({str(path)!r}, "

@@ -27,17 +27,22 @@ library or written).
     tok.use_tiling = True; tok.use_overlap = True   # v1.1: chunk by chunk
     tok.forms = KernelForms(parity="merged", subpixel="merged", tail="taps")
     tok.save("model.ckpt")
+    cfg = merge_configs("configs/vidtok_kl_causal_488_16chn.yaml", overrides,
+                        dotlist=["model.params.use_tiling=false"])
     twin = load_model_from_config("configs/vidtwin/vidtwin_structure_7_7_8_dynamics_7_8.yaml")
     u_s, u_dx, u_dy, reg_log = twin.encode(x)   # x: [B, 3, 16, 224, 224]
 """
 
-from .config import load_config
+from .config import load_config, merge_configs
 from .models.autoencoder import (TokenizerCore, VideoTokenizer,
                                  build_core_from_config)
 from .ops.kernels import KernelForms
+from .registry import get_obj_from_str, instantiate_from_config, register
 
-__all__ = ["load_model_from_config", "VideoTokenizer", "TokenizerCore",
-           "build_core_from_config", "KernelForms"]
+__all__ = ["register", "instantiate_from_config", "get_obj_from_str",
+           "load_config", "merge_configs", "load_model_from_config",
+           "VideoTokenizer", "TokenizerCore", "build_core_from_config",
+           "KernelForms"]
 
 
 def load_model_from_config(config, ckpt=None, device="cuda", **kwargs):

@@ -56,13 +56,6 @@ _REGULARIZERS = {
 }
 
 
-def _variant(table: dict, target: str) -> str:
-    if target not in table:
-        raise ValueError(f"unknown encoder/decoder target {target!r}; one of "
-                         f"{sorted(table)}")
-    return table[target]
-
-
 def _regularizer(reg_cfg: dict):
     """(regularizer, discrete) from a ``regularizer_config``."""
     kind = _REGULARIZERS.get(reg_cfg["target"])
@@ -112,7 +105,10 @@ def build_core_from_config(model_cfg: dict, use_checkpoint: Optional[bool] = Non
                     else use_checkpoint)
 
     tdf = ep.get("time_downsample_factor", 4)
-    variant = _variant(_ENC_VARIANTS, enc_cfg["target"])
+    if enc_cfg["target"] not in _ENC_VARIANTS:
+        raise KeyError(f"unknown encoder target {enc_cfg['target']!r}; one of "
+                       f"{sorted(_ENC_VARIANTS)}")
+    variant = _ENC_VARIANTS[enc_cfg["target"]]
     encoder = Encoder(
         in_channels=ep.get("in_channels", 3), double_z=ep.get("double_z", True),
         spatial_ds=opt(ep, "spatial_ds"), tempo_ds=opt(ep, "tempo_ds"),
@@ -122,7 +118,9 @@ def build_core_from_config(model_cfg: dict, use_checkpoint: Optional[bool] = Non
     decoder = Decoder(
         out_ch=dp.get("out_ch", 3), spatial_us=opt(dp, "spatial_us"),
         tempo_us=opt(dp, "tempo_us"),
-        variant=_variant(_DEC_VARIANTS, dec_cfg["target"]),
+        # any other decoder target takes the encoder's variant
+        # (``autoencoder.py:69-72``)
+        variant=_DEC_VARIANTS.get(dec_cfg["target"], variant),
         interpolation_mode=dp.get("interpolation_mode", "nearest"),
         tanh_out=dp.get("tanh_out", False),
         time_downsample_factor=dp.get("time_downsample_factor", 4),
@@ -159,18 +157,35 @@ class TokenizerCore(nn.Module):
         self.decoder = decoder
         self.regularization = regularization
 
+    def encode_raw(self, x, fused: bool = False, streaming: bool = False,
+                   first_chunk: bool = True, cache: Optional[dict] = None):
+        """The encoder's posterior parameters (or FSQ latent) before the
+        regularizer; with ``streaming``, (that, cache) for one chunk."""
+        if not streaming:
+            return self.encoder(x, fused=fused)
+        stream = Stream(self.encoder, cache, first_chunk)
+        return self.encoder(x, fused=fused, stream=stream), stream.new
+
+    def regularize(self, zp, n_steps: int = 0, sample: Optional[bool] = None,
+                   generator: torch.Generator = None, global_batch: bool = False):
+        """(z, reg_log) of ``encode_raw``'s output: the Gaussian's sample
+        (from ``generator``) or mode, or FSQ's codes, with the losses
+        annealed by ``n_steps``; ``global_batch``: FSQ's codebook entropy
+        over the processes' global batch (the training forward)."""
+        return self.regularization(zp, sample=sample, generator=generator,
+                                   n_steps=n_steps, global_batch=global_batch)
+
     def encode(self, x, sample: Optional[bool] = None, fused: bool = False,
                generator: torch.Generator = None, streaming: bool = False,
-               first_chunk: bool = True, cache: Optional[dict] = None):
-        """(z, reg_log); with ``streaming``, (z, reg_log, cache) for one
-        chunk, ``cache`` being what the previous chunk returned."""
+               first_chunk: bool = True, cache: Optional[dict] = None,
+               n_steps: int = 0):
+        """``regularize(encode_raw(x))``: (z, reg_log); with ``streaming``,
+        (z, reg_log, cache) for one chunk, ``cache`` being what the
+        previous chunk returned."""
         if not streaming:
-            return self.regularization(self.encoder(x, fused=fused),
-                                       sample=sample, generator=generator)
-        stream = Stream(self.encoder, cache, first_chunk)
-        z, log = self.regularization(self.encoder(x, fused=fused, stream=stream),
-                                     sample=sample, generator=generator)
-        return z, log, stream.new
+            return self.regularize(self.encode_raw(x, fused), n_steps, sample, generator)
+        zp, cache = self.encode_raw(x, fused, True, first_chunk, cache)
+        return self.regularize(zp, n_steps, sample, generator) + (cache,)
 
     def decode(self, z, fused: bool = False, streaming: bool = False,
                first_chunk: bool = True, use_cache_offset: bool = False,
@@ -198,8 +213,8 @@ class TokenizerCore(nn.Module):
         ``use_checkpoint``; xrec is cropped to x's frames."""
         with torch.set_grad_enabled(torch.is_grad_enabled() and not fix_encoder):
             zp = self.encoder(x, train=True, generator=generator)
-            z, reg_log = self.regularization(zp, generator=generator, n_steps=n_steps,
-                                             global_batch=True)
+            z, reg_log = self.regularize(zp, n_steps, generator=generator,
+                                         global_batch=True)
         if fix_encoder:
             z = z.detach()
             reg_log = {k: v.detach() for k, v in reg_log.items()}

@@ -120,16 +120,18 @@ def layer_norm_noaffine(x, eps: float = 1e-6):
     return F.layer_norm(x, x.shape[-1:], eps=eps)
 
 
-def get_1d_sincos_pos_embed(embed_dim, length):
-    pos = np.arange(0, length, dtype=np.float64)[:, None]
+def get_1d_sincos_pos_embed(embed_dim, length, scale: float = 1.0):
+    """Positions ``0..length-1`` over ``scale``, in f64 (``:43-48``)."""
+    pos = np.arange(0, length, dtype=np.float64)[:, None] / scale
     return get_1d_sincos_pos_embed_from_grid(embed_dim, pos)
 
 
-def get_2d_sincos_pos_embed(embed_dim, grid_size):
+def get_2d_sincos_pos_embed(embed_dim, grid_size, scale: float = 1.0):
     """The reference's grid: ``meshgrid(w, h)`` reshaped ``(2, 1, gw, gh)``,
-    as written (a square grid hides the transposition)."""
-    gh = np.arange(grid_size[0], dtype=np.float32)
-    gw = np.arange(grid_size[1], dtype=np.float32)
+    as written (a square grid hides the transposition); positions over
+    ``scale``, in f32 (``:51-58``)."""
+    gh = np.arange(grid_size[0], dtype=np.float32) / scale
+    gw = np.arange(grid_size[1], dtype=np.float32) / scale
     grid = np.meshgrid(gw, gh)
     grid = np.stack(grid, axis=0).reshape(2, 1, grid_size[1], grid_size[0])
     emb_h = get_1d_sincos_pos_embed_from_grid(embed_dim // 2, grid[0])
@@ -226,24 +228,27 @@ class STBlock(nn.Module):
     """Spatial attention over ``(B T) S C``, temporal (causal by default)
     attention over ``(B S) T C``, modulated MLP (``:182-248``). Both
     attention branches are gated by ``gate_msa``; the temporal branch takes
-    the unmodulated ``x`` plus ``tpe`` (block 0 only)."""
+    the unmodulated ``x`` plus ``tpe`` (block 0 only). ``no_temporal``
+    drops the temporal branch and its ``attn_temp``."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0,
                  temporal_causal: bool = True, temporal_group: bool = False,
                  group_size: int = 1, drop_path_rate: float = 0.0,
-                 attn_dtype: Optional[torch.dtype] = torch.bfloat16):
+                 attn_dtype: Optional[torch.dtype] = torch.bfloat16,
+                 no_temporal: bool = False):
         super().__init__()
         self.hidden_size = hidden_size
         self.temporal_causal = temporal_causal
+        self.no_temporal = no_temporal
         self.drop_path_rate = drop_path_rate
         self.scale_shift_table = nn.Parameter(torch.empty(6, hidden_size))
         self.attn = Attention(hidden_size, num_heads, attn_dtype=attn_dtype)
-        if temporal_group:
-            self.attn_temp = GroupAttention(hidden_size, num_heads, group_size,
-                                            zero_init_proj=True, attn_dtype=attn_dtype)
-        else:
-            self.attn_temp = Attention(hidden_size, num_heads, zero_init_proj=True,
-                                       attn_dtype=attn_dtype)
+        if not no_temporal:
+            self.attn_temp = (
+                GroupAttention(hidden_size, num_heads, group_size, zero_init_proj=True,
+                               attn_dtype=attn_dtype) if temporal_group else
+                Attention(hidden_size, num_heads, zero_init_proj=True,
+                          attn_dtype=attn_dtype))
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio))
 
     def reset_params(self, generator=None):
@@ -262,11 +267,12 @@ class STBlock(nn.Module):
         x_m = t2i_modulate(layer_norm_noaffine(x), shift_msa, scale_msa)
         x_s = self.attn(x_m.reshape(b * t, s, c))
         x = x + dp(gate_msa * x_s.reshape(b, t, s, c))
-        x_t = x.transpose(1, 2).reshape(b * s, t, c)
-        if tpe is not None:
-            x_t = x_t + tpe.to(x.dtype)
-        x_t = self.attn_temp(x_t, causal=self.temporal_causal)
-        x = x + dp(gate_msa * x_t.reshape(b, s, t, c).transpose(1, 2))
+        if not self.no_temporal:
+            x_t = x.transpose(1, 2).reshape(b * s, t, c)
+            if tpe is not None:
+                x_t = x_t + tpe.to(x.dtype)
+            x_t = self.attn_temp(x_t, causal=self.temporal_causal)
+            x = x + dp(gate_msa * x_t.reshape(b, s, t, c).transpose(1, 2))
         h = t2i_modulate(layer_norm_noaffine(x), shift_mlp, scale_mlp)
         return x + dp(gate_mlp * self.mlp(h))
 
@@ -315,7 +321,9 @@ class STTransformer(nn.Module):
                  depth: int = 16, num_heads: int = 12, mlp_ratio: float = 4.0,
                  temporal_causal: bool = True, temporal_group: bool = False,
                  group_size: int = 1, drop_path: float = 0.0,
-                 attn_dtype: Optional[torch.dtype] = torch.bfloat16):
+                 attn_dtype: Optional[torch.dtype] = torch.bfloat16,
+                 no_temporal: bool = False, space_scale: float = 1.0,
+                 time_scale: float = 1.0):
         super().__init__()
         self.input_size = tuple(input_size)
         self.in_channels = in_channels
@@ -323,18 +331,20 @@ class STTransformer(nn.Module):
         self.hidden_size = hidden_size
         self.depth = depth
         self.temporal_causal = temporal_causal
+        self.no_temporal = no_temporal
+        self.space_scale, self.time_scale = space_scale, time_scale
         self.grid = tuple(self.input_size[i] // self.patch_size[i] for i in range(3))
         t, gh, gw = self.grid
         self.register_buffer("pos_embed", torch.tensor(get_2d_sincos_pos_embed(
-            hidden_size, (gh, gw)), dtype=torch.float32), persistent=False)
+            hidden_size, (gh, gw), space_scale), dtype=torch.float32), persistent=False)
         self.register_buffer("pos_embed_temporal", torch.tensor(get_1d_sincos_pos_embed(
-            hidden_size, t), dtype=torch.float32)[None], persistent=False)
+            hidden_size, t, time_scale), dtype=torch.float32)[None], persistent=False)
         # per-block stochastic depth: linspace(0, drop_path, depth)
         self.blocks = nn.ModuleList(
             STBlock(hidden_size, num_heads, mlp_ratio, temporal_causal,
                     temporal_group, group_size,
                     drop_path * i / max(depth - 1, 1) if drop_path > 0 else 0.0,
-                    attn_dtype)
+                    attn_dtype, no_temporal)
             for i in range(depth))
 
     @property
@@ -344,6 +354,14 @@ class STTransformer(nn.Module):
     @property
     def num_spatial(self) -> int:
         return self.grid[1] * self.grid[2]
+
+    def spatial_pos_embed(self) -> torch.Tensor:
+        """The f32 sincos embedding of the H'W' grid, ``[S, hidden]``."""
+        return self.pos_embed
+
+    def temporal_pos_embed(self) -> torch.Tensor:
+        """The f32 sincos embedding of the T' frames, ``[T', hidden]``."""
+        return self.pos_embed_temporal[0]
 
     def set_attn_dtype(self, attn_dtype: Optional[torch.dtype]) -> None:
         """Every attention's q, k, v dtype (None: the model's)."""

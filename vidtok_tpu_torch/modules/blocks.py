@@ -55,7 +55,8 @@ from ..ops.kernels.parity_upsample import parity_up2x_fused_plain
 from ..parallel.mesh import shard_of
 from .conv import (CausalConv1d, CausalConv3d, Conv1d, Conv3d, SpatialConv,
                    pad_time_front)
-from .interp import (temporal_avg_pool3_stride2, temporal_linear_up2x,
+from .interp import (spatial_avg_pool2x, spatial_nearest_up2x,
+                     temporal_avg_pool3_stride2, temporal_linear_up2x,
                      temporal_nearest_up2x)
 from .norms import make_norm, silu
 
@@ -247,14 +248,17 @@ class AttnBlock(nn.Module):
 
 
 class SpatialDownsample(nn.Module):
-    """Per-frame 2x downsample: (0,1,0,1) zero pad + 3x3 stride-2 conv."""
+    """Per-frame 2x downsample: (0,1,0,1) zero pad + 3x3 stride-2 conv, or
+    without ``with_conv`` a 2x2 average pool (``blocks.py:271-283``)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, with_conv: bool = True):
         super().__init__()
-        self.conv = SpatialConv(c, c, 3, stride=2, padding=(0, 1, 0, 1))
+        self.with_conv = with_conv
+        if with_conv:
+            self.conv = SpatialConv(c, c, 3, stride=2, padding=(0, 1, 0, 1))
 
     def forward(self, x):
-        return self.conv(x)
+        return self.conv(x) if self.with_conv else spatial_avg_pool2x(x)
 
 
 class SpatialUpsample(nn.Module):
@@ -263,13 +267,23 @@ class SpatialUpsample(nn.Module):
     by parity (kernel C when ``fused``). With ``fused`` and the ``merged``
     subpixel form, one VALID 2x2 conv of the once-padded input with the
     four parity kernels on output-channel groups, then kernel I
-    (``blocks.py:350-364``)."""
+    (``blocks.py:350-364``). Without ``with_conv`` the nearest upsample
+    alone (no parameter, no kernel); without ``subpixel`` the upsample
+    then the 3x3 conv, plain (the equivalence the subpixel form is held
+    to)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, with_conv: bool = True, subpixel: bool = True):
         super().__init__()
-        self.conv = SpatialConv(c, c, 3)
+        self.with_conv = with_conv
+        self.subpixel = subpixel
+        if with_conv:
+            self.conv = SpatialConv(c, c, 3)
 
     def forward(self, x, fused: bool = False, forms: KernelForms = KernelForms()):
+        if not self.with_conv:
+            return spatial_nearest_up2x(x)
+        if not self.subpixel:
+            return self.conv(spatial_nearest_up2x(x))
         b, t, h, w, c = x.shape
         k = self.conv.weight.to(x.dtype)                     # [O, I, 3, 3]
         # row-combined taps: parity 0 reads rows a-1, a; parity 1 rows a, a+1

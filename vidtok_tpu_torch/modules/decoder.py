@@ -68,8 +68,8 @@ class Decoder(nn.Module):
         n = len(ch_mult)
         self.use_checkpoint = use_checkpoint
         self.tanh_out = tanh_out
-        self.first_pad_mode = pad = first_pad_mode(variant)
-        self.causal = causal = variant != "noncausal"
+        self.variant = variant
+        pad, causal = self.first_pad_mode, self.causal
         self.tail_kernel = causal and norm_type == "layernorm"
         # v1.0 drops its first tdf-1 output frames
         self.crop = time_downsample_factor - 1 if variant == "causal" else 0
@@ -109,6 +109,15 @@ class Decoder(nn.Module):
         self.up_temporal = nn.ModuleList(levels[i][1] for i in range(n))
         self.norm_out = make_norm(norm_type, c, "frame" if causal else "video")
         self.conv_out = conv3(c, out_ch, causal, pad, out_off)
+
+    @property
+    def causal(self) -> bool:
+        return self.variant != "noncausal"
+
+    @property
+    def first_pad_mode(self) -> str:
+        """The interior causal convs' stream-start pad."""
+        return first_pad_mode(self.variant)
 
     def stage_offsets(self, n: int):
         """Per-stage cache offsets for overlap-tiled decode (``decoder.py:

@@ -9,8 +9,9 @@ released ``.ckpt``'s ``loss.discriminator.*`` keys load by name.
   time stride 2 only in the first two layers.
 * :class:`ActNorm`: per-channel affine initialised from the first batch
   it sees in training mode (``loc = -mean``, ``scale = 1 / (std + 1e-6)``,
-  unbiased std), on 4-D or 5-D input (the reference's ``reverse`` and
-  ``logdet``, which the discriminators never use, are left out).
+  unbiased std), on 4-D or 5-D input; with ``logdet`` it also returns
+  each sample's log-determinant (the reference's ``reverse``, which the
+  discriminators never use, is left out).
 
 With ``use_actnorm`` the middle convs keep their bias and ActNorm replaces
 BatchNorm. BatchNorm is torch's (momentum 0.1, eps 1e-5): in training it
@@ -35,8 +36,9 @@ from ..parallel.distributed import world_size
 
 
 class ActNorm(nn.Module):
-    def __init__(self, num_features: int, ndim: int = 4):
+    def __init__(self, num_features: int, ndim: int = 4, logdet: bool = False):
         super().__init__()
+        self.logdet = logdet
         shape = (1, num_features) + (1,) * (ndim - 2)
         self.loc = nn.Parameter(torch.zeros(shape))
         self.scale = nn.Parameter(torch.ones(shape))
@@ -52,7 +54,13 @@ class ActNorm(nn.Module):
         if self.training and self.initialized.item() == 0:
             self.initialize(x)
             self.initialized.fill_(1)
-        return self.scale * (x + self.loc)
+        h = self.scale * (x + self.loc)
+        if not self.logdet:
+            return h
+        # positions x sum(log|scale|), one per sample (``discriminator.py:
+        # 64-71``)
+        logdet = x[0, 0].numel() * self.scale.abs().log().sum()
+        return h, logdet * x.new_ones(x.shape[0])
 
 
 class GlobalBatchNorm(nn.Module):

@@ -121,8 +121,7 @@ class Encoder(nn.Module):
         self.tdf = time_downsample_factor
         self.init_pad_mode = init_pad_mode
         self.variant = variant
-        pad = first_pad_mode(variant)
-        self.causal = causal = variant != "noncausal"
+        pad, causal = self.first_pad_mode, self.causal
         if spatial_ds is None or not causal:
             spatial_ds = range(n - 1)
         self.spatial_ds = tuple(spatial_ds)
@@ -151,6 +150,15 @@ class Encoder(nn.Module):
         self.mid = _Mid(c, norm_type, pad, causal=causal, dropout=dropout)
         self.norm_out = make_norm(norm_type, c, "frame" if causal else "video")
         self.conv_out = conv3(c, 2 * z_channels if double_z else z_channels, causal, pad)
+
+    @property
+    def causal(self) -> bool:
+        return self.variant != "noncausal"
+
+    @property
+    def first_pad_mode(self) -> str:
+        """The interior causal convs' stream-start pad."""
+        return first_pad_mode(self.variant)
 
     def pad_input(self, x):
         """Front-pad T with ``init_pad_mode`` frames when it is not a

@@ -1,8 +1,20 @@
-"""Temporal resampling on ``[B, T, H, W, C]`` (``vidtok_tpu/modules/interp.py``)."""
+"""Resampling on ``[B, T, H, W, C]`` (``vidtok_tpu/modules/interp.py``)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def spatial_nearest_up2x(x):
+    """[B,T,H,W,C] -> [B,T,2H,2W,C] by duplicating each pixel (dtype kept)."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+def spatial_avg_pool2x(x):
+    """2x2 average pooling per frame (the reference's Downsample without
+    conv)."""
+    b, t, h, w, c = x.shape
+    return x.reshape(b, t, h // 2, 2, w // 2, 2, c).mean(dim=(3, 5))
 
 
 def temporal_nearest_up2x(x):

@@ -34,6 +34,10 @@ class DiagonalGaussian:
     def std(self):
         return torch.exp(0.5 * self.logvar.float())
 
+    @property
+    def var(self):
+        return torch.exp(self.logvar.float())
+
     def sample(self, generator: torch.Generator = None, shard=None):
         """With a ``HeightShard``, the whole latent's noise is drawn and the
         slab's rows kept, so that a sharded run draws what one process
@@ -55,6 +59,14 @@ class DiagonalGaussian:
         m = self.mean.float()
         lv = self.logvar.float()
         return 0.5 * (m.square() + lv.exp() - 1.0 - lv).flatten(1).sum(1)
+
+    def nll(self, sample):
+        """0.5 * sum(log(2 pi) + logvar + (sample - mean)^2 / var) over all
+        non-batch dims, in f32."""
+        m = self.mean.float()
+        lv = self.logvar.float()
+        return 0.5 * (math.log(2.0 * math.pi) + lv
+                      + (sample.float() - m).square() / lv.exp()).flatten(1).sum(1)
 
 
 class DiagonalGaussianRegularizer(nn.Module):
@@ -184,18 +196,25 @@ class FSQRegularizer(nn.Module):
         super().__init__()
         self.fsq = FSQ(levels, num_codebooks)
         self.num_codebooks = self.fsq.num_codebooks
-        effective = self.num_codebooks * self.fsq.codebook_dim
-        self.dim = effective if dim is None else int(dim)
-        self.has_projections = self.dim != effective
+        self.dim = self.effective_dim if dim is None else int(dim)
         if self.has_projections:
-            self.project_in = nn.Linear(self.dim, effective)
-            self.project_out = nn.Linear(effective, self.dim)
+            self.project_in = nn.Linear(self.dim, self.effective_dim)
+            self.project_out = nn.Linear(self.effective_dim, self.dim)
         self.entropy_loss_weight = entropy_loss_weight
         self.annealing_steps = entropy_loss_annealing_steps
         self.annealing_factor = entropy_loss_annealing_factor
         self.commitment_loss_weight = commitment_loss_weight
         self.diversity_gamma = diversity_gamma
         self.inv_temperature = inv_temperature
+
+    @property
+    def effective_dim(self) -> int:
+        """The quantized channels, ``num_codebooks * len(levels)``."""
+        return self.num_codebooks * self.fsq.codebook_dim
+
+    @property
+    def has_projections(self) -> bool:
+        return self.dim != self.effective_dim
 
     def reset_params(self, generator: torch.Generator = None) -> None:
         """The projections as JAX initializes them (``_lecun_``)."""
@@ -245,7 +264,7 @@ class FSQRegularizer(nn.Module):
             commit = over_slabs((zf - codes.detach()).square().mean())
             aux = (entropy * self.entropy_weight(n_steps)
                    + commit * self.commitment_loss_weight)
-        out = codes.reshape(lead + (c * d,))
+        out = codes.reshape(lead + (self.effective_dim,))
         if self.has_projections:
             out = self._linear(self.project_out, out)
         if c == 1:

@@ -60,6 +60,15 @@ def is_main_process() -> bool:
     return rank() == 0
 
 
+def local_batch_slice(global_batch: int) -> int:
+    """Each process's share of a batch split over the processes; an uneven
+    split raises."""
+    n = world_size()
+    if global_batch % n:
+        raise ValueError(f"a batch of {global_batch} does not split over {n} processes")
+    return global_batch // n
+
+
 def global_mean(t: torch.Tensor, group=None) -> torch.Tensor:
     """The mean of ``t`` over the processes (of ``group``, default all),
     differentiable (the backward all-reduces the gradient); ``t`` itself

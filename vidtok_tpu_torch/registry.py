@@ -1,14 +1,18 @@
 """Config-driven construction (``vidtok_tpu/registry.py``; reference
 vidtok/modules/util.py:69-86): a config's ``target:`` / ``params:`` name a
-class of this package, by its registered name or the reference's dotted
-path (so the repo's YAML configs resolve unchanged), else by a dotted
-import path.
+class, by a name a user registered (``@register()``), by a registered
+name of this package or the reference's dotted path (so the repo's YAML
+configs resolve unchanged), else by a dotted import path.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Any
+from typing import Any, Callable, Dict
+
+# name -> class: the user's ``@register`` classes and the built-ins
+# ``resolve`` has imported
+_REGISTRY: Dict[str, Any] = {}
 
 # the reference's dotted targets -> registered names
 _ALIASES = {
@@ -44,14 +48,30 @@ _LAZY = {
 }
 
 
+def register(name: str = None) -> Callable:
+    """Class decorator, ``@register()`` or ``@register("Name")``: a config's
+    ``target: Name`` (the class's own name by default) then builds it."""
+
+    def deco(cls):
+        _REGISTRY[name or cls.__name__] = cls
+        return cls
+
+    return deco
+
+
 def resolve(target: str) -> Any:
-    """The class a ``target:`` string names."""
+    """The class a ``target:`` string names: a registered one, else a
+    built-in (then registered), else a dotted import."""
     target = _ALIASES.get(target, target)
+    if target in _REGISTRY:
+        return _REGISTRY[target]
     if target in _LAZY:
-        return getattr(importlib.import_module(_LAZY[target]), target)
+        _REGISTRY[target] = getattr(importlib.import_module(_LAZY[target]), target)
+        return _REGISTRY[target]
     if "." in target:
         return get_obj_from_str(target)
-    raise KeyError(f"unknown target {target!r}; registered: {sorted(_LAZY)}")
+    raise KeyError(f"unknown target {target!r}; registered: "
+                   f"{sorted(set(_REGISTRY) | set(_LAZY))}")
 
 
 def get_obj_from_str(string: str, reload: bool = False) -> Any:
@@ -70,3 +90,8 @@ def instantiate_from_config(config: dict, **extra_kwargs) -> Any:
     params = dict(config.get("params") or {})
     params.update(extra_kwargs)
     return resolve(config["target"])(**params)
+
+
+def registered() -> Dict[str, Any]:
+    """A copy of the registry: the registered names and their classes."""
+    return dict(_REGISTRY)

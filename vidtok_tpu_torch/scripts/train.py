@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import load_config
+from ..config import merge_configs
 
 
 def get_parser():
@@ -56,35 +56,6 @@ def get_parser():
                    help="load a torch ckpt_path with its full pickle (runs code "
                         "from the file: only for a file you trust)")
     return p
-
-
-def _set_dotted(cfg: dict, key: str, value) -> None:
-    node = cfg
-    *path, leaf = key.split(".")
-    for k in path:
-        node = node.setdefault(k, {})
-    node[leaf] = value
-
-
-def merge_configs(*paths, dotlist=()) -> dict:
-    """YAML files merged left to right (dicts recursively), then
-    ``a.b.c=value`` overrides (values parsed as YAML), then ``${...}``
-    references resolved (``vidtok_tpu/config.py``'s ``merge_configs``)."""
-    import yaml
-
-    def merge(a, b):
-        for k, v in b.items():
-            a[k] = merge(a[k], v) if isinstance(a.get(k), dict) and isinstance(v, dict) else v
-        return a
-
-    cfg: dict = {}
-    for p in paths:
-        with open(p) as f:
-            cfg = merge(cfg, yaml.safe_load(f) or {})
-    for item in dotlist:
-        key, val = item.split("=", 1)
-        _set_dotted(cfg, key, yaml.safe_load(val))
-    return load_config(cfg)
 
 
 def _run_dir(args, name: str) -> str:
