@@ -45,7 +45,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    before each call, and for T2's mm a cuDNN yardstick (two k=(3,1,1)
    convs and the add, ``mm_yardstick``); then both tools' mains on the card
    at the same shapes, whose rows give the kernels' times and bounds and
-   whose launches of T1-T4 the result line reports;
+   whose launches of T1-T4 the result line reports; then A-F's f32 forms
+   (the wgmma loop's f32 scheme in A, B, E and F, C's f32 template, D's
+   f32 form) against their plain versions in f32, TF32 off on both sides,
+   at every call shape of phase 19's two requests, the other stream-start
+   mode of B, E and D, F at both ``first_chunk`` values, one partial-tile
+   shape each (F32_PARTIAL, 33²; F there at cache offsets 0, 1, 2 and 4,
+   on y and both new caches) and A's, E's and D's T=201 calls; gate
+   relative L2 <= F32_GATE (2e-5); each timed by CUDA events beside
+   cuDNN's f32 convs of the block, its bound from ``f32_work`` (f32 bytes
+   over 3.35 TB/s, or the function's FLOP over the bf16 tensor-core rate
+   / 6, the scheme's six products, D's too); and A, B, F and D on rows of
+   mean F32_ROW_MEAN (the f32 row passes' two-pass statistics; checked,
+   not timed);
 3. serve the causal v1.0 KL 4x8x8 16-channel flagship at full width with
    seeded random weights in bf16: 3 requests of [1, 3, 17, 256, 256],
    per-request latency, frames/s and peak memory, and the kernels' launch
@@ -216,6 +228,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``core.regularize(core.encode_raw(x, fused=True))`` bit-equal to
     ``core.encode(x, fused=True)`` (the mode: ``sample=False``), and the
     posterior's ``var`` and ``nll(mode)`` finite.
+19. f32 through the kernels (``serve_f32``), the engine's default on the
+    card, as JAX's default engine serves f32 through its Pallas kernels:
+    the v1.0 flagship from ``load_model_from_config(cfg, device=...,
+    compute_dtype=torch.float32)`` (``fused`` unset: on), 3 requests of
+    [1, 3, 17, 256, 256] (launches A 20, B 20, C 3, D 1, E 2 a forward)
+    with latency, frames/s, peak memory and the busy share of a profiled
+    one, 2 requests on the plain f32 path for comparison; z and the
+    reconstruction within F32_E2E_GATE (2e-4, README's golden tolerance)
+    of the plain f32 path at that shape and at [1, 3, 17, 264, 264]; one
+    f32 request in the forms ("merged", "merged", "taps"), which must
+    raise ValueError naming the kernel without an f32 form; then the v1.1
+    model tiled, 3 requests of [1, 3, 65, 256, 256] (F 100, A 100, C 15,
+    D 5), the same records and the gate against the tiled plain f32 path.
 
 Phase 2 also holds every call shape of phases 9-12 that the earlier
 phases do not give (``model_calls``: A at 16² x 512 channels and at 256²
@@ -236,7 +261,8 @@ besides its source; launches
 from phase 3's kernel-path run for A-E, phase 7's for F, and phase 8's for
 G (its ``split`` request), H, I and D', and the tools' runs for T1-T4,
 whose numbers are those of one row of the tool at its first shape, with
-every row beside) and ``{"ok": true, "device": {...}}``. Needs one CUDA device;
+every row beside; then A-F's f32 forms, named "<kernel> (f32)", with
+phase 19's launches, the v1.0 f32 request's times and F the tiled one's) and ``{"ok": true, "device": {...}}``. Needs one CUDA device;
 imports no JAX.
 """
 
@@ -479,6 +505,42 @@ CONFIG_PATHS = {"noncausal": (NONCAUSAL_CFG, (1, 3, 16, 256, 256), False),
                 "tiled_888": (FSQ_888_CFG, (1, 3, 33, 256, 256), True),
                 "kl_444": (KL_444_CFG, REQUEST, False)}
 PATHS = ("v1_0", "v1_1", "tiled") + tuple(FORMS) + tuple(CONFIG_PATHS)
+
+# A-F on f32 activations (phase 19, ``serve_f32``, and phase 2's f32
+# checks): the wgmma loop's f32 scheme (csrc/wgmma_conv.cuh: bf16 pieces,
+# six products) in A, B, E and F, C's f32 template, D's f32 form on the
+# CUDA cores. The engine serves f32 through them by default on the card
+# (``load_model_from_config(..., compute_dtype=torch.float32)``), as JAX's
+# default engine serves f32 through its Pallas kernels. Two requests: the
+# v1.0 flagship at REQUEST (F32_PATHS[0]) and the tiled v1.1 model at
+# TILED_REQUEST (F32_PATHS[1]), each held to its plain f32 path (TF32 off)
+# at F32_E2E_GATE, the golden tolerance of README.md; each kernel's f32
+# form to its plain version in f32 at F32_GATE at every call shape of the
+# two requests (``f32_calls``), the other stream-start mode of B, E and D,
+# F at both ``first_chunk`` values, one partial-tile shape each
+# (F32_PARTIAL: a 33² latent; F there at every offset of F32_OFFSETS) and
+# A's, E's and D's T=201 calls (SPATIAL_LONG, PARITY_LONG, TAIL_LONG).
+# A, B, F and D are also held there on rows offset by F32_ROW_MEAN, a mean
+# beside which E[x^2] - mean^2 loses about 1e-4 of the activation in f32:
+# the residual blocks' first output less x, F's caches and D's output as
+# they are.
+F32_GATE = 2e-5
+F32_ROW_MEAN = 50.0
+F32_E2E_GATE = 2e-4
+F32_PATHS = ("v1_0_f32", "tiled_f32")
+F32_OFFSETS = (0, 1, 2, 4)
+F32_PARTIAL = {"fused_spatial_resblock": (5, 33, 33, 512, 512),
+               "fused_temporal_resblock": (2, 5, 33, 33, 512),
+               "fused_temporal_resblock_stream": (1, 5, 33, 33, 512),
+               "subpixel_interleave": (5, 33, 33, 512),
+               "decoder_tail_rgb": (2, 6, 33, 33, 128),
+               "parity_up2x_fused": (2, 5, 33, 33, 512)}
+F32_KERNELS = tuple(F32_PARTIAL)
+# forms whose kernels have no f32 form yet: an f32 request in them raises
+F32_REFUSED_FORMS = ("merged", "merged", "taps")
+# each f32 kernel's path in the result line (launches, times)
+F32_MAIN_PATH = dict.fromkeys(F32_KERNELS, "v1_0_f32") | {
+    "fused_temporal_resblock_stream": "tiled_f32"}
 
 # the path whose serving run gives each kernel's launches and times in the
 # result line
@@ -751,10 +813,10 @@ def _nel(*shapes) -> int:
     return sum(int(np.prod(s)) for s in shapes)
 
 
-def work(name: str, key) -> tuple:
+def work(name: str, key, elem: int = 2) -> tuple:
     """(bytes, tensor-core FLOP, other FLOP) one call must move and do:
-    each bf16 input read once, each output written once, the f32
-    parameters read once; the FLOP of the function (E: the three base 3x3
+    each input read once, each output written once, in ``elem``-byte
+    elements (bf16), the f32 parameters read once; the FLOP of the function (E: the three base 3x3
     convs of each input frame, 27 C^2 MACs per half-rate position, which
     give both output frames as ``parity_up2x_fused_plain`` computes them,
     not E's own 36 C^2 nor a 3x3x3 conv at the output rate, 54 C^2; D and
@@ -762,17 +824,17 @@ def work(name: str, key) -> tuple:
     if name == "fused_spatial_resblock":
         n, h, w, cin, c = key
         m, k = n * h * w, 9 * cin * c + 9 * c * c + (cin * c if cin != c else 0)
-        return 2 * m * (cin + c) + 4 * (k + 2 * cin + 5 * c), 2 * m * k, 0
+        return elem * m * (cin + c) + 4 * (k + 2 * cin + 5 * c), 2 * m * k, 0
     if name in ("fused_temporal_resblock", "fused_temporal_resblock_stream"):
         (b, t, h, w, c), first = key[0], key[1]
         m = b * t * h * w
         caches = 0 if name == "fused_temporal_resblock" else (2 if first else 4)
-        return (2 * (2 * m * c + caches * b * 2 * h * w * c)
+        return (elem * (2 * m * c + caches * b * 2 * h * w * c)
                 + 4 * (6 * c * c + 6 * c), 12 * m * c * c, 0)
     if name in ("subpixel_interleave", "subpixel_interleave_z"):
         # I: the 4HWC of z it needs (z holds 4(H+1)(W+1)C)
         n, h, w, c = key
-        return 2 * 8 * n * h * w * c + 4 * c, 0, 4 * n * h * w * c
+        return elem * 8 * n * h * w * c + 4 * c, 0, 4 * n * h * w * c
     if name in ("parity_blend_interleave", "parity_blend_interleave4"):
         # s, the cur and prev halves (4C) read, 2C written; 5 FLOP a value
         b, t, h, w, c = key[0]
@@ -781,10 +843,21 @@ def work(name: str, key) -> tuple:
     if name in ("decoder_tail_rgb", "decoder_tail_rgb_taps"):
         b, t, h, w, c = key[0]
         m = b * t * h * w
-        return 2 * m * (c + 3) + 4 * (2 * c + 81 * c + 3), 2 * m * 81 * c, 0
+        return elem * m * (c + 3) + 4 * (2 * c + 81 * c + 3), 2 * m * 81 * c, 0
     b, t, h, w, c = key[0]  # parity_up2x_fused
     m = b * t * h * w
-    return 2 * 3 * m * c + 4 * (27 * c * c + c + 1), 2 * m * 27 * c * c, 0
+    return elem * 3 * m * c + 4 * (27 * c * c + c + 1), 2 * m * 27 * c * c, 0
+
+
+def f32_work(name: str, key) -> tuple:
+    """``work`` of a kernel's f32 form: f32 activations (4 bytes), and the
+    function's FLOP at the rate of the f32 scheme: the tensor-core FLOP
+    times the scheme's products (the bf16 rate over len(PRODUCTS)), D's too
+    although its f32 form runs them on the CUDA cores; C none."""
+    from vidtok_tpu_torch.ops.kernels.split import PRODUCTS
+
+    nbytes, mma, vec = work(name, key, 4)
+    return nbytes, len(PRODUCTS) * mma, vec
 
 
 class Case(NamedTuple):
@@ -798,6 +871,7 @@ class Case(NamedTuple):
     plain: Callable
     args: tuple
     convs: Callable = None
+    mean: float = 0.0  # the rows' offset (F32_ROW_MEAN cases), else 0
 
 
 def kernel_cases(device):
@@ -974,6 +1048,136 @@ def kernel_cases(device):
                        decoder_tail.decoder_tail_rgb_taps_plain, args)
 
 
+def f32_calls() -> dict:
+    """F32_PATHS' path -> ``model_calls`` of one forward of its request."""
+    return {"v1_0_f32": model_calls(V1_0_CFG, REQUEST),
+            "tiled_f32": tiled_calls(TILED_REQUEST[2])}
+
+
+def f32_kernel_cases(device):
+    """Yield a ``Case`` for every f32 call shape of A-F (see F32_GATE):
+    f32 activations and parameters on ``device``, cuDNN's f32 convs of the
+    block (A, B, F), E's per-frame conv C -> 3C and D's 3x3x3 conv as the
+    yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from vidtok_tpu_torch.modules.conv import conv3d_cl
+    from vidtok_tpu_torch.ops.kernels import (decoder_tail, fused_spatial, fused_temporal,
+                                              parity_upsample as pu, subpixel as sp)
+
+    f32 = torch.float32
+    p = Params(9, device)
+    shapes = defaultdict(lambda: defaultdict(dict))  # kernel -> key -> calls per path
+    for path, calls in f32_calls().items():
+        for (name, key), n in calls.items():
+            shapes[name][key][path] = n
+    other = {"zero": "replicate", "replicate": "zero"}
+    for name in ("fused_temporal_resblock", "parity_up2x_fused", "decoder_tail_rgb"):
+        for shape, mode in list(shapes[name]):
+            shapes[name][shape, other[mode]].setdefault(F32_PATHS[0], 0)
+        shape = F32_PARTIAL[name]
+        for mode in other:
+            shapes[name][shape, mode].setdefault(F32_PATHS[0], 0)
+    stream = shapes["fused_temporal_resblock_stream"]
+    for shape, first, off in list(stream):
+        stream[shape, not first, off].setdefault(F32_PATHS[1], 0)
+    for first in (True, False):
+        for off in F32_OFFSETS:
+            stream[F32_PARTIAL["fused_temporal_resblock_stream"], first, off].setdefault(
+                F32_PATHS[1], 0)
+    for name in ("fused_spatial_resblock", "subpixel_interleave"):
+        shapes[name][F32_PARTIAL[name]].setdefault(F32_PATHS[0], 0)
+
+    def tconvs(x, conv1, conv2):
+        xp = x.permute(0, 4, 1, 2, 3)
+        w1, w2 = (cw[0][..., None, None] for cw in (conv1, conv2))
+        return lambda: F.conv3d(F.conv3d(xp, w1, None, 1, (1, 0, 0)), w2, None, 1,
+                                (1, 0, 0))
+
+    for key, calls in shapes["fused_spatial_resblock"].items():
+        n, h, w, cin, c = key
+        nin = p.conv((c, cin, 1, 1)) if cin != c else None
+        args = (p.x((n, h, w, cin), f32), p.norm(cin), p.conv((c, cin, 3, 3)),
+                p.norm(c), p.conv((c, c, 3, 3)), nin)
+        xp = args[0].permute(0, 3, 1, 2)
+
+        def convs(xp=xp, w1=args[2][0], w2=args[4][0], wn=nin[0] if nin else None):
+            y = F.conv2d(F.conv2d(xp, w1, None, 1, 1), w2, None, 1, 1)
+            return y if wn is None else (y, F.conv2d(xp, wn))
+
+        yield Case("fused_spatial_resblock", key, dict(calls),
+                   fused_spatial.fused_spatial_resblock,
+                   fused_spatial.fused_spatial_resblock_plain, args, convs)
+    for (shape, mode), calls in shapes["fused_temporal_resblock"].items():
+        c = shape[-1]
+        args = (p.x(shape, f32), p.norm(c), p.conv((c, c, 3)), p.norm(c),
+                p.conv((c, c, 3)), mode)
+        yield Case("fused_temporal_resblock", (shape, mode), dict(calls),
+                   fused_temporal.fused_temporal_resblock,
+                   fused_temporal.fused_temporal_resblock_plain, args,
+                   tconvs(args[0], args[2], args[4]))
+    for key, calls in stream.items():
+        (b, t, h, w, c), first, off = key
+        caches = ((None, None) if first else
+                  tuple(p.x((b, 2, h, w, c), f32) for _ in range(2)))
+        args = (p.x((b, t, h, w, c), f32), p.norm(c), p.conv((c, c, 3)), p.norm(c),
+                p.conv((c, c, 3)), *caches, first, off)
+        yield Case("fused_temporal_resblock_stream", key, dict(calls),
+                   fused_temporal.fused_temporal_resblock_stream,
+                   fused_temporal.fused_temporal_resblock_stream_plain, args,
+                   tconvs(args[0], args[2], args[4]))
+    for key, calls in shapes["subpixel_interleave"].items():
+        args = tuple(p.x(key, f32) for _ in range(4)) + (p.t(0.1 * p.rng.randn(key[-1])),)
+        yield Case("subpixel_interleave", key, dict(calls), sp.subpixel_interleave,
+                   sp.subpixel_interleave_plain, args)
+    for (shape, mode), calls in shapes["decoder_tail_rgb"].items():
+        c = shape[-1]
+        args = (p.x(shape, f32), p.norm(c), p.conv((3, c, 3, 3, 3)), mode)
+        yield Case("decoder_tail_rgb", (shape, mode), dict(calls),
+                   decoder_tail.decoder_tail_rgb, decoder_tail.decoder_tail_rgb_plain, args,
+                   lambda x=args[0], w=args[2][0]: conv3d_cl(x, w, padding=(1, 1, 1)))
+    for (shape, mode), calls in shapes["parity_up2x_fused"].items():
+        b, t, h, w, c = shape
+        args = (p.x(shape, f32), *p.conv((c, c, 3, 3, 3)),
+                p.t(1 / (1 + np.exp(-(2.0 + 0.5 * p.rng.randn(1))))), mode)
+        kb = args[1].permute(2, 0, 1, 3, 4).reshape(3 * c, c, 3, 3)
+        yield Case("parity_up2x_fused", (shape, mode), dict(calls), pu.parity_up2x_fused,
+                   pu.parity_up2x_fused_plain, args,
+                   lambda s=args[0].reshape(b * t, h, w, c).permute(0, 3, 1, 2), kb=kb:
+                   F.conv2d(s, kb, None, 1, 1))
+    # the row passes' statistics on rows of a large mean, at the partial
+    # shapes, not timed
+    mean = F32_ROW_MEAN
+    n, h, w, cin, c = F32_PARTIAL["fused_spatial_resblock"]
+    yield Case("fused_spatial_resblock", (n, h, w, cin, c), {},
+               fused_spatial.fused_spatial_resblock,
+               fused_spatial.fused_spatial_resblock_plain,
+               (p.x((n, h, w, cin), f32) + mean, p.norm(cin), p.conv((c, cin, 3, 3)),
+                p.norm(c), p.conv((c, c, 3, 3)), None), mean=mean)
+    shape = F32_PARTIAL["fused_temporal_resblock"]
+    c = shape[-1]
+    yield Case("fused_temporal_resblock", (shape, "replicate"), {},
+               fused_temporal.fused_temporal_resblock,
+               fused_temporal.fused_temporal_resblock_plain,
+               (p.x(shape, f32) + mean, p.norm(c), p.conv((c, c, 3)), p.norm(c),
+                p.conv((c, c, 3)), "replicate"), mean=mean)
+    shape = F32_PARTIAL["fused_temporal_resblock_stream"]
+    b, t, h, w, c = shape
+    yield Case("fused_temporal_resblock_stream", (shape, False, 1), {},
+               fused_temporal.fused_temporal_resblock_stream,
+               fused_temporal.fused_temporal_resblock_stream_plain,
+               (p.x(shape, f32) + mean, p.norm(c), p.conv((c, c, 3)), p.norm(c),
+                p.conv((c, c, 3)), *(p.x((b, 2, h, w, c), f32) for _ in range(2)), False, 1),
+               mean=mean)
+    shape = F32_PARTIAL["decoder_tail_rgb"]
+    c = shape[-1]
+    yield Case("decoder_tail_rgb", (shape, "replicate"), {}, decoder_tail.decoder_tail_rgb,
+               decoder_tail.decoder_tail_rgb_plain,
+               (p.x(shape, f32) + mean, p.norm(c), p.conv((3, c, 3, 3, 3)), "replicate"),
+               mean=mean)
+
+
 def form_calls(calls: dict, kernel: str) -> dict:
     """Calls per forward of ``kernel``, a non-default form's, on each FORMS
     path that runs it, at a call shape whose default-form kernel has
@@ -989,11 +1193,16 @@ def gate(what: str, rel: float, plain_rel: float) -> None:
             f"{BF16_SLACK} x plain bf16 rel_l2 {plain_rel}")
 
 
+def f32_gate(what: str, rel: float) -> None:
+    if not rel <= F32_GATE:
+        raise AssertionError(f"{what}: rel_l2 {rel} > {F32_GATE}")
+
+
 def _outs(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
-def check_kernels(device, names=None) -> dict:
+def check_kernels(device, names=None, in_f32: bool = False) -> dict:
     """Phase 2: every kernel (or those in ``names``) against its plain
     version, every gate checked before the first failure is raised; returns {kernel:
     {max_abs_err, max_rel_l2, and per path: ms, plain_ms, convs_ms (cuDNN's
@@ -1006,19 +1215,30 @@ def check_kernels(device, names=None) -> dict:
     bf16 error: a fault on a frame's border (a padding tap that reads
     ln_silu(0) = silu(bias) instead of 0) stays under 1e-2 at 256x256 but
     doubles that error.
+
+    ``in_f32``: A-F's f32 forms at ``f32_kernel_cases``' shapes, each held
+    to its plain version in f32 (TF32 off) at F32_GATE, timed against the
+    plain f32 version and cuDNN's f32 convs, the bound from ``f32_work``,
+    per forward of F32_PATHS.
     """
     import torch
 
     sums = ("ms", "plain_ms", "convs_ms", "bound_ms", "bound_by_bytes_ms",
             "bound_by_ops_ms")
+    paths = F32_PATHS if in_f32 else PATHS
+    label, plain_dt = (" f32", "f32") if in_f32 else ("", "bf16")
     results, failed = {}, []
-    for case in kernel_cases(device):
+    for case in (f32_kernel_cases if in_f32 else kernel_cases)(device):
         name, args = case.name, case.args
         if names is not None and name not in names:
             continue
         out = _outs(case.kernel(*args))
         ref = _outs(case.plain(*f32(args)))
-        plain_bf16 = _outs(case.plain(*args))
+        if case.mean and name != "decoder_tail_rgb":
+            # the residual branch, which x's offset would dwarf
+            out = (out[0] - args[0], *out[1:])
+            ref = (ref[0] - args[0], *ref[1:])
+        plain_bf16 = ref if in_f32 else _outs(case.plain(*args))
         torch.cuda.synchronize()
         errs, rels, plain_rels = [], [], []
         for o, r, pb in zip(out, ref, plain_bf16, strict=True):
@@ -1030,27 +1250,34 @@ def check_kernels(device, names=None) -> dict:
             plain_rels.append(rel_l2(pb.float(), r))
         ms = plain_ms = convs_ms = 0.0
         if any(case.calls.values()):
-            ms = cuda_ms(lambda: case.kernel(*args))
-            plain_ms = cuda_ms(lambda: case.plain(*args))
+            reps = dict(warmup=1, iters=3) if in_f32 else {}
+            ms = cuda_ms(lambda: case.kernel(*args), **reps)
+            plain_ms = cuda_ms(lambda: case.plain(*args), **reps)
             if case.convs is not None:
-                convs_ms = cuda_ms(case.convs)
-        bound, by = bound_ms(*work(name, case.key))
-        print(f"kernel {name} {case.key}: max_abs_err "
+                convs_ms = cuda_ms(case.convs, **reps)
+        bound, by = bound_ms(*(f32_work if in_f32 else work)(name, case.key))
+        print(f"kernel {name}{label} {case.key}"
+              + (f" rows of mean {case.mean}" if case.mean else "")
+              + ": max_abs_err "
               + "/".join(f"{e:.4g}" for e in errs) + " rel_l2 "
-              + "/".join(f"{r:.4g}" for r in rels) + " plain_bf16_rel_l2 "
-              + "/".join(f"{r:.4g}" for r in plain_rels)
-              + f" kernel_ms {ms:.4f} plain_bf16_ms {plain_ms:.4f} cudnn_convs_ms "
+              + "/".join(f"{r:.4g}" for r in rels)
+              + ("" if in_f32 else " plain_bf16_rel_l2 "
+                 + "/".join(f"{r:.4g}" for r in plain_rels))
+              + f" kernel_ms {ms:.4f} plain_{plain_dt}_ms {plain_ms:.4f} cudnn_convs_ms "
               f"{convs_ms:.4f} bound_ms {bound:.4f} ({by}) calls/forward "
               f"{case.calls}", flush=True)
         for i, (rel, plain_rel) in enumerate(zip(rels, plain_rels)):
             try:
-                gate(f"{name}{case.key} output {i}", rel, plain_rel)
+                if in_f32:
+                    f32_gate(f"{name} f32 {case.key} mean {case.mean} output {i}", rel)
+                else:
+                    gate(f"{name}{case.key} output {i}", rel, plain_rel)
             except AssertionError as e:
                 print(f"GATE FAILED {e}", flush=True)
                 failed.append(str(e))
         r = results.setdefault(name, dict(
             max_abs_err=0.0, max_rel_l2=0.0,
-            **{k: dict.fromkeys(PATHS, 0.0) for k in sums}))
+            **{k: dict.fromkeys(paths, 0.0) for k in sums}))
         r["max_abs_err"] = max(r["max_abs_err"], *errs)
         r["max_rel_l2"] = max(r["max_rel_l2"], *rels)
         part = "bound_by_bytes_ms" if by == "bytes" else "bound_by_ops_ms"
@@ -1060,18 +1287,39 @@ def check_kernels(device, names=None) -> dict:
                 r[k][path] += n * v
         del out, ref, plain_bf16, args, case
     for name, r in results.items():
-        print(f"kernel {name} per forward: " + "; ".join(
+        print(f"kernel {name}{label} per forward: " + "; ".join(
             f"{path} " + " ".join(f"{k} {r[k][path]:.4f}" for k in sums)
-            for path in PATHS if r["bound_ms"][path]), flush=True)
+            for path in paths if r["bound_ms"][path]), flush=True)
     if failed:
         raise AssertionError(f"{len(failed)} kernel gates failed:\n" + "\n".join(failed))
     return results
 
 
-def check_parity_long(device) -> None:
+def _long_rels(got, ref, plain_bf16) -> tuple:
+    """(rel_l2, the plain bf16 version's, or None for a kernel's f32 form)
+    of a window of a T=201 call against the plain f32 version."""
+    return rel_l2(got, ref), None if plain_bf16 is None else rel_l2(plain_bf16.float(), ref)
+
+
+def _long_line(rel: float, plain_rel) -> str:
+    return f"rel_l2 {rel:.4g}" + ("" if plain_rel is None else
+                                  f" plain_bf16_rel_l2 {plain_rel:.4g}")
+
+
+def _long_gate(what: str, rel: float, plain_rel) -> None:
+    """``gate`` for a bf16 kernel, ``f32_gate`` for an f32 form."""
+    if plain_rel is None:
+        f32_gate(what, rel)
+    else:
+        gate(what, rel, plain_rel)
+
+
+def check_parity_long(device, in_f32: bool = False) -> None:
     """Kernel E at PARITY_LONG, zero mode: its output frames 192-203 (past
     2^31 elements) against the plain version of the window s[95:] with the
-    first output pair dropped, in f32 and in bf16; E's time at this shape."""
+    first output pair dropped, in f32 and in bf16; E's time at this shape.
+    ``in_f32``: E's f32 form (its byte offsets pass 2^31 at half the
+    elements), held to the plain f32 version at F32_GATE."""
     import torch
 
     from vidtok_tpu_torch.ops.kernels import parity_upsample as pu
@@ -1081,31 +1329,36 @@ def check_parity_long(device) -> None:
     weight, bias = p.conv((c, c, 3, 3, 3))
     alpha = p.t([0.88])
     g = torch.Generator(device).manual_seed(1)
-    s = torch.randn(PARITY_LONG, generator=g, device=device, dtype=torch.bfloat16)
+    s = torch.randn(PARITY_LONG, generator=g, device=device,
+                    dtype=torch.float32 if in_f32 else torch.bfloat16)
     out = pu.parity_up2x_fused(s, weight, bias, alpha, "zero")
     win = s[:, PARITY_WINDOW:].contiguous()
     ref = pu.parity_up2x_fused_plain(win.float(), weight, bias, alpha, "zero")[:, 2:]
-    plain_bf16 = pu.parity_up2x_fused_plain(win, weight, bias, alpha, "zero")[:, 2:]
+    plain_bf16 = (None if in_f32 else
+                  pu.parity_up2x_fused_plain(win, weight, bias, alpha, "zero")[:, 2:])
     got = out[:, 2 * (PARITY_WINDOW + 1):].float()
     torch.cuda.synchronize()
-    if out.shape != (b, 2 * t, h, w, c) or got.shape != ref.shape:
+    if out.shape != (b, 2 * t, h, w, c) or got.shape != ref.shape or out.dtype != s.dtype:
         raise AssertionError(f"parity long: {tuple(out.shape)}, window "
                              f"{tuple(got.shape)} vs {tuple(ref.shape)}")
-    rel, plain_rel = rel_l2(got, ref), rel_l2(plain_bf16.float(), ref)
+    label = " f32" if in_f32 else ""
+    rels = _long_rels(got, ref, plain_bf16)
     del out, got, ref, plain_bf16, win
     ms = cuda_ms(lambda: pu.parity_up2x_fused(s, weight, bias, alpha, "zero"),
                  warmup=1, iters=3)
-    print(f"kernel parity_up2x_fused {PARITY_LONG} zero, output frames "
-          f"{2 * (PARITY_WINDOW + 1)}-{2 * t - 1} (past 2^31 elements): rel_l2 "
-          f"{rel:.4g} plain_bf16_rel_l2 {plain_rel:.4g} kernel_ms {ms:.4f} "
-          "(plain not timed at this shape)", flush=True)
-    gate(f"parity_up2x_fused{PARITY_LONG} window", rel, plain_rel)
+    print(f"kernel parity_up2x_fused{label} {PARITY_LONG} zero, output frames "
+          f"{2 * (PARITY_WINDOW + 1)}-{2 * t - 1} (past 2^31 elements): "
+          f"{_long_line(*rels)} kernel_ms {ms:.4f} (plain not timed at this shape)",
+          flush=True)
+    _long_gate(f"parity_up2x_fused{label}{PARITY_LONG} window", *rels)
 
 
-def check_spatial_long(device) -> None:
+def check_spatial_long(device, in_f32: bool = False) -> None:
     """Kernel A at SPATIAL_LONG with its nin_shortcut (an input of 3.42e9
     elements): its last SPATIAL_WINDOW frames against the plain version of
-    those input frames, in f32 and in bf16; A's time at this shape."""
+    those input frames, in f32 and in bf16; A's time at this shape.
+    ``in_f32``: A's f32 form (13.7 GB of input, 41 GB of bf16 pieces),
+    held to the plain f32 version at F32_GATE."""
     import torch
 
     from vidtok_tpu_torch.ops.kernels import fused_spatial as fs
@@ -1114,31 +1367,34 @@ def check_spatial_long(device) -> None:
     p = Params(6, device)
     params = (p.norm(cin), p.conv((c, cin, 3, 3)), p.norm(c), p.conv((c, c, 3, 3)),
               p.conv((c, cin, 1, 1)))
-    x = p.x((n, h, w, cin), torch.bfloat16)
+    x = p.x((n, h, w, cin), torch.float32 if in_f32 else torch.bfloat16)
     out = fs.fused_spatial_resblock(x, *params)
     got = out[-SPATIAL_WINDOW:].float()
     win = x[-SPATIAL_WINDOW:]
     ref = fs.fused_spatial_resblock_plain(win.float(), *params)
-    plain_bf16 = fs.fused_spatial_resblock_plain(win, *params)
+    plain_bf16 = None if in_f32 else fs.fused_spatial_resblock_plain(win, *params)
     torch.cuda.synchronize()
-    if out.shape != (n, h, w, c) or got.shape != ref.shape:
+    if out.shape != (n, h, w, c) or got.shape != ref.shape or out.dtype != x.dtype:
         raise AssertionError(f"spatial long: {tuple(out.shape)}, window "
                              f"{tuple(got.shape)} vs {tuple(ref.shape)}")
-    rel, plain_rel = rel_l2(got, ref), rel_l2(plain_bf16.float(), ref)
+    rels = _long_rels(got, ref, plain_bf16)
     del out, got, ref, plain_bf16, win
     ms = cuda_ms(lambda: fs.fused_spatial_resblock(x, *params), warmup=1, iters=3)
-    print(f"kernel fused_spatial_resblock {SPATIAL_LONG} nin, frames {n - SPATIAL_WINDOW}-"
-          f"{n - 1} (input past 2^31 elements): rel_l2 {rel:.4g} plain_bf16_rel_l2 "
-          f"{plain_rel:.4g} kernel_ms {ms:.4f} (plain not timed at this shape)", flush=True)
-    gate(f"fused_spatial_resblock{SPATIAL_LONG} window", rel, plain_rel)
+    label = " f32" if in_f32 else ""
+    print(f"kernel fused_spatial_resblock{label} {SPATIAL_LONG} nin, frames "
+          f"{n - SPATIAL_WINDOW}-{n - 1} (input past 2^31 elements): {_long_line(*rels)} "
+          f"kernel_ms {ms:.4f} (plain not timed at this shape)", flush=True)
+    _long_gate(f"fused_spatial_resblock{label}{SPATIAL_LONG} window", *rels)
 
 
-def check_tail_long(device) -> None:
+def check_tail_long(device, in_f32: bool = False) -> None:
     """Kernel D at TAIL_LONG, zero mode (its input 3.4 GB, in runs of frames
     that start with warm-up frames): the output frames of its last run
     against the plain version of the input window that holds them and the
     two warm-up frames before, whose outputs are dropped, in f32 and in
-    bf16; D's time at this shape."""
+    bf16; D's time at this shape. ``in_f32``: D's f32 form (6.8 GB of
+    input) on the same window, held to the plain f32 version at
+    F32_GATE."""
     import torch
 
     from vidtok_tpu_torch.ops.kernels import decoder_tail, plan
@@ -1147,26 +1403,28 @@ def check_tail_long(device) -> None:
     pl = plan.tail_plan(*TAIL_LONG)
     p = Params(8, device)
     params = (p.norm(c), p.conv((3, c, 3, 3, 3)), "zero")
-    x = p.x(TAIL_LONG, torch.bfloat16)
+    x = p.x(TAIL_LONG, torch.float32 if in_f32 else torch.bfloat16)
     out = decoder_tail.decoder_tail_rgb(x, *params)
     t0 = (pl.runs - 1) * pl.run  # the last run's first output frame
     s0 = max(t0 - 2, 0)
     win = x[:, s0:]
     ref = decoder_tail.decoder_tail_rgb_plain(win.float(), *params)[:, t0 - s0:]
-    plain_bf16 = decoder_tail.decoder_tail_rgb_plain(win, *params)[:, t0 - s0:]
+    plain_bf16 = (None if in_f32 else
+                  decoder_tail.decoder_tail_rgb_plain(win, *params)[:, t0 - s0:])
     got = out[:, t0:].float()
     torch.cuda.synchronize()
-    if out.shape != (b, t, h, w, 3) or got.shape != ref.shape:
+    if out.shape != (b, t, h, w, 3) or got.shape != ref.shape or out.dtype != x.dtype:
         raise AssertionError(f"tail long: {tuple(out.shape)}, window "
                              f"{tuple(got.shape)} vs {tuple(ref.shape)}")
-    rel, plain_rel = rel_l2(got, ref), rel_l2(plain_bf16.float(), ref)
+    rels = _long_rels(got, ref, plain_bf16)
     del out, got, ref, plain_bf16, win
     ms = cuda_ms(lambda: decoder_tail.decoder_tail_rgb(x, *params), warmup=1, iters=3)
-    print(f"kernel decoder_tail_rgb {TAIL_LONG} zero, output frames {t0}-{t - 1} "
-          f"(the last of {pl.runs} runs of {pl.run} frames): rel_l2 {rel:.4g} "
-          f"plain_bf16_rel_l2 {plain_rel:.4g} kernel_ms {ms:.4f} (plain not timed at "
-          "this shape)", flush=True)
-    gate(f"decoder_tail_rgb{TAIL_LONG} window", rel, plain_rel)
+    label = " f32" if in_f32 else ""
+    print(f"kernel decoder_tail_rgb{label} {TAIL_LONG} zero, output frames {t0}-{t - 1} "
+          f"(the last of {pl.runs} runs of {pl.run} frames of the bf16 plan): "
+          f"{_long_line(*rels)} kernel_ms {ms:.4f} (plain not timed at this shape)",
+          flush=True)
+    _long_gate(f"decoder_tail_rgb{label}{TAIL_LONG} window", *rels)
 
 
 def loop_rates(device) -> None:
@@ -1358,8 +1616,8 @@ def serve(tok, n_requests: int, shape, per_forward: dict) -> dict:
                 last=(x, z, dec, log))
 
 
-def report(what: str, r: dict, shape) -> None:
-    print(f"serve {what}; request {list(shape)} bf16; latency_s "
+def report(what: str, r: dict, shape, dtype: str = "bf16") -> None:
+    print(f"serve {what}; request {list(shape)} {dtype}; latency_s "
           + " ".join(f"{v:.4f}" for v in r["latency_s"])
           + f"; frames_per_s (best after the first) {r['frames_per_s']:.2f};"
           f" peak_mem_bytes {r['peak_mem_bytes']}; launches {r['launches']}",
@@ -4051,6 +4309,125 @@ def serve_ladder_and_sharding(device, t: float) -> float:
     return t
 
 
+def f32_e2e_check(tok, shape, per_forward: dict, what: str) -> dict:
+    """The f32 engine ``tok`` on its kernel path against itself with
+    ``fused`` off (the plain f32 path; TF32 off), one request of ``shape``
+    each: the launches (``per_forward``; none on the plain path), finite
+    outputs, z and the reconstruction within F32_E2E_GATE."""
+    import torch
+
+    from vidtok_tpu_torch.ops import kernels as K
+
+    x = np.clip(np.random.RandomState(100).randn(*shape) * 0.5, -1, 1).astype(np.float32)
+    outs = {}
+    for key, fused in (("kernel_f32", True), ("plain_f32", False)):
+        tok.fused = fused
+        K.reset_counts()
+        z, dec, log = tok(x)
+        torch.cuda.synchronize()
+        want = per_forward if fused else dict.fromkeys(per_forward, 0)
+        if K.counts() != want:
+            raise AssertionError(f"f32 e2e {what} {key}: launches {K.counts()} != {want}")
+        for t in (z, dec, log["kl_loss"]):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"f32 e2e {what} {key}: non-finite output")
+        outs[key] = (z.cpu(), dec.cpu())
+        del z, dec, log
+    tok.fused = True
+    res = {f"{w}_kernel_f32_vs_plain_f32": rel_l2(outs["kernel_f32"][i], outs["plain_f32"][i])
+           for i, w in enumerate(("z", "recon"))}
+    print(f"f32 e2e {what} {list(shape)} rel_l2 " + json.dumps(res), flush=True)
+    for k, v in res.items():
+        if not v <= F32_E2E_GATE:
+            raise AssertionError(f"f32 e2e {what} {list(shape)}: {k} {v} > {F32_E2E_GATE}")
+    return res
+
+
+def f32_tokenizer(cfg: dict, device, seed: int = 0):
+    """``load_model_from_config(cfg, device=device,
+    compute_dtype=torch.float32)`` as a user calls it (``fused`` at its
+    default, which must be on), with ``randomize_`` weights (drawn on a CPU
+    copy and loaded)."""
+    import torch
+
+    from vidtok_tpu_torch import load_model_from_config
+
+    tok = load_model_from_config(cfg, seed=seed, device=device,
+                                 compute_dtype=torch.float32)
+    if not tok.fused:
+        raise AssertionError("f32 on the card: fused is off by default")
+    cpu = load_model_from_config(cfg, seed=seed, device="cpu", compute_dtype=torch.float32)
+    randomize_(cpu.core, seed=seed)
+    tok.core.load_state_dict(cpu.core.state_dict())
+    return tok
+
+
+def serve_f32(device) -> dict:
+    """Phase 19: f32 through the kernels, the engine's default on the card.
+    (a) the v1.0 flagship from ``f32_tokenizer`` (FLAGSHIP_PARAMS
+    parameters): N_REQUESTS requests of REQUEST with PER_FORWARD["v1_0"]
+    launches each (latency, frames/s, peak memory), a profile of one (the
+    busy share), 2 requests on the plain f32 path (the same engine, ``fused``
+    off), ``f32_e2e_check`` at REQUEST and at PARTIAL_REQUEST (a 33²
+    latent), and one f32 request in the F32_REFUSED_FORMS forms, which must
+    raise ValueError naming the first of G, H, I, D' the decoder reaches; (b)
+    the v1.1 model tiled (``use_overlap``, ``t_chunk_enc`` 16): N_REQUESTS
+    requests of TILED_REQUEST with ``tiled_per_forward``'s launches, a
+    profile, 2 requests on the tiled plain f32 path, ``f32_e2e_check``
+    against it. Returns {F32_PATHS' path: the kernel path's ``serve``
+    result, with its ``busy_share``}."""
+    import torch
+
+    from vidtok_tpu_torch import KernelForms
+
+    runs = {}
+    tok = f32_tokenizer(V1_0_CFG, device)
+    n_params = sum(p.numel() for p in tok.core.parameters())
+    if n_params != FLAGSHIP_PARAMS:
+        raise AssertionError(f"flagship: {n_params} parameters, not {FLAGSHIP_PARAMS}")
+    for path, label, shape, per, tiled in (
+            ("v1_0_f32", f"v1.0 kl 4x8x8 16chn, {n_params} params", REQUEST,
+             PER_FORWARD["v1_0"], False),
+            ("tiled_f32", "tiled v1.1 kl 4x8x8 16chn, use_overlap, t_chunk_enc 16",
+             TILED_REQUEST, tiled_per_forward(TILED_REQUEST[2]), True)):
+        if tiled:
+            del tok
+            torch.cuda.empty_cache()
+            tok = f32_tokenizer(V1_1_CFG, device)
+            tok.use_tiling, tok.use_overlap = True, True
+        r = serve(tok, N_REQUESTS, shape, per)
+        report(f"f32 kernel path (the default): {label}", r, shape, "f32")
+        r["busy_share"] = profile_request(tok, shape)
+        print(f"f32 kernel path {label}: busy share {r['busy_share']}", flush=True)
+        tok.fused = False
+        plain = serve(tok, 2, shape, dict.fromkeys(per, 0))
+        report(f"f32 plain path: {label}", plain, shape, "f32")
+        tok.fused = True
+        print(f"f32 {label}: kernel path {min(r['latency_s'][1:]):.4f} s against plain "
+              f"{min(plain['latency_s']):.4f} s a request", flush=True)
+        runs[path] = r
+        del r["last"], plain
+        torch.cuda.empty_cache()
+        f32_e2e_check(tok, shape, per, label)
+        if not tiled:
+            f32_e2e_check(tok, PARTIAL_REQUEST, per, label)
+            tok.forms = KernelForms(*F32_REFUSED_FORMS)
+            x = np.zeros(REQUEST, np.float32)
+            try:
+                tok(x)
+            except ValueError as e:
+                if not any(f"kernel {k} has no f32 form" in str(e)
+                           for k in ("G", "H", "I", "D'")):
+                    raise AssertionError(f"f32 in {tok.forms}: {e}") from e
+                print(f"f32 request in {tok.forms}: ValueError: {e}", flush=True)
+            else:
+                raise AssertionError(f"an f32 request in {tok.forms} did not raise")
+            tok.forms = KernelForms()
+    del tok
+    torch.cuda.empty_cache()
+    return runs
+
+
 def phase(name: str, t0: float) -> float:
     t = time.perf_counter()
     print(f"phase {name}: {t - t0:.1f} s", flush=True)
@@ -4064,6 +4441,8 @@ def check_only(device, names) -> int:
     checks = []
     if set(names) & set(SOURCES):
         checks.append(lambda: check_kernels(device, names))
+    if set(names) & set(F32_KERNELS):
+        checks.append(lambda: check_kernels(device, names, in_f32=True))
     if "decoder_tail_rgb" in names:
         checks.append(lambda: check_tail_long(device))
     if set(names) & set(TOOL_SOURCES):
@@ -4131,6 +4510,11 @@ def main(argv=None) -> int:
     check_tail_long(device)
     torch.cuda.empty_cache()
     t = phase("kernels", t)
+    kres32 = check_kernels(device, in_f32=True)
+    for check in (check_parity_long, check_spatial_long, check_tail_long):
+        check(device, in_f32=True)
+        torch.cuda.empty_cache()
+    t = phase("kernels f32", t)
     compare_forms(device, card)
     t = phase("forms", t)
     tool_checks = check_tools(device)
@@ -4188,7 +4572,9 @@ def main(argv=None) -> int:
     t = serve_ladder_and_sharding(device, t)
     serve_public_surface(device)
     torch.cuda.empty_cache()
-    phase("18 (public surface)", t)
+    t = phase("18 (public surface)", t)
+    runs.update(serve_f32(device))
+    phase("19 (f32 through the kernels)", t)
     phase("total", t0)
 
     kernels = []
@@ -4202,6 +4588,17 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"][path], "bound_ms": r["bound_ms"][path],
             "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": None})
+    for name in F32_KERNELS:
+        (source, replaces, headers), r = SOURCES[name], kres32[name]
+        path = F32_MAIN_PATH[name]
+        by_bytes = r["bound_by_bytes_ms"][path] >= r["bound_by_ops_ms"][path]
+        kernels.append({
+            "name": f"{name} (f32)", "route": "cuda", "source": source,
+            "replaces": replaces, "headers": list(headers),
+            "launches": runs[path]["launches"][name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"][path], "plain_ms": r["plain_ms"][path],
+            "bound_ms": r["bound_ms"][path],
+            "bound_by": "bytes" if by_bytes else "operations", "library_ms": None})
     kernels += [tool_entry(name, tool_checks[name], tool_launches[name], tool_rows)
                 for name in TOOL_SOURCES]
     print(json.dumps({"kernels": kernels}), flush=True)

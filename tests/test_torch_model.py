@@ -126,8 +126,9 @@ def test_tiny_v1_1_end_to_end(tiny, fused):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_default(dtype):
-    """The kernel call sites are on by default only on a CUDA device in
-    bf16; on the CPU they stay off unless asked for."""
+    """The kernel call sites are on by default only on a CUDA device (in
+    bf16 or f32: tests/test_torch_f32_kernels.py); on the CPU they stay off
+    unless asked for."""
     tok = load_model_from_config({"model": CFG}, device="cpu", compute_dtype=dtype)
     assert tok.fused is False
     tok = load_model_from_config({"model": CFG}, device="cpu", compute_dtype=dtype,

@@ -14,6 +14,7 @@ raises).
 """
 
 import copy
+import dataclasses
 import gc
 import weakref
 
@@ -33,6 +34,7 @@ from vidtok_tpu_torch.ops.kernels.fused_spatial import spatial_operands
 from vidtok_tpu_torch.ops.kernels.fused_temporal import (gemm_weight, kmajor_weight,
                                                          temporal_operands)
 from vidtok_tpu_torch.ops.kernels.parity_upsample import parity_operands
+from vidtok_tpu_torch.ops.kernels.split import PIECES, PRODUCTS
 from vidtok_tpu_torch.utils.checkpoint import load_into
 
 torch.set_num_threads(2)
@@ -269,7 +271,21 @@ def test_operands_per_device_dtype_and_kind():
 
 # -- the plans ----------------------------------------------------------------
 
+def _f32_keys(name):
+    """The f32 call shapes of kernel ``name`` that chip_smoke.py serves or
+    gates: phase 19's two requests, F32_PARTIAL and the T=201 calls."""
+    keys = {k for calls in cs.f32_calls().values() for (n, k) in calls if n == name}
+    part = cs.F32_PARTIAL[name]
+    if name == "fused_spatial_resblock":
+        return sorted(keys | {part, cs.SPATIAL_LONG})
+    if name == "parity_up2x_fused":
+        return sorted({k[0] for k in keys} | {part, cs.PARITY_LONG})
+    return sorted({k[0] for k in keys} | {part})
+
+
 def _spatial_keys(which):
+    if which == "f32":
+        return _f32_keys("fused_spatial_resblock")
     if which == "serving":
         return [k for k, _ in cs.SPATIAL_SHAPES]
     if which == "long":
@@ -290,6 +306,9 @@ def _temporal_keys(which):
     LONG_REQUEST: TEMPORAL_SHAPES with their 20 frames scaled to 204)."""
     if which == "partial":
         return list(cs.PARTIAL_TEMPORAL)
+    if which == "f32":
+        return sorted(set(_f32_keys("fused_temporal_resblock"))
+                      | set(_f32_keys("fused_temporal_resblock_stream")))
     if which == "b_serving":
         return [k for k, _ in cs.TEMPORAL_SHAPES] + [k for k in cs.TOOL_SHAPES]
     if which == "b_partial":
@@ -326,18 +345,19 @@ CHUNK = 4096  # blocks per numpy pass
 
 
 @pytest.mark.parametrize("which", ["serving", "tiled65", "tiled201", "tiled264",
-                                   "partial", "long"] + sorted(cs.CONFIG_PATHS))
+                                   "partial", "long", "f32"] + sorted(cs.CONFIG_PATHS))
 def test_spatial_plans_cover_each_position_once(which):
     """Every output position of every frame in exactly one M tile of N tile
     0 (the N tiles repeat the M tiles), at every kernel-A call shape of the
-    served paths. Shapes past 2M positions are checked on their first and
-    last two frames, whose tiles the decode reaches last."""
+    served paths (``f32``: the f32 plans of A's f32 call shapes). Shapes
+    past 2M positions are checked on their first and last two frames, whose
+    tiles the decode reaches last."""
     keys = _spatial_keys(which)
     assert keys
     for key in keys:
         n, h, w, cin, c = key
         cs_ = cin if cin != c else 0
-        pl = plan.conv_plan_spatial(n, h, w, cin, c, cs_)
+        pl = plan.conv_plan_spatial(n, h, w, cin, c, cs_, which == "f32")
         _check_limits(pl, c)
         assert pl.tiles_x == -(-w // pl.tw) and pl.tiles_y == -(-h // pl.th)
         assert pl.m_tiles == n * pl.tiles_x * pl.tiles_y
@@ -363,16 +383,17 @@ def test_spatial_plans_cover_each_position_once(which):
 
 @pytest.mark.parametrize("which", ["tiled65", "tiled201", "tiled264", "partial",
                                    "b_serving", "b_partial", "b_long", "fsq_41616",
-                                   "tiled_888", "kl_444"])
+                                   "tiled_888", "kl_444", "f32"])
 def test_temporal_plans_cover_each_row_once(which):
     """Every output row of every clip in exactly one M tile, at every
     kernel-F call shape of the tiled paths and the partial shapes, and at
-    every kernel-B shape served, gated or run at T=201."""
+    every kernel-B shape served, gated or run at T=201 (``f32``: the f32
+    plans of B's and F's f32 call shapes)."""
     keys = _temporal_keys(which)
     assert keys
     for key in keys:
         b, t, h, w, c = key
-        pl = plan.conv_plan_temporal(b, t, h * w, c)
+        pl = plan.conv_plan_temporal(b, t, h * w, c, which == "f32")
         _check_limits(pl, c)
         rows = t * h * w
         assert pl.tiles_x * plan.BM >= rows > (pl.tiles_x - 1) * plan.BM
@@ -385,11 +406,13 @@ def test_temporal_plans_cover_each_row_once(which):
 
 
 def _parity_keys(which):
+    if which == "f32":
+        return _f32_keys("parity_up2x_fused")
     return {"serving": [k for k, _ in cs.PARITY_SHAPES],
             "partial": list(cs.PARTIAL_PARITY), "long": [cs.PARITY_LONG]}[which]
 
 
-@pytest.mark.parametrize("which", ["serving", "partial", "long"])
+@pytest.mark.parametrize("which", ["serving", "partial", "long", "f32"])
 def test_parity_plans_cover_each_output_once(which):
     """Kernel E: every position of each input frame in exactly one M tile
     per N tile, so every position of both output frames (2a: the N tiles
@@ -399,7 +422,7 @@ def test_parity_plans_cover_each_output_once(which):
     two input frames are checked)."""
     for key in _parity_keys(which):
         b, t, h, w, c = key
-        pl = plan.conv_plan_parity(b, t, h, w, c)
+        pl = plan.conv_plan_parity(b, t, h, w, c, which == "f32")
         _check_limits(pl, 2 * c)
         assert pl.taps == "parity" and c % pl.bn == 0
         per = pl.tiles_x * pl.tiles_y
@@ -425,6 +448,72 @@ def test_parity_plans_cover_each_output_once(which):
         for par in (0, 1):
             cols = sorted(n0 - par * c for n0 in n0s.tolist() if (n0 >= c) == par)
             assert cols == list(range(0, c, pl.bn)), key
+
+
+@pytest.mark.parametrize("name", ["fused_spatial_resblock", "fused_temporal_resblock",
+                                  "fused_temporal_resblock_stream", "parity_up2x_fused"])
+def test_f32_plans_are_the_bf16_plans_with_pieces(name):
+    """Under the f32 scheme a ring stage holds the bytes it holds in bf16
+    (the K steps are 6x, 6 products), so A, B, E and F's f32 plans are
+    their bf16 plans (tiles, BN, stages, shared memory, grid) with an A
+    operand of the activation's 3 bf16 pieces side by side, at every f32
+    call shape chip_smoke.py serves or gates."""
+    assert len(PRODUCTS) == 6 and PIECES == 3
+    for key in _f32_keys(name):
+        if name == "fused_spatial_resblock":
+            n, h, w, cin, c = key
+            k_base = 9 * c + (cin if cin != c else 0)  # conv2's, the 1x1 term's columns after
+            args = (n, h, w, cin, c, cin if cin != c else 0)
+            p16, p32 = plan.conv_plan_spatial(*args), plan.conv_plan_spatial(*args, True)
+        elif name == "parity_up2x_fused":
+            cin, c, k_base = key[-1], 2 * key[-1], 18 * key[-1]
+            p16, p32 = plan.conv_plan_parity(*key), plan.conv_plan_parity(*key, True)
+        else:
+            b, t, h, w, cin = key
+            c, k_base = cin, 3 * cin
+            p16 = plan.conv_plan_temporal(b, t, h * w, c)
+            p32 = plan.conv_plan_temporal(b, t, h * w, c, True)
+        _check_limits(p32, c)
+        assert (p16.a_channels, p32.a_channels) == (cin, PIECES * cin), key
+        assert dataclasses.replace(p32, a_channels=cin) == p16, key
+        assert k_base % plan.BK == 0, key  # whole K steps in each product
+
+
+@pytest.mark.parametrize("key", sorted(
+    {k[0] for calls in cs.f32_calls().values() for (n, k) in calls if n == "decoder_tail_rgb"}
+    | {cs.F32_PARTIAL["decoder_tail_rgb"], cs.TAIL_LONG, (1, 7, 40, 50, 64)}))
+def test_tail_f32_plan_covers_each_output_once(key):
+    """Kernel D's f32 form: every output position of every frame of every
+    clip in exactly one block's patch, at D's f32 call shapes (phase 19's
+    requests, its partial shape, its T=201 call) and at 64 channels;
+    shared memory within a block's limit."""
+    b, t, h, w, c = key
+    pl = plan.tail_plan_f32(*key)
+    assert (pl.th, pl.tw) == (plan.TAIL_F32_TH, plan.TAIL_F32_TW)
+    assert pl.smem == plan.tail_f32_smem_bytes(c) <= plan.SMEM_LIMIT
+    assert pl.grid == b * t * pl.tiles_x * pl.tiles_y <= plan.GRID_LIMIT
+    assert plan.TAIL_F32_THREADS * plan.TAIL_F32_PX == pl.th * pl.tw
+    blocks = np.arange(pl.grid)
+    if pl.grid > 200_000:  # the first and last two frames of each clip
+        blocks = blocks[np.isin(blocks % t, [0, 1, t - 2, t - 1])]
+    clip, y0, x0, f = plan.tail_f32_block(pl, blocks, t)
+    frames = np.unique(f)
+    slot = np.searchsorted(frames, f)
+    counts = np.zeros((b, len(frames), h, w), np.int32)
+    r = np.arange(pl.th * pl.tw)
+    y = y0[:, None] + r[None, :] // pl.tw
+    x = x0[:, None] + r[None, :] % pl.tw
+    ok = (y < h) & (x < w)
+    _count(counts, (np.broadcast_to(clip[:, None], y.shape)[ok],
+                    np.broadcast_to(slot[:, None], y.shape)[ok], y[ok], x[ok]))
+    assert counts.min() == counts.max() == 1, key
+
+
+def test_tail_f32_plan_refusals():
+    for shape, match in ((1, 4, 8, 8, 32), "C in"), ((1, 4, 8, 8, 256), "C in"), \
+            ((1, 0, 8, 8, 128), "empty"):
+        with pytest.raises(ValueError, match=match):
+            plan.tail_plan_f32(*shape)
 
 
 def test_plan_picks():

@@ -140,11 +140,12 @@ def test_kernel_e_plain(mode):
 
 
 @pytest.mark.parametrize("dtype,mode", [
-    (torch.bfloat16, "edge"), (torch.bfloat16, "zero"), (torch.float32, "zero")])
+    (torch.bfloat16, "edge"), (torch.bfloat16, "zero"), (torch.float16, "zero")])
 def test_kernel_e_wrapper_refuses(dtype, mode):
     """Off the CPU the wrapper launches the kernel or raises: an unknown
-    mode, or a tensor that is not on a CUDA device (the meta device stands
-    in here), never reaches the plain version."""
+    mode, a dtype it does not take (bf16 and f32 it does), or a tensor that
+    is not on a CUDA device (the meta device stands in here), never reaches
+    the plain version."""
     c = 64
     s = torch.empty((1, 2, 4, 4, c), dtype=dtype, device="meta")
     weight = torch.empty((c, c, 3, 3, 3), device="meta")

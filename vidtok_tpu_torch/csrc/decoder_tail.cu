@@ -63,6 +63,32 @@
 // * The ring starts at zero in every block; a run starting at t0 > 0
 //   first reads frames t0 - 2 and t0 - 1 and writes nothing for them.
 // Offsets into x and out are 64-bit; TMA coordinates are per dimension.
+//
+// f32 (vt_decoder_tail_rgb_f32, kernel D on f32 activations): x and out
+// f32, the same function with f32 products on the CUDA cores, exact to f32
+// rounding. It is not a form of the template above: an f32 box takes
+// twice a bf16 box's bytes and its activation, as the f32 scheme's three
+// bf16 pieces (wgmma_conv.cuh), three times, so a stage of the 10 x 16
+// halo at C = 128 would hold 80 KB of raw box and 120 KB of pieces, and
+// the ring needs two stages in 227 KB. Two launches: act_rows_kernel's
+// kRowF32 form writes LN+SiLU of x (two-pass statistics, the sigmoid
+// through tanhf) to an f32 scratch, then tail_f32_kernel: one block of 128
+// threads per (16 x 32 output patch, clip, output frame), the frame
+// fastest in launch order so the blocks that read a frame's halo run
+// together and share it in L2. For each time tap j it walks the channels
+// 16 at a time: the 18 x 34 halo of frame t - 2 + j (zero outside the
+// frame: the conv's padding after the activation) into shared memory,
+// channel-major, and each thread accumulates 4 neighbouring outputs x 3
+// channels over the 3 x 3 taps, its 6 halo columns loaded once a
+// (channel, dy) for 36 FMAs; the tap's weights [3 dy][C][12] (9 used: dx,
+// co) are read as 16-byte broadcasts. Frames before 0 are skipped (zero)
+// or frame 0 (replicate). Its floor on the CUDA cores is the FMAs, 81 C a
+// position x 3 channels at the f32 rate (67 TFLOP/s); the function's bound
+// on the card is the f32 tensors' bytes (the FLOP at the f32 scheme's 989
+// / 6 TFLOP/s take less), which a tensor-core form with a smaller patch
+// would approach. D' in f32 differs from D only in the sigmoid's form, so
+// it is to take this path with the exact row form, not a third one. The
+// plan is plan.py's tail_plan_f32.
 #include "wgmma_conv.cuh"
 
 namespace {
@@ -453,4 +479,125 @@ extern "C" int vt_decoder_tail_rgb_taps(const void* x, void* out, const void* g,
                                         int stages, int smem, int grid, void* stream) {
   return launch_tail<true>(x, out, g, b, w, bias, B, T, H, W, C, replicate, th, tw, run,
                            stages, smem, grid, stream);
+}
+
+namespace {
+
+constexpr int FTH = 16, FTW = 32, FPX = 4;   // output patch; x outputs a thread
+constexpr int FTHREADS = FTH * FTW / FPX;   // 128
+constexpr int FCK = 16;                     // channels of a halo chunk
+constexpr int FHY = FTH + 2, FHX = FTW + 2, FLD = 36;  // halo rows, columns, row stride
+constexpr int FWLD = 12;                    // a (dy, c) weight row: 9 used
+
+constexpr int tail_f32_smem(int C) { return (FCK * FHY * FLD + 3 * C * FWLD) * 4; }
+
+struct TailF32Args {
+  const float* act;   // [B, T, H, W, C] activated
+  const float* w;     // [3 j][3 dy][C][FWLD], column dx * 3 + co
+  const float* bias;  // [3]
+  float* out;         // [B, T, H, W, 3]
+  int T, H, W, C, replicate, tiles_x, tiles_y;
+};
+
+__global__ void __launch_bounds__(FTHREADS) tail_f32_kernel(const TailF32Args p) {
+  extern __shared__ float fsm[];
+  float* halo = fsm;                       // [FCK][FHY][FLD]
+  float* wsm = fsm + FCK * FHY * FLD;      // [3 dy][C][FWLD], this tap's
+  int q = blockIdx.x;
+  const int t = q % p.T;
+  q /= p.T;
+  const int x0 = (q % p.tiles_x) * FTW;
+  q /= p.tiles_x;
+  const int y0 = (q % p.tiles_y) * FTH;
+  const int clip = q / p.tiles_y;
+  const int tid = threadIdx.x, oy = tid / (FTW / FPX), ox = (tid % (FTW / FPX)) * FPX;
+  float acc[FPX][3];
+#pragma unroll
+  for (int i = 0; i < FPX; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0.f;
+  for (int j = 0; j < 3; ++j) {
+    int f = t - 2 + j;
+    if (f < 0) {
+      if (!p.replicate) continue;  // uniform across the block
+      f = 0;
+    }
+    __syncthreads();  // the previous tap's weights and halo are read
+    for (int i = tid; i < 3 * p.C * FWLD; i += FTHREADS)
+      wsm[i] = p.w[(long long)j * 3 * p.C * FWLD + i];
+    const float* frame = p.act + ((long long)clip * p.T + f) * p.H * p.W * p.C;
+    for (int c0 = 0; c0 < p.C; c0 += FCK) {
+      __syncthreads();
+      for (int i = tid; i < FHY * FHX * (FCK / 4); i += FTHREADS) {
+        const int v = i % (FCK / 4), pos = i / (FCK / 4);
+        const int hy = pos / FHX, hx = pos - hy * FHX;
+        const int gy = y0 - 1 + hy, gx = x0 - 1 + hx;
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W)
+          a = *reinterpret_cast<const float4*>(frame + ((long long)gy * p.W + gx) * p.C + c0 +
+                                               4 * v);
+        float* h = halo + (4 * v * FHY + hy) * FLD + hx;
+        h[0] = a.x;
+        h[FHY * FLD] = a.y;
+        h[2 * FHY * FLD] = a.z;
+        h[3 * FHY * FLD] = a.w;
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int c = 0; c < FCK; ++c)
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const float* row = halo + (c * FHY + oy + dy) * FLD + ox;
+          const float4 a4 = *reinterpret_cast<const float4*>(row);
+          const float2 a2 = *reinterpret_cast<const float2*>(row + 4);
+          const float a[FPX + 2] = {a4.x, a4.y, a4.z, a4.w, a2.x, a2.y};
+          const float4* wr = reinterpret_cast<const float4*>(wsm + (dy * p.C + c0 + c) * FWLD);
+          const float4 w0 = wr[0], w1 = wr[1], w2 = wr[2];
+          const float w[9] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w, w2.x};
+#pragma unroll
+          for (int i = 0; i < FPX; ++i)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+              for (int co = 0; co < 3; ++co)
+                acc[i][co] = fmaf(a[i + dx], w[dx * 3 + co], acc[i][co]);
+        }
+    }
+  }
+  const int y = y0 + oy;
+  if (y >= p.H) return;
+  float* o = p.out + ((((long long)clip * p.T + t) * p.H + y) * p.W) * 3;
+#pragma unroll
+  for (int i = 0; i < FPX; ++i) {
+    const int x = x0 + ox + i;
+    if (x < p.W)
+#pragma unroll
+      for (int co = 0; co < 3; ++co) o[(long long)x * 3 + co] = acc[i][co] + p.bias[co];
+  }
+}
+
+}  // namespace
+
+// Kernel D in f32: x, act (the [B, T, H, W, C] f32 scratch), out f32; w the
+// [3 j][3 dy][C][12] f32 weight (ops/kernels/decoder_tail.py:
+// tail_operands_f32); th, tw, smem and grid from plan.py's tail_plan_f32.
+extern "C" int vt_decoder_tail_rgb_f32(const void* x, void* act, void* out, const void* g,
+                                       const void* b, const void* w, const void* bias, int B,
+                                       int T, int H, int W, int C, int replicate, int th,
+                                       int tw, int smem, int grid, void* stream) {
+  using namespace vt;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((C != 64 && C != 128) || th != FTH || tw != FTW || B < 1 || T < 1 || H < 1 || W < 1 ||
+      smem < tail_f32_smem(C))
+    return kErrTailPlan;
+  TailF32Args p{static_cast<const float*>(act), static_cast<const float*>(w),
+                static_cast<const float*>(bias), static_cast<float*>(out), T, H, W, C,
+                replicate, (W + FTW - 1) / FTW, (H + FTH - 1) / FTH};
+  if ((long long)B * p.tiles_y * p.tiles_x * T != grid) return kErrTailPlan;
+  const RowArgs r{x, static_cast<const float*>(g), static_cast<const float*>(b), act};
+  int e = launch_act_rows<false, kRowF32>(r, (long long)B * T * H * W, C, s);
+  if (e) return e;
+  const cudaError_t a =
+      cudaFuncSetAttribute(tail_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (a != cudaSuccess) return (int)a;
+  tail_f32_kernel<<<grid, FTHREADS, smem, s>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -30,26 +30,35 @@
 // [C, 9*C (+ Cin)], encoded once per parameter by the wrapper; the
 // scratch's maps are encoded here, per call. The plan (th x tw patch, BN,
 // stages, shared memory, grid) is ops/kernels/plan.py's conv_plan_spatial.
+//
+// f32 (vt_fused_spatial_resblock_f32): x, out and h1 f32; the same four
+// launches under wgmma_conv.cuh's f32 scheme. The row passes write the
+// activations' bf16 pieces into a scratch 3C wide and, when the block has
+// its nin_shortcut, the first writes raw x's pieces too (xs), which
+// conv2's 1x1 K steps read; the epilogues add the residual and write in
+// f32.
 #include "wgmma_conv.cuh"
 
-extern "C" int vt_fused_spatial_resblock(
-    const void* x, void* out, void* h1, void* act, const void* g1, const void* b1,
-    const void* w1map, const void* bias1, const void* g2, const void* b2,
-    const void* w2map, const void* bias2, int N, int H, int W, int Cin, int C,
-    int has_nin, int th, int tw, int bn, int stages, int smem, int grid, void* stream) {
+namespace {
+
+template <bool F32>
+int spatial_block(const void* x, void* out, void* h1, void* act, void* xs, const void* g1,
+                  const void* b1, const void* w1map, const void* bias1, const void* g2,
+                  const void* b2, const void* w2map, const void* bias2, int N, int H, int W,
+                  int Cin, int C, int has_nin, int th, int tw, int bn, int stages, int smem,
+                  int grid, void* stream) {
   using namespace vt;
+  constexpr int P = F32 ? kPieces : 1;  // scratch channels per channel
+  constexpr int form = F32 ? kRowSplit : kRowBf16;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = (long long)N * H * W;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* hb = static_cast<__nv_bfloat16*>(h1);
-  auto* ab = static_cast<__nv_bfloat16*>(act);
   CUtensorMap mw1, mw2, ma1, ma2, mx;
   memcpy(&mw1, w1map, sizeof(CUtensorMap));
   memcpy(&mw2, w2map, sizeof(CUtensorMap));
   int e;
-  if ((e = wg::spatial_map(&ma1, ab, N, H, W, Cin, th, tw)) ||
-      (e = wg::spatial_map(&ma2, ab, N, H, W, C, th, tw)) ||
-      (e = wg::spatial_map(&mx, xb, N, H, W, Cin, th, tw)))
+  if ((e = wg::spatial_map(&ma1, act, N, H, W, P * Cin, th, tw)) ||
+      (e = wg::spatial_map(&ma2, act, N, H, W, P * C, th, tw)) ||
+      (e = wg::spatial_map(&mx, F32 ? xs : x, N, H, W, P * Cin, th, tw)))
     return e;
 
   wg::Params p{};
@@ -63,21 +72,49 @@ extern "C" int vt_fused_spatial_resblock(
   p.Cout = C;
   p.stages = stages;
 
-  RowArgs r{xb, static_cast<const float*>(g1), static_cast<const float*>(b1), ab};
-  if ((e = launch_act_rows<false>(r, M, Cin, s))) return e;
+  RowArgs r{x, static_cast<const float*>(g1), static_cast<const float*>(b1), act};
+  if (F32 && has_nin) r.raw = xs;
+  if ((e = launch_act_rows<false, form>(r, M, Cin, s))) return e;
   p.bias = static_cast<const float*>(bias1);
-  p.out = hb;
+  p.out = h1;
   p.cin_steps = Cin / wg::BK;
-  p.k_main = p.k_total = 9 * p.cin_steps;
-  if ((e = wg::launch_conv<wg::kSpatial>(ma1, mw1, mx, p, bn, smem, grid, s))) return e;
+  p.k_main = p.k_base = 9 * p.cin_steps;
+  p.k_total = (F32 ? wg::kProducts : 1) * p.k_base;
+  if ((e = wg::launch_conv<wg::kSpatial, F32>(ma1, mw1, mx, p, bn, smem, grid, s))) return e;
 
-  r = RowArgs{hb, static_cast<const float*>(g2), static_cast<const float*>(b2), ab};
-  if ((e = launch_act_rows<false>(r, M, C, s))) return e;
+  r = RowArgs{h1, static_cast<const float*>(g2), static_cast<const float*>(b2), act};
+  if ((e = launch_act_rows<false, form>(r, M, C, s))) return e;
   p.bias = static_cast<const float*>(bias2);
-  p.res = has_nin ? nullptr : xb;
-  p.out = static_cast<__nv_bfloat16*>(out);
+  p.res = has_nin ? nullptr : x;
+  p.out = out;
   p.cin_steps = C / wg::BK;
   p.k_main = 9 * p.cin_steps;
-  p.k_total = p.k_main + (has_nin ? Cin / wg::BK : 0);
-  return wg::launch_conv<wg::kSpatial>(ma2, mw2, mx, p, bn, smem, grid, s);
+  p.k_base = p.k_main + (has_nin ? Cin / wg::BK : 0);
+  p.k_total = (F32 ? wg::kProducts : 1) * p.k_base;
+  return wg::launch_conv<wg::kSpatial, F32>(ma2, mw2, mx, p, bn, smem, grid, s);
+}
+
+}  // namespace
+
+extern "C" int vt_fused_spatial_resblock(
+    const void* x, void* out, void* h1, void* act, const void* g1, const void* b1,
+    const void* w1map, const void* bias1, const void* g2, const void* b2,
+    const void* w2map, const void* bias2, int N, int H, int W, int Cin, int C,
+    int has_nin, int th, int tw, int bn, int stages, int smem, int grid, void* stream) {
+  return spatial_block<false>(x, out, h1, act, nullptr, g1, b1, w1map, bias1, g2, b2, w2map,
+                              bias2, N, H, W, Cin, C, has_nin, th, tw, bn, stages, smem, grid,
+                              stream);
+}
+
+// f32: ``act`` [N*H*W, 3 max(Cin, C)] and ``xs`` [N*H*W, 3 Cin] (or null
+// without the nin_shortcut) bf16 scratch; the weights' maps over the split
+// K-major operands [C, 3 K].
+extern "C" int vt_fused_spatial_resblock_f32(
+    const void* x, void* out, void* h1, void* act, void* xs, const void* g1, const void* b1,
+    const void* w1map, const void* bias1, const void* g2, const void* b2,
+    const void* w2map, const void* bias2, int N, int H, int W, int Cin, int C,
+    int has_nin, int th, int tw, int bn, int stages, int smem, int grid, void* stream) {
+  if (has_nin && xs == nullptr) return vt::wg::kErrPlan;
+  return spatial_block<true>(x, out, h1, act, xs, g1, b1, w1map, bias1, g2, b2, w2map, bias2,
+                             N, H, W, Cin, C, has_nin, th, tw, bn, stages, smem, grid, stream);
 }

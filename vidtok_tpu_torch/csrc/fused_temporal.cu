@@ -27,7 +27,8 @@
 // the front's writes, 2 of T + 2 frames of one row pass (T = 20 on the
 // serving path), and no products: one code path serves both modes. The
 // TPU kernel's full-T VMEM tile does not carry over; it would not fit
-// shared memory.
+// shared memory. vt_fused_temporal_resblock_f32 is the same block on f32
+// activations (temporal_block.cuh's F32: the scratch 3C wide, bf16 pieces).
 #include "temporal_block.cuh"
 
 extern "C" int vt_fused_temporal_resblock(
@@ -40,4 +41,18 @@ extern "C" int vt_fused_temporal_resblock(
                         bias1, g2, b2, w2map, bias2, B, T, S, C,
                         replicate ? kFrontReplicate : kFrontZero, 0, bn, stages, smem,
                         grid, static_cast<cudaStream_t>(stream));
+}
+
+// f32: x, out, h1 f32 [B, T, S, C]; act the [B, T + 2, S, 3C] bf16 scratch;
+// the weights' maps over the split K-major operands [C, 3 * 3C].
+extern "C" int vt_fused_temporal_resblock_f32(
+    const void* x, void* out, void* h1, void* act, const void* g1, const void* b1,
+    const void* w1map, const void* bias1, const void* g2, const void* b2,
+    const void* w2map, const void* bias2, int B, int T, int S, int C, int replicate,
+    int bn, int stages, int smem, int grid, void* stream) {
+  using namespace vt;
+  return temporal_block<true>(x, nullptr, nullptr, out, nullptr, nullptr, h1, act, g1, b1,
+                              w1map, bias1, g2, b2, w2map, bias2, B, T, S, C,
+                              replicate ? kFrontReplicate : kFrontZero, 0, bn, stages, smem,
+                              grid, static_cast<cudaStream_t>(stream));
 }

@@ -30,6 +30,8 @@
 // is the warp-specialised TMA + wgmma implicit GEMM (wgmma_conv.cuh) with
 // kTemporal taps. The prep pass then refills the scratch from h and c2
 // (writing the new c2), and conv2 adds x in its epilogue.
+// vt_fused_temporal_resblock_stream_f32 is the same step on f32
+// activations and f32 caches (temporal_block.cuh's F32).
 #include "temporal_block.cuh"
 
 extern "C" int vt_fused_temporal_resblock_stream(
@@ -42,4 +44,19 @@ extern "C" int vt_fused_temporal_resblock_stream(
   return temporal_block(x, c1, c2, out, nc1, nc2, h1, act, g1, b1, w1map, bias1, g2, b2,
                         w2map, bias2, B, T, S, C, first ? kFrontReplicate : kFrontCache,
                         offset, bn, stages, smem, grid, static_cast<cudaStream_t>(stream));
+}
+
+// f32: x, c1, c2, out, nc1, nc2, h1 f32; act the [B, T + 2, S, 3C] bf16
+// scratch; the weights' maps over the split K-major operands [C, 3 * 3C].
+extern "C" int vt_fused_temporal_resblock_stream_f32(
+    const void* x, const void* c1, const void* c2, void* out, void* nc1, void* nc2,
+    void* h1, void* act, const void* g1, const void* b1, const void* w1map,
+    const void* bias1, const void* g2, const void* b2, const void* w2map,
+    const void* bias2, int B, int T, int S, int C, int first, int offset, int bn,
+    int stages, int smem, int grid, void* stream) {
+  using namespace vt;
+  return temporal_block<true>(x, c1, c2, out, nc1, nc2, h1, act, g1, b1, w1map, bias1, g2,
+                              b2, w2map, bias2, B, T, S, C,
+                              first ? kFrontReplicate : kFrontCache, offset, bn, stages,
+                              smem, grid, static_cast<cudaStream_t>(stream));
 }

@@ -34,23 +34,38 @@
 // Offsets are 64-bit: the output passes 2^31 elements at T=102, C=256.
 // The plan (patch, BN, stages, shared memory, grid) is
 // ops/kernels/plan.py's conv_plan_parity.
+//
+// f32 (vt_parity_up2x_f32): s and out f32. A split pass writes s's bf16
+// pieces into a [B, T, H, W, 3C] scratch, the 5-D map reads it 3C wide,
+// the weight is the summed matrix split once per parameter, and the
+// products are wgmma_conv.cuh's f32 scheme; the epilogue blends with s in
+// f32. The TPU kernel declines f32 at 256+ channels (its VMEM,
+// parity_upsample_fused.py:134); this one takes f32 wherever it takes
+// bf16.
 #include "wgmma_conv.cuh"
 
-extern "C" int vt_parity_up2x(const void* s, void* out, const void* wmap, const void* bias,
-                              const void* alpha, int B, int T, int H, int W, int C,
-                              int replicate, int th, int tw, int bn, int stages, int smem,
-                              int grid, void* stream) {
+namespace {
+
+template <bool F32>
+int parity_up2x(const void* s, void* sp, void* out, const void* wmap, const void* bias,
+                const void* alpha, int B, int T, int H, int W, int C, int replicate, int th,
+                int tw, int bn, int stages, int smem, int grid, cudaStream_t stream) {
   using namespace vt;
   if (C % 128 != 0) return wg::kErrPlan;
+  int e;
+  if (F32 && (e = launch_split_rows(static_cast<const float*>(s),
+                                    static_cast<__nv_bfloat16*>(sp),
+                                    (long long)B * T * H * W, C, stream)))
+    return e;
   CUtensorMap mw, ms;
   memcpy(&mw, wmap, sizeof(CUtensorMap));
-  int e = wg::parity_map(&ms, s, B, T, H, W, C, th, tw);
+  e = wg::parity_map(&ms, F32 ? sp : s, B, T, H, W, (F32 ? kPieces : 1) * C, th, tw);
   if (e) return e;
 
   wg::Params p{};
   p.bias = static_cast<const float*>(bias);
-  p.res = static_cast<const __nv_bfloat16*>(s);
-  p.out = static_cast<__nv_bfloat16*>(out);
+  p.res = s;
+  p.out = out;
   p.alpha = static_cast<const float*>(alpha);
   p.H = H;
   p.W = W;
@@ -63,8 +78,28 @@ extern "C" int vt_parity_up2x(const void* s, void* out, const void* wmap, const 
   p.n_tiles = 2 * C / bn;
   p.Cout = 2 * C;
   p.cin_steps = C / wg::BK;
-  p.k_main = p.k_total = 18 * p.cin_steps;
+  p.k_main = p.k_base = 18 * p.cin_steps;
+  p.k_total = (F32 ? wg::kProducts : 1) * p.k_base;
   p.stages = stages;
-  return wg::launch_conv<wg::kParity>(ms, mw, ms, p, bn, smem, grid,
-                                      static_cast<cudaStream_t>(stream));
+  return wg::launch_conv<wg::kParity, F32>(ms, mw, ms, p, bn, smem, grid, stream);
+}
+
+}  // namespace
+
+extern "C" int vt_parity_up2x(const void* s, void* out, const void* wmap, const void* bias,
+                              const void* alpha, int B, int T, int H, int W, int C,
+                              int replicate, int th, int tw, int bn, int stages, int smem,
+                              int grid, void* stream) {
+  return parity_up2x<false>(s, nullptr, out, wmap, bias, alpha, B, T, H, W, C, replicate,
+                            th, tw, bn, stages, smem, grid, static_cast<cudaStream_t>(stream));
+}
+
+// f32: s, out f32; sp the [B, T, H, W, 3C] bf16 scratch of s's pieces; the
+// weight's map over the split K-major operand [2C, 3 * 18C].
+extern "C" int vt_parity_up2x_f32(const void* s, void* sp, void* out, const void* wmap,
+                                  const void* bias, const void* alpha, int B, int T, int H,
+                                  int W, int C, int replicate, int th, int tw, int bn,
+                                  int stages, int smem, int grid, void* stream) {
+  return parity_up2x<true>(s, sp, out, wmap, bias, alpha, B, T, H, W, C, replicate, th, tw,
+                           bn, stages, smem, grid, static_cast<cudaStream_t>(stream));
 }

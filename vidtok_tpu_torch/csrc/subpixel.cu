@@ -18,18 +18,24 @@
 // output order, so stores are fully coalesced and each load is a 16-byte
 // vector from one of the four sources (C) or channel groups (I). The TPU
 // kernels' row-parity output layout (a VMEM relayout workaround) does not
-// carry over.
+// carry over. C is a template of the element type: vt_subpixel_interleave_f32
+// reads and writes f32 (two 16-byte vectors per 8 channels) and adds the
+// bias in f32, the tile dtype.
 #include "common.cuh"
 
 namespace {
 
-__global__ void subpixel_kernel(const __nv_bfloat16* __restrict__ y00,
-                                const __nv_bfloat16* __restrict__ y01,
-                                const __nv_bfloat16* __restrict__ y10,
-                                const __nv_bfloat16* __restrict__ y11,
-                                const float* __restrict__ bias,
-                                __nv_bfloat16* __restrict__ out, int N, int H,
-                                int W, int C) {
+// The bias in the tile dtype, as the TPU kernel adds it.
+__device__ __forceinline__ float tile_bias(float b, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(b));
+}
+__device__ __forceinline__ float tile_bias(float b, const float*) { return b; }
+
+template <typename T>
+__global__ void subpixel_kernel(const T* __restrict__ y00, const T* __restrict__ y01,
+                                const T* __restrict__ y10, const T* __restrict__ y11,
+                                const float* __restrict__ bias, T* __restrict__ out, int N,
+                                int H, int W, int C) {
   const int cv = C / 8;
   const long long total = (long long)N * 2 * H * 2 * W * cv;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -41,13 +47,12 @@ __global__ void subpixel_kernel(const __nv_bfloat16* __restrict__ y00,
     const int oy = (int)(r % (2 * H));
     const long long n = r / (2 * H);
     const int pr = oy & 1, pc = ox & 1;
-    const __nv_bfloat16* y = pr ? (pc ? y11 : y10) : (pc ? y01 : y00);
+    const T* y = pr ? (pc ? y11 : y10) : (pc ? y01 : y00);
     float f[8];
-    vt::unpack8(vt::ld_u4(y + ((n * H + (oy >> 1)) * W + (ox >> 1)) * C + c), f);
+    vt::ld8(y + ((n * H + (oy >> 1)) * W + (ox >> 1)) * C + c, f);
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      f[e] += __bfloat162float(__float2bfloat16(bias[c + e]));
-    *reinterpret_cast<uint4*>(out + i * 8) = vt::pack8(f);
+    for (int e = 0; e < 8; ++e) f[e] += tile_bias(bias[c + e], y);
+    vt::st8(out + i * 8, f);
   }
 }
 
@@ -89,7 +94,7 @@ extern "C" int vt_subpixel_interleave(const void* y00, const void* y01,
                                       int H, int W, int C, void* stream) {
   const int threads = 256;
   const int blocks = grid_for((long long)N * 4 * H * W * (C / 8), threads);
-  subpixel_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  subpixel_kernel<__nv_bfloat16><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(y00),
       static_cast<const __nv_bfloat16*>(y01),
       static_cast<const __nv_bfloat16*>(y10),
@@ -106,5 +111,18 @@ extern "C" int vt_subpixel_interleave_z(const void* z, const void* bias,
   subpixel_z_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(z), static_cast<const float*>(bias),
       static_cast<__nv_bfloat16*>(out), N, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vt_subpixel_interleave_f32(const void* y00, const void* y01,
+                                          const void* y10, const void* y11,
+                                          const void* bias, void* out, int N,
+                                          int H, int W, int C, void* stream) {
+  const int threads = 256;
+  const int blocks = grid_for((long long)N * 4 * H * W * (C / 8), threads);
+  subpixel_kernel<float><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y00), static_cast<const float*>(y01),
+      static_cast<const float*>(y10), static_cast<const float*>(y11),
+      static_cast<const float*>(bias), static_cast<float*>(out), N, H, W, C);
   return (int)cudaGetLastError();
 }

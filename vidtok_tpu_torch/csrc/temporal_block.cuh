@@ -17,12 +17,17 @@
 // tap needs the stream-start rule. The weights come as tensor maps encoded
 // once per parameter by the wrapper; the plan (BN, stages, shared memory,
 // grid) is ops/kernels/plan.py's conv_plan_temporal.
+//
+// F32 (wgmma_conv.cuh's f32 scheme): x, the caches, h1, out and the new
+// caches f32; the scratch holds the activations' bf16 pieces, 3C wide; the
+// caches hold the activated frames in f32, split as they enter the scratch.
 #pragma once
 
 #include "wgmma_conv.cuh"
 
 namespace vt {
 
+template <bool F32 = false>
 static inline int temporal_block(const void* x, const void* c1, const void* c2, void* out,
                                  void* nc1, void* nc2, void* h1, void* act, const void* g1,
                                  const void* b1, const void* w1map, const void* bias1,
@@ -30,14 +35,13 @@ static inline int temporal_block(const void* x, const void* c1, const void* c2, 
                                  const void* bias2, int B, int T, int S, int C, int front,
                                  int offset, int bn, int stages, int smem, int grid,
                                  cudaStream_t s) {
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* hb = static_cast<__nv_bfloat16*>(h1);
-  auto* ab = static_cast<__nv_bfloat16*>(act);
+  constexpr int P = F32 ? kPieces : 1;  // scratch channels per channel
+  constexpr int form = F32 ? kRowSplit : kRowBf16;
   const long long rows = (long long)B * (T + 2) * S;  // of the scratch
   CUtensorMap mw1, mw2, ma;
   memcpy(&mw1, w1map, sizeof(CUtensorMap));
   memcpy(&mw2, w2map, sizeof(CUtensorMap));
-  int e = wg::temporal_map(&ma, ab, B, (long long)(T + 2) * S, C);
+  int e = wg::temporal_map(&ma, act, B, (long long)(T + 2) * S, P * C);
   if (e) return e;
 
   wg::Params p{};
@@ -47,27 +51,27 @@ static inline int temporal_block(const void* x, const void* c1, const void* c2, 
   p.n_tiles = C / bn;
   p.Cout = C;
   p.cin_steps = C / wg::BK;
-  p.k_main = p.k_total = 3 * p.cin_steps;
+  p.k_main = p.k_base = 3 * p.cin_steps;
+  p.k_total = (F32 ? wg::kProducts : 1) * p.k_base;
   p.stages = stages;
 
-  RowArgs r{xb, static_cast<const float*>(g1), static_cast<const float*>(b1), ab,
-            static_cast<const __nv_bfloat16*>(c1), static_cast<__nv_bfloat16*>(nc1),
+  RowArgs r{x, static_cast<const float*>(g1), static_cast<const float*>(b1), act, c1, nc1,
             T, S, front, offset};
-  if ((e = launch_act_rows<true>(r, rows, C, s))) return e;
+  if ((e = launch_act_rows<true, form>(r, rows, C, s))) return e;
   p.bias = static_cast<const float*>(bias1);
-  p.out = hb;
-  if ((e = wg::launch_conv<wg::kTemporal>(ma, mw1, ma, p, bn, smem, grid, s))) return e;
+  p.out = h1;
+  if ((e = wg::launch_conv<wg::kTemporal, F32>(ma, mw1, ma, p, bn, smem, grid, s))) return e;
 
-  r.src = hb;
+  r.src = h1;
   r.g = static_cast<const float*>(g2);
   r.b = static_cast<const float*>(b2);
-  r.cache = static_cast<const __nv_bfloat16*>(c2);
-  r.copy = static_cast<__nv_bfloat16*>(nc2);
-  if ((e = launch_act_rows<true>(r, rows, C, s))) return e;
+  r.cache = c2;
+  r.copy = nc2;
+  if ((e = launch_act_rows<true, form>(r, rows, C, s))) return e;
   p.bias = static_cast<const float*>(bias2);
-  p.res = xb;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  return wg::launch_conv<wg::kTemporal>(ma, mw2, ma, p, bn, smem, grid, s);
+  p.res = x;
+  p.out = out;
+  return wg::launch_conv<wg::kTemporal, F32>(ma, mw2, ma, p, bn, smem, grid, s);
 }
 
 }  // namespace vt

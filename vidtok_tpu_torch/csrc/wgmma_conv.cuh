@@ -62,6 +62,32 @@
 // constexpr`` on the tap set, so A, B, E and F compile as before. Offsets
 // that can pass 2^31 are 64-bit.
 //
+// The f32 scheme (A, B, E and F on f32 activations; the template's F32).
+// Plain TF32 keeps 10 bits of each operand, about 3 decimal digits: a
+// block's two convs would land ~1e-3 from f32, far outside the 2e-5 its
+// f32 form is held to. Of the two f32-accurate schemes on Hopper's tensor
+// cores, bf16 splits on this loop's own instruction (a) and 3xTF32 on
+// wgmma ...k8.f32.tf32.tf32 (b), this is (a), for three reasons: it keeps
+// the bf16 instruction, descriptors, swizzle, stage bytes and plans as
+// they are, so the only change is which box a K step loads; it is the
+// more accurate (3xTF32 drops lo*lo of 11-bit pieces, about 2^-22 a
+// product; here the largest dropped product is mid*lo, about 2^-26); and
+// it costs the same tensor work (6 bf16 products against 3 tf32 products
+// at half the bf16 rate). Each f32 operand is split once into bf16
+// pieces x = hi + mid + lo (common.cuh: split3; exact up to 2^-24 |x|):
+// the activations by the row passes, into a scratch 3C wide (piece q at
+// channels [qC, qC + C)), E's raw input by a split pass, the weights once
+// per parameter by the wrapper ([Cout, 3K], piece q at columns [qK,
+// qK + K)). The loop then runs the six products whose pieces' orders sum
+// to at most 2, mid*mid, lo*hi, hi*lo, mid*hi, hi*mid, hi*hi (smallest
+// first), as kProducts x k_base K steps into the one f32 accumulator:
+// K step ks is product ks / k_base's pieces at base step ks % k_base. Two
+// pieces (3 products) would leave mid*mid out and a 2^-17 remainder in
+// each operand: about 2^-16 a product. The epilogue reads the residual
+// (or kParity's s) and writes the output in f32, kParity's blend in f32.
+// A stage holds the same bytes as bf16's, so the plans are bf16's; the
+// K steps are 6x, the A operand's map 3x as wide.
+//
 // The plan (patch, BN in {128, 256}, stages, shared memory, grid) comes
 // from ops/kernels/plan.py, which the CPU tests check; launch_conv refuses
 // what it cannot run. BN = 256 runs one block of 384 threads per SM (4
@@ -88,13 +114,19 @@ constexpr int BM = 128, BK = 64;
 constexpr int kConsumers = 2;
 constexpr int kTileA = BM * BK * 2;  // bytes of one A stage
 constexpr int kErrNoEncoder = 1001, kErrEncode = 1002, kErrPlan = 1003;
+// The f32 scheme's products: nibble i of kPieceA / kPieceW is the piece of
+// the activation / of the weight that product i multiplies (0 hi, 1 mid,
+// 2 lo): (1,1) (2,0) (0,2) (1,0) (0,1) (0,0).
+constexpr int kProducts = 6;
+constexpr unsigned kPieceA = 0x001021u, kPieceW = 0x010201u;
 
 __host__ __device__ constexpr int stage_bytes(int bn) { return kTileA + bn * BK * 2; }
 
 struct Params {
   const float* bias;         // [Cout]; kCausal, kDense: or null
-  const __nv_bfloat16* res;  // [M, Cout] residual, or null; kParity: s [M, Cout / 2]
-  __nv_bfloat16* out;        // [M, Cout]; kParity: [2M, Cout / 2]
+  const void* res;           // [M, Cout] residual, or null; kParity: s [M, Cout / 2]
+  void* out;                 // [M, Cout]; kParity: [2M, Cout / 2]
+                             // (res and out bf16; f32 under the f32 scheme)
   const float* alpha;        // kParity: the blend weight
   int H, W;                  // kSpatial, kParity: the frame
   int T, S;                  // kTemporal, kCausal: output frames per clip, rows
@@ -107,6 +139,8 @@ struct Params {
   int Cout;
   int cin_steps;             // Cin / BK: K steps per tap
   int k_main, k_total;       // K steps of the taps; with the 1x1 term
+                             // (F32: k_total = kProducts * k_base)
+  int k_base;                // F32: K steps of one product, k_main + the 1x1 term's
   int stages;
   float* outf;               // kDense: [M, Cout] f32 in place of out, or null
 };
@@ -282,7 +316,7 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[BN / 2], uint64_t da, uint6
 template <int BN> constexpr int kThreads = 128 * kConsumers + (BN == 256 ? 128 : 32);
 template <int BN> constexpr int kBlocksPerSM = BN == 128 ? 2 : 1;
 
-template <int TAPS, int BN>
+template <int TAPS, int BN, bool F32 = false>
 static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
     conv_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_w,
@@ -332,16 +366,26 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
     if (threadIdx.x == 128 * kConsumers) {
       prefetch_map(&map_a);
       prefetch_map(&map_w);
-      if (p.k_total > p.k_main) prefetch_map(&map_x);
+      if ((F32 ? p.k_base : p.k_total) > p.k_main) prefetch_map(&map_x);
       int s = 0, phase = 0;
       for (int ks = 0; ks < p.k_total; ++ks) {
         mbar_wait(empty + 8 * s, phase ^ 1);  // the first round passes
         const uint32_t bar = full + 8 * s;
         mbar_expect_tx(bar, kStage);
         const uint32_t dst = base + s * kStage;
-        if (ks < p.k_main) {
-          const int tap = ks / p.cin_steps;
-          const int c = (ks - tap * p.cin_steps) * BK;
+        // F32: base step kb of product ks / k_base, whose activation piece
+        // starts ca channels on and whose weight piece starts kw steps on
+        int kb = ks, ca = 0, kw = 0;
+        if constexpr (F32) {
+          const int prod = ks / p.k_base;
+          kb = ks - prod * p.k_base;
+          const int ia = (kPieceA >> (4 * prod)) & 15, jw = (kPieceW >> (4 * prod)) & 15;
+          ca = ia * (kb < p.k_main ? p.cin_steps : p.k_base - p.k_main) * BK;
+          kw = jw * p.k_base;
+        }
+        if (kb < p.k_main) {
+          const int tap = kb / p.cin_steps;
+          const int c = (kb - tap * p.cin_steps) * BK + ca;
           if constexpr (TAPS == kSpatial) {
             tma_4d(dst, &map_a, bar, c, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img);
           } else if constexpr (TAPS == kParity) {
@@ -357,9 +401,9 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
             tma_2d(dst, &map_a, bar, c, r0);  // kDense: one tap, c runs over K
           }
         } else {
-          tma_4d(dst, &map_x, bar, (ks - p.k_main) * BK, x0, y0, img);
+          tma_4d(dst, &map_x, bar, (kb - p.k_main) * BK + ca, x0, y0, img);
         }
-        tma_2d(dst + kTileA, &map_w, bar, ks * BK, n0);
+        tma_2d(dst + kTileA, &map_w, bar, (kw + kb) * BK, n0);
         if (++s == p.stages) {
           s = 0;
           phase ^= 1;
@@ -413,7 +457,10 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
     named_sync(2 + wg, 128);  // this warpgroup's 64 rows are in place
 
     // whole rows: 8 columns a thread, bias and residual (or blend) in f32,
-    // bf16 out
+    // bf16 out (F32: f32 residual and out)
+    using TO = typename Act<F32>::T;
+    const TO* res = static_cast<const TO*>(p.res);
+    TO* out = static_cast<TO*>(p.out);
     constexpr int TPR = BN / 8, RPP = 128 / TPR;
     const int col = (tid % TPR) * 8;
     const bool has_bias = TAPS <= kParity || p.bias != nullptr;  // A, B, E, F: always
@@ -442,18 +489,18 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
       if (TAPS == kParity) {
         // s row m, then output frame 2 img + par at the same position
         float sv[8];
-        unpack8(ld_u4(p.res + m * half + c0), sv);
+        ld8(res + m * half + c0, sv);
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = alpha * sv[e] + (1.f - alpha) * v[e];
         const long long hw = (long long)p.H * p.W;
         const long long off = ((2 * img + par) * hw + (m - img * hw)) * half + c0;
-        *reinterpret_cast<uint4*>(p.out + off) = pack8(v);
+        st8(out + off, v);
         continue;
       }
       const long long off = m * p.Cout + n0 + col;
-      if (p.res != nullptr) {
+      if (res != nullptr) {
         float rv[8];
-        unpack8(ld_u4(p.res + off), rv);
+        ld8(res + off, rv);
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] += rv[e];
       }
@@ -465,7 +512,7 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
           continue;
         }
       }
-      *reinterpret_cast<uint4*>(p.out + off) = pack8(v);
+      st8(out + off, v);
     }
   }
 }
@@ -561,8 +608,9 @@ static inline int smem_needed(int bn, int stages) {
 }
 
 // One conv launch of the plan (bn, stages, smem, grid); map_x is read only
-// when p.k_total > p.k_main. Returns a cudaError_t or kErrPlan.
-template <int TAPS>
+// when p.k_total > p.k_main (F32: p.k_base > p.k_main). Returns a
+// cudaError_t or kErrPlan.
+template <int TAPS, bool F32 = false>
 static inline int launch_conv(const CUtensorMap& map_a, const CUtensorMap& map_w,
                               const CUtensorMap& map_x, const Params& p, int bn, int smem,
                               int grid, cudaStream_t s) {
@@ -570,9 +618,10 @@ static inline int launch_conv(const CUtensorMap& map_a, const CUtensorMap& map_w
   if ((bn != 128 && bn != 256) || p.stages < 2 || smem < smem_needed(bn, p.stages) ||
       p.stages * stage_bytes(bn) < epilogue || p.Cout != p.n_tiles * bn || grid <= 0 ||
       (TAPS == kParity && (p.Cout / 2) % bn != 0) ||
-      ((TAPS == kCausal || TAPS == kDense) && p.k_total != p.k_main))
+      ((TAPS == kCausal || TAPS == kDense) && (F32 || p.k_total != p.k_main)) ||
+      (F32 && (p.k_base < p.k_main || p.k_total != kProducts * p.k_base)))
     return kErrPlan;
-  auto kernel = bn == 256 ? conv_kernel<TAPS, 256> : conv_kernel<TAPS, 128>;
+  auto kernel = bn == 256 ? conv_kernel<TAPS, 256, F32> : conv_kernel<TAPS, 128, F32>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

@@ -244,14 +244,38 @@ def _to_ncthw(x):
     return x.permute(0, 4, 1, 2, 3)
 
 
+# the compute dtypes the kernels take: bf16, and f32 through the f32 scheme
+# of the wgmma loop (ops/kernels/split.py) and D's f32 form
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def fused_default(device: torch.device, compute_dtype: torch.dtype,
+                  fused: Optional[bool] = None) -> bool:
+    """The engine's ``fused`` for ``device`` and ``compute_dtype``: as
+    given, else on for a CUDA device in a dtype the kernels take (JAX's
+    ``VideoTokenizer`` turns its kernels on for any accelerator, f32 its
+    default). ``fused=True`` on a CUDA device in another dtype raises;
+    off the card ``fused`` routes the call sites through the wrappers,
+    which run their plain versions on CPU tensors."""
+    on_card = device.type == "cuda"
+    if fused is None:
+        fused = on_card and compute_dtype in KERNEL_DTYPES
+    if fused and on_card and compute_dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the CUDA kernels take bf16 or f32 activations: fused=True on a "
+                         f"CUDA device needs one of them, got {compute_dtype}")
+    return bool(fused)
+
+
 class VideoTokenizer:
     """Serving engine. Public tensors are ``[B, C, T, H, W]`` in [-1, 1];
     computation is channels-last in ``compute_dtype`` with f32 norm
     statistics; outputs are f32. ``fused`` (default: on for a CUDA device
-    in bf16, which the kernels need) routes the kernels' call sites
-    through their wrappers. ``forms`` (a :class:`KernelForms`, settable;
-    default JAX's default forms) picks the kernel form of the decoder's
-    upsamples and tail where ``fused`` is on.
+    in bf16 or f32, the dtypes the kernels take: :func:`fused_default`)
+    routes the kernels' call sites through their wrappers. ``forms`` (a
+    :class:`KernelForms`, settable; default JAX's default forms) picks the
+    kernel form of the decoder's upsamples and tail where ``fused`` is on;
+    in f32 on the card only the default forms run (G, H, I and D' have no
+    f32 form yet: their wrappers raise, naming the kernel).
 
     Tiled inference (``autoencoder.py:440-699``): ``use_tiling`` (from the
     config, settable) makes ``encode``, ``decode`` and ``forward`` run
@@ -272,13 +296,7 @@ class VideoTokenizer:
         self.meta = meta
         self.compute_dtype = compute_dtype
         self.device = next(core.parameters()).device
-        on_card = self.device.type == "cuda"
-        if fused is None:
-            fused = on_card and compute_dtype == torch.bfloat16
-        if fused and on_card and compute_dtype != torch.bfloat16:
-            raise ValueError("the CUDA kernels take bf16 activations: fused=True "
-                             "on a CUDA device needs compute_dtype=torch.bfloat16")
-        self.fused = bool(fused)
+        self.fused = fused_default(self.device, compute_dtype, fused)
         if forms is not None and not isinstance(forms, KernelForms):
             raise TypeError(f"forms must be a KernelForms, got {forms!r}")
         self.forms = forms or KernelForms()

@@ -2,7 +2,9 @@
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and its CUDA
 kernel for a CUDA tensor (or raises). It keeps two counters: ``calls``
-(every call) and ``launches`` (calls that launched the kernel).
+(every call) and ``launches`` (calls that launched the kernel). A-F take
+bf16 or f32 activations (f32: ``split.py``'s scheme in A, B, E and F);
+G, H, I and D' take bf16 and raise for f32, naming the kernel.
 
 :class:`KernelForms` picks which kernel form runs at the decoder's call
 sites that have more than one.

@@ -44,20 +44,31 @@ _SIGNATURES = {
     # x, out, h1, act, g1, b1, w1 map, bias1, g2, b2, w2 map, bias2,
     # N, H, W, Cin, C, has_nin, th, tw, bn, stages, smem, grid, stream
     "vt_fused_spatial_resblock": [_P] * 12 + [_I] * 12 + [_P],
+    # the same with the f32 scheme: x, out, h1, act, xs (raw x's pieces, or
+    # null), g1, ... bias2, the same sizes and plan, stream
+    "vt_fused_spatial_resblock_f32": [_P] * 13 + [_I] * 12 + [_P],
     # x, out, h1, act, g1, b1, w1 map, bias1, g2, b2, w2 map, bias2,
     # B, T, S, C, replicate, bn, stages, smem, grid, stream
     "vt_fused_temporal_resblock": [_P] * 12 + [_I] * 9 + [_P],
+    "vt_fused_temporal_resblock_f32": [_P] * 12 + [_I] * 9 + [_P],
     # x, c1, c2, out, nc1, nc2, h1, act, g1, b1, w1 map, bias1, g2, b2,
     # w2 map, bias2, B, T, S, C, first, offset, bn, stages, smem, grid, stream
     "vt_fused_temporal_resblock_stream": [_P] * 16 + [_I] * 10 + [_P],
+    "vt_fused_temporal_resblock_stream_f32": [_P] * 16 + [_I] * 10 + [_P],
     # y00, y01, y10, y11, bias, out, N, H, W, C, stream
     "vt_subpixel_interleave": [_P] * 6 + [_I] * 4 + [_P],
+    "vt_subpixel_interleave_f32": [_P] * 6 + [_I] * 4 + [_P],
     # x, out, g, b, w, bias, B, T, H, W, C, replicate, th, tw, run, stages,
     # smem, grid, stream (D; D' the same)
     "vt_decoder_tail_rgb": [_P] * 6 + [_I] * 12 + [_P],
+    # x, act (f32 scratch), out, g, b, w, bias, B, T, H, W, C, replicate,
+    # th, tw, smem, grid, stream (D in f32)
+    "vt_decoder_tail_rgb_f32": [_P] * 7 + [_I] * 10 + [_P],
     # s, out, w map, bias, alpha, B, T, H, W, C, replicate, th, tw, bn,
     # stages, smem, grid, stream
     "vt_parity_up2x": [_P] * 5 + [_I] * 12 + [_P],
+    # s, sp (s's pieces), out, w map, bias, alpha, then as vt_parity_up2x
+    "vt_parity_up2x_f32": [_P] * 6 + [_I] * 12 + [_P],
     # s, ycur, yprev, bias, alpha, out, ld, B, T, S, C, replicate, stream
     "vt_parity_blend": [_P] * 6 + [_I] * 6 + [_P],
     # z, bias, out, N, H, W, C, stream
@@ -166,7 +177,8 @@ def call(name: str, *args) -> None:
 
 def weight_map(w, bn: int):
     """The tensor map (a 128-byte ctypes buffer) of the K-major bf16 weight
-    ``w`` ``[Cout, K]`` for the wgmma loop's loads of ``bn`` rows; raises
+    ``w`` ``[Cout, K]`` (the f32 scheme's: its pieces, ``[Cout, 3K]``) for
+    the wgmma loop's loads of ``bn`` rows; raises
     when the CUDA driver refuses it."""
     buf = ctypes.create_string_buffer(TENSOR_MAP_BYTES)
     _raise_on("vt_weight_map", library().lib.vt_weight_map(
@@ -235,12 +247,32 @@ def f32(t):
     return t.float().contiguous()
 
 
+def kernel_dtype(x, kernel: str):
+    """x's dtype where the kernels take it (bf16, or f32 under the f32
+    scheme); else raise, naming ``kernel``."""
+    import torch
+
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"kernel {kernel} takes bf16 or f32 activations, got {x.dtype}")
+    return x.dtype
+
+
+def refuse_f32(x, kernel: str) -> None:
+    """Raise for f32 ``x``: ``kernel`` (a non-default form's) has no f32
+    form yet."""
+    import torch
+
+    if x.dtype == torch.float32:
+        raise ValueError(f"kernel {kernel} has no f32 form yet: serve f32 in the default "
+                         "KernelForms(), or this form in bf16")
+
+
 def require(x, dtype, shape) -> None:
     """Raise unless ``x`` is a contiguous CUDA tensor of ``dtype``/``shape``."""
-    if x.device.type != "cuda":
-        raise ValueError(f"kernel input must be a CUDA tensor, got {x.device}")
     if x.dtype != dtype:
         raise ValueError(f"kernel input must be {dtype}, got {x.dtype}")
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel input must be a CUDA tensor, got {x.device}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"kernel input shape {tuple(x.shape)} != {tuple(shape)}")
     if not x.is_contiguous():

@@ -2,7 +2,9 @@
 
 ``ln_silu_fast`` is ``vidtok_tpu/ops/pallas/act.py``'s, the JAX kernels'
 default epilogue; its CUDA form is the ``ln_silu`` device function of
-``csrc/common.cuh``. ``ln_silu_exact`` is the decoder tail's ``_ln_silu``
+``csrc/common.cuh``. ``ln_silu_f32`` is what the kernels compute on f32
+activations (``act_rows_kernel``'s f32 row forms); ``ln_silu`` picks one of
+the two by x's dtype. ``ln_silu_exact`` is the decoder tail's ``_ln_silu``
 (``vidtok_tpu/ops/pallas/decoder_tail.py:42``), which kernel D' computes
 (``csrc/decoder_tail.cu``).
 ``ln_silu_exact_f32`` is ``vidtok_tpu/ops/pallas/fused_temporal.py:32``'s
@@ -31,6 +33,24 @@ def ln_silu_fast(x, g, b, eps: float = 1e-6):
     rs = torch.rsqrt(var.clamp_min(0.0) + eps)
     y = (xf - mu) * rs * g.float() + b.float()
     return (y * (torch.tanh(0.5 * y) * 0.5 + 0.5)).to(x.dtype)
+
+
+def ln_silu_f32(x, g, b, eps: float = 1e-6):
+    """x: ``[..., C]`` f32; g, b: ``[C]``. The mean, then the mean of
+    ``(x - mean)^2`` (no ``E[x^2] - mean^2`` cancellation where a row's mean
+    is large beside its spread), ``rsqrt``, the affine and SiLU with sigmoid
+    through ``0.5*tanh(0.5y)+0.5``, all in f32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
+    return (y * (torch.tanh(0.5 * y) * 0.5 + 0.5)).to(x.dtype)
+
+
+def ln_silu(x, g, b, eps: float = 1e-6):
+    """The kernels' LayerNorm + SiLU for x's dtype: :func:`ln_silu_f32` for
+    f32, :func:`ln_silu_fast` otherwise."""
+    return (ln_silu_f32 if x.dtype == torch.float32 else ln_silu_fast)(x, g, b, eps)
 
 
 def ln_silu_exact(x, g, b, eps: float = 1e-6):

@@ -17,7 +17,12 @@ spatial SAME padding with zeros (``s`` is not activated, so zero is exact);
 weights ``[[K0+K1, K0], [K2, K1+K2]]`` summed in f32 and rounded to bf16
 once, K-major, per parameter (``_lib.operands``); one f32 accumulator per
 output, where the TPU kernel rounds the previous-frame taps to the
-activation dtype before adding them.
+activation dtype before adding them. f32 s runs the loop's f32 scheme
+(``split.py``): a split pass writes s's bf16 pieces, the summed weight is
+split once per parameter (:func:`parity_operands_f32`), the blend is in f32.
+JAX's kernel declines f32 at 256+ channels (a TPU VMEM limit,
+``parity_upsample_fused.py:134``); this one takes f32 wherever it takes
+bf16.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _lib, plan
+from .split import PIECES, kmajor_pieces
 
 
 def parity_up2x_fused_plain(s, weight, bias, alpha, first_pad_mode: str):
@@ -52,17 +58,29 @@ def parity_up2x_fused_plain(s, weight, bias, alpha, first_pad_mode: str):
     return out.permute(0, 1, 4, 2, 3, 5).reshape(b, 2 * t, h, w, c)
 
 
+def _summed(weight):
+    """``[[K0+K1, K0], [K2, K1+K2]]`` in f32, K-major ``[2C, 18C]``."""
+    c = weight.shape[0]
+    k0, k1, k2 = weight.float().permute(2, 3, 4, 1, 0)      # [3, 3, Ci, Co]
+    wm = torch.stack([torch.cat([k0 + k1, k0], dim=-1),
+                      torch.cat([k2, k1 + k2], dim=-1)])    # [2, 3, 3, Ci, 2Co]
+    return wm.reshape(18 * c, 2 * c).t()
+
+
 def parity_operands(weight, bias) -> dict:
     """Kernel E's parameters as it reads them: the K-major bf16 weight
     ``[(parity, co), (frame, dy, dx, ci)]`` ``[2C, 18C]``, frame 0 being
     s[a-1], the transpose of ``[[K0+K1, K0], [K2, K1+K2]]`` summed in f32
     and rounded once; the bias once per parity, f32; ``maps`` holds the
     weight's tensor maps by BN."""
-    c = weight.shape[0]
-    k0, k1, k2 = weight.float().permute(2, 3, 4, 1, 0)      # [3, 3, Ci, Co]
-    wm = torch.stack([torch.cat([k0 + k1, k0], dim=-1),
-                      torch.cat([k2, k1 + k2], dim=-1)])    # [2, 3, 3, Ci, 2Co]
-    return {"w": wm.reshape(18 * c, 2 * c).t().to(torch.bfloat16).contiguous(),
+    return {"w": _summed(weight).to(torch.bfloat16).contiguous(),
+            "bias": _lib.f32(torch.cat([bias, bias])), "maps": {}}
+
+
+def parity_operands_f32(weight, bias) -> dict:
+    """E's f32 operands: the summed f32 weight split into its bf16 pieces,
+    ``[2C, 3 * 18C]``; the bias as in :func:`parity_operands`."""
+    return {"w": kmajor_pieces(_summed(weight)),
             "bias": _lib.f32(torch.cat([bias, bias])), "maps": {}}
 
 
@@ -70,7 +88,7 @@ def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
     """s: ``[B, T, H, W, C]`` -> ``[B, 2T, H, W, C]``.
 
     A CPU tensor runs :func:`parity_up2x_fused_plain`. Otherwise s must be
-    a contiguous bf16 CUDA tensor whose channels the plan takes
+    a contiguous bf16 or f32 CUDA tensor whose channels the plan takes
     (``plan.conv_plan_parity``: C % 128 == 0); it runs the kernel or
     raises. ``alpha`` is read at every call (the module computes it from
     its mix factor at every forward); the weight and bias are relaid out
@@ -82,20 +100,26 @@ def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
     if s.device.type == "cpu":
         return parity_up2x_fused_plain(s, weight, bias, alpha, first_pad_mode)
     b, t, h, w, c = s.shape
-    pl = plan.conv_plan_parity(b, t, h, w, c)
-    _lib.require(s, torch.bfloat16, (b, t, h, w, c))
+    f32 = _lib.kernel_dtype(s, "E") == torch.float32
+    pl = plan.conv_plan_parity(b, t, h, w, c, f32)
+    _lib.require(s, s.dtype, (b, t, h, w, c))
     if tuple(weight.shape) != (c, c, 3, 3, 3):
         raise ValueError(f"kernel E takes a [C, C, 3, 3, 3] conv, got C={c}, "
                          f"{tuple(weight.shape)}")
-    op = _lib.operands("parity_up2x_fused", (weight, bias), parity_operands)
+    op = _lib.operands("parity_up2x_fused_f32" if f32 else "parity_up2x_fused",
+                       (weight, bias), parity_operands_f32 if f32 else parity_operands)
     alpha = _lib.f32(alpha.reshape(1))
     for v in (op["w"], op["bias"], alpha):
         _lib.same_device(v, s)
     (wmap,) = _lib.weight_maps(op, pl.bn, "w")
     out = s.new_empty((b, 2 * t, h, w, c))
-    _lib.call("vt_parity_up2x", s, out, wmap, op["bias"], alpha, b, t, h, w, c,
-              int(first_pad_mode == "replicate"), pl.th, pl.tw, pl.bn, pl.stages,
-              pl.smem, pl.grid)
+    sizes = (b, t, h, w, c, int(first_pad_mode == "replicate"), pl.th, pl.tw, pl.bn,
+             pl.stages, pl.smem, pl.grid)
+    if f32:
+        sp = s.new_empty((b, t, h, w, PIECES * c), dtype=torch.bfloat16)  # s's pieces
+        _lib.call("vt_parity_up2x_f32", s, sp, out, wmap, op["bias"], alpha, *sizes)
+    else:
+        _lib.call("vt_parity_up2x", s, out, wmap, op["bias"], alpha, *sizes)
     parity_up2x_fused.launches += 1
     return out
 

@@ -10,12 +10,20 @@ and D' launch the tail with :func:`tail_plan`'s patch, run of frames,
 stages, shared memory and grid. Each C entry takes the plan as it is and
 refuses one it cannot run. :func:`tile_origin` and :func:`tail_block`
 mirror how a block finds its work from ``blockIdx.x``.
+
+f32 (``split=True``): A, B, E and F under the loop's f32 scheme
+(``split.py``) run the bf16 plan's tiles, BN, stages and shared memory (a
+ring stage holds the same bytes; the K steps are len(PRODUCTS) x); the
+plan's ``a_channels`` are the A operand's tensor map's (the bf16 pieces,
+3x). D in f32 runs :func:`tail_plan_f32`.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+
+from .split import PIECES
 
 BM, BK = 128, 64                   # rows of an M tile; channels of a K step
 PATCHES = ((8, 16), (4, 32))      # th x tw = BM
@@ -37,6 +45,10 @@ ROW_WARPS = 8                     # warps of a row pass's 256-thread block
 # TMA's row coordinate is a signed 32-bit int: the rows of one clip
 # (temporal) or of a dense operand, plus a tile, must stay below 2^31.
 ROW_COORD_LIMIT = 2 ** 31 - 1 - BM
+# a tensor map's dimension (cuTensorMapEncodeTiled: globalDim <= 2^32) and
+# global stride (< 2^40 bytes, a multiple of 16)
+MAP_DIM_LIMIT = 2 ** 32
+MAP_STRIDE_LIMIT = 2 ** 40
 
 
 @dataclass(frozen=True)
@@ -45,7 +57,9 @@ class ConvPlan:
     spatial or parity M tile (temporal: 1 x BM rows of a clip); ``tiles_x``
     / ``tiles_y`` the patches across / down a frame (temporal: ``tiles_x``
     M tiles per clip, ``tiles_y`` 1); ``m_tiles`` all M tiles; ``n_tiles``
-    = Cout / ``bn``; ``grid`` the blocks, one per (M tile, N tile)."""
+    = Cout / ``bn``; ``grid`` the blocks, one per (M tile, N tile);
+    ``a_channels`` the channels of the A operand's tensor map (f32: the
+    activation's ``PIECES`` pieces side by side)."""
     taps: str
     th: int
     tw: int
@@ -57,6 +71,7 @@ class ConvPlan:
     stages: int
     smem: int
     grid: int
+    a_channels: int = 0
 
 
 def stage_bytes(bn: int) -> int:
@@ -81,7 +96,8 @@ def _check_channels(cin: int, cout: int, cs: int = 0) -> None:
         raise ValueError(f"the wgmma loop takes Cout % 128 == 0, got Cout={cout}")
 
 
-def _plan(taps, th, tw, tiles_x, tiles_y, m_tiles, cout, unit=None) -> ConvPlan:
+def _plan(taps, th, tw, tiles_x, tiles_y, m_tiles, cout, unit=None, cin=0,
+          split=False) -> ConvPlan:
     # BN 256 reads each A tile once for two N tiles' worth of products, but
     # halves the blocks: take it only when the grid still fills the card.
     # BN divides ``unit`` (parity: C, so an N tile is one parity's columns).
@@ -89,7 +105,8 @@ def _plan(taps, th, tw, tiles_x, tiles_y, m_tiles, cout, unit=None) -> ConvPlan:
     bn = 256 if unit % 256 == 0 and m_tiles * (cout // 256) >= SMS else 128
     stages = STAGES[bn]
     plan = ConvPlan(taps, th, tw, tiles_x, tiles_y, m_tiles, bn, cout // bn,
-                    stages, smem_bytes(bn, stages), m_tiles * (cout // bn))
+                    stages, smem_bytes(bn, stages), m_tiles * (cout // bn),
+                    (PIECES if split else 1) * cin)
     if (plan.smem > SMEM_LIMIT or stages * stage_bytes(bn) < epilogue_bytes(bn)
             or BLOCKS_PER_SM[bn] * (plan.smem + 1024) > SMEM_PER_SM):
         raise AssertionError(f"plan {plan} does not fit shared memory")
@@ -107,29 +124,47 @@ def _patch(n: int, h: int, w: int) -> tuple:
     return th, tw, -(-w // tw), -(-h // th)
 
 
+def _check_map(dims, elem: int = 2) -> None:
+    """Raise unless a tensor map of ``dims`` (innermost first) of
+    ``elem``-byte elements is one cuTensorMapEncodeTiled takes."""
+    stride = elem
+    for i, d in enumerate(dims):
+        if d > MAP_DIM_LIMIT or (i and stride >= MAP_STRIDE_LIMIT):
+            raise ValueError(f"a tensor map of {tuple(dims)} passes TMA's limits")
+        stride *= d
+
+
 @functools.lru_cache(maxsize=None)
 def conv_plan_spatial(n: int, h: int, w: int, cin: int, cout: int,
-                      cs: int = 0) -> ConvPlan:
+                      cs: int = 0, split: bool = False) -> ConvPlan:
     """A 3x3 SAME conv of ``[n, h, w, cin]`` to ``cout`` channels (plus a
-    1x1 term of ``cs`` channels), in ``_patch``'s patches."""
+    1x1 term of ``cs`` channels), in ``_patch``'s patches; ``split``: under
+    the f32 scheme."""
     _check_channels(cin, cout, cs)
     th, tw, tiles_x, tiles_y = _patch(n, h, w)
-    return _plan("spatial", th, tw, tiles_x, tiles_y, n * tiles_x * tiles_y, cout)
+    plan = _plan("spatial", th, tw, tiles_x, tiles_y, n * tiles_x * tiles_y, cout,
+                 cin=cin, split=split)
+    _check_map((plan.a_channels, w, h, n))
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
-def conv_plan_parity(b: int, t: int, h: int, w: int, c: int) -> ConvPlan:
+def conv_plan_parity(b: int, t: int, h: int, w: int, c: int,
+                     split: bool = False) -> ConvPlan:
     """Kernel E over ``[b, t, h, w, c]``: 18 taps of C channels (two frames
     x 3x3) to N = 2C columns, the even then the odd output frame, in
     ``_patch``'s patches of one frame; BN divides C, so C % 128 == 0."""
     if c % 128:
         raise ValueError(f"kernel E takes C % 128 == 0, got C={c}")
     th, tw, tiles_x, tiles_y = _patch(b * t, h, w)
-    return _plan("parity", th, tw, tiles_x, tiles_y, b * t * tiles_x * tiles_y, 2 * c, c)
+    plan = _plan("parity", th, tw, tiles_x, tiles_y, b * t * tiles_x * tiles_y, 2 * c, c,
+                 cin=c, split=split)
+    _check_map((plan.a_channels, w, h, t, b))
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
-def conv_plan_temporal(b: int, t: int, s: int, c: int) -> ConvPlan:
+def conv_plan_temporal(b: int, t: int, s: int, c: int, split: bool = False) -> ConvPlan:
     """A k=3 time conv of ``b`` clips of ``t`` output frames of ``s`` rows,
     C -> C: over a scratch of ``t + 2`` frames per clip (B, F), or over the
     clips themselves, the zero front from TMA's zero fill (T2 ``mm``)."""
@@ -139,7 +174,9 @@ def conv_plan_temporal(b: int, t: int, s: int, c: int) -> ConvPlan:
     if (t + 2) * s > ROW_COORD_LIMIT:
         raise ValueError(f"a clip of {(t + 2) * s} rows passes TMA's row coordinate")
     per_clip = -(-t * s // BM)
-    return _plan("temporal", 1, BM, per_clip, 1, b * per_clip, c)
+    plan = _plan("temporal", 1, BM, per_clip, 1, b * per_clip, c, cin=c, split=split)
+    _check_map((plan.a_channels, (t + 2) * s, b))
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -268,3 +305,58 @@ def tail_block(plan: TailPlan, block: int, t: int) -> tuple:
     t0 = r * plan.run
     return (clip, ty * plan.th, tx * plan.tw, t0, min(t, t0 + plan.run),
             max(t0 - TAIL_WARMUP, 0))
+
+
+# Kernel D in f32 (decoder_tail.cu: tail_f32_kernel): a block of
+# TAIL_F32_THREADS per (TAIL_F32_TH x TAIL_F32_TW output patch, clip, output
+# frame), each thread TAIL_F32_PX outputs along x; a halo chunk of
+# TAIL_F32_CK channels of (TH + 2) x (TW + 2) positions, rows TAIL_F32_LD
+# floats apart, and the time tap's weights [3 dy][C][TAIL_F32_WLD] in shared
+# memory.
+TAIL_F32_TH, TAIL_F32_TW, TAIL_F32_PX = 16, 32, 4
+TAIL_F32_THREADS = TAIL_F32_TH * TAIL_F32_TW // TAIL_F32_PX
+TAIL_F32_CK, TAIL_F32_LD, TAIL_F32_WLD = 16, 36, 12
+
+
+@dataclass(frozen=True)
+class TailF32Plan:
+    """One launch of kernel D's f32 form: ``tiles_x`` x ``tiles_y`` patches
+    of ``th`` x ``tw`` per frame, ``grid`` blocks, one per (patch, clip,
+    output frame), the frame fastest; ``smem`` bytes."""
+    th: int
+    tw: int
+    tiles_x: int
+    tiles_y: int
+    smem: int
+    grid: int
+
+
+def tail_f32_smem_bytes(c: int) -> int:
+    return (TAIL_F32_CK * (TAIL_F32_TH + 2) * TAIL_F32_LD + 3 * c * TAIL_F32_WLD) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def tail_plan_f32(b: int, t: int, h: int, w: int, c: int) -> TailF32Plan:
+    """Kernel D over f32 ``[b, t, h, w, c]``: the channels of the bf16 tail
+    (TAIL_CHANNELS), every output frame a block per patch."""
+    if min(b, t, h, w) < 1:
+        raise ValueError(f"empty clips: {(b, t, h, w)}")
+    if c not in TAIL_CHANNELS:
+        raise ValueError(f"the decoder tail takes C in {TAIL_CHANNELS}, got C={c}")
+    tiles_x, tiles_y = -(-w // TAIL_F32_TW), -(-h // TAIL_F32_TH)
+    plan = TailF32Plan(TAIL_F32_TH, TAIL_F32_TW, tiles_x, tiles_y, tail_f32_smem_bytes(c),
+                       b * tiles_x * tiles_y * t)
+    if plan.smem > SMEM_LIMIT:
+        raise AssertionError(f"plan {plan} does not fit shared memory")
+    if plan.grid > GRID_LIMIT:
+        raise ValueError(f"{plan.grid} blocks exceed the grid limit")
+    return plan
+
+
+def tail_f32_block(plan: TailF32Plan, block: int, t: int) -> tuple:
+    """(clip, y0, x0, output frame) of block ``block`` of D's f32 form, as
+    the kernel decodes ``blockIdx.x``."""
+    q, f = divmod(block, t)
+    q, tx = divmod(q, plan.tiles_x)
+    clip, ty = divmod(q, plan.tiles_y)
+    return clip, ty * plan.th, tx * plan.tw, f

@@ -13,6 +13,8 @@ groups ``e00 | e01 | e10 | e11``, and::
     out[n, 2a+pr, 2b+pc, :] = z[n, a+pr, b+pc, (2pr+pc)*C:(2pr+pc+1)*C] + bias
 
 CUDA: ``csrc/subpixel.cu``. The parity convs run outside both, as in JAX.
+C takes bf16 or f32 (a template of the element type); I takes bf16 only
+(its f32 form is not written yet, and it says so).
 """
 
 from __future__ import annotations
@@ -33,20 +35,21 @@ def subpixel_interleave_plain(y00, y01, y10, y11, bias):
 
 def subpixel_interleave(y00, y01, y10, y11, bias):
     """A CPU tensor runs :func:`subpixel_interleave_plain`; a CUDA tensor
-    (contiguous bf16, C % 8 == 0) runs the kernel or raises."""
+    (contiguous bf16 or f32, C % 8 == 0) runs the kernel or raises."""
     subpixel_interleave.calls += 1
     if y00.device.type == "cpu":
         return subpixel_interleave_plain(y00, y01, y10, y11, bias)
     n, h, w, c = y00.shape
+    dt = _lib.kernel_dtype(y00, "C")
     for y in (y00, y01, y10, y11):
-        _lib.require(y, torch.bfloat16, (n, h, w, c))
+        _lib.require(y, dt, (n, h, w, c))
     if c % 8:
         raise ValueError(f"kernel C takes C % 8 == 0, got C={c}")
     bias = _lib.f32(bias)
     _lib.same_device(bias, y00)
     out = y00.new_empty((n, 2 * h, 2 * w, c))
-    _lib.call("vt_subpixel_interleave", y00, y01, y10, y11, bias, out,
-              n, h, w, c)
+    _lib.call("vt_subpixel_interleave" + ("_f32" if dt == torch.float32 else ""),
+              y00, y01, y10, y11, bias, out, n, h, w, c)
     subpixel_interleave.launches += 1
     return out
 
@@ -66,7 +69,8 @@ def subpixel_interleave_z_plain(z, bias):
 
 def subpixel_interleave_z(z, bias):
     """Kernel I. A CPU tensor runs :func:`subpixel_interleave_z_plain`; a
-    CUDA tensor (contiguous bf16, C % 8 == 0) runs the kernel or raises."""
+    CUDA tensor (contiguous bf16, C % 8 == 0) runs the kernel or raises
+    (f32: I has no f32 form yet)."""
     subpixel_interleave_z.calls += 1
     n, h1, w1, c4 = z.shape
     c = bias.shape[0]
@@ -74,6 +78,7 @@ def subpixel_interleave_z(z, bias):
         raise ValueError(f"z has {c4} channels, not 4 x {c}")
     if z.device.type == "cpu":
         return subpixel_interleave_z_plain(z, bias)
+    _lib.refuse_f32(z, "I")
     _lib.require(z, torch.bfloat16, (n, h1, w1, c4))
     if c % 8:
         raise ValueError(f"kernel I takes C % 8 == 0, got C={c}")

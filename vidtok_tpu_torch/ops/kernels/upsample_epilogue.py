@@ -67,13 +67,14 @@ def parity_blend_interleave(s, y_cur, y_prev, bias, alpha, first_pad_mode: str):
     """Kernel G: s ``[B, T, H, W, C]`` and the two convs' ``[B, T, H, W, 2C]``
     -> ``[B, 2T, H, W, C]``. A CPU tensor runs
     :func:`parity_blend_interleave_plain`; a CUDA tensor (contiguous bf16,
-    C % 8 == 0) runs the kernel or raises."""
+    C % 8 == 0) runs the kernel or raises (f32: G has no f32 form yet)."""
     parity_blend_interleave.calls += 1
     _check_mode(first_pad_mode)
     if s.device.type == "cpu":
         return parity_blend_interleave_plain(s, y_cur, y_prev, bias, alpha,
                                              first_pad_mode)
     b, t, h, w, c = s.shape
+    _lib.refuse_f32(s, "G")
     _lib.require(s, torch.bfloat16, (b, t, h, w, c))
     for y in (y_cur, y_prev):
         _lib.require(y, torch.bfloat16, (b, t, h, w, 2 * c))
@@ -92,6 +93,7 @@ def parity_blend_interleave4(s, y4, bias, alpha, first_pad_mode: str):
     if s.device.type == "cpu":
         return parity_blend_interleave4_plain(s, y4, bias, alpha, first_pad_mode)
     b, t, h, w, c = s.shape
+    _lib.refuse_f32(s, "H")
     _lib.require(s, torch.bfloat16, (b, t, h, w, c))
     _lib.require(y4, torch.bfloat16, (b, t, h, w, 4 * c))
     out = _launch(s, y4, y4[..., 2 * c:], 4 * c, bias, alpha, first_pad_mode)

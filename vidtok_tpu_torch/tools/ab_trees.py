@@ -7,8 +7,8 @@ DIR is a checkout (its own ``vidtok_tpu_torch`` and ``chip_smoke.py``),
 run in the order given, each in a process of its own that builds the
 checkout's kernels and measures, with ``chip_smoke``'s own functions:
 
-* kernels A, B, C, D, E, F and D': ms per forward of the v1.0, v1.1 and
-  tiled T=65 paths (D' in the forms that run it), each call shape timed by
+* kernels A-I and D' (bf16): ms per forward of the v1.0, v1.1 and tiled
+  T=65 paths (G, H, I and D' in the forms that run them), each call shape timed by
   CUDA events (``chip_smoke.cuda_ms``) and weighted by its calls per
   forward (``chip_smoke.kernel_cases``);
 * the request latency, s: ``chip_smoke.N_REQUESTS`` requests of
@@ -32,8 +32,9 @@ from collections import defaultdict
 
 KERNELS = ("fused_spatial_resblock", "fused_temporal_resblock", "subpixel_interleave",
            "decoder_tail_rgb", "parity_up2x_fused", "fused_temporal_resblock_stream",
+           "parity_blend_interleave", "parity_blend_interleave4", "subpixel_interleave_z",
            "decoder_tail_rgb_taps")
-PATHS = ("v1_0", "v1_1", "tiled", "v1_0_forms", "tiled_forms")
+PATHS = ("v1_0", "v1_1", "tiled", "v1_0_forms", "v1_0_split", "tiled_forms")
 TOOL_ROWS = ("v0 shipped", "v1 fat", "v2 mm-only", "v3 ln-only")
 
 # What each run executes, from the root of its checkout.

@@ -62,8 +62,12 @@ def _rank_run(rank: int, world: int, port: int, args: dict, out: str) -> None:
     init_distributed("nccl" if cuda else "gloo", f"tcp://localhost:{port}", world, rank,
                      device_index=rank if cuda else None)
     device = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    # f32 is the plain path (its records are a plain-path run, bit-equal to
+    # one card); bf16 takes kernel E on each slab, as the engine's default
+    f32 = args["dtype"] == "float32"
     tok = load_model_from_config(CONFIG, seed=0, device=device,
-                                 compute_dtype=getattr(torch, args["dtype"]))
+                                 compute_dtype=getattr(torch, args["dtype"]),
+                                 fused=False if f32 else None)
     shape = (1, 3, args["frames"], args["size"], args["size"])
     x = np.clip(np.random.RandomState(0).randn(*shape) * 0.5, -1, 1).astype(np.float32)
     mesh = make_mesh()
