@@ -45,19 +45,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    before each call, and for T2's mm a cuDNN yardstick (two k=(3,1,1)
    convs and the add, ``mm_yardstick``); then both tools' mains on the card
    at the same shapes, whose rows give the kernels' times and bounds and
-   whose launches of T1-T4 the result line reports; then A-F's f32 forms
-   (the wgmma loop's f32 scheme in A, B, E and F, C's f32 template, D's
-   f32 form) against their plain versions in f32, TF32 off on both sides,
-   at every call shape of phase 19's two requests, the other stream-start
-   mode of B, E and D, F at both ``first_chunk`` values, one partial-tile
-   shape each (F32_PARTIAL, 33²; F there at cache offsets 0, 1, 2 and 4,
-   on y and both new caches) and A's, E's and D's T=201 calls; gate
+   whose launches of T1-T4 the result line reports; then the f32 forms
+   of A-I and D' (the wgmma loop's f32 scheme in A, B, E and F, the
+   tail's in D and D', the templates of C, G, H and I) against their plain
+   versions in f32, TF32 off on both sides, at every call shape of phase
+   19's requests (the forms' too), the other stream-start mode of B, E, G,
+   H, D and D', F at both ``first_chunk`` values, one partial-tile shape
+   each (F32_PARTIAL, 33²; F there at cache offsets 0, 1, 2 and 4, on y
+   and both new caches) and A's, E's, D's and D''s T=201 calls; gate
    relative L2 <= F32_GATE (2e-5); each timed by CUDA events beside
    cuDNN's f32 convs of the block, its bound from ``f32_work`` (f32 bytes
    over 3.35 TB/s, or the function's FLOP over the bf16 tensor-core rate
-   / 6, the scheme's six products, D's too); and A, B, F and D on rows of
-   mean F32_ROW_MEAN (the f32 row passes' two-pass statistics; checked,
-   not timed);
+   / 6, the scheme's six products); and A, B, F, D and D' on rows of mean
+   F32_ROW_MEAN (the two-pass statistics; checked, not timed);
 3. serve the causal v1.0 KL 4x8x8 16-channel flagship at full width with
    seeded random weights in bf16: 3 requests of [1, 3, 17, 256, 256],
    per-request latency, frames/s and peak memory, and the kernels' launch
@@ -237,10 +237,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     one, 2 requests on the plain f32 path for comparison; z and the
     reconstruction within F32_E2E_GATE (2e-4, README's golden tolerance)
     of the plain f32 path at that shape and at [1, 3, 17, 264, 264]; one
-    f32 request in the forms ("merged", "merged", "taps"), which must
-    raise ValueError naming the kernel without an f32 form; then the v1.1
-    model tiled, 3 requests of [1, 3, 65, 256, 256] (F 100, A 100, C 15,
-    D 5), the same records and the gate against the tiled plain f32 path.
+    f32 request in the forms ("merged", "merged", "taps") (H 2, I 3, D' 1
+    a forward) and one in ("split", "split", "packed") (G 2, C 3, D 1),
+    each timed with its launches and held to the plain f32 path at
+    F32_E2E_GATE at both shapes; then the v1.1 model tiled, 3 requests of
+    [1, 3, 65, 256, 256] (F 100, A 100, C 15, D 5), the same records and
+    the gate against the tiled plain f32 path, and one request in
+    ("fused", "merged", "taps") (I 15, D' 5) held to it likewise.
 
 Phase 2 also holds every call shape of phases 9-12 that the earlier
 phases do not give (``model_calls``: A at 16² x 512 channels and at 256²
@@ -249,8 +252,9 @@ chunks' shapes and offsets, C, and D on [2 cached | chunk] with
 ``t_chunk_dec`` 2), timed per forward of its path.
 
 ``python3 chip_smoke.py --kernels NAME[,NAME...]`` runs phases 1 and 2 for
-the named kernels of SOURCES and TOOL_SOURCES alone (and D's T=201 window
-when D is named; a tool's kernel at the tools' shapes),
+the named kernels of SOURCES and TOOL_SOURCES alone, in bf16 and f32 (and
+D's T=201 window when D is named, in both, D''s in f32 when D' is; a
+tool's kernel at the tools' shapes),
 reports every gate that fails and exits 1 if any did, with no result line:
 the check to run from a copy of the checkout with a planted fault.
 
@@ -261,13 +265,16 @@ besides its source; launches
 from phase 3's kernel-path run for A-E, phase 7's for F, and phase 8's for
 G (its ``split`` request), H, I and D', and the tools' runs for T1-T4,
 whose numbers are those of one row of the tool at its first shape, with
-every row beside; then A-F's f32 forms, named "<kernel> (f32)", with
-phase 19's launches, the v1.0 f32 request's times and F the tiled one's) and ``{"ok": true, "device": {...}}``. Needs one CUDA device;
+every row beside; then the f32 forms of A-I and D', named "<kernel>
+(f32)", with phase 19's launches and times per forward of its request
+that runs them: the v1.0 f32 request's, F the tiled one's, G the
+``split`` forms' request's, H, I and D' the ``merged`` forms' one's) and ``{"ok": true, "device": {...}}``. Needs one CUDA device;
 imports no JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -506,41 +513,52 @@ CONFIG_PATHS = {"noncausal": (NONCAUSAL_CFG, (1, 3, 16, 256, 256), False),
                 "kl_444": (KL_444_CFG, REQUEST, False)}
 PATHS = ("v1_0", "v1_1", "tiled") + tuple(FORMS) + tuple(CONFIG_PATHS)
 
-# A-F on f32 activations (phase 19, ``serve_f32``, and phase 2's f32
-# checks): the wgmma loop's f32 scheme (csrc/wgmma_conv.cuh: bf16 pieces,
-# six products) in A, B, E and F, C's f32 template, D's f32 form on the
-# CUDA cores. The engine serves f32 through them by default on the card
-# (``load_model_from_config(..., compute_dtype=torch.float32)``), as JAX's
-# default engine serves f32 through its Pallas kernels. Two requests: the
-# v1.0 flagship at REQUEST (F32_PATHS[0]) and the tiled v1.1 model at
-# TILED_REQUEST (F32_PATHS[1]), each held to its plain f32 path (TF32 off)
-# at F32_E2E_GATE, the golden tolerance of README.md; each kernel's f32
-# form to its plain version in f32 at F32_GATE at every call shape of the
-# two requests (``f32_calls``), the other stream-start mode of B, E and D,
-# F at both ``first_chunk`` values, one partial-tile shape each
-# (F32_PARTIAL: a 33² latent; F there at every offset of F32_OFFSETS) and
-# A's, E's and D's T=201 calls (SPATIAL_LONG, PARITY_LONG, TAIL_LONG).
-# A, B, F and D are also held there on rows offset by F32_ROW_MEAN, a mean
-# beside which E[x^2] - mean^2 loses about 1e-4 of the activation in f32:
-# the residual blocks' first output less x, F's caches and D's output as
-# they are.
+# The kernels on f32 activations (phase 19, ``serve_f32``, and phase 2's
+# f32 checks): the wgmma loop's f32 scheme (csrc/wgmma_conv.cuh: bf16
+# pieces, six products) in A, B, E and F, the tail's (decoder_tail.cu) in D
+# and D', the templates of C, G, H and I. The engine serves f32 through
+# them by default on the card (``load_model_from_config(...,
+# compute_dtype=torch.float32)``), as JAX's default engine serves f32
+# through its Pallas kernels, in every form. Requests: the v1.0 flagship at
+# REQUEST (F32_PATHS[0]) and the tiled v1.1 model at TILED_REQUEST
+# (F32_PATHS[1]), then each in the forms of F32_FORMS, each held to its
+# plain f32 path (TF32 off) at F32_E2E_GATE, the golden tolerance of
+# README.md; each kernel's f32 form to its plain version in f32 at
+# F32_GATE at every call shape of those requests (``f32_calls``), the
+# other stream-start mode of B, E, G, H, D and D', F at both
+# ``first_chunk`` values, one partial-tile shape each (F32_PARTIAL: a 33²
+# latent; F there at every offset of F32_OFFSETS) and A's, E's, D's and
+# D''s T=201 calls (SPATIAL_LONG, PARITY_LONG, TAIL_LONG). A, B, F, D and
+# D' are also held there on rows offset by F32_ROW_MEAN, a mean beside
+# which E[x^2] - mean^2 loses about 1e-4 of the activation in f32: the
+# residual blocks' first output less x, F's caches and D's and D''s output
+# as they are.
 F32_GATE = 2e-5
 F32_ROW_MEAN = 50.0
 F32_E2E_GATE = 2e-4
-F32_PATHS = ("v1_0_f32", "tiled_f32")
+# the forms' f32 requests: path -> the FORMS path whose forms they take
+F32_FORMS = {"v1_0_forms_f32": "v1_0_forms", "v1_0_split_f32": "v1_0_split",
+             "tiled_forms_f32": "tiled_forms"}
+F32_PATHS = ("v1_0_f32", "tiled_f32") + tuple(F32_FORMS)
 F32_OFFSETS = (0, 1, 2, 4)
 F32_PARTIAL = {"fused_spatial_resblock": (5, 33, 33, 512, 512),
                "fused_temporal_resblock": (2, 5, 33, 33, 512),
                "fused_temporal_resblock_stream": (1, 5, 33, 33, 512),
                "subpixel_interleave": (5, 33, 33, 512),
                "decoder_tail_rgb": (2, 6, 33, 33, 128),
-               "parity_up2x_fused": (2, 5, 33, 33, 512)}
+               "parity_up2x_fused": (2, 5, 33, 33, 512),
+               "parity_blend_interleave": (2, 5, 33, 33, 512),
+               "parity_blend_interleave4": (2, 5, 33, 33, 512),
+               "subpixel_interleave_z": (5, 33, 33, 512),
+               "decoder_tail_rgb_taps": (2, 6, 33, 33, 128)}
 F32_KERNELS = tuple(F32_PARTIAL)
-# forms whose kernels have no f32 form yet: an f32 request in them raises
-F32_REFUSED_FORMS = ("merged", "merged", "taps")
 # each f32 kernel's path in the result line (launches, times)
 F32_MAIN_PATH = dict.fromkeys(F32_KERNELS, "v1_0_f32") | {
-    "fused_temporal_resblock_stream": "tiled_f32"}
+    "fused_temporal_resblock_stream": "tiled_f32",
+    "parity_blend_interleave": "v1_0_split_f32",
+    "parity_blend_interleave4": "v1_0_forms_f32",
+    "subpixel_interleave_z": "v1_0_forms_f32",
+    "decoder_tail_rgb_taps": "v1_0_forms_f32"}
 
 # the path whose serving run gives each kernel's launches and times in the
 # result line
@@ -839,7 +857,7 @@ def work(name: str, key, elem: int = 2) -> tuple:
         # s, the cur and prev halves (4C) read, 2C written; 5 FLOP a value
         b, t, h, w, c = key[0]
         m = b * t * h * w
-        return 2 * 7 * m * c + 4 * (c + 1), 0, 5 * 2 * m * c
+        return elem * 7 * m * c + 4 * (c + 1), 0, 5 * 2 * m * c
     if name in ("decoder_tail_rgb", "decoder_tail_rgb_taps"):
         b, t, h, w, c = key[0]
         m = b * t * h * w
@@ -852,8 +870,8 @@ def work(name: str, key, elem: int = 2) -> tuple:
 def f32_work(name: str, key) -> tuple:
     """``work`` of a kernel's f32 form: f32 activations (4 bytes), and the
     function's FLOP at the rate of the f32 scheme: the tensor-core FLOP
-    times the scheme's products (the bf16 rate over len(PRODUCTS)), D's too
-    although its f32 form runs them on the CUDA cores; C none."""
+    times the scheme's products (the bf16 rate over len(PRODUCTS)); C, G,
+    H and I none."""
     from vidtok_tpu_torch.ops.kernels.split import PRODUCTS
 
     nbytes, mma, vec = work(name, key, 4)
@@ -1048,23 +1066,37 @@ def kernel_cases(device):
                        decoder_tail.decoder_tail_rgb_taps_plain, args)
 
 
+def swap_calls(calls: Counter, path: str) -> Counter:
+    """``model_calls`` of the default forms moved to the kernels of the
+    FORMS ``path`` (the same call keys)."""
+    swaps = form_swaps(path)
+    out = Counter()
+    for (name, key), n in calls.items():
+        out[swaps.get(name, name), key] += n
+    return out
+
+
 def f32_calls() -> dict:
     """F32_PATHS' path -> ``model_calls`` of one forward of its request."""
-    return {"v1_0_f32": model_calls(V1_0_CFG, REQUEST),
-            "tiled_f32": tiled_calls(TILED_REQUEST[2])}
+    calls = {"v1_0_f32": model_calls(V1_0_CFG, REQUEST),
+             "tiled_f32": tiled_calls(TILED_REQUEST[2])}
+    for path, forms in F32_FORMS.items():
+        calls[path] = swap_calls(calls[FORMS[forms][1] + "_f32"], forms)
+    return calls
 
 
 def f32_kernel_cases(device):
-    """Yield a ``Case`` for every f32 call shape of A-F (see F32_GATE):
-    f32 activations and parameters on ``device``, cuDNN's f32 convs of the
-    block (A, B, F), E's per-frame conv C -> 3C and D's 3x3x3 conv as the
-    yardstick."""
+    """Yield a ``Case`` for every f32 call shape of A-I and D' (see
+    F32_GATE): f32 activations and parameters on ``device``, cuDNN's f32
+    convs of the block (A, B, F), E's per-frame conv C -> 3C and D's and
+    D''s 3x3x3 conv as the yardstick."""
     import torch
     import torch.nn.functional as F
 
     from vidtok_tpu_torch.modules.conv import conv3d_cl
     from vidtok_tpu_torch.ops.kernels import (decoder_tail, fused_spatial, fused_temporal,
-                                              parity_upsample as pu, subpixel as sp)
+                                              parity_upsample as pu, subpixel as sp,
+                                              upsample_epilogue as ue)
 
     f32 = torch.float32
     p = Params(9, device)
@@ -1073,7 +1105,9 @@ def f32_kernel_cases(device):
         for (name, key), n in calls.items():
             shapes[name][key][path] = n
     other = {"zero": "replicate", "replicate": "zero"}
-    for name in ("fused_temporal_resblock", "parity_up2x_fused", "decoder_tail_rgb"):
+    for name in ("fused_temporal_resblock", "parity_up2x_fused", "decoder_tail_rgb",
+                 "parity_blend_interleave", "parity_blend_interleave4",
+                 "decoder_tail_rgb_taps"):
         for shape, mode in list(shapes[name]):
             shapes[name][shape, other[mode]].setdefault(F32_PATHS[0], 0)
         shape = F32_PARTIAL[name]
@@ -1086,7 +1120,7 @@ def f32_kernel_cases(device):
         for off in F32_OFFSETS:
             stream[F32_PARTIAL["fused_temporal_resblock_stream"], first, off].setdefault(
                 F32_PATHS[1], 0)
-    for name in ("fused_spatial_resblock", "subpixel_interleave"):
+    for name in ("fused_spatial_resblock", "subpixel_interleave", "subpixel_interleave_z"):
         shapes[name][F32_PARTIAL[name]].setdefault(F32_PATHS[0], 0)
 
     def tconvs(x, conv1, conv2):
@@ -1131,12 +1165,21 @@ def f32_kernel_cases(device):
         args = tuple(p.x(key, f32) for _ in range(4)) + (p.t(0.1 * p.rng.randn(key[-1])),)
         yield Case("subpixel_interleave", key, dict(calls), sp.subpixel_interleave,
                    sp.subpixel_interleave_plain, args)
-    for (shape, mode), calls in shapes["decoder_tail_rgb"].items():
-        c = shape[-1]
-        args = (p.x(shape, f32), p.norm(c), p.conv((3, c, 3, 3, 3)), mode)
-        yield Case("decoder_tail_rgb", (shape, mode), dict(calls),
-                   decoder_tail.decoder_tail_rgb, decoder_tail.decoder_tail_rgb_plain, args,
-                   lambda x=args[0], w=args[2][0]: conv3d_cl(x, w, padding=(1, 1, 1)))
+    for key, calls in shapes["subpixel_interleave_z"].items():
+        n, h, w, c = key
+        yield Case("subpixel_interleave_z", key, dict(calls), sp.subpixel_interleave_z,
+                   sp.subpixel_interleave_z_plain,
+                   (p.x((n, h + 1, w + 1, 4 * c), f32), p.t(0.1 * p.rng.randn(c))))
+    tails = {"decoder_tail_rgb": (decoder_tail.decoder_tail_rgb,
+                                  decoder_tail.decoder_tail_rgb_plain),
+             "decoder_tail_rgb_taps": (decoder_tail.decoder_tail_rgb_taps,
+                                       decoder_tail.decoder_tail_rgb_taps_plain)}
+    for name, (kernel, plain) in tails.items():
+        for (shape, mode), calls in shapes[name].items():
+            c = shape[-1]
+            args = (p.x(shape, f32), p.norm(c), p.conv((3, c, 3, 3, 3)), mode)
+            yield Case(name, (shape, mode), dict(calls), kernel, plain, args,
+                       lambda x=args[0], w=args[2][0]: conv3d_cl(x, w, padding=(1, 1, 1)))
     for (shape, mode), calls in shapes["parity_up2x_fused"].items():
         b, t, h, w, c = shape
         args = (p.x(shape, f32), *p.conv((c, c, 3, 3, 3)),
@@ -1146,6 +1189,20 @@ def f32_kernel_cases(device):
                    pu.parity_up2x_fused_plain, args,
                    lambda s=args[0].reshape(b * t, h, w, c).permute(0, 3, 1, 2), kb=kb:
                    F.conv2d(s, kb, None, 1, 1))
+    # G and H on inputs of their own: s, the bias and alpha, the parity
+    # convs' outputs drawn as activations
+    for (shape, mode), calls in shapes["parity_blend_interleave"].items():
+        b, t, h, w, c = shape
+        args = (p.x(shape, f32), p.x((b, t, h, w, 2 * c), f32), p.x((b, t, h, w, 2 * c), f32),
+                p.t(0.1 * p.rng.randn(c)), p.t([0.88]), mode)
+        yield Case("parity_blend_interleave", (shape, mode), dict(calls),
+                   ue.parity_blend_interleave, ue.parity_blend_interleave_plain, args)
+    for (shape, mode), calls in shapes["parity_blend_interleave4"].items():
+        b, t, h, w, c = shape
+        args = (p.x(shape, f32), p.x((b, t, h, w, 4 * c), f32), p.t(0.1 * p.rng.randn(c)),
+                p.t([0.88]), mode)
+        yield Case("parity_blend_interleave4", (shape, mode), dict(calls),
+                   ue.parity_blend_interleave4, ue.parity_blend_interleave4_plain, args)
     # the row passes' statistics on rows of a large mean, at the partial
     # shapes, not timed
     mean = F32_ROW_MEAN
@@ -1170,12 +1227,12 @@ def f32_kernel_cases(device):
                (p.x(shape, f32) + mean, p.norm(c), p.conv((c, c, 3)), p.norm(c),
                 p.conv((c, c, 3)), *(p.x((b, 2, h, w, c), f32) for _ in range(2)), False, 1),
                mean=mean)
-    shape = F32_PARTIAL["decoder_tail_rgb"]
-    c = shape[-1]
-    yield Case("decoder_tail_rgb", (shape, "replicate"), {}, decoder_tail.decoder_tail_rgb,
-               decoder_tail.decoder_tail_rgb_plain,
-               (p.x(shape, f32) + mean, p.norm(c), p.conv((3, c, 3, 3, 3)), "replicate"),
-               mean=mean)
+    for name, (kernel, plain) in tails.items():
+        shape = F32_PARTIAL[name]
+        c = shape[-1]
+        yield Case(name, (shape, "replicate"), {}, kernel, plain,
+                   (p.x(shape, f32) + mean, p.norm(c), p.conv((3, c, 3, 3, 3)), "replicate"),
+                   mean=mean)
 
 
 def form_calls(calls: dict, kernel: str) -> dict:
@@ -1216,7 +1273,7 @@ def check_kernels(device, names=None, in_f32: bool = False) -> dict:
     ln_silu(0) = silu(bias) instead of 0) stays under 1e-2 at 256x256 but
     doubles that error.
 
-    ``in_f32``: A-F's f32 forms at ``f32_kernel_cases``' shapes, each held
+    ``in_f32``: the f32 forms at ``f32_kernel_cases``' shapes, each held
     to its plain version in f32 (TF32 off) at F32_GATE, timed against the
     plain f32 version and cuDNN's f32 convs, the bound from ``f32_work``,
     per forward of F32_PATHS.
@@ -1234,7 +1291,7 @@ def check_kernels(device, names=None, in_f32: bool = False) -> dict:
             continue
         out = _outs(case.kernel(*args))
         ref = _outs(case.plain(*f32(args)))
-        if case.mean and name != "decoder_tail_rgb":
+        if case.mean and not name.startswith("decoder_tail_rgb"):
             # the residual branch, which x's offset would dwarf
             out = (out[0] - args[0], *out[1:])
             ref = (ref[0] - args[0], *ref[1:])
@@ -1387,30 +1444,31 @@ def check_spatial_long(device, in_f32: bool = False) -> None:
     _long_gate(f"fused_spatial_resblock{label}{SPATIAL_LONG} window", *rels)
 
 
-def check_tail_long(device, in_f32: bool = False) -> None:
+def check_tail_long(device, in_f32: bool = False, taps: bool = False) -> None:
     """Kernel D at TAIL_LONG, zero mode (its input 3.4 GB, in runs of frames
     that start with warm-up frames): the output frames of its last run
     against the plain version of the input window that holds them and the
     two warm-up frames before, whose outputs are dropped, in f32 and in
     bf16; D's time at this shape. ``in_f32``: D's f32 form (6.8 GB of
     input) on the same window, held to the plain f32 version at
-    F32_GATE."""
+    F32_GATE. ``taps``: kernel D' in place of D."""
     import torch
 
     from vidtok_tpu_torch.ops.kernels import decoder_tail, plan
 
+    name = "decoder_tail_rgb_taps" if taps else "decoder_tail_rgb"
+    kernel, plain = getattr(decoder_tail, name), getattr(decoder_tail, name + "_plain")
     b, t, h, w, c = TAIL_LONG
     pl = plan.tail_plan(*TAIL_LONG)
     p = Params(8, device)
     params = (p.norm(c), p.conv((3, c, 3, 3, 3)), "zero")
     x = p.x(TAIL_LONG, torch.float32 if in_f32 else torch.bfloat16)
-    out = decoder_tail.decoder_tail_rgb(x, *params)
+    out = kernel(x, *params)
     t0 = (pl.runs - 1) * pl.run  # the last run's first output frame
     s0 = max(t0 - 2, 0)
     win = x[:, s0:]
-    ref = decoder_tail.decoder_tail_rgb_plain(win.float(), *params)[:, t0 - s0:]
-    plain_bf16 = (None if in_f32 else
-                  decoder_tail.decoder_tail_rgb_plain(win, *params)[:, t0 - s0:])
+    ref = plain(win.float(), *params)[:, t0 - s0:]
+    plain_bf16 = None if in_f32 else plain(win, *params)[:, t0 - s0:]
     got = out[:, t0:].float()
     torch.cuda.synchronize()
     if out.shape != (b, t, h, w, 3) or got.shape != ref.shape or out.dtype != x.dtype:
@@ -1418,13 +1476,13 @@ def check_tail_long(device, in_f32: bool = False) -> None:
                              f"{tuple(got.shape)} vs {tuple(ref.shape)}")
     rels = _long_rels(got, ref, plain_bf16)
     del out, got, ref, plain_bf16, win
-    ms = cuda_ms(lambda: decoder_tail.decoder_tail_rgb(x, *params), warmup=1, iters=3)
+    ms = cuda_ms(lambda: kernel(x, *params), warmup=1, iters=3)
     label = " f32" if in_f32 else ""
-    print(f"kernel decoder_tail_rgb{label} {TAIL_LONG} zero, output frames {t0}-{t - 1} "
+    print(f"kernel {name}{label} {TAIL_LONG} zero, output frames {t0}-{t - 1} "
           f"(the last of {pl.runs} runs of {pl.run} frames of the bf16 plan): "
           f"{_long_line(*rels)} kernel_ms {ms:.4f} (plain not timed at this shape)",
           flush=True)
-    _long_gate(f"decoder_tail_rgb{label}{TAIL_LONG} window", *rels)
+    _long_gate(f"{name}{label}{TAIL_LONG} window", *rels)
 
 
 def loop_rates(device) -> None:
@@ -4362,6 +4420,25 @@ def f32_tokenizer(cfg: dict, device, seed: int = 0):
     return tok
 
 
+def serve_f32_forms(tok, path: str, label: str, shapes) -> dict:
+    """One f32 request of ``tok`` in the forms of F32_FORMS ``path``, timed
+    with its launches per forward (``f32_calls``), then ``f32_e2e_check``
+    against the plain f32 path at each of ``shapes`` (the first the
+    request's); the default forms again after. Returns the ``serve``
+    result."""
+    from vidtok_tpu_torch import KernelForms
+
+    tok.forms = kernel_forms(F32_FORMS[path])
+    per = per_forward(f32_calls()[path])
+    r = serve(tok, 1, shapes[0], per)
+    del r["last"]
+    report(f"f32 kernel path in forms {tok.forms}: {label}", r, shapes[0], "f32")
+    for shape in shapes:
+        f32_e2e_check(tok, shape, per, f"{label}, forms {tok.forms}")
+    tok.forms = KernelForms()
+    return r
+
+
 def serve_f32(device) -> dict:
     """Phase 19: f32 through the kernels, the engine's default on the card.
     (a) the v1.0 flagship from ``f32_tokenizer`` (FLAGSHIP_PARAMS
@@ -4369,16 +4446,15 @@ def serve_f32(device) -> dict:
     launches each (latency, frames/s, peak memory), a profile of one (the
     busy share), 2 requests on the plain f32 path (the same engine, ``fused``
     off), ``f32_e2e_check`` at REQUEST and at PARTIAL_REQUEST (a 33²
-    latent), and one f32 request in the F32_REFUSED_FORMS forms, which must
-    raise ValueError naming the first of G, H, I, D' the decoder reaches; (b)
-    the v1.1 model tiled (``use_overlap``, ``t_chunk_enc`` 16): N_REQUESTS
-    requests of TILED_REQUEST with ``tiled_per_forward``'s launches, a
-    profile, 2 requests on the tiled plain f32 path, ``f32_e2e_check``
-    against it. Returns {F32_PATHS' path: the kernel path's ``serve``
-    result, with its ``busy_share``}."""
+    latent), then ``serve_f32_forms`` in the forms of ``v1_0_forms_f32``
+    and ``v1_0_split_f32`` at both shapes; (b) the v1.1 model tiled
+    (``use_overlap``, ``t_chunk_enc`` 16): N_REQUESTS requests of
+    TILED_REQUEST with ``tiled_per_forward``'s launches, a profile, 2
+    requests on the tiled plain f32 path, ``f32_e2e_check`` against it,
+    then ``serve_f32_forms`` in the forms of ``tiled_forms_f32``. Returns
+    {F32_PATHS' path: the kernel path's ``serve`` result, the default
+    forms' with its ``busy_share``}."""
     import torch
-
-    from vidtok_tpu_torch import KernelForms
 
     runs = {}
     tok = f32_tokenizer(V1_0_CFG, device)
@@ -4409,20 +4485,13 @@ def serve_f32(device) -> dict:
         del r["last"], plain
         torch.cuda.empty_cache()
         f32_e2e_check(tok, shape, per, label)
-        if not tiled:
+        if tiled:
+            runs["tiled_forms_f32"] = serve_f32_forms(tok, "tiled_forms_f32", label, [shape])
+        else:
             f32_e2e_check(tok, PARTIAL_REQUEST, per, label)
-            tok.forms = KernelForms(*F32_REFUSED_FORMS)
-            x = np.zeros(REQUEST, np.float32)
-            try:
-                tok(x)
-            except ValueError as e:
-                if not any(f"kernel {k} has no f32 form" in str(e)
-                           for k in ("G", "H", "I", "D'")):
-                    raise AssertionError(f"f32 in {tok.forms}: {e}") from e
-                print(f"f32 request in {tok.forms}: ValueError: {e}", flush=True)
-            else:
-                raise AssertionError(f"an f32 request in {tok.forms} did not raise")
-            tok.forms = KernelForms()
+            for fpath in ("v1_0_forms_f32", "v1_0_split_f32"):
+                runs[fpath] = serve_f32_forms(tok, fpath, label, [shape, PARTIAL_REQUEST])
+            torch.cuda.empty_cache()
     del tok
     torch.cuda.empty_cache()
     return runs
@@ -4436,8 +4505,8 @@ def phase(name: str, t0: float) -> float:
 
 def check_only(device, names) -> int:
     """``--kernels``: phase 2 for the named kernels alone (D's T=201 window
-    too when D is named; a tool's kernels at the tools' shapes), every gate
-    reported; 1 if any failed."""
+    too when D is named, in bf16 and f32, D''s in f32 when D' is; a tool's
+    kernels at the tools' shapes), every gate reported; 1 if any failed."""
     checks = []
     if set(names) & set(SOURCES):
         checks.append(lambda: check_kernels(device, names))
@@ -4445,6 +4514,9 @@ def check_only(device, names) -> int:
         checks.append(lambda: check_kernels(device, names, in_f32=True))
     if "decoder_tail_rgb" in names:
         checks.append(lambda: check_tail_long(device))
+        checks.append(lambda: check_tail_long(device, in_f32=True))
+    if "decoder_tail_rgb_taps" in names:
+        checks.append(lambda: check_tail_long(device, in_f32=True, taps=True))
     if set(names) & set(TOOL_SOURCES):
         checks.append(lambda: check_tools(device, names))
     failed = 0
@@ -4511,7 +4583,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t = phase("kernels", t)
     kres32 = check_kernels(device, in_f32=True)
-    for check in (check_parity_long, check_spatial_long, check_tail_long):
+    for check in (check_parity_long, check_spatial_long, check_tail_long,
+                  functools.partial(check_tail_long, taps=True)):
         check(device, in_f32=True)
         torch.cuda.empty_cache()
     t = phase("kernels f32", t)

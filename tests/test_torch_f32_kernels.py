@@ -3,16 +3,17 @@ in f32.
 
 On the card A, B, E and F take f32 through the wgmma loop's f32 scheme
 (``ops/kernels/split.py``): each f32 operand split into three bf16 pieces,
-six products of pieces summed in f32; C is a template of the element type
-and D runs its f32 products on the CUDA cores. Here the scheme's
-arithmetic is written in PyTorch (the split, then each product in f32) and
-held on the CPU against the JAX kernel in interpret mode in f32, on inputs
-from a numpy seed at ``tests/test_torch_kernels.py``'s sizes: relative L2
-at most REL (2e-5, the gate ``chip_smoke.py`` holds the card's f32 kernels
-to against their plain versions). Then the engine's default (the kernels on
-for a CUDA device in bf16 and f32), the wrappers' refusal of other dtypes
-and of f32 in the forms that have no f32 kernel (the meta device standing
-in for a card), and the f32 operands' layouts.
+six products of pieces summed in f32; D and D' run the same scheme in the
+decoder tail; C, G, H and I are templates of the element type. Here the
+scheme's arithmetic is written in PyTorch (the split, then each product in
+f32) and held on the CPU against the JAX kernel in interpret mode in f32,
+on inputs from a numpy seed at ``tests/test_torch_kernels.py``'s sizes:
+relative L2 at most REL (2e-5, the gate ``chip_smoke.py`` holds the card's
+f32 kernels to against their plain versions); the tail's walk is modelled
+in ``tests/test_torch_tail.py``. Then the engine's default (the kernels on
+for a CUDA device in bf16 and f32), the ten serving wrappers taking f32 and
+refusing other dtypes (the meta device standing in for a card), and the
+f32 operands' layouts.
 """
 
 import jax
@@ -28,7 +29,9 @@ from vidtok_tpu.ops.pallas.fused_spatial_v2 import fused_spatial_resblock_v2
 from vidtok_tpu.ops.pallas.fused_temporal import fused_temporal_resblock as j_temporal
 from vidtok_tpu.ops.pallas.fused_temporal import fused_temporal_resblock_stream as j_stream
 from vidtok_tpu.ops.pallas.parity_upsample_fused import parity_up2x_fused as j_parity
+from vidtok_tpu.ops.pallas import upsample_epilogue as JU
 from vidtok_tpu.ops.pallas.subpixel_epilogue import subpixel_interleave as j_subpixel
+from vidtok_tpu.ops.pallas.subpixel_epilogue import subpixel_interleave_z as j_sub_z
 from vidtok_tpu_torch.convert import state_dict_from_jax
 from vidtok_tpu_torch.models.autoencoder import fused_default
 from vidtok_tpu_torch.modules import blocks as TB
@@ -36,7 +39,7 @@ from vidtok_tpu_torch.ops import kernels as K
 from vidtok_tpu_torch.ops.kernels import plan
 from vidtok_tpu_torch.ops.kernels.act import ln_silu_f32, ln_silu_fast
 from vidtok_tpu_torch.ops.kernels.decoder_tail import (decoder_tail_rgb_plain,
-                                                       tail_operands_f32)
+                                                       tail_operands, tail_operands_f32)
 from vidtok_tpu_torch.ops.kernels.fused_spatial import (fused_spatial_resblock_plain,
                                                         spatial_operands)
 from vidtok_tpu_torch.ops.kernels.fused_temporal import (
@@ -47,7 +50,10 @@ from vidtok_tpu_torch.ops.kernels.parity_upsample import (parity_operands,
                                                           parity_up2x_fused_plain)
 from vidtok_tpu_torch.ops.kernels.split import (PIECES, PRODUCTS, kmajor_pieces,
                                                 product_sum, split)
-from vidtok_tpu_torch.ops.kernels.subpixel import subpixel_interleave_plain
+from vidtok_tpu_torch.ops.kernels.subpixel import (subpixel_interleave_plain,
+                                                   subpixel_interleave_z_plain)
+from vidtok_tpu_torch.ops.kernels.upsample_epilogue import (parity_blend_interleave4_plain,
+                                                            parity_blend_interleave_plain)
 
 torch.set_num_threads(2)
 REL = 2e-5
@@ -281,10 +287,42 @@ def test_kernel_c_f32():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("kernel,mode", [("G", "zero"), ("G", "replicate"), ("H", "zero"),
+                                         ("H", "replicate"), ("I", None)])
+def test_epilogues_f32(kernel, mode):
+    """G, H and I on f32 inputs: the function in f32 (the sum, the bias and
+    the blend; I's bias in the tile dtype), as their f32 templates compute
+    it, against the Pallas kernels in f32."""
+    rng = np.random.RandomState(5)
+    if kernel == "I":
+        n, h, w, c = 2, 12, 20, 16
+        z = rng.randn(n, h + 1, w + 1, 4 * c).astype(np.float32)
+        bias = rng.randn(c).astype(np.float32)
+        want = j_sub_z(jnp.asarray(z), jnp.asarray(bias), c, interpret=True)
+        got = subpixel_interleave_z_plain(t(z), t(bias))
+    else:
+        b, tt, h, w, c = 1, 3, 4, 8, 16
+        s = rng.randn(b, tt, h, w, c).astype(np.float32)
+        y4 = rng.randn(b, tt, h, w, 4 * c).astype(np.float32)
+        bias = (0.1 * rng.randn(c)).astype(np.float32)
+        alpha = torch.tensor([0.7])
+        if kernel == "G":
+            yc, yp = y4[..., :2 * c], y4[..., 2 * c:]
+            want = JU.parity_blend_interleave(jnp.asarray(s), jnp.asarray(yc), jnp.asarray(yp),
+                                              jnp.asarray(bias), 0.7, mode, interpret=True)
+            got = parity_blend_interleave_plain(t(s), t(yc), t(yp), t(bias), alpha, mode)
+        else:
+            want = JU.parity_blend_interleave4(jnp.asarray(s), jnp.asarray(y4),
+                                               jnp.asarray(bias), 0.7, mode, interpret=True)
+            got = parity_blend_interleave4_plain(t(s), t(y4), t(bias), alpha, mode)
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    close(got, want)
+
+
 @pytest.mark.parametrize("mode", ["zero", "replicate"])
 def test_kernel_d_f32(mode):
-    """D's f32 form: the f32 activation, then the conv's products in f32
-    through the weight layout its kernel reads (tail_operands_f32), tap by
+    """D's f32 form: the f32 activation, then the conv's six products
+    through the weight pieces its kernel reads (tail_operands_f32), tap by
     tap, against the Pallas tail in f32."""
     rng = np.random.RandomState(3)
     c = 32
@@ -304,26 +342,26 @@ def test_kernel_d_f32(mode):
 
 
 def scheme_d(x, norm, conv, mode, ln=ln_silu_f32):
-    """Kernel D in f32: the f32 activation, then the conv's products in f32
-    through the weight layout its kernel reads (tail_operands_f32), tap by
-    tap, in the kernel's walk: per time tap j, dy, dx, the activated frame
-    t-2+j."""
+    """Kernel D in f32: the f32 activation's pieces, then the conv's six
+    products against the weight pieces the kernel reads
+    (tail_operands_f32: row ``9j + 3dx + co`` of ``[piece, dy]``), each in
+    f32, per time tap j, dy and dx over the activated frame t-2+j."""
     op = tail_operands_f32(*conv, *norm)
-    a = ln(x, *norm)
-    b, tt, h, w, _ = a.shape
-    ap = F.pad(a, (0, 0, 1, 1, 1, 1))
+    pa = split(F.pad(ln(x, *norm), (0, 0, 1, 1, 1, 1))).float()
+    b, tt, h, w, _ = x.shape
     out = torch.zeros(b, tt, h, w, 3) + op["bias"]
-    for j in range(3):
-        for f in range(tt):
-            src = f - 2 + j
-            if src < 0:
-                if mode == "zero":
-                    continue
-                src = 0
-            for dy in range(3):
-                for dx in range(3):
-                    wk = op["w"][j, dy, :, 3 * dx:3 * dx + 3]       # [C, 3]
-                    out[:, f] += ap[:, src, dy:dy + h, dx:dx + w] @ wk
+    for ia, jw in PRODUCTS:
+        for j in range(3):
+            for f in range(tt):
+                src = f - 2 + j
+                if src < 0:
+                    if mode == "zero":
+                        continue
+                    src = 0
+                for dy in range(3):
+                    for dx in range(3):
+                        wk = op["w"][jw, dy, 9 * j + 3 * dx:9 * j + 3 * dx + 3].float().t()
+                        out[:, f] += pa[ia, :, src, dy:dy + h, dx:dx + w] @ wk
     return out
 
 
@@ -470,15 +508,16 @@ def _args(name, dt):
 
 F32_KERNELS = ("fused_spatial_resblock", "fused_temporal_resblock",
                "fused_temporal_resblock_stream", "parity_up2x_fused", "subpixel_interleave",
-               "decoder_tail_rgb")
+               "decoder_tail_rgb", "parity_blend_interleave", "parity_blend_interleave4",
+               "subpixel_interleave_z", "decoder_tail_rgb_taps")
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 @pytest.mark.parametrize("name", F32_KERNELS)
 def test_wrappers_refuse_other_dtypes(name, dtype):
-    """Off the CPU, A-F take bf16 or f32 and raise for any other dtype
-    before they look at the device; nothing is launched, no plain version
-    runs."""
+    """Off the CPU, the ten serving kernels (A-I, D') take bf16 or f32 and
+    raise for any other dtype before they look at the device; nothing is
+    launched, no plain version runs."""
     K.reset_counts()
     with pytest.raises(ValueError, match="bf16 or f32"):
         K.WRAPPERS[name](*_args(name, dtype))
@@ -487,26 +526,12 @@ def test_wrappers_refuse_other_dtypes(name, dtype):
 
 @pytest.mark.parametrize("name", F32_KERNELS)
 def test_wrappers_take_f32(name):
-    """An f32 tensor off the CPU passes A-F's dtype and plan checks and
-    reaches the device check (the meta device is not a card)."""
+    """An f32 tensor off the CPU passes the ten serving kernels' dtype and
+    plan checks and reaches the device check (the meta device is not a
+    card): an f32 request reaches a kernel in every form."""
     K.reset_counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.WRAPPERS[name](*_args(name, torch.float32))
-    assert K.counts()[name] == 0
-
-
-@pytest.mark.parametrize("name,kernel", [
-    ("parity_blend_interleave", "G"), ("parity_blend_interleave4", "H"),
-    ("subpixel_interleave_z", "I"), ("decoder_tail_rgb_taps", "D'")])
-def test_forms_refuse_f32(name, kernel):
-    """The non-default forms' kernels have no f32 form yet: f32 off the CPU
-    raises, naming the kernel (an f32 request in those forms raises there);
-    bf16 goes on to the device check; the CPU runs the plain version."""
-    K.reset_counts()
-    with pytest.raises(ValueError, match=f"kernel {kernel} has no f32 form"):
-        K.WRAPPERS[name](*_args(name, torch.float32))
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        K.WRAPPERS[name](*_args(name, torch.bfloat16))
     assert K.counts()[name] == 0
 
 
@@ -545,8 +570,14 @@ def test_f32_operand_layouts():
     # the first piece is the bf16 operand of the bf16 kernel
     assert torch.equal(op["w"][:, :18 * c], op16["w"])
     wd = r(3, c, 3, 3, 3)
-    op = tail_operands_f32(wd, r(3), r(c), r(c))
-    assert op["w"].shape == (3, 3, c, plan.TAIL_F32_WLD) and op["w"].dtype == torch.float32
+    op, op16 = tail_operands_f32(wd, r(3), r(c), r(c)), tail_operands(wd, r(3), r(c), r(c))
+    assert op["w"].shape == (PIECES, 3, plan.TAIL_BN, c) and op["w"].dtype == torch.bfloat16
+    assert op["w"].is_contiguous()
     for j, dy, dx, co in ((0, 0, 0, 0), (2, 1, 2, 1), (1, 2, 1, 2)):
-        assert torch.equal(op["w"][j, dy, :, 3 * dx + co], wd[co, :, j, dy, dx])
-    assert (op["w"][..., 9:] == 0).all()
+        pieces = op["w"][:, dy, 9 * j + 3 * dx + co]
+        back = sum(p.double() for p in pieces)
+        want = wd[co, :, j, dy, dx].double()
+        assert ((back - want).abs() <= 2.0 ** -24 * want.abs()).all()
+    assert (op["w"][:, :, plan.TAIL_COLS:] == 0).all()
+    # the first piece is the bf16 tail's operand
+    assert torch.equal(op["w"][0], op16["w"])

@@ -480,33 +480,33 @@ def test_f32_plans_are_the_bf16_plans_with_pieces(name):
 
 
 @pytest.mark.parametrize("key", sorted(
-    {k[0] for calls in cs.f32_calls().values() for (n, k) in calls if n == "decoder_tail_rgb"}
+    {k[0] for calls in cs.f32_calls().values() for (n, k) in calls
+     if n in ("decoder_tail_rgb", "decoder_tail_rgb_taps")}
     | {cs.F32_PARTIAL["decoder_tail_rgb"], cs.TAIL_LONG, (1, 7, 40, 50, 64)}))
 def test_tail_f32_plan_covers_each_output_once(key):
-    """Kernel D's f32 form: every output position of every frame of every
-    clip in exactly one block's patch, at D's f32 call shapes (phase 19's
-    requests, its partial shape, its T=201 call) and at 64 channels;
-    shared memory within a block's limit."""
+    """Kernels D's and D''s f32 form: tail_plan's blocks (every output
+    position of every frame of every clip in exactly one block's patch and
+    run, each frame read from two before its run's first) at the f32 call
+    shapes chip_smoke.py serves (phase 19's requests in every form, the
+    partial shape, the T=201 call) and at 64 channels; the raw stages and
+    the shared memory within a block's limit, one block per SM."""
     b, t, h, w, c = key
-    pl = plan.tail_plan_f32(*key)
-    assert (pl.th, pl.tw) == (plan.TAIL_F32_TH, plan.TAIL_F32_TW)
-    assert pl.smem == plan.tail_f32_smem_bytes(c) <= plan.SMEM_LIMIT
-    assert pl.grid == b * t * pl.tiles_x * pl.tiles_y <= plan.GRID_LIMIT
-    assert plan.TAIL_F32_THREADS * plan.TAIL_F32_PX == pl.th * pl.tw
-    blocks = np.arange(pl.grid)
-    if pl.grid > 200_000:  # the first and last two frames of each clip
-        blocks = blocks[np.isin(blocks % t, [0, 1, t - 2, t - 1])]
-    clip, y0, x0, f = plan.tail_f32_block(pl, blocks, t)
-    frames = np.unique(f)
-    slot = np.searchsorted(frames, f)
-    counts = np.zeros((b, len(frames), h, w), np.int32)
-    r = np.arange(pl.th * pl.tw)
-    y = y0[:, None] + r[None, :] // pl.tw
-    x = x0[:, None] + r[None, :] % pl.tw
-    ok = (y < h) & (x < w)
-    _count(counts, (np.broadcast_to(clip[:, None], y.shape)[ok],
-                    np.broadcast_to(slot[:, None], y.shape)[ok], y[ok], x[ok]))
-    assert counts.min() == counts.max() == 1, key
+    pl, p16 = plan.tail_plan_f32(*key), plan.tail_plan(*key)
+    assert dataclasses.replace(pl, stages=p16.stages, smem=p16.smem) == p16
+    assert 2 <= pl.stages <= plan.TAIL_MAX_STAGES
+    assert pl.smem == plan.tail_f32_smem_bytes(c, pl.stages) <= plan.SMEM_LIMIT
+    assert plan.tail_f32_smem_bytes(c, pl.stages + 1) > plan.SMEM_LIMIT or \
+        pl.stages == plan.TAIL_MAX_STAGES
+    assert plan.TAIL_BLOCKS_PER_SM * (pl.smem + 1024) <= plan.SMEM_PER_SM
+    assert 0 < pl.grid == b * pl.tiles_x * pl.tiles_y * pl.runs <= plan.GRID_LIMIT
+    counts = np.zeros((b, t, pl.tiles_y, pl.tiles_x), np.int32)
+    for block in range(pl.grid):
+        clip, y0, x0, t0, t1, first = plan.tail_block(pl, block, t)
+        assert 0 <= t0 < t1 <= t and first == max(t0 - plan.TAIL_WARMUP, 0)
+        counts[clip, t0:t1, y0 // pl.th, x0 // pl.tw] += 1
+    assert (counts == 1).all(), key
+    assert pl.tiles_x * pl.tw >= w > (pl.tiles_x - 1) * pl.tw
+    assert pl.tiles_y * pl.th >= h > (pl.tiles_y - 1) * pl.th
 
 
 def test_tail_f32_plan_refusals():

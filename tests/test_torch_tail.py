@@ -17,7 +17,13 @@ accumulators. Nothing here needs the card:
   packed partials, the dx gather, the 3-slot output ring, warm-up frames at
   a run's start, both stream-start rules), is held in f32 to the Pallas
   kernel in interpret mode, with tap packing on (the fast LN+SiLU, D) and
-  off (the exact one, D').
+  off (the exact one, D');
+* :func:`schedule_model_f32`, the same walk as the f32 forms of D and D'
+  take it (the statistics pass, each 32-channel slice activated from the
+  statistics and split into three bf16 pieces, the six products against
+  the weight pieces), is held to the Pallas kernel on f32 inputs at
+  relative L2 2e-5, also on rows of mean 50, and the hi piece alone is
+  shown to miss that tolerance.
 
 Parameters are random, with non-zero norm biases, so a halo that is not
 zeroed after the activation shows. The tolerances are those of
@@ -41,7 +47,8 @@ from vidtok_tpu_torch.modules.norms import ChannelLayerNorm
 from vidtok_tpu_torch.ops import kernels as K
 from vidtok_tpu_torch.ops.kernels import _lib, plan
 from vidtok_tpu_torch.ops.kernels.act import ln_silu_exact, ln_silu_fast
-from vidtok_tpu_torch.ops.kernels.decoder_tail import tail_operands
+from vidtok_tpu_torch.ops.kernels.decoder_tail import tail_operands, tail_operands_f32
+from vidtok_tpu_torch.ops.kernels.split import PRODUCTS, split
 
 torch.set_num_threads(2)
 FAST_TOL = dict(rtol=1e-4, atol=2e-4)     # test_torch_kernels.py
@@ -331,3 +338,124 @@ def test_schedule_model_sees_an_unzeroed_halo():
     border = np.ones(shape[2:4], bool)
     border[1:-1, 1:-1] = False
     np.testing.assert_allclose(got[:, :, ~border], want[:, :, ~border], **FAST_TOL)
+
+
+# -- the f32 forms' walk, modelled, against JAX ---------------------------------
+
+F32_REL = 2e-5        # chip_smoke.F32_GATE
+F32_ROW_MEAN = 50.0   # chip_smoke.F32_ROW_MEAN
+EPS = 1e-6
+
+
+def rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def schedule_model_f32(x, norm, conv, first_pad_mode, exact, pl=None, products=PRODUCTS):
+    """The f32 output of kernels D (``exact`` False: the SiLU through tanh)
+    and D' (True: through the sigmoid) computed as their f32 forms compute
+    it: each position's (mean, rstd) from the statistics pass (the mean,
+    then the mean of squared deviations); per ``plan.tail_block`` of
+    ``plan.tail_plan_f32``, the raw halo box of each input frame (zero
+    outside the frame), 32 channels at a time, activated from the
+    statistics, zero outside the frame, split into three bf16 pieces; the
+    ``products`` (pieces of the activation, of the weight) of each dy's
+    shifted rows against the weight pieces, summed in f32 over the slices;
+    then :func:`schedule_model`'s gather and ring, the output not rounded.
+    Asserts that every output is written exactly once."""
+    b, t, h, w, c = x.shape
+    pl = pl or plan.tail_plan_f32(b, t, h, w, c)
+    th, tw, hx, kc = pl.th, pl.tw, pl.tw + 2, plan.TAIL_F32_KC
+    wp = tail_operands_f32(*conv, *norm)["w"].float()[:, :, :plan.TAIL_COLS]
+    mu = x.mean(-1, keepdim=True)
+    rs = torch.rsqrt((x - mu).square().mean(-1, keepdim=True) + EPS)
+    pads = (0, 0, 1, pl.tiles_x * tw + 1 - w, 1, pl.tiles_y * th + 1 - h)
+    xp, mup, rsp = (F.pad(v, pads) for v in (x, mu, rs))
+    inside = F.pad(torch.ones(b, t, h, w, 1), pads)
+    out = torch.zeros((b, t, h, w, 3))
+    written = torch.zeros((b, t, h, w), dtype=torch.int32)
+    for block in range(pl.grid):
+        clip, y0, x0, t0, t1, first = plan.tail_block(pl, block, t)
+        ring = [torch.zeros((th, tw, 3)) for _ in range(3)]
+        hh, ww = min(th, h - y0), min(tw, w - x0)
+        for f in range(first, t1):
+            box = (slice(y0, y0 + th + 2), slice(x0, x0 + hx))
+            p = torch.zeros((th * hx, plan.TAIL_COLS))
+            for c0 in range(0, c, kc):
+                raw = xp[clip, f, box[0], box[1], c0:c0 + kc]
+                y = ((raw - mup[clip, f, box[0], box[1]]) * rsp[clip, f, box[0], box[1]]
+                     * norm[0][c0:c0 + kc] + norm[1][c0:c0 + kc])
+                a = y * torch.sigmoid(y) if exact else y * (torch.tanh(0.5 * y) * 0.5 + 0.5)
+                a = (a * inside[clip, f, box[0], box[1]]).reshape(-1, kc)
+                pieces = split(a).float()
+                for ia, jw in products:
+                    for dy in range(3):
+                        p += (pieces[ia, hx * dy:hx * dy + th * hx]
+                              @ wp[jw, dy, :, c0:c0 + kc].T)
+            p = p.reshape(th, hx, plan.TAIL_COLS)
+            g = [sum(p[:, dx:dx + tw, 9 * j + 3 * dx:9 * j + 3 * dx + 3] for dx in range(3))
+                 for j in range(3)]
+            ring[0] += g[2]
+            ring[1] += g[1]
+            ring[2] += g[0]
+            if first_pad_mode == "replicate" and f == 0:
+                ring[0] += g[0] + g[1]
+                ring[1] += g[0]
+            if f >= t0:
+                out[clip, f, y0:y0 + hh, x0:x0 + ww] = ring[0][:hh, :ww] + conv[1].float()
+                written[clip, f, y0:y0 + hh, x0:x0 + ww] += 1
+            ring = [ring[1], ring[2], torch.zeros_like(ring[0])]
+    assert (written == 1).all()
+    return out
+
+
+def _f32_case(shape, mode, form, mean=0.0, products=PRODUCTS):
+    """(the modelled f32 walk, JAX's f32 tail) on inputs of ``shape`` offset
+    by ``mean``, at the plan's own runs and at runs of 4 frames."""
+    tap_pack, exact = form == "packed", form == "taps"
+    x, norm, conv, tnorm, tconv = _inputs(shape, seed=sum(shape) + 1)
+    x = x + np.float32(mean)
+    # JAX's exact statistics where the one-pass form would lose the
+    # variance's digits to the mean (tap_pack's default is the fast form)
+    want = np.asarray(JT.decoder_tail_rgb(
+        jnp.asarray(x), jax.tree_util.tree_map(jnp.asarray, norm),
+        jax.tree_util.tree_map(jnp.asarray, conv), mode, tap_pack=tap_pack, interpret=True,
+        silu_fast=False if mean else None))
+    pl = plan.tail_plan_f32(*shape)
+    b, t = shape[:2]
+    runs4 = -(-t // 4)
+    plans = [pl, dataclasses.replace(pl, run=4, runs=runs4,
+                                     grid=b * pl.tiles_x * pl.tiles_y * runs4)]
+    return [(schedule_model_f32(torch.from_numpy(x), tnorm, tconv, mode, exact, p, products),
+             want) for p in plans]
+
+
+@pytest.mark.parametrize("form", sorted(TAP_PACK))
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", sorted(SCHEDULE_SHAPES))
+def test_schedule_model_f32_matches_pallas(case, mode, form):
+    """The f32 forms' modelled walk (D: ``packed``, D': ``taps``) against
+    ``decoder_tail_rgb(..., tap_pack=..., interpret=True)`` on f32 inputs,
+    at relative L2 F32_REL."""
+    for got, want in _f32_case(SCHEDULE_SHAPES[case], mode, form):
+        assert got.dtype == torch.float32
+        assert rel_l2(got, want) <= F32_REL
+
+
+@pytest.mark.parametrize("form", sorted(TAP_PACK))
+@pytest.mark.parametrize("mode", MODES)
+def test_schedule_model_f32_at_a_large_row_mean(mode, form):
+    """On rows of mean F32_ROW_MEAN the statistics pass's two-pass
+    statistics keep the walk within F32_REL of JAX's exact kernel."""
+    for got, want in _f32_case(SCHEDULE_SHAPES["two_clips_t9"], mode, form, F32_ROW_MEAN):
+        assert rel_l2(got, want) <= F32_REL
+
+
+def test_schedule_model_f32_sees_a_dropped_product():
+    """With the hi pieces' product alone (bf16 operands) the walk misses
+    F32_REL by far: the comparison above sees a product left out."""
+    rels = [rel_l2(got, want) for got, want in
+            _f32_case(SCHEDULE_SHAPES["two_clips_t9"], "replicate", "packed",
+                      products=((0, 0),))]
+    assert min(rels) > 10 * F32_REL

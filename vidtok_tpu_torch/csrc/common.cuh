@@ -15,9 +15,10 @@
 // f32, take the statistics in two passes (row_stats_exact: the mean, then
 // the mean of squared deviations), compute the affine and the SiLU in f32
 // with an accurate tanh (ln_silu_f32; act.py's ln_silu_f32 is its plain
-// form) and write the activated row either
-// as its three bf16 pieces (split3: hi + mid + lo == x) for the wgmma loop,
-// or as f32 for the decoder tail's f32 form.
+// form) and write the activated row as its three bf16 pieces (split3:
+// hi + mid + lo == x) for the wgmma loop; or write the statistics alone
+// (mean, rstd: 8 bytes a row) for the decoder tail's f32 form, which
+// activates its own halo boxes from them.
 //
 // ln_silu_exact_f32 and row_stats_exact are the exact form of
 // vidtok_tpu/ops/pallas/fused_temporal.py:32 _ln_silu (the mean, then the
@@ -194,9 +195,10 @@ enum Front { kFrontCache = 0, kFrontReplicate = 1, kFrontZero = 2 };
 // writes the bf16 activation; kRowSplit reads f32 (src, cache) and writes
 // the activation's three bf16 pieces, act [rows, 3C] (st_split8), the new
 // cache in f32, and, when ``raw`` is not null, the pieces of src itself,
-// raw [rows, 3C] (plain form: kernel A's 1x1 shortcut); kRowF32 reads f32
-// and writes the f32 activation (plain form: the decoder tail's f32 form).
-enum RowForm { kRowBf16 = 0, kRowSplit = 1, kRowF32 = 2 };
+// raw [rows, 3C] (plain form: kernel A's 1x1 shortcut); kRowStats reads f32
+// and writes each row's (mean, rstd) as a float2, act [rows] (plain form:
+// the decoder tail's f32 form; g and b are read but not applied).
+enum RowForm { kRowBf16 = 0, kRowSplit = 1, kRowStats = 2 };
 
 struct RowArgs {
   const void* src;    // bf16; f32 unless kRowBf16
@@ -323,6 +325,10 @@ static __global__ void __launch_bounds__(256)
       rs = st.y;
     }
     if (dst[k] < 0) continue;
+    if constexpr (FORM == kRowStats) {
+      if (l == 0) static_cast<float2*>(a.act)[dst[k]] = make_float2(mu, rs);
+      continue;
+    }
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
       const int c = 8 * l + 8 * LPR * i;
@@ -344,10 +350,7 @@ static __global__ void __launch_bounds__(256)
 #pragma unroll
           for (int e = 0; e < 8; ++e) f[i][e] = ln_silu_f32(f[i][e], mu, rs, g[i][e], b[i][e]);
         }
-        if constexpr (FORM == kRowF32)
-          st8(static_cast<float*>(a.act) + dst[k] * C + c, f[i]);
-        else
-          st_split8(static_cast<__nv_bfloat16*>(a.act) + dst[k] * 3 * C, C, c, f[i]);
+        st_split8(static_cast<__nv_bfloat16*>(a.act) + dst[k] * 3 * C, C, c, f[i]);
         if (STREAM && cp[k] >= 0) st8(static_cast<float*>(a.copy) + cp[k] * C + c, f[i]);
       }
     }

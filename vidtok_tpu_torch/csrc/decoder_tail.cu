@@ -14,7 +14,8 @@
 //
 // with activated taps outside the frame reading zero (:177-192) and frames
 // before 0 being frame 0 (replicate) or absent (zero, :197-213). x is
-// [B, T, H, W, C] bf16, C in {64, 128}; out [B, T, H, W, 3] bf16.
+// [B, T, H, W, C] bf16, C in {64, 128}; out [B, T, H, W, 3] bf16 (f32 forms
+// below: f32).
 //
 // Bound on the H100: reading x. The function is 2 * 81 * C FLOP per
 // position against 2C bytes read, 81 FLOP/byte, under the 295 where the
@@ -64,31 +65,40 @@
 //   first reads frames t0 - 2 and t0 - 1 and writes nothing for them.
 // Offsets into x and out are 64-bit; TMA coordinates are per dimension.
 //
-// f32 (vt_decoder_tail_rgb_f32, kernel D on f32 activations): x and out
-// f32, the same function with f32 products on the CUDA cores, exact to f32
-// rounding. It is not a form of the template above: an f32 box takes
-// twice a bf16 box's bytes and its activation, as the f32 scheme's three
-// bf16 pieces (wgmma_conv.cuh), three times, so a stage of the 10 x 16
-// halo at C = 128 would hold 80 KB of raw box and 120 KB of pieces, and
-// the ring needs two stages in 227 KB. Two launches: act_rows_kernel's
-// kRowF32 form writes LN+SiLU of x (two-pass statistics, the sigmoid
-// through tanhf) to an f32 scratch, then tail_f32_kernel: one block of 128
-// threads per (16 x 32 output patch, clip, output frame), the frame
-// fastest in launch order so the blocks that read a frame's halo run
-// together and share it in L2. For each time tap j it walks the channels
-// 16 at a time: the 18 x 34 halo of frame t - 2 + j (zero outside the
-// frame: the conv's padding after the activation) into shared memory,
-// channel-major, and each thread accumulates 4 neighbouring outputs x 3
-// channels over the 3 x 3 taps, its 6 halo columns loaded once a
-// (channel, dy) for 36 FMAs; the tap's weights [3 dy][C][12] (9 used: dx,
-// co) are read as 16-byte broadcasts. Frames before 0 are skipped (zero)
-// or frame 0 (replicate). Its floor on the CUDA cores is the FMAs, 81 C a
-// position x 3 channels at the f32 rate (67 TFLOP/s); the function's bound
-// on the card is the f32 tensors' bytes (the FLOP at the f32 scheme's 989
-// / 6 TFLOP/s take less), which a tensor-core form with a smaller patch
-// would approach. D' in f32 differs from D only in the sigmoid's form, so
-// it is to take this path with the exact row form, not a third one. The
-// plan is plan.py's tail_plan_f32.
+// f32 (vt_decoder_tail_rgb_f32 and vt_decoder_tail_rgb_taps_f32: D and D'
+// on f32 activations, the same function in f32, the output not rounded;
+// both activations f32 with two-pass statistics, D's SiLU through tanhf
+// (ln_silu_f32), D''s through an exp and a reciprocal (ln_silu_exact_f32),
+// their only difference in f32). The products run on the tensor cores
+// under the f32 scheme of wgmma_conv.cuh: each operand as three bf16
+// pieces (split3), the six products of total order at most 2 as extra K
+// steps of the same m64n32k16 chains. The walk is tail_kernel's (one block
+// of 800 threads per 8 x 14 patch and run of frames, tail_plan's runs),
+// but a frame's halo box cannot be activated in place: its LN statistics
+// need all C channels of a position before any piece exists, and a whole
+// f32 box (80 KB at C = 128) with its pieces (120 KB) leaves no room for a
+// second stage beside the resident weight pieces (72 KB). So two launches:
+// act_rows_kernel's kRowStats form writes each position's (mean, rstd), 8
+// bytes, reading x once; then tail_f32_kernel walks the frames in units of
+// one 32-channel slice:
+// * the producer loads a unit's raw f32 halo box (10 x 16 x 32, 20 KB,
+//   128-byte swizzle, zero fill) into a ring of up to 4 raw stages;
+// * the five activating warpgroups (4 threads a position, 8 channels each)
+//   read it, apply LN from the position's statistics and the SiLU, zero the
+//   positions outside the frame, and write the three pieces (3 x 10 KB,
+//   rows of 64 B under the 64-byte swizzle) into one of two piece stages;
+//   then they fence the async proxy and release both stages' barriers (the
+//   raw stage only then: TMA's next load into it is an async-proxy write
+//   that must follow their generic reads);
+// * the multiplying warpgroup runs the six products x 3 dy x 2 K steps of
+//   16 on both chains into the frame's accumulators, releasing a piece
+//   stage once the slice after it is issued, then the dx gather and the
+//   ring of tail_kernel, written in f32.
+// Shared memory at C = 128: 3 raw stages (60 KB), 2 piece stages (60 KB),
+// the weight pieces [3][3 dy][32][C] (72 KB), the partial buffers (27 KB).
+// x is read twice, the statistics' pass, then the boxes (160 halo positions
+// for 112 outputs): 2.0-2.5x the function's bytes, as L2 catches the halo
+// or not. The plan is plan.py's tail_plan_f32.
 #include "wgmma_conv.cuh"
 
 namespace {
@@ -483,121 +493,348 @@ extern "C" int vt_decoder_tail_rgb_taps(const void* x, void* out, const void* g,
 
 namespace {
 
-constexpr int FTH = 16, FTW = 32, FPX = 4;   // output patch; x outputs a thread
-constexpr int FTHREADS = FTH * FTW / FPX;   // 128
-constexpr int FCK = 16;                     // channels of a halo chunk
-constexpr int FHY = FTH + 2, FHX = FTW + 2, FLD = 36;  // halo rows, columns, row stride
-constexpr int FWLD = 12;                    // a (dy, c) weight row: 9 used
+// Kernel D's f32 form and D''s (see the header): a unit is one frame's
+// KC-channel slice; its raw f32 box (RAW bytes) comes by TMA, its three
+// bf16 pieces (PIECE bytes each, a PSTAGE) are written by the activating
+// warpgroups and multiplied by the multiplying one.
+constexpr int KC = 32;                    // channels of a slice: 128 B of f32
+constexpr int RAW = HALO * KC * 4;        // 20 KB
+constexpr int PIECE = HALO * KC * 2;      // 10 KB: rows of 64 B, 64-byte swizzle
+constexpr int PSTAGE = kPieces * PIECE;   // 30 KB
+constexpr int PSTAGES = 2;
+constexpr int WTILE32 = BN * KC * 2;      // one (piece, dy, slice) weight tile
 
-constexpr int tail_f32_smem(int C) { return (FCK * FHY * FLD + 3 * C * FWLD) * 4; }
+__host__ __device__ constexpr int smem_bytes_f32(int ks, int stages) {
+  return 1024 + stages * RAW + PSTAGES * PSTAGE + kPieces * 3 * ks * WTILE32 + 2 * PBUF +
+         16 * (stages + PSTAGES);
+}
+
+// The byte offset of 16-byte chunk ``chunk`` (of 4) of row ``row`` of a
+// K-major tile of 64-byte rows under the 64-byte swizzle (the tile
+// 512-aligned): the chunk XOR bits 1-2 of the row.
+__device__ __forceinline__ int sw64(int row, int chunk) {
+  return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+
+// wgmma operand descriptor of such a tile: 8-row groups 512 B apart.
+__device__ __forceinline__ uint64_t smem_desc64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
 
 struct TailF32Args {
-  const float* act;   // [B, T, H, W, C] activated
-  const float* w;     // [3 j][3 dy][C][FWLD], column dx * 3 + co
-  const float* bias;  // [3]
-  float* out;         // [B, T, H, W, 3]
-  int T, H, W, C, replicate, tiles_x, tiles_y;
+  const float2* stats;        // [B, T, H, W] (mean, rstd), the row pass's
+  const float* g;             // [C] norm scale
+  const float* b;             // [C] norm bias
+  const __nv_bfloat16* w;     // [3 pieces][3 dy][BN][C], row n = 9j + 3dx + co
+  const float* bias;          // [3]
+  float* out;                 // [B, T, H, W, 3]
+  int T, H, W;
+  int replicate;
+  int tiles_x, tiles_y, run, runs, stages;
 };
 
-__global__ void __launch_bounds__(FTHREADS) tail_f32_kernel(const TailF32Args p) {
-  extern __shared__ float fsm[];
-  float* halo = fsm;                       // [FCK][FHY][FLD]
-  float* wsm = fsm + FCK * FHY * FLD;      // [3 dy][C][FWLD], this tap's
+template <bool EXACT, int KS>
+__global__ void __launch_bounds__(THREADS, 1)
+    tail_f32_kernel(const __grid_constant__ CUtensorMap map_x, const TailF32Args p) {
+  constexpr int C = KC * KS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles: 1024-aligned
+  unsigned char* smem = smem_raw + (base - raw);
+  const int S = p.stages;
+  const int o_piece = S * RAW, o_w = o_piece + PSTAGES * PSTAGE;
+  const int o_pbuf = o_w + kPieces * 3 * KS * WTILE32;
+  float* pbuf = reinterpret_cast<float*>(smem + o_pbuf);
+  // raw stages: full (loaded), empty (read); piece stages: full (written),
+  // empty (multiplied); bar + 8s
+  const uint32_t full = base + o_pbuf + 2 * PBUF, empty = full + 8 * S;
+  const uint32_t pfull = empty + 8 * S, pempty = pfull + 8 * PSTAGES;
+
+  // this block's patch, clip and run (plan.tail_block)
   int q = blockIdx.x;
-  const int t = q % p.T;
-  q /= p.T;
-  const int x0 = (q % p.tiles_x) * FTW;
+  const int x0 = (q % p.tiles_x) * TW;
   q /= p.tiles_x;
-  const int y0 = (q % p.tiles_y) * FTH;
-  const int clip = q / p.tiles_y;
-  const int tid = threadIdx.x, oy = tid / (FTW / FPX), ox = (tid % (FTW / FPX)) * FPX;
-  float acc[FPX][3];
-#pragma unroll
-  for (int i = 0; i < FPX; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0.f;
-  for (int j = 0; j < 3; ++j) {
-    int f = t - 2 + j;
-    if (f < 0) {
-      if (!p.replicate) continue;  // uniform across the block
-      f = 0;
+  const int y0 = (q % p.tiles_y) * TH;
+  q /= p.tiles_y;
+  const int clip = q / p.runs;
+  const int t0 = (q % p.runs) * p.run;
+  const int t1 = min(p.T, t0 + p.run);
+  const int f0 = max(t0 - 2, 0);
+  const int frames = t1 - f0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, ACT);  // every activating thread, after its fence
     }
-    __syncthreads();  // the previous tap's weights and halo are read
-    for (int i = tid; i < 3 * p.C * FWLD; i += FTHREADS)
-      wsm[i] = p.w[(long long)j * 3 * p.C * FWLD + i];
-    const float* frame = p.act + ((long long)clip * p.T + f) * p.H * p.W * p.C;
-    for (int c0 = 0; c0 < p.C; c0 += FCK) {
-      __syncthreads();
-      for (int i = tid; i < FHY * FHX * (FCK / 4); i += FTHREADS) {
-        const int v = i % (FCK / 4), pos = i / (FCK / 4);
-        const int hy = pos / FHX, hx = pos - hy * FHX;
-        const int gy = y0 - 1 + hy, gx = x0 - 1 + hx;
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W)
-          a = *reinterpret_cast<const float4*>(frame + ((long long)gy * p.W + gx) * p.C + c0 +
-                                               4 * v);
-        float* h = halo + (4 * v * FHY + hy) * FLD + hx;
-        h[0] = a.x;
-        h[FHY * FLD] = a.y;
-        h[2 * FHY * FLD] = a.z;
-        h[3 * FHY * FLD] = a.w;
+    for (int s = 0; s < PSTAGES; ++s) {
+      mbar_init(pfull + 8 * s, ACT);  // every activating thread, after its fence
+      mbar_init(pempty + 8 * s, 4);   // one arrival per multiplying warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the weights' pieces, once, as B operand tiles [BN][KC] (64-byte swizzle)
+  for (int i = tid; i < kPieces * 3 * BN * (C / 8); i += THREADS) {
+    const int row = i / (C / 8), ch = i % (C / 8);  // row = (piece * 3 + dy) * BN + n
+    const int tile = row / BN, n = row % BN;
+    *reinterpret_cast<uint4*>(smem + o_w + (tile * KS + ch / 4) * WTILE32 + sw64(n, ch & 3)) =
+        ld_u4(p.w + (long long)row * C + ch * 8);
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  const int wid = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  if (wid >= PRODUCER / 32) {
+    // producer: one thread issues every load, a unit at a time
+    if (tid == PRODUCER) {
+      prefetch_map(&map_x);
+      for (int u = 0; u < frames * KS; ++u) {
+        const int s = u % S;
+        mbar_wait(empty + 8 * s, ((u / S) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(full + 8 * s, RAW);
+        tma_5d(base + s * RAW, &map_x, full + 8 * s, KC * (u % KS), x0 - 1, y0 - 1,
+               f0 + u / KS, clip);
       }
-      __syncthreads();
-#pragma unroll 2
-      for (int c = 0; c < FCK; ++c)
+    }
+    return;
+  }
+
+  if (wid < ACT / 32) {
+    // activators: thread (r, qc) takes channels 8 qc .. 8 qc + 7 of each
+    // slice of halo position r: LN from the row pass's statistics, SiLU,
+    // zero outside the frame, the three pieces into the piece stage
+    const int r = tid >> 2, qc = tid & 3;
+    const int gy = y0 - 1 + r / HX, gx = x0 - 1 + r % HX;
+    const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+    const long long hw = (long long)p.H * p.W;
+    const int c0 = (2 * qc) ^ (r & 7), c1 = (2 * qc + 1) ^ (r & 7);  // 128-byte swizzle
+    const int pofs = o_piece + sw64(r, qc);
+    for (int i = 0; i < frames; ++i) {
+      float2 ms = make_float2(0.f, 0.f);
+      if (inside) ms = p.stats[((long long)clip * p.T + f0 + i) * hw + (long long)gy * p.W + gx];
+#pragma unroll 1
+      for (int h = 0; h < KS; ++h) {
+        const int u = i * KS + h, s = u % S, ps = u % PSTAGES;
+        mbar_wait(full + 8 * s, (u / S) & 1);
+        const unsigned char* row = smem + s * RAW + r * 128;
+        const float4 a = *reinterpret_cast<const float4*>(row + (c0 << 4));
+        const float4 b = *reinterpret_cast<const float4*>(row + (c1 << 4));
+        float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        if (inside) {
+          float g8[8], b8[8];
+          ld8(p.g + KC * h + 8 * qc, g8);
+          ld8(p.b + KC * h + 8 * qc, b8);
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          const float* row = halo + (c * FHY + oy + dy) * FLD + ox;
-          const float4 a4 = *reinterpret_cast<const float4*>(row);
-          const float2 a2 = *reinterpret_cast<const float2*>(row + 4);
-          const float a[FPX + 2] = {a4.x, a4.y, a4.z, a4.w, a2.x, a2.y};
-          const float4* wr = reinterpret_cast<const float4*>(wsm + (dy * p.C + c0 + c) * FWLD);
-          const float4 w0 = wr[0], w1 = wr[1], w2 = wr[2];
-          const float w[9] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w, w2.x};
+          for (int e = 0; e < 8; ++e)
+            f[e] = EXACT ? ln_silu_exact_f32(f[e], ms.x, ms.y, g8[e], b8[e])
+                         : ln_silu_f32(f[e], ms.x, ms.y, g8[e], b8[e]);
+        } else {
 #pragma unroll
-          for (int i = 0; i < FPX; ++i)
-#pragma unroll
-            for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-              for (int co = 0; co < 3; ++co)
-                acc[i][co] = fmaf(a[i + dx], w[dx * 3 + co], acc[i][co]);
+          for (int e = 0; e < 8; ++e) f[e] = 0.f;  // the conv's SAME padding, after the activation
         }
+        uint4 pieces[kPieces];
+        split3(f, pieces);
+        mbar_wait(pempty + 8 * ps, ((u / PSTAGES) & 1) ^ 1);  // the first round passes
+#pragma unroll
+        for (int k = 0; k < kPieces; ++k)
+          *reinterpret_cast<uint4*>(smem + pofs + ps * PSTAGE + k * PIECE) = pieces[k];
+        // the products read the pieces through the async proxy; the same fence
+        // orders this thread's reads of the raw stage before TMA's next write
+        // to it (released right after the reads, without it, the stage was
+        // overwritten under them)
+        fence_async_smem();
+        mbar_arrive(pfull + 8 * ps);
+        mbar_arrive(empty + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // the multiplying warpgroup: the six products of each slice, then the gather
+  const int mt = tid - MMA, warp = mt >> 5, lane = mt & 31;
+  const bool gatherer = mt < OUTS;
+  const int oy = mt / TW, ox = mt % TW, m = oy * HX + ox;
+  float bias[COUT], o0[COUT], o1[COUT], o2[COUT];  // the ring: outputs f, f+1, f+2
+#pragma unroll
+  for (int co = 0; co < COUT; ++co) {
+    bias[co] = p.bias[co];
+    o0[co] = o1[co] = o2[co] = 0.f;
+  }
+  const bool write_pos = gatherer && y0 + oy < p.H && x0 + ox < p.W;
+  const long long hw = (long long)p.H * p.W;
+  float* opos = p.out + ((long long)clip * p.T * hw + (long long)(y0 + oy) * p.W +
+                         (x0 + ox)) * COUT;
+  const uint32_t pa = base + o_piece, wb = base + o_w;
+
+  for (int i = 0; i < frames; ++i) {
+    const int f = f0 + i;
+    float acc0[16], acc1[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) acc0[k] = acc1[k] = 0.f;
+    fence_acc(acc0);
+    fence_acc(acc1);
+#pragma unroll 1
+    for (int h = 0; h < KS; ++h) {
+      const int u = i * KS + h, ps = u % PSTAGES;
+      mbar_wait(pfull + 8 * ps, (u / PSTAGES) & 1);
+      wgmma_fence();
+      const uint32_t a = pa + ps * PSTAGE;
+      // P[m, n] += sum_dy sum_c a_i[m + 16 dy, c] w_j[dy, n, c] over the
+      // products (i, j), smallest first; rows 0-63 in acc0, 64-127 in acc1
+#pragma unroll
+      for (int prod = 0; prod < kProducts; ++prod) {
+        const int ia = (kPieceA >> (4 * prod)) & 15, jw = (kPieceW >> (4 * prod)) & 15;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const uint64_t dw = smem_desc64(wb + ((jw * 3 + dy) * KS + h) * WTILE32 + 32 * k);
+            const uint32_t ak = a + ia * PIECE + dy * HX * 64 + 32 * k;
+            wgmma_n32(acc0, smem_desc64(ak), dw);
+            wgmma_n32(acc1, smem_desc64(ak + 64 * 64), dw);
+          }
+      }
+      wgmma_commit();
+      if (h > 0) {  // the slice before is multiplied: its stage goes back
+        wgmma_wait<1>();
+        fence_acc(acc0);
+        fence_acc(acc1);
+        if (lane == 0) mbar_arrive(pempty + 8 * ((u - 1) % PSTAGES));
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc0);
+    fence_acc(acc1);
+    if (lane == 0) mbar_arrive(pempty + 8 * (((i + 1) * KS - 1) % PSTAGES));
+
+    // acc -> P, then the gather, as tail_kernel's
+    float* pb = pbuf + (i & 1) * (M * NCOL);
+    const int r0 = 16 * warp + (lane >> 2);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * k + 2 * (lane & 3) + e;
+        if (n < NCOL) {
+          pb[r0 * NCOL + n] = acc0[4 * k + e];
+          pb[(r0 + 8) * NCOL + n] = acc0[4 * k + 2 + e];
+          pb[(r0 + 64) * NCOL + n] = acc1[4 * k + e];
+          pb[(r0 + 72) * NCOL + n] = acc1[4 * k + 2 + e];
+        }
+      }
+    named_sync(1, 128);  // P is whole
+
+    if (gatherer) {
+      const bool rep0 = p.replicate && f == 0;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float* pr = pb + (m + dx) * NCOL + 3 * dx;
+#pragma unroll
+        for (int co = 0; co < COUT; ++co) {
+          const float a0 = pr[co], a1 = pr[9 + co], a2 = pr[18 + co];  // j = 0, 1, 2
+          o0[co] += a2;
+          o1[co] += a1;
+          o2[co] += a0;
+          if (rep0) {  // frames -2 and -1 are frame 0
+            o0[co] += a0 + a1;
+            o1[co] += a0;
+          }
+        }
+      }
+      if (f >= t0 && write_pos) {
+        float* o = opos + (long long)f * hw * COUT;
+#pragma unroll
+        for (int co = 0; co < COUT; ++co) o[co] = o0[co] + bias[co];
+      }
+#pragma unroll
+      for (int co = 0; co < COUT; ++co) {
+        o0[co] = o1[co];
+        o1[co] = o2[co];
+        o2[co] = 0.f;
+      }
     }
   }
-  const int y = y0 + oy;
-  if (y >= p.H) return;
-  float* o = p.out + ((((long long)clip * p.T + t) * p.H + y) * p.W) * 3;
-#pragma unroll
-  for (int i = 0; i < FPX; ++i) {
-    const int x = x0 + ox + i;
-    if (x < p.W)
-#pragma unroll
-      for (int co = 0; co < 3; ++co) o[(long long)x * 3 + co] = acc[i][co] + p.bias[co];
-  }
+}
+
+// The map of f32 x [B, T, H, W, C] for loads of one frame's halo box, KC
+// channels (128 B) at a time, 128-byte swizzle, zero fill outside.
+int tail_map_f32(CUtensorMap* map, const void* x, int B, int T, int H, int W, int C) {
+  const EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t d[5] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)T,
+                           (cuuint64_t)B};
+  const cuuint64_t strides[4] = {4ull * C, 4ull * C * W, 4ull * C * W * H,
+                                 4ull * C * W * H * T};
+  const cuuint32_t box[5] = {KC, HX, HY, 1, 1}, e[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<void*>(x), d,
+                        strides, box, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+template <bool EXACT>
+int launch_tail_f32(const void* x, void* stats, void* out, const void* g, const void* b,
+                    const void* w, const void* bias, int B, int T, int H, int W, int C,
+                    int replicate, int th, int tw, int run, int stages, int smem, int grid,
+                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ks = C / KC;
+  if ((C != 64 && C != 128) || th != TH || tw != TW || B < 1 || T < 1 || H < 1 || W < 1 ||
+      run < 1 || stages < 2 || smem < smem_bytes_f32(ks, stages))
+    return kErrTailPlan;
+  TailF32Args p{};
+  p.stats = static_cast<const float2*>(stats);
+  p.g = static_cast<const float*>(g);
+  p.b = static_cast<const float*>(b);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<float*>(out);
+  p.T = T;
+  p.H = H;
+  p.W = W;
+  p.replicate = replicate;
+  p.tiles_x = (W + TW - 1) / TW;
+  p.tiles_y = (H + TH - 1) / TH;
+  p.run = run;
+  p.runs = (T + run - 1) / run;
+  p.stages = stages;
+  if ((long long)B * p.tiles_x * p.tiles_y * p.runs != grid) return kErrTailPlan;
+  CUtensorMap map;
+  int e = tail_map_f32(&map, x, B, T, H, W, C);
+  if (e) return e;
+  const RowArgs r{x, p.g, p.b, stats};
+  if ((e = launch_act_rows<false, kRowStats>(r, (long long)B * T * H * W, C, s))) return e;
+  auto kernel = ks == 4 ? tail_f32_kernel<EXACT, 4> : tail_f32_kernel<EXACT, 2>;
+  const cudaError_t a =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (a != cudaSuccess) return (int)a;
+  kernel<<<grid, THREADS, smem, s>>>(map, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Kernel D in f32: x, act (the [B, T, H, W, C] f32 scratch), out f32; w the
-// [3 j][3 dy][C][12] f32 weight (ops/kernels/decoder_tail.py:
-// tail_operands_f32); th, tw, smem and grid from plan.py's tail_plan_f32.
-extern "C" int vt_decoder_tail_rgb_f32(const void* x, void* act, void* out, const void* g,
+// Kernels D and D' in f32: x f32 [B, T, H, W, C], stats a [B, T, H, W]
+// float2 scratch, out f32 [B, T, H, W, 3]; w the bf16 pieces [3][3 dy][BN][C]
+// of D's packed weight (ops/kernels/decoder_tail.py: tail_operands_f32); the
+// plan (th, tw, run, stages, smem, grid) plan.py's tail_plan_f32.
+extern "C" int vt_decoder_tail_rgb_f32(const void* x, void* stats, void* out, const void* g,
                                        const void* b, const void* w, const void* bias, int B,
                                        int T, int H, int W, int C, int replicate, int th,
-                                       int tw, int smem, int grid, void* stream) {
-  using namespace vt;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((C != 64 && C != 128) || th != FTH || tw != FTW || B < 1 || T < 1 || H < 1 || W < 1 ||
-      smem < tail_f32_smem(C))
-    return kErrTailPlan;
-  TailF32Args p{static_cast<const float*>(act), static_cast<const float*>(w),
-                static_cast<const float*>(bias), static_cast<float*>(out), T, H, W, C,
-                replicate, (W + FTW - 1) / FTW, (H + FTH - 1) / FTH};
-  if ((long long)B * p.tiles_y * p.tiles_x * T != grid) return kErrTailPlan;
-  const RowArgs r{x, static_cast<const float*>(g), static_cast<const float*>(b), act};
-  int e = launch_act_rows<false, kRowF32>(r, (long long)B * T * H * W, C, s);
-  if (e) return e;
-  const cudaError_t a =
-      cudaFuncSetAttribute(tail_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (a != cudaSuccess) return (int)a;
-  tail_f32_kernel<<<grid, FTHREADS, smem, s>>>(p);
-  return (int)cudaGetLastError();
+                                       int tw, int run, int stages, int smem, int grid,
+                                       void* stream) {
+  return launch_tail_f32<false>(x, stats, out, g, b, w, bias, B, T, H, W, C, replicate, th,
+                                tw, run, stages, smem, grid, stream);
+}
+
+extern "C" int vt_decoder_tail_rgb_taps_f32(const void* x, void* stats, void* out,
+                                            const void* g, const void* b, const void* w,
+                                            const void* bias, int B, int T, int H, int W,
+                                            int C, int replicate, int th, int tw, int run,
+                                            int stages, int smem, int grid, void* stream) {
+  return launch_tail_f32<true>(x, stats, out, g, b, w, bias, B, T, H, W, C, replicate, th,
+                               tw, run, stages, smem, grid, stream);
 }

@@ -18,9 +18,10 @@
 // output order, so stores are fully coalesced and each load is a 16-byte
 // vector from one of the four sources (C) or channel groups (I). The TPU
 // kernels' row-parity output layout (a VMEM relayout workaround) does not
-// carry over. C is a template of the element type: vt_subpixel_interleave_f32
-// reads and writes f32 (two 16-byte vectors per 8 channels) and adds the
-// bias in f32, the tile dtype.
+// carry over. C and I are templates of the element type:
+// vt_subpixel_interleave_f32 and vt_subpixel_interleave_z_f32 read and
+// write f32 (two 16-byte vectors per 8 channels) and add the bias in f32,
+// the tile dtype.
 #include "common.cuh"
 
 namespace {
@@ -56,10 +57,9 @@ __global__ void subpixel_kernel(const T* __restrict__ y00, const T* __restrict__
   }
 }
 
-__global__ void subpixel_z_kernel(const __nv_bfloat16* __restrict__ z,
-                                  const float* __restrict__ bias,
-                                  __nv_bfloat16* __restrict__ out, int N,
-                                  int H, int W, int C) {
+template <typename T>
+__global__ void subpixel_z_kernel(const T* __restrict__ z, const float* __restrict__ bias,
+                                  T* __restrict__ out, int N, int H, int W, int C) {
   const int cv = C / 8;
   const long long total = (long long)N * 2 * H * 2 * W * cv;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -73,17 +73,27 @@ __global__ void subpixel_z_kernel(const __nv_bfloat16* __restrict__ z,
     const int pr = oy & 1, pc = ox & 1;
     const long long row = (n * (H + 1) + (oy >> 1) + pr) * (W + 1) + (ox >> 1) + pc;
     float f[8];
-    vt::unpack8(vt::ld_u4(z + row * 4 * C + (2 * pr + pc) * C + c), f);
+    vt::ld8(z + row * 4 * C + (2 * pr + pc) * C + c, f);
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      f[e] += __bfloat162float(__float2bfloat16(bias[c + e]));
-    *reinterpret_cast<uint4*>(out + i * 8) = vt::pack8(f);
+    for (int e = 0; e < 8; ++e) f[e] += tile_bias(bias[c + e], z);
+    vt::st8(out + i * 8, f);
   }
 }
 
 int grid_for(long long total, int threads) {
   const long long want = (total + threads - 1) / threads;
   return (int)(want < 132 * 32 ? want : 132 * 32);
+}
+
+template <typename T>
+int launch_z(const void* z, const void* bias, void* out, int N, int H, int W, int C,
+             void* stream) {
+  const int threads = 256;
+  const int blocks = grid_for((long long)N * 4 * H * W * (C / 8), threads);
+  subpixel_z_kernel<T><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(z), static_cast<const float*>(bias), static_cast<T*>(out), N, H,
+      W, C);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -106,12 +116,12 @@ extern "C" int vt_subpixel_interleave(const void* y00, const void* y01,
 extern "C" int vt_subpixel_interleave_z(const void* z, const void* bias,
                                         void* out, int N, int H, int W, int C,
                                         void* stream) {
-  const int threads = 256;
-  const int blocks = grid_for((long long)N * 4 * H * W * (C / 8), threads);
-  subpixel_z_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(z), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), N, H, W, C);
-  return (int)cudaGetLastError();
+  return launch_z<__nv_bfloat16>(z, bias, out, N, H, W, C, stream);
+}
+
+extern "C" int vt_subpixel_interleave_z_f32(const void* z, const void* bias, void* out, int N,
+                                            int H, int W, int C, void* stream) {
+  return launch_z<float>(z, bias, out, N, H, W, C, stream);
 }
 
 extern "C" int vt_subpixel_interleave_f32(const void* y00, const void* y01,

@@ -273,9 +273,7 @@ class VideoTokenizer:
     in bf16 or f32, the dtypes the kernels take: :func:`fused_default`)
     routes the kernels' call sites through their wrappers. ``forms`` (a
     :class:`KernelForms`, settable; default JAX's default forms) picks the
-    kernel form of the decoder's upsamples and tail where ``fused`` is on;
-    in f32 on the card only the default forms run (G, H, I and D' have no
-    f32 form yet: their wrappers raise, naming the kernel).
+    kernel form of the decoder's upsamples and tail where ``fused`` is on.
 
     Tiled inference (``autoencoder.py:440-699``): ``use_tiling`` (from the
     config, settable) makes ``encode``, ``decode`` and ``forward`` run

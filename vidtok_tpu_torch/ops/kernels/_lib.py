@@ -61,9 +61,10 @@ _SIGNATURES = {
     # x, out, g, b, w, bias, B, T, H, W, C, replicate, th, tw, run, stages,
     # smem, grid, stream (D; D' the same)
     "vt_decoder_tail_rgb": [_P] * 6 + [_I] * 12 + [_P],
-    # x, act (f32 scratch), out, g, b, w, bias, B, T, H, W, C, replicate,
-    # th, tw, smem, grid, stream (D in f32)
-    "vt_decoder_tail_rgb_f32": [_P] * 7 + [_I] * 10 + [_P],
+    # x, stats (f32 scratch), out, g, b, w, bias, B, T, H, W, C, replicate,
+    # th, tw, run, stages, smem, grid, stream (D in f32; D' the same)
+    "vt_decoder_tail_rgb_f32": [_P] * 7 + [_I] * 12 + [_P],
+    "vt_decoder_tail_rgb_taps_f32": [_P] * 7 + [_I] * 12 + [_P],
     # s, out, w map, bias, alpha, B, T, H, W, C, replicate, th, tw, bn,
     # stages, smem, grid, stream
     "vt_parity_up2x": [_P] * 5 + [_I] * 12 + [_P],
@@ -71,8 +72,10 @@ _SIGNATURES = {
     "vt_parity_up2x_f32": [_P] * 6 + [_I] * 12 + [_P],
     # s, ycur, yprev, bias, alpha, out, ld, B, T, S, C, replicate, stream
     "vt_parity_blend": [_P] * 6 + [_I] * 6 + [_P],
+    "vt_parity_blend_f32": [_P] * 6 + [_I] * 6 + [_P],
     # z, bias, out, N, H, W, C, stream
     "vt_subpixel_interleave_z": [_P] * 3 + [_I] * 4 + [_P],
+    "vt_subpixel_interleave_z_f32": [_P] * 3 + [_I] * 4 + [_P],
     "vt_decoder_tail_rgb_taps": [_P] * 6 + [_I] * 12 + [_P],
     # the tools' kernels (vidtok_tpu_torch/tools):
     # x, out, B, T, S, C, tile_t, tile_s, stream
@@ -255,16 +258,6 @@ def kernel_dtype(x, kernel: str):
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"kernel {kernel} takes bf16 or f32 activations, got {x.dtype}")
     return x.dtype
-
-
-def refuse_f32(x, kernel: str) -> None:
-    """Raise for f32 ``x``: ``kernel`` (a non-default form's) has no f32
-    form yet."""
-    import torch
-
-    if x.dtype == torch.float32:
-        raise ValueError(f"kernel {kernel} has no f32 form yet: serve f32 in the default "
-                         "KernelForms(), or this form in bf16")
 
 
 def require(x, dtype, shape) -> None:

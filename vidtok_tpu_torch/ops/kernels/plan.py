@@ -7,19 +7,21 @@ from the call's shape, so the shapes stay where the CPU tests reach them:
 the patch of an M tile, BN, the ring's stages, the shared memory and the
 grid. Kernels D
 and D' launch the tail with :func:`tail_plan`'s patch, run of frames,
-stages, shared memory and grid. Each C entry takes the plan as it is and
-refuses one it cannot run. :func:`tile_origin` and :func:`tail_block`
+stages, shared memory and grid (f32: :func:`tail_plan_f32`'s). Each C
+entry takes the plan as it is and refuses one it cannot run. :func:`tile_origin` and :func:`tail_block`
 mirror how a block finds its work from ``blockIdx.x``.
 
 f32 (``split=True``): A, B, E and F under the loop's f32 scheme
 (``split.py``) run the bf16 plan's tiles, BN, stages and shared memory (a
 ring stage holds the same bytes; the K steps are len(PRODUCTS) x); the
 plan's ``a_channels`` are the A operand's tensor map's (the bf16 pieces,
-3x). D in f32 runs :func:`tail_plan_f32`.
+3x). D and D' in f32 run :func:`tail_plan_f32`: :func:`tail_plan`'s blocks
+with the f32 tail's stages and shared memory.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -307,56 +309,35 @@ def tail_block(plan: TailPlan, block: int, t: int) -> tuple:
             max(t0 - TAIL_WARMUP, 0))
 
 
-# Kernel D in f32 (decoder_tail.cu: tail_f32_kernel): a block of
-# TAIL_F32_THREADS per (TAIL_F32_TH x TAIL_F32_TW output patch, clip, output
-# frame), each thread TAIL_F32_PX outputs along x; a halo chunk of
-# TAIL_F32_CK channels of (TH + 2) x (TW + 2) positions, rows TAIL_F32_LD
-# floats apart, and the time tap's weights [3 dy][C][TAIL_F32_WLD] in shared
-# memory.
-TAIL_F32_TH, TAIL_F32_TW, TAIL_F32_PX = 16, 32, 4
-TAIL_F32_THREADS = TAIL_F32_TH * TAIL_F32_TW // TAIL_F32_PX
-TAIL_F32_CK, TAIL_F32_LD, TAIL_F32_WLD = 16, 36, 12
+# Kernels D and D' in f32 (decoder_tail.cu: tail_f32_kernel): tail_plan's
+# blocks, runs and patch; a unit is one frame's TAIL_F32_KC-channel slice, its
+# raw f32 halo box in a ring of ``stages`` raw stages, its three bf16 pieces
+# in one of TAIL_F32_PIECE_STAGES piece stages; the weight pieces
+# [PIECES][3 dy][TAIL_BN][C] stay resident as (piece, dy, slice) tiles of
+# TAIL_BN rows of 64 B.
+TAIL_F32_KC = 32
+TAIL_F32_RAW = TAIL_HALO * TAIL_F32_KC * 4
+TAIL_F32_PIECE = TAIL_HALO * TAIL_F32_KC * 2
+TAIL_F32_PIECE_STAGES = 2
 
 
-@dataclass(frozen=True)
-class TailF32Plan:
-    """One launch of kernel D's f32 form: ``tiles_x`` x ``tiles_y`` patches
-    of ``th`` x ``tw`` per frame, ``grid`` blocks, one per (patch, clip,
-    output frame), the frame fastest; ``smem`` bytes."""
-    th: int
-    tw: int
-    tiles_x: int
-    tiles_y: int
-    smem: int
-    grid: int
-
-
-def tail_f32_smem_bytes(c: int) -> int:
-    return (TAIL_F32_CK * (TAIL_F32_TH + 2) * TAIL_F32_LD + 3 * c * TAIL_F32_WLD) * 4
+def tail_f32_smem_bytes(c: int, stages: int) -> int:
+    """1 KB to align the swizzled tiles, the raw stages, the piece stages,
+    the weight pieces, two f32 partial buffers, two barriers a stage."""
+    return (1024 + stages * TAIL_F32_RAW + TAIL_F32_PIECE_STAGES * PIECES * TAIL_F32_PIECE
+            + PIECES * 3 * (c // TAIL_F32_KC) * TAIL_BN * TAIL_F32_KC * 2
+            + 2 * TAIL_M * TAIL_COLS * 4 + 16 * (stages + TAIL_F32_PIECE_STAGES))
 
 
 @functools.lru_cache(maxsize=None)
-def tail_plan_f32(b: int, t: int, h: int, w: int, c: int) -> TailF32Plan:
-    """Kernel D over f32 ``[b, t, h, w, c]``: the channels of the bf16 tail
-    (TAIL_CHANNELS), every output frame a block per patch."""
-    if min(b, t, h, w) < 1:
-        raise ValueError(f"empty clips: {(b, t, h, w)}")
-    if c not in TAIL_CHANNELS:
-        raise ValueError(f"the decoder tail takes C in {TAIL_CHANNELS}, got C={c}")
-    tiles_x, tiles_y = -(-w // TAIL_F32_TW), -(-h // TAIL_F32_TH)
-    plan = TailF32Plan(TAIL_F32_TH, TAIL_F32_TW, tiles_x, tiles_y, tail_f32_smem_bytes(c),
-                       b * tiles_x * tiles_y * t)
-    if plan.smem > SMEM_LIMIT:
+def tail_plan_f32(b: int, t: int, h: int, w: int, c: int) -> TailPlan:
+    """Kernels D and D' over f32 ``[b, t, h, w, c]``: :func:`tail_plan`'s
+    patches and runs, as many raw stages (up to TAIL_MAX_STAGES) as the
+    shared memory holds."""
+    pl = tail_plan(b, t, h, w, c)
+    fixed = tail_f32_smem_bytes(c, 0)
+    stages = min(TAIL_MAX_STAGES, (SMEM_LIMIT - fixed) // (TAIL_F32_RAW + 16))
+    plan = dataclasses.replace(pl, stages=stages, smem=tail_f32_smem_bytes(c, stages))
+    if stages < 2 or plan.smem > SMEM_LIMIT:
         raise AssertionError(f"plan {plan} does not fit shared memory")
-    if plan.grid > GRID_LIMIT:
-        raise ValueError(f"{plan.grid} blocks exceed the grid limit")
     return plan
-
-
-def tail_f32_block(plan: TailF32Plan, block: int, t: int) -> tuple:
-    """(clip, y0, x0, output frame) of block ``block`` of D's f32 form, as
-    the kernel decodes ``blockIdx.x``."""
-    q, f = divmod(block, t)
-    q, tx = divmod(q, plan.tiles_x)
-    clip, ty = divmod(q, plan.tiles_y)
-    return clip, ty * plan.th, tx * plan.tw, f

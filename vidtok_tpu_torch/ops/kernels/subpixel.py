@@ -13,8 +13,7 @@ groups ``e00 | e01 | e10 | e11``, and::
     out[n, 2a+pr, 2b+pc, :] = z[n, a+pr, b+pc, (2pr+pc)*C:(2pr+pc+1)*C] + bias
 
 CUDA: ``csrc/subpixel.cu``. The parity convs run outside both, as in JAX.
-C takes bf16 or f32 (a template of the element type); I takes bf16 only
-(its f32 form is not written yet, and it says so).
+Both take bf16 or f32 (templates of the element type).
 """
 
 from __future__ import annotations
@@ -69,8 +68,8 @@ def subpixel_interleave_z_plain(z, bias):
 
 def subpixel_interleave_z(z, bias):
     """Kernel I. A CPU tensor runs :func:`subpixel_interleave_z_plain`; a
-    CUDA tensor (contiguous bf16, C % 8 == 0) runs the kernel or raises
-    (f32: I has no f32 form yet)."""
+    CUDA tensor (contiguous bf16 or f32, C % 8 == 0) runs the kernel or
+    raises."""
     subpixel_interleave_z.calls += 1
     n, h1, w1, c4 = z.shape
     c = bias.shape[0]
@@ -78,14 +77,15 @@ def subpixel_interleave_z(z, bias):
         raise ValueError(f"z has {c4} channels, not 4 x {c}")
     if z.device.type == "cpu":
         return subpixel_interleave_z_plain(z, bias)
-    _lib.refuse_f32(z, "I")
-    _lib.require(z, torch.bfloat16, (n, h1, w1, c4))
+    dt = _lib.kernel_dtype(z, "I")
+    _lib.require(z, dt, (n, h1, w1, c4))
     if c % 8:
         raise ValueError(f"kernel I takes C % 8 == 0, got C={c}")
     bias = _lib.f32(bias)
     _lib.same_device(bias, z)
     out = z.new_empty((n, 2 * (h1 - 1), 2 * (w1 - 1), c))
-    _lib.call("vt_subpixel_interleave_z", z, bias, out, n, h1 - 1, w1 - 1, c)
+    _lib.call("vt_subpixel_interleave_z" + ("_f32" if dt == torch.float32 else ""), z, bias,
+              out, n, h1 - 1, w1 - 1, c)
     subpixel_interleave_z.launches += 1
     return out
 

@@ -10,11 +10,11 @@ run (``vidtok_tpu/modules/blocks.py:633-668``). Their shared body
     y = y_cur[t] + y_prev[t-1] + [bias | bias]          (f32)
     out[2t+p] = alpha * s[t] + (1 - alpha) * y[p*C:(p+1)*C]
 
-rounded once to ``s.dtype``. ``y_prev[-1]`` is zeros (``zero``) or
+rounded once to ``s.dtype`` (f32: not rounded). ``y_prev[-1]`` is zeros (``zero``) or
 ``y_prev[0]`` (``replicate``: the TPU index map clamps t-1 to 0). G takes
 the two C->2C convs' outputs, H the one C->4C conv's ``[cur | prev]``.
 CUDA: ``csrc/parity_blend.cu``, one kernel for both, given a pointer and a
-row stride for each source.
+row stride for each source, a template of the element type (bf16, f32).
 """
 
 from __future__ import annotations
@@ -58,26 +58,27 @@ def _launch(s, y_cur, y_prev, ld, bias, alpha, first_pad_mode):
     for v in (bias, alpha):
         _lib.same_device(v, s)
     out = s.new_empty((b, 2 * t, h, w, c))
-    _lib.call("vt_parity_blend", s, y_cur, y_prev, bias, alpha, out, ld, b, t,
-              h * w, c, int(first_pad_mode == "replicate"))
+    _lib.call("vt_parity_blend" + ("_f32" if s.dtype == torch.float32 else ""), s, y_cur,
+              y_prev, bias, alpha, out, ld, b, t, h * w, c,
+              int(first_pad_mode == "replicate"))
     return out
 
 
 def parity_blend_interleave(s, y_cur, y_prev, bias, alpha, first_pad_mode: str):
     """Kernel G: s ``[B, T, H, W, C]`` and the two convs' ``[B, T, H, W, 2C]``
     -> ``[B, 2T, H, W, C]``. A CPU tensor runs
-    :func:`parity_blend_interleave_plain`; a CUDA tensor (contiguous bf16,
-    C % 8 == 0) runs the kernel or raises (f32: G has no f32 form yet)."""
+    :func:`parity_blend_interleave_plain`; a CUDA tensor (contiguous bf16
+    or f32, C % 8 == 0) runs the kernel or raises."""
     parity_blend_interleave.calls += 1
     _check_mode(first_pad_mode)
     if s.device.type == "cpu":
         return parity_blend_interleave_plain(s, y_cur, y_prev, bias, alpha,
                                              first_pad_mode)
     b, t, h, w, c = s.shape
-    _lib.refuse_f32(s, "G")
-    _lib.require(s, torch.bfloat16, (b, t, h, w, c))
+    dt = _lib.kernel_dtype(s, "G")
+    _lib.require(s, dt, (b, t, h, w, c))
     for y in (y_cur, y_prev):
-        _lib.require(y, torch.bfloat16, (b, t, h, w, 2 * c))
+        _lib.require(y, dt, (b, t, h, w, 2 * c))
     out = _launch(s, y_cur, y_prev, 2 * c, bias, alpha, first_pad_mode)
     parity_blend_interleave.launches += 1
     return out
@@ -93,9 +94,9 @@ def parity_blend_interleave4(s, y4, bias, alpha, first_pad_mode: str):
     if s.device.type == "cpu":
         return parity_blend_interleave4_plain(s, y4, bias, alpha, first_pad_mode)
     b, t, h, w, c = s.shape
-    _lib.refuse_f32(s, "H")
-    _lib.require(s, torch.bfloat16, (b, t, h, w, c))
-    _lib.require(y4, torch.bfloat16, (b, t, h, w, 4 * c))
+    dt = _lib.kernel_dtype(s, "H")
+    _lib.require(s, dt, (b, t, h, w, c))
+    _lib.require(y4, dt, (b, t, h, w, 4 * c))
     out = _launch(s, y4, y4[..., 2 * c:], 4 * c, bias, alpha, first_pad_mode)
     parity_blend_interleave4.launches += 1
     return out
