@@ -57,7 +57,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    cuDNN's f32 convs of the block, its bound from ``f32_work`` (f32 bytes
    over 3.35 TB/s, or the function's FLOP over the bf16 tensor-core rate
    / 6, the scheme's six products); and A, B, F, D and D' on rows of mean
-   F32_ROW_MEAN (the two-pass statistics; checked, not timed);
+   F32_ROW_MEAN (the two-pass statistics; checked, not timed); then, in
+   bf16 and in f32 (``width_cases``, checked, not timed), A, B, E, F, D
+   and D' at every channel count of WIDTHS_CHECKED (8 to 1024: partial K
+   steps and N tiles, masked row vectors, the tail's partial boxes and, past
+   128 channels, its channel groups), A also at its shortcut pairs
+   (SHORTCUT_PAIRS: 96 -> 192 among them), D and D' at TAIL_RUNS_WIDTH (256
+   channels in runs with warm-up frames) and each at a 33² partial-tile
+   shape at PARTIAL_WIDTH (96) channels; and, in bf16, every call shape
+   of phase 20's models (WIDTH_PATHS, timed per forward of their paths);
 3. serve the causal v1.0 KL 4x8x8 16-channel flagship at full width with
    seeded random weights in bf16: 3 requests of [1, 3, 17, 256, 256],
    per-request latency, frames/s and peak memory, and the kernels' launch
@@ -244,6 +252,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     [1, 3, 65, 256, 256] (F 100, A 100, C 15, D 5), the same records and
     the gate against the tiled plain f32 path, and one request in
     ("fused", "merged", "taps") (I 15, D' 5) held to it likewise.
+20. other channel widths through the kernels (``serve_widths``): the
+    flagship at ch 96 (88,995,399 parameters; levels of 96, 192 and 384
+    channels) and at ch 64 (39,685,863; 64, 128, 256), each the file loaded
+    and passed through ``merge_configs`` with ``ch`` set in both the
+    encoder's and the decoder's params (``width_override``), with the
+    flagship's launches (A 20, B 20, C 3, D 1, E 2 a forward): N_REQUESTS
+    bf16 requests of REQUEST on the kernel and the plain path, a profile of
+    one, the end-to-end gate of phase 3 at REQUEST and at PARTIAL_REQUEST,
+    then one f32 request on the default f32 kernel path held to the plain
+    f32 path at F32_E2E_GATE at both shapes; and the CPU tests' ch-32 v1.1
+    model (CH32_CFG, tests/test_torch_model.py's) at CH32_REQUEST:
+    N_REQUESTS bf16 requests (A 6, B 6, C 1, D 1 a forward), the end-to-end
+    gate, one f32 request and its gate.
 
 Phase 2 also holds every call shape of phases 9-12 that the earlier
 phases do not give (``model_calls``: A at 16² x 512 channels and at 256²
@@ -511,7 +532,37 @@ CONFIG_PATHS = {"noncausal": (NONCAUSAL_CFG, (1, 3, 16, 256, 256), False),
                 "fsq_41616": (FSQ_41616_CFG, REQUEST, False),
                 "tiled_888": (FSQ_888_CFG, (1, 3, 33, 256, 256), True),
                 "kl_444": (KL_444_CFG, REQUEST, False)}
-PATHS = ("v1_0", "v1_1", "tiled") + tuple(FORMS) + tuple(CONFIG_PATHS)
+# Phase 20: the flagship at other channel widths, as a user makes one: the
+# loaded file (``load_config``) through ``merge_configs`` with ``ch`` set in
+# both the encoder's and the decoder's params (the file's decoder params
+# are a reference to the encoder's, resolved when the file is loaded), and
+# the CPU tests' ch-32 v1.1 model (tests/test_torch_model.py's CFG). Each
+# width -> (ch, parameters); the paths' configs as dicts for model_calls.
+WIDTHS = {"ch96": (96, 88_995_399), "ch64": (64, 39_685_863)}
+
+
+def width_override(ch: int) -> dict:
+    """The ``merge_configs`` override that sets the flagship's width."""
+    return {"model": {"params": {"encoder_config": {"params": {"ch": ch}},
+                                 "decoder_config": {"params": {"ch": ch}}}}}
+
+
+def _width_cfg(ch: int) -> dict:
+    from vidtok_tpu_torch.config import merge_configs
+
+    return merge_configs(V1_0_CFG, width_override(ch))
+
+
+_CH32 = {"double_z": True, "z_channels": 4, "in_channels": 3, "out_ch": 3, "ch": 32,
+         "ch_mult": [1, 2], "time_downsample_factor": 2, "num_res_blocks": 1,
+         "norm_type": "layernorm", "interpolation_mode": "trilinear", "tempo_ds": [0],
+         "tempo_us": [1]}
+CH32_CFG = _model("AutoencodingEngineV1_1", "EncoderCausal3DV1_1", "DecoderCausal3DV1_1",
+                  _CH32, _KL)
+CH32_REQUEST = (1, 3, 17, 128, 128)
+WIDTH_PATHS = {name: (_width_cfg(ch), REQUEST, False) for name, (ch, _) in WIDTHS.items()}
+WIDTH_PATHS["ch32"] = (CH32_CFG, CH32_REQUEST, False)
+PATHS = ("v1_0", "v1_1", "tiled") + tuple(FORMS) + tuple(CONFIG_PATHS) + tuple(WIDTH_PATHS)
 
 # The kernels on f32 activations (phase 19, ``serve_f32``, and phase 2's
 # f32 checks): the wgmma loop's f32 scheme (csrc/wgmma_conv.cuh: bf16
@@ -732,7 +783,7 @@ def tiled_calls(t: int, size: int = 256) -> Counter:
     return model_calls(V1_1_CFG, (1, 3, t, size, size), tiled=True)
 
 
-for _path, (_cfg, _shape, _tiled) in CONFIG_PATHS.items():
+for _path, (_cfg, _shape, _tiled) in (CONFIG_PATHS | WIDTH_PATHS).items():
     PER_FORWARD[_path] = per_forward(model_calls(_cfg, _shape, _tiled))
 
 
@@ -925,7 +976,8 @@ def kernel_cases(device):
     for shape, calls in PARITY_SHAPES:
         for mode in MODE_PATH:  # v1.0 serves zero mode; replicate is checked
             shapes["parity_up2x_fused"][shape, mode]["v1_0"] = calls if mode == "zero" else 0
-    runs = [("tiled", tiled)] + [(path, model_calls(*run)) for path, run in CONFIG_PATHS.items()]
+    runs = [("tiled", tiled)] + [(path, model_calls(*run))
+                                 for path, run in (CONFIG_PATHS | WIDTH_PATHS).items()]
     for path, run in runs:
         for (name, key), calls in run.items():
             shapes[name][key][path] = calls
@@ -1064,6 +1116,92 @@ def kernel_cases(device):
             yield Case("decoder_tail_rgb_taps", (shape, mode), {},
                        decoder_tail.decoder_tail_rgb_taps,
                        decoder_tail.decoder_tail_rgb_taps_plain, args)
+    yield from width_cases(device, bf, 5)
+
+
+# Phase 2 at the widths the kernels take beside the released ones (checked,
+# not timed), in bf16 and in f32: A, B, E, F, D and D' at every C of
+# WIDTHS_CHECKED (B, E, D and D' in both stream-start modes, F at both
+# ``first_chunk`` values and cache offsets 0 and 2), A also at its
+# shortcut pairs, D and D' at TAIL_RUNS_WIDTH too (runs with warm-up frames
+# in channel groups), and one 33² partial-tile shape of each at
+# PARTIAL_WIDTH channels.
+WIDTHS_CHECKED = (8, 32, 64, 96, 192, 256, 384, 1024)
+SHORTCUT_PAIRS = ((32, 64), (64, 128), (96, 192), (192, 384))
+TAIL_RUNS_WIDTH = (1, 40, 64, 64, 256)
+PARTIAL_WIDTH = 96
+
+
+def width_cases(device, dtype, seed: int):
+    """Yield the ``Case`` of every WIDTHS_CHECKED check (see above) on
+    ``dtype`` activations and f32 parameters drawn from ``seed``."""
+    from vidtok_tpu_torch.ops.kernels import (decoder_tail, fused_spatial, fused_temporal,
+                                              parity_upsample as pu)
+
+    r = Params(seed, device)
+
+    def spatial(key):
+        n, h, w, cin, c = key
+        nin = r.conv((c, cin, 1, 1)) if cin != c else None
+        return Case("fused_spatial_resblock", key, {}, fused_spatial.fused_spatial_resblock,
+                    fused_spatial.fused_spatial_resblock_plain,
+                    (r.x((n, h, w, cin), dtype), r.norm(cin), r.conv((c, cin, 3, 3)),
+                     r.norm(c), r.conv((c, c, 3, 3)), nin))
+
+    def temporal(shape):
+        c = shape[-1]
+        for mode in MODE_PATH:
+            yield Case("fused_temporal_resblock", (shape, mode), {},
+                       fused_temporal.fused_temporal_resblock,
+                       fused_temporal.fused_temporal_resblock_plain,
+                       (r.x(shape, dtype), r.norm(c), r.conv((c, c, 3)), r.norm(c),
+                        r.conv((c, c, 3)), mode))
+
+    def stream(shape, offsets):
+        b, t, h, w, c = shape
+        for first in (True, False):
+            for off in offsets:
+                caches = ((None, None) if first else
+                          tuple(r.x((b, 2, h, w, c), dtype) for _ in range(2)))
+                yield Case("fused_temporal_resblock_stream", (shape, first, off), {},
+                           fused_temporal.fused_temporal_resblock_stream,
+                           fused_temporal.fused_temporal_resblock_stream_plain,
+                           (r.x(shape, dtype), r.norm(c), r.conv((c, c, 3)), r.norm(c),
+                            r.conv((c, c, 3)), *caches, first, off))
+
+    def parity(shape):
+        c = shape[-1]
+        for mode in MODE_PATH:
+            yield Case("parity_up2x_fused", (shape, mode), {}, pu.parity_up2x_fused,
+                       pu.parity_up2x_fused_plain,
+                       (r.x(shape, dtype), *r.conv((c, c, 3, 3, 3)), r.t([0.88]), mode))
+
+    def tails(shape):
+        c = shape[-1]
+        for mode in MODE_PATH:
+            args = (r.x(shape, dtype), r.norm(c), r.conv((3, c, 3, 3, 3)), mode)
+            yield Case("decoder_tail_rgb", (shape, mode), {}, decoder_tail.decoder_tail_rgb,
+                       decoder_tail.decoder_tail_rgb_plain, args)
+            yield Case("decoder_tail_rgb_taps", (shape, mode), {},
+                       decoder_tail.decoder_tail_rgb_taps,
+                       decoder_tail.decoder_tail_rgb_taps_plain, args)
+
+    for c in WIDTHS_CHECKED:
+        yield spatial((4, 32, 32, c, c))
+        yield from temporal((1, 6, 32, 32, c))
+        yield from stream((1, 5, 16, 16, c), (0, 2))
+        yield from parity((1, 4, 32, 32, c))
+        yield from tails((1, 6, 32, 32, c))
+    for cin, c in SHORTCUT_PAIRS:
+        yield spatial((4, 32, 32, cin, c))
+    yield from tails(TAIL_RUNS_WIDTH)
+    c = PARTIAL_WIDTH
+    yield spatial((5, 33, 33, c, c))
+    yield spatial((5, 33, 33, c, 2 * c))
+    yield from temporal((2, 5, 33, 33, c))
+    yield from stream((1, 5, 33, 33, c), (1, 4))
+    yield from parity((2, 5, 33, 33, c))
+    yield from tails((2, 6, 33, 33, c))
 
 
 def swap_calls(calls: Counter, path: str) -> Counter:
@@ -1233,6 +1371,7 @@ def f32_kernel_cases(device):
         yield Case(name, (shape, "replicate"), {}, kernel, plain,
                    (p.x(shape, f32) + mean, p.norm(c), p.conv((3, c, 3, 3, 3)), "replicate"),
                    mean=mean)
+    yield from width_cases(device, f32, 10)
 
 
 def form_calls(calls: dict, kernel: str) -> dict:
@@ -1805,12 +1944,17 @@ def make_tokenizer(cfg: dict, device, seed: int = 0):
                           fused=True)
 
 
-def serve_both_paths(name: str, cfg: dict, path: str, device, shape=REQUEST) -> dict:
-    """Phases 3, 6 and 9: N_REQUESTS requests of ``shape`` on the kernel
+def serve_both_paths(name: str, cfg: dict, path: str, device, shape=REQUEST,
+                     n_params_want: int = None) -> dict:
+    """Phases 3, 6, 9 and 20: N_REQUESTS requests of ``shape`` on the kernel
     path, then on the plain path, a profile of one kernel-path request and
-    the end-to-end gate. Returns the kernel path's ``serve`` result."""
+    the end-to-end gate (v1.0 and phase 20's flagship widths: also at
+    PARTIAL_REQUEST); ``n_params_want``: the parameters the model must have.
+    Returns the kernel path's ``serve`` result."""
     tok = make_tokenizer(cfg, device)
     n_params = sum(p.numel() for p in tok.core.parameters())
+    if n_params_want is not None and n_params != n_params_want:
+        raise AssertionError(f"{name}: {n_params} parameters, not {n_params_want}")
     per = PER_FORWARD[path]
     runs = {}
     for label, fused, want in (("kernel path", True, per),
@@ -1825,7 +1969,7 @@ def serve_both_paths(name: str, cfg: dict, path: str, device, shape=REQUEST) -> 
     tok.fused = True
     profile_request(tok, shape)
     e2e_check(tok.core, tok.meta, shape, path)
-    if path == "v1_0":
+    if path == "v1_0" or path in WIDTHS:
         # a 33² latent: partial tiles in A, B, C, D and E
         e2e_check(tok.core, tok.meta, PARTIAL_REQUEST, path)
     return k
@@ -4497,6 +4641,75 @@ def serve_f32(device) -> dict:
     return runs
 
 
+def serve_width_f32(cfg: dict, path: str, label: str, device, shapes,
+                    n_params_want: int = None) -> dict:
+    """One f32 request of ``shapes[0]`` through the engine of ``cfg`` on
+    its default f32 kernel path (``f32_tokenizer``), PER_FORWARD[path]
+    launches, then ``f32_e2e_check`` against its plain f32 path at each of
+    ``shapes``. Returns the ``serve`` result."""
+    import torch
+
+    tok = f32_tokenizer(cfg, device)
+    n_params = sum(p.numel() for p in tok.core.parameters())
+    if n_params_want is not None and n_params != n_params_want:
+        raise AssertionError(f"{label}: {n_params} parameters, not {n_params_want}")
+    r = serve(tok, 1, shapes[0], PER_FORWARD[path])
+    del r["last"]
+    report(f"f32 kernel path (the default): {label}, {n_params} params", r, shapes[0], "f32")
+    for shape in shapes:
+        f32_e2e_check(tok, shape, PER_FORWARD[path], label)
+    del tok
+    torch.cuda.empty_cache()
+    return r
+
+
+def serve_widths(device) -> dict:
+    """Phase 20: the kernel path at channel widths other than the released
+    models'. (a) For each of WIDTHS, the flagship from its file, loaded
+    (``load_config``) and merged (``merge_configs``) with ``ch`` set in
+    both the encoder's and the decoder's params (``width_override``), its
+    launches per forward from ``model_calls`` those of the flagship (A 20,
+    B 20, C 3, D 1, E 2): ``serve_both_paths`` (N_REQUESTS bf16 requests
+    of REQUEST on each path, a profile, the end-to-end gate at REQUEST and
+    at PARTIAL_REQUEST) with its parameters checked, then
+    ``serve_width_f32`` at both shapes; (b) the CPU tests' ch-32 v1.1 model
+    (CH32_CFG; A 6, B 6, C 1, D 1) at CH32_REQUEST: N_REQUESTS bf16
+    requests, the end-to-end gate, and ``serve_width_f32``. Returns {path: the kernel
+    path's ``serve`` result} (f32 runs under path + "_f32")."""
+    import os
+
+    import torch
+
+    from vidtok_tpu_torch import load_config, merge_configs
+
+    file = os.path.join(os.path.dirname(os.path.abspath(__file__)), FLAGSHIP_YAML)
+    runs = {}
+    for name, (ch, n_params) in WIDTHS.items():
+        cfg = merge_configs(load_config(file), width_override(ch))
+        label = f"v1.0 kl 4x8x8 16chn at ch {ch} (merge_configs of {FLAGSHIP_YAML})"
+        per = per_forward(model_calls(cfg, REQUEST))
+        if not per == PER_FORWARD[name] == PER_FORWARD["v1_0"]:
+            raise AssertionError(f"{label}: launches per forward {per}, not the flagship's "
+                                 f"{PER_FORWARD['v1_0']}")
+        runs[name] = serve_both_paths(label, cfg, name, device, n_params_want=n_params)
+        del runs[name]["last"]
+        torch.cuda.empty_cache()
+        runs[name + "_f32"] = serve_width_f32(cfg, name, label, device,
+                                              [REQUEST, PARTIAL_REQUEST], n_params)
+    label = "v1.1 kl ch 32 (the CPU tests' model)"
+    tok = make_tokenizer(CH32_CFG, device)
+    r = serve(tok, N_REQUESTS, CH32_REQUEST, PER_FORWARD["ch32"])
+    del r["last"]
+    report(f"kernel path: {label}, {sum(p.numel() for p in tok.core.parameters())} params",
+           r, CH32_REQUEST)
+    e2e_check(tok.core, tok.meta, CH32_REQUEST, "ch32")
+    runs["ch32"] = r
+    del tok
+    runs["ch32_f32"] = serve_width_f32(CH32_CFG, "ch32", label, device, [CH32_REQUEST])
+    torch.cuda.empty_cache()
+    return runs
+
+
 def phase(name: str, t0: float) -> float:
     t = time.perf_counter()
     print(f"phase {name}: {t - t0:.1f} s", flush=True)
@@ -4647,7 +4860,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t = phase("18 (public surface)", t)
     runs.update(serve_f32(device))
-    phase("19 (f32 through the kernels)", t)
+    t = phase("19 (f32 through the kernels)", t)
+    runs.update(serve_widths(device))
+    phase("20 (other widths through the kernels)", t)
     phase("total", t0)
 
     kernels = []

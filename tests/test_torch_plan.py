@@ -328,7 +328,12 @@ def _temporal_keys(which):
 
 
 def _check_limits(pl, cout):
-    assert pl.bn in (128, 256) and cout % pl.bn == 0 and pl.n_tiles * pl.bn == cout
+    """BN from {64, 128, 256}, N tiles that cover ``cout`` output channels
+    (E: each parity's), dividing it where it is a multiple of 128 (the
+    released widths keep whole tiles); the H100's limits."""
+    assert pl.bn in (64, 128, 256) and pl.cout == cout
+    assert pl.n_tiles == pl.parities * -(-cout // pl.bn)
+    assert cout % 128 or cout % pl.bn == 0
     assert pl.smem <= plan.SMEM_LIMIT
     assert plan.BLOCKS_PER_SM[pl.bn] * (pl.smem + 1024) <= plan.SMEM_PER_SM
     assert pl.smem >= plan.smem_bytes(pl.bn, pl.stages)
@@ -423,8 +428,8 @@ def test_parity_plans_cover_each_output_once(which):
     for key in _parity_keys(which):
         b, t, h, w, c = key
         pl = plan.conv_plan_parity(b, t, h, w, c, which == "f32")
-        _check_limits(pl, 2 * c)
-        assert pl.taps == "parity" and c % pl.bn == 0
+        _check_limits(pl, c)
+        assert pl.taps == "parity" and pl.parities == 2
         per = pl.tiles_x * pl.tiles_y
         assert pl.tiles_x == -(-w // pl.tw) and pl.tiles_y == -(-h // pl.th)
         assert pl.m_tiles == b * t * per
@@ -443,7 +448,7 @@ def test_parity_plans_cover_each_output_once(which):
             ok = (y < h) & (x < w)
             out_frame = np.vectorize(slot.get)(img) * 2 + par
             _count(counts, ((out_frame[:, None] * h + y) * w + x)[ok])
-        assert counts.min() == counts.max() == c // pl.bn, key
+        assert counts.min() == counts.max() == pl.n_tiles // 2, key
         _, n0s = plan.tile_origin(pl, np.arange(pl.n_tiles))
         for par in (0, 1):
             cols = sorted(n0 - par * c for n0 in n0s.tolist() if (n0 >= c) == par)
@@ -462,21 +467,28 @@ def test_f32_plans_are_the_bf16_plans_with_pieces(name):
     for key in _f32_keys(name):
         if name == "fused_spatial_resblock":
             n, h, w, cin, c = key
-            k_base = 9 * c + (cin if cin != c else 0)  # conv2's, the 1x1 term's columns after
-            args = (n, h, w, cin, c, cin if cin != c else 0)
+            # conv2's taps, the 1x1 term's columns after
+            taps, tap_c, cs = 9, c, (cin if cin != c else 0)
+            args = (n, h, w, cin, c, cs)
             p16, p32 = plan.conv_plan_spatial(*args), plan.conv_plan_spatial(*args, True)
         elif name == "parity_up2x_fused":
-            cin, c, k_base = key[-1], 2 * key[-1], 18 * key[-1]
+            cin = c = tap_c = key[-1]
+            taps, cs = 18, 0
             p16, p32 = plan.conv_plan_parity(*key), plan.conv_plan_parity(*key, True)
         else:
             b, t, h, w, cin = key
-            c, k_base = cin, 3 * cin
+            c = tap_c = cin
+            taps, cs = 3, 0
             p16 = plan.conv_plan_temporal(b, t, h * w, c)
             p32 = plan.conv_plan_temporal(b, t, h * w, c, True)
         _check_limits(p32, c)
         assert (p16.a_channels, p32.a_channels) == (cin, PIECES * cin), key
         assert dataclasses.replace(p32, a_channels=cin) == p16, key
-        assert k_base % plan.BK == 0, key  # whole K steps in each product
+        # whole K steps in each product: 64-channel boxes, each (tap,
+        # channel) of the product's columns in exactly one of them
+        reads = plan.k_step_reads(taps, tap_c, cs)
+        assert all(0 < c1 - c0 <= plan.BK and c0 % plan.BK == 0 for _, c0, c1 in reads)
+        assert sum(c1 - c0 for _, c0, c1 in reads) == taps * tap_c + cs, key
 
 
 @pytest.mark.parametrize("key", sorted(
@@ -510,10 +522,15 @@ def test_tail_f32_plan_covers_each_output_once(key):
 
 
 def test_tail_f32_plan_refusals():
-    for shape, match in ((1, 4, 8, 8, 32), "C in"), ((1, 4, 8, 8, 256), "C in"), \
-            ((1, 0, 8, 8, 128), "empty"):
+    """The f32 tail refuses a width outside the kernels' domain (C % 8 != 0:
+    TMA's 16-byte strides; C > 1024) and empty clips; 32 and 256 channels,
+    which it refused before its channel groups, it takes."""
+    for shape, match in ((1, 4, 8, 8, 36), "C % 8 == 0, got C=36: TMA"), \
+            ((1, 4, 8, 8, 1032), "C <= 1024"), ((1, 0, 8, 8, 128), "empty"):
         with pytest.raises(ValueError, match=match):
             plan.tail_plan_f32(*shape)
+    assert plan.tail_plan_f32(1, 4, 8, 8, 32).groups == 1
+    assert plan.tail_plan_f32(1, 4, 8, 8, 256).groups == 2
 
 
 def test_plan_picks():
@@ -562,18 +579,24 @@ def _parity_args(c):
 
 
 @pytest.mark.parametrize("name,args,match", [
-    ("fused_spatial_resblock", _spatial_args(96, 128, True), "Cin % 64"),
-    ("fused_spatial_resblock", _spatial_args(128, 192, True), "Cout % 128"),
-    ("fused_spatial_resblock", _spatial_args(1280, 1280, False), "row pass"),
+    ("fused_spatial_resblock", _spatial_args(100, 128, True), "Cin % 8 == 0, got Cin=100"),
+    ("fused_spatial_resblock", _spatial_args(128, 196, True), "Cout % 8 == 0, got Cout=196"),
+    ("fused_spatial_resblock", _spatial_args(1280, 1280, False), "Cin <= 1024"),
     ("fused_spatial_resblock", _spatial_args(128, 256, True), "CUDA tensor"),
-    ("fused_temporal_resblock_stream", _stream_args(192), "Cout % 128"),
-    ("fused_temporal_resblock_stream", _stream_args(1280), "row pass"),
+    ("fused_spatial_resblock", _spatial_args(96, 128, True), "CUDA tensor"),
+    ("fused_spatial_resblock", _spatial_args(96, 192, True), "CUDA tensor"),
+    ("fused_spatial_resblock", _spatial_args(32, 32, False), "CUDA tensor"),
+    ("fused_temporal_resblock_stream", _stream_args(196), "multiple of 16 bytes"),
+    ("fused_temporal_resblock_stream", _stream_args(1280), "<= 1024"),
     ("fused_temporal_resblock_stream", _stream_args(128), "CUDA tensor"),
-    ("fused_temporal_resblock", _temporal_args(192), "Cout % 128"),
-    ("fused_temporal_resblock", _temporal_args(1280), "row pass"),
+    ("fused_temporal_resblock_stream", _stream_args(192), "CUDA tensor"),
+    ("fused_temporal_resblock", _temporal_args(196), "% 8 == 0, got Cin=196"),
+    ("fused_temporal_resblock", _temporal_args(1280), "<= 1024"),
     ("fused_temporal_resblock", _temporal_args(128), "CUDA tensor"),
-    ("parity_up2x_fused", _parity_args(192), "C % 128"),
+    ("fused_temporal_resblock", _temporal_args(192), "CUDA tensor"),
+    ("parity_up2x_fused", _parity_args(196), "C % 8 == 0, got C=196"),
     ("parity_up2x_fused", _parity_args(256), "CUDA tensor"),
+    ("parity_up2x_fused", _parity_args(192), "CUDA tensor"),
 ])
 def test_wrappers_refuse_what_the_plan_cannot_take(name, args, match):
     """Off the CPU, A, B, E and F raise on a shape their plan refuses before
@@ -588,16 +611,20 @@ def test_wrappers_refuse_what_the_plan_cannot_take(name, args, match):
 
 
 def test_plan_refuses_empty_and_odd_shapes():
-    with pytest.raises(ValueError, match="Cin % 64"):
-        plan.conv_plan_spatial(1, 8, 8, 128, 128, cs=32)
+    with pytest.raises(ValueError, match="Cs % 8"):
+        plan.conv_plan_spatial(1, 8, 8, 128, 128, cs=36)
+    assert plan.conv_plan_spatial(1, 8, 8, 128, 128, cs=32).bn == 128
     with pytest.raises(ValueError, match="empty"):
         plan.conv_plan_spatial(0, 8, 8, 128, 128)
     with pytest.raises(ValueError, match="empty"):
         plan.conv_plan_temporal(1, 0, 64, 128)
     with pytest.raises(ValueError, match="empty"):
         plan.conv_plan_parity(1, 2, 0, 8, 128)
-    for c in plan.ROW_CHANNELS:
+    for c in range(8, plan.C_MAX + 1, 8):
         plan.check_row_channels(c)
+    for c in (4, 12, 1032):
+        with pytest.raises(ValueError, match="the kernels take C"):
+            plan.check_row_channels(c)
 
 
 # -- the temporal microbenchmark's products (T1 dense, T2 mm temporal) -------
@@ -641,8 +668,8 @@ def test_tool_plans(shape):
 
 
 @pytest.mark.parametrize("args,match", [
-    ((100, 96, 128), "Cin % 64"),
-    ((100, 384, 192), "Cout % 128"),
+    ((100, 100, 128), "K % 8"),
+    ((100, 384, 196), "Cout % 8"),
     ((0, 384, 128), "empty"),
     ((plan.ROW_COORD_LIMIT + 1, 384, 128), "row coordinate"),
 ])
@@ -650,6 +677,9 @@ def test_dense_plan_refusals(args, match):
     with pytest.raises(ValueError, match=match):
         plan.conv_plan_dense(*args)
     assert plan.conv_plan_dense(plan.ROW_COORD_LIMIT, 384, 128).bn == 128
+    # the widths refused before partial K steps and N tiles
+    assert plan.conv_plan_dense(100, 96, 128).n_tiles == 1
+    assert plan.conv_plan_dense(100, 384, 192).n_tiles == 3
 
 
 def test_temporal_plan_refuses_a_clip_past_the_row_coordinate():

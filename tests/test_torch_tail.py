@@ -202,8 +202,8 @@ def _tail_args(shape):
     return (_meta(*shape), (_meta(c), _meta(c)), (_meta(3, c, 3, 3, 3), _meta(3)), "zero")
 
 
-REFUSED = [((1, 4, 8, 8, 40), "C % 16"), ((1, 4, 8, 8, 32), "C in"),
-           ((1, 4, 8, 8, 256), "C in"), ((1, 0, 8, 8, 128), "empty"),
+REFUSED = [((1, 4, 8, 8, 44), "C % 8"), ((1, 4, 8, 8, 1032), "C <= 1024"),
+           ((1, 4, 8, 8, 4), "multiple of 16 bytes"), ((1, 0, 8, 8, 128), "empty"),
            ((0, 4, 8, 8, 128), "empty"), ((1, 4, 8, 0, 128), "empty")]
 
 
@@ -214,7 +214,8 @@ def test_tail_plan_refuses(shape, match):
 
 
 @pytest.mark.parametrize("name", ["decoder_tail_rgb", "decoder_tail_rgb_taps"])
-@pytest.mark.parametrize("shape,match", REFUSED + [((1, 4, 8, 8, 128), "CUDA tensor")])
+@pytest.mark.parametrize("shape,match", REFUSED + [
+    ((1, 4, 8, 8, c), "CUDA tensor") for c in (128, 40, 32, 256)])
 def test_tail_wrappers_refuse_what_the_plan_cannot_take(name, shape, match):
     """Off the CPU, D and D' raise on a shape the plan refuses before they
     look at the device; a shape the plan takes goes on to the device check

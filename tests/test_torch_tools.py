@@ -245,8 +245,9 @@ def _row_walk(rows, c, t, s):
     """(row, frame, channels) for every row a thread of the exact row passes
     (``csrc/microbench_temporal.cu``) touches, as it walks: blocks of
     ``plan.ROW_WARPS`` warps, a row on LPR lanes, RPT rows a thread RPW
-    apart, the frame of its first row by one division and then stepped."""
-    lpr, vpl, rpt = plan.ROW_LAYOUT[c]
+    apart, the frame of its first row by one division and then stepped;
+    a lane's vectors from channel C on are masked, touching nothing."""
+    lpr, vpl, rpt = plan.row_layout(c)
     rpw = 32 // lpr
     per_block = plan.ROW_WARPS * rpw * rpt
     for block in range(-(-rows // per_block)):
@@ -265,7 +266,7 @@ def _row_walk(rows, c, t, s):
                     if row < rows:
                         l = lane % lpr
                         yield row, f, [8 * l + 8 * lpr * i + e for i in range(vpl)
-                                       for e in range(8)]
+                                       for e in range(8) if 8 * l + 8 * lpr * i < c]
 
 
 def fat_rows_model(a, t, s):
@@ -276,6 +277,8 @@ def fat_rows_model(a, t, s):
     fat = torch.full((m, 3 * c), float("nan"))
     for row, f, ch in _row_walk(m, c, t, s):
         assert f == (row // s) % t
+        if not ch:
+            continue
         ch = torch.tensor(ch)
         fat[row, 2 * c + ch] = a[row, ch]
         if f + 1 < t:
@@ -290,11 +293,13 @@ def fat_rows_model(a, t, s):
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 3, 3, 128), (1, 4, 1, 1, 64), (2, 3, 2, 5, 512),
-                                   (1, 3, 2, 2, 768)])
+                                   (1, 3, 2, 2, 768), (2, 5, 3, 3, 96), (1, 4, 1, 1, 40),
+                                   (1, 3, 2, 2, 384)])
 def test_fat_rows_model_places_each_row(shape):
     """The fat-row walk fills the whole operand exactly as ``_fat`` lays
     it out, with several clips, frames shorter than a warp's rows (S = 1)
-    and each row layout of ``plan.ROW_LAYOUT``."""
+    and row layouts of ``plan.row_layout`` with and without masked
+    vectors (96, 40, 384 channels)."""
     b, t, h, w, c = shape
     a = torch.randn(shape)
     got = fat_rows_model(a.reshape(-1, c), t, h * w)
@@ -371,12 +376,17 @@ def row_stats_model(x, lpr):
     """The exact two-pass statistics of ``row_stats_exact`` (``common.cuh``)
     over rows ``x`` ``[R, C]`` in f32: lane l sums channels 8l + 8 LPR i + e
     in order, the lanes' sums reduced by xor shuffles over LPR lanes; the
-    mean, then the mean of squared deviations. Returns (mu, rs), each
+    mean, then the mean of squared deviations, of which a masked vector
+    (from channel C on: zeros) adds none. Returns (mu, rs), each
     ``[R, LPR]``: every lane's copy."""
     x = x.astype(np.float32)
     r, c = x.shape
-    vpl = c // (8 * lpr)
+    vpl = -(-c // (8 * lpr))
+    pad = 8 * lpr * vpl - c
+    x = np.concatenate([x, np.zeros((r, pad), np.float32)], axis=1)
+    valid = np.arange(8 * lpr * vpl) < c
     lanes = x.reshape(r, vpl, lpr, 8).transpose(0, 2, 1, 3).reshape(r, lpr, 8 * vpl)
+    lane_ok = valid.reshape(vpl, lpr, 8).transpose(1, 0, 2).reshape(lpr, 8 * vpl)
 
     def reduce(v):
         s = np.zeros((r, lpr), np.float32)
@@ -389,21 +399,25 @@ def row_stats_model(x, lpr):
         return s
 
     mu = reduce(lanes) / np.float32(c)
-    d = reduce((lanes - mu[..., None]) ** 2)
+    d = reduce(np.where(lane_ok, (lanes - mu[..., None]) ** 2, np.float32(0)))
     rs = np.float32(1) / np.sqrt(d / np.float32(c) + np.float32(1e-6))
     return mu, rs
 
 
-@pytest.mark.parametrize("c", sorted(plan.ROW_LAYOUT))
+ROW_WIDTHS = (8, 32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
+
+
+@pytest.mark.parametrize("c", ROW_WIDTHS)
 def test_row_stats_model_matches_ln_silu_exact(c):
     """The exact statistics split over LPR lanes (every lane of a row with
-    the same pair) give ``ln_silu_exact_f32`` at each row layout, on rows
-    whose mean is far from 0 (the two-pass form's case)."""
+    the same pair) give ``ln_silu_exact_f32`` at each row layout, masked
+    vectors included (8, 32, 96, 192, 384 channels), on rows whose mean is
+    far from 0 (the two-pass form's case)."""
     rng = np.random.RandomState(c)
     x = (rng.randn(6, c) * 3 + 40).astype(np.float32)
     g = (1 + 0.2 * rng.randn(c)).astype(np.float32)
     b = (0.1 * rng.randn(c)).astype(np.float32)
-    lpr = plan.ROW_LAYOUT[c][0]
+    lpr = plan.row_layout(c)[0]
     mu, rs = row_stats_model(x, lpr)
     assert (mu == mu[:, :1]).all() and (rs == rs[:, :1]).all()
     y = (x - mu[:, :1]) * rs[:, :1] * g + b
@@ -413,17 +427,26 @@ def test_row_stats_model_matches_ln_silu_exact(c):
 
 
 def test_row_layout_matches_the_source():
-    """``plan.ROW_LAYOUT`` is ``common.cuh``'s VT_ROW_LAYOUTS, which every
+    """``plan.row_layout`` is ``common.cuh``'s VT_ROW_LAYOUTS, which every
     row pass (``act_rows_kernel``, T1's and T2's exact passes) launches
-    with; LPR = min(C / 8, 32), the lanes a row fills."""
+    with, at every C % 8 == 0 up to 1024: LPR a power of two from 8 to 32
+    (the xor shuffles stay within a row), the fewest vectors that hold C,
+    none for another C."""
     src = open(os.path.join(ROOT, "vidtok_tpu_torch", "csrc", "common.cuh")).read()
     macro = src[src.index("#define VT_ROW_LAYOUTS"):]
     macro = macro[:macro.index("\n\n")]
-    cases = re.findall(r"case (\d+): CASE\((\d+), (\d+), (\d+)\)", macro)
-    got = {8 * int(n): tuple(int(v) for v in lvr) for n, *lvr in cases}
-    assert got == plan.ROW_LAYOUT
-    for c, (lpr, vpl, _) in plan.ROW_LAYOUT.items():
-        assert lpr == min(c // 8, 32) and 8 * lpr * vpl == c
+    guard = re.search(r"\(C\) % (\d+) == 0 && \(C\) >= (\d+) && \(C\) <= (\d+)", macro)
+    assert tuple(map(int, guard.groups())) == (plan.C_ALIGN, plan.C_ALIGN, plan.C_MAX)
+    cases = [(int(n), tuple(map(int, lvr))) for n, *lvr in re.findall(
+        r"if \(\(C\) <= (\d+)\) CASE\((\d+), (\d+), (\d+)\)", macro)]
+    last = re.search(r"else CASE\((\d+), (\d+), (\d+)\)\s*\\", macro)
+    cases.append((plan.C_MAX, tuple(map(int, last.groups()))))
+    for c in range(plan.C_ALIGN, plan.C_MAX + 1, plan.C_ALIGN):
+        got = next(layout for top, layout in cases if c <= top)
+        assert got == plan.row_layout(c), c
+        lpr, vpl, _ = got
+        assert lpr in (8, 16, 32) and 8 * lpr * (vpl - 1) < c <= 8 * lpr * vpl
+        assert lpr == 32 or c <= 8 * lpr
 
 
 def test_no_wmma_loop_left():

@@ -16,9 +16,13 @@
 // the mean of squared deviations), compute the affine and the SiLU in f32
 // with an accurate tanh (ln_silu_f32; act.py's ln_silu_f32 is its plain
 // form) and write the activated row as its three bf16 pieces (split3:
-// hi + mid + lo == x) for the wgmma loop; or write the statistics alone
-// (mean, rstd: 8 bytes a row) for the decoder tail's f32 form, which
-// activates its own halo boxes from them.
+// hi + mid + lo == x) for the wgmma loop, each piece in a plane of its own
+// (piece q of row r at q * rows * C + r * C); or write the statistics alone
+// (mean, rstd: 8 bytes a row) for the decoder tail, which activates its own
+// halo boxes from them (its f32 form, and its bf16 form past 128 channels).
+//
+// Any C % 8 == 0 up to 1024: a row's lanes hold whole 16-byte vectors of 8
+// channels, and the vectors from channel C on are masked (VT_ROW_LAYOUTS).
 //
 // ln_silu_exact_f32 and row_stats_exact are the exact form of
 // vidtok_tpu/ops/pallas/fused_temporal.py:32 _ln_silu (the mean, then the
@@ -127,23 +131,32 @@ __device__ __forceinline__ void split3(const float* f, uint4 (&pieces)[kPieces])
   }
 }
 
-// The pieces of 8 channels at column c of a row of C channels, into the
-// row of a split scratch: piece q at column q * C + c of a 3C-wide row.
-__device__ __forceinline__ void st_split8(__nv_bfloat16* row, int C, int c, const float* f) {
+// The pieces of 8 channels into a split scratch of piece planes ``plane``
+// elements apart: piece q at split + q * plane + off.
+__device__ __forceinline__ void st_split8(__nv_bfloat16* split, long long plane, long long off,
+                                          const float* f) {
   uint4 pieces[kPieces];
   split3(f, pieces);
 #pragma unroll
-  for (int k = 0; k < kPieces; ++k) *reinterpret_cast<uint4*>(row + k * C + c) = pieces[k];
+  for (int k = 0; k < kPieces; ++k)
+    *reinterpret_cast<uint4*>(split + k * plane + off) = pieces[k];
+}
+
+// Whether vector i of lane l of a row (channels 8l + 8 LPR i .. + 7) lies
+// below C; a masked vector is loaded as zeros and never stored.
+template <int LPR>
+__device__ __forceinline__ bool row_vec(int l, int i, int C) {
+  return 8 * l + 8 * LPR * i < C;
 }
 
 // (mean, rsqrt(mean((x - mean)^2) + eps)) in f32, two passes, of a row of
-// C = 8 * LPR * VPL channels held by LPR neighbouring lanes (the row passes'
-// layout: lane l of the row has v[i][e] = channel 8l + 8 LPR i + e), each
-// sum reduced over those lanes by xor shuffles; every lane of the row gets
-// the pair. The whole warp must call it.
+// C channels held by LPR neighbouring lanes (the row passes' layout: lane l
+// of the row has v[i][e] = channel 8l + 8 LPR i + e, zeros from channel C
+// on, which the deviations leave out), each sum reduced over those lanes by
+// xor shuffles; every lane of the row gets the pair. The whole warp must
+// call it.
 template <int LPR, int VPL>
-__device__ __forceinline__ float2 row_stats_exact(const float (&v)[VPL][8]) {
-  constexpr int C = 8 * LPR * VPL;
+__device__ __forceinline__ float2 row_stats_exact(const float (&v)[VPL][8], int C, int l) {
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < VPL; ++i)
@@ -155,27 +168,28 @@ __device__ __forceinline__ float2 row_stats_exact(const float (&v)[VPL][8]) {
   float d = 0.f;
 #pragma unroll
   for (int i = 0; i < VPL; ++i)
+    if (row_vec<LPR>(l, i, C))
 #pragma unroll
-    for (int e = 0; e < 8; ++e) d += (v[i][e] - mu) * (v[i][e] - mu);
+      for (int e = 0; e < 8; ++e) d += (v[i][e] - mu) * (v[i][e] - mu);
 #pragma unroll
   for (int o = LPR / 2; o; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
   return make_float2(mu, rsqrtf(d / C + kLnEps));
 }
 
-// The row passes' layout of C channels (ops/kernels/plan.py: ROW_LAYOUT):
-// CASE(LPR, VPL, RPT) for C in plan.ROW_CHANNELS, nothing for another C. A
-// row takes LPR = min(C/8, 32) lanes, VPL 16-byte vectors of 8 channels a
-// lane, and a thread RPT rows, loaded before any is reduced.
-#define VT_ROW_LAYOUTS(C, CASE)  \
-  if ((C) % 8 == 0) {            \
-    switch ((C) / 8) {           \
-      case 8: CASE(8, 1, 4)      \
-      case 16: CASE(16, 1, 4)    \
-      case 32: CASE(32, 1, 4)    \
-      case 64: CASE(32, 2, 2)    \
-      case 96: CASE(32, 3, 1)    \
-      case 128: CASE(32, 4, 1)   \
-    }                            \
+// The row passes' layout of C channels (ops/kernels/plan.py: row_layout):
+// CASE(LPR, VPL, RPT) for C % 8 == 0, 8 <= C <= 1024, nothing for another
+// C. A row takes LPR lanes, the power of two from 8 to 32 that holds C / 8
+// vectors (so the xor shuffles reduce within the row), VPL 16-byte vectors
+// of 8 channels a lane, the vectors from channel C on masked, and a thread
+// RPT rows, loaded before any is reduced.
+#define VT_ROW_LAYOUTS(C, CASE)                   \
+  if ((C) % 8 == 0 && (C) >= 8 && (C) <= 1024) {  \
+    if ((C) <= 64) CASE(8, 1, 4)                  \
+    else if ((C) <= 128) CASE(16, 1, 4)           \
+    else if ((C) <= 256) CASE(32, 1, 4)           \
+    else if ((C) <= 512) CASE(32, 2, 2)           \
+    else if ((C) <= 768) CASE(32, 3, 1)           \
+    else CASE(32, 4, 1)                           \
   }
 
 // The front of a temporal scratch (act_rows_kernel's stream form): the
@@ -193,15 +207,16 @@ enum Front { kFrontCache = 0, kFrontReplicate = 1, kFrontZero = 2 };
 //
 // The row form (RowForm) sets the element types: kRowBf16 reads bf16 and
 // writes the bf16 activation; kRowSplit reads f32 (src, cache) and writes
-// the activation's three bf16 pieces, act [rows, 3C] (st_split8), the new
+// the activation's three bf16 pieces, act [3][rows][C] (st_split8), the new
 // cache in f32, and, when ``raw`` is not null, the pieces of src itself,
-// raw [rows, 3C] (plain form: kernel A's 1x1 shortcut); kRowStats reads f32
-// and writes each row's (mean, rstd) as a float2, act [rows] (plain form:
-// the decoder tail's f32 form; g and b are read but not applied).
-enum RowForm { kRowBf16 = 0, kRowSplit = 1, kRowStats = 2 };
+// raw [3][rows][C] (plain form: kernel A's 1x1 shortcut); kRowStats reads
+// f32 and kRowStatsBf16 bf16, and both write each row's two-pass (mean,
+// rstd) as a float2, act [rows] (plain form: the decoder tail's; g and b
+// are read but not applied).
+enum RowForm { kRowBf16 = 0, kRowSplit = 1, kRowStats = 2, kRowStatsBf16 = 3 };
 
 struct RowArgs {
-  const void* src;    // bf16; f32 unless kRowBf16
+  const void* src;    // bf16 (kRowBf16, kRowStatsBf16), else f32
   const float* g;
   const float* b;
   void* act;
@@ -243,7 +258,8 @@ __device__ __forceinline__ void unhold(const Held<float>& h, float* f) {
 template <int LPR, int VPL, int RPT, bool STREAM, int FORM = kRowBf16>
 static __global__ void __launch_bounds__(256)
     act_rows_kernel(const RowArgs a, long long rows, int C) {
-  using In = typename Act<FORM != kRowBf16>::T;
+  using In = typename Act<FORM == kRowSplit || FORM == kRowStats>::T;
+  constexpr bool STATS = FORM == kRowStats || FORM == kRowStatsBf16;
   constexpr int RPW = 32 / LPR;  // rows a warp holds at once
   const int lane = threadIdx.x & 31, l = lane % LPR;
   const long long row0 =
@@ -287,16 +303,19 @@ static __global__ void __launch_bounds__(256)
       if (a.copy != nullptr && fc >= 0 && fc < 2) cp[k] = (bi * 2 + fc) * a.S + pos;
     }
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) hold(v[k][i], p + 8 * l + 8 * LPR * i, dst[k] >= 0 && !zero);
+    for (int i = 0; i < VPL; ++i)
+      hold(v[k][i], p + 8 * l + 8 * LPR * i, dst[k] >= 0 && !zero && row_vec<LPR>(l, i, C));
   }
   float g[VPL][8], b[VPL][8];
 #pragma unroll
-  for (int i = 0; i < VPL; ++i)
+  for (int i = 0; i < VPL; ++i) {
+    const bool ok = row_vec<LPR>(l, i, C);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      g[i][e] = a.g[8 * l + 8 * LPR * i + e];
-      b[i][e] = a.b[8 * l + 8 * LPR * i + e];
+      g[i][e] = ok ? a.g[8 * l + 8 * LPR * i + e] : 0.f;
+      b[i][e] = ok ? a.b[8 * l + 8 * LPR * i + e] : 0.f;
     }
+  }
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
     float f[VPL][8];
@@ -320,18 +339,19 @@ static __global__ void __launch_bounds__(256)
       mu = s / C;
       rs = rsqrtf(fmaxf(ss / C - mu * mu, 0.f) + kLnEps);
     } else {
-      const float2 st = row_stats_exact<LPR, VPL>(f);
+      const float2 st = row_stats_exact<LPR, VPL>(f, C, l);
       mu = st.x;
       rs = st.y;
     }
     if (dst[k] < 0) continue;
-    if constexpr (FORM == kRowStats) {
+    if constexpr (STATS) {
       if (l == 0) static_cast<float2*>(a.act)[dst[k]] = make_float2(mu, rs);
       continue;
     }
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
       const int c = 8 * l + 8 * LPR * i;
+      if (!row_vec<LPR>(l, i, C)) continue;
       if constexpr (FORM == kRowBf16) {
         uint4 o = v[k][i].u;
         if (!raw[k]) {
@@ -344,13 +364,14 @@ static __global__ void __launch_bounds__(256)
         if (STREAM && cp[k] >= 0)
           *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.copy) + cp[k] * C + c) = o;
       } else {
+        const long long plane = rows * C, off = dst[k] * C + c;
         if (FORM == kRowSplit && !STREAM && a.raw != nullptr)
-          st_split8(static_cast<__nv_bfloat16*>(a.raw) + dst[k] * 3 * C, C, c, f[i]);
+          st_split8(static_cast<__nv_bfloat16*>(a.raw), plane, off, f[i]);
         if (!raw[k]) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) f[i][e] = ln_silu_f32(f[i][e], mu, rs, g[i][e], b[i][e]);
         }
-        st_split8(static_cast<__nv_bfloat16*>(a.act) + dst[k] * 3 * C, C, c, f[i]);
+        st_split8(static_cast<__nv_bfloat16*>(a.act), plane, off, f[i]);
         if (STREAM && cp[k] >= 0) st8(static_cast<float*>(a.copy) + cp[k] * C + c, f[i]);
       }
     }
@@ -374,8 +395,8 @@ static inline int launch_act_rows(const RowArgs& a, long long rows, int C, cudaS
 }
 
 // The f32 scheme's split of rows that are not activated (kernel E's input
-// s): src [rows, C] f32 -> dst [rows, 3C], piece q at columns [qC, qC + C).
-// One thread per 8 channels.
+// s): src [rows, C] f32 -> dst [3][rows][C], piece q in plane q. One thread
+// per 8 channels.
 static __global__ void __launch_bounds__(256)
     split_rows_kernel(const float* src, __nv_bfloat16* dst, long long rows, int C) {
   const int cv = C / 8;
@@ -386,7 +407,7 @@ static __global__ void __launch_bounds__(256)
     const int c = (int)(i - row * cv) * 8;
     float f[8];
     ld8(src + row * C + c, f);
-    st_split8(dst + row * 3 * C, C, c, f);
+    st_split8(dst, rows * C, row * C + c, f);
   }
 }
 

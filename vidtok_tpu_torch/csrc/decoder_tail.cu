@@ -14,8 +14,8 @@
 //
 // with activated taps outside the frame reading zero (:177-192) and frames
 // before 0 being frame 0 (replicate) or absent (zero, :197-213). x is
-// [B, T, H, W, C] bf16, C in {64, 128}; out [B, T, H, W, 3] bf16 (f32 forms
-// below: f32).
+// [B, T, H, W, C] bf16, C % 8 == 0 up to 1024; out [B, T, H, W, 3] bf16
+// (f32 forms below: f32).
 //
 // Bound on the H100: reading x. The function is 2 * 81 * C FLOP per
 // position against 2C bytes read, 81 FLOP/byte, under the 295 where the
@@ -28,12 +28,13 @@
 // gives it, so it has warpgroups of its own.
 //
 // Design (the plan, ops/kernels/plan.py tail_plan, picks the run and the
-// stages; the entry refuses another patch or C). One block of 800 threads
+// stages; the entry refuses another patch or C; C up to 128 channels, see
+// "Channels" below for more). One block of 800 threads
 // per (8 x 14 output patch, clip, run of frames) walks time, one block per
 // SM (the ring of boxes takes 160 KB of shared memory), in three roles
 // chained by mbarriers per stage (full: loaded, act: activated, empty:
 // multiplied):
-// * A producer warp issues, per input frame, C / 64 TMA boxes of the
+// * A producer warp issues, per input frame, ceil(C / 64) TMA boxes of the
 //   patch's 10 x 16 halo (128-byte swizzle, zero fill outside the frame)
 //   into a ring of up to 4 stages, so up to 3 frames (120 KB at C = 128)
 //   are in flight.
@@ -65,6 +66,24 @@
 //   first reads frames t0 - 2 and t0 - 1 and writes nothing for them.
 // Offsets into x and out are 64-bit; TMA coordinates are per dimension.
 //
+// Channels. C % 8 == 0: the last 64-channel box of a position is partial,
+// TMA's zero fill past C, and the statistics divide by the true C (the
+// zeros add nothing to the sums; the exact form leaves their deviations
+// out). ln_silu(0) != 0 where the norm bias is not 0, so a channel past C
+// must neither activate to anything nor meet a weight: its norm scale and
+// bias are read as 0 (it activates to 0) and its rows of the resident
+// weight tiles are written as zeros. Past TAIL_GROUP = 128 channels the
+// halo boxes and the weights of all channels no longer fit shared memory
+// beside a ring of stages (1024 channels: 320 KB a box), so the tail runs
+// in groups of up to 128 channels, one launch each, behind a row pass that
+// writes each position's two-pass LN statistics (act_rows_kernel's
+// kRowStatsBf16 form): a group's launch activates its boxes from them and
+// adds its channels' partial sums to an f32 accumulator [B, T, H, W, 3]
+// (the first writes it, the last adds the bias and writes the output).
+// Each group reads its channels of x once, so x is read twice in all, as
+// the f32 form reads it. Up to 128 channels nothing changes, and 64 and 128
+// channels (whole boxes) run the form without masks (TailMode kFull).
+//
 // f32 (vt_decoder_tail_rgb_f32 and vt_decoder_tail_rgb_taps_f32: D and D'
 // on f32 activations, the same function in f32, the output not rounded;
 // both activations f32 with two-pass statistics, D's SiLU through tanhf
@@ -94,6 +113,10 @@
 //   16 on both chains into the frame's accumulators, releasing a piece
 //   stage once the slice after it is issued, then the dx gather and the
 //   ring of tail_kernel, written in f32.
+// A slice past C is partial (TMA's zero fill; its channels' norm scale and
+// bias read as 0 and their weight rows written as zeros, as in the bf16
+// form); past 128 channels the f32 form runs in groups of up to 128
+// channels as the bf16 form does, the partial sums accumulated in ``out``.
 // Shared memory at C = 128: 3 raw stages (60 KB), 2 piece stages (60 KB),
 // the weight pieces [3][3 dy][32][C] (72 KB), the partial buffers (27 KB).
 // x is read twice, the statistics' pass, then the boxes (160 halo positions
@@ -132,10 +155,33 @@ struct TailArgs {
   const __nv_bfloat16* w;     // [3 dy][BN][C], row n = 9j + 3dx + co
   const float* bias;          // [3]
   __nv_bfloat16* out;         // [B, T, H, W, 3]
+  const float2* stats;        // STATS: [B, T, H, W] (mean, rstd), the row pass's
+  float* acc;                 // STATS: [B, T, H, W, 3] f32 partial sums
   int T, H, W;
   int replicate;
   int tiles_x, tiles_y, run, runs, stages;
+  int C, c0;                  // the channels; this launch's first (its group)
+  int first, last;            // this group is the first / the last
 };
+
+// One output position's value of output channel co: the block's partial
+// sum ``v`` and, in a group after the first, the accumulator's; the last
+// group adds the bias and writes the output (``out`` of type T), the others
+// the accumulator.
+template <typename T>
+__device__ __forceinline__ void tail_store(T* out, float* acc, long long i, float v, float bias,
+                                           int first, int last) {
+  if (!first) v += acc[i];
+  if (last) {
+    if constexpr (sizeof(T) == 2) {
+      out[i] = __float2bfloat16(v + bias);
+    } else {
+      out[i] = v + bias;
+    }
+  } else {
+    acc[i] = v;
+  }
+}
 
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -155,16 +201,21 @@ __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t 
 
 // LN + SiLU of one frame's halo box in place. LPP = 8 * KH lanes hold a
 // position, lane l its 16-byte chunk l & 7 of slice l >> 3 (channels
-// 64 (l >> 3) + 8 (l & 7) + e), read and written at the chunk's swizzled
-// place. A thread loads all its positions, then reduces their statistics
-// together (independent shuffles in flight), then activates them. The fast
-// form folds the affine and the SiLU into h = 0.5 y = (x rs - mu rs) hg +
-// hb, silu(y) = h tanh(h) + h (hg, hb: half the norm scale and bias);
-// ln_silu computes the same in other steps.
-template <bool EXACT, int KH>
+// 64 (l >> 3) + 8 (l & 7) + e of the group), read and written at the
+// chunk's swizzled place. A thread loads all its positions, then reduces
+// their statistics together (independent shuffles in flight; STATS: reads
+// each position's (mean, rstd) from ``stats``, the frame's [H, W] plane),
+// then activates them. ``valid``: the thread's channels lie below C (else
+// they are zeros, left out of the exact form's deviations, and g8 = b8 =
+// 0 activate them to 0); ``inv_c`` = 1 / C (a power of two's is exact, so
+// the released widths divide as a division would). The fast form folds the
+// affine and the SiLU into
+// h = 0.5 y = (x rs - mu rs) hg + hb, silu(y) = h tanh(h) + h (hg, hb:
+// half the norm scale and bias); ln_silu computes the same in other steps.
+template <bool EXACT, int KH, bool STATS>
 __device__ __forceinline__ void activate(unsigned char* box, int tid, const float (&g8)[8],
-                                         const float (&b8)[8], int y0, int x0, int H, int W,
-                                         int C) {
+                                         const float (&b8)[8], bool valid, int y0, int x0,
+                                         int H, int W, float inv_c, const float2* stats) {
   constexpr int LPP = 8 * KH, GROUPS = ACT / LPP;
   constexpr int ITER = (HALO + GROUPS - 1) / GROUPS;
   const int grp = tid / LPP, l = tid % LPP, chunk = l & 7;
@@ -177,38 +228,51 @@ __device__ __forceinline__ void activate(unsigned char* box, int tid, const floa
     v[k] = r < HALO ? *reinterpret_cast<const uint4*>(slice + r * 128 + ((chunk ^ (r & 7)) << 4))
                     : make_uint4(0u, 0u, 0u, 0u);
   }
-#pragma unroll
-  for (int k = 0; k < ITER; ++k) {
-    float f[8];
-    unpack8(v[k], f);
-    s[k] = q[k] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s[k] += f[e];
-      q[k] += f[e] * f[e];
-    }
-  }
-#pragma unroll
-  for (int o = LPP / 2; o; o >>= 1)
+  if constexpr (STATS) {  // s = mean, q = rstd, from the row pass
 #pragma unroll
     for (int k = 0; k < ITER; ++k) {
-      s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
-      if (!EXACT) q[k] += __shfl_xor_sync(0xffffffffu, q[k], o);
+      const int r = k * GROUPS + grp;
+      const int gy = y0 - 1 + r / HX, gx = x0 - 1 + r % HX;
+      float2 ms = make_float2(0.f, 0.f);
+      if (r < HALO && gy >= 0 && gy < H && gx >= 0 && gx < W) ms = stats[(long long)gy * W + gx];
+      s[k] = ms.x;
+      q[k] = ms.y;
     }
-  if (EXACT) {  // the mean of squared deviations, a second reduction
+  } else {
 #pragma unroll
     for (int k = 0; k < ITER; ++k) {
       float f[8];
       unpack8(v[k], f);
-      const float mu = s[k] / C;
-      q[k] = 0.f;
+      s[k] = q[k] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) q[k] += (f[e] - mu) * (f[e] - mu);
+      for (int e = 0; e < 8; ++e) {
+        s[k] += f[e];
+        q[k] += f[e] * f[e];
+      }
     }
 #pragma unroll
     for (int o = LPP / 2; o; o >>= 1)
 #pragma unroll
-      for (int k = 0; k < ITER; ++k) q[k] += __shfl_xor_sync(0xffffffffu, q[k], o);
+      for (int k = 0; k < ITER; ++k) {
+        s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
+        if (!EXACT) q[k] += __shfl_xor_sync(0xffffffffu, q[k], o);
+      }
+    if (EXACT) {  // the mean of squared deviations, a second reduction
+#pragma unroll
+      for (int k = 0; k < ITER; ++k) {
+        float f[8];
+        unpack8(v[k], f);
+        const float mu = s[k] * inv_c;
+        q[k] = 0.f;
+        if (valid)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) q[k] += (f[e] - mu) * (f[e] - mu);
+      }
+#pragma unroll
+      for (int o = LPP / 2; o; o >>= 1)
+#pragma unroll
+        for (int k = 0; k < ITER; ++k) q[k] += __shfl_xor_sync(0xffffffffu, q[k], o);
+    }
   }
 #pragma unroll
   for (int k = 0; k < ITER; ++k) {
@@ -217,16 +281,17 @@ __device__ __forceinline__ void activate(unsigned char* box, int tid, const floa
     float f[8];
     if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
       unpack8(v[k], f);
-      const float mu = s[k] / C;
+      const float mu = STATS ? s[k] : s[k] * inv_c;
       if (EXACT) {
-        const float rs = 1.f / sqrtf(q[k] / C + kLnEps);
+        const float rs = STATS ? q[k] : 1.f / sqrtf(q[k] * inv_c + kLnEps);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const float y = __bfloat162float(__float2bfloat16((f[e] - mu) * rs * g8[e] + b8[e]));
           f[e] = __fdividef(y, 1.f + __expf(-y));
         }
       } else {
-        const float rs = rsqrtf(fmaxf(q[k] / C - mu * mu, 0.f) + kLnEps), nmr = -mu * rs;
+        const float rs = STATS ? q[k] : rsqrtf(fmaxf(q[k] * inv_c - mu * mu, 0.f) + kLnEps);
+        const float nmr = -mu * rs;
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const float h = fmaf(fmaf(f[e], rs, nmr), g8[e], b8[e]);
@@ -242,10 +307,18 @@ __device__ __forceinline__ void activate(unsigned char* box, int tid, const floa
   }
 }
 
-template <bool EXACT, int KH>
+// The forms of tail_kernel: all C = 64 KH channels in one launch (kFull:
+// the released widths, no mask, the division by C a constant), C < 64 KH
+// (kMasked), or a group of a launch per 128 channels (kGrouped: the row
+// pass's statistics, the f32 accumulator).
+enum TailMode { kFull = 0, kMasked = 1, kGrouped = 2 };
+
+template <bool EXACT, int KH, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     tail_kernel(const __grid_constant__ CUtensorMap map_x, const TailArgs p) {
-  constexpr int C = 64 * KH;
+  constexpr int GC = 64 * KH;  // the group's channels, the last box's zero fill included
+  constexpr bool STATS = MODE == kGrouped, MASK = MODE != kFull;
+  const int C = MASK ? p.C : GC, c0 = STATS ? p.c0 : 0;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles: 1024-aligned
@@ -279,13 +352,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the weights, once, in the swizzled K-major layout of the B operand
-  for (int i = tid; i < 3 * BN * (C / 8); i += THREADS) {
-    const int row = i / (C / 8), ch = i % (C / 8);  // row = dy * BN + n
-    const int dy = row / BN, n = row % BN;
+  // the group's weights, once, in the swizzled K-major layout of the B
+  // operand; zeros for the channels past C
+  for (int i = tid; i < 3 * BN * (GC / 8); i += THREADS) {
+    const int row = i / (GC / 8), ch = i % (GC / 8);  // row = dy * BN + n
+    const int dy = row / BN, n = row % BN, c = c0 + 8 * ch;
     *reinterpret_cast<uint4*>(wsm + (dy * KH + ch / 8) * WTILE + n * 128 +
                               (((ch & 7) ^ (n & 7)) << 4)) =
-        ld_u4(p.w + (long long)row * C + ch * 8);
+        c < C ? ld_u4(p.w + (long long)row * C + c) : make_uint4(0u, 0u, 0u, 0u);
   }
   fence_async_smem();
   __syncthreads();
@@ -304,7 +378,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_expect_tx(bar, kStage);
 #pragma unroll
         for (int h = 0; h < KH; ++h)
-          tma_5d(base + s * kStage + h * SLICE, &map_x, bar, 64 * h, x0 - 1, y0 - 1, f0 + i, clip);
+          tma_5d(base + s * kStage + h * SLICE, &map_x, bar, c0 + 64 * h, x0 - 1, y0 - 1,
+                 f0 + i, clip);
       }
     }
     return;
@@ -314,17 +389,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     // activators: LN + SiLU of each frame's box in place, up to S frames
     // ahead of the products
     float g8[8], b8[8];  // this thread's channels' norm scale and bias (fast: halved)
-    const int c = 64 * ((tid % (8 * KH)) >> 3) + 8 * (tid & 7);
+    const int c = c0 + 64 * ((tid % (8 * KH)) >> 3) + 8 * (tid & 7);
+    const bool valid = !MASK || c < C;
     const float half = EXACT ? 1.f : 0.5f;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      g8[e] = half * p.g[c + e];
-      b8[e] = half * p.b[c + e];
+      g8[e] = valid ? half * p.g[c + e] : 0.f;
+      b8[e] = valid ? half * p.b[c + e] : 0.f;
     }
+    const long long hw = (long long)p.H * p.W;
+    const float inv_c = 1.f / C;
     for (int i = 0; i < frames; ++i) {
       const int s = i % S;
       mbar_wait(full + 8 * s, (i / S) & 1);
-      activate<EXACT, KH>(smem + s * kStage, tid, g8, b8, y0, x0, p.H, p.W, C);
+      activate<EXACT, KH, STATS>(smem + s * kStage, tid, g8, b8, valid, y0, x0, p.H, p.W, inv_c,
+                                 STATS ? p.stats + ((long long)clip * p.T + f0 + i) * hw
+                                       : nullptr);
       fence_async_smem();  // the products read the box through the async proxy
       mbar_arrive(act + 8 * s);
     }
@@ -343,8 +423,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   const bool write_pos = gatherer && y0 + oy < p.H && x0 + ox < p.W;
   const long long hw = (long long)p.H * p.W;
-  __nv_bfloat16* opos = p.out + ((long long)clip * p.T * hw + (long long)(y0 + oy) * p.W +
-                                 (x0 + ox)) * COUT;
+  const long long opos = ((long long)clip * p.T * hw + (long long)(y0 + oy) * p.W + (x0 + ox)) *
+                         COUT;  // this position's output in frame 0
   const uint32_t wb = smem_u32(wsm);
 
   for (int i = 0; i < frames; ++i) {
@@ -412,9 +492,15 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       if (f >= t0 && write_pos) {
-        __nv_bfloat16* o = opos + (long long)f * hw * COUT;
+        const long long o = opos + (long long)f * hw * COUT;
 #pragma unroll
-        for (int co = 0; co < COUT; ++co) o[co] = __float2bfloat16(o0[co] + bias[co]);
+        for (int co = 0; co < COUT; ++co) {
+          if constexpr (STATS) {
+            tail_store(p.out, p.acc, o + co, o0[co], bias[co], p.first, p.last);
+          } else {
+            p.out[o + co] = __float2bfloat16(o0[co] + bias[co]);
+          }
+        }
       }
 #pragma unroll
       for (int co = 0; co < COUT; ++co) {
@@ -427,7 +513,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // The map of x [B, T, H, W, C] for loads of one frame's halo box, 64
-// channels at a time.
+// channels at a time (zero past C).
 int tail_map(CUtensorMap* map, const void* x, int B, int T, int H, int W, int C) {
   const unsigned long long dims[5] = {(unsigned long long)C, (unsigned long long)W,
                                       (unsigned long long)H, (unsigned long long)T,
@@ -436,13 +522,19 @@ int tail_map(CUtensorMap* map, const void* x, int B, int T, int H, int W, int C)
   return encode_map(map, x, 5, dims, box);
 }
 
+constexpr int GROUP = 128;  // channels a tail launch takes (plan.TAIL_GROUP)
+
 template <bool EXACT>
-int launch_tail(const void* x, void* out, const void* g, const void* b, const void* w,
-                const void* bias, int B, int T, int H, int W, int C, int replicate, int th,
-                int tw, int run, int stages, int smem, int grid, void* stream) {
-  const int kh = C / 64;
-  if ((C != 64 && C != 128) || th != TH || tw != TW || B < 1 || T < 1 || H < 1 || W < 1 ||
-      run < 1 || stages < 2 || smem < smem_bytes(kh, stages))
+int launch_tail(const void* x, void* stats, void* acc, void* out, const void* g, const void* b,
+                const void* w, const void* bias, int B, int T, int H, int W, int C,
+                int replicate, int th, int tw, int run, int stages, int smem, int grid,
+                void* stream) {
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const int groups = (C + GROUP - 1) / GROUP;
+  const int kh = ((C < GROUP ? C : GROUP) + 63) / 64;
+  if (C % 8 || C < 8 || C > 1024 || th != TH || tw != TW || B < 1 || T < 1 || H < 1 ||
+      W < 1 || run < 1 || stages < 2 || smem < smem_bytes(kh, stages) ||
+      (groups > 1 && (stats == nullptr || acc == nullptr)))
     return kErrTailPlan;
   TailArgs p{};
   p.g = static_cast<const float*>(g);
@@ -459,36 +551,60 @@ int launch_tail(const void* x, void* out, const void* g, const void* b, const vo
   p.run = run;
   p.runs = (T + run - 1) / run;
   p.stages = stages;
+  p.C = C;
+  p.stats = static_cast<const float2*>(stats);
+  p.acc = static_cast<float*>(acc);
   if ((long long)B * p.tiles_x * p.tiles_y * p.runs != grid) return kErrTailPlan;
   CUtensorMap map;
-  const int e = tail_map(&map, x, B, T, H, W, C);
+  int e = tail_map(&map, x, B, T, H, W, C);
   if (e) return e;
-  auto kernel = kh == 2 ? tail_kernel<EXACT, 2> : tail_kernel<EXACT, 1>;
-  const cudaError_t a =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (a != cudaSuccess) return (int)a;
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(map, p);
-  return (int)cudaGetLastError();
+  if (groups > 1) {
+    const RowArgs r{x, p.g, p.b, stats};
+    if ((e = launch_act_rows<false, kRowStatsBf16>(r, (long long)B * T * H * W, C, cs))) return e;
+  }
+  for (int gi = 0; gi < groups; ++gi) {
+    p.c0 = gi * GROUP;
+    p.first = gi == 0;
+    p.last = gi == groups - 1;
+    const int gkh = (C - p.c0 < GROUP ? C - p.c0 + 63 : GROUP + 63) / 64;
+    const int mode = groups > 1 ? kGrouped : C == 64 * gkh ? kFull : kMasked;
+    auto kernel = mode == kGrouped  ? (gkh == 2 ? tail_kernel<EXACT, 2, kGrouped>
+                                                : tail_kernel<EXACT, 1, kGrouped>)
+                  : mode == kMasked ? (gkh == 2 ? tail_kernel<EXACT, 2, kMasked>
+                                                : tail_kernel<EXACT, 1, kMasked>)
+                                    : (gkh == 2 ? tail_kernel<EXACT, 2, kFull>
+                                                : tail_kernel<EXACT, 1, kFull>);
+    const cudaError_t a =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (a != cudaSuccess) return (int)a;
+    kernel<<<grid, THREADS, smem, cs>>>(map, p);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// Kernel D: the fast LN+SiLU (ln_silu, common.cuh).
-extern "C" int vt_decoder_tail_rgb(const void* x, void* out, const void* g, const void* b,
-                                   const void* w, const void* bias, int B, int T, int H, int W,
-                                   int C, int replicate, int th, int tw, int run, int stages,
-                                   int smem, int grid, void* stream) {
-  return launch_tail<false>(x, out, g, b, w, bias, B, T, H, W, C, replicate, th, tw, run,
-                            stages, smem, grid, stream);
+// Kernel D: the fast LN+SiLU (ln_silu, common.cuh). Past 128 channels
+// ``stats`` is a [B, T, H, W] float2 and ``acc`` a [B, T, H, W, 3] f32
+// scratch (else null).
+extern "C" int vt_decoder_tail_rgb(const void* x, void* stats, void* acc, void* out,
+                                   const void* g, const void* b, const void* w,
+                                   const void* bias, int B, int T, int H, int W, int C,
+                                   int replicate, int th, int tw, int run, int stages, int smem,
+                                   int grid, void* stream) {
+  return launch_tail<false>(x, stats, acc, out, g, b, w, bias, B, T, H, W, C, replicate, th, tw,
+                            run, stages, smem, grid, stream);
 }
 
 // Kernel D': the exact LN+SiLU of decoder_tail.py:42 _ln_silu.
-extern "C" int vt_decoder_tail_rgb_taps(const void* x, void* out, const void* g, const void* b,
-                                        const void* w, const void* bias, int B, int T, int H,
-                                        int W, int C, int replicate, int th, int tw, int run,
-                                        int stages, int smem, int grid, void* stream) {
-  return launch_tail<true>(x, out, g, b, w, bias, B, T, H, W, C, replicate, th, tw, run,
-                           stages, smem, grid, stream);
+extern "C" int vt_decoder_tail_rgb_taps(const void* x, void* stats, void* acc, void* out,
+                                        const void* g, const void* b, const void* w,
+                                        const void* bias, int B, int T, int H, int W, int C,
+                                        int replicate, int th, int tw, int run, int stages,
+                                        int smem, int grid, void* stream) {
+  return launch_tail<true>(x, stats, acc, out, g, b, w, bias, B, T, H, W, C, replicate, th, tw,
+                           run, stages, smem, grid, stream);
 }
 
 namespace {
@@ -528,16 +644,17 @@ struct TailF32Args {
   const float* b;             // [C] norm bias
   const __nv_bfloat16* w;     // [3 pieces][3 dy][BN][C], row n = 9j + 3dx + co
   const float* bias;          // [3]
-  float* out;                 // [B, T, H, W, 3]
+  float* out;                 // [B, T, H, W, 3]; the groups' accumulator too
   int T, H, W;
   int replicate;
   int tiles_x, tiles_y, run, runs, stages;
+  int C, c0;                  // the channels; this group's first
+  int first, last;            // this group is the first / the last
 };
 
 template <bool EXACT, int KS>
 __global__ void __launch_bounds__(THREADS, 1)
     tail_f32_kernel(const __grid_constant__ CUtensorMap map_x, const TailF32Args p) {
-  constexpr int C = KC * KS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles: 1024-aligned
@@ -575,12 +692,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the weights' pieces, once, as B operand tiles [BN][KC] (64-byte swizzle)
-  for (int i = tid; i < kPieces * 3 * BN * (C / 8); i += THREADS) {
-    const int row = i / (C / 8), ch = i % (C / 8);  // row = (piece * 3 + dy) * BN + n
-    const int tile = row / BN, n = row % BN;
+  // the group's weight pieces, once, as B operand tiles [BN][KC] (64-byte
+  // swizzle); zeros for the channels past C
+  const int gv = KS * KC / 8;  // 16-byte vectors of a group's row
+  for (int i = tid; i < kPieces * 3 * BN * gv; i += THREADS) {
+    const int row = i / gv, ch = i % gv;  // row = (piece * 3 + dy) * BN + n
+    const int tile = row / BN, n = row % BN, c = p.c0 + 8 * ch;
     *reinterpret_cast<uint4*>(smem + o_w + (tile * KS + ch / 4) * WTILE32 + sw64(n, ch & 3)) =
-        ld_u4(p.w + (long long)row * C + ch * 8);
+        c < p.C ? ld_u4(p.w + (long long)row * p.C + c) : make_uint4(0u, 0u, 0u, 0u);
   }
   fence_async_smem();
   __syncthreads();
@@ -594,7 +713,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int s = u % S;
         mbar_wait(empty + 8 * s, ((u / S) & 1) ^ 1);  // the first round passes
         mbar_expect_tx(full + 8 * s, RAW);
-        tma_5d(base + s * RAW, &map_x, full + 8 * s, KC * (u % KS), x0 - 1, y0 - 1,
+        tma_5d(base + s * RAW, &map_x, full + 8 * s, p.c0 + KC * (u % KS), x0 - 1, y0 - 1,
                f0 + u / KS, clip);
       }
     }
@@ -622,17 +741,19 @@ __global__ void __launch_bounds__(THREADS, 1)
         const float4 a = *reinterpret_cast<const float4*>(row + (c0 << 4));
         const float4 b = *reinterpret_cast<const float4*>(row + (c1 << 4));
         float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-        if (inside) {
+        const int c = p.c0 + KC * h + 8 * qc;  // this thread's channels
+        if (inside && c < p.C) {
           float g8[8], b8[8];
-          ld8(p.g + KC * h + 8 * qc, g8);
-          ld8(p.b + KC * h + 8 * qc, b8);
+          ld8(p.g + c, g8);
+          ld8(p.b + c, b8);
 #pragma unroll
           for (int e = 0; e < 8; ++e)
             f[e] = EXACT ? ln_silu_exact_f32(f[e], ms.x, ms.y, g8[e], b8[e])
                          : ln_silu_f32(f[e], ms.x, ms.y, g8[e], b8[e]);
         } else {
+          // the conv's SAME padding, after the activation; channels past C
 #pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] = 0.f;  // the conv's SAME padding, after the activation
+          for (int e = 0; e < 8; ++e) f[e] = 0.f;
         }
         uint4 pieces[kPieces];
         split3(f, pieces);
@@ -664,8 +785,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   const bool write_pos = gatherer && y0 + oy < p.H && x0 + ox < p.W;
   const long long hw = (long long)p.H * p.W;
-  float* opos = p.out + ((long long)clip * p.T * hw + (long long)(y0 + oy) * p.W +
-                         (x0 + ox)) * COUT;
+  const long long opos = ((long long)clip * p.T * hw + (long long)(y0 + oy) * p.W + (x0 + ox)) *
+                         COUT;  // this position's output in frame 0
   const uint32_t pa = base + o_piece, wb = base + o_w;
 
   for (int i = 0; i < frames; ++i) {
@@ -744,9 +865,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
       if (f >= t0 && write_pos) {
-        float* o = opos + (long long)f * hw * COUT;
+        const long long o = opos + (long long)f * hw * COUT;
 #pragma unroll
-        for (int co = 0; co < COUT; ++co) o[co] = o0[co] + bias[co];
+        for (int co = 0; co < COUT; ++co)
+          tail_store(p.out, p.out, o + co, o0[co], bias[co], p.first, p.last);
       }
 #pragma unroll
       for (int co = 0; co < COUT; ++co) {
@@ -781,9 +903,10 @@ int launch_tail_f32(const void* x, void* stats, void* out, const void* g, const 
                     int replicate, int th, int tw, int run, int stages, int smem, int grid,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ks = C / KC;
-  if ((C != 64 && C != 128) || th != TH || tw != TW || B < 1 || T < 1 || H < 1 || W < 1 ||
-      run < 1 || stages < 2 || smem < smem_bytes_f32(ks, stages))
+  const int groups = (C + GROUP - 1) / GROUP;
+  const int ks = ((C < GROUP ? C : GROUP) + KC - 1) / KC;
+  if (C % 8 || C < 8 || C > 1024 || th != TH || tw != TW || B < 1 || T < 1 || H < 1 ||
+      W < 1 || run < 1 || stages < 2 || smem < smem_bytes_f32(ks, stages))
     return kErrTailPlan;
   TailF32Args p{};
   p.stats = static_cast<const float2*>(stats);
@@ -801,18 +924,30 @@ int launch_tail_f32(const void* x, void* stats, void* out, const void* g, const 
   p.run = run;
   p.runs = (T + run - 1) / run;
   p.stages = stages;
+  p.C = C;
   if ((long long)B * p.tiles_x * p.tiles_y * p.runs != grid) return kErrTailPlan;
   CUtensorMap map;
   int e = tail_map_f32(&map, x, B, T, H, W, C);
   if (e) return e;
   const RowArgs r{x, p.g, p.b, stats};
   if ((e = launch_act_rows<false, kRowStats>(r, (long long)B * T * H * W, C, s))) return e;
-  auto kernel = ks == 4 ? tail_f32_kernel<EXACT, 4> : tail_f32_kernel<EXACT, 2>;
-  const cudaError_t a =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (a != cudaSuccess) return (int)a;
-  kernel<<<grid, THREADS, smem, s>>>(map, p);
-  return (int)cudaGetLastError();
+  for (int gi = 0; gi < groups; ++gi) {
+    p.c0 = gi * GROUP;
+    p.first = gi == 0;
+    p.last = gi == groups - 1;
+    // this group's slices, the last one zero-filled past C
+    const int gks = ((C - p.c0 < GROUP ? C - p.c0 : GROUP) + KC - 1) / KC;
+    auto kernel = gks == 4   ? tail_f32_kernel<EXACT, 4>
+                  : gks == 3 ? tail_f32_kernel<EXACT, 3>
+                  : gks == 2 ? tail_f32_kernel<EXACT, 2>
+                             : tail_f32_kernel<EXACT, 1>;
+    const cudaError_t a =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (a != cudaSuccess) return (int)a;
+    kernel<<<grid, THREADS, smem, s>>>(map, p);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
+  return 0;
 }
 
 }  // namespace

@@ -27,16 +27,19 @@
 // (measured 2-3x slower: the first version of this kernel).
 //
 // The weights come as tensor maps of K-major operands [C, 9*Cin] and
-// [C, 9*C (+ Cin)], encoded once per parameter by the wrapper; the
-// scratch's maps are encoded here, per call. The plan (th x tw patch, BN,
-// stages, shared memory, grid) is ops/kernels/plan.py's conv_plan_spatial.
+// [C, 9*C (+ Cin)], encoded once per parameter by the wrapper (main and
+// 1x1 maps side by side, wgmma_conv.cuh: weight_maps); the scratch's maps
+// are encoded here, per call. The plan (th x tw patch, BN, stages, shared
+// memory, grid) is ops/kernels/plan.py's conv_plan_spatial. Cin and C are
+// any multiples of 8 up to 1024: partial K steps and N tiles (the loop's
+// masks), row passes of masked vectors.
 //
 // f32 (vt_fused_spatial_resblock_f32): x, out and h1 f32; the same four
 // launches under wgmma_conv.cuh's f32 scheme. The row passes write the
-// activations' bf16 pieces into a scratch 3C wide and, when the block has
-// its nin_shortcut, the first writes raw x's pieces too (xs), which
-// conv2's 1x1 K steps read; the epilogues add the residual and write in
-// f32.
+// activations' bf16 pieces into a scratch of three planes and, when the
+// block has its nin_shortcut, the first writes raw x's pieces too (xs),
+// which conv2's 1x1 K steps read; the epilogues add the residual and write
+// in f32.
 #include "wgmma_conv.cuh"
 
 namespace {
@@ -52,13 +55,14 @@ int spatial_block(const void* x, void* out, void* h1, void* act, void* xs, const
   constexpr int form = F32 ? kRowSplit : kRowBf16;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = (long long)N * H * W;
-  CUtensorMap mw1, mw2, ma1, ma2, mx;
-  memcpy(&mw1, w1map, sizeof(CUtensorMap));
-  memcpy(&mw2, w2map, sizeof(CUtensorMap));
+  CUtensorMap mw1, mw1x, mw2, mw2x, ma1, ma2, mx;
+  wg::read_weight_maps(w1map, &mw1, &mw1x);
+  wg::read_weight_maps(w2map, &mw2, &mw2x);
   int e;
-  if ((e = wg::spatial_map(&ma1, act, N, H, W, P * Cin, th, tw)) ||
-      (e = wg::spatial_map(&ma2, act, N, H, W, P * C, th, tw)) ||
-      (e = wg::spatial_map(&mx, F32 ? xs : x, N, H, W, P * Cin, th, tw)))
+  // the scratch's planes: piece q of image n is image q * N + n
+  if ((e = wg::spatial_map(&ma1, act, P * N, H, W, Cin, th, tw)) ||
+      (e = wg::spatial_map(&ma2, act, P * N, H, W, C, th, tw)) ||
+      (e = wg::spatial_map(&mx, F32 ? xs : x, P * N, H, W, Cin, th, tw)))
     return e;
 
   wg::Params p{};
@@ -68,8 +72,9 @@ int spatial_block(const void* x, void* out, void* h1, void* act, void* xs, const
   p.tw = tw;
   p.tiles_x = (W + tw - 1) / tw;
   p.tiles_y = (H + th - 1) / th;
-  p.n_tiles = C / bn;
+  p.par_tiles = p.n_tiles = (C + bn - 1) / bn;
   p.Cout = C;
+  p.planes = N;
   p.stages = stages;
 
   RowArgs r{x, static_cast<const float*>(g1), static_cast<const float*>(b1), act};
@@ -77,21 +82,22 @@ int spatial_block(const void* x, void* out, void* h1, void* act, void* xs, const
   if ((e = launch_act_rows<false, form>(r, M, Cin, s))) return e;
   p.bias = static_cast<const float*>(bias1);
   p.out = h1;
-  p.cin_steps = Cin / wg::BK;
+  p.cin_steps = (Cin + wg::BK - 1) / wg::BK;
   p.k_main = p.k_base = 9 * p.cin_steps;
   p.k_total = (F32 ? wg::kProducts : 1) * p.k_base;
-  if ((e = wg::launch_conv<wg::kSpatial, F32>(ma1, mw1, mx, p, bn, smem, grid, s))) return e;
+  if ((e = wg::launch_conv<wg::kSpatial, F32>(ma1, mw1, mx, mw1x, p, bn, smem, grid, s)))
+    return e;
 
   r = RowArgs{h1, static_cast<const float*>(g2), static_cast<const float*>(b2), act};
   if ((e = launch_act_rows<false, form>(r, M, C, s))) return e;
   p.bias = static_cast<const float*>(bias2);
   p.res = has_nin ? nullptr : x;
   p.out = out;
-  p.cin_steps = C / wg::BK;
+  p.cin_steps = (C + wg::BK - 1) / wg::BK;
   p.k_main = 9 * p.cin_steps;
-  p.k_base = p.k_main + (has_nin ? Cin / wg::BK : 0);
+  p.k_base = p.k_main + (has_nin ? (Cin + wg::BK - 1) / wg::BK : 0);
   p.k_total = (F32 ? wg::kProducts : 1) * p.k_base;
-  return wg::launch_conv<wg::kSpatial, F32>(ma2, mw2, mx, p, bn, smem, grid, s);
+  return wg::launch_conv<wg::kSpatial, F32>(ma2, mw2, mx, mw2x, p, bn, smem, grid, s);
 }
 
 }  // namespace
@@ -106,9 +112,9 @@ extern "C" int vt_fused_spatial_resblock(
                               stream);
 }
 
-// f32: ``act`` [N*H*W, 3 max(Cin, C)] and ``xs`` [N*H*W, 3 Cin] (or null
-// without the nin_shortcut) bf16 scratch; the weights' maps over the split
-// K-major operands [C, 3 K].
+// f32: ``act`` [3, N*H*W, max(Cin, C)] and ``xs`` [3, N*H*W, Cin] (or null
+// without the nin_shortcut) bf16 scratch, a plane a piece; the weights'
+// maps over the split K-major operands [C, 3 K].
 extern "C" int vt_fused_spatial_resblock_f32(
     const void* x, void* out, void* h1, void* act, void* xs, const void* g1, const void* b1,
     const void* w1map, const void* bias1, const void* g2, const void* b2,

@@ -28,7 +28,7 @@
 // serving path), and no products: one code path serves both modes. The
 // TPU kernel's full-T VMEM tile does not carry over; it would not fit
 // shared memory. vt_fused_temporal_resblock_f32 is the same block on f32
-// activations (temporal_block.cuh's F32: the scratch 3C wide, bf16 pieces).
+// activations (temporal_block.cuh's F32: the scratch's bf16 pieces in three planes).
 #include "temporal_block.cuh"
 
 extern "C" int vt_fused_temporal_resblock(
@@ -43,7 +43,7 @@ extern "C" int vt_fused_temporal_resblock(
                         grid, static_cast<cudaStream_t>(stream));
 }
 
-// f32: x, out, h1 f32 [B, T, S, C]; act the [B, T + 2, S, 3C] bf16 scratch;
+// f32: x, out, h1 f32 [B, T, S, C]; act the [3, B, T + 2, S, C] bf16 scratch;
 // the weights' maps over the split K-major operands [C, 3 * 3C].
 extern "C" int vt_fused_temporal_resblock_f32(
     const void* x, void* out, void* h1, void* act, const void* g1, const void* b1,

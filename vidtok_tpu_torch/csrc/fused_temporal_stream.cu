@@ -46,7 +46,7 @@ extern "C" int vt_fused_temporal_resblock_stream(
                         offset, bn, stages, smem, grid, static_cast<cudaStream_t>(stream));
 }
 
-// f32: x, c1, c2, out, nc1, nc2, h1 f32; act the [B, T + 2, S, 3C] bf16
+// f32: x, c1, c2, out, nc1, nc2, h1 f32; act the [3, B, T + 2, S, C] bf16
 // scratch; the weights' maps over the split K-major operands [C, 3 * 3C].
 extern "C" int vt_fused_temporal_resblock_stream_f32(
     const void* x, const void* c1, const void* c2, void* out, void* nc1, void* nc2,

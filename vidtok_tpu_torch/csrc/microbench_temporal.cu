@@ -56,11 +56,12 @@
 // implicit taps, nothing materialised beyond its activated scratch.
 //
 // The row passes: act_rows_kernel's layout (common.cuh, VT_ROW_LAYOUTS): a
-// row takes LPR = min(C/8, 32) lanes, a warp 32 / LPR rows, each thread
-// loads its RPT rows before it reduces any; the statistics are the exact
-// two-pass form (row_stats_exact) over the row's LPR lanes; g and b are
-// read as vectors, once per vector slot for all of a thread's rows. C in
-// plan.ROW_CHANNELS, else cudaErrorInvalidValue.
+// row takes LPR lanes (8 to 32), a warp 32 / LPR rows, each thread loads
+// its RPT rows before it reduces any, the vectors from channel C on masked;
+// the statistics are the exact two-pass form (row_stats_exact) over the
+// row's LPR lanes; g and b are read as vectors, once per vector slot for
+// all of a thread's rows. C % 8 == 0 up to 1024 (plan.row_layout), else
+// cudaErrorInvalidValue.
 #include <stdint.h>
 #include <string.h>
 
@@ -162,18 +163,20 @@ __device__ __forceinline__ long long first_row(int lane) {
   return ((long long)blockIdx.x * 8 + (threadIdx.x >> 5)) * ((32 / LPR) * RPT) + lane / LPR;
 }
 
-// The RPT rows of C = 8 LPR VPL channels of this thread, rows past ``rows``
-// as zeros (they take part in the shuffles and are not stored).
+// The RPT rows of C channels of this thread, rows past ``rows`` and
+// vectors past C as zeros (they take part in the shuffles and are not
+// stored).
 template <int LPR, int VPL, int RPT, typename In>
 __device__ __forceinline__ void load_rows(const In* __restrict__ src, long long row0,
-                                          long long rows, int l, float (&v)[RPT][VPL][8]) {
-  constexpr int RPW = 32 / LPR, C = 8 * LPR * VPL;
+                                          long long rows, int l, int C,
+                                          float (&v)[RPT][VPL][8]) {
+  constexpr int RPW = 32 / LPR;
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
     const long long row = row0 + (long long)k * RPW;
 #pragma unroll
     for (int i = 0; i < VPL; ++i) {
-      if (row < rows) {
+      if (row < rows && vt::row_vec<LPR>(l, i, C)) {
         load8(src + row * C + 8 * l + 8 * LPR * i, v[k][i]);
       } else {
 #pragma unroll
@@ -199,12 +202,12 @@ template <int LPR, int VPL, int RPT, typename In>
 static __global__ void __launch_bounds__(256)
     fat_rows_kernel(const In* __restrict__ src, const float* __restrict__ g,
                     const float* __restrict__ b, __nv_bfloat16* __restrict__ fat, int T,
-                    int S, long long rows) {
-  constexpr int RPW = 32 / LPR, C = 8 * LPR * VPL;
+                    int S, int C, long long rows) {
+  constexpr int RPW = 32 / LPR;
   const int lane = threadIdx.x & 31, l = lane % LPR;
   const long long row0 = first_row<LPR, RPT>(lane);
   float v[RPT][VPL][8];
-  load_rows<LPR, VPL, RPT>(src, row0, rows, l, v);
+  load_rows<LPR, VPL, RPT>(src, row0, rows, l, C, v);
   // the frame of each row: that of the first (one division), then stepped
   // RPW rows at a time
   int fr[RPT];
@@ -221,12 +224,13 @@ static __global__ void __launch_bounds__(256)
   }
   float2 st[RPT];
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) st[k] = vt::row_stats_exact<LPR, VPL>(v[k]);
+  for (int k = 0; k < RPT; ++k) st[k] = vt::row_stats_exact<LPR, VPL>(v[k], C, l);
   const long long ld = 3LL * C, next = (long long)S * ld;
   const uint4 zero = make_uint4(0, 0, 0, 0);
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     const int c = 8 * l + 8 * LPR * i;
+    if (c >= C) continue;
     float gv[8], bv[8];
     load_gb(g, b, c, gv, bv);
 #pragma unroll
@@ -256,7 +260,7 @@ int launch_fat_rows(const In* src, const void* g, const void* b, __nv_bfloat16* 
   {                                                                                       \
     const long long per = 8LL * (32 / L) * R;                                             \
     fat_rows_kernel<L, V, R, In><<<(unsigned)((rows + per - 1) / per), 256, 0, s>>>(     \
-        src, gf, bf, fat, T, S, rows);                                                    \
+        src, gf, bf, fat, T, S, C, rows);                                                 \
     return (int)cudaGetLastError();                                                       \
   }
   VT_ROW_LAYOUTS(C, VT_FAT_ROWS)
@@ -271,26 +275,33 @@ int launch_fat_rows(const In* src, const void* g, const void* b, __nv_bfloat16* 
 // ran about 5% faster than two without spills; holding x packed as well
 // gained nothing more. The pass's exp and division (two SFU operations a
 // value each LN) take about as long as its bytes, so it sits between
-// the two bounds.
-template <int LPR, int VPL, int RPT>
+// the two bounds. FULL: C = 8 LPR VPL (no masked vector), a constant, so
+// the masks and C's register go.
+template <int LPR, int VPL, int RPT, bool FULL>
 static __global__ void __launch_bounds__(256, 3)
     ln_twice_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ g1,
                     const float* __restrict__ b1, const float* __restrict__ g2,
-                    const float* __restrict__ b2, __nv_bfloat16* __restrict__ out,
+                    const float* __restrict__ b2, __nv_bfloat16* __restrict__ out, int c_arg,
                     long long rows) {
-  constexpr int RPW = 32 / LPR, C = 8 * LPR * VPL;
+  constexpr int RPW = 32 / LPR;
+  const int C = FULL ? 8 * LPR * VPL : c_arg;
   const int lane = threadIdx.x & 31, l = lane % LPR;
   const long long row0 = first_row<LPR, RPT>(lane);
   float v[RPT][VPL][8];
   uint4 a[RPT][VPL];
-  load_rows<LPR, VPL, RPT>(x, row0, rows, l, v);
+  load_rows<LPR, VPL, RPT>(x, row0, rows, l, C, v);
   float2 st[RPT];
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) st[k] = vt::row_stats_exact<LPR, VPL>(v[k]);
+  for (int k = 0; k < RPT; ++k) st[k] = vt::row_stats_exact<LPR, VPL>(v[k], C, l);
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     float gv[8], bv[8];
-    load_gb(g1, b1, 8 * l + 8 * LPR * i, gv, bv);
+    if (vt::row_vec<LPR>(l, i, C)) {
+      load_gb(g1, b1, 8 * l + 8 * LPR * i, gv, bv);
+    } else {  // a masked vector activates to zeros, which the second LN leaves out
+#pragma unroll
+      for (int e = 0; e < 8; ++e) gv[e] = bv[e] = 0.f;
+    }
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
       float f[8];
@@ -305,11 +316,12 @@ static __global__ void __launch_bounds__(256, 3)
     float f[VPL][8];
 #pragma unroll
     for (int i = 0; i < VPL; ++i) vt::unpack8(a[k][i], f[i]);
-    st[k] = vt::row_stats_exact<LPR, VPL>(f);
+    st[k] = vt::row_stats_exact<LPR, VPL>(f, C, l);
   }
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     const int c = 8 * l + 8 * LPR * i;
+    if (c >= C) continue;
     float gv[8], bv[8];
     load_gb(g2, b2, c, gv, bv);
 #pragma unroll
@@ -332,8 +344,11 @@ int launch_ln_twice(const __nv_bfloat16* x, const float* g1, const float* b1,
 #define VT_LN_TWICE(L, V, R)                                                              \
   {                                                                                       \
     const long long per = 8LL * (32 / L) * R;                                             \
-    ln_twice_kernel<L, V, R><<<(unsigned)((rows + per - 1) / per), 256, 0, s>>>(         \
-        x, g1, b1, g2, b2, out, rows);                                                    \
+    const unsigned grid = (unsigned)((rows + per - 1) / per);                             \
+    if (C == 8 * L * V)                                                                   \
+      ln_twice_kernel<L, V, R, true><<<grid, 256, 0, s>>>(x, g1, b1, g2, b2, out, C, rows); \
+    else                                                                                  \
+      ln_twice_kernel<L, V, R, false><<<grid, 256, 0, s>>>(x, g1, b1, g2, b2, out, C, rows); \
     return (int)cudaGetLastError();                                                       \
   }
   VT_ROW_LAYOUTS(C, VT_LN_TWICE)
@@ -341,19 +356,19 @@ int launch_ln_twice(const __nv_bfloat16* x, const float* g1, const float* b1,
   return (int)cudaErrorInvalidValue;
 }
 
-// The wgmma loop's parameters of a C -> C product with K = 3C, in K steps
-// of 64 channels of ``tap_channels`` per tap: a kCausal conv (C) over clips
-// of T frames of S rows, or a kDense product (3C, one tap) over M = S rows
-// (T = 1).
-vt::wg::Params loop_params(int T, int S, int C, int tap_channels, int bn, int stages) {
+// The wgmma loop's parameters of a C -> C product of three taps of C
+// channels, ceil(C / 64) K steps a tap: a kCausal conv over clips of T
+// frames of S rows, or a kDense product over M = S rows (T = 1) of the fat
+// operand, tap k its columns [kC, (k + 1) C).
+vt::wg::Params loop_params(int T, int S, int C, int bn, int stages) {
   vt::wg::Params p{};
   p.T = T;
   p.S = S;
   p.tiles_x = (int)(((long long)T * S + vt::wg::BM - 1) / vt::wg::BM);
-  p.n_tiles = C / bn;
-  p.Cout = C;
-  p.cin_steps = tap_channels / vt::wg::BK;
-  p.k_main = p.k_total = 3 * C / vt::wg::BK;
+  p.par_tiles = p.n_tiles = (C + bn - 1) / bn;
+  p.Cout = p.Cin = C;
+  p.cin_steps = (C + vt::wg::BK - 1) / vt::wg::BK;
+  p.k_main = p.k_total = 3 * p.cin_steps;
   p.stages = stages;
   return p;
 }
@@ -368,7 +383,7 @@ extern "C" int vt_copy_units(const void* x, void* out, int B, int T, int S, int 
 
 // T2: mode 0 copy, 1 mm, 2 ln. mm: h a [B, T, S, C] bf16 scratch, w1map and
 // w2map the K-major [C, 3C] weights' tensor maps, (bn, stages, smem, grid)
-// plan.conv_plan_temporal's plan; ln: C in plan.ROW_CHANNELS.
+// plan.conv_plan_temporal's plan; ln: C % 8 == 0 up to 1024.
 extern "C" int vt_microbench_diag(const void* x, void* out, void* h, const void* g1,
                                   const void* b1, const void* w1map, const void* g2,
                                   const void* b2, const void* w2map, int B, int T, int S,
@@ -384,22 +399,22 @@ extern "C" int vt_microbench_diag(const void* x, void* out, void* h, const void*
     return launch_ln_twice(xb, static_cast<const float*>(g1), static_cast<const float*>(b1),
                            static_cast<const float*>(g2), static_cast<const float*>(b2), ob,
                            C, M, s);
-  CUtensorMap mx, mh, mw1, mw2;
-  memcpy(&mw1, w1map, sizeof(CUtensorMap));
-  memcpy(&mw2, w2map, sizeof(CUtensorMap));
+  CUtensorMap mx, mh, mw1, mw2, unused;
+  wg::read_weight_maps(w1map, &mw1, &unused);
+  wg::read_weight_maps(w2map, &mw2, &unused);
   int e = wg::temporal_map(&mx, x, B, (long long)T * S, C);
   if (e || (e = wg::temporal_map(&mh, h, B, (long long)T * S, C))) return e;
-  wg::Params p = loop_params(T, S, C, C, bn, stages);
+  wg::Params p = loop_params(T, S, C, bn, stages);
   p.out = static_cast<__nv_bfloat16*>(h);  // no bias
-  if ((e = wg::launch_conv<wg::kCausal>(mx, mw1, mx, p, bn, smem, grid, s))) return e;
+  if ((e = wg::launch_conv<wg::kCausal>(mx, mw1, mx, mw1, p, bn, smem, grid, s))) return e;
   p.res = xb;
   p.out = ob;
-  return wg::launch_conv<wg::kCausal>(mh, mw2, mh, p, bn, smem, grid, s);
+  return wg::launch_conv<wg::kCausal>(mh, mw2, mh, mw2, p, bn, smem, grid, s);
 }
 
-// T1: C in plan.ROW_CHANNELS, C % 128 == 0; fat a [B*T*S, 3C] bf16 scratch,
-// h a [B*T*S, C] f32 scratch; w1map, w2map the K-major [C, 3C] weights'
-// tensor maps, (bn, stages, smem, grid) plan.conv_plan_dense's plan.
+// T1: C % 8 == 0 up to 1024; fat a [B*T*S, 3C] bf16 scratch, h a
+// [B*T*S, C] f32 scratch; w1map, w2map the K-major [C, 3C] weights' tensor
+// maps, (bn, stages, smem, grid) plan.conv_plan_dense's plan.
 extern "C" int vt_microbench_fat(const void* x, void* out, void* fat, void* h,
                                  const void* g1, const void* b1, const void* w1map,
                                  const void* bias1, const void* g2, const void* b2,
@@ -412,22 +427,22 @@ extern "C" int vt_microbench_fat(const void* x, void* out, void* fat, void* h,
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   auto* fb = static_cast<__nv_bfloat16*>(fat);
   auto* hf = static_cast<float*>(h);
-  CUtensorMap ma, mw1, mw2;
-  memcpy(&mw1, w1map, sizeof(CUtensorMap));
-  memcpy(&mw2, w2map, sizeof(CUtensorMap));
-  int e = wg::weight_map(&ma, fat, 3 * C, (int)M, wg::BM);  // [M, 3C], K-major
+  CUtensorMap ma, mw1, mw2, unused;
+  wg::read_weight_maps(w1map, &mw1, &unused);
+  wg::read_weight_maps(w2map, &mw2, &unused);
+  int e = wg::matrix_map(&ma, fat, 3 * C, (int)M);  // [M, 3C], K-major
   if (e) return e;
-  wg::Params p = loop_params(1, (int)M, C, 3 * C, bn, stages);
+  wg::Params p = loop_params(1, (int)M, C, bn, stages);
 
   if ((e = launch_fat_rows(xb, g1, b1, fb, T, S, C, M, s))) return e;
   p.bias = static_cast<const float*>(bias1);
   p.outf = hf;
-  if ((e = wg::launch_conv<wg::kDense>(ma, mw1, ma, p, bn, smem, grid, s))) return e;
+  if ((e = wg::launch_conv<wg::kDense>(ma, mw1, ma, mw1, p, bn, smem, grid, s))) return e;
 
   if ((e = launch_fat_rows(static_cast<const float*>(hf), g2, b2, fb, T, S, C, M, s))) return e;
   p.bias = static_cast<const float*>(bias2);
   p.outf = nullptr;
   p.res = xb;
   p.out = static_cast<__nv_bfloat16*>(out);
-  return wg::launch_conv<wg::kDense>(ma, mw2, ma, p, bn, smem, grid, s);
+  return wg::launch_conv<wg::kDense>(ma, mw2, ma, mw2, p, bn, smem, grid, s);
 }

@@ -23,10 +23,13 @@
 // is outside the clip, so no tap reads the clip before); replicate mode
 // reads frame 0 there. The K-major weight [[K0+K1, K0], [K2, K1+K2]]^T
 // [2C, 18C] is summed in f32 and rounded to bf16 once, per parameter, by
-// the wrapper, which also encodes its tensor map. The epilogue adds the
-// bias in f32, blends with alpha * s[a] (s read with row stride C) and
-// writes columns [0, C) to frame 2a and [C, 2C) to frame 2a+1; BN divides
-// C. One f32 accumulator holds both frames' taps; the TPU kernel rounds
+// the wrapper, which also encodes its tensor map, whose parity dimension
+// gives each output frame's C columns N tiles of their own. The epilogue
+// adds the bias in f32, blends with alpha * s[a] (s read with row stride C)
+// and writes parity 0's columns to frame 2a and parity 1's to frame 2a+1.
+// C is any multiple of 8 up to 1024: a tap's last K step and each parity's
+// last N tile are partial (the loop's masks). One f32 accumulator holds
+// both frames' taps; the TPU kernel rounds
 // the previous-frame taps to the activation dtype first. Nothing carries
 // over between blocks, so the price is 36 C^2 MACs per position where the
 // TPU kernel's 2-slot VMEM ring of the previous frame's base convs does
@@ -36,8 +39,9 @@
 // ops/kernels/plan.py's conv_plan_parity.
 //
 // f32 (vt_parity_up2x_f32): s and out f32. A split pass writes s's bf16
-// pieces into a [B, T, H, W, 3C] scratch, the 5-D map reads it 3C wide,
-// the weight is the summed matrix split once per parameter, and the
+// pieces into a [3, B, T, H, W, C] scratch, which the 5-D map reads as 3B
+// clips (piece q of clip b is clip q * B + b), the weight is the summed
+// matrix split once per parameter, and the
 // products are wgmma_conv.cuh's f32 scheme; the epilogue blends with s in
 // f32. The TPU kernel declines f32 at 256+ channels (its VMEM,
 // parity_upsample_fused.py:134); this one takes f32 wherever it takes
@@ -51,15 +55,14 @@ int parity_up2x(const void* s, void* sp, void* out, const void* wmap, const void
                 const void* alpha, int B, int T, int H, int W, int C, int replicate, int th,
                 int tw, int bn, int stages, int smem, int grid, cudaStream_t stream) {
   using namespace vt;
-  if (C % 128 != 0) return wg::kErrPlan;
   int e;
   if (F32 && (e = launch_split_rows(static_cast<const float*>(s),
                                     static_cast<__nv_bfloat16*>(sp),
                                     (long long)B * T * H * W, C, stream)))
     return e;
-  CUtensorMap mw, ms;
-  memcpy(&mw, wmap, sizeof(CUtensorMap));
-  e = wg::parity_map(&ms, F32 ? sp : s, B, T, H, W, (F32 ? kPieces : 1) * C, th, tw);
+  CUtensorMap mw, unused, ms;
+  wg::read_weight_maps(wmap, &mw, &unused);
+  e = wg::parity_map(&ms, F32 ? sp : s, (F32 ? kPieces : 1) * B, T, H, W, C, th, tw);
   if (e) return e;
 
   wg::Params p{};
@@ -75,13 +78,15 @@ int parity_up2x(const void* s, void* sp, void* out, const void* wmap, const void
   p.tw = tw;
   p.tiles_x = (W + tw - 1) / tw;
   p.tiles_y = (H + th - 1) / th;
-  p.n_tiles = 2 * C / bn;
-  p.Cout = 2 * C;
-  p.cin_steps = C / wg::BK;
+  p.par_tiles = (C + bn - 1) / bn;
+  p.n_tiles = 2 * p.par_tiles;
+  p.Cout = C;
+  p.planes = B;
+  p.cin_steps = (C + wg::BK - 1) / wg::BK;
   p.k_main = p.k_base = 18 * p.cin_steps;
   p.k_total = (F32 ? wg::kProducts : 1) * p.k_base;
   p.stages = stages;
-  return wg::launch_conv<wg::kParity, F32>(ms, mw, ms, p, bn, smem, grid, stream);
+  return wg::launch_conv<wg::kParity, F32>(ms, mw, ms, mw, p, bn, smem, grid, stream);
 }
 
 }  // namespace
@@ -94,7 +99,7 @@ extern "C" int vt_parity_up2x(const void* s, void* out, const void* wmap, const 
                             th, tw, bn, stages, smem, grid, static_cast<cudaStream_t>(stream));
 }
 
-// f32: s, out f32; sp the [B, T, H, W, 3C] bf16 scratch of s's pieces; the
+// f32: s, out f32; sp the [3, B, T, H, W, C] bf16 scratch of s's pieces; the
 // weight's map over the split K-major operand [2C, 3 * 18C].
 extern "C" int vt_parity_up2x_f32(const void* s, void* sp, void* out, const void* wmap,
                                   const void* bias, const void* alpha, int B, int T, int H,

@@ -19,8 +19,10 @@
 // grid) is ops/kernels/plan.py's conv_plan_temporal.
 //
 // F32 (wgmma_conv.cuh's f32 scheme): x, the caches, h1, out and the new
-// caches f32; the scratch holds the activations' bf16 pieces, 3C wide; the
-// caches hold the activated frames in f32, split as they enter the scratch.
+// caches f32; the scratch holds the activations' bf16 pieces, a plane of B
+// clips each; the caches hold the activated frames in f32, split as they
+// enter the scratch. C is any multiple of 8 up to 1024 (partial K steps
+// and N tiles, row passes of masked vectors).
 #pragma once
 
 #include "wgmma_conv.cuh"
@@ -38,19 +40,21 @@ static inline int temporal_block(const void* x, const void* c1, const void* c2, 
   constexpr int P = F32 ? kPieces : 1;  // scratch channels per channel
   constexpr int form = F32 ? kRowSplit : kRowBf16;
   const long long rows = (long long)B * (T + 2) * S;  // of the scratch
-  CUtensorMap mw1, mw2, ma;
-  memcpy(&mw1, w1map, sizeof(CUtensorMap));
-  memcpy(&mw2, w2map, sizeof(CUtensorMap));
-  int e = wg::temporal_map(&ma, act, B, (long long)(T + 2) * S, P * C);
+  CUtensorMap mw1, mw2, unused, ma;
+  wg::read_weight_maps(w1map, &mw1, &unused);
+  wg::read_weight_maps(w2map, &mw2, &unused);
+  // the scratch's planes: piece q of clip b is clip q * B + b
+  int e = wg::temporal_map(&ma, act, P * B, (long long)(T + 2) * S, C);
   if (e) return e;
 
   wg::Params p{};
   p.T = T;
   p.S = S;
   p.tiles_x = (int)(((long long)T * S + wg::BM - 1) / wg::BM);
-  p.n_tiles = C / bn;
+  p.par_tiles = p.n_tiles = (C + bn - 1) / bn;
   p.Cout = C;
-  p.cin_steps = C / wg::BK;
+  p.planes = B;
+  p.cin_steps = (C + wg::BK - 1) / wg::BK;
   p.k_main = p.k_base = 3 * p.cin_steps;
   p.k_total = (F32 ? wg::kProducts : 1) * p.k_base;
   p.stages = stages;
@@ -60,7 +64,8 @@ static inline int temporal_block(const void* x, const void* c1, const void* c2, 
   if ((e = launch_act_rows<true, form>(r, rows, C, s))) return e;
   p.bias = static_cast<const float*>(bias1);
   p.out = h1;
-  if ((e = wg::launch_conv<wg::kTemporal, F32>(ma, mw1, ma, p, bn, smem, grid, s))) return e;
+  if ((e = wg::launch_conv<wg::kTemporal, F32>(ma, mw1, ma, mw1, p, bn, smem, grid, s)))
+    return e;
 
   r.src = h1;
   r.g = static_cast<const float*>(g2);
@@ -71,7 +76,7 @@ static inline int temporal_block(const void* x, const void* c1, const void* c2, 
   p.bias = static_cast<const float*>(bias2);
   p.res = x;
   p.out = out;
-  return wg::launch_conv<wg::kTemporal, F32>(ma, mw2, ma, p, bn, smem, grid, s);
+  return wg::launch_conv<wg::kTemporal, F32>(ma, mw2, ma, mw2, p, bn, smem, grid, s);
 }
 
 }  // namespace vt

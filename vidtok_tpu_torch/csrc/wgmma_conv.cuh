@@ -12,6 +12,20 @@
 // the raw input, the nin_shortcut). ``a`` is the ALREADY activated bf16
 // scratch (act_rows_kernel, common.cuh). w is K-major, [Cout, K].
 //
+// Channels: any C % 8 == 0 (Cin, Cs, Cout; TMA's 16-byte strides). A K
+// step loads a 64-channel box of one tap; a tap takes ceil(Cin / 64) of
+// them, the last one zero-filled by TMA past Cin, in the activation's box
+// and in the weight's alike: the weight is read through a 5-D map {ci,
+// tap, piece, co, parity} over the K-major matrix itself (the 1x1 term's
+// columns through a second map from column taps * Cin on), whose ci extent
+// is the true Cin, so no product multiplies anything but zeros past Cin
+// and no operand is padded. The N tiles cover Cout in tiles of BN in {64,
+// 128, 256}; the last one's rows past Cout are zero-filled in the weight's
+// box and its columns past Cout are not stored, nor are their bias and
+// residual read. Full tiles take the same path: the masks are a compare a
+// thread per K step in TMA's hardware and one per column group in the
+// epilogue, none in the products.
+//
 // Tap sets. kSpatial: ``a`` is [N, H, W, Cin], a 4-D tensor map {C, W, H,
 // N}; an M tile is a th x tw patch of one frame (th * tw = 128) and tap
 // (dy, dx) is the same box loaded at (c0, x0 + dx - 1, y0 + dy - 1, n).
@@ -39,11 +53,12 @@
 // (c0, x0 + dx - 1, y0 + dy - 1, t - 1 + f, b). TMA's zero fill is the
 // spatial SAME padding (exact: s is not activated) and, at t = 0, the
 // zero-mode front: t = -1 lies outside the clip, so no tap ever reads the
-// previous clip. Replicate mode clamps that frame to 0. N = 2C columns are
+// previous clip. Replicate mode clamps that frame to 0. The 2C columns are
 // the even and odd output frames; the epilogue blends them with s:
 //   out[2 img + p, y, x, c] = bf16( alpha * s[img, y, x, c]
 //                                   + (1 - alpha) * (acc[m, pC + c] + bias[pC + c]) )
-// for img = b*T + t. BN divides C, so an N tile is one parity's.
+// for img = b*T + t. Each parity's C columns have N tiles of their own
+// (the weight map's parity dimension), so an N tile is one parity's.
 //
 // Shape of the loop (warp-specialised, as CUTLASS's Hopper GEMMs): two
 // consumer warpgroups and a producer, one thread of which issues, for each
@@ -75,29 +90,34 @@
 // it costs the same tensor work (6 bf16 products against 3 tf32 products
 // at half the bf16 rate). Each f32 operand is split once into bf16
 // pieces x = hi + mid + lo (common.cuh: split3; exact up to 2^-24 |x|):
-// the activations by the row passes, into a scratch 3C wide (piece q at
-// channels [qC, qC + C)), E's raw input by a split pass, the weights once
-// per parameter by the wrapper ([Cout, 3K], piece q at columns [qK,
-// qK + K)). The loop then runs the six products whose pieces' orders sum
-// to at most 2, mid*mid, lo*hi, hi*lo, mid*hi, hi*mid, hi*hi (smallest
-// first), as kProducts x k_base K steps into the one f32 accumulator:
-// K step ks is product ks / k_base's pieces at base step ks % k_base. Two
+// the activations by the row passes, into a scratch of three planes (piece
+// q of a position in plane q, so its maps take the planes as images or
+// clips p.planes apart: an image, clip or frame coordinate + q * planes),
+// E's raw input by a split pass, the weights once per parameter by the
+// wrapper ([Cout, 3K], piece q at columns [qK, qK + K): the weight map's
+// piece dimension). The loop then runs the six products whose pieces'
+// orders sum to at most 2, mid*mid, lo*hi, hi*lo, mid*hi, hi*mid, hi*hi
+// (smallest first), as kProducts x k_base K steps into the one f32
+// accumulator: K step ks is product ks / k_base's pieces at base step
+// ks % k_base. Two
 // pieces (3 products) would leave mid*mid out and a 2^-17 remainder in
 // each operand: about 2^-16 a product. The epilogue reads the residual
 // (or kParity's s) and writes the output in f32, kParity's blend in f32.
 // A stage holds the same bytes as bf16's, so the plans are bf16's; the
-// K steps are 6x, the A operand's map 3x as wide.
+// K steps are 6x, the A operand's map has 3x the planes.
 //
-// The plan (patch, BN in {128, 256}, stages, shared memory, grid) comes
-// from ops/kernels/plan.py, which the CPU tests check; launch_conv refuses
-// what it cannot run. BN = 256 runs one block of 384 threads per SM (4
-// stages, 197,696 B of shared memory): the producer is a warpgroup that
-// gives its registers up to the consumers' 128 accumulators (setmaxnreg 40
-// and 232). BN = 128 runs two blocks of 288 threads per SM (3 stages,
-// 99,376 B each; the producer one warp, every thread at most 112
-// registers), so one block's epilogue and ring fill overlap the other's
-// products. (Two blocks of 384 threads leave 80 registers a thread at
-// compile time, too few for wgmma m64n128's 64 accumulators.)
+// The plan (patch, BN in {64, 128, 256}, stages, shared memory, grid)
+// comes from ops/kernels/plan.py, which the CPU tests check; launch_conv
+// refuses what it cannot run. BN = 256 runs one block of 384 threads per
+// SM (4 stages, 197,696 B of shared memory): the producer is a warpgroup
+// that gives its registers up to the consumers' 128 accumulators
+// (setmaxnreg 40 and 232). BN = 128 runs two blocks of 288 threads per SM
+// (3 stages, 99,376 B each; the producer one warp, every thread at most
+// 112 registers), so one block's epilogue and ring fill overlap the
+// other's products. (Two blocks of 384 threads leave 80 registers a thread
+// at compile time, too few for wgmma m64n128's 64 accumulators.) BN = 64
+// (Cout = 64, or where it wastes fewer columns than 128) runs as BN = 128
+// with 4 stages of 24 KB.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -123,9 +143,9 @@ constexpr unsigned kPieceA = 0x001021u, kPieceW = 0x010201u;
 __host__ __device__ constexpr int stage_bytes(int bn) { return kTileA + bn * BK * 2; }
 
 struct Params {
-  const float* bias;         // [Cout]; kCausal, kDense: or null
-  const void* res;           // [M, Cout] residual, or null; kParity: s [M, Cout / 2]
-  void* out;                 // [M, Cout]; kParity: [2M, Cout / 2]
+  const float* bias;         // [Cout]; kParity: [2 Cout]; kCausal, kDense: or null
+  const void* res;           // [M, Cout] residual, or null; kParity: s [M, Cout]
+  void* out;                 // [M, Cout]; kParity: [2M, Cout]
                              // (res and out bf16; f32 under the f32 scheme)
   const float* alpha;        // kParity: the blend weight
   int H, W;                  // kSpatial, kParity: the frame
@@ -135,9 +155,12 @@ struct Params {
   int th, tw;                // kSpatial, kParity: the patch of an M tile
   int tiles_x, tiles_y;      // kSpatial, kParity: patches per frame row / column;
                              // kTemporal, kCausal, kDense: tiles_x = M tiles per clip
-  int n_tiles;               // Cout / BN
-  int Cout;
-  int cin_steps;             // Cin / BK: K steps per tap
+  int n_tiles;               // N tiles: parities x par_tiles
+  int par_tiles;             // N tiles of one parity's Cout, ceil(Cout / BN)
+  int Cout;                  // output channels (kParity: of one output frame, C)
+  int Cin;                   // kDense: channels a tap of its operand's rows holds
+  int cin_steps;             // ceil(Cin / BK): K steps per tap
+  int planes;                // F32: images (kSpatial) or clips between piece planes
   int k_main, k_total;       // K steps of the taps; with the 1x1 term
                              // (F32: k_total = kProducts * k_base)
   int k_base;                // F32: K steps of one product, k_main + the 1x1 term's
@@ -247,6 +270,21 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// D[64 x 64] += A[64 x 16] B[16 x 64], both K-major in shared memory.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // D[64 x 128] += A[64 x 16] B[16 x 128], both K-major in shared memory.
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
@@ -305,22 +343,25 @@ template <int BN>
 __device__ __forceinline__ void wgmma_k16(float (&d)[BN / 2], uint64_t da, uint64_t db) {
   if constexpr (BN == 256) {
     wgmma_n256(d, da, db);
-  } else {
-    static_assert(BN == 128, "BN is 128 or 256");
+  } else if constexpr (BN == 128) {
     wgmma_n128(d, da, db);
+  } else {
+    static_assert(BN == 64, "BN is 64, 128 or 256");
+    wgmma_n64(d, da, db);
   }
 }
 
 // threads of a block (the consumers, then a producer warpgroup or warp)
 // and blocks per SM
 template <int BN> constexpr int kThreads = 128 * kConsumers + (BN == 256 ? 128 : 32);
-template <int BN> constexpr int kBlocksPerSM = BN == 128 ? 2 : 1;
+template <int BN> constexpr int kBlocksPerSM = BN == 256 ? 1 : 2;
 
 template <int TAPS, int BN, bool F32 = false>
 static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
     conv_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_w,
-                const __grid_constant__ CUtensorMap map_x, const Params p) {
+                const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_wx, const Params p) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles: 1024-aligned
@@ -329,8 +370,11 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
   const uint32_t full = base + p.stages * kStage;  // full[s] = full + 8s
   const uint32_t empty = full + 8 * p.stages;      // empty[s] = empty + 8s
 
-  // this block's tile: N tiles of one M tile are neighbours in launch order
-  const int n0 = (blockIdx.x % p.n_tiles) * BN;
+  // this block's tile: N tiles of one M tile are neighbours in launch order;
+  // its columns [n0, n0 + BN) of parity par's Cout (plan.tile_origin)
+  const int nt = blockIdx.x % p.n_tiles;
+  const int par = nt / p.par_tiles;
+  const int n0 = (nt - par * p.par_tiles) * BN;
   const int mt = blockIdx.x / p.n_tiles;
   int x0 = 0, y0 = 0, img = 0;  // kSpatial, kParity: patch origin and frame
   int r0 = 0, clip = 0;         // kTemporal, kCausal, kDense: first row within
@@ -366,7 +410,10 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
     if (threadIdx.x == 128 * kConsumers) {
       prefetch_map(&map_a);
       prefetch_map(&map_w);
-      if ((F32 ? p.k_base : p.k_total) > p.k_main) prefetch_map(&map_x);
+      if ((F32 ? p.k_base : p.k_total) > p.k_main) {
+        prefetch_map(&map_x);
+        prefetch_map(&map_wx);
+      }
       int s = 0, phase = 0;
       for (int ks = 0; ks < p.k_total; ++ks) {
         mbar_wait(empty + 8 * s, phase ^ 1);  // the first round passes
@@ -374,36 +421,39 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
         mbar_expect_tx(bar, kStage);
         const uint32_t dst = base + s * kStage;
         // F32: base step kb of product ks / k_base, whose activation piece
-        // starts ca channels on and whose weight piece starts kw steps on
-        int kb = ks, ca = 0, kw = 0;
+        // lies qa images or clips on (its plane) and whose weight piece is jw
+        int kb = ks, qa = 0, jw = 0;
         if constexpr (F32) {
           const int prod = ks / p.k_base;
           kb = ks - prod * p.k_base;
-          const int ia = (kPieceA >> (4 * prod)) & 15, jw = (kPieceW >> (4 * prod)) & 15;
-          ca = ia * (kb < p.k_main ? p.cin_steps : p.k_base - p.k_main) * BK;
-          kw = jw * p.k_base;
+          qa = ((kPieceA >> (4 * prod)) & 15) * p.planes;
+          jw = (kPieceW >> (4 * prod)) & 15;
         }
         if (kb < p.k_main) {
           const int tap = kb / p.cin_steps;
-          const int c = (kb - tap * p.cin_steps) * BK + ca;
+          const int c = (kb - tap * p.cin_steps) * BK;
           if constexpr (TAPS == kSpatial) {
-            tma_4d(dst, &map_a, bar, c, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img);
+            tma_4d(dst, &map_a, bar, c, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img + qa);
           } else if constexpr (TAPS == kParity) {
             const int st = tap % 9;
             int f = t - 1 + tap / 9;  // taps 0-8 frame t-1, 9-17 frame t
             if (f < 0 && p.replicate) f = 0;
-            tma_5d(dst, &map_a, bar, c, x0 + st % 3 - 1, y0 + st / 3 - 1, f, clip);
+            tma_5d(dst, &map_a, bar, c, x0 + st % 3 - 1, y0 + st / 3 - 1, f, clip + qa);
           } else if constexpr (TAPS == kTemporal) {
-            tma_3d(dst, &map_a, bar, c, r0 + tap * p.S, clip);
+            tma_3d(dst, &map_a, bar, c, r0 + tap * p.S, clip + qa);
           } else if constexpr (TAPS == kCausal) {
             tma_3d(dst, &map_a, bar, c, r0 + (tap - 2) * p.S, clip);  // < 0: zeros
           } else {
-            tma_2d(dst, &map_a, bar, c, r0);  // kDense: one tap, c runs over K
+            // kDense: tap k is the operand's columns [k Cin, (k + 1) Cin); a
+            // box past them reads the next tap's, against zero weights
+            tma_2d(dst, &map_a, bar, tap * p.Cin + c, r0);
           }
+          tma_5d(dst + kTileA, &map_w, bar, c, tap, jw, n0, par);
         } else {
-          tma_4d(dst, &map_x, bar, (kb - p.k_main) * BK + ca, x0, y0, img);
+          const int c = (kb - p.k_main) * BK;
+          tma_4d(dst, &map_x, bar, c, x0, y0, img + qa);
+          tma_5d(dst + kTileA, &map_wx, bar, c, 0, jw, n0, par);
         }
-        tma_2d(dst + kTileA, &map_w, bar, (kw + kb) * BK, n0);
         if (++s == p.stages) {
           s = 0;
           phase ^= 1;
@@ -463,14 +513,16 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
     TO* out = static_cast<TO*>(p.out);
     constexpr int TPR = BN / 8, RPP = 128 / TPR;
     const int col = (tid % TPR) * 8;
+    const int c0 = n0 + col;  // this thread's first channel of the parity's Cout
+    // a column group past Cout (the last N tile's) stores nothing
+    const int rows_end = c0 < p.Cout ? wg * 64 + 64 : 0;
     const bool has_bias = TAPS <= kParity || p.bias != nullptr;  // A, B, E, F: always
     float bias[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) bias[e] = has_bias ? p.bias[n0 + col + e] : 0.f;
-    // kParity: this N tile's parity and channels, and the blend weight
-    const int half = p.Cout / 2, par = n0 >= half, c0 = n0 - par * half + col;
+    for (int e = 0; e < 8; ++e)
+      bias[e] = has_bias && rows_end ? p.bias[par * p.Cout + c0 + e] : 0.f;
     const float alpha = TAPS == kParity ? *p.alpha : 0.f;
-    for (int r = wg * 64 + tid / TPR; r < wg * 64 + 64; r += RPP) {
+    for (int r = wg * 64 + tid / TPR; r < rows_end; r += RPP) {
       long long m;
       if constexpr (TAPS == kSpatial || TAPS == kParity) {
         const int y = y0 + r / p.tw, x = x0 + r % p.tw;
@@ -489,15 +541,15 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
       if (TAPS == kParity) {
         // s row m, then output frame 2 img + par at the same position
         float sv[8];
-        ld8(res + m * half + c0, sv);
+        ld8(res + m * p.Cout + c0, sv);
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = alpha * sv[e] + (1.f - alpha) * v[e];
         const long long hw = (long long)p.H * p.W;
-        const long long off = ((2 * img + par) * hw + (m - img * hw)) * half + c0;
+        const long long off = ((2 * img + par) * hw + (m - img * hw)) * p.Cout + c0;
         st8(out + off, v);
         continue;
       }
-      const long long off = m * p.Cout + n0 + col;
+      const long long off = m * p.Cout + c0;
       if (res != nullptr) {
         float rv[8];
         ld8(res + off, rv);
@@ -545,9 +597,11 @@ static inline EncodeTiledFn encode_fn() {
 
 // A bf16 tensor map with 128-byte swizzle and zero fill outside the tensor:
 // ``dims`` innermost first (dims[0] the contiguous channels), ``box`` the
-// tile of one load (box[0] = 64 channels = 128 B).
+// tile of one load (box[0] = 64 channels = 128 B), ``strides`` the bytes
+// between neighbours of dimensions 1.. (null: packed).
 static inline int encode_map(CUtensorMap* map, const void* ptr, int rank,
-                             const unsigned long long* dims, const unsigned* box) {
+                             const unsigned long long* dims, const unsigned* box,
+                             const unsigned long long* strides_in = nullptr) {
   const EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return kErrNoEncoder;
   cuuint64_t d[5], strides[4];
@@ -557,7 +611,7 @@ static inline int encode_map(CUtensorMap* map, const void* ptr, int rank,
     d[i] = dims[i];
     b[i] = box[i];
     e[i] = 1;
-    if (i > 0) strides[i - 1] = stride;
+    if (i > 0) strides[i - 1] = strides_in != nullptr ? strides_in[i - 1] : stride;
     stride *= dims[i];
   }
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), d,
@@ -595,38 +649,77 @@ static inline int temporal_map(CUtensorMap* map, const void* a, int B, long long
   return encode_map(map, a, 3, dims, box);
 }
 
-// The map of a K-major weight [Cout, K] for loads of BN rows x 64 channels;
-// with bn = BM, of kDense's operand [M, K] (rows < 2^31).
-static inline int weight_map(CUtensorMap* map, const void* w, int K, int Cout, int bn) {
-  const unsigned long long dims[2] = {(unsigned long long)K, (unsigned long long)Cout};
-  const unsigned box[2] = {BK, (unsigned)bn};
-  return encode_map(map, w, 2, dims, box);
+// The map of kDense's operand [M, K] (rows < 2^31) for loads of BM rows x
+// 64 channels, zero past K.
+static inline int matrix_map(CUtensorMap* map, const void* a, int K, int M) {
+  const unsigned long long dims[2] = {(unsigned long long)K, (unsigned long long)M};
+  const unsigned box[2] = {BK, BM};
+  return encode_map(map, a, 2, dims, box);
+}
+
+// The maps of a K-major weight [parities * Cout, pieces * K], K = taps *
+// Cin + Cs (the 1x1 term's Cs columns after the taps'; piece q of the f32
+// scheme at columns [qK, (q + 1) K); kParity: parity p's Cout rows from
+// p * Cout on), for loads of 64 channels x BN rows: ``main`` {ci < Cin,
+// tap, piece, co < Cout, parity} over the taps' columns, ``nin`` (when Cs >
+// 0) {c < Cs, 1, piece, co, parity} from column taps * Cin on. Both
+// extents are the true channels, so a box past Cin (Cs) or Cout is TMA's
+// zero fill. Each stride is at least the extent below it times its stride
+// (a dimension of extent 1 takes exactly that).
+static inline int weight_maps(CUtensorMap* main, CUtensorMap* nin, const void* w, int cin,
+                              int taps, int cs, int pieces, int cout, int parities, int bn) {
+  const unsigned long long k = (unsigned long long)taps * cin + cs;
+  const unsigned long long row = 2ull * pieces * k;  // bytes of a weight row
+  const unsigned box[5] = {BK, 1, 1, (unsigned)bn, 1};
+  const unsigned long long dims[5] = {(unsigned long long)cin, (unsigned long long)taps,
+                                      (unsigned long long)pieces, (unsigned long long)cout,
+                                      (unsigned long long)parities};
+  const unsigned long long strides[4] = {2ull * cin, 2ull * k, row, row * cout};
+  int e = encode_map(main, w, 5, dims, box, strides);
+  if (e || cs == 0) return e;
+  const unsigned long long xdims[5] = {(unsigned long long)cs, 1, (unsigned long long)pieces,
+                                       (unsigned long long)cout, (unsigned long long)parities};
+  const unsigned long long xstrides[4] = {2ull * cs, 2ull * k, row, row * cout};
+  return encode_map(nin, static_cast<const __nv_bfloat16*>(w) + (long long)taps * cin, 5,
+                    xdims, box, xstrides);
 }
 
 static inline int smem_needed(int bn, int stages) {
   return 1024 + stages * stage_bytes(bn) + 16 * stages;
 }
 
-// One conv launch of the plan (bn, stages, smem, grid); map_x is read only
-// when p.k_total > p.k_main (F32: p.k_base > p.k_main). Returns a
-// cudaError_t or kErrPlan.
+// One conv launch of the plan (bn, stages, smem, grid); map_x and map_wx
+// (the 1x1 term's activation and weight) are read only when p.k_total >
+// p.k_main (F32: p.k_base > p.k_main). Returns a cudaError_t or kErrPlan.
 template <int TAPS, bool F32 = false>
 static inline int launch_conv(const CUtensorMap& map_a, const CUtensorMap& map_w,
-                              const CUtensorMap& map_x, const Params& p, int bn, int smem,
-                              int grid, cudaStream_t s) {
+                              const CUtensorMap& map_x, const CUtensorMap& map_wx,
+                              const Params& p, int bn, int smem, int grid, cudaStream_t s) {
   const int epilogue = BM * (bn + 8) * 4;
-  if ((bn != 128 && bn != 256) || p.stages < 2 || smem < smem_needed(bn, p.stages) ||
-      p.stages * stage_bytes(bn) < epilogue || p.Cout != p.n_tiles * bn || grid <= 0 ||
-      (TAPS == kParity && (p.Cout / 2) % bn != 0) ||
+  if ((bn != 64 && bn != 128 && bn != 256) || p.stages < 2 || smem < smem_needed(bn, p.stages) ||
+      p.stages * stage_bytes(bn) < epilogue || p.Cout < 8 || p.Cout % 8 != 0 ||
+      p.par_tiles != (p.Cout + bn - 1) / bn ||
+      p.n_tiles != (TAPS == kParity ? 2 : 1) * p.par_tiles || grid <= 0 || p.cin_steps < 1 ||
       ((TAPS == kCausal || TAPS == kDense) && (F32 || p.k_total != p.k_main)) ||
-      (F32 && (p.k_base < p.k_main || p.k_total != kProducts * p.k_base)))
+      (F32 && (p.k_base < p.k_main || p.k_total != kProducts * p.k_base || p.planes < 1)))
     return kErrPlan;
-  auto kernel = bn == 256 ? conv_kernel<TAPS, 256, F32> : conv_kernel<TAPS, 128, F32>;
+  auto kernel = bn == 256   ? conv_kernel<TAPS, 256, F32>
+                : bn == 128 ? conv_kernel<TAPS, 128, F32>
+                            : conv_kernel<TAPS, 64, F32>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, bn == 256 ? kThreads<256> : kThreads<128>, smem, s>>>(map_a, map_w, map_x, p);
+  const int threads = bn == 256 ? kThreads<256> : kThreads<128>;
+  kernel<<<grid, threads, smem, s>>>(map_a, map_w, map_x, map_wx, p);
   return (int)cudaGetLastError();
+}
+
+// The two maps a wrapper encodes for one weight (wgmma_conv.cuh:
+// weight_maps), side by side in a 256-byte buffer: main, then nin (a copy
+// of main where the weight has no 1x1 term).
+static inline void read_weight_maps(const void* buf, CUtensorMap* main, CUtensorMap* nin) {
+  memcpy(main, buf, sizeof(CUtensorMap));
+  memcpy(nin, static_cast<const char*>(buf) + sizeof(CUtensorMap), sizeof(CUtensorMap));
 }
 
 }  // namespace wg

@@ -15,8 +15,9 @@ F, T1 and T2 and the tail of D and D', a refused tensor map or plan);
 
 :func:`operands` caches the weights of A, B, D, D', E and F (and of B's
 parts, T1 and T2) as their kernels read them, per parameter;
-:func:`weight_map` encodes the tensor map of such a weight for the wgmma
-loop.
+:func:`weight_map` encodes the tensor maps of such a weight for the wgmma
+loop, which reads it as :func:`weight_layout` describes (the true channel
+extents, so TMA zero-fills a partial K step or N tile).
 """
 
 from __future__ import annotations
@@ -58,9 +59,10 @@ _SIGNATURES = {
     # y00, y01, y10, y11, bias, out, N, H, W, C, stream
     "vt_subpixel_interleave": [_P] * 6 + [_I] * 4 + [_P],
     "vt_subpixel_interleave_f32": [_P] * 6 + [_I] * 4 + [_P],
-    # x, out, g, b, w, bias, B, T, H, W, C, replicate, th, tw, run, stages,
-    # smem, grid, stream (D; D' the same)
-    "vt_decoder_tail_rgb": [_P] * 6 + [_I] * 12 + [_P],
+    # x, stats, acc (f32 scratch past 128 channels, else null), out, g, b,
+    # w, bias, B, T, H, W, C, replicate, th, tw, run, stages, smem, grid,
+    # stream (D; D' the same)
+    "vt_decoder_tail_rgb": [_P] * 8 + [_I] * 12 + [_P],
     # x, stats (f32 scratch), out, g, b, w, bias, B, T, H, W, C, replicate,
     # th, tw, run, stages, smem, grid, stream (D in f32; D' the same)
     "vt_decoder_tail_rgb_f32": [_P] * 7 + [_I] * 12 + [_P],
@@ -76,7 +78,7 @@ _SIGNATURES = {
     # z, bias, out, N, H, W, C, stream
     "vt_subpixel_interleave_z": [_P] * 3 + [_I] * 4 + [_P],
     "vt_subpixel_interleave_z_f32": [_P] * 3 + [_I] * 4 + [_P],
-    "vt_decoder_tail_rgb_taps": [_P] * 6 + [_I] * 12 + [_P],
+    "vt_decoder_tail_rgb_taps": [_P] * 8 + [_I] * 12 + [_P],
     # the tools' kernels (vidtok_tpu_torch/tools):
     # x, out, B, T, S, C, tile_t, tile_s, stream
     "vt_copy_units": [_P] * 2 + [_I] * 6 + [_P],
@@ -88,8 +90,9 @@ _SIGNATURES = {
     "vt_microbench_fat": [_P] * 12 + [_I] * 8 + [_P],
     # x, out, n, mode, stream
     "vt_silu_probe": [_P] * 2 + [ctypes.c_longlong, _I, _P],
-    # w [Cout, K], K, Cout, bn, map (128 bytes, written); no stream
-    "vt_weight_map": [_P, _I, _I, _I, _P],
+    # w, cin, taps, cs, pieces, cout, parities, bn, maps (2 x 128 bytes,
+    # written); no stream
+    "vt_weight_map": [_P] + [_I] * 7 + [_P],
 }
 TENSOR_MAP_BYTES = 128  # sizeof(CUtensorMap)
 
@@ -178,23 +181,37 @@ def call(name: str, *args) -> None:
     _raise_on(name, getattr(lib, name)(*args, stream))
 
 
-def weight_map(w, bn: int):
-    """The tensor map (a 128-byte ctypes buffer) of the K-major bf16 weight
-    ``w`` ``[Cout, K]`` (the f32 scheme's: its pieces, ``[Cout, 3K]``) for
-    the wgmma loop's loads of ``bn`` rows; raises
-    when the CUDA driver refuses it."""
-    buf = ctypes.create_string_buffer(TENSOR_MAP_BYTES)
+def weight_layout(cin: int, taps: int, cs: int = 0, pieces: int = 1, cout: int = None,
+                  parities: int = 1) -> tuple:
+    """How the wgmma loop reads a K-major weight ``[parities * cout, pieces
+    * K]``, K = taps * cin + cs: ``taps`` taps of ``cin`` channels, then a
+    1x1 term's ``cs`` channels, ``pieces`` bf16 pieces side by side
+    (``split.py``), ``parities`` row blocks of ``cout`` (kernel E's output
+    frames). (cin, taps, cs, pieces, cout, parities)."""
+    return (cin, taps, cs, pieces, cin if cout is None else cout, parities)
+
+
+def weight_map(w, layout: tuple, bn: int):
+    """The tensor maps (a 256-byte ctypes buffer: the taps' map, then the
+    1x1 term's) of the K-major bf16 weight ``w`` read as ``layout``
+    (:func:`weight_layout`) for the wgmma loop's loads of ``bn`` rows
+    (``csrc/wgmma_conv.cuh``: weight_maps); raises when the CUDA driver
+    refuses them."""
+    cin, taps, cs, pieces, cout, parities = layout
+    if tuple(w.shape) != (parities * cout, pieces * (taps * cin + cs)):
+        raise ValueError(f"weight {tuple(w.shape)} is not the layout {layout}")
+    buf = ctypes.create_string_buffer(2 * TENSOR_MAP_BYTES)
     _raise_on("vt_weight_map", library().lib.vt_weight_map(
-        w.data_ptr(), w.shape[1], w.shape[0], bn, ctypes.addressof(buf)))
+        w.data_ptr(), *layout, bn, ctypes.addressof(buf)))
     return buf
 
 
 def weight_maps(op: dict, bn: int, *names) -> tuple:
-    """The tensor maps of the K-major weights ``op[name]`` for loads of
-    ``bn`` rows, encoded at the first call for ``bn`` and kept in
-    ``op["maps"]`` beside them."""
+    """The tensor maps of the K-major weights ``op[name]`` read as
+    ``op["layouts"][name]``, for loads of ``bn`` rows, encoded at the first
+    call for ``bn`` and kept in ``op["maps"]`` beside them."""
     if bn not in op["maps"]:
-        op["maps"][bn] = tuple(weight_map(op[n], bn) for n in names)
+        op["maps"][bn] = tuple(weight_map(op[n], op["layouts"][n], bn) for n in names)
     return op["maps"][bn]
 
 

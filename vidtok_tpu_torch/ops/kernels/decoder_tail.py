@@ -14,6 +14,10 @@ Both are one CUDA kernel template (``csrc/decoder_tail.cu``), launched with
 reads and activates each input frame's halo box once and runs its products
 on the tensor cores with the 27 (time tap, dx, out channel) columns packed
 onto N, the weights relaid out once per parameter (:func:`tail_operands`).
+C is any multiple of 8 up to 1024 (``plan.check_channels``): past
+``plan.TAIL_GROUP`` channels a row pass writes each position's LN
+statistics and the tail runs one launch per group of channels
+(``plan.tail_groups``), summing into an f32 scratch.
 
 D and D' take f32 too: their f32 forms (``vt_decoder_tail_rgb_f32``,
 ``vt_decoder_tail_rgb_taps_f32``, one template) write each position's LN
@@ -118,7 +122,11 @@ def _launch(entry: str, kernel: str, x, norm, conv, first_pad_mode: str):
     for v in op.values():
         _lib.same_device(v, x)
     out = x.new_empty((b, t, h, w, COUT))
-    _lib.call(entry, x, out, op["g"], op["b"], op["w"], op["bias"], b, t, h, w, c,
+    stats = acc = None
+    if pl.groups > 1:  # each position's (mean, rstd); the groups' partial sums
+        stats = x.new_empty((b, t, h, w, 2), dtype=torch.float32)
+        acc = x.new_empty((b, t, h, w, COUT), dtype=torch.float32)
+    _lib.call(entry, x, stats, acc, out, op["g"], op["b"], op["w"], op["bias"], b, t, h, w, c,
               int(first_pad_mode == "replicate"), pl.th, pl.tw, pl.run, pl.stages,
               pl.smem, pl.grid)
     return out
@@ -128,8 +136,8 @@ def decoder_tail_rgb(x, norm, conv, first_pad_mode: str):
     """x: ``[B, T, H, W, C]`` -> ``[B, T, H, W, 3]``.
 
     A CPU tensor runs :func:`decoder_tail_rgb_plain`; a CUDA tensor
-    (contiguous bf16 or f32, C that ``plan.tail_plan`` takes: 64 or 128)
-    runs the kernel (f32: its f32 form) or raises.
+    (contiguous bf16 or f32, C that ``plan.tail_plan`` takes: C % 8 == 0, 8
+    to 1024) runs the kernel (f32: its f32 form) or raises.
     """
     decoder_tail_rgb.calls += 1
     if first_pad_mode not in ("zero", "replicate"):
@@ -152,8 +160,8 @@ def decoder_tail_rgb_taps(x, norm, conv, first_pad_mode: str):
     """Kernel D': x ``[B, T, H, W, C]`` -> ``[B, T, H, W, 3]``.
 
     A CPU tensor runs :func:`decoder_tail_rgb_taps_plain`; a CUDA tensor
-    (contiguous bf16 or f32, C that ``plan.tail_plan`` takes: 64 or 128)
-    runs the kernel (f32: its f32 form) or raises.
+    (contiguous bf16 or f32, C that ``plan.tail_plan`` takes: C % 8 == 0, 8
+    to 1024) runs the kernel (f32: its f32 form) or raises.
     """
     decoder_tail_rgb_taps.calls += 1
     if first_pad_mode not in ("zero", "replicate"):

@@ -11,7 +11,8 @@ of ``csrc/wgmma_conv.cuh``, launched with ``plan.conv_plan_spatial``'s
 plan. The SAME padding of both convs is zero AFTER LayerNorm+SiLU
 (``ln_silu(0) = silu(bias) != 0``). It takes bf16 or f32 activations; f32
 runs the loop's f32 scheme (``split.py``) on the weights' pieces
-(:func:`spatial_operands` with ``split``).
+(:func:`spatial_operands` with ``split``). Cin and C are any multiples of
+8 up to 1024 (``plan.check_channels``).
 """
 
 from __future__ import annotations
@@ -53,9 +54,11 @@ def spatial_operands(w1, g1, b1, bias1, g2, b2, w2, bias2, w_nin=None, b_nin=Non
     bias, norm2, conv2, the nin_shortcut or None): the convs as K-major bf16
     GEMM operands ``[C, K]``, K = (dy, dx, ci), the 1x1 shortcut's Cin
     columns after conv2's (its bias folded into conv2's), and the f32
-    vectors; ``maps`` holds the weights' tensor maps by BN. ``split``: the
-    f32 scheme's operands, each K-major f32 matrix as its bf16 pieces
-    ``[C, 3K]``."""
+    vectors; ``layouts`` how the loop reads each weight
+    (``_lib.weight_layout``), ``maps`` the weights' tensor maps by BN.
+    ``split``: the f32 scheme's operands, each K-major f32 matrix as its
+    bf16 pieces ``[C, 3K]``."""
+    c, cin = w1.shape[:2]
     k1 = w1.float().permute(0, 2, 3, 1).reshape(w1.shape[0], -1)
     k2 = w2.float().permute(0, 2, 3, 1).reshape(w2.shape[0], -1)
     bias2 = bias2.float()
@@ -63,9 +66,13 @@ def spatial_operands(w1, g1, b1, bias1, g2, b2, w2, bias2, w_nin=None, b_nin=Non
         k2 = torch.cat([k2, w_nin.float()[:, :, 0, 0]], dim=1)
         bias2 = bias2 + b_nin.float()
     pack = kmajor_pieces if split else (lambda k: k.to(torch.bfloat16).contiguous())
+    pieces = PIECES if split else 1
+    cs = cin if w_nin is not None else 0
     return {"w1": pack(k1), "w2": pack(k2),
             "g1": _lib.f32(g1), "b1": _lib.f32(b1), "bias1": _lib.f32(bias1),
             "g2": _lib.f32(g2), "b2": _lib.f32(b2), "bias2": _lib.f32(bias2),
+            "layouts": {"w1": _lib.weight_layout(cin, 9, 0, pieces, c),
+                        "w2": _lib.weight_layout(c, 9, cs, pieces, c)},
             "maps": {}}
 
 
@@ -74,9 +81,8 @@ def fused_spatial_resblock(x, norm1, conv1, norm2, conv2, nin=None):
 
     A CPU tensor runs :func:`fused_spatial_resblock_plain`. Otherwise x
     must be a contiguous bf16 or f32 CUDA tensor whose channels the plan
-    takes (``plan.conv_plan_spatial``: Cin % 64 == 0, C % 128 == 0; Cin and
-    C in ``plan.ROW_CHANNELS``); it runs the kernel (f32: its f32 scheme)
-    or raises.
+    takes (``plan.conv_plan_spatial``: Cin and C % 8 == 0, 8 to 1024); it
+    runs the kernel (f32: its f32 scheme) or raises.
     """
     fused_spatial_resblock.calls += 1
     if x.device.type == "cpu":
@@ -85,8 +91,6 @@ def fused_spatial_resblock(x, norm1, conv1, norm2, conv2, nin=None):
     c = conv1[0].shape[0]
     f32 = _lib.kernel_dtype(x, "A") == torch.float32
     pl = plan.conv_plan_spatial(n, h, w, cin, c, cin if nin is not None else 0, f32)
-    plan.check_row_channels(cin)
-    plan.check_row_channels(c)
     _lib.require(x, x.dtype, (n, h, w, cin))
     if (tuple(conv1[0].shape) != (c, cin, 3, 3)
             or tuple(conv2[0].shape) != (c, c, 3, 3)):
@@ -105,9 +109,10 @@ def fused_spatial_resblock(x, norm1, conv1, norm2, conv2, nin=None):
     tail = (n, h, w, cin, c, int(nin is not None), pl.th, pl.tw, pl.bn, pl.stages, pl.smem,
             pl.grid)
     if f32:
-        # the activations' bf16 pieces, and raw x's for the 1x1 shortcut
-        act = x.new_empty((n * h * w, PIECES * max(cin, c)), dtype=torch.bfloat16)
-        xs = (x.new_empty((n * h * w, PIECES * cin), dtype=torch.bfloat16)
+        # the activations' bf16 pieces, and raw x's for the 1x1 shortcut,
+        # a plane a piece
+        act = x.new_empty((PIECES, n * h * w, max(cin, c)), dtype=torch.bfloat16)
+        xs = (x.new_empty((PIECES, n * h * w, cin), dtype=torch.bfloat16)
               if nin is not None else None)
         _lib.call("vt_fused_spatial_resblock_f32", x, out, h1, act, xs, op["g1"], op["b1"],
                   map1, op["bias1"], op["g2"], op["b2"], map2, op["bias2"], *tail)

@@ -25,8 +25,9 @@ once per parameter, not at every call.
 
 Both take bf16 or f32 activations (f32: the caches too); f32 runs the
 loop's f32 scheme (``split.py``): the scratch holds the activations' bf16
-pieces, 3C wide, and the weights are split once per parameter
-(:func:`temporal_operands` with ``split``).
+pieces, a plane each, and the weights are split once per parameter
+(:func:`temporal_operands` with ``split``). C is any multiple of 8 up to
+1024 (``plan.check_channels``).
 """
 
 from __future__ import annotations
@@ -64,15 +65,17 @@ def kmajor_weight(weight, dtype=torch.bfloat16):
 def temporal_operands(w1, g1, b1, bias1, g2, b2, w2, bias2, split: bool = False) -> dict:
     """Kernels B's and F's parameters as they read them (conv1's weight,
     norm1, conv1's bias, norm2, conv2): the K-major bf16 ``kmajor_weight``
-    of each conv and the f32 vectors; ``maps`` holds the weights' tensor
-    maps by BN. ``split``: the f32 scheme's operands, each conv's K-major
-    f32 weight as its bf16 pieces ``[C, 3 * 3C]``."""
+    of each conv and the f32 vectors; ``layouts`` how the loop reads each
+    weight (``_lib.weight_layout``), ``maps`` the weights' tensor maps by
+    BN. ``split``: the f32 scheme's operands, each conv's K-major f32
+    weight as its bf16 pieces ``[C, 3 * 3C]``."""
     pack = ((lambda w: kmajor_pieces(kmajor_weight(w, torch.float32))) if split
             else kmajor_weight)
+    layout = _lib.weight_layout(w1.shape[0], 3, 0, PIECES if split else 1)
     return {"w1": pack(w1), "w2": pack(w2),
             **{k: _lib.f32(v) for k, v in (("g1", g1), ("b1", b1), ("bias1", bias1),
                                            ("g2", g2), ("b2", b2), ("bias2", bias2))},
-            "maps": {}}
+            "layouts": {"w1": layout, "w2": layout}, "maps": {}}
 
 
 def block_operands(norm1, conv1, norm2, conv2, f32: bool = False) -> dict:
@@ -91,14 +94,13 @@ def _block_operands(name, norm1, conv1, norm2, conv2, x) -> tuple:
     b, t, h, w, c = x.shape
     f32 = _lib.kernel_dtype(x, name) == torch.float32
     pl = plan.conv_plan_temporal(b, t, h * w, c, f32)
-    plan.check_row_channels(c)
     _lib.require(x, x.dtype, (b, t, h, w, c))
     for cw in (conv1[0], conv2[0]):
         if tuple(cw.shape) != (c, c, 3):
             raise ValueError(f"kernel {name} takes two causal k=3 convs C->C")
     op = block_operands(norm1, conv1, norm2, conv2, f32)
     for k, v in op.items():
-        if k != "maps":
+        if k not in ("maps", "layouts"):
             _lib.same_device(v, x)
     return op, pl, _lib.weight_maps(op, pl.bn, "w1", "w2")
 
@@ -122,8 +124,8 @@ def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
 
     A CPU tensor runs :func:`fused_temporal_resblock_plain`. Otherwise x
     must be a contiguous bf16 or f32 CUDA tensor whose channels the plan takes
-    (``plan.conv_plan_temporal``: C % 128 == 0, C in
-    ``plan.ROW_CHANNELS``); it runs the kernel or raises.
+    (``plan.conv_plan_temporal``: C % 8 == 0, 8 to 1024); it runs the
+    kernel or raises.
     """
     fused_temporal_resblock.calls += 1
     if first_pad_mode not in ("zero", "replicate"):
@@ -150,9 +152,10 @@ fused_temporal_resblock.launches = 0
 
 def _scratch(x, b, t, h, w, c):
     """[front | activated clip] of B and F: bf16 ``[b, t + 2, h, w, c]``,
-    or for f32 x the activations' bf16 pieces, ``[b, t + 2, h, w, 3c]``."""
+    or for f32 x the activations' bf16 pieces, a plane each,
+    ``[3, b, t + 2, h, w, c]``."""
     if x.dtype == torch.float32:
-        return x.new_empty((b, t + 2, h, w, PIECES * c), dtype=torch.bfloat16)
+        return x.new_empty((PIECES, b, t + 2, h, w, c), dtype=torch.bfloat16)
     return x.new_empty((b, t + 2, h, w, c))
 
 
@@ -188,9 +191,9 @@ def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
 
     A CPU tensor runs :func:`fused_temporal_resblock_stream_plain`.
     Otherwise x must be a contiguous bf16 or f32 CUDA tensor whose channels
-    the plan takes (``plan.conv_plan_temporal``: C % 128 == 0, C in
-    ``plan.ROW_CHANNELS``), and the caches after the first chunk of x's
-    dtype; it runs the kernel or raises.
+    the plan takes (``plan.conv_plan_temporal``: C % 8 == 0, 8 to 1024),
+    and the caches after the first chunk of x's dtype; it runs the kernel
+    or raises.
     """
     fused_temporal_resblock_stream.calls += 1
     b, t, h, w, c = x.shape

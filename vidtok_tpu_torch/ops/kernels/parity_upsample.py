@@ -22,7 +22,8 @@ activation dtype before adding them. f32 s runs the loop's f32 scheme
 split once per parameter (:func:`parity_operands_f32`), the blend is in f32.
 JAX's kernel declines f32 at 256+ channels (a TPU VMEM limit,
 ``parity_upsample_fused.py:134``); this one takes f32 wherever it takes
-bf16.
+bf16. C is any multiple of 8 up to 1024 (``plan.check_channels``; JAX's
+kernel takes C % 128 == 0 and leaves the rest to XLA).
 """
 
 from __future__ import annotations
@@ -71,17 +72,22 @@ def parity_operands(weight, bias) -> dict:
     """Kernel E's parameters as it reads them: the K-major bf16 weight
     ``[(parity, co), (frame, dy, dx, ci)]`` ``[2C, 18C]``, frame 0 being
     s[a-1], the transpose of ``[[K0+K1, K0], [K2, K1+K2]]`` summed in f32
-    and rounded once; the bias once per parity, f32; ``maps`` holds the
-    weight's tensor maps by BN."""
+    and rounded once; the bias once per parity, f32; ``layouts`` how the
+    loop reads the weight (its two parities' C rows as a dimension of
+    their own), ``maps`` the weight's tensor maps by BN."""
+    c = weight.shape[0]
     return {"w": _summed(weight).to(torch.bfloat16).contiguous(),
-            "bias": _lib.f32(torch.cat([bias, bias])), "maps": {}}
+            "bias": _lib.f32(torch.cat([bias, bias])),
+            "layouts": {"w": _lib.weight_layout(c, 18, 0, 1, c, 2)}, "maps": {}}
 
 
 def parity_operands_f32(weight, bias) -> dict:
     """E's f32 operands: the summed f32 weight split into its bf16 pieces,
     ``[2C, 3 * 18C]``; the bias as in :func:`parity_operands`."""
+    c = weight.shape[0]
     return {"w": kmajor_pieces(_summed(weight)),
-            "bias": _lib.f32(torch.cat([bias, bias])), "maps": {}}
+            "bias": _lib.f32(torch.cat([bias, bias])),
+            "layouts": {"w": _lib.weight_layout(c, 18, 0, PIECES, c, 2)}, "maps": {}}
 
 
 def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
@@ -89,8 +95,8 @@ def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
 
     A CPU tensor runs :func:`parity_up2x_fused_plain`. Otherwise s must be
     a contiguous bf16 or f32 CUDA tensor whose channels the plan takes
-    (``plan.conv_plan_parity``: C % 128 == 0); it runs the kernel or
-    raises. ``alpha`` is read at every call (the module computes it from
+    (``plan.conv_plan_parity``: C % 8 == 0, 8 to 1024); it runs the kernel
+    or raises. ``alpha`` is read at every call (the module computes it from
     its mix factor at every forward); the weight and bias are relaid out
     once per parameter.
     """
@@ -116,7 +122,7 @@ def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
     sizes = (b, t, h, w, c, int(first_pad_mode == "replicate"), pl.th, pl.tw, pl.bn,
              pl.stages, pl.smem, pl.grid)
     if f32:
-        sp = s.new_empty((b, t, h, w, PIECES * c), dtype=torch.bfloat16)  # s's pieces
+        sp = s.new_empty((PIECES, b, t, h, w, c), dtype=torch.bfloat16)  # s's pieces
         _lib.call("vt_parity_up2x_f32", s, sp, out, wmap, op["bias"], alpha, *sizes)
     else:
         _lib.call("vt_parity_up2x", s, out, wmap, op["bias"], alpha, *sizes)

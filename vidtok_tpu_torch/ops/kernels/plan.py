@@ -14,9 +14,21 @@ mirror how a block finds its work from ``blockIdx.x``.
 f32 (``split=True``): A, B, E and F under the loop's f32 scheme
 (``split.py``) run the bf16 plan's tiles, BN, stages and shared memory (a
 ring stage holds the same bytes; the K steps are len(PRODUCTS) x); the
-plan's ``a_channels`` are the A operand's tensor map's (the bf16 pieces,
-3x). D and D' in f32 run :func:`tail_plan_f32`: :func:`tail_plan`'s blocks
-with the f32 tail's stages and shared memory.
+plan's ``a_channels`` are the channels the A operand holds a position (the
+bf16 pieces, 3x, each piece a plane of its own). D and D' in f32 run
+:func:`tail_plan_f32`: :func:`tail_plan`'s blocks with the f32 tail's
+stages and shared memory.
+
+The channel domain (:func:`check_channels`): every kernel takes C % 8 == 0,
+8 <= C <= 1024, Cin and Cout alike. TMA needs each global stride to be a
+multiple of 16 bytes, which a bf16 row of C channels gives only when
+C % 8 == 0. A width that is not a multiple of the tiles runs partial tiles,
+never padded operands: the K steps of a tap cover Cin in 64-channel boxes
+whose last one TMA zero-fills past Cin, in the activation's map and in the
+weight's alike (both maps have the true channels as their extent, so no
+product reads memory that holds anything but zeros there); the N tiles
+cover Cout (E: C per parity) in tiles of BN from {64, 128, 256}, the last
+one's columns past Cout zero-filled in the weight's map and not stored.
 """
 
 from __future__ import annotations
@@ -25,24 +37,22 @@ import dataclasses
 import functools
 from dataclasses import dataclass
 
+import numpy as np
+
 from .split import PIECES
 
 BM, BK = 128, 64                   # rows of an M tile; channels of a K step
 PATCHES = ((8, 16), (4, 32))      # th x tw = BM
-# the ring's stages: BN 256 one block per SM (192 KB of ring), BN 128 two
-# (96 KB each: one block's epilogue overlaps the other's products)
-STAGES = {128: 3, 256: 4}
-BLOCKS_PER_SM = {128: 2, 256: 1}   # as wgmma_conv.cuh's kBlocksPerSM
+# the ring's stages: BN 256 one block per SM (192 KB of ring), BN 128 and
+# 64 two (96 KB each: one block's epilogue overlaps the other's products)
+STAGES = {64: 4, 128: 3, 256: 4}
+BLOCKS_PER_SM = {64: 2, 128: 2, 256: 1}   # as wgmma_conv.cuh's kBlocksPerSM
+# the channel domain of every kernel (check_channels)
+C_ALIGN, C_MAX = 8, 1024
 SMEM_LIMIT = 232_448               # bytes of shared memory a block can use
 SMEM_PER_SM = 233_472              # of an SM, 1 KB of it reserved per block
 SMS = 132                          # streaming multiprocessors of an H100
 GRID_LIMIT = 2 ** 31 - 1
-# The row passes' layout (common.cuh: VT_ROW_LAYOUTS; act_rows_kernel and
-# the microbenchmark's exact passes): C -> (LPR lanes a row, VPL 16-byte
-# vectors of 8 channels a lane, RPT rows a thread). LPR = min(C / 8, 32).
-ROW_LAYOUT = {64: (8, 1, 4), 128: (16, 1, 4), 256: (32, 1, 4), 512: (32, 2, 2),
-              768: (32, 3, 1), 1024: (32, 4, 1)}
-ROW_CHANNELS = tuple(ROW_LAYOUT)  # the channel counts the row passes take
 ROW_WARPS = 8                     # warps of a row pass's 256-thread block
 # TMA's row coordinate is a signed 32-bit int: the rows of one clip
 # (temporal) or of a dense operand, plus a tile, must stay below 2^31.
@@ -59,9 +69,11 @@ class ConvPlan:
     spatial or parity M tile (temporal: 1 x BM rows of a clip); ``tiles_x``
     / ``tiles_y`` the patches across / down a frame (temporal: ``tiles_x``
     M tiles per clip, ``tiles_y`` 1); ``m_tiles`` all M tiles; ``n_tiles``
-    = Cout / ``bn``; ``grid`` the blocks, one per (M tile, N tile);
-    ``a_channels`` the channels of the A operand's tensor map (f32: the
-    activation's ``PIECES`` pieces side by side)."""
+    the N tiles, ``parities`` x ceil(``cout`` / ``bn``); ``grid`` the
+    blocks, one per (M tile, N tile); ``a_channels`` the channels the A
+    operand holds a position (f32: the activation's ``PIECES`` pieces);
+    ``cout`` the output channels (E: of one parity, C); ``parities`` 2 for
+    E's two output frames, else 1."""
     taps: str
     th: int
     tw: int
@@ -74,6 +86,8 @@ class ConvPlan:
     smem: int
     grid: int
     a_channels: int = 0
+    cout: int = 0
+    parities: int = 1
 
 
 def stage_bytes(bn: int) -> int:
@@ -90,25 +104,53 @@ def epilogue_bytes(bn: int) -> int:
     return BM * (bn + 8) * 4
 
 
+def check_channels(c: int, what: str = "C") -> None:
+    """Raise unless ``c`` channels are in every kernel's domain: C % 8 == 0
+    (TMA's 16-byte strides), 8 <= C <= 1024 (the row passes' registers)."""
+    if c % C_ALIGN or c < C_ALIGN:
+        raise ValueError(
+            f"the kernels take {what} % {C_ALIGN} == 0, got {what}={c}: TMA needs a "
+            f"global stride that is a multiple of 16 bytes, and a bf16 row of C "
+            f"channels gives one only when C % {C_ALIGN} == 0")
+    if c > C_MAX:
+        raise ValueError(f"the kernels take {what} <= {C_MAX}, got {what}={c}: a row "
+                         f"pass holds at most {C_MAX // 256} vectors of 8 channels a lane")
+
+
 def _check_channels(cin: int, cout: int, cs: int = 0) -> None:
-    if cin % BK or cs % BK:
-        raise ValueError(f"the wgmma loop takes Cin % {BK} == 0, got Cin={cin}"
-                         + (f", Cs={cs}" if cs else ""))
-    if cout % 128:
-        raise ValueError(f"the wgmma loop takes Cout % 128 == 0, got Cout={cout}")
+    check_channels(cin, "Cin")
+    check_channels(cout, "Cout")
+    if cs:
+        check_channels(cs, "Cs")
 
 
-def _plan(taps, th, tw, tiles_x, tiles_y, m_tiles, cout, unit=None, cin=0,
+def k_steps(c: int) -> int:
+    """K steps of a tap of ``c`` channels: 64-channel boxes, the last one
+    zero-filled past ``c``."""
+    return -(-c // BK)
+
+
+def pick_bn(unit: int, m_tiles: int, parities: int = 1) -> int:
+    """BN for N tiles that cover ``unit`` output channels (E: one parity's
+    C). 256 reads each A tile once for two N tiles' worth of products, but
+    halves the blocks: it is taken only where it divides ``unit`` and the
+    grid still fills the card. Otherwise the tile of {128, 64} that wastes
+    the fewest columns in the last N tile, 128 on a tie: 64 is there for
+    widths like Cout = 64, where 128 would multiply half zeros, and 192,
+    where 128 wastes a quarter (wgmma has n64 as it has n128)."""
+    if unit % 256 == 0 and m_tiles * parities * (unit // 256) >= SMS:
+        return 256
+    return min((128, 64), key=lambda bn: -(-unit // bn) * bn)
+
+
+def _plan(taps, th, tw, tiles_x, tiles_y, m_tiles, cout, parities=1, cin=0,
           split=False) -> ConvPlan:
-    # BN 256 reads each A tile once for two N tiles' worth of products, but
-    # halves the blocks: take it only when the grid still fills the card.
-    # BN divides ``unit`` (parity: C, so an N tile is one parity's columns).
-    unit = cout if unit is None else unit
-    bn = 256 if unit % 256 == 0 and m_tiles * (cout // 256) >= SMS else 128
+    bn = pick_bn(cout, m_tiles, parities)
     stages = STAGES[bn]
-    plan = ConvPlan(taps, th, tw, tiles_x, tiles_y, m_tiles, bn, cout // bn,
-                    stages, smem_bytes(bn, stages), m_tiles * (cout // bn),
-                    (PIECES if split else 1) * cin)
+    n_tiles = parities * -(-cout // bn)
+    plan = ConvPlan(taps, th, tw, tiles_x, tiles_y, m_tiles, bn, n_tiles,
+                    stages, smem_bytes(bn, stages), m_tiles * n_tiles,
+                    (PIECES if split else 1) * cin, cout, parities)
     if (plan.smem > SMEM_LIMIT or stages * stage_bytes(bn) < epilogue_bytes(bn)
             or BLOCKS_PER_SM[bn] * (plan.smem + 1024) > SMEM_PER_SM):
         raise AssertionError(f"plan {plan} does not fit shared memory")
@@ -146,7 +188,7 @@ def conv_plan_spatial(n: int, h: int, w: int, cin: int, cout: int,
     th, tw, tiles_x, tiles_y = _patch(n, h, w)
     plan = _plan("spatial", th, tw, tiles_x, tiles_y, n * tiles_x * tiles_y, cout,
                  cin=cin, split=split)
-    _check_map((plan.a_channels, w, h, n))
+    _check_map((max(cin, cout), w, h, (PIECES if split else 1) * n))
     return plan
 
 
@@ -154,14 +196,14 @@ def conv_plan_spatial(n: int, h: int, w: int, cin: int, cout: int,
 def conv_plan_parity(b: int, t: int, h: int, w: int, c: int,
                      split: bool = False) -> ConvPlan:
     """Kernel E over ``[b, t, h, w, c]``: 18 taps of C channels (two frames
-    x 3x3) to N = 2C columns, the even then the odd output frame, in
-    ``_patch``'s patches of one frame; BN divides C, so C % 128 == 0."""
-    if c % 128:
-        raise ValueError(f"kernel E takes C % 128 == 0, got C={c}")
+    x 3x3) to 2C output columns, the even then the odd output frame, in
+    ``_patch``'s patches of one frame; each parity's C columns in N tiles
+    of their own, so an N tile is one parity's."""
+    check_channels(c)
     th, tw, tiles_x, tiles_y = _patch(b * t, h, w)
-    plan = _plan("parity", th, tw, tiles_x, tiles_y, b * t * tiles_x * tiles_y, 2 * c, c,
+    plan = _plan("parity", th, tw, tiles_x, tiles_y, b * t * tiles_x * tiles_y, c, 2,
                  cin=c, split=split)
-    _check_map((plan.a_channels, w, h, t, b))
+    _check_map((c, w, h, t, (PIECES if split else 1) * b))
     return plan
 
 
@@ -177,7 +219,7 @@ def conv_plan_temporal(b: int, t: int, s: int, c: int, split: bool = False) -> C
         raise ValueError(f"a clip of {(t + 2) * s} rows passes TMA's row coordinate")
     per_clip = -(-t * s // BM)
     plan = _plan("temporal", 1, BM, per_clip, 1, b * per_clip, c, cin=c, split=split)
-    _check_map((plan.a_channels, (t + 2) * s, b))
+    _check_map((c, (t + 2) * s, (PIECES if split else 1) * b))
     return plan
 
 
@@ -185,8 +227,12 @@ def conv_plan_temporal(b: int, t: int, s: int, c: int, split: bool = False) -> C
 def conv_plan_dense(m: int, k: int, cout: int) -> ConvPlan:
     """A dense product ``[m, k] x [k, cout]`` (T1's fat product: k = 3C),
     in M tiles of BM consecutive rows: the temporal walk over one clip of
-    ``m`` rows."""
-    _check_channels(k, cout)
+    ``m`` rows; one tap of ``k`` channels, its last K step zero-filled past
+    ``k``."""
+    check_channels(cout, "Cout")
+    if k % C_ALIGN or k < C_ALIGN:
+        raise ValueError(f"the wgmma loop takes K % {C_ALIGN} == 0, got K={k}: TMA "
+                         f"needs a global stride that is a multiple of 16 bytes")
     if m < 1:
         raise ValueError(f"empty product: {m} rows")
     if m > ROW_COORD_LIMIT:
@@ -199,8 +245,11 @@ def tile_origin(plan: ConvPlan, block: int) -> tuple:
     """(M tile origin, first output column) of block ``block``, as the
     kernel decodes ``blockIdx.x``: spatial and parity ``(frame, y0, x0)``
     (parity: frame ``b * t + a`` of the input), temporal and dense
-    ``(clip, r0)`` (dense: clip 0)."""
-    n0 = (block % plan.n_tiles) * plan.bn
+    ``(clip, r0)`` (dense: clip 0). E's columns count both parities,
+    parity p's C columns from p * C on."""
+    nt = block % plan.n_tiles
+    per = plan.n_tiles // plan.parities
+    n0 = (nt // per) * plan.cout + (nt % per) * plan.bn
     mt = block // plan.n_tiles
     if plan.taps in ("spatial", "parity"):
         q, tx = divmod(mt, plan.tiles_x)
@@ -210,9 +259,50 @@ def tile_origin(plan: ConvPlan, block: int) -> tuple:
     return (clip, t * BM), n0
 
 
+def tile_columns(plan: ConvPlan, block: int) -> tuple:
+    """[first, end) of the output columns block ``block`` stores (E's
+    counted as in :func:`tile_origin`): its N tile's, less those past the
+    parity's ``cout``, which the epilogue does not store."""
+    _, n0 = tile_origin(plan, block)
+    par = n0 // plan.cout
+    return n0, par * plan.cout + np.minimum(n0 - par * plan.cout + plan.bn, plan.cout)
+
+
+def k_step_reads(plan_taps: int, cin: int, cs: int = 0) -> list:
+    """What each K step of one product loads, as the producer decodes it:
+    ``(tap, c0, c1)``, channels [c0, c1) of tap ``tap`` (the 1x1 term's
+    ``tap == plan_taps``), each a 64-channel box whose channels from c1 on
+    are TMA's zero fill."""
+    steps = k_steps(cin)
+    reads = []
+    for kb in range(plan_taps * steps + (k_steps(cs) if cs else 0)):
+        if kb < plan_taps * steps:
+            tap, c0 = divmod(kb, steps)
+            c0 *= BK
+            reads.append((tap, c0, min(c0 + BK, cin)))
+        else:
+            c0 = (kb - plan_taps * steps) * BK
+            reads.append((plan_taps, c0, min(c0 + BK, cs)))
+    return reads
+
+
+def row_layout(c: int) -> tuple:
+    """The row passes' layout of C channels (common.cuh: VT_ROW_LAYOUTS;
+    act_rows_kernel and the microbenchmark's exact passes): (LPR lanes a
+    row, VPL 16-byte vectors of 8 channels a lane, RPT rows a thread). LPR
+    is the power of two from 8 to 32 that holds C / 8 vectors, so the xor
+    shuffles reduce within a row; lane l's vector i holds channels
+    8 l + 8 LPR i .. + 7, and a vector from channel C on is masked: loaded
+    as zeros, left out of the statistics, never stored."""
+    check_channels(c)
+    lpr = min(32, max(8, 1 << (c // 8 - 1).bit_length()))
+    vpl = -(-c // (8 * lpr))
+    return lpr, vpl, {1: 4, 2: 2}.get(vpl, 1)
+
+
 def check_row_channels(c: int) -> None:
-    if c not in ROW_CHANNELS:
-        raise ValueError(f"the LN+SiLU row pass takes C in {ROW_CHANNELS}, got C={c}")
+    """Raise unless the LN+SiLU row passes take ``c`` channels."""
+    row_layout(c)
 
 
 # The decoder tail (kernels D and D'). A block walks the frames of one
@@ -222,12 +312,15 @@ def check_row_channels(c: int) -> None:
 # loaded once per 64 channels, activated once, and multiplied once per dy
 # by [C, TAIL_BN] weights: 27 (time tap, dx, out channel) columns padded to
 # TAIL_BN. A run that starts at frame t0 > 0 first takes TAIL_WARMUP
-# frames before it.
+# frames before it. C past TAIL_GROUP channels runs in groups of up to
+# TAIL_GROUP channels, one launch each, behind a pass that writes each
+# position's LN statistics: every launch adds its channels' partial sums
+# to an f32 accumulator, the last one adds the bias and writes the output.
 TAIL_TH, TAIL_TW = 8, 14
 TAIL_HALO = (TAIL_TH + 2) * (TAIL_TW + 2)      # positions of a halo box
 TAIL_M = TAIL_TH * (TAIL_TW + 2)               # GEMM rows: two m64 tiles
 TAIL_COLS, TAIL_BN = 27, 32
-TAIL_CHANNELS = (64, 128)                     # C / 64 boxes of 128 B a position
+TAIL_GROUP = 128                              # channels a tail launch takes
 TAIL_WARMUP = 2
 TAIL_MAX_STAGES = 4
 TAIL_BLOCKS_PER_SM = 1
@@ -238,7 +331,9 @@ class TailPlan:
     """One launch of the decoder tail: ``tiles_x`` x ``tiles_y`` patches of
     ``th`` x ``tw`` per frame, each clip's frames cut into ``runs`` runs of
     ``run`` frames (the last may be shorter); ``grid`` blocks, one per
-    (patch, clip, run); ``stages`` halo boxes in flight; ``smem`` bytes."""
+    (patch, clip, run); ``stages`` halo boxes in flight; ``smem`` bytes;
+    ``groups`` launches of up to TAIL_GROUP channels each (one for C <=
+    TAIL_GROUP)."""
     th: int
     tw: int
     tiles_x: int
@@ -248,19 +343,31 @@ class TailPlan:
     stages: int
     smem: int
     grid: int
+    groups: int = 1
+
+
+def tail_group(c: int) -> int:
+    """The channels of a tail launch over C channels (the widest group)."""
+    return min(c, TAIL_GROUP)
+
+
+def tail_groups(c: int) -> list:
+    """[c0, c1) of each tail launch's channels, in launch order."""
+    return [(c0, min(c0 + TAIL_GROUP, c)) for c0 in range(0, c, TAIL_GROUP)]
 
 
 def tail_stage_bytes(c: int) -> int:
-    """One frame's halo box: C / 64 channel slices of TAIL_HALO rows of 128 B."""
-    return (c // 64) * TAIL_HALO * 128
+    """One frame's halo box of a group: ceil(group / 64) channel slices of
+    TAIL_HALO rows of 128 B, the last zero-filled past C by TMA."""
+    return k_steps(tail_group(c)) * TAIL_HALO * 128
 
 
 def tail_smem_bytes(c: int, stages: int) -> int:
     """1 KB to align the swizzled boxes, the ring of halo boxes, the
-    weights (3 dy x C / 64 tiles of TAIL_BN rows of 128 B), two f32 partial
-    buffers [TAIL_M, TAIL_COLS], the full, activated and empty barriers of
-    each stage."""
-    return (1024 + stages * tail_stage_bytes(c) + 3 * (c // 64) * TAIL_BN * 128
+    weights (3 dy x ceil(group / 64) tiles of TAIL_BN rows of 128 B), two
+    f32 partial buffers [TAIL_M, TAIL_COLS], the full, activated and empty
+    barriers of each stage."""
+    return (1024 + stages * tail_stage_bytes(c) + 3 * k_steps(tail_group(c)) * TAIL_BN * 128
             + 2 * TAIL_M * TAIL_COLS * 4 + 24 * stages)
 
 
@@ -272,10 +379,7 @@ def tail_plan(b: int, t: int, h: int, w: int, c: int) -> TailPlan:
     longest such run on a tie (fewer warm-up frames)."""
     if min(b, t, h, w) < 1:
         raise ValueError(f"empty clips: {(b, t, h, w)}")
-    if c % 16:
-        raise ValueError(f"the decoder tail takes C % 16 == 0, got C={c}")
-    if c not in TAIL_CHANNELS:
-        raise ValueError(f"the decoder tail takes C in {TAIL_CHANNELS}, got C={c}")
+    check_channels(c)
     tiles_x, tiles_y = -(-w // TAIL_TW), -(-h // TAIL_TH)
     patches = b * tiles_x * tiles_y
     best = None
@@ -289,7 +393,7 @@ def tail_plan(b: int, t: int, h: int, w: int, c: int) -> TailPlan:
     fixed = tail_smem_bytes(c, 0)
     stages = min(TAIL_MAX_STAGES, (SMEM_LIMIT - fixed) // (tail_stage_bytes(c) + 24))
     plan = TailPlan(TAIL_TH, TAIL_TW, tiles_x, tiles_y, run, runs, stages,
-                    tail_smem_bytes(c, stages), patches * runs)
+                    tail_smem_bytes(c, stages), patches * runs, len(tail_groups(c)))
     if stages < 2 or plan.smem > SMEM_LIMIT:
         raise AssertionError(f"plan {plan} does not fit shared memory")
     if plan.grid > GRID_LIMIT:
@@ -310,11 +414,11 @@ def tail_block(plan: TailPlan, block: int, t: int) -> tuple:
 
 
 # Kernels D and D' in f32 (decoder_tail.cu: tail_f32_kernel): tail_plan's
-# blocks, runs and patch; a unit is one frame's TAIL_F32_KC-channel slice, its
-# raw f32 halo box in a ring of ``stages`` raw stages, its three bf16 pieces
-# in one of TAIL_F32_PIECE_STAGES piece stages; the weight pieces
-# [PIECES][3 dy][TAIL_BN][C] stay resident as (piece, dy, slice) tiles of
-# TAIL_BN rows of 64 B.
+# blocks, runs, patch and groups; a unit is one frame's TAIL_F32_KC-channel
+# slice, its raw f32 halo box in a ring of ``stages`` raw stages, its three
+# bf16 pieces in one of TAIL_F32_PIECE_STAGES piece stages; the group's
+# weight pieces [PIECES][3 dy][TAIL_BN][group] stay resident as (piece, dy,
+# slice) tiles of TAIL_BN rows of 64 B.
 TAIL_F32_KC = 32
 TAIL_F32_RAW = TAIL_HALO * TAIL_F32_KC * 4
 TAIL_F32_PIECE = TAIL_HALO * TAIL_F32_KC * 2
@@ -325,7 +429,7 @@ def tail_f32_smem_bytes(c: int, stages: int) -> int:
     """1 KB to align the swizzled tiles, the raw stages, the piece stages,
     the weight pieces, two f32 partial buffers, two barriers a stage."""
     return (1024 + stages * TAIL_F32_RAW + TAIL_F32_PIECE_STAGES * PIECES * TAIL_F32_PIECE
-            + PIECES * 3 * (c // TAIL_F32_KC) * TAIL_BN * TAIL_F32_KC * 2
+            + PIECES * 3 * -(-tail_group(c) // TAIL_F32_KC) * TAIL_BN * TAIL_F32_KC * 2
             + 2 * TAIL_M * TAIL_COLS * 4 + 16 * (stages + TAIL_F32_PIECE_STAGES))
 
 

@@ -20,7 +20,7 @@ as B runs them, its zero front read from TMA's zero fill; T1's (tap set
 ``kDense``, ``plan.conv_plan_dense``) two dense ``[M, 3C] x [3C, C]``
 products over an explicit fat operand. T1's fat-row pass and T2's ``ln``
 run whole-warp exact row passes in ``act_rows_kernel``'s layout
-(``plan.ROW_LAYOUT``), so T2's ``ln`` row times the row pass B uses with
+(``plan.row_layout``), so T2's ``ln`` row times the row pass B uses with
 the exact statistics in place of the fast ones. Each wrapper runs its plain
 PyTorch version for a CPU tensor and its kernel for a CUDA tensor (or
 raises), and counts ``calls`` and ``launches``. One deliberate divergence:
@@ -151,8 +151,8 @@ def fused_fat(x, params):
     :func:`params_from_jax` gives them.
 
     A CPU tensor runs :func:`fused_fat_plain`. A CUDA tensor must be
-    contiguous bf16 with C % 128 == 0 and C in ``plan.ROW_CHANNELS``
-    (``plan.conv_plan_dense``, the row pass); it runs the kernel (scratch:
+    contiguous bf16 with C % 8 == 0, 8 to 1024 (``plan.conv_plan_dense``,
+    the row pass); it runs the kernel (scratch:
     the fat operand ``[M, 3C]`` bf16 and h ``[M, C]`` f32) or raises.
     """
     fused_fat.calls += 1
@@ -184,8 +184,8 @@ def fused_diag(x, params, mode: str = "mm"):
     ``out = x + a2`` in f32.
 
     A CPU tensor runs :func:`fused_diag_plain`. A CUDA tensor must be
-    contiguous bf16 with C % 8 == 0 (``mm``: C % 128 == 0,
-    ``plan.conv_plan_temporal``; ``ln``: C in ``plan.ROW_CHANNELS``); it
+    contiguous bf16 with C % 8 == 0 (``mm`` and ``ln``: 8 to 1024,
+    ``plan.conv_plan_temporal``, ``plan.row_layout``); it
     runs the kernel or raises. An unknown mode raises.
     """
     fused_diag.calls += 1
