@@ -344,6 +344,8 @@ NO_PORT = {
     "STBlock.d_s": "unused by JAX's block, which reads the shapes from x",
     "STBlock.d_t": "unused by JAX's block, which reads the shapes from x",
     "use_bias": "no JAX module turns it off: every conv of the models has a bias",
+    "StepTimer": ("an EMA of host time with no synchronize, read by nothing: the port is "
+                  "timed by the benchmark's windows and traced by utils/profiling.span"),
     "TimeUpsampleRes2x.pallas_ok": ("JAX's switch for its remat'd training call; the "
                                     "port's training forward runs no kernel"),
     "set_conv_impl": _TPU + ": picks XLA's conv lowering, no meaning under cuDNN",

@@ -1,40 +1,18 @@
 """The port's profiling helpers (``vidtok_tpu_torch/utils/profiling.py``)
-against ``vidtok_tpu/utils/profiling.py`` on the CPU: ``StepTimer``'s EMA
-on the same durations (``time.perf_counter`` patched in both modules),
+against ``vidtok_tpu/utils/profiling.py`` on the CPU:
 ``param_memory_report``'s string for the same parameter count,
-``device_memory_report`` without a card, and ``trace`` writing a Chrome
-trace of a CPU forward."""
+``device_memory_report`` without a card, ``trace`` writing a Chrome trace
+of a CPU forward, and ``span``: the shared no-op context while no profiler
+records, a range in the trace while one does."""
 
 import json
 import os
 
 import jax.numpy as jnp
-import numpy as np
 import torch
 
 from vidtok_tpu.utils import profiling as JP
 from vidtok_tpu_torch.utils import profiling as P
-
-
-def test_step_timer(monkeypatch):
-    ticks = iter(np.cumsum([0.0, 0.5, 0.1, 0.3, 0.2, 0.05, 0.7]))
-    clock = {"now": 0.0}
-
-    def perf_counter():
-        return clock["now"]
-
-    monkeypatch.setattr(JP.time, "perf_counter", perf_counter)
-    monkeypatch.setattr(P.time, "perf_counter", perf_counter)
-    jt, pt = JP.StepTimer(decay=0.8), P.StepTimer(decay=0.8)
-    clock["now"] = next(ticks)
-    for start, end in zip(ticks, ticks):
-        clock["now"] = start
-        jt.tic()
-        pt.tic()
-        clock["now"] = end
-        assert jt.toc() == pt.toc()
-        assert jt.ema == pt.ema
-    assert pt.ema is not None
 
 
 def test_param_memory_report():
@@ -60,3 +38,25 @@ def test_trace_writes_a_file(tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any("conv" in e.get("name", "") for e in events)
+
+
+def test_span_is_the_shared_no_op_while_nothing_records():
+    assert not torch.autograd._profiler_enabled()
+    off = P.span("vt.test")
+    assert off is P.span("vt.other") and not isinstance(off, torch.profiler.record_function)
+    with off:
+        pass
+
+
+def test_span_is_a_range_in_the_trace(tmp_path):
+    conv = torch.nn.Conv2d(3, 8, 3)
+    with P.trace(str(tmp_path)) as logdir:
+        with P.span("vt.test.outer"):
+            with P.span("vt.test.inner"):
+                conv(torch.randn(1, 3, 16, 16))
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = {e["name"]: e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"}
+    outer, inner = events["vt.test.outer"], events["vt.test.inner"]
+    assert outer["ts"] <= inner["ts"] and (inner["ts"] + inner["dur"]
+                                           <= outer["ts"] + outer["dur"])

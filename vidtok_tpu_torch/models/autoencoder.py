@@ -12,6 +12,12 @@
   layernorm or groupnorm) with random weights or from a checkpoint, and
   ``save`` writes a reference-layout ``.ckpt``. ``forward_sharded`` runs
   one clip with its height split over the ranks of a mesh.
+
+Spans (``utils/profiling.span``, recorded while a profiler records):
+``vt.engine.forward``, ``.encode``, ``.decode``, ``.encode_chunk`` around
+the public calls, ``vt.engine.enc_chunk`` / ``.dec_chunk`` around each
+step of the tiled loops, ``vt.engine.input`` / ``.output`` around the
+casts and permutes; ``vt.model.regularize`` around the regularizer.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..modules.stream import Stream
 from ..ops.kernels import KernelForms
 from ..parallel.mesh import HeightShard, Mesh
 from ..utils import checkpoint
+from ..utils.profiling import span
 
 # reference and alias target names -> variant (vidtok_tpu/registry.py)
 _ENC_VARIANTS = {
@@ -172,8 +179,9 @@ class TokenizerCore(nn.Module):
         (from ``generator``) or mode, or FSQ's codes, with the losses
         annealed by ``n_steps``; ``global_batch``: FSQ's codebook entropy
         over the processes' global batch (the training forward)."""
-        return self.regularization(zp, sample=sample, generator=generator,
-                                   n_steps=n_steps, global_batch=global_batch)
+        with span("vt.model.regularize"):
+            return self.regularization(zp, sample=sample, generator=generator,
+                                       n_steps=n_steps, global_batch=global_batch)
 
     def encode(self, x, sample: Optional[bool] = None, fused: bool = False,
                generator: torch.Generator = None, streaming: bool = False,
@@ -242,6 +250,12 @@ def _to_nthwc(x):
 
 def _to_ncthw(x):
     return x.permute(0, 4, 1, 2, 3)
+
+
+def _output(x):
+    """A channels-last result as the engine returns it: f32 NCTHW."""
+    with span("vt.engine.output"):
+        return _to_ncthw(x.float())
 
 
 # the compute dtypes the kernels take: bf16, and f32 through the f32 scheme
@@ -346,19 +360,21 @@ class VideoTokenizer:
         checkpoint.save_checkpoint(self.core, path)
 
     def _input(self, x):
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        return _to_nthwc(x.to(self.device)).to(self.compute_dtype).contiguous()
+        with span("vt.engine.input"):
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(x)
+            return _to_nthwc(x.to(self.device)).to(self.compute_dtype).contiguous()
 
     @torch.no_grad()
     def encode(self, x, return_reg_log: bool = False, sample: bool = False):
         """x: [B,C,T,H,W] -> z [B,Cz,T',H',W'] (+ reg_log)."""
-        if self.use_tiling:
-            z, log = self._tile_encode(x, sample)
-        else:
-            z, log = self.core.encode(self._input(x), sample=sample,
-                                      fused=self.fused, generator=self.generator)
-            z = _to_ncthw(z.float())
+        with span("vt.engine.encode"):
+            if self.use_tiling:
+                z, log = self._tile_encode(x, sample)
+            else:
+                z, log = self.core.encode(self._input(x), sample=sample,
+                                          fused=self.fused, generator=self.generator)
+                z = _output(z)
         return (z, log) if return_reg_log else z
 
     @torch.no_grad()
@@ -366,12 +382,13 @@ class VideoTokenizer:
         """z: [B,Cz,T',H',W'] (or FSQ indices [B,T',H',W'], [B,T',H',W',c]
         for c codebooks, with ``decode_from_indices``) -> [B,C,T,H,W]:
         tdf*T' frames (v1.1) or tdf*T' - (tdf-1) (v1.0)."""
-        if decode_from_indices:
-            z = self.indices_to_latent(z)
-        if self.use_tiling:
-            return self._tile_decode(z)
-        dec = self.core.decode(self._input(z), fused=self.fused, forms=self.forms)
-        return _to_ncthw(dec.float())
+        with span("vt.engine.decode"):
+            if decode_from_indices:
+                z = self.indices_to_latent(z)
+            if self.use_tiling:
+                return self._tile_decode(z)
+            dec = self.core.decode(self._input(z), fused=self.fused, forms=self.forms)
+            return _output(dec)
 
     @torch.no_grad()
     def indices_to_latent(self, indices):
@@ -384,14 +401,15 @@ class VideoTokenizer:
     @torch.no_grad()
     def forward(self, x, sample: bool = False):
         """(z, x_rec, reg_log) for x: [B,C,T,H,W]."""
-        if self.use_tiling:
-            z, log = self._tile_encode(x, sample)
-            dec = self._tile_decode(z)
-            # v1.1 decodes tdf*T' frames: keep the last T (autoencoder.py:390-395)
-            return z, dec[:, :, -x.shape[2]:], log
-        z, dec, log = self.core(self._input(x), sample=sample, fused=self.fused,
-                                generator=self.generator, forms=self.forms)
-        return _to_ncthw(z.float()), _to_ncthw(dec.float()), log
+        with span("vt.engine.forward"):
+            if self.use_tiling:
+                z, log = self._tile_encode(x, sample)
+                dec = self._tile_decode(z)
+                # v1.1 decodes tdf*T' frames: keep the last T (autoencoder.py:390-395)
+                return z, dec[:, :, -x.shape[2]:], log
+            z, dec, log = self.core(self._input(x), sample=sample, fused=self.fused,
+                                    generator=self.generator, forms=self.forms)
+            return _output(z), _output(dec), log
 
     __call__ = forward
 
@@ -439,7 +457,7 @@ class VideoTokenizer:
         if "indices" in log:
             log = dict(log, indices=shard.gather(log["indices"], 2))
         z, dec = shard.gather(z, 2), shard.gather(dec, 2)
-        return _to_ncthw(z.float()), _to_ncthw(dec.float()), log
+        return _output(z), _output(dec), log
 
     # -- tiled inference: a Python loop of chunk steps over an explicit cache
 
@@ -477,6 +495,10 @@ class VideoTokenizer:
         [B,Cz,t',H',W'], reg_log, cache for the next chunk); the chunk is
         moved to the device and cast on its own. ``_tile_encode`` is a
         loop of this step over ``build_chunk_start_end``."""
+        with span("vt.engine.encode_chunk"):
+            return self._encode_chunk(x, cache, sample)
+
+    def _encode_chunk(self, x, cache: Optional[dict], sample: bool):
         self._check_tiling_supported()
         first = cache is None
         chunk = self._input(x)
@@ -485,7 +507,7 @@ class VideoTokenizer:
         z, log, cache = self.core.encode(
             chunk, sample=sample, fused=self.fused, generator=self.generator,
             streaming=True, first_chunk=first, cache=cache)
-        return _to_ncthw(z.float()), log, cache
+        return _output(z), log, cache
 
     def _tile_encode(self, x, sample: bool = False):
         """x [B,C,T,H,W] -> (f32 z [B,Cz,T',H',W'], reg_log), chunk by
@@ -494,10 +516,12 @@ class VideoTokenizer:
         aux_loss."""
         zs, logs, cache = [], [], None
         for s, e in self.build_chunk_start_end(x.shape[2]):
-            z, log, cache = self.encode_chunk(x[:, :, s:e], cache, sample)
+            with span("vt.engine.enc_chunk"):
+                z, log, cache = self._encode_chunk(x[:, :, s:e], cache, sample)
             zs.append(z)
             logs.append(log)
-        z = torch.cat(zs, dim=2)
+        with span("vt.engine.output"):
+            z = torch.cat(zs, dim=2)
         if self.discrete:
             log = {"aux_loss": torch.stack([l["aux_loss"] for l in logs]).mean(),
                    "indices": torch.cat([l["indices"] for l in logs], dim=1)}
@@ -512,12 +536,14 @@ class VideoTokenizer:
         outs, cache = [], None
         for idx, (s, e) in enumerate(self.build_chunk_start_end(t, decoder_mode=True)):
             overlap = self.use_overlap and e + 1 <= t
-            chunk = self._input(z[:, :, s:e + 1] if overlap else z[:, :, s:e])
-            dec, cache = self.core.decode(
-                chunk, fused=self.fused, streaming=True, first_chunk=idx == 0,
-                use_cache_offset=self.use_overlap, cache=cache, forms=self.forms)
+            with span("vt.engine.dec_chunk"):
+                chunk = self._input(z[:, :, s:e + 1] if overlap else z[:, :, s:e])
+                dec, cache = self.core.decode(
+                    chunk, fused=self.fused, streaming=True, first_chunk=idx == 0,
+                    use_cache_offset=self.use_overlap, cache=cache, forms=self.forms)
             outs.append(dec[:, :dec.shape[1] - tdf] if overlap else dec)
-        return _to_ncthw(torch.cat(outs, dim=1).float())
+        with span("vt.engine.output"):
+            return _to_ncthw(torch.cat(outs, dim=1).float())
 
     @torch.no_grad()
     def encode_streaming_scan(self, x, sample: bool = False):

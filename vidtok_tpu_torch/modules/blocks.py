@@ -37,6 +37,12 @@ A block given a :class:`~.stream.Stream` runs one chunk of a stream; the
 time-causal ones carry their state in it (the spatial blocks and attention
 are per frame and carry none). Each module keeps one cache layout on both
 paths, so a stream may switch ``fused`` between chunks.
+
+Spans (``utils/profiling.span``): ``vt.model.down.spatial``,
+``vt.model.down.temporal``, ``vt.model.up.spatial`` and
+``vt.model.up.temporal`` around each down- and upsample module,
+``vt.stream.cache`` around the temporal resamplers' own cache reads and
+writes.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from ..ops.kernels import (KernelForms, fused_spatial_resblock,
                            subpixel_interleave_z)
 from ..ops.kernels.parity_upsample import parity_up2x_fused_plain
 from ..parallel.mesh import shard_of
+from ..utils.profiling import span
 from .conv import (CausalConv1d, CausalConv3d, Conv1d, Conv3d, SpatialConv,
                    pad_time_front)
 from .interp import (spatial_avg_pool2x, spatial_nearest_up2x,
@@ -258,7 +265,8 @@ class SpatialDownsample(nn.Module):
             self.conv = SpatialConv(c, c, 3, stride=2, padding=(0, 1, 0, 1))
 
     def forward(self, x):
-        return self.conv(x) if self.with_conv else spatial_avg_pool2x(x)
+        with span("vt.model.down.spatial"):
+            return self.conv(x) if self.with_conv else spatial_avg_pool2x(x)
 
 
 class SpatialUpsample(nn.Module):
@@ -280,6 +288,10 @@ class SpatialUpsample(nn.Module):
             self.conv = SpatialConv(c, c, 3)
 
     def forward(self, x, fused: bool = False, forms: KernelForms = KernelForms()):
+        with span("vt.model.up.spatial"):
+            return self._up(x, fused, forms)
+
+    def _up(self, x, fused: bool, forms: KernelForms):
         if not self.with_conv:
             return spatial_nearest_up2x(x)
         if not self.subpixel:
@@ -345,17 +357,22 @@ class TimeDownsampleRes2x(nn.Module):
             self.conv = Conv3d(cin, cout, 3, stride=(2, 1, 1), padding=(0, 1, 1))
 
     def forward(self, x, stream=None):
+        with span("vt.model.down.temporal"):
+            return self._down(x, stream)
+
+    def _down(self, x, stream):
         alpha = torch.sigmoid(self.mix_factor).to(x.dtype)
         if not self.causal:
             x_pad = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
             return (alpha * temporal_avg_pool3_stride2(x_pad)
                     + (1 - alpha) * self.conv(x_pad))
-        if stream is None or stream.first_chunk:
+        if stream is None:
             x_pad = pad_time_front(x, 1, self.first_pad_mode)
         else:
-            x_pad = torch.cat([stream.get(self).to(x.dtype), x], dim=1)
-        if stream is not None:
-            stream.put(self, x_pad[:, -1:].clone())
+            with span("vt.stream.cache"):
+                x_pad = (pad_time_front(x, 1, self.first_pad_mode) if stream.first_chunk
+                         else torch.cat([stream.get(self).to(x.dtype), x], dim=1))
+                stream.put(self, x_pad[:, -1:].clone())
         x1 = temporal_avg_pool3_stride2(x_pad)
         x2 = self.conv(x, stream)
         return alpha * x1 + (1 - alpha) * x2
@@ -412,6 +429,10 @@ class TimeUpsampleRes2x(nn.Module):
 
     def forward(self, x, fused: bool = False, stream=None,
                 forms: KernelForms = KernelForms()):
+        with span("vt.model.up.temporal"):
+            return self._up(x, fused, stream, forms)
+
+    def _up(self, x, fused: bool, stream, forms: KernelForms):
         alpha = torch.sigmoid(self.mix_factor).to(x.dtype)
         ntu = self.ntu
         if not self.causal:
@@ -429,12 +450,14 @@ class TimeUpsampleRes2x(nn.Module):
             y = self._parity_up(shard.halo(x, 1, 1), alpha, shard.parity_kernel, forms)
             return y[:, :, 1:-1]
         if stream is not None and not stream.first_chunk:
-            xc = torch.cat([stream.get(self).to(x.dtype), x], dim=1)
-            stream.put(self, xc[:, -2 * ntu:-ntu].clone())
+            with span("vt.stream.cache"):
+                xc = torch.cat([stream.get(self).to(x.dtype), x], dim=1)
+                stream.put(self, xc[:, -2 * ntu:-ntu].clone())
             x = temporal_linear_up2x(xc)[:, 2 * ntu:]
         else:
             if stream is not None:
-                stream.put(self, x[:, -ntu:].clone())
+                with span("vt.stream.cache"):
+                    stream.put(self, x[:, -ntu:].clone())
             head, tail = x[:, :ntu], x[:, ntu:]
             x = temporal_linear_up2x(head)
             if tail.shape[1] > 0:
@@ -446,6 +469,9 @@ class TimeUpsampleRes2x(nn.Module):
         weight, bias = self.conv.conv.weight, self.conv.conv.bias
         if not fused:
             return parity_up2x_fused_plain(x, weight, bias, alpha, self.first_pad_mode)
+        # the kernels read the blend factor as one f32 (the plain forms too):
+        # cast here, so that each wrapper launches its kernel alone
+        alpha = alpha.float()
         if forms.parity == "fused":
             return parity_up2x_fused(x, weight, bias, alpha, self.first_pad_mode)
         k0, k1, k2 = weight.to(x.dtype).unbind(2)       # [C, C, 3, 3] each

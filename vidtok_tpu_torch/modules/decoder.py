@@ -47,11 +47,11 @@ import torch
 from torch import nn
 
 from ..ops.kernels import KernelForms, decoder_tail_rgb, decoder_tail_rgb_taps
+from ..utils.profiling import span
 from .blocks import (ResnetBlockSpatial, ResnetBlockTemporal, SpatialUpsample,
                      TimeUpsampleRes2x)
 from .encoder import _Mid, call, check_dropout, conv3, first_pad_mode, no_stream
 from .norms import make_norm, silu
-from .stream import tail
 
 
 class Decoder(nn.Module):
@@ -139,41 +139,40 @@ class Decoder(nn.Module):
                 forms: KernelForms = KernelForms(), train: bool = False,
                 return_features: bool = False, generator=None):
         """z: [B, T', H', W', Cz] -> [B, tdf*T' - crop, H, W, out_ch]; with
-        ``return_features`` (no stream), (that, conv_out's input)."""
+        ``return_features`` (no stream), (that, conv_out's input). Spanned
+        as ``vt.model.decoder``."""
         no_stream(self, stream)
         if return_features and stream is not None:
             raise ValueError("return_features has no streaming form")
-        remat = train and self.use_checkpoint and stream is None
-        h = self.mid(self.conv_in(z, stream), stream, remat, train, generator)
-        for level, tlevel in zip(reversed(self.up), reversed(self.up_temporal)):
-            for sp, tm in zip(level.block, tlevel.block):
-                h = call(remat, sp, h, fused=fused, train=train, generator=generator)
-                h = call(remat, tm, h, fused=fused, stream=stream, train=train,
-                         generator=generator)
-            if hasattr(level, "upsample"):
-                h = call(remat, level.upsample, h, fused=fused, forms=forms)
-            if hasattr(tlevel, "upsample"):
-                h = call(remat, tlevel.upsample, h, fused=fused, stream=stream,
-                         forms=forms)
-        if stream is not None:
-            front = (h[:, :1].expand(-1, 2, *h.shape[2:]) if stream.first_chunk
-                     else stream.get(self.conv_out).to(h.dtype))
-            h = torch.cat([front, h], dim=1)
-            stream.put(self.conv_out, tail(h, 2, stream.offset(self.conv_out)))
-        pre = None
-        if fused and self.tail_kernel and not return_features:
-            norm = self.norm_out.norm
-            conv = self.conv_out.conv
-            rgb = decoder_tail_rgb_taps if forms.tail == "taps" else decoder_tail_rgb
-            h = rgb(h, (norm.weight, norm.bias), (conv.weight, conv.bias),
-                    self.first_pad_mode)
-        else:
-            pre = silu(self.norm_out(h))
-            h = self.conv_out(pre)
-        if stream is not None:
-            h = h[:, 2:]
-        if self.tanh_out:
-            h = torch.tanh(h)
-        if return_features:
-            return h[:, self.crop:], pre
-        return h[:, self.crop:]
+        with span("vt.model.decoder"):
+            remat = train and self.use_checkpoint and stream is None
+            h = self.mid(self.conv_in(z, stream), stream, remat, train, generator)
+            for level, tlevel in zip(reversed(self.up), reversed(self.up_temporal)):
+                for sp, tm in zip(level.block, tlevel.block):
+                    h = call(remat, sp, h, fused=fused, train=train, generator=generator)
+                    h = call(remat, tm, h, fused=fused, stream=stream, train=train,
+                             generator=generator)
+                if hasattr(level, "upsample"):
+                    h = call(remat, level.upsample, h, fused=fused, forms=forms)
+                if hasattr(tlevel, "upsample"):
+                    h = call(remat, tlevel.upsample, h, fused=fused, stream=stream,
+                             forms=forms)
+            if stream is not None:
+                h = stream.front(self.conv_out, h, 2)
+            pre = None
+            if fused and self.tail_kernel and not return_features:
+                norm = self.norm_out.norm
+                conv = self.conv_out.conv
+                rgb = decoder_tail_rgb_taps if forms.tail == "taps" else decoder_tail_rgb
+                h = rgb(h, (norm.weight, norm.bias), (conv.weight, conv.bias),
+                        self.first_pad_mode)
+            else:
+                pre = silu(self.norm_out(h))
+                h = self.conv_out(pre)
+            if stream is not None:
+                h = h[:, 2:]
+            if self.tanh_out:
+                h = torch.tanh(h)
+            if return_features:
+                return h[:, self.crop:], pre
+            return h[:, self.crop:]

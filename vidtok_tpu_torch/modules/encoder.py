@@ -43,6 +43,7 @@ from typing import Optional, Sequence
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
 from .blocks import (AttnBlock, ResnetBlock3D, ResnetBlockSpatial,
                      ResnetBlockTemporal, SpatialDownsample,
                      TimeDownsampleRes2x)
@@ -176,21 +177,23 @@ class Encoder(nn.Module):
                 generator=None):
         """x: [B, T, H, W, C] -> posterior parameters [B, T', H', W', 2Cz].
         ``train``: the training forward (activation checkpointing when
-        ``use_checkpoint``, dropout masks from ``generator``)."""
+        ``use_checkpoint``, dropout masks from ``generator``). Spanned as
+        ``vt.model.encoder``."""
         no_stream(self, stream)
-        if stream is None:
-            x = self.pad_input(x)
-        remat = train and self.use_checkpoint and stream is None
-        h = self.conv_in(x, stream)
-        for level, tlevel in zip(self.down, self.down_temporal):
-            for sp, tm in zip(level.block, tlevel.block):
-                h = call(remat, sp, h, fused=fused, train=train, generator=generator)
-                h = call(remat, tm, h, fused=fused, stream=stream, train=train,
-                         generator=generator)
-            if hasattr(level, "downsample"):
-                h = call(remat, level.downsample, h)
-            if hasattr(tlevel, "downsample"):
-                h = call(remat, tlevel.downsample, h, stream=stream)
-        h = self.mid(h, stream, remat, train, generator)
-        return self.conv_out(silu(self.norm_out(h)), stream)
+        with span("vt.model.encoder"):
+            if stream is None:
+                x = self.pad_input(x)
+            remat = train and self.use_checkpoint and stream is None
+            h = self.conv_in(x, stream)
+            for level, tlevel in zip(self.down, self.down_temporal):
+                for sp, tm in zip(level.block, tlevel.block):
+                    h = call(remat, sp, h, fused=fused, train=train, generator=generator)
+                    h = call(remat, tm, h, fused=fused, stream=stream, train=train,
+                             generator=generator)
+                if hasattr(level, "downsample"):
+                    h = call(remat, level.downsample, h)
+                if hasattr(tlevel, "downsample"):
+                    h = call(remat, tlevel.downsample, h, stream=stream)
+            h = self.mid(h, stream, remat, train, generator)
+            return self.conv_out(silu(self.norm_out(h)), stream)
 

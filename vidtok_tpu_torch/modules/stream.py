@@ -7,7 +7,9 @@ tensor}``, that a chunk step receives and returns: a :class:`Stream` reads
 the dict it was given (``cache``, never written) and collects the dict
 this step leaves for the next (``new``). The modules hold no state, so S
 streams batched along B carry S rows in every entry and cannot leak into
-each other.
+each other. Every copy that reads or writes a cache (its casts, ``cat``s
+and ``clone``s) runs under the span ``vt.stream.cache``; kernel F reads
+and writes its caches itself.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..utils.profiling import span
 
 
 class Stream:
@@ -54,13 +58,14 @@ class Stream:
         time padding; the front is the cached tail of the previous chunk's
         ``[front | x]``, or frame 0 repeated on the first chunk. Caches
         ``full[L-off-n : L-off]`` (L = n + chunk length)."""
-        if self.first_chunk:
-            head = x[:, :1].expand(-1, n, *x.shape[2:])
-        else:
-            head = self.get(module).to(x.dtype)
-        full = torch.cat([head, x], dim=1)
-        self.put(module, tail(full, n, self.offset(module)))
-        return full
+        with span("vt.stream.cache"):
+            if self.first_chunk:
+                head = x[:, :1].expand(-1, n, *x.shape[2:])
+            else:
+                head = self.get(module).to(x.dtype)
+            full = torch.cat([head, x], dim=1)
+            self.put(module, tail(full, n, self.offset(module)))
+            return full
 
 
 def tail(full, n: int, off: int):

@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels of the serving path and their plain forms.
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and its CUDA
-kernel for a CUDA tensor (or raises). It keeps two counters: ``calls``
-(every call) and ``launches`` (calls that launched the kernel). A-F take
+kernel for a CUDA tensor (or raises), under the span ``vt.kernel.<wrapper
+name>`` (``_lib.wrapper``). It keeps three counters: ``calls`` (every
+call), ``launches`` (calls that launched the kernel) and ``builds``
+(operand relayouts built because no cached one was served). A-F take
 bf16 or f32 activations (f32: ``split.py``'s scheme in A, B, E and F);
 G, H, I and D' take bf16 and raise for f32, naming the kernel.
 
@@ -70,10 +72,10 @@ class KernelForms:
 
 def reset_counts() -> None:
     for fn in WRAPPERS.values():
-        fn.calls = 0
-        fn.launches = 0
+        fn.calls = fn.launches = fn.builds = 0
 
 
 def counts(kind: str = "launches") -> dict:
-    """{wrapper name: count}; ``kind`` is ``calls`` or ``launches``."""
+    """{wrapper name: count}; ``kind`` is ``calls``, ``launches`` or
+    ``builds``."""
     return {name: getattr(fn, kind) for name, fn in WRAPPERS.items()}

@@ -13,8 +13,10 @@ returns ``cudaGetLastError()`` (or, for the wgmma loop of kernels A, B, E,
 F, T1 and T2 and the tail of D and D', a refused tensor map or plan);
 :func:`call` raises when that is not 0.
 
-:func:`operands` caches the weights of A, B, D, D', E and F (and of B's
-parts, T1 and T2) as their kernels read them, per parameter;
+:func:`wrapper` makes a kernel wrapper: its span ``vt.kernel.<name>``
+and its counters. :func:`operands` caches the weights of A, B, D, D', E
+and F (and of B's parts, T1 and T2) as their kernels read them, per
+parameter;
 :func:`weight_map` encodes the tensor maps of such a weight for the wgmma
 loop, which reads it as :func:`weight_layout` describes (the true channel
 extents, so TMA zero-fills a partial K step or N tile).
@@ -31,6 +33,8 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+from ...utils.profiling import span
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -216,6 +220,31 @@ def weight_maps(op: dict, bn: int, *names) -> tuple:
 
 
 _OPERANDS = None  # parameter (weakly) -> {kind: (stamp, other sources, value)}
+_BUILDS = 0  # entries operands() has built, read by the wrappers' ``builds``
+
+
+def wrapper(fn):
+    """``fn``, a kernel wrapper, under the span ``vt.kernel.<fn's name>``
+    from entry to return (plan, operands, tensor maps, allocation and
+    launch), with three counters: ``calls`` (every call), ``launches``
+    (counted by ``fn`` where it launches its kernel) and ``builds`` (the
+    operand relayouts :func:`operands` built during its calls because no
+    cached entry was served: none on a repeated call with unchanged
+    parameters)."""
+    name = "vt.kernel." + fn.__name__
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        wrapped.calls += 1
+        built = _BUILDS
+        try:
+            with span(name):
+                return fn(*args, **kwargs)
+        finally:
+            wrapped.builds += _BUILDS - built
+
+    wrapped.calls = wrapped.launches = wrapped.builds = 0
+    return wrapped
 
 
 def _stamp(t):
@@ -239,7 +268,7 @@ def operands(kind: str, sources: tuple, build):
     ``None`` sources stand for absent parameters."""
     import torch
 
-    global _OPERANDS
+    global _OPERANDS, _BUILDS
     if _OPERANDS is None:
         from torch.utils.weak import WeakIdKeyDictionary
 
@@ -251,6 +280,7 @@ def operands(kind: str, sources: tuple, build):
         return hit[2]
     with torch.no_grad():
         value = build(*sources)
+    _BUILDS += 1
     # the other sources are held so that their ids stay theirs
     per[kind] = (stamp, sources[1:], value)
     return value

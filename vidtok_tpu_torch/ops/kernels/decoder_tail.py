@@ -132,6 +132,7 @@ def _launch(entry: str, kernel: str, x, norm, conv, first_pad_mode: str):
     return out
 
 
+@_lib.wrapper
 def decoder_tail_rgb(x, norm, conv, first_pad_mode: str):
     """x: ``[B, T, H, W, C]`` -> ``[B, T, H, W, 3]``.
 
@@ -139,7 +140,6 @@ def decoder_tail_rgb(x, norm, conv, first_pad_mode: str):
     (contiguous bf16 or f32, C that ``plan.tail_plan`` takes: C % 8 == 0, 8
     to 1024) runs the kernel (f32: its f32 form) or raises.
     """
-    decoder_tail_rgb.calls += 1
     if first_pad_mode not in ("zero", "replicate"):
         raise ValueError(f"unknown first_pad_mode {first_pad_mode!r}")
     if x.device.type == "cpu":
@@ -152,10 +152,7 @@ def decoder_tail_rgb(x, norm, conv, first_pad_mode: str):
     return out
 
 
-decoder_tail_rgb.calls = 0
-decoder_tail_rgb.launches = 0
-
-
+@_lib.wrapper
 def decoder_tail_rgb_taps(x, norm, conv, first_pad_mode: str):
     """Kernel D': x ``[B, T, H, W, C]`` -> ``[B, T, H, W, 3]``.
 
@@ -163,7 +160,6 @@ def decoder_tail_rgb_taps(x, norm, conv, first_pad_mode: str):
     (contiguous bf16 or f32, C that ``plan.tail_plan`` takes: C % 8 == 0, 8
     to 1024) runs the kernel (f32: its f32 form) or raises.
     """
-    decoder_tail_rgb_taps.calls += 1
     if first_pad_mode not in ("zero", "replicate"):
         raise ValueError(f"unknown first_pad_mode {first_pad_mode!r}")
     if x.device.type == "cpu":
@@ -175,7 +171,3 @@ def decoder_tail_rgb_taps(x, norm, conv, first_pad_mode: str):
         out = _launch("vt_decoder_tail_rgb_taps", "D'", x, norm, conv, first_pad_mode)
     decoder_tail_rgb_taps.launches += 1
     return out
-
-
-decoder_tail_rgb_taps.calls = 0
-decoder_tail_rgb_taps.launches = 0

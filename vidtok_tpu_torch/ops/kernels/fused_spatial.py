@@ -76,6 +76,7 @@ def spatial_operands(w1, g1, b1, bias1, g2, b2, w2, bias2, w_nin=None, b_nin=Non
             "maps": {}}
 
 
+@_lib.wrapper
 def fused_spatial_resblock(x, norm1, conv1, norm2, conv2, nin=None):
     """x: ``[N, H, W, Cin]`` -> ``[N, H, W, C]``.
 
@@ -84,7 +85,6 @@ def fused_spatial_resblock(x, norm1, conv1, norm2, conv2, nin=None):
     takes (``plan.conv_plan_spatial``: Cin and C % 8 == 0, 8 to 1024); it
     runs the kernel (f32: its f32 scheme) or raises.
     """
-    fused_spatial_resblock.calls += 1
     if x.device.type == "cpu":
         return fused_spatial_resblock_plain(x, norm1, conv1, norm2, conv2, nin)
     n, h, w, cin = x.shape
@@ -122,7 +122,3 @@ def fused_spatial_resblock(x, norm1, conv1, norm2, conv2, nin=None):
                   op["bias1"], op["g2"], op["b2"], map2, op["bias2"], *tail)
     fused_spatial_resblock.launches += 1
     return out
-
-
-fused_spatial_resblock.calls = 0
-fused_spatial_resblock.launches = 0

@@ -118,6 +118,7 @@ def fused_temporal_resblock_plain(x, norm1, conv1, norm2, conv2,
     return (x.float() + y).to(dt)
 
 
+@_lib.wrapper
 def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
                             first_pad_mode: str = "zero"):
     """x: ``[B, T, H, W, C]`` -> same shape.
@@ -127,7 +128,6 @@ def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
     (``plan.conv_plan_temporal``: C % 8 == 0, 8 to 1024); it runs the
     kernel or raises.
     """
-    fused_temporal_resblock.calls += 1
     if first_pad_mode not in ("zero", "replicate"):
         raise ValueError(f"unknown first_pad_mode {first_pad_mode!r}")
     if x.device.type == "cpu":
@@ -144,10 +144,6 @@ def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
               int(first_pad_mode == "replicate"), pl.bn, pl.stages, pl.smem, pl.grid)
     fused_temporal_resblock.launches += 1
     return out
-
-
-fused_temporal_resblock.calls = 0
-fused_temporal_resblock.launches = 0
 
 
 def _scratch(x, b, t, h, w, c):
@@ -183,6 +179,7 @@ def fused_temporal_resblock_stream_plain(x, norm1, conv1, norm2, conv2, c1, c2,
     return (x.float() + y).to(dt), nc1, nc2
 
 
+@_lib.wrapper
 def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
                                    first_chunk: bool, offset: int = 0):
     """One chunk step: x ``[B, t, H, W, C]`` and the caches -> (y, new c1,
@@ -195,7 +192,6 @@ def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
     and the caches after the first chunk of x's dtype; it runs the kernel
     or raises.
     """
-    fused_temporal_resblock_stream.calls += 1
     b, t, h, w, c = x.shape
     if not 0 <= offset <= t:
         raise ValueError(f"kernel F: offset {offset} outside a {t}-frame chunk")
@@ -220,7 +216,3 @@ def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
               pl.stages, pl.smem, pl.grid)
     fused_temporal_resblock_stream.launches += 1
     return out, nc1, nc2
-
-
-fused_temporal_resblock_stream.calls = 0
-fused_temporal_resblock_stream.launches = 0

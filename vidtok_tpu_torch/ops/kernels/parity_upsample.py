@@ -90,6 +90,7 @@ def parity_operands_f32(weight, bias) -> dict:
             "layouts": {"w": _lib.weight_layout(c, 18, 0, PIECES, c, 2)}, "maps": {}}
 
 
+@_lib.wrapper
 def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
     """s: ``[B, T, H, W, C]`` -> ``[B, 2T, H, W, C]``.
 
@@ -100,7 +101,6 @@ def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
     its mix factor at every forward); the weight and bias are relaid out
     once per parameter.
     """
-    parity_up2x_fused.calls += 1
     if first_pad_mode not in ("zero", "replicate"):
         raise ValueError(f"unknown first_pad_mode {first_pad_mode!r}")
     if s.device.type == "cpu":
@@ -128,7 +128,3 @@ def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
         _lib.call("vt_parity_up2x", s, out, wmap, op["bias"], alpha, *sizes)
     parity_up2x_fused.launches += 1
     return out
-
-
-parity_up2x_fused.calls = 0
-parity_up2x_fused.launches = 0

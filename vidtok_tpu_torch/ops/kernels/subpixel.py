@@ -32,10 +32,10 @@ def subpixel_interleave_plain(y00, y01, y10, y11, bias):
     return rows.reshape(n, 2 * h, 2 * w, c) + bias.to(y00.dtype)
 
 
+@_lib.wrapper
 def subpixel_interleave(y00, y01, y10, y11, bias):
     """A CPU tensor runs :func:`subpixel_interleave_plain`; a CUDA tensor
     (contiguous bf16 or f32, C % 8 == 0) runs the kernel or raises."""
-    subpixel_interleave.calls += 1
     if y00.device.type == "cpu":
         return subpixel_interleave_plain(y00, y01, y10, y11, bias)
     n, h, w, c = y00.shape
@@ -53,10 +53,6 @@ def subpixel_interleave(y00, y01, y10, y11, bias):
     return out
 
 
-subpixel_interleave.calls = 0
-subpixel_interleave.launches = 0
-
-
 def subpixel_interleave_z_plain(z, bias):
     """Plain PyTorch form of I. z: ``[N, H+1, W+1, 4C]`` -> ``[N, 2H, 2W, C]``."""
     _, h1, w1, c4 = z.shape
@@ -66,11 +62,11 @@ def subpixel_interleave_z_plain(z, bias):
                                      bias)
 
 
+@_lib.wrapper
 def subpixel_interleave_z(z, bias):
     """Kernel I. A CPU tensor runs :func:`subpixel_interleave_z_plain`; a
     CUDA tensor (contiguous bf16 or f32, C % 8 == 0) runs the kernel or
     raises."""
-    subpixel_interleave_z.calls += 1
     n, h1, w1, c4 = z.shape
     c = bias.shape[0]
     if c4 != 4 * c:
@@ -88,7 +84,3 @@ def subpixel_interleave_z(z, bias):
               out, n, h1 - 1, w1 - 1, c)
     subpixel_interleave_z.launches += 1
     return out
-
-
-subpixel_interleave_z.calls = 0
-subpixel_interleave_z.launches = 0

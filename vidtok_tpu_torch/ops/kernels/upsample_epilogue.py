@@ -64,12 +64,12 @@ def _launch(s, y_cur, y_prev, ld, bias, alpha, first_pad_mode):
     return out
 
 
+@_lib.wrapper
 def parity_blend_interleave(s, y_cur, y_prev, bias, alpha, first_pad_mode: str):
     """Kernel G: s ``[B, T, H, W, C]`` and the two convs' ``[B, T, H, W, 2C]``
     -> ``[B, 2T, H, W, C]``. A CPU tensor runs
     :func:`parity_blend_interleave_plain`; a CUDA tensor (contiguous bf16
     or f32, C % 8 == 0) runs the kernel or raises."""
-    parity_blend_interleave.calls += 1
     _check_mode(first_pad_mode)
     if s.device.type == "cpu":
         return parity_blend_interleave_plain(s, y_cur, y_prev, bias, alpha,
@@ -84,12 +84,12 @@ def parity_blend_interleave(s, y_cur, y_prev, bias, alpha, first_pad_mode: str):
     return out
 
 
+@_lib.wrapper
 def parity_blend_interleave4(s, y4, bias, alpha, first_pad_mode: str):
     """Kernel H: s ``[B, T, H, W, C]`` and the one conv's
     ``[B, T, H, W, 4C]`` -> ``[B, 2T, H, W, C]``; the kernel reads the cur
     half at frame t and the prev half at frame t-1. CPU and CUDA as
     :func:`parity_blend_interleave`."""
-    parity_blend_interleave4.calls += 1
     _check_mode(first_pad_mode)
     if s.device.type == "cpu":
         return parity_blend_interleave4_plain(s, y4, bias, alpha, first_pad_mode)
@@ -100,9 +100,3 @@ def parity_blend_interleave4(s, y4, bias, alpha, first_pad_mode: str):
     out = _launch(s, y4, y4[..., 2 * c:], 4 * c, bias, alpha, first_pad_mode)
     parity_blend_interleave4.launches += 1
     return out
-
-
-parity_blend_interleave.calls = 0
-parity_blend_interleave.launches = 0
-parity_blend_interleave4.calls = 0
-parity_blend_interleave4.launches = 0

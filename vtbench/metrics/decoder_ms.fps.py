@@ -1,0 +1,13 @@
+"""decoder_ms.fps: device time of the operations launched under the program's
+span ``vt.model.decoder`` (the decoder) in the traced window, each
+operation joined to its launch through the trace's correlation id
+(``vtbench/spans.py``), in ms per input frame of the requests the window
+ran. Nothing when the trace holds no ``vt.*`` span."""
+
+from vtbench import spans
+
+
+def read(ctx):
+    s = spans.read(ctx.traced["path"])
+    frames = sum(r.frames for r in ctx.traced["records"])
+    return 1e3 * s.device_under("vt.model.decoder") / frames if s and frames else None
