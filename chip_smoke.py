@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
-1. build the fourteen hand-written kernels from ``vidtok_tpu_torch/csrc``
+1. build the sixteen hand-written kernels from ``vidtok_tpu_torch/csrc``
    (nvcc, sm_90a, one process per source) and print the build time and the
    ``-Xptxas -v`` report;
 2. hold every kernel against its plain PyTorch version at every shape the
@@ -26,7 +26,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (the streaming temporal resblock) is held at every chunk shape of the
    tiled T=65 request, with ``first_chunk`` True and False at each of its
    cache offsets (0, 1, 2, 4), on y and both new caches; A, C and D also
-   at their chunk shapes. The kernels of the decoder's other forms
+   at their chunk shapes. J and K (the trilinear temporal upsample's
+   interpolation and blend) at every call shape of the v1.1 paths, J's
+   later chunks with their cached frames, both also at two clips of 33²
+   at C 200 and 37 (PARTIAL_LINEAR, checked, not timed). The kernels of
+   the decoder's other forms
    (``KernelForms``): G and H at E's shapes, I at C's and D' at D's, the
    tiled chunk shapes included, in both stream-start modes where they have
    them; then the forms against each other per call and per v1.0 forward at
@@ -178,7 +182,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     .yaml (311,518,770 parameters; VIDTWIN_CFG), seeded weights with the
     zero-initialised ones drawn too (``fill_zero_init_``): (a) 3 requests
     of [4, 3, 16, 224, 224] in bf16 (weights bf16 at rest): latency,
-    frames/s, peak memory, no launch of the fourteen kernels, a profile of
+    frames/s, peak memory, no launch of the sixteen kernels, a profile of
     one; one request in f32 (f32 attention, TF32 off), the bf16 run within
     VIDTWIN_BF16_GATE of it on z and the reconstruction; ``only_part``
     and ``cross_reenact`` shapes, the cross result unlike both
@@ -195,7 +199,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     ``d_weight`` > 0 inside its clip, first-step losses within the
     reconstruction's bf16 spread of fp32's).
 17. the last modules of the port (``serve_ladder_and_sharding``; no
-    launch of the fourteen kernels but (b)'s E): (a) VidTwin's ablation ladder,
+    launch of the sixteen kernels but (b)'s E): (a) VidTwin's ablation ladder,
     each of ABLATION_TARGETS at VIDTWIN_CFG's width with its target
     changed (the other Q-Formers at JAX's defaults), seeded weights with
     the zero-initialised ones drawn: its parameter count, one cold and
@@ -408,6 +412,11 @@ SOURCES = {
                               "vidtok_tpu/ops/pallas/subpixel_epilogue.py:57", ()),
     "decoder_tail_rgb_taps": ("vidtok_tpu_torch/csrc/decoder_tail.cu",
                               "vidtok_tpu/ops/pallas/decoder_tail.py:160", ()),
+    # J and K replace no TPU kernel: XLA fuses the JAX module's chain
+    "temporal_linear_up2x": ("vidtok_tpu_torch/csrc/temporal_linear.cu",
+                             "none (vidtok_tpu/modules/blocks.py:538-571, XLA)", ()),
+    "linear_blend": ("vidtok_tpu_torch/csrc/temporal_linear.cu",
+                     "none (vidtok_tpu/modules/blocks.py:571, XLA)", ()),
 }
 # The decoder's kernel forms, KernelForms(parity, subpixel, tail), served by
 # phase 8 (v1.0) and by the tiled forms request of phase 7, with the path
@@ -442,7 +451,8 @@ def in_forms(per: dict, path: str) -> dict:
 PER_FORWARD = {"v1_0": dict(dict.fromkeys(SOURCES, 0), fused_spatial_resblock=20,
                             fused_temporal_resblock=20, subpixel_interleave=3,
                             decoder_tail_rgb=1, parity_up2x_fused=2)}
-PER_FORWARD["v1_1"] = dict(PER_FORWARD["v1_0"], parity_up2x_fused=0)
+PER_FORWARD["v1_1"] = dict(PER_FORWARD["v1_0"], parity_up2x_fused=0, temporal_linear_up2x=2,
+                           linear_blend=2)
 for _path in ("v1_0_forms", "v1_0_split"):
     PER_FORWARD[_path] = in_forms(PER_FORWARD["v1_0"], _path)
 KERNEL_GATE = 1e-2
@@ -491,6 +501,11 @@ PARTIAL_PARITY = [(2, 5, 33, 33, 512), (1, 10, 132, 132, 256)]
 # kernels D and D' at partial patches (two clips of a 33² frame; the
 # 264² frame of the v1.0 decoder), both modes
 PARTIAL_TAIL = [(2, 6, 33, 33, 128), (1, 20, 264, 264, 128)]
+# kernels J and K at two clips of a 33² frame, at a width that is a multiple
+# of 8 and not a power of 2 (vectors) and at one that is not a multiple of 8
+# (a channel a thread): J's head and tail segments, one segment, a later
+# chunk
+PARTIAL_LINEAR = [(2, 5, 33, 33, 200), (2, 5, 33, 33, 37)]
 # kernel D's tail call of a non-tiled T=201 v1.0 request (204 frames, 3.4 GB
 # of input, in runs of frames that start with 2 warm-up frames): its last
 # run's output frames against the plain version of those frames and the 2
@@ -614,7 +629,8 @@ F32_MAIN_PATH = dict.fromkeys(F32_KERNELS, "v1_0_f32") | {
 # the path whose serving run gives each kernel's launches and times in the
 # result line
 MAIN_PATH = dict.fromkeys(SOURCES, "v1_0")
-MAIN_PATH.update(fused_temporal_resblock_stream="tiled",
+MAIN_PATH.update(fused_temporal_resblock_stream="tiled", temporal_linear_up2x="tiled",
+                 linear_blend="tiled",
                  parity_blend_interleave="v1_0_split",
                  parity_blend_interleave4="v1_0_forms",
                  subpixel_interleave_z="v1_0_forms",
@@ -689,7 +705,9 @@ def model_calls(cfg: dict, shape, tiled: bool = False) -> Counter:
     C); in a causal model B (non-tiled; key (shape, mode)) or F (tiled;
     (shape, first_chunk, offset)) at every temporal resblock, E (v1.0) at
     every temporal upsample and D on the decoder's last activations
-    (tiled: with the 2 cached frames); C at every spatial upsample."""
+    (tiled: with the 2 cached frames); C at every spatial upsample; J and K
+    at every trilinear (v1.1) temporal upsample, J keyed (shape, split,
+    cached front: a later chunk), K by its y's shape."""
     from vidtok_tpu_torch.models.autoencoder import _ENC_VARIANTS
 
     p = cfg["model"]["params"]
@@ -730,7 +748,7 @@ def model_calls(cfg: dict, shape, tiled: bool = False) -> Counter:
         return f, s
 
     def decode(f, s, first):
-        c, cur, offs = ch * mult[-1], 1, {}
+        c, cur, offs, ntu = ch * mult[-1], 1, {}, 1
         for i in reversed(range(n)):
             offs[i] = cur
             cur *= 2 if i in t_us else 1
@@ -745,7 +763,13 @@ def model_calls(cfg: dict, shape, tiled: bool = False) -> Counter:
                 if i in t_us:
                     if variant == "causal":
                         calls["parity_up2x_fused", ((b, f, s, s, c), mode)] += 1
+                    elif variant == "causal_v1_1":
+                        later = tiled and not first
+                        calls["temporal_linear_up2x",
+                              ((b, f, s, s, c), 0 if later else ntu, later)] += 1
+                        calls["linear_blend", (b, 2 * f, s, s, c)] += 1
                     f *= 2
+                    ntu *= 2
         if causal:
             frames = f + 2 if tiled else f
             calls["decoder_tail_rgb", ((b, frames, s, s, c), mode)] += 1
@@ -799,13 +823,14 @@ def long_spatial_shapes() -> list:
 def tiled_per_forward(t: int, size: int = 256) -> dict:
     """Launches per tiled forward of the v1.1 model, summed from
     ``tiled_calls`` and checked against the formula: with E encoder and D
-    decoder chunks, F = A = 8E + 12D, C = 3D, D's tail D, B = E's kernel =
-    0 (T=65: 100, 100, 15, 5, 0, 0)."""
+    decoder chunks, F = A = 8E + 12D, C = 3D, D's tail D, J = K = 2D, B =
+    E's kernel = 0 (T=65: 100, 100, 15, 5, 10, 10, 0, 0)."""
     per = per_forward(tiled_calls(t, size))
     n_enc, n_dec = map(len, chunk_schedule(t))
     want = dict(per, fused_temporal_resblock_stream=8 * n_enc + 12 * n_dec,
                 fused_spatial_resblock=8 * n_enc + 12 * n_dec,
                 subpixel_interleave=3 * n_dec, decoder_tail_rgb=n_dec,
+                temporal_linear_up2x=2 * n_dec, linear_blend=2 * n_dec,
                 fused_temporal_resblock=0, parity_up2x_fused=0)
     if per != want:
         raise AssertionError(f"tiled launches {per} != formula {want}")
@@ -913,6 +938,16 @@ def work(name: str, key, elem: int = 2) -> tuple:
         b, t, h, w, c = key[0]
         m = b * t * h * w
         return elem * m * (c + 3) + 4 * (2 * c + 81 * c + 3), 2 * m * 81 * c, 0
+    if name == "temporal_linear_up2x":
+        # x read, [front | up] written (2T + 2 frames); a later chunk reads
+        # its 2 cached front frames and 1 previous frame; 4 FLOP a value
+        (b, t, h, w, c), _, cached = key
+        frame = b * h * w * c
+        return elem * (t * frame + (2 * t + 2) * frame + 3 * cached * frame), 0, 8 * t * frame
+    if name == "linear_blend":
+        # up and y read, y written; the f32 bias and alpha; 5 FLOP a value
+        m = _nel(key)
+        return elem * 3 * m + 4 * (key[-1] + 1), 0, 5 * m
     b, t, h, w, c = key[0]  # parity_up2x_fused
     m = b * t * h * w
     return elem * 3 * m * c + 4 * (27 * c * c + c + 1), 2 * m * 27 * c * c, 0
@@ -1066,6 +1101,13 @@ def kernel_cases(device):
                    ue.parity_blend_interleave4,
                    ue.parity_blend_interleave4_plain,
                    (s, q.x((b, t, h, w, 4 * c), bf), bias, alpha, mode))
+    # J and K at the trilinear upsamples' call shapes (J of a later chunk
+    # with its cached frames; K writes its y in place, so its kernel runs on
+    # a copy made here, once)
+    for key, calls in shapes["temporal_linear_up2x"].items():
+        yield _linear_up_case(p, key, dict(calls), bf)
+    for key, calls in shapes["linear_blend"].items():
+        yield _blend_case(p, key, dict(calls), bf)
     # partial tiles of A, F, B, E, D and D', on inputs of their own:
     # checked, not timed
     r = Params(4, device)
@@ -1116,7 +1158,40 @@ def kernel_cases(device):
             yield Case("decoder_tail_rgb_taps", (shape, mode), {},
                        decoder_tail.decoder_tail_rgb_taps,
                        decoder_tail.decoder_tail_rgb_taps_plain, args)
+    for shape in PARTIAL_LINEAR:
+        for split, cached in ((1, False), (shape[1], False), (0, True)):
+            yield _linear_up_case(r, (shape, split, cached), {}, bf)
+        b, t, h, w, c = shape
+        yield _blend_case(r, (b, 2 * t, h, w, c), {}, bf)
     yield from width_cases(device, bf, 5)
+
+
+def _linear_up_case(p, key, calls: dict, dtype) -> Case:
+    """Kernel J at ``key`` (shape, split, cached): a later chunk's call
+    reads a cache of 2 input frames and the 2 cached up-frames."""
+    from vidtok_tpu_torch.ops.kernels import temporal_linear as tl
+
+    (b, t, h, w, c), split, cached = key
+    prev = p.x((b, 2, h, w, c), dtype) if cached else None
+    front = p.x((b, 2, h, w, c), dtype) if cached else "replicate"
+    return Case("temporal_linear_up2x", key, calls, tl.temporal_linear_up2x,
+                tl.temporal_linear_up2x_plain, (p.x((b, t, h, w, c), dtype), split, prev,
+                                                front))
+
+
+def _blend_case(p, key, calls: dict, dtype) -> Case:
+    """Kernel K on y ``key``: the kernel writes into a copy of y made once,
+    so that the plain version reads y as drawn."""
+    from vidtok_tpu_torch.ops.kernels import temporal_linear as tl
+
+    b, ty, h, w, c = key
+    y = p.x(key, dtype)
+    out = y.clone()
+    alpha = p.t(1 / (1 + np.exp(-(2.0 + 0.5 * p.rng.randn(1)))))
+    return Case("linear_blend", key, calls,
+                lambda full, y, bias, alpha: tl.linear_blend(full, out, bias, alpha),
+                tl.linear_blend_plain,
+                (p.x((b, ty + 2, h, w, c), dtype), y, p.t(0.1 * p.rng.randn(c)), alpha))
 
 
 # Phase 2 at the widths the kernels take beside the released ones (checked,
@@ -3725,7 +3800,7 @@ def _check_finite(what: str, *tensors) -> None:
 def vidtwin_serve(device):
     """Phase 16a: VIDTWIN_REQUEST requests in bf16 (weights bf16 at rest):
     host-clock latency ending in a synchronize, frames/s, peak memory, no
-    launch of the fourteen kernels, a profile of one; one request in f32
+    launch of the sixteen kernels, a profile of one; one request in f32
     (f32 attention, TF32 off) and the bf16 gate; ``only_part`` and
     ``cross_reenact`` shapes, the cross result unlike both
     self-reconstructions; causality of the encoder in f32. Returns the f32
@@ -3758,7 +3833,7 @@ def vidtwin_serve(device):
           f"{list(VIDTWIN_REQUEST)} bf16, weights bf16; latency_s "
           + " ".join(f"{v:.4f}" for v in lat)
           + f"; frames_per_s (best after the first) {b * t / min(lat[1:]):.2f}; "
-          f"peak_mem_bytes {peak}; launches of the fourteen kernels 0", flush=True)
+          f"peak_mem_bytes {peak}; launches of the sixteen kernels 0", flush=True)
     profile_call(lambda: tok(x), "profile vidtwin bf16 request")
 
     tok32 = make_vidtwin(VIDTWIN_CFG, device, torch.float32, f32_attention=True)
@@ -4063,7 +4138,7 @@ def serve_vidtwin(device, t: float) -> float:
 # SHARDED_WORLD gloo processes on the one card (NCCL refuses two ranks on one
 # device), in f32 on the plain path and the flagship in bf16 with kernel E on
 # each slab; the profiling helpers (``utils/profiling.py``). Nothing else of
-# it runs a kernel of the fourteen.
+# it runs a kernel of the sixteen.
 ABLATION_TARGETS = ("VidAutoEncoderQformer", "VidAutoEncoderQformerCompact",
                     "VidAutoEncoderQformerCompactSym", "VidAutoEncoderQformerCompactSymDis")
 ABLATION_TIMED = 2            # bf16 requests after a cold one
@@ -4115,7 +4190,7 @@ def serve_ablation(target: str, device, seed: int, x):
     """Phase 17a, one target: its parameter count; one cold and
     ABLATION_TIMED timed bf16 requests of VIDTWIN_REQUEST (weights bf16 at
     rest; host clock ending in a synchronize), frames/s, peak memory, no
-    launch of the fourteen kernels; one f32 request (f32 attention) on the
+    launch of the sixteen kernels; one f32 request (f32 attention) on the
     same weights and draws, the bf16 run within VIDTWIN_BF16_GATE of it;
     the model cut to VIDTWIN_DEPTH_CUT blocks in f32 on the card against
     the CPU within VIDTWIN_CPU_GATE (SymDis at ``shuffle_ratio`` 0 there:
@@ -4154,7 +4229,7 @@ def serve_ablation(target: str, device, seed: int, x):
     print(f"serve ablation {target} ({n} parameters): request {list(VIDTWIN_REQUEST)} "
           f"bf16, weights bf16; latency_s " + " ".join(f"{v:.4f}" for v in lat)
           + f"; frames_per_s (best after the cold one) {b * t / min(lat[1:]):.2f}; "
-          f"peak_mem_bytes {peak}; launches of the fourteen kernels 0", flush=True)
+          f"peak_mem_bytes {peak}; launches of the sixteen kernels 0", flush=True)
 
     tok32 = VidTwinTokenizer(_f32_attention(model).to(device), meta)
     tok.generator.manual_seed(0)  # the same draws (SymDis) in both runs

@@ -167,6 +167,8 @@ def test_family_forward(fam):
                 "subpixel_interleave", "decoder_tail_rgb"}
         if meta["variant"] == "causal":
             want.add("parity_up2x_fused")
+        if meta["variant"] == "causal_v1_1":
+            want |= {"temporal_linear_up2x", "linear_blend"}
         assert called == (want if f else set())
         assert out[1].shape == x.shape
         check(out, jout, meta["discrete"])
@@ -193,7 +195,8 @@ def test_family_tiled(fam):
         check((z, tok.decode(z), log), jout, meta["discrete"])
         called = {k for k, n in K.counts("calls").items() if n}
         assert called == ({"fused_spatial_resblock", "fused_temporal_resblock_stream",
-                           "subpixel_interleave", "decoder_tail_rgb"} if f else set())
+                           "subpixel_interleave", "decoder_tail_rgb", "temporal_linear_up2x",
+                           "linear_blend"} if f else set())
 
 
 def _recorder(calls, name, fn, key):
@@ -228,6 +231,9 @@ def test_chip_smoke_call_shapes(path, monkeypatch):
             lambda x, *a: (tuple(x.shape), a[-2], a[-1]),
         (blocks, "subpixel_interleave"): lambda y, *a: tuple(y.shape),
         (blocks, "parity_up2x_fused"): lambda s, *a: (tuple(s.shape), a[-1]),
+        (blocks, "temporal_linear_up2x"): lambda x, split, prev, front: (
+            tuple(x.shape), split, isinstance(front, torch.Tensor)),
+        (blocks, "linear_blend"): lambda full, y, *a: tuple(y.shape),
         (decoder, "decoder_tail_rgb"): lambda h, *a: (tuple(h.shape), a[-1]),
     }
     for (mod, name), key in keys.items():

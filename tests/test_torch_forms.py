@@ -357,7 +357,8 @@ def test_tiled_v1_1_forms_equal_default():
     assert K.counts("calls") == dict.fromkeys(K.WRAPPERS, 0) | {
         "fused_spatial_resblock": 4 * n_chunks,
         "fused_temporal_resblock_stream": 4 * n_chunks,
-        "subpixel_interleave_z": n_chunks, "decoder_tail_rgb_taps": n_chunks}
+        "subpixel_interleave_z": n_chunks, "decoder_tail_rgb_taps": n_chunks,
+        "temporal_linear_up2x": n_chunks, "linear_blend": n_chunks}
     close(got, want)
 
 

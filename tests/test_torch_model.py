@@ -105,11 +105,12 @@ def test_tiny_v1_1_end_to_end(tiny, fused):
     calls = K.counts("calls")
     # one call per spatial/temporal resblock (1 + 1 encoder levels,
     # 2 + 2 decoder levels), one spatial upsample, one decoder tail
-    # (v1.1 upsamples time trilinearly: no parity upsample)
+    # (v1.1 upsamples time trilinearly: no parity upsample, J and K once)
     want = dict.fromkeys(K.WRAPPERS, 0)
     if fused:
         want.update(fused_spatial_resblock=6, fused_temporal_resblock=6,
-                    subpixel_interleave=1, decoder_tail_rgb=1)
+                    subpixel_interleave=1, decoder_tail_rgb=1, temporal_linear_up2x=1,
+                    linear_blend=1)
     assert calls == want
     assert all(n == 0 for n in K.counts().values())  # CPU: no launches
     assert z.shape == (1, 4, 3, 16, 16) and dec.shape == x.shape

@@ -39,7 +39,7 @@ def randomize(tree, rng):
     return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
-def check(jmod, tmod, x, path, prefix, seed=0, jkw=None):
+def check(jmod, tmod, x, path, prefix, seed=0, jkw=None, tkw=None):
     """Init ``jmod`` on x, randomize, load into ``tmod`` via the converter
     with the module placed at ``path``; compare outputs."""
     rng = np.random.RandomState(seed)
@@ -52,7 +52,7 @@ def check(jmod, tmod, x, path, prefix, seed=0, jkw=None):
     tmod.load_state_dict(sd, strict=True)
     want = jmod.apply({"params": p}, jnp.asarray(x), **(jkw or {}))
     with torch.no_grad():
-        got = tmod(torch.from_numpy(x))
+        got = tmod(torch.from_numpy(x), **(tkw or {}))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -164,10 +164,13 @@ def test_time_downsample(mode):
 
 @pytest.mark.parametrize("ntu,t", [(1, 3), (2, 5), (2, 2)])
 def test_time_upsample_trilinear(ntu, t):
-    check(JB.TimeUpsampleRes2x(8, interpolation_mode="trilinear",
-                               num_temp_upsample=ntu, first_pad_mode="replicate"),
-          TB.TimeUpsampleRes2x(8, 8, ntu, "replicate"), rand(1, t, 3, 4, 8),
-          ("decoder", "up_temporal_2_upsample"), "decoder.up_temporal.2.upsample.")
+    """Plain, and with ``fused`` through kernels J and K's plain forms."""
+    for fused in (False, True):
+        check(JB.TimeUpsampleRes2x(8, interpolation_mode="trilinear",
+                                   num_temp_upsample=ntu, first_pad_mode="replicate"),
+              TB.TimeUpsampleRes2x(8, 8, ntu, "replicate"), rand(1, t, 3, 4, 8),
+              ("decoder", "up_temporal_2_upsample"), "decoder.up_temporal.2.upsample.",
+              tkw={"fused": fused})
 
 
 def test_diagonal_gaussian_regularizer_mode_and_kl():

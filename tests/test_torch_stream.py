@@ -239,7 +239,8 @@ def test_time_downsample_stream(mode):
 def test_time_upsample_trilinear_stream(ntu, off):
     """The first chunk caches its last ntu frames; a later chunk caches
     ``[cache | x][-2ntu:-ntu]`` and drops its first 2ntu output frames; the
-    conv's cache is stored ``off`` frames back."""
+    conv's cache is stored ``off`` frames back. Plain, and with ``fused``
+    through kernels J and K's plain forms."""
     rng = np.random.RandomState(3)
     chunks = chunks_of(rng, (ntu + 1, 3, 3), 1, 3, 4, 8)
     jm = JB.TimeUpsampleRes2x(8, interpolation_mode="trilinear",
@@ -251,9 +252,10 @@ def test_time_upsample_trilinear_stream(ntu, off):
     tm = load_port(TB.TimeUpsampleRes2x(8, 8, ntu, "replicate", cache_offset=off),
                    p, ("decoder", "up_temporal_1_upsample"),
                    "decoder.up_temporal.1.upsample.")
-    got, cache = port_stream(tm, chunks, use_off=off > 0)
-    close(got, want)
-    close_caches(cache, jcache)
+    for fused in (False, True):
+        got, cache = port_stream(tm, chunks, use_off=off > 0, fused=fused)
+        close(got, want)
+        close_caches(cache, jcache)
 
 
 def test_decoder_stream_overlap_offsets():
@@ -353,11 +355,14 @@ def test_tiled_engine_vs_jax(tiny, jax_tiled, use_overlap, fused):
     assert (enc_chunks, dec_chunks) == (3, 3)
     # per chunk: 2 temporal (and spatial) blocks in the encoder, 4 in the
     # decoder; one spatial upsample and one tail per decoder chunk
+    # and one trilinear temporal upsample, J and K
     want = dict.fromkeys(K.WRAPPERS, 0)
     if fused:
         want.update(fused_temporal_resblock_stream=2 * enc_chunks + 4 * dec_chunks,
                     fused_spatial_resblock=2 * enc_chunks + 4 * dec_chunks,
-                    subpixel_interleave=dec_chunks, decoder_tail_rgb=dec_chunks)
+                    subpixel_interleave=dec_chunks, decoder_tail_rgb=dec_chunks,
+                    temporal_linear_up2x=dec_chunks, linear_blend=dec_chunks)
+    assert calls == want
     assert all(v == 0 for v in K.counts().values())
 
     tok.use_tiling = False

@@ -5,8 +5,9 @@ and v1.1) and, with ``causal=False``, the non-causal ones (symmetric
 convs, ``column`` and ``video`` GroupNorm statistics), each with
 ``layernorm`` or ``groupnorm``. ``fused=True`` routes the spatial and
 temporal resblocks, the spatial-upsample tail and the nearest temporal
-upsample through kernels A, B (F on a stream), C (or I) and E (or H, or G)
-(``ops/kernels``), the upsamples in the forms a
+upsample through kernels A, B (F on a stream), C (or I) and E (or H, or G),
+and the trilinear temporal upsample's passes around its conv through J and
+K (``ops/kernels``), the upsamples in the forms a
 :class:`~..ops.kernels.KernelForms` names, where JAX would take its Pallas
 kernel: A only with layernorm, B and F only in a causal layernorm block,
 E only in the causal nearest upsample; the wrappers run the plain forms on
@@ -47,25 +48,34 @@ writes.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels import (KernelForms, fused_spatial_resblock,
                            fused_temporal_resblock,
-                           fused_temporal_resblock_stream,
+                           fused_temporal_resblock_stream, linear_blend,
                            parity_blend_interleave, parity_blend_interleave4,
                            parity_up2x_fused, subpixel_interleave,
-                           subpixel_interleave_z)
+                           subpixel_interleave_z, temporal_linear_up2x)
+from ..ops.kernels import _lib
 from ..ops.kernels.parity_upsample import parity_up2x_fused_plain
 from ..parallel.mesh import shard_of
 from ..utils.profiling import span
 from .conv import (CausalConv1d, CausalConv3d, Conv1d, Conv3d, SpatialConv,
                    pad_time_front)
+from . import interp
 from .interp import (spatial_avg_pool2x, spatial_nearest_up2x,
-                     temporal_avg_pool3_stride2, temporal_linear_up2x,
-                     temporal_nearest_up2x)
+                     temporal_avg_pool3_stride2, temporal_nearest_up2x)
 from .norms import make_norm, silu
+
+
+def _conv_cl(weight, dtype):
+    """A conv weight in ``dtype``, channels-last as cuDNN reads it beside
+    a channels-last input."""
+    return weight.to(dtype).contiguous(memory_format=torch.channels_last_3d)
 
 
 def _norm_args(norm):
@@ -391,7 +401,10 @@ class TimeUpsampleRes2x(nn.Module):
     chunk interpolates ``[cache | x]``, drops the first 2*ntu output
     frames, and caches ``[cache | x][-2*ntu:-ntu]`` (not the last ntu
     frames: with overlap the last ones are the look-ahead's), as JAX does.
-    ``nearest`` (v1.0): the parity form of ``blocks.py:598-668``, which
+    With ``fused`` kernel J writes the conv's input, front included, cuDNN
+    convolves it without its bias and kernel K adds the bias and blends
+    (the same caches; on CPU tensors their plain forms). ``nearest``
+    (v1.0): the parity form of ``blocks.py:598-668``, which
     never builds the 2x tensor (kernel E when ``fused``); v1.0 cannot tile,
     and its streaming form is not ported. The blend needs ``cin == cout``;
     the JAX module's duplicate-then-conv form for other widths fails at the
@@ -449,20 +462,52 @@ class TimeUpsampleRes2x(nn.Module):
             # the output rows of the halo are dropped
             y = self._parity_up(shard.halo(x, 1, 1), alpha, shard.parity_kernel, forms)
             return y[:, :, 1:-1]
+        if fused:
+            return self._linear_up_fused(x, alpha, stream)
         if stream is not None and not stream.first_chunk:
             with span("vt.stream.cache"):
                 xc = torch.cat([stream.get(self).to(x.dtype), x], dim=1)
                 stream.put(self, xc[:, -2 * ntu:-ntu].clone())
-            x = temporal_linear_up2x(xc)[:, 2 * ntu:]
+            x = interp.temporal_linear_up2x(xc)[:, 2 * ntu:]
         else:
             if stream is not None:
                 with span("vt.stream.cache"):
                     stream.put(self, x[:, -ntu:].clone())
             head, tail = x[:, :ntu], x[:, ntu:]
-            x = temporal_linear_up2x(head)
+            x = interp.temporal_linear_up2x(head)
             if tail.shape[1] > 0:
-                x = torch.cat([x, temporal_linear_up2x(tail)], dim=1)
+                x = torch.cat([x, interp.temporal_linear_up2x(tail)], dim=1)
         return alpha * x + (1 - alpha) * self.conv(x, stream)
+
+    def _linear_up_fused(self, x, alpha, stream):
+        """The trilinear branch as kernel J, the conv and kernel K: J writes
+        the conv's fronted input ``[front | up]`` (the stream's cached
+        frames read in place), cuDNN convolves it without its bias, and K
+        adds the bias and blends in place; the caches are those of the
+        plain branch."""
+        ntu, conv = self.ntu, self.conv
+        prev, split, front = None, ntu, conv.first_pad_mode
+        if stream is not None:
+            with span("vt.stream.cache"):
+                if stream.first_chunk:
+                    front = "replicate"
+                    stream.put(self, x[:, -ntu:].clone())
+                else:
+                    prev = stream.get(self).to(x.dtype).contiguous()
+                    front = stream.get(conv).to(x.dtype).contiguous()
+                    split = 0
+                    xc = x if x.shape[1] >= 2 * ntu else torch.cat([prev, x], dim=1)
+                    stream.put(self, xc[:, -2 * ntu:-ntu].clone())
+        full = temporal_linear_up2x(x, split, prev, front)
+        if stream is not None:
+            stream.keep_tail(conv, full, conv.time_pad)
+        weight = None
+        if x.is_cuda:  # the weight as cuDNN reads it, cast and laid out once
+            weight = _lib.operands(f"conv_cl_{x.dtype}", (conv.conv.weight,),
+                                   functools.partial(_conv_cl, dtype=x.dtype))
+        y = conv.conv_fronted(full, weight, bias=False)
+        # K reads the blend factor as one f32 on the device (E's rule)
+        return linear_blend(full, y, conv.conv.bias, alpha.float())
 
     def _parity_up(self, x, alpha, fused: bool, forms: KernelForms):
         """The nearest upsample's parity form on ``x`` ``[B, T, H, W, C]``."""

@@ -151,14 +151,20 @@ class CausalConv3d(nn.Module):
         reset_conv_(self.conv.weight, self.conv.bias, generator)
 
     def forward(self, x, stream=None):
-        x = _front(self, x, stream)
+        return self.conv_fronted(_front(self, x, stream))
+
+    def conv_fronted(self, x, weight=None, bias: bool = True):
+        """The conv of ``x`` that already holds its ``time_pad`` front
+        frames; ``weight`` in place of ``self.conv.weight`` (the same
+        values, as the caller keeps them), ``bias=False`` leaves the bias for
+        the caller to add."""
         _, kh, kw = self.conv.kernel_size
         ph = kh // 2
         shard = shard_of(self)
         if shard is not None:  # H sharded: halo rows for the H padding
             x, ph = shard.halo(x, ph, ph), 0
-        return conv3d_cl(x, self.conv.weight, self.conv.bias, self.stride,
-                         (0, ph, kw // 2))
+        return conv3d_cl(x, self.conv.weight if weight is None else weight,
+                         self.conv.bias if bias else None, self.stride, (0, ph, kw // 2))
 
 
 class CausalConv1d(nn.Module):

@@ -4,9 +4,10 @@ Each wrapper runs its plain PyTorch version for a CPU tensor and its CUDA
 kernel for a CUDA tensor (or raises), under the span ``vt.kernel.<wrapper
 name>`` (``_lib.wrapper``). It keeps three counters: ``calls`` (every
 call), ``launches`` (calls that launched the kernel) and ``builds``
-(operand relayouts built because no cached one was served). A-F take
-bf16 or f32 activations (f32: ``split.py``'s scheme in A, B, E and F);
-G, H, I and D' take bf16 and raise for f32, naming the kernel.
+(operand relayouts built because no cached one was served). Every kernel
+takes bf16 or f32 activations (f32: ``split.py``'s scheme in A, B, E and
+F) and raises for another dtype, naming the kernel. J and K are the v1.1
+trilinear temporal upsample's passes around its cuDNN conv.
 
 :class:`KernelForms` picks which kernel form runs at the decoder's call
 sites that have more than one.
@@ -20,6 +21,7 @@ from .fused_temporal import (fused_temporal_resblock,
                              fused_temporal_resblock_stream)
 from .parity_upsample import parity_up2x_fused
 from .subpixel import subpixel_interleave, subpixel_interleave_z
+from .temporal_linear import linear_blend, temporal_linear_up2x
 from .upsample_epilogue import parity_blend_interleave, parity_blend_interleave4
 
 WRAPPERS = {
@@ -33,6 +35,8 @@ WRAPPERS = {
     "parity_blend_interleave4": parity_blend_interleave4,
     "subpixel_interleave_z": subpixel_interleave_z,
     "decoder_tail_rgb_taps": decoder_tail_rgb_taps,
+    "temporal_linear_up2x": temporal_linear_up2x,
+    "linear_blend": linear_blend,
 }
 
 # field -> its values, the default (JAX's default) first

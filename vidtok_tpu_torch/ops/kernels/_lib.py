@@ -83,6 +83,12 @@ _SIGNATURES = {
     "vt_subpixel_interleave_z": [_P] * 3 + [_I] * 4 + [_P],
     "vt_subpixel_interleave_z_f32": [_P] * 3 + [_I] * 4 + [_P],
     "vt_decoder_tail_rgb_taps": [_P] * 8 + [_I] * 12 + [_P],
+    # x, prev, n_prev, cache, out, B, T, S, C, split, front, vec, stream (J)
+    "vt_temporal_linear_up2x": [_P, _P, _I, _P, _P] + [_I] * 7 + [_P],
+    "vt_temporal_linear_up2x_f32": [_P, _P, _I, _P, _P] + [_I] * 7 + [_P],
+    # full, y, bias, alpha, B, Ty, S, C, vec, stream (K)
+    "vt_linear_blend": [_P] * 4 + [_I] * 5 + [_P],
+    "vt_linear_blend_f32": [_P] * 4 + [_I] * 5 + [_P],
     # the tools' kernels (vidtok_tpu_torch/tools):
     # x, out, B, T, S, C, tile_t, tile_s, stream
     "vt_copy_units": [_P] * 2 + [_I] * 6 + [_P],
