@@ -34,9 +34,9 @@ def readings(cell, prog, seed: int, control: bool) -> dict:
     from vtbench import harness
     from vtbench.reference import weights as W
 
-    traffic, w, dev = prog.traffic, cell.traffic, prog.device
+    traffic, w, dev, module = prog.traffic, cell.traffic, prog.device, cell.reference
     per = traffic.per_unit
-    prog.tok.core.load_state_dict(W.state_dict(prog.spec, seed, dev), strict=True)
+    module.load(prog.tok, module.weights(prog.spec, seed, dev), w)
     traffic.clips = [W.clip(seed, k, tuple(w["clip"]), dev) for k in range(w["pool"])]
     kept = {}
     for u in sorted(harness.sample_indices(seed, w["check"])):

@@ -2,9 +2,11 @@
 
 A cell is an entry of ``workloads`` in ``BENCHMARK.json``. Everything that
 belongs to it is data the harness finds by name: its traffic mix and
-entry in ``traffic/<traffic>.json``, its model in ``configs/<config>.json``, each
+entry in ``traffic/<traffic>.json``, its model in ``configs/<config>.json``, the
+reference module that configuration names in ``reference/<module>.py``, each
 per-layer metric's reader in ``metrics/<metric>.py``, the port's kernel
-names in ``kernel_names/*.json``.
+names in ``kernel_names/*.json``. Whatever depends on the model is read
+through the reference module, chosen when the cell is loaded.
 
 A run: set-up (import, CUDA, the kernel library, the model from its
 config, seeded weights and clips made on the device, warm-up requests of
@@ -36,6 +38,9 @@ from typing import Callable, List, Optional
 BENCH_DIR = Path(__file__).resolve().parent
 CHECKOUT = BENCH_DIR.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "vidtok_tpu")
+# what a configuration's reference module provides (reference/causal_kl.py)
+CONTRACT = ("read_config", "PROGRAM_OPTIONS", "weights", "load", "shapes", "NUMBERS",
+            "context", "ENTRIES", "kernel_calls", "model_flops", "faults", "tiny")
 
 
 @dataclass
@@ -47,6 +52,8 @@ class Cell:
     end_to_end: list
     per_layer: list
     bench_dir: Path
+    reference: object  # the configuration's reference module
+    spec: object       # its reading of the configuration
 
 
 def _reports(metric: dict, cell: str, cell_e2e: set) -> bool:
@@ -55,10 +62,26 @@ def _reports(metric: dict, cell: str, cell_e2e: set) -> bool:
     return metric.get("moves") in cell_e2e if "moves" in metric else True
 
 
+def load_reference(bench_dir: Path, name: str):
+    """The reference module ``reference/<name>.py`` of ``bench_dir``."""
+    path = Path(bench_dir) / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"no reference module {path}")
+    modname = f"vtbench_reference_{name}"
+    spec = importlib.util.spec_from_file_location(modname, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[modname] = module  # a dataclass's module has to be registered
+    spec.loader.exec_module(module)
+    return module
+
+
 def load_cell(name: str, benchmark: Path = CHECKOUT / "BENCHMARK.json",
               bench_dir: Path = BENCH_DIR) -> Cell:
-    """The cell ``name`` of ``benchmark``, with its data files from
-    ``bench_dir``."""
+    """The cell ``name`` of ``benchmark``, with its data files and its
+    configuration's reference module from ``bench_dir``. Refuses, before
+    any set-up, a configuration that names no reference module, a module
+    that lacks a name of the contract or the traffic's entry, and limits
+    on numbers the module does not give."""
     spec = json.loads(Path(benchmark).read_text())
     cells = {w["name"]: w for w in spec["workloads"]}
     if name not in cells:
@@ -69,10 +92,23 @@ def load_cell(name: str, benchmark: Path = CHECKOUT / "BENCHMARK.json",
         raise KeyError(f"workload {name!r} names no config of the benchmark")
     traffic = json.loads((Path(bench_dir) / "traffic" / f"{w['traffic']}.json").read_text())
     config = json.loads((Path(bench_dir) / "configs" / f"{w['config']}.json").read_text())
+    if "reference" not in config:
+        raise ValueError(f"configuration {w['config']!r} names no reference module")
+    ref = load_reference(bench_dir, config["reference"])
+    missing = [k for k in CONTRACT if not hasattr(ref, k)]
+    if missing:
+        raise ValueError(f"reference module {config['reference']!r} lacks {missing}")
+    if traffic["entry"] not in ref.ENTRIES:
+        raise ValueError(f"reference module {config['reference']!r} has no answer for "
+                         f"the entry {traffic['entry']!r} of traffic {w['traffic']!r}")
+    unknown = sorted(set(traffic["check"]["limits"]) - set(ref.NUMBERS))
+    if unknown:
+        raise ValueError(f"reference module {config['reference']!r} gives no {unknown}")
     e2e = [m for m in spec["end_to_end"] if _reports(m, name, set())]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in spec["per_layer"] if _reports(m, name, names)]
-    return Cell(name, traffic, config, w["chips"], e2e, per_layer, Path(bench_dir))
+    return Cell(name, traffic, config, w["chips"], e2e, per_layer, Path(bench_dir), ref,
+                ref.read_config(config))
 
 
 def process_start() -> float:
@@ -132,20 +168,22 @@ class Traffic:
     """The requests of a cell: ``issue(i)`` runs request ``i`` through the
     program's entry and returns its outputs without waiting for the
     device; ``kind(i)`` and ``frames(i)`` say what it is. Request ``i``
-    takes clip ``i % pool`` (a stream: stream ``i // chunks``)."""
+    takes clip ``i % pool`` (a stream: stream ``i // chunks``).
+    ``shapes(frames)`` gives the shapes of the outputs of a request over
+    ``frames`` input frames."""
 
-    def __init__(self, tok, traffic: dict, clips: list, z_shape: Callable):
+    def __init__(self, tok, traffic: dict, clips: list, shapes: Callable):
         self.tok = tok
         self.w = traffic
         self.clips = clips
-        self.z_shape = z_shape
         self.entry = traffic["entry"]
         self.cache = None
         self.bounds = [(0, traffic["clip"][2])]
         if self.entry == "encode_chunk":
-            from vtbench.reference.model import chunk_bounds
+            from vtbench.reference.work import chunk_bounds
 
             self.bounds = chunk_bounds(traffic["clip"][2], traffic["chunk_frames"])
+        self.expected = [list(map(tuple, shapes(e - s))) for s, e in self.bounds]
 
     @property
     def per_unit(self) -> int:
@@ -156,12 +194,8 @@ class Traffic:
         return divmod(i, len(self.bounds))
 
     def shapes(self, i: int) -> list:
-        """The shapes of request ``i``'s outputs: z, and the reconstruction
-        of a forward."""
-        b, c, t, h, w = self.w["clip"]
-        s, e = self.bounds[self.stream_of(i)[1]]
-        z = self.z_shape(b, e - s, h, w)
-        return [z] if self.entry == "encode_chunk" else [z, (b, c, t, h, w)]
+        """The shapes of request ``i``'s outputs."""
+        return self.expected[self.stream_of(i)[1]]
 
     def kind(self, i: int) -> str:
         if self.entry != "encode_chunk":
@@ -269,7 +303,8 @@ def power_limit() -> Optional[str]:
 @dataclass
 class Program:
     """The system under test as set-up leaves it: the tokenizer with the
-    seed's weights, the cell's requests over the seed's clips."""
+    seed's weights, the cell's requests over the seed's clips, and the
+    reference module's reading of its configuration."""
     tok: object
     traffic: Traffic
     spec: object
@@ -285,14 +320,13 @@ def build_program(cell: Cell, seed: int, device, phases: dict,
 
     import vidtok_tpu_torch
 
-    from vtbench.reference import model as R
     from vtbench.reference import weights as W
 
     def phase(name, t0):
         phases[name] = time.perf_counter() - t0
 
     dev = torch.device(device)
-    w = cell.traffic
+    w, ref = cell.traffic, cell.reference
     t0 = time.perf_counter()
     if dev.type == "cuda":
         from vidtok_tpu_torch.ops.kernels import _lib
@@ -301,30 +335,19 @@ def build_program(cell: Cell, seed: int, device, phases: dict,
     phase("kernel_library", t0)
     t0 = time.perf_counter()
     dtype = getattr(torch, w["compute_dtype"])
-    tok = vidtok_tpu_torch.load_model_from_config(cell.config, device=dev,
-                                                  compute_dtype=dtype, fused=True)
+    tok = vidtok_tpu_torch.load_model_from_config(cell.config, device=dev, compute_dtype=dtype,
+                                                  **ref.PROGRAM_OPTIONS)
     phase("model", t0)
     t0 = time.perf_counter()
-    spec = R.spec_of(cell.config)
-    tok.core.load_state_dict(W.state_dict(spec, seed, dev), strict=True)
-    tiling = w.get("tiling")
-    if tiling:
-        tok.use_tiling = True
-        tok.use_overlap = tiling["use_overlap"]
-        tok.t_chunk_enc = tiling["t_chunk_enc"]
-        tok.t_chunk_dec = tiling["t_chunk_enc"] // tok.time_downsample_factor
+    ref.load(tok, ref.weights(cell.spec, seed, dev), w)
     if fault is not None:
         fault(tok)
     phase("weights", t0)
     t0 = time.perf_counter()
     clips = [W.clip(seed, k, tuple(w["clip"]), dev) for k in range(w["pool"])]
     phase("clips", t0)
-    down = 2 ** len(spec.spatial_ds)
-
-    def z_shape(b, t, h, wd):
-        return (b, spec.z_channels, -(-t // spec.tdf), h // down, wd // down)
-
-    return Program(tok, Traffic(tok, w, clips, z_shape), spec, dev)
+    traffic = Traffic(tok, w, clips, lambda frames: ref.shapes(cell.spec, w, frames))
+    return Program(tok, traffic, cell.spec, dev)
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
@@ -457,24 +480,20 @@ def end_to_end_value(name: str, win: Window, setup_s: float, peak: int) -> float
     raise KeyError(f"no end-to-end metric {name!r}")
 
 
-def _request_args(cell: Cell, kind: str) -> tuple:
-    """(shape, entry, first, t_chunk_enc) of a request of ``kind``."""
+def _request(cell: Cell, kind: str) -> tuple:
+    """(input shape, first of its stream) of a request of ``kind``."""
     w = cell.traffic
     shape = tuple(w["clip"])
     if w["entry"] == "encode_chunk":
         first = kind == "first_chunk"
         frames = 1 if first else w["chunk_frames"]
-        return (shape[0], shape[1], frames) + shape[3:], "encode_chunk", first, 16
-    t_chunk = (w.get("tiling") or {}).get("t_chunk_enc", 16)
-    return shape, w["entry"], True, t_chunk
+        return (shape[0], shape[1], frames) + shape[3:], first
+    return shape, True
 
 
 def request_calls(cell: Cell, kind: str):
     """The frozen kernel calls of one request of ``kind``."""
-    from vtbench.reference import work as Wk
-
-    shape, entry, first, t_chunk = _request_args(cell, kind)
-    return Wk.kernel_calls(cell.config, shape, entry, first, t_chunk)
+    return cell.reference.kernel_calls(cell.spec, cell.traffic, *_request(cell, kind))
 
 
 def request_work(cell: Cell, records) -> dict:
@@ -484,9 +503,8 @@ def request_work(cell: Cell, records) -> dict:
 
     out = {}
     for kind in sorted({r.kind for r in records}):
-        shape, entry, first, t_chunk = _request_args(cell, kind)
         out[kind] = (Wk.least_seconds(request_calls(cell, kind)),
-                     Wk.model_flops(cell.config, shape, entry, first, t_chunk))
+                     cell.reference.model_flops(cell.spec, cell.traffic, *_request(cell, kind)))
     return out
 
 
@@ -494,9 +512,9 @@ def frozen_launches(cell: Cell, records) -> dict:
     """{kernel: launches} that the frozen call model gives ``records``."""
     from collections import Counter
 
-    from vtbench.reference import work as Wk
+    from vtbench.reference.work import launches
 
-    per = {kind: Wk.launches(request_calls(cell, kind)) for kind in {r.kind for r in records}}
+    per = {kind: launches(request_calls(cell, kind)) for kind in {r.kind for r in records}}
     total = Counter()
     for r in records:
         total.update(per[r.kind])
@@ -531,65 +549,52 @@ def traced_window(traffic: Traffic, w: dict, start: int, dev, cell: Cell) -> dic
 def reference_answers(cell: Cell, seed: int, indices, per: int, dev,
                       quant: str = "none") -> dict:
     """{request index: outputs} of the plain reference for ``indices``,
-    from the seed's weights and clips, with TF32 off. A stream's chunks
-    run in order from its first, up to the last one asked for. ``quant``
-    "fp8" gives the control."""
+    from the seed's weights and clips, with TF32 off: the answer the
+    configuration's reference module gives for the traffic's entry. A
+    stream's chunks run in order from its first, up to the last one asked
+    for. ``quant`` "fp8" gives the control."""
     import torch
 
-    from vtbench.reference import model as R
     from vtbench.reference import weights as W
+    from vtbench.reference.work import chunk_bounds
 
-    w = cell.traffic
-    spec = R.spec_of(cell.config)
+    w, ref = cell.traffic, cell.reference
+    answer = ref.ENTRIES[w["entry"]]
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    ctx = R.Ctx(W.state_dict(spec, seed, dev), spec, quant)
+    ctx = ref.context(ref.weights(cell.spec, seed, dev), cell.spec, quant)
     out = {}
     try:
         if w["entry"] == "encode_chunk":
-            bounds = R.chunk_bounds(w["clip"][2], w["chunk_frames"])
+            bounds = chunk_bounds(w["clip"][2], w["chunk_frames"])
             for s in sorted({i // per for i in indices}):
                 x = W.clip(seed, s % w["pool"], tuple(w["clip"]), dev)
                 upto = max(i for i in indices if i // per == s) - s * per
-                old = None
+                state = None
                 for j, (a, b) in enumerate(bounds[:upto + 1]):
-                    z, old = R.encode_chunk(ctx, x[:, :, a:b], old)
-                    out[s * per + j] = (z,)
+                    out[s * per + j], state = answer(ctx, x[:, :, a:b], w, state)
         else:
             for i in sorted(indices):
                 x = W.clip(seed, i % w["pool"], tuple(w["clip"]), dev)
-                if w["entry"] == "forward_tiled":
-                    out[i] = R.forward_tiled(ctx, x, w["tiling"]["t_chunk_enc"])
-                else:
-                    out[i] = R.forward(ctx, x, w["check"].get("chunk_latents"))
+                out[i], _ = answer(ctx, x, w, None)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     return {i: out[i] for i in indices}
 
 
-def compare(cell: Cell, answers: dict, ref: dict) -> dict:
-    """{number: {"value", "limit"}}: the worst relative L2 over the answers,
-    of z (``z_rel``) and of a forward's reconstruction (``rec_rel``); inf
-    where there is no answer to judge."""
+def compare(cell: Cell, answers: dict, want: dict) -> dict:
+    """{number: {"value", "limit"}}: for each number the traffic limits,
+    the worst over the answers of the reference module's measure of it
+    (each lower is better); inf where there is no answer to judge."""
     limits = cell.traffic["check"]["limits"]
+    numbers = cell.reference.NUMBERS
     worst = {k: (0.0 if answers else float("inf")) for k in limits}
     for i, got in answers.items():
-        for k, a, b in zip(("z_rel", "rec_rel"), got, ref[i]):
-            if k in worst:
-                worst[k] = max(worst[k], rel_l2(a, b))
+        for k in limits:
+            worst[k] = max(worst[k], numbers[k](got, want[i]))
     return {k: {"value": worst[k], "limit": limits[k]} for k in limits}
 
 
 def judge(cell: Cell, seed: int, kept: dict, per: int, dev) -> dict:
     """The kept answers against the plain reference in float32."""
     return compare(cell, kept, reference_answers(cell, seed, sorted(kept), per, dev))
-
-
-def rel_l2(a, b) -> float:
-    """||a - b|| / ||b|| in float64; inf where shapes differ or a is not
-    finite."""
-    if tuple(a.shape) != tuple(b.shape):
-        return float("inf")
-    a, b = a.double(), b.double()
-    d = float((a - b).norm() / b.norm().clamp_min(1e-30))
-    return d if d == d else float("inf")

@@ -1,6 +1,11 @@
-"""Plain PyTorch reference of VidTok's causal KL tokenizers, v1.0 and v1.1.
+"""Reference module of VidTok's causal KL tokenizers, v1.0 and v1.1: the
+plain PyTorch model, its seeded weights, its answers, its frozen kernel
+calls and FLOP, and the numbers a run's check compares. A configuration
+file names it with ``"reference": "causal_kl"``; the harness reads the
+model through the names of the contract section at the end of this file
+(``vtbench/README.md``).
 
-It follows the published model (github.com/microsoft/VidTok,
+The model follows the published one (github.com/microsoft/VidTok,
 ``vidtok/modules/model_3dcausal.py`` and ``model_3dcausal_v1_1.py``) in its
 plainest form, on ``[B, C, T, H, W]`` tensors in float32, with the weights
 given as a reference-layout state dict (``{name: tensor}``). It imports
@@ -25,16 +30,30 @@ the same); attention is written out as softmax(q k^T / sqrt(C)) v.
 product to float8 e4m3 with one scale per tensor (its largest magnitude
 onto 448) before computing in float32: the control that the benchmark's
 comparison has to reject.
+
+The weights (:func:`weights`) are drawn by ``weights.state_dict`` in float32,
+the type the tokenizer keeps them in: every convolution weight and bias
+uniform in +-1/sqrt(fan_in) (the published init's bound, the
+zero-initialised temporal conv2 included), every LayerNorm scale
+1 + 0.1 N(0, 1) and shift 0.1 N(0, 1), every mix factor 2 + 0.5 N(0, 1), so
+that every parameter does work.
 """
 
 from __future__ import annotations
 
+import json
 import math
+from collections import Counter
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from vtbench.reference import weights as W
+from vtbench.reference.compare import output_rel_l2
+from vtbench.reference.work import chunk_bounds
 
 EPS = 1e-6
 FP8_MAX = 448.0
@@ -73,7 +92,7 @@ _VARIANT = {"EncoderCausal3D": "v1_0", "EncoderCausal3DV1_1": "v1_1",
             "vidtok.modules.model_3dcausal_v1_1.EncoderCausal3DPadding": "v1_1"}
 
 
-def spec_of(config: dict) -> Spec:
+def read_config(config: dict) -> Spec:
     """The :class:`Spec` of a config dict (``{"model": ...}`` or the model
     section); KL, layernorm, causal models only."""
     model = config.get("model", config)
@@ -471,15 +490,6 @@ def forward(ctx: Ctx, x, chunk_latents: Optional[int] = None):
 
 # -- the tiled (chunked, overlapped) schedule of the v1.1 model -------------
 
-def chunk_bounds(n: int, size: int):
-    """[(0, 1), (1, 1 + size), ...]: the first frame alone, then ``size``
-    frames at a time."""
-    out = [(0, 1)]
-    while out[-1][1] < n:
-        out.append((out[-1][1], min(n, out[-1][1] + size)))
-    return out
-
-
 @torch.no_grad()
 def encode_chunk(ctx: Ctx, x, old: Optional[dict]):
     """One step of the encoder stream: x [B, 3, t, H, W] is a clip's first
@@ -516,3 +526,289 @@ def forward_tiled(ctx: Ctx, x, t_chunk_enc: int = 16, overlap: bool = True):
         old = st.new
         outs.append(dec[:, :, :dec.shape[2] - spec.tdf] if ahead else dec)
     return z, torch.cat(outs, dim=2)[:, :, -x.shape[2]:]
+
+
+# -- the frozen kernel calls and the model's FLOP ----------------------------
+
+def _calls(spec: Spec, shape, entry: str, first: bool, t_chunk_enc: int) -> Counter:
+    """Kernel calls of one request of ``shape`` [B, 3, T, H, W] with the
+    kernels on, by (kernel, call key) as ``work.work`` keys them: a frozen
+    copy of ``chip_smoke.model_calls`` (the walk of the encoder and
+    decoder, or the tiled schedule), with the encoder stream's single
+    chunk added. ``entry``: ``forward`` (non-tiled: B at every temporal
+    resblock, key (shape, mode)), ``forward_tiled`` (the overlapped chunk
+    loop: F, key (shape, first_chunk, offset)) or ``encode_chunk`` (one
+    encoder chunk of T frames, the stream's first when ``first``). A at
+    every spatial resblock (N, H, W, Cin, C), C at every spatial upsample,
+    at every temporal upsample E (v1.0) or J and K (v1.1: J keyed (shape,
+    the frames interpolated apart, a later tiled chunk's cached front), K
+    by the doubled shape), D on the decoder's last activations (tiled:
+    with the 2 cached frames)."""
+    from vtbench.reference.work import chunk_schedule
+
+    mode = "replicate" if spec.variant == "v1_1" else "zero"
+    ch, mult, nrb, tdf = spec.ch, spec.ch_mult, spec.num_res_blocks, spec.tdf
+    n = len(mult)
+    b, _, t, size, _ = shape
+    stream = entry != "forward"
+    calls = Counter()
+
+    def temporal(f, s, c, first_chunk, off):
+        x = (b, f, s, s, c)
+        if stream:
+            calls["fused_temporal_resblock_stream", (x, first_chunk, off)] += 1
+        else:
+            calls["fused_temporal_resblock", (x, mode)] += 1
+
+    def encode(f, first_chunk):
+        s, c = size, ch
+        for i in range(n):
+            for _ in range(nrb):
+                calls["fused_spatial_resblock", (b * f, s, s, c, ch * mult[i])] += 1
+                c = ch * mult[i]
+                temporal(f, s, c, first_chunk, 0)
+            if i in spec.spatial_ds:
+                s //= 2
+                f //= 2 if i in spec.tempo_ds else 1
+        return f, s
+
+    def decode(f, s, first_chunk):
+        c, cur, offs, ntu = ch * mult[-1], 1, {}, 1
+        for i in reversed(range(n)):
+            offs[i] = cur
+            cur *= 2 if i in spec.tempo_us else 1
+        for i in reversed(range(n)):
+            for _ in range(nrb + 1):
+                calls["fused_spatial_resblock", (b * f, s, s, c, ch * mult[i])] += 1
+                c = ch * mult[i]
+                temporal(f, s, c, first_chunk, offs[i])
+            if i in spec.spatial_us:
+                calls["subpixel_interleave", (b * f, s, s, c)] += 1
+                s *= 2
+                if i in spec.tempo_us:
+                    if spec.variant == "v1_0":
+                        calls["parity_up2x_fused", ((b, f, s, s, c), mode)] += 1
+                    else:
+                        later = stream and not first_chunk
+                        calls["temporal_linear_up2x",
+                              ((b, f, s, s, c), 0 if later else ntu, later)] += 1
+                        calls["linear_blend", (b, 2 * f, s, s, c)] += 1
+                    f *= 2
+                    ntu *= 2
+        frames = f + 2 if stream else f
+        calls["decoder_tail_rgb", ((b, frames, s, s, c), mode)] += 1
+
+    if entry == "encode_chunk":
+        if first:
+            t = -(-t // tdf) * tdf
+        encode(t, first)
+        return calls
+    if entry == "forward":
+        if spec.variant == "v1_0" and t % tdf:
+            t += tdf - 1
+        elif spec.variant == "v1_1":
+            t = -(-t // tdf) * tdf
+        decode(*encode(t, True), True)
+        return calls
+    if entry != "forward_tiled":
+        raise ValueError(f"unknown entry {entry!r}")
+    enc, dec = chunk_schedule(t, tdf, t_chunk_enc)
+    lat = [encode(f, i == 0) for i, f in enumerate(enc)][0][1]
+    for i, f in enumerate(dec):
+        decode(f, lat, i == 0)
+    return calls
+
+
+# The share of an upsample's counted FLOP that its function needs. The
+# reference convolves the doubled tensor, as the published model does: a
+# spatial upsample's 3x3 conv on the nearest-doubled frame is four 2x2
+# convs of the input frame, one for each output parity (4/9 of it); a
+# temporal upsample's causal 3-frame conv on the doubled (nearest or
+# linear) frames is a blend of the three base convs of each input frame
+# (1/2 of it), as kernel E computes it.
+FUNCTION_SHARE = {"spatial_up": 4 / 9, "time_up": 1 / 2}
+
+
+@contextmanager
+def _function_flops(counted: dict):
+    """Count each upsample of the reference apart: ``counted[name]`` gets
+    the FLOP its calls were counted at."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    scope = globals()
+    saved = {name: scope[name] for name in FUNCTION_SHARE}
+
+    def apart(name, fn):
+        def run(*args, **kwargs):
+            with FlopCounterMode(display=False) as c:
+                out = fn(*args, **kwargs)
+            counted[name] = counted.get(name, 0) + c.get_total_flops()
+            return out
+        return run
+
+    try:
+        for name, fn in saved.items():
+            scope[name] = apart(name, fn)
+        yield
+    finally:
+        scope.update(saved)
+
+
+def _flops(spec: Spec, shape, entry: str, first: bool, t_chunk_enc: int) -> float:
+    """FLOP of the model's function for one request, counted by
+    ``torch.utils.flop_counter`` over the reference on the meta device
+    (every convolution and matrix product), with the upsamples' convs
+    counted as their function needs them (``FUNCTION_SHARE``), as
+    ``work.work`` counts kernel E."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    params = {k: torch.empty(s, device="meta") for k, s in param_shapes(spec).items()}
+    ctx = Ctx(params, spec)
+    x = torch.empty(shape, device="meta")
+    old = None
+    if entry == "encode_chunk" and not first:  # the cache of a first chunk
+        _, old = encode_chunk(ctx, x[:, :, :1], None)
+    counted = {}
+    with _function_flops(counted), FlopCounterMode(display=False) as counter:
+        if entry == "forward":
+            forward(ctx, x)
+        elif entry == "forward_tiled":
+            forward_tiled(ctx, x, t_chunk_enc)
+        elif entry == "encode_chunk":
+            encode_chunk(ctx, x, old)
+        else:
+            raise ValueError(f"unknown entry {entry!r}")
+    total = counter.get_total_flops()
+    for name, flops in counted.items():
+        total -= (1 - FUNCTION_SHARE[name]) * flops
+    return float(total)
+
+
+# -- the contract: the names the harness reads through the configuration ----
+# (``harness.CONTRACT``; vtbench/README.md says what each one is);
+# ``read_config`` is above
+
+PROGRAM_OPTIONS = {"fused": True}
+# the parameters drawn normal, by the end of their name: (mean, scale)
+NORMAL = {"norm.weight": (1.0, 0.1), "norm.bias": (0.0, 0.1), "mix_factor": (2.0, 0.5)}
+
+
+def weights(spec: Spec, seed: int, device) -> dict:
+    """{name: float32 tensor on ``device``} from ``seed``."""
+    return W.state_dict(param_shapes(spec), seed, device, NORMAL)
+
+
+def load(tok, params: dict, traffic: dict) -> None:
+    """The engine's core takes the reference layout as its state dict; a
+    tiled traffic sets the engine's chunking."""
+    tok.core.load_state_dict(params, strict=True)
+    tiling = traffic.get("tiling")
+    if tiling:
+        tok.use_tiling = True
+        tok.use_overlap = tiling["use_overlap"]
+        tok.t_chunk_enc = tiling["t_chunk_enc"]
+        tok.t_chunk_dec = tiling["t_chunk_enc"] // tok.time_downsample_factor
+
+
+def shapes(spec: Spec, traffic: dict, frames: int) -> list:
+    """z's shape, and a forward's reconstruction's, for ``frames`` input
+    frames of the traffic's clips."""
+    b, c, _, h, w = traffic["clip"]
+    down = 2 ** len(spec.spatial_ds)
+    z = (b, spec.z_channels, -(-frames // spec.tdf), h // down, w // down)
+    return [z] if traffic["entry"] == "encode_chunk" else [z, (b, c, frames, h, w)]
+
+
+# the worst relative L2 of z and of a forward's reconstruction
+NUMBERS = {"z_rel": output_rel_l2(0), "rec_rel": output_rel_l2(1)}
+
+
+context = Ctx
+
+
+def _answer_forward(ctx, x, traffic, state):
+    return forward(ctx, x, traffic["check"].get("chunk_latents")), None
+
+
+def _answer_forward_tiled(ctx, x, traffic, state):
+    tiling = traffic["tiling"]
+    return forward_tiled(ctx, x, tiling["t_chunk_enc"], tiling["use_overlap"]), None
+
+
+def _answer_encode_chunk(ctx, x, traffic, state):
+    z, state = encode_chunk(ctx, x, state)
+    return (z,), state
+
+
+ENTRIES = {"forward": _answer_forward, "forward_tiled": _answer_forward_tiled,
+           "encode_chunk": _answer_encode_chunk}
+
+
+def _t_chunk_enc(traffic: dict) -> int:
+    return (traffic.get("tiling") or {}).get("t_chunk_enc", 16)
+
+
+def kernel_calls(spec: Spec, traffic: dict, shape, first: bool) -> Counter:
+    """The frozen kernel calls of one request of the traffic's entry over
+    input ``shape`` (a stream's chunk: the stream's first when ``first``)."""
+    return _calls(spec, shape, traffic["entry"], first, _t_chunk_enc(traffic))
+
+
+def model_flops(spec: Spec, traffic: dict, shape, first: bool) -> float:
+    """The model function's FLOP for the same request."""
+    return _flops(spec, shape, traffic["entry"], first, _t_chunk_enc(traffic))
+
+
+def _answer_altered(tok):
+    """The last latent frame of every z negated where the regularizer
+    produces it (channels-last [B, T', H', W', C])."""
+    core = tok.core
+    regularize = core.regularize
+
+    def altered(*a, **k):
+        z, log = regularize(*a, **k)
+        z = z.clone()
+        z[:, -1] = -z[:, -1]
+        return z, log
+
+    core.regularize = altered
+
+
+def _state_unchanged(tok):
+    """Every chunk step after the first returns the cache it was given."""
+    core = tok.core
+    encode_raw, decode = core.encode_raw, core.decode
+
+    def enc(x, fused=False, streaming=False, first_chunk=True, cache=None):
+        out = encode_raw(x, fused, streaming, first_chunk, cache)
+        if streaming and cache is not None:
+            return out[0], cache
+        return out
+
+    def dec(z, *a, streaming=False, cache=None, **k):
+        out = decode(z, *a, streaming=streaming, cache=cache, **k)
+        if streaming and cache is not None:
+            return out[0], cache
+        return out
+
+    core.encode_raw, core.decode = enc, dec
+
+
+def faults(traffic: dict) -> dict:
+    """An answer altered where it is produced, in every traffic; a step
+    that returns its state unchanged, where state is carried between
+    chunks (the tiled forward and the stream). A batch of one on one chip
+    cannot leave out half of a batch nor an exchange between chips."""
+    out = {"answer": _answer_altered}
+    if traffic["entry"] != "forward":
+        out["state"] = _state_unchanged
+    return out
+
+
+def tiny(config: dict, ch: int = 32) -> dict:
+    """The configuration at the CPU tests' width: ``ch`` 32, the published
+    topology and factors kept."""
+    cfg = json.loads(json.dumps(config))
+    for k in ("encoder_config", "decoder_config"):
+        cfg["model"]["params"][k]["params"]["ch"] = ch
+    return cfg

@@ -1,12 +1,10 @@
-"""Seeded weights and inputs, made on the device in a few large draws.
+"""Seeded weights and inputs, made on the device in a few large draws:
+shared by every reference module.
 
-The weights are a reference-layout state dict (names and shapes from
-:func:`model.param_shapes`), in float32, the type the tokenizer keeps them
-in: every convolution weight and bias uniform in +-1/sqrt(fan_in) (the
-published init's bound, the zero-initialised temporal conv2 included),
-every LayerNorm scale 1 + 0.1 N(0, 1) and shift 0.1 N(0, 1), every mix
-factor 2 + 0.5 N(0, 1), so that every parameter does work. All uniform
-values come from one draw and all normal ones from another.
+:func:`state_dict` draws a model's parameters, given their names and
+shapes in the reference's layout, in float32: all uniform values come
+from one draw and all normal ones from another. A reference module says
+which parameters are normal, by the end of their name.
 
 A clip is a smooth pattern of three sinusoids per channel drifting across
 the frame, plus noise, quantized to 8-bit levels and mapped to [-1, 1].
@@ -19,8 +17,6 @@ import math
 
 import torch
 
-from .model import Spec, param_shapes
-
 
 def derive(seed: int, purpose: str, index: int = 0) -> int:
     """A 63-bit generator seed for one purpose of one run seed."""
@@ -28,14 +24,18 @@ def derive(seed: int, purpose: str, index: int = 0) -> int:
     return int.from_bytes(digest[:8], "little") >> 1
 
 
-def state_dict(spec: Spec, seed: int, device) -> dict:
-    """{name: float32 tensor on ``device``} from ``seed``."""
-    shapes = param_shapes(spec)
-    normal = [k for k in shapes if k.endswith(("norm.weight", "norm.bias", "mix_factor"))]
-    uniform = [k for k in shapes if k not in set(normal)]
+def state_dict(shapes: dict, seed: int, device, normal: dict) -> dict:
+    """{name: float32 tensor on ``device``} from ``seed``, in the order of
+    ``shapes``. A parameter whose name ends in a key of ``normal`` is drawn
+    from N(mean, scale), ``normal[key] == (mean, scale)``; every other one
+    is uniform in +-1/sqrt(fan_in) of its layer's weight (the name with its
+    last part replaced by ``weight``)."""
+    suffixes = tuple(normal)
+    normals = [k for k in shapes if k.endswith(suffixes)]
+    uniform = [k for k in shapes if k not in set(normals)]
     g = torch.Generator(device).manual_seed(derive(seed, "weights"))
     u = torch.rand(sum(math.prod(shapes[k]) for k in uniform), generator=g, device=device)
-    nv = torch.randn(sum(math.prod(shapes[k]) for k in normal), generator=g, device=device)
+    nv = torch.randn(sum(math.prod(shapes[k]) for k in normals), generator=g, device=device)
     out, at = {}, 0
     for k in uniform:
         n = math.prod(shapes[k])
@@ -44,10 +44,9 @@ def state_dict(spec: Spec, seed: int, device) -> dict:
         out[k] = u[at:at + n].view(shapes[k]).mul_(2 * bound).sub_(bound)
         at += n
     at = 0
-    for k in normal:
+    for k in normals:
         n = math.prod(shapes[k])
-        mean, scale = ((1.0, 0.1) if k.endswith("norm.weight") else
-                       (2.0, 0.5) if k.endswith("mix_factor") else (0.0, 0.1))
+        mean, scale = next(v for s, v in normal.items() if k.endswith(s))
         out[k] = nv[at:at + n].view(shapes[k]).mul_(scale).add_(mean)
         at += n
     return {k: out[k] for k in shapes}

@@ -5,9 +5,9 @@ import pytest
 
 from vtbench import harness
 from vtbench.calibrate import readings
+from vtbench_tiny import cells
 
-CELLS = ["flagship-t201-pipelined", "v1_1-tiled-t201-pipelined", "flagship-t17-latency",
-         "v1_1-stream16-latency"]
+CELLS = cells()
 SEEDS = (2**33 + 101, 2**33 + 102, 2**33 + 103)
 
 

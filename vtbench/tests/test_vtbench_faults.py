@@ -1,28 +1,33 @@
 """The check that decides ``correct``, shown to fail: a whole run of each
 cell at a tiny size on the CPU (the harness's look for a card skipped),
-with the timed path broken underneath, reads ``correct`` false; the sound
-run reads it true; the float8 control, put in the program's place, fails
-each cell's limits. The limits are the cells' own."""
+with the timed path broken underneath by each fault the cell's reference
+module names (``faults``), reads ``correct`` false; the sound run reads it
+true; the float8 control, put in the program's place, fails each cell's
+limits. The limits are the cells' own."""
 
 import pytest
 import torch
 
 from vtbench import harness
-from vtbench.reference import model as R
-from vtbench_tiny import SPEC, make
+from vtbench_tiny import SPEC, cells, make
 
 torch.set_num_threads(2)
-CELLS = ["flagship-t201-pipelined", "v1_1-tiled-t201-pipelined", "flagship-t17-latency",
-         "v1_1-stream16-latency"]
+CELLS = cells()
 SEED = 2**41 + 17
-# the faults a cell can have: an answer altered where it is produced, in
-# every cell; a step that returns its state unchanged, where state is
-# carried between chunks (the tiled forward and the stream). Every cell
-# serves a batch of one on one chip, so it cannot leave out half of a
-# batch nor an exchange between chips.
-FAULTS = {c: ["answer"] for c in CELLS}
-FAULTS["v1_1-tiled-t201-pipelined"].append("state")
-FAULTS["v1_1-stream16-latency"].append("state")
+# The check's numbers of each tiny cell at SEED, pinned: its sampled units
+# issued through the timed entry and judged as a run's check does (read on
+# an x86-64 CPU with two threads; a CPU whose kernels round otherwise reads
+# other values). A change of the harness or of a reference module that
+# moves them changes what a run judges.
+PINNED = {
+    "flagship-t201-pipelined": {"z_rel": 1.4026567142053608e-06,
+                                "rec_rel": 3.0212376236182635e-06},
+    "v1_1-tiled-t201-pipelined": {"z_rel": 1.4712107209282244e-06,
+                                  "rec_rel": 2.489112872399909e-06},
+    "flagship-t17-latency": {"z_rel": 1.4048238715610987e-06,
+                             "rec_rel": 3.1952401763923096e-06},
+    "v1_1-stream16-latency": {"z_rel": 1.6564477858178833e-06},
+}
 
 
 @pytest.fixture(scope="module")
@@ -30,47 +35,20 @@ def bench(tmp_path_factory):
     return make(tmp_path_factory.mktemp("vtbench"))
 
 
-def answer_altered(tok):
-    """The last latent frame of every z negated where the regularizer
-    produces it (channels-last [B, T', H', W', C])."""
-    core = tok.core
-    regularize = core.regularize
-
-    def altered(*a, **k):
-        z, log = regularize(*a, **k)
-        z = z.clone()
-        z[:, -1] = -z[:, -1]
-        return z, log
-
-    core.regularize = altered
-
-
-def state_unchanged(tok):
-    """Every chunk step after the first returns the cache it was given."""
-    core = tok.core
-    encode_raw, decode = core.encode_raw, core.decode
-
-    def enc(x, fused=False, streaming=False, first_chunk=True, cache=None):
-        out = encode_raw(x, fused, streaming, first_chunk, cache)
-        if streaming and cache is not None:
-            return out[0], cache
-        return out
-
-    def dec(z, *a, streaming=False, cache=None, **k):
-        out = decode(z, *a, streaming=streaming, cache=cache, **k)
-        if streaming and cache is not None:
-            return out[0], cache
-        return out
-
-    core.encode_raw, core.decode = enc, dec
-
-
-PLANT = {"answer": answer_altered, "state": state_unchanged}
-
-
 def run(bench, name, fault=None):
     cell = harness.load_cell(name, SPEC, bench)
+    if fault is not None:
+        fault = cell.reference.faults(cell.traffic)[fault]
     return harness.run_cell(cell, SEED, 0.3, False, "cpu", fault=fault)
+
+
+def cell_faults():
+    """(cell, fault) for every fault each cell's module names."""
+    out = []
+    for name in CELLS:
+        cell = harness.load_cell(name)
+        out += [(name, f) for f in cell.reference.faults(cell.traffic)]
+    return out
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -80,17 +58,34 @@ def test_sound_run_is_correct(bench, name):
     assert r["failed"] == 0 and r["attempted"] > 0
 
 
-@pytest.mark.parametrize("name,fault", [(c, f) for c in CELLS for f in FAULTS[c]])
+@pytest.mark.parametrize("name,fault", cell_faults())
 def test_fault_makes_run_incorrect(bench, name, fault):
-    r = run(bench, name, PLANT[fault])
+    r = run(bench, name, fault)
     assert not r["correct"], r["checks"]
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_check_numbers_are_pinned(bench, name):
+    cell = harness.load_cell(name, SPEC, bench)
+    prog = harness.build_program(cell, SEED, torch.device("cpu"), {})
+    per, kept = prog.traffic.per_unit, {}
+    for u in sorted(harness.sample_indices(SEED, cell.traffic["check"])):
+        prog.traffic.cache = None
+        for i in range(u * per, (u + 1) * per):
+            kept[i] = prog.traffic.issue(i)
+    checks = harness.judge(cell, SEED, kept, per, torch.device("cpu"))
+    assert set(checks) == set(PINNED[name])
+    for k, c in checks.items():
+        assert abs(c["value"] - PINNED[name][k]) <= 1e-12, (k, c["value"], PINNED[name][k])
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_fp8_control_fails_the_limits(bench, name):
     """The reference in float8, in the program's place, on three seeds."""
+    from vtbench.reference.work import chunk_bounds
+
     cell = harness.load_cell(name, SPEC, bench)
-    per = len(R.chunk_bounds(cell.traffic["clip"][2], cell.traffic["chunk_frames"])) \
+    per = len(chunk_bounds(cell.traffic["clip"][2], cell.traffic["chunk_frames"])) \
         if cell.traffic["entry"] == "encode_chunk" else 1
     dev = torch.device("cpu")
     for seed in (SEED, SEED + 1, SEED + 2):

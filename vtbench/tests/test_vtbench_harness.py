@@ -1,6 +1,8 @@
 """The harness on the CPU: its data files, the contract of BENCHMARK.json,
-what a later PR adds by files alone, the window's statistics, the trace
-reader, the kernel names and the modules a run loads."""
+what a later PR adds by files alone (a cell, a configuration with its own
+reference module, a metric), the refusals of a cell before set-up, the
+window's statistics, the trace reader, the kernel names and the modules a
+run loads."""
 
 import json
 import re
@@ -14,7 +16,6 @@ import pytest
 
 from vtbench import harness
 from vtbench import trace as T
-from vtbench.reference import model as R
 from vtbench_tiny import BENCH, CHECKOUT, SPEC, make
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -71,9 +72,8 @@ def test_every_data_file_loads():
     b = spec()
     for w in b["workloads"]:
         cell = harness.load_cell(w["name"])
-        R.spec_of(cell.config)
-        assert cell.traffic["entry"] in ("forward", "forward_tiled", "encode_chunk")
-        assert set(cell.traffic["check"]["limits"]) <= {"z_rel", "rec_rel"}
+        assert cell.spec is not None and cell.traffic["entry"] in cell.reference.ENTRIES
+        assert set(cell.traffic["check"]["limits"]) <= set(cell.reference.NUMBERS)
     for m in b["per_layer"]:
         assert callable(harness.load_metric(BENCH, m["name"]))
     for path in (BENCH / "configs").glob("*.json"):
@@ -88,7 +88,7 @@ def test_a_cell_config_and_metric_added_as_files_are_found(tmp_path):
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns("__pycache__", "tests"))
     b = spec()
     cfg = json.loads((bench / "configs" / "vidtok_kl_causal_488_16chn.json").read_text())
-    cfg["model"]["params"]["encoder_config"]["params"]["ch"] = 96
+    cfg = harness.load_reference(bench, cfg["reference"]).tiny(cfg, 96)
     (bench / "configs" / "flagship_ch96.json").write_text(json.dumps(cfg))
     traffic = json.loads((bench / "traffic" / "t17-latency.json").read_text())
     traffic["clip"][3] = traffic["clip"][4] = 512
@@ -107,7 +107,7 @@ def test_a_cell_config_and_metric_added_as_files_are_found(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
     cell = harness.load_cell("ch96-t17-512", tmp_path / "BENCHMARK.json", bench)
     assert cell.traffic["clip"][3] == 512
-    assert cell.config["model"]["params"]["encoder_config"]["params"]["ch"] == 96
+    assert cell.config == cfg and cell.reference.read_config(cfg).ch == 96
     assert {m["name"] for m in cell.end_to_end} == {"latency_p95_ms", "peak_mem_gb", "setup_s"}
     assert "requests.lat" in {m["name"] for m in cell.per_layer}
     read = harness.load_metric(bench, "requests.lat")
@@ -115,6 +115,81 @@ def test_a_cell_config_and_metric_added_as_files_are_found(tmp_path):
     assert read(harness.RunContext(cell, win, None)) == 1.0
     old = harness.load_cell("flagship-t17-latency", tmp_path / "BENCHMARK.json", bench)
     assert "requests.lat" not in {m["name"] for m in old.per_layer}
+
+
+# A reference module a later PR adds as a file: the causal KL model with a
+# number of its own, the largest absolute difference of z
+ABS_MODULE = """from vtbench.reference.causal_kl import *  # noqa: F401,F403
+
+
+def z_abs(got, want):
+    return float((got[0].double() - want[0].double()).abs().max())
+
+
+NUMBERS = {"z_abs": z_abs}
+"""
+
+
+def add_cell(tmp_path, module: str, traffic: str, limits: dict, config_keys=None):
+    """The tiny bench under ``tmp_path`` with a configuration ``added``
+    naming ``reference/added.py`` (``module``'s text), a traffic ``added``
+    (the tiny ``traffic`` with ``limits``) and a cell ``added-cell``, all
+    new files and entries; returns (BENCHMARK.json, bench directory)."""
+    bench = make(tmp_path / "vtbench")
+    (bench / "reference" / "added.py").write_text(module)
+    cfg = json.loads((bench / "configs" / "vidtok_kl_causal_488_16chn.json").read_text())
+    cfg.update({"reference": "added", **(config_keys or {})})
+    cfg = {k: v for k, v in cfg.items() if v is not None}
+    (bench / "configs" / "added.json").write_text(json.dumps(cfg))
+    t = json.loads((bench / "traffic" / f"{traffic}.json").read_text())
+    t["check"]["limits"] = limits
+    (bench / "traffic" / "added.json").write_text(json.dumps(t))
+    b = spec()
+    b["configs"].append({"name": "added", "source": "x", "reduced": [],
+                         "file": "vtbench/configs/added.json", "why": "x"})
+    b["workloads"].append({"name": "added-cell", "config": "added", "traffic": "added",
+                           "chips": 1, "why": "x"})
+    lat = next(m for m in b["end_to_end"] if m["name"] == "latency_p95_ms")
+    lat["workloads"].append("added-cell")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
+    return tmp_path / "BENCHMARK.json", bench
+
+
+def test_a_configuration_with_its_own_reference_module_runs(tmp_path):
+    """A configuration naming a reference module added as a file runs
+    through ``run_cell``: the module's own number is the one compared, and
+    no file that was there is edited."""
+    benchmark, bench = add_cell(tmp_path, ABS_MODULE, "t17-latency", {"z_abs": 1e-3})
+    before = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()}
+    cell = harness.load_cell("added-cell", benchmark, bench)
+    assert cell.reference.__file__ == str(bench / "reference" / "added.py")
+    r = harness.run_cell(cell, 2**40 + 7, 0.3, False, "cpu")
+    assert set(r["checks"]) == {"z_abs"} and r["correct"], r["checks"]
+    assert 0.0 < r["checks"]["z_abs"]["value"] < 1e-3
+    assert {p: p.read_bytes() for p in before} == before
+
+
+@pytest.mark.parametrize("case", ["no_reference", "no_entry", "no_contract_name",
+                                  "unknown_number"])
+def test_load_cell_refuses_before_set_up(tmp_path, case):
+    """A configuration that names no module, a module without the answer
+    the traffic's entry needs or without a name of the contract, and limits
+    on a number the module does not give are refused when the cell loads."""
+    module, limits, keys = ABS_MODULE, {"z_abs": 1e-3}, None
+    if case == "no_reference":
+        keys = {"reference": None}
+    elif case == "no_entry":
+        module += 'ENTRIES = {k: v for k, v in ENTRIES.items() if k != "encode_chunk"}\n'
+    elif case == "no_contract_name":
+        module += "del faults\n"
+    else:
+        limits = {"z_abs": 1e-3, "rec_rel": 0.1}
+    benchmark, bench = add_cell(tmp_path, module, "stream16-latency", limits, keys)
+    with pytest.raises(ValueError, match={"no_reference": "names no reference",
+                                          "no_entry": "encode_chunk",
+                                          "no_contract_name": "lacks",
+                                          "unknown_number": "gives no"}[case]):
+        harness.load_cell("added-cell", benchmark, bench)
 
 
 def _window(latencies, frames=17, gap=0.0):

@@ -17,9 +17,9 @@ import pytest
 
 from vtbench import harness, spans
 from vtbench import trace as T
+from vtbench_tiny import cells
 
-CELLS = ["flagship-t201-pipelined", "v1_1-tiled-t201-pipelined", "flagship-t17-latency",
-         "v1_1-stream16-latency"]
+CELLS = cells()
 SEED = 2**33 + 211
 # the profiler puts the device's timestamps on the host's clock with an
 # alignment error fixed for a session: on an H100 host most traces had no

@@ -1,7 +1,7 @@
 """A copy of the benchmark's data at a size the CPU tests can run: every
-configuration at ch 32 (the CPU tests' width; the published topology and
-factors kept), 32x32 frames, short clips and chunks, the benchmark's
-metric readers and kernel names as they are."""
+configuration in its reference module's tiny form (``tiny``), 32x32
+frames, short clips and chunks, the benchmark's reference modules, metric
+readers and kernel names as they are."""
 
 import json
 import shutil
@@ -13,11 +13,9 @@ SPEC = CHECKOUT / "BENCHMARK.json"
 FRAMES = {201: 33, 17: 17, 193: 33}
 
 
-def tiny_config(config: dict, ch: int = 32) -> dict:
-    cfg = json.loads(json.dumps(config))
-    for k in ("encoder_config", "decoder_config"):
-        cfg["model"]["params"][k]["params"]["ch"] = ch
-    return cfg
+def cells() -> list:
+    """The names of the benchmark's cells."""
+    return [w["name"] for w in json.loads(SPEC.read_text())["workloads"]]
 
 
 def tiny_traffic(traffic: dict, dtype: str = "float32") -> dict:
@@ -39,14 +37,17 @@ def tiny_traffic(traffic: dict, dtype: str = "float32") -> dict:
 
 def make(tmp: Path, dtype: str = "float32") -> Path:
     """A bench directory under ``tmp`` holding the tiny copy; returns it."""
+    from vtbench import harness
+
     tmp = Path(tmp)
-    for d in ("metrics", "kernel_names"):
-        shutil.copytree(BENCH / d, tmp / d)
+    for d in ("metrics", "kernel_names", "reference"):
+        shutil.copytree(BENCH / d, tmp / d, ignore=shutil.ignore_patterns("__pycache__"))
     (tmp / "configs").mkdir()
     (tmp / "traffic").mkdir()
     for path in (BENCH / "configs").glob("*.json"):
-        (tmp / "configs" / path.name).write_text(
-            json.dumps(tiny_config(json.loads(path.read_text()))))
+        config = json.loads(path.read_text())
+        ref = harness.load_reference(BENCH, config["reference"])
+        (tmp / "configs" / path.name).write_text(json.dumps(ref.tiny(config)))
     for path in (BENCH / "traffic").glob("*.json"):
         (tmp / "traffic" / path.name).write_text(
             json.dumps(tiny_traffic(json.loads(path.read_text()), dtype)))
