@@ -3,7 +3,11 @@ cell at a tiny size on the CPU (the harness's look for a card skipped),
 with the timed path broken underneath by each fault the cell's reference
 module names (``faults``), reads ``correct`` false; the sound run reads it
 true; the float8 control, put in the program's place, fails each cell's
-limits. The limits are the cells' own."""
+limits. The limits are the cells' own. Each cell's check numbers at a
+fixed seed are pinned in its own file under ``pinned/``."""
+
+import json
+from pathlib import Path
 
 import pytest
 import torch
@@ -14,20 +18,13 @@ from vtbench_tiny import SPEC, cells, make
 torch.set_num_threads(2)
 CELLS = cells()
 SEED = 2**41 + 17
-# The check's numbers of each tiny cell at SEED, pinned: its sampled units
-# issued through the timed entry and judged as a run's check does (read on
-# an x86-64 CPU with two threads; a CPU whose kernels round otherwise reads
-# other values). A change of the harness or of a reference module that
-# moves them changes what a run judges.
-PINNED = {
-    "flagship-t201-pipelined": {"z_rel": 1.4026567142053608e-06,
-                                "rec_rel": 3.0212376236182635e-06},
-    "v1_1-tiled-t201-pipelined": {"z_rel": 1.4712107209282244e-06,
-                                  "rec_rel": 2.489112872399909e-06},
-    "flagship-t17-latency": {"z_rel": 1.4048238715610987e-06,
-                             "rec_rel": 3.1952401763923096e-06},
-    "v1_1-stream16-latency": {"z_rel": 1.6564477858178833e-06},
-}
+# The check's numbers of each tiny cell at SEED, pinned in a file of its
+# own, ``pinned/<cell>.json``: its sampled units issued through the timed
+# entry and judged as a run's check does (read on an x86-64 CPU with two
+# threads; a CPU whose kernels round otherwise reads other values). A change
+# of the harness or of a reference module that moves them changes what a
+# run judges; a cell without its file fails.
+PINNED = Path(__file__).resolve().parent / "pinned"
 
 
 @pytest.fixture(scope="module")
@@ -64,8 +61,11 @@ def test_fault_makes_run_incorrect(bench, name, fault):
     assert not r["correct"], r["checks"]
 
 
-@pytest.mark.parametrize("name", sorted(PINNED))
+@pytest.mark.parametrize("name", CELLS)
 def test_check_numbers_are_pinned(bench, name):
+    path = PINNED / f"{name}.json"
+    assert path.is_file(), f"cell {name!r} has no pin file {path}"
+    pinned = json.loads(path.read_text())
     cell = harness.load_cell(name, SPEC, bench)
     prog = harness.build_program(cell, SEED, torch.device("cpu"), {})
     per, kept = prog.traffic.per_unit, {}
@@ -74,9 +74,9 @@ def test_check_numbers_are_pinned(bench, name):
         for i in range(u * per, (u + 1) * per):
             kept[i] = prog.traffic.issue(i)
     checks = harness.judge(cell, SEED, kept, per, torch.device("cpu"))
-    assert set(checks) == set(PINNED[name])
+    assert set(checks) == set(pinned)
     for k, c in checks.items():
-        assert abs(c["value"] - PINNED[name][k]) <= 1e-12, (k, c["value"], PINNED[name][k])
+        assert abs(c["value"] - pinned[k]) <= 1e-12, (k, c["value"], pinned[k])
 
 
 @pytest.mark.parametrize("name", CELLS)

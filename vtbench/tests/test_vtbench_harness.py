@@ -1,6 +1,6 @@
 """The harness on the CPU: its data files, the contract of BENCHMARK.json,
 what a later PR adds by files alone (a cell, a configuration with its own
-reference module, a metric), the refusals of a cell before set-up, the
+reference module, a metric, a model that runs no port kernel), the refusals of a cell before set-up, the
 window's statistics, the trace reader, the kernel names and the modules a
 run loads."""
 
@@ -169,7 +169,158 @@ def test_a_configuration_with_its_own_reference_module_runs(tmp_path):
     assert {p: p.read_bytes() for p in before} == before
 
 
-@pytest.mark.parametrize("case", ["no_reference", "no_entry", "no_contract_name",
+# A module of the contract for VidTwin, which runs no port kernel, written
+# for the test below alone: its answers are the port's own, in float32 on the
+# CPU, so it tests the plumbing and is no reference (BENCHMARK.json names it
+# nowhere; a reference module imports nothing of the program)
+VIDTWIN_MODULE = '''"""VidTwin through the port in float32: the contract's plumbing only."""
+
+import copy
+from collections import Counter
+from types import SimpleNamespace
+
+import torch
+
+from vtbench.reference import weights as W
+from vtbench.reference.compare import output_rel_l2
+
+import vidtok_tpu_torch
+from vidtok_tpu_torch.models.vidtwin.vidtwin_ae import build_vidtwin_from_config
+
+
+def read_config(config):
+    enc = config["model"]["params"]["encoder_config"]["params"]
+    return SimpleNamespace(config=config, hidden=enc["hidden_size"],
+                           patch=tuple(enc["patch_size"]))
+
+
+PROGRAM_OPTIONS = {}
+NORMAL = {"scale_shift_table": (0.0, 0.1), "query_embeds": (0.0, 0.1),
+          "LayerNorm.weight": (1.0, 0.1), "LayerNorm.bias": (0.0, 0.1),
+          "layernorm.weight": (1.0, 0.1), "layernorm.bias": (0.0, 0.1)}
+
+
+def weights(spec, seed, device):
+    model, _ = build_vidtwin_from_config(spec.config["model"])
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    return W.state_dict(shapes, seed, device, NORMAL)
+
+
+def load(tok, params, traffic):
+    tok.model.load_state_dict(params, strict=True)
+
+
+def shapes(spec, traffic, frames):
+    b, c, _, h, w = traffic["clip"]
+    pt, ph, pw = spec.patch
+    return [(b, spec.hidden, frames // pt, h // ph, w // pw), (b, c, frames, h, w)]
+
+
+NUMBERS = {"z_rel": output_rel_l2(0), "rec_rel": output_rel_l2(1)}
+
+
+def context(params, spec, quant):
+    if quant != "none":
+        raise ValueError("the port in float32 has no control")
+    device = next(iter(params.values())).device
+    tok = vidtok_tpu_torch.load_model_from_config(spec.config, device=device,
+                                                  compute_dtype=torch.float32)
+    tok.model.load_state_dict(params, strict=True)
+    return tok
+
+
+ENTRIES = {"forward": lambda tok, x, traffic, state: (tuple(tok(x)[:2]), None)}
+
+
+def kernel_calls(spec, traffic, shape, first):
+    return Counter()
+
+
+def model_flops(spec, traffic, shape, first):
+    raise NotImplementedError("not counted: the plumbing test traces nothing")
+
+
+def _answer_altered(tok):
+    forward = tok.model.forward
+
+    def altered(*a, **k):
+        z, rec, log, latents = forward(*a, **k)
+        z = z.clone()
+        z[:, :, -1] = -z[:, :, -1]
+        return z, rec, log, latents
+
+    tok.model.forward = altered
+
+
+def faults(traffic):
+    return {"answer": _answer_altered}
+
+
+def tiny(config):
+    cfg = copy.deepcopy(config)
+    p = cfg["model"]["params"]
+    for k in ("encoder_config", "decoder_config"):
+        d = p[k]["params"]
+        d.update(hidden_size=64, depth=2, num_heads=4, input_size=[d["input_size"][0], 32, 32])
+    p["temporal_qformer_config"]["params"]["encoder_hidden_size"] = 64
+    return cfg
+'''
+
+VIDTWIN_YAML = CHECKOUT / "configs" / "vidtwin" / "vidtwin_structure_7_7_8_dynamics_7_8.yaml"
+
+
+def test_a_model_that_runs_no_port_kernel_enters_by_new_files(tmp_path):
+    """VidTwin: a 16-frame clip at batch 32, a tokenizer that is no
+    ``VideoTokenizer`` and runs no port kernel. Its configuration (the
+    shipped model section, cut by its module's ``tiny``), its traffic at
+    full size (cut by ``tiny_traffic``), its module and its cell are new
+    files and entries of the tiny bench; the cell runs through ``run_cell``
+    and reads ``correct``, and no file that was there changes. The answer
+    fault makes it incorrect."""
+    from vidtok_tpu_torch import load_config
+    from vtbench_tiny import tiny_traffic
+
+    bench = make(tmp_path / "vtbench")
+    before = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()}
+    (bench / "reference" / "vidtwin_port.py").write_text(VIDTWIN_MODULE)
+    module = harness.load_reference(bench, "vidtwin_port")
+    config = module.tiny({"source": "x", "reference": "vidtwin_port",
+                          "model": load_config(str(VIDTWIN_YAML))["model"]})
+    (bench / "configs" / "vidtwin_tiny.json").write_text(json.dumps(config))
+    traffic = tiny_traffic({"entry": "forward", "loop": "pipelined", "depth": 2,
+                            "clip": [32, 3, 16, 224, 224], "compute_dtype": "bfloat16",
+                            "pool": 4, "warmup": 2, "trace_seconds": 3,
+                            "check": {"sample": 1, "within": 6, "last": False,
+                                      "limits": {"z_rel": 1e-6, "rec_rel": 1e-6}}})
+    assert traffic["clip"] == [4, 3, 16, 32, 32] and traffic["compute_dtype"] == "float32"
+    (bench / "traffic" / "t16-pipelined.json").write_text(json.dumps(traffic))
+    b = spec()
+    b["configs"].append({"name": "vidtwin_tiny", "source": "x", "reduced": [],
+                         "file": "vtbench/configs/vidtwin_tiny.json", "why": "x"})
+    b["workloads"].append({"name": "vidtwin-t16-pipelined", "config": "vidtwin_tiny",
+                           "traffic": "t16-pipelined", "chips": 1, "why": "x"})
+    fps = next(m for m in b["end_to_end"] if m["name"] == "frames_per_s")
+    fps["workloads"].append("vidtwin-t16-pipelined")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
+
+    cell = harness.load_cell("vidtwin-t16-pipelined", tmp_path / "BENCHMARK.json", bench)
+    # a seed whose sampled request is the window's first, which a window
+    # reaches however slowly a loaded CPU runs
+    seed = 2**40 + 10
+    assert harness.sample_indices(seed, cell.traffic["check"]) == {0}
+    r = harness.run_cell(cell, seed, 0.3, False, "cpu")
+    assert r["correct"] and r["failed"] == 0 and r["attempted"] > 0, r["checks"]
+    assert set(r["checks"]) == {"z_rel", "rec_rel"}
+    frames = r["metrics"]["frames_per_s"]["value"] * r["info"]["window_s"]
+    assert frames == pytest.approx(4 * 16 * r["attempted"])
+    assert r["info"]["launches_frozen"] == {} and r["info"]["launches"] == {}
+    assert {p: p.read_bytes() for p in before} == before
+    fault = module.faults(cell.traffic)["answer"]
+    r = harness.run_cell(cell, seed, 0.3, False, "cpu", fault=fault)
+    assert not r["correct"], r["checks"]
+
+
+@pytest.mark.parametrize("case",["no_reference", "no_entry", "no_contract_name",
                                   "unknown_number"])
 def test_load_cell_refuses_before_set_up(tmp_path, case):
     """A configuration that names no module, a module without the answer

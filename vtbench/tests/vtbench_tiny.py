@@ -1,7 +1,15 @@
 """A copy of the benchmark's data at a size the CPU tests can run: every
 configuration in its reference module's tiny form (``tiny``), 32x32
 frames, short clips and chunks, the benchmark's reference modules, metric
-readers and kernel names as they are."""
+readers and kernel names as they are.
+
+A traffic's clip ``[B, 3, T, H, W]`` becomes ``[min(B, 4), 3, T', 32, 32]``:
+T' is 33 for 201 and 193 frames and 17 for 17 (``FRAMES``), and any other
+T is kept, since a model may take only its own clip length (VidTwin's 16
+frames, a non-causal model's multiple of 4). A batch over 4 becomes 4, so
+a fault on half of a batch still shows. A module's ``tiny(config)`` gives
+the configuration that takes such clips (VidTwin: ``input_size``
+``[16, 32, 32]``)."""
 
 import json
 import shutil
@@ -20,7 +28,8 @@ def cells() -> list:
 
 def tiny_traffic(traffic: dict, dtype: str = "float32") -> dict:
     t = json.loads(json.dumps(traffic))
-    t["clip"][2] = FRAMES[t["clip"][2]]
+    t["clip"][0] = min(t["clip"][0], 4)
+    t["clip"][2] = FRAMES.get(t["clip"][2], t["clip"][2])
     t["clip"][3] = t["clip"][4] = 32
     t["compute_dtype"] = dtype
     t["warmup"] = 1
