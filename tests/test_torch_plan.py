@@ -16,7 +16,9 @@ raises).
 import copy
 import dataclasses
 import gc
+import re
 import weakref
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -335,15 +337,30 @@ def _check_limits(pl, cout):
     assert pl.n_tiles == pl.parities * -(-cout // pl.bn)
     assert cout % 128 or cout % pl.bn == 0
     assert pl.smem <= plan.SMEM_LIMIT
-    assert plan.BLOCKS_PER_SM[pl.bn] * (pl.smem + 1024) <= plan.SMEM_PER_SM
+    assert plan.BLOCKS_PER_SM * (pl.smem + 1024) <= plan.SMEM_PER_SM
     assert pl.smem >= plan.smem_bytes(pl.bn, pl.stages)
-    assert pl.stages * plan.stage_bytes(pl.bn) >= plan.epilogue_bytes(pl.bn)
-    assert 0 < pl.grid <= plan.GRID_LIMIT and pl.grid == pl.m_tiles * pl.n_tiles
+    assert pl.tiles == pl.m_tiles * pl.n_tiles <= plan.GRID_LIMIT
+    assert 0 < pl.grid == min(pl.tiles, plan.SMS * plan.BLOCKS_PER_SM)
     assert pl.th * pl.tw == plan.BM
 
 
 def _count(counts, idx):
     np.add.at(counts, idx, 1)
+
+
+def _walk(pl):
+    """The persistent walk (the union of every block's ``block + k *
+    grid`` tiles), checked to take each tile exactly once; (tiles, their M
+    tile, their N tile)."""
+    walk = plan.walk(pl)
+    assert len(walk) == pl.tiles
+    assert (np.bincount(walk, minlength=pl.tiles) == 1).all()
+    for block in (0, pl.grid - 1):
+        tiles = plan.block_tiles(pl, block)
+        assert tiles[0] == block and (np.diff(tiles) == pl.grid).all()
+        assert tiles[-1] + pl.grid >= pl.tiles
+    mt, nt = np.divmod(walk, pl.n_tiles)
+    return walk, mt, nt
 
 
 CHUNK = 4096  # blocks per numpy pass
@@ -353,10 +370,11 @@ CHUNK = 4096  # blocks per numpy pass
                                    "partial", "long", "f32"] + sorted(cs.CONFIG_PATHS))
 def test_spatial_plans_cover_each_position_once(which):
     """Every output position of every frame in exactly one M tile of N tile
-    0 (the N tiles repeat the M tiles), at every kernel-A call shape of the
-    served paths (``f32``: the f32 plans of A's f32 call shapes). Shapes
-    past 2M positions are checked on their first and last two frames, whose
-    tiles the decode reaches last."""
+    0 (the N tiles repeat the M tiles) of the persistent walk, which takes
+    each tile once, at every kernel-A call shape of the served paths
+    (``f32``: the f32 plans of A's f32 call shapes). Shapes past 2M
+    positions are checked on their first and last two frames, whose tiles
+    the decode reaches last."""
     keys = _spatial_keys(which)
     assert keys
     for key in keys:
@@ -370,10 +388,11 @@ def test_spatial_plans_cover_each_position_once(which):
         per = pl.tiles_x * pl.tiles_y
         counts = np.zeros(len(frames) * h * w, np.int32)
         slot = {f: i for i, f in enumerate(frames)}
-        blocks = np.concatenate([np.arange(f * per, (f + 1) * per) for f in frames])
+        walk, mt, nt = _walk(pl)
+        tiles = walk[(nt == 0) & np.isin(mt // per, frames)]
         r = np.arange(plan.BM)
-        for i in range(0, len(blocks), CHUNK):
-            (img, y0, x0), n0 = plan.tile_origin(pl, blocks[i:i + CHUNK] * pl.n_tiles)
+        for i in range(0, len(tiles), CHUNK):
+            (img, y0, x0), n0 = plan.tile_origin(pl, tiles[i:i + CHUNK])
             assert (n0 == 0).all()
             y = y0[:, None] + r[None, :] // pl.tw
             x = x0[:, None] + r[None, :] % pl.tw
@@ -390,10 +409,10 @@ def test_spatial_plans_cover_each_position_once(which):
                                    "b_serving", "b_partial", "b_long", "fsq_41616",
                                    "tiled_888", "kl_444", "f32"])
 def test_temporal_plans_cover_each_row_once(which):
-    """Every output row of every clip in exactly one M tile, at every
-    kernel-F call shape of the tiled paths and the partial shapes, and at
-    every kernel-B shape served, gated or run at T=201 (``f32``: the f32
-    plans of B's and F's f32 call shapes)."""
+    """Every output row of every clip in exactly one M tile of the
+    persistent walk, at every kernel-F call shape of the tiled paths and
+    the partial shapes, and at every kernel-B shape served, gated or run at
+    T=201 (``f32``: the f32 plans of B's and F's f32 call shapes)."""
     keys = _temporal_keys(which)
     assert keys
     for key in keys:
@@ -402,7 +421,8 @@ def test_temporal_plans_cover_each_row_once(which):
         _check_limits(pl, c)
         rows = t * h * w
         assert pl.tiles_x * plan.BM >= rows > (pl.tiles_x - 1) * plan.BM
-        (clip, r0), n0 = plan.tile_origin(pl, np.arange(0, pl.grid, pl.n_tiles))
+        walk, _, nt = _walk(pl)
+        (clip, r0), n0 = plan.tile_origin(pl, walk[nt == 0])
         rr = r0[:, None] + np.arange(plan.BM)[None, :]
         ok = rr < rows
         counts = np.zeros(b * rows, np.int32)
@@ -422,9 +442,9 @@ def test_parity_plans_cover_each_output_once(which):
     """Kernel E: every position of each input frame in exactly one M tile
     per N tile, so every position of both output frames (2a: the N tiles
     below C, 2a+1: those from C) in C / BN blocks, whose columns are each
-    parity's C channels once. At every E shape served, gated at partial
-    tiles and with two clips, and at its T=201 call (whose first and last
-    two input frames are checked)."""
+    parity's C channels once, over the persistent walk. At every E shape
+    served, gated at partial tiles and with two clips, and at its T=201
+    call (whose first and last two input frames are checked)."""
     for key in _parity_keys(which):
         b, t, h, w, c = key
         pl = plan.conv_plan_parity(b, t, h, w, c, which == "f32")
@@ -437,11 +457,11 @@ def test_parity_plans_cover_each_output_once(which):
         frames = range(n) if n * h * w <= 1_000_000 else [0, 1, n - 2, n - 1]
         slot = {f: i for i, f in enumerate(frames)}
         counts = np.zeros(len(frames) * 2 * h * w, np.int32)
-        blocks = np.concatenate([np.arange(f * per * pl.n_tiles, (f + 1) * per * pl.n_tiles)
-                                 for f in frames])
+        walk, mt, _ = _walk(pl)
+        tiles = walk[np.isin(mt // per, frames)]
         r = np.arange(plan.BM)
-        for i in range(0, len(blocks), CHUNK):
-            (img, y0, x0), n0 = plan.tile_origin(pl, blocks[i:i + CHUNK])
+        for i in range(0, len(tiles), CHUNK):
+            (img, y0, x0), n0 = plan.tile_origin(pl, tiles[i:i + CHUNK])
             par = (n0 >= c).astype(np.int64)
             y = y0[:, None] + r[None, :] // pl.tw
             x = x0[:, None] + r[None, :] % pl.tw
@@ -534,22 +554,95 @@ def test_tail_f32_plan_refusals():
 
 
 def test_plan_picks():
-    """BN 256 only where the grid still fills the card; the patch with the
-    fewest tiles; the ring's stages by BN."""
+    """BN 256 only where the tiles still fill the card; the patch with the
+    fewest tiles; the ring's stages by BN; the grid one block a tile below
+    the card's slots (SMS x BLOCKS_PER_SM), the slots above."""
     small = plan.conv_plan_spatial(5, 32, 32, 512, 512)
-    assert (small.bn, small.grid, small.stages) == (128, 160, 3)
+    assert (small.bn, small.tiles, small.grid, small.stages) == (128, 160, 132, 6)
     big = plan.conv_plan_spatial(5, 64, 64, 512, 512)
-    assert (big.bn, big.grid, big.stages) == (256, 320, 4)
-    assert plan.conv_plan_spatial(20, 256, 256, 128, 128).bn == 128
+    assert (big.bn, big.tiles, big.grid, big.stages) == (256, 320, 132, 4)
+    a = plan.conv_plan_spatial(20, 256, 256, 128, 128)
+    assert (a.bn, a.tiles, a.grid) == (128, 20 * 512, 132)
     assert (plan.conv_plan_spatial(1, 4, 128, 64, 128).th,
             plan.conv_plan_spatial(1, 4, 128, 64, 128).tw) == (4, 32)
-    assert plan.conv_plan_temporal(1, 2, 32 * 32, 512).grid == 16 * 4
-    # E: 10,240 and 2,560 blocks at BN 256; BN 128 where C is 128
+    t = plan.conv_plan_temporal(1, 2, 32 * 32, 512)
+    assert t.tiles == t.grid == 16 * 4
+    # E: 10,240 and 2,560 tiles at BN 256, a block an SM; BN 128 where C is 128
     e = plan.conv_plan_parity(1, 10, 256, 256, 256)
-    assert (e.bn, e.grid, e.n_tiles, e.th, e.tw) == (256, 10240, 2, 8, 16)
-    assert (plan.conv_plan_parity(1, 5, 128, 128, 512).bn,
-            plan.conv_plan_parity(1, 5, 128, 128, 512).grid) == (256, 2560)
+    assert (e.bn, e.tiles, e.grid, e.n_tiles, e.th, e.tw) == (256, 10240, 132, 2, 8, 16)
+    e = plan.conv_plan_parity(1, 5, 128, 128, 512)
+    assert (e.bn, e.tiles, e.grid) == (256, 2560, 132)
     assert plan.conv_plan_parity(4, 10, 64, 64, 128).bn == 128
+
+
+@pytest.mark.parametrize("key,tiles", [
+    ((1, 8, 8, 128, 128), 1), ((1, 16, 16, 512, 512), 8), ((5, 32, 32, 512, 512), 160),
+    ((20, 256, 256, 128, 128), 10_240), ((204, 256, 256, 128, 128), 104_448),
+    ((10, 64, 64, 256, 256), 320)])
+def test_persistent_grid(key, tiles):
+    """The grid never exceeds the card's slots (SMS x blocks a SM); a
+    launch with fewer tiles than slots runs one tile a block,
+    as the loop did before it walked; a larger one walks every tile once,
+    each block ceil or floor(tiles / grid) of them."""
+    pl = plan.conv_plan_spatial(*key)
+    slots = plan.SMS * plan.BLOCKS_PER_SM
+    assert pl.tiles == tiles and pl.grid == min(tiles, slots) <= slots
+    per_block = [len(plan.block_tiles(pl, b)) for b in range(pl.grid)]
+    if tiles <= slots:
+        assert per_block == [1] * tiles
+    else:
+        assert {min(per_block), max(per_block)} <= {tiles // pl.grid, -(-tiles // pl.grid)}
+    assert sum(per_block) == tiles and sorted(plan.walk(pl)) == list(range(tiles))
+
+
+@pytest.mark.parametrize("key,frame_tiles", [
+    ((1, 20, 256 * 256, 128), 512), ((1, 204, 128 * 128, 256), 128), ((2, 5, 32 * 32, 512), 8),
+    ((2, 5, 33 * 33, 512), 0), ((1, 9, 3 * 3, 128), 0)])
+def test_temporal_walk_goes_band_by_band(key, frame_tiles):
+    """Where a frame is whole M tiles (S % BM == 0) a temporal clip is
+    walked band by band, the frames of a band fastest, so a tile's three
+    taps read frames its neighbours in the walk read too (wgmma_conv.cuh:
+    tile_at); otherwise in row order. Either way every row once (the
+    coverage tests)."""
+    b, t, s, c = key
+    pl = plan.conv_plan_temporal(*key)
+    assert pl.frame_tiles == frame_tiles
+    (clip, r0), _ = plan.tile_origin(pl, np.arange(pl.tiles))
+    mt = np.arange(pl.tiles) // pl.n_tiles
+    assert (clip == mt // pl.tiles_x).all()
+    rt = mt % pl.tiles_x
+    if frame_tiles:
+        assert pl.tiles_x == t * frame_tiles
+        assert (r0 // s == rt % t).all() and ((r0 % s) // plan.BM == rt // t).all()
+    else:
+        assert (r0 == rt * plan.BM).all()
+    counts = np.zeros(b * t * s, np.int32)
+    rows = (clip * t * s + r0)[:, None] + np.arange(plan.BM)[None, :]
+    _count(counts, rows[(r0[:, None] + np.arange(plan.BM)[None, :]) < t * s])
+    assert (counts == pl.n_tiles).all()
+
+
+STAGING_SOURCE = re.compile(r"constexpr int kChunk = (\d+);")
+
+
+@pytest.mark.parametrize("bn", [64, 128, 256])
+def test_shared_memory_layout_fits(bn):
+    """At BN 64, 128 and 256 the block's shared memory (1 KB of alignment,
+    the ring of STAGES[bn] stages, the epilogue's own staging, two barriers
+    a stage) fits a block's limit, BLOCKS_PER_SM blocks fit an SM, and
+    the staging is the one ``wgmma_conv.cuh`` lays out: 2 consumer
+    warpgroups x 64 rows x a chunk of columns, f32."""
+    stages = plan.STAGES[bn]
+    smem = plan.smem_bytes(bn, stages)
+    assert smem == 1024 + stages * plan.stage_bytes(bn) + plan.STAGING_BYTES + 16 * stages
+    assert smem <= plan.SMEM_LIMIT
+    assert plan.BLOCKS_PER_SM * (smem + 1024) <= plan.SMEM_PER_SM
+    src = (Path(_lib.CSRC) / "wgmma_conv.cuh").read_text()
+    chunk = int(STAGING_SOURCE.search(src).group(1))
+    assert chunk == plan.EPILOGUE_CHUNK and bn % chunk == 0
+    assert plan.STAGING_BYTES == 2 * 64 * chunk * 4
+    assert "constexpr int kBlocksPerSM = 1;" in src
+    assert plan.BLOCKS_PER_SM == 1
 
 
 # -- refusals -------------------------------------------------------------------
@@ -610,6 +703,48 @@ def test_wrappers_refuse_what_the_plan_cannot_take(name, args, match):
     assert K.counts("calls")[name] == 1 and K.counts()[name] == 0
 
 
+CONV_WRAPPERS = {  # name: (plan function, arguments, conv launches a call)
+    "fused_spatial_resblock": ("conv_plan_spatial", _spatial_args(64, 128, True), 2),
+    "fused_temporal_resblock": ("conv_plan_temporal", _temporal_args(128), 2),
+    "fused_temporal_resblock_stream": ("conv_plan_temporal", _stream_args(128), 2),
+    "parity_up2x_fused": ("conv_plan_parity", _parity_args(128), 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONV_WRAPPERS))
+def test_wrappers_count_conv_tiles_and_blocks(name, monkeypatch):
+    """A, B, E and F add their plan's tiles and grid, once per conv launch,
+    to ``conv_tiles`` and ``conv_blocks`` (a stub plan: 1,000 tiles on 7
+    blocks), and ``reset_counts()`` zeroes both. The meta device stands in
+    for a card, with the launch and the device checks stubbed out."""
+    fn_name, args, convs = CONV_WRAPPERS[name]
+    real = getattr(plan, fn_name)
+    stub = {}
+
+    def stub_plan(*a, **k):
+        pl = real(*a, **k)
+        stub["plan"] = dataclasses.replace(pl, m_tiles=1000 // pl.n_tiles, grid=7)
+        return stub["plan"]
+
+    monkeypatch.setattr(plan, fn_name, stub_plan)
+    monkeypatch.setattr(_lib, "operands", lambda kind, sources, build: build(*sources))
+    monkeypatch.setattr(_lib, "weight_maps", lambda op, bn, *names: (None,) * len(names))
+    for check in ("require", "same_device", "call"):
+        monkeypatch.setattr(_lib, check, lambda *a, **k: None)
+    fn = K.WRAPPERS[name]
+    K.reset_counts()
+    fn(*args)
+    fn(*args)
+    pl = stub["plan"]
+    assert (fn.launches, fn.conv_tiles, fn.conv_blocks) == (
+        2, 2 * convs * pl.tiles, 2 * convs * 7)
+    assert pl.tiles in (1000, 999)  # whole N tiles
+    others = [n for n in K.WRAPPERS if n != name]
+    assert not any(K.counts("conv_tiles")[n] or K.counts("conv_blocks")[n] for n in others)
+    K.reset_counts()
+    assert not any(K.counts("conv_tiles").values()) and not any(K.counts("conv_blocks").values())
+
+
 def test_plan_refuses_empty_and_odd_shapes():
     with pytest.raises(ValueError, match="Cs % 8"):
         plan.conv_plan_spatial(1, 8, 8, 128, 128, cs=36)
@@ -630,10 +765,10 @@ def test_plan_refuses_empty_and_odd_shapes():
 # -- the temporal microbenchmark's products (T1 dense, T2 mm temporal) -------
 
 TOOL_PLANS = {
-    # shape: (dense (bn, grid, stages, smem), T2's temporal (bn, grid))
-    (1, 9, 64, 64, 512): ((256, 576, 4, 197_696), (256, 576)),
-    (1, 20, 256, 256, 128): ((128, 10_240, 3, 99_376), (128, 10_240)),
-    (2, 5, 33, 33, 256): ((128, 172, 3, 99_376), (128, 172)),
+    # shape: (dense (bn, tiles, grid, stages, smem), T2's temporal (bn, tiles, grid))
+    (1, 9, 64, 64, 512): ((256, 576, 132, 4, 230_464), (256, 576, 132)),
+    (1, 20, 256, 256, 128): ((128, 10_240, 132, 6, 230_496), (128, 10_240, 132)),
+    (2, 5, 33, 33, 256): ((128, 172, 132, 6, 230_496), (128, 172, 132)),
 }
 
 
@@ -647,13 +782,14 @@ def test_tool_plans(shape):
     assert set(TOOL_PLANS) == set(cs.TOOL_SHAPES) | {cs.TOOL_PARTIAL}
     b, t, h, w, c = shape
     m = b * t * h * w
-    (bn, grid, stages, smem), (tbn, tgrid) = TOOL_PLANS[shape]
+    (bn, tiles, grid, stages, smem), (tbn, ttiles, tgrid) = TOOL_PLANS[shape]
     dense = plan.conv_plan_dense(m, 3 * c, c)
     _check_limits(dense, c)
-    assert (dense.taps, dense.bn, dense.grid, dense.stages, dense.smem) == (
-        "dense", bn, grid, stages, smem)
+    assert (dense.taps, dense.bn, dense.tiles, dense.grid, dense.stages, dense.smem) == (
+        "dense", bn, tiles, grid, stages, smem)
     assert dense.m_tiles == dense.tiles_x == -(-m // plan.BM)
-    (clip, r0), n0 = plan.tile_origin(dense, np.arange(0, dense.grid, dense.n_tiles))
+    walk, _, nt = _walk(dense)
+    (clip, r0), n0 = plan.tile_origin(dense, walk[nt == 0])
     assert (clip == 0).all() and (n0 == 0).all()
     rr = r0[:, None] + np.arange(plan.BM)[None, :]
     counts = np.zeros(m, np.int32)
@@ -661,7 +797,9 @@ def test_tool_plans(shape):
     assert counts.min() == counts.max() == 1
     temporal = plan.conv_plan_temporal(b, t, h * w, c)
     _check_limits(temporal, c)
-    assert (temporal.bn, temporal.grid, temporal.stages) == (tbn, tgrid, plan.STAGES[tbn])
+    assert (temporal.bn, temporal.tiles, temporal.grid, temporal.stages) == (
+        tbn, ttiles, tgrid, plan.STAGES[tbn])
+    _walk(temporal)
     assert temporal.tiles_x == -(-t * h * w // plan.BM)
     _, n0s = plan.tile_origin(dense, np.arange(dense.n_tiles))
     assert sorted(n0s.tolist()) == list(range(0, c, dense.bn))

@@ -300,3 +300,62 @@ def test_new_metric_is_none_without_spans_or_counter(name, tmp_path, monkeypatch
         for fn in K.WRAPPERS.values():
             monkeypatch.delattr(fn, "builds")
     assert read(ctx(synthetic(tmp_path, with_spans=False))) is None
+
+
+CONV = {"conv_tiles_per_block.fps": ("frames_per_s", ["flagship-t201-pipelined",
+                                                       "v1_1-tiled-t201-pipelined"]),
+        "conv_tiles_per_block.lat": ("latency_p95_ms", ["flagship-t17-latency",
+                                                        "v1_1-stream16-latency"])}
+
+
+def set_conv_counts(monkeypatch, counts: dict):
+    for name, fn in K.WRAPPERS.items():
+        tiles, blocks = counts.get(name, (0, 0))
+        monkeypatch.setattr(fn, "conv_tiles", tiles)
+        monkeypatch.setattr(fn, "conv_blocks", blocks)
+
+
+def test_count_conv_adds_a_plans_tiles_and_grid(monkeypatch):
+    """``_lib.count_conv`` on a stub plan adds its tiles and grid once per
+    launch; ``reset_counts()`` zeroes both counters of every wrapper."""
+    set_conv_counts(monkeypatch, {})
+    fn = K.WRAPPERS["fused_temporal_resblock"]
+    stub = SimpleNamespace(tiles=10_240, grid=264)
+    _lib.count_conv(fn, stub, 2)
+    _lib.count_conv(fn, SimpleNamespace(tiles=3, grid=3))
+    assert (fn.conv_tiles, fn.conv_blocks) == (20_483, 531)
+    assert K.counts("conv_tiles")["fused_temporal_resblock"] == 20_483
+    K.reset_counts()
+    assert set(K.counts("conv_tiles").values()) == set(K.counts("conv_blocks").values()) == {0}
+
+
+@pytest.mark.parametrize("name", sorted(CONV))
+def test_conv_tiles_per_block_reads_the_counters(name, tmp_path, monkeypatch):
+    """The sum of the wrappers' ``conv_tiles`` over the sum of their
+    ``conv_blocks`` (``program_counter``), in the kernels' layer, read in
+    the cells of the end-to-end metric it moves."""
+    spec = {m["name"]: m for m in json.loads((harness.CHECKOUT / "BENCHMARK.json").read_text())
+            ["per_layer"]}[name]
+    moves, cells = CONV[name]
+    assert (spec["source"], spec["unit"], spec["better"], spec["moves"], spec["workloads"],
+            spec["layer"]) == ("program_counter", "tiles/block", "higher", moves, cells,
+                               "Kernels: ops/kernels and csrc")
+    set_conv_counts(monkeypatch, {"fused_spatial_resblock": (20_480, 528),
+                                  "parity_up2x_fused": (10_240, 132),
+                                  "fused_temporal_resblock": (64, 64)})
+    read = harness.load_metric(harness.BENCH_DIR, name)
+    assert read(ctx(synthetic(tmp_path))) == pytest.approx((20_480 + 10_240 + 64) / (528 + 132 + 64))
+
+
+@pytest.mark.parametrize("name", sorted(CONV))
+def test_conv_tiles_per_block_is_none_without_the_counters(name, tmp_path, monkeypatch):
+    """Nothing where no conv was launched, and nothing, without raising, on
+    a program whose wrappers keep no such counters (the parent of the
+    persistent loop)."""
+    read = harness.load_metric(harness.BENCH_DIR, name)
+    set_conv_counts(monkeypatch, {})
+    assert read(ctx(synthetic(tmp_path))) is None
+    for fn in K.WRAPPERS.values():
+        monkeypatch.delattr(fn, "conv_tiles")
+        monkeypatch.delattr(fn, "conv_blocks")
+    assert read(ctx(synthetic(tmp_path))) is None

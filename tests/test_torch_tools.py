@@ -318,7 +318,8 @@ def causal_conv_model(x, weight, pl):
     rows = x.reshape(b, t * s, c)
     wk = kmajor_weight(weight, torch.float32)  # [C, 3C], the K-major operand
     out = torch.full((b, t * s, c), float("nan"))
-    (clip, r0), n0 = plan.tile_origin(pl, np.arange(0, pl.grid, pl.n_tiles))
+    walk = plan.walk(pl)  # every block's tiles, in the blocks' order
+    (clip, r0), n0 = plan.tile_origin(pl, walk[walk % pl.n_tiles == 0])
     assert (n0 == 0).all()
     r = torch.arange(plan.BM)
     for cl, start in zip(clip.tolist(), r0.tolist()):
@@ -361,7 +362,8 @@ def test_dense_model_matches_the_fat_product():
     fat = TM._fat(a).reshape(-1, 3 * c)
     m = fat.shape[0]
     pl = plan.conv_plan_dense(m, 3 * c, c)
-    (clip, r0), _ = plan.tile_origin(pl, np.arange(0, pl.grid, pl.n_tiles))
+    walk = plan.walk(pl)
+    (clip, r0), _ = plan.tile_origin(pl, walk[walk % pl.n_tiles == 0])
     assert (clip == 0).all()
     out = torch.full((m, c), float("nan"))
     wk = kmajor_weight(weight, torch.float32)

@@ -84,9 +84,9 @@ def _check_conv_plan(pl, cout, parities=1):
     each parity exactly once (the last tile's columns past Cout unstored)."""
     assert pl.bn in (64, 128, 256) and pl.cout == cout and pl.parities == parities
     assert pl.smem == plan.smem_bytes(pl.bn, pl.stages) <= plan.SMEM_LIMIT
-    assert plan.BLOCKS_PER_SM[pl.bn] * (pl.smem + 1024) <= plan.SMEM_PER_SM
-    assert pl.stages * plan.stage_bytes(pl.bn) >= plan.epilogue_bytes(pl.bn)
-    assert 0 < pl.grid == pl.m_tiles * pl.n_tiles <= plan.GRID_LIMIT
+    assert plan.BLOCKS_PER_SM * (pl.smem + 1024) <= plan.SMEM_PER_SM
+    assert 0 < pl.grid == min(pl.tiles, plan.SMS * plan.BLOCKS_PER_SM)
+    assert pl.tiles == pl.m_tiles * pl.n_tiles <= plan.GRID_LIMIT
     first, end = plan.tile_columns(pl, np.arange(pl.n_tiles))
     counts = np.zeros(parities * cout, np.int32)
     for a, b in zip(first.tolist(), end.tolist()):

@@ -72,6 +72,7 @@ int spatial_block(const void* x, void* out, void* h1, void* act, void* xs, const
   p.tw = tw;
   p.tiles_x = (W + tw - 1) / tw;
   p.tiles_y = (H + th - 1) / th;
+  p.m_tiles = N * p.tiles_x * p.tiles_y;
   p.par_tiles = p.n_tiles = (C + bn - 1) / bn;
   p.Cout = C;
   p.planes = N;

@@ -357,14 +357,15 @@ int launch_ln_twice(const __nv_bfloat16* x, const float* g1, const float* b1,
 }
 
 // The wgmma loop's parameters of a C -> C product of three taps of C
-// channels, ceil(C / 64) K steps a tap: a kCausal conv over clips of T
-// frames of S rows, or a kDense product over M = S rows (T = 1) of the fat
-// operand, tap k its columns [kC, (k + 1) C).
-vt::wg::Params loop_params(int T, int S, int C, int bn, int stages) {
+// channels, ceil(C / 64) K steps a tap: a kCausal conv over B clips of T
+// frames of S rows, or a kDense product over M = S rows (B = T = 1) of the
+// fat operand, tap k its columns [kC, (k + 1) C).
+vt::wg::Params loop_params(int B, int T, int S, int C, int bn, int stages) {
   vt::wg::Params p{};
   p.T = T;
   p.S = S;
   p.tiles_x = (int)(((long long)T * S + vt::wg::BM - 1) / vt::wg::BM);
+  p.m_tiles = B * p.tiles_x;
   p.par_tiles = p.n_tiles = (C + bn - 1) / bn;
   p.Cout = p.Cin = C;
   p.cin_steps = (C + vt::wg::BK - 1) / vt::wg::BK;
@@ -404,7 +405,7 @@ extern "C" int vt_microbench_diag(const void* x, void* out, void* h, const void*
   wg::read_weight_maps(w2map, &mw2, &unused);
   int e = wg::temporal_map(&mx, x, B, (long long)T * S, C);
   if (e || (e = wg::temporal_map(&mh, h, B, (long long)T * S, C))) return e;
-  wg::Params p = loop_params(T, S, C, bn, stages);
+  wg::Params p = loop_params(B, T, S, C, bn, stages);
   p.out = static_cast<__nv_bfloat16*>(h);  // no bias
   if ((e = wg::launch_conv<wg::kCausal>(mx, mw1, mx, mw1, p, bn, smem, grid, s))) return e;
   p.res = xb;
@@ -432,7 +433,7 @@ extern "C" int vt_microbench_fat(const void* x, void* out, void* fat, void* h,
   wg::read_weight_maps(w2map, &mw2, &unused);
   int e = wg::matrix_map(&ma, fat, 3 * C, (int)M);  // [M, 3C], K-major
   if (e) return e;
-  wg::Params p = loop_params(1, (int)M, C, bn, stages);
+  wg::Params p = loop_params(1, 1, (int)M, C, bn, stages);
 
   if ((e = launch_fat_rows(xb, g1, b1, fb, T, S, C, M, s))) return e;
   p.bias = static_cast<const float*>(bias1);

@@ -78,6 +78,7 @@ int parity_up2x(const void* s, void* sp, void* out, const void* wmap, const void
   p.tw = tw;
   p.tiles_x = (W + tw - 1) / tw;
   p.tiles_y = (H + th - 1) / th;
+  p.m_tiles = B * T * p.tiles_x * p.tiles_y;
   p.par_tiles = (C + bn - 1) / bn;
   p.n_tiles = 2 * p.par_tiles;
   p.Cout = C;

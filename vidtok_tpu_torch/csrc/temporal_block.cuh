@@ -51,6 +51,7 @@ static inline int temporal_block(const void* x, const void* c1, const void* c2, 
   p.T = T;
   p.S = S;
   p.tiles_x = (int)(((long long)T * S + wg::BM - 1) / wg::BM);
+  p.m_tiles = B * p.tiles_x;
   p.par_tiles = p.n_tiles = (C + bn - 1) / bn;
   p.Cout = C;
   p.planes = B;

@@ -60,22 +60,32 @@
 // for img = b*T + t. Each parity's C columns have N tiles of their own
 // (the weight map's parity dimension), so an N tile is one parity's.
 //
-// Shape of the loop (warp-specialised, as CUTLASS's Hopper GEMMs): two
-// consumer warpgroups and a producer, one thread of which issues, for each
-// K step of 64 channels, the A box (128 rows x 128 B) and the weight box
-// (BN rows x 128 B), both with 128-byte swizzle, into a ring of ``stages``
-// stages guarded by full and empty mbarriers. The consumers each run wgmma
-// m64nBNk16 on their 64 rows of the stage, the f32 accumulators in
-// registers, one wgmma group in flight while the next stage is awaited.
-// The epilogue goes
-// through the (then idle) ring: accumulators to an f32 tile in shared
-// memory, then whole rows with the bias and the residual added, rounded to
-// bf16, in 16-byte stores; positions outside the frame or past the clip
+// Shape of the loop (warp-specialised and persistent, as CUTLASS's Hopper
+// GEMMs): two consumer warpgroups and a producer, one thread of which
+// issues, for each K step of 64 channels, the A box (128 rows x 128 B) and
+// the weight box (BN rows x 128 B), both with 128-byte swizzle, into a ring
+// of ``stages`` stages guarded by full and empty mbarriers. The consumers
+// each run wgmma m64nBNk16 on their 64 rows of the stage, the f32
+// accumulators in registers, one wgmma group in flight while the next stage
+// is awaited. A block walks output tiles blockIdx.x, + gridDim.x, ...; the
+// producer runs on from one tile's K steps to the next's, so the next
+// tile's first stages load while the consumers finish a tile. The epilogue
+// never touches the ring: each consumer warpgroup stages its 64
+// accumulator rows in 16 KB of its own, 64 columns at a time, then adds the
+// bias and the residual to whole 8-column pieces of a row, rounds to bf16
+// and stores them in 16-byte stores, a row's 64 columns by 8 neighbouring
+// threads; the residual's first chunks are loaded while the tile's last
+// products run. kTemporal and kCausal walk each clip band by band (Tile):
+// the three frames a tile's taps read 16 MB apart at 256 x 256 x 128 stay
+// in L2 for the neighbouring frames' tiles, where a row-major walk read
+// each from HBM three times. Positions outside the frame or past the clip
 // are not stored (kParity: written to the parity's frame). kCausal and
 // kDense take a null bias (none added), and kDense writes bias + acc (+ res)
 // in f32 to ``outf`` when it is not null. Their branches are ``if
 // constexpr`` on the tap set, so A, B, E and F compile as before. Offsets
-// that can pass 2^31 are 64-bit.
+// that can pass 2^31 are 64-bit. The K steps, the products and the
+// epilogue's f32 operations are the same, in the same order, whichever
+// block takes a tile.
 //
 // The f32 scheme (A, B, E and F on f32 activations; the template's F32).
 // Plain TF32 keeps 10 bits of each operand, about 3 decimal digits: a
@@ -108,16 +118,15 @@
 //
 // The plan (patch, BN in {64, 128, 256}, stages, shared memory, grid)
 // comes from ops/kernels/plan.py, which the CPU tests check; launch_conv
-// refuses what it cannot run. BN = 256 runs one block of 384 threads per
-// SM (4 stages, 197,696 B of shared memory): the producer is a warpgroup
-// that gives its registers up to the consumers' 128 accumulators
-// (setmaxnreg 40 and 232). BN = 128 runs two blocks of 288 threads per SM
-// (3 stages, 99,376 B each; the producer one warp, every thread at most
-// 112 registers), so one block's epilogue and ring fill overlap the
-// other's products. (Two blocks of 384 threads leave 80 registers a thread
-// at compile time, too few for wgmma m64n128's 64 accumulators.) BN = 64
-// (Cout = 64, or where it wastes fewer columns than 128) runs as BN = 128
-// with 4 stages of 24 KB.
+// refuses what it cannot run. The grid is min(tiles, 132 SMs): one block
+// of 384 threads per SM at every BN, and a launch with fewer tiles runs one
+// tile a block. The producer is a warpgroup that gives its registers up to
+// the consumers' accumulators (setmaxnreg 40 and 232); the ring is 192 KB
+// (BN 256: 4 stages, BN 128: 6, BN 64: 8), with the staging 230,464 to
+// 230,528 B of shared memory. Two blocks of 288 threads an SM at BN 128
+// leave 96 registers a thread, from which this epilogue spills (4-7%
+// slower on the card). BN = 64 (Cout = 64, or where it wastes fewer
+// columns than 128) runs as BN = 128 with stages of 24 KB.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -155,6 +164,7 @@ struct Params {
   int th, tw;                // kSpatial, kParity: the patch of an M tile
   int tiles_x, tiles_y;      // kSpatial, kParity: patches per frame row / column;
                              // kTemporal, kCausal, kDense: tiles_x = M tiles per clip
+  int m_tiles;               // M tiles of the launch (frames or clips x tiles of one)
   int n_tiles;               // N tiles: parities x par_tiles
   int par_tiles;             // N tiles of one parity's Cout, ceil(Cout / BN)
   int Cout;                  // output channels (kParity: of one output frame, C)
@@ -351,13 +361,85 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[BN / 2], uint64_t da, uint6
   }
 }
 
-// threads of a block (the consumers, then a producer warpgroup or warp)
-// and blocks per SM
-template <int BN> constexpr int kThreads = 128 * kConsumers + (BN == 256 ? 128 : 32);
-template <int BN> constexpr int kBlocksPerSM = BN == 256 ? 1 : 2;
+// threads of a block (the consumers, then a producer warpgroup) and blocks
+// per SM
+constexpr int kThreads = 128 * kConsumers + 128;
+constexpr int kBlocksPerSM = 1;
 
+// The epilogue's staging, apart from the ring: each consumer warpgroup's 64
+// accumulator rows, one chunk of kChunk columns at a time, in f32 (32 KB).
+constexpr int kChunk = 64;
+constexpr int kStagingBytes = kConsumers * 64 * kChunk * 4;
+
+// Where output tile ``tile`` lies: N tiles of one M tile are neighbours in
+// the walk; columns [n0, n0 + BN) of parity par's Cout (plan.tile_origin).
+// kTemporal and kCausal walk a clip whose frames are whole M tiles (S %
+// BM == 0) band by band: M tile k of the clip is band k / T of frame k % T.
+struct Tile {
+  int n0, par;
+  int x0, y0, img;  // kSpatial, kParity: patch origin and frame
+  int r0, clip;     // kTemporal, kCausal, kDense: first row within the clip;
+                    // clip (kParity: of the frame)
+  int t;            // kParity: frame within the clip
+};
+
+template <int TAPS, int BN>
+__device__ __forceinline__ Tile tile_at(const Params& p, int tile) {
+  Tile o{};
+  const int nt = tile % p.n_tiles;
+  o.par = nt / p.par_tiles;
+  o.n0 = (nt - o.par * p.par_tiles) * BN;
+  const int mt = tile / p.n_tiles;
+  if constexpr (TAPS == kSpatial || TAPS == kParity) {
+    const int q = mt / p.tiles_x;
+    o.x0 = (mt - q * p.tiles_x) * p.tw;
+    o.img = q / p.tiles_y;
+    o.y0 = (q - o.img * p.tiles_y) * p.th;
+    if (TAPS == kParity) {
+      o.clip = o.img / p.T;
+      o.t = o.img - o.clip * p.T;
+    }
+  } else {
+    o.clip = mt / p.tiles_x;
+    int rt = mt - o.clip * p.tiles_x;  // the tile's place in its clip's walk
+    if ((TAPS == kTemporal || TAPS == kCausal) && p.S % BM == 0) {
+      // band by band, the frames of a band fastest: the three frames a
+      // tile's taps read are the next tiles' too, and stay in L2 between
+      // them (a frame of 256 x 256 x 128 bf16 is 16 MB)
+      const int band = rt / p.T;
+      rt = (rt - band * p.T) * (p.S / BM) + band;
+    }
+    o.r0 = rt * BM;
+  }
+  return o;
+}
+
+// 8 channels of the residual (kParity: of s) as loaded, unconverted: one
+// 16-byte vector in bf16, two in f32.
+template <bool F32> struct Raw8 {
+  uint4 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* q) { v = ld_u4(q); }
+  __device__ __forceinline__ void get(float* f) const { unpack8(v, f); }
+};
+template <> struct Raw8<true> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* q) {
+    a = reinterpret_cast<const float4*>(q)[0];
+    b = reinterpret_cast<const float4*>(q)[1];
+  }
+  __device__ __forceinline__ void get(float* f) const {
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
+};
+
+// Persistent: block b walks output tiles b, b + gridDim.x, ... of the
+// p.m_tiles x p.n_tiles (the grid is min(tiles, SMs x kBlocksPerSM), the
+// plan's). The producer runs on across tile boundaries, so the next tile's
+// first stages load while the consumers finish a tile; the epilogue stages
+// through its own shared memory, never the ring.
 template <int TAPS, int BN, bool F32 = false>
-static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
+static __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     conv_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_w,
                 const __grid_constant__ CUtensorMap map_x,
@@ -367,32 +449,10 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles: 1024-aligned
   unsigned char* smem = smem_raw + (base - raw);
   constexpr int kStage = stage_bytes(BN);
-  const uint32_t full = base + p.stages * kStage;  // full[s] = full + 8s
-  const uint32_t empty = full + 8 * p.stages;      // empty[s] = empty + 8s
-
-  // this block's tile: N tiles of one M tile are neighbours in launch order;
-  // its columns [n0, n0 + BN) of parity par's Cout (plan.tile_origin)
-  const int nt = blockIdx.x % p.n_tiles;
-  const int par = nt / p.par_tiles;
-  const int n0 = (nt - par * p.par_tiles) * BN;
-  const int mt = blockIdx.x / p.n_tiles;
-  int x0 = 0, y0 = 0, img = 0;  // kSpatial, kParity: patch origin and frame
-  int r0 = 0, clip = 0;         // kTemporal, kCausal, kDense: first row within
-                                // the clip; clip
-  int t = 0;                    // kParity: frame within the clip
-  if constexpr (TAPS == kSpatial || TAPS == kParity) {
-    const int q = mt / p.tiles_x;
-    x0 = (mt - q * p.tiles_x) * p.tw;
-    img = q / p.tiles_y;
-    y0 = (q - img * p.tiles_y) * p.th;
-    if (TAPS == kParity) {
-      clip = img / p.T;
-      t = img - clip * p.T;
-    }
-  } else {
-    clip = mt / p.tiles_x;
-    r0 = (mt - clip * p.tiles_x) * BM;
-  }
+  // the ring, the epilogue's staging, the barriers
+  const uint32_t full = base + p.stages * kStage + kStagingBytes;  // full[s] = full + 8s
+  const uint32_t empty = full + 8 * p.stages;                      // empty[s] = empty + 8s
+  const int tiles = p.m_tiles * p.n_tiles;
 
   const int wg = threadIdx.x >> 7;
   if (threadIdx.x == 0) {
@@ -405,8 +465,8 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
   __syncthreads();
 
   if (wg == kConsumers) {
-    // producer: one thread issues every load
-    if constexpr (BN == 256) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // producer: one thread issues every load, tile after tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 128 * kConsumers) {
       prefetch_map(&map_a);
       prefetch_map(&map_w);
@@ -415,156 +475,206 @@ static __global__ void __launch_bounds__(kThreads<BN>, kBlocksPerSM<BN>)
         prefetch_map(&map_wx);
       }
       int s = 0, phase = 0;
-      for (int ks = 0; ks < p.k_total; ++ks) {
-        mbar_wait(empty + 8 * s, phase ^ 1);  // the first round passes
-        const uint32_t bar = full + 8 * s;
-        mbar_expect_tx(bar, kStage);
-        const uint32_t dst = base + s * kStage;
-        // F32: base step kb of product ks / k_base, whose activation piece
-        // lies qa images or clips on (its plane) and whose weight piece is jw
-        int kb = ks, qa = 0, jw = 0;
-        if constexpr (F32) {
-          const int prod = ks / p.k_base;
-          kb = ks - prod * p.k_base;
-          qa = ((kPieceA >> (4 * prod)) & 15) * p.planes;
-          jw = (kPieceW >> (4 * prod)) & 15;
-        }
-        if (kb < p.k_main) {
-          const int tap = kb / p.cin_steps;
-          const int c = (kb - tap * p.cin_steps) * BK;
-          if constexpr (TAPS == kSpatial) {
-            tma_4d(dst, &map_a, bar, c, x0 + tap % 3 - 1, y0 + tap / 3 - 1, img + qa);
-          } else if constexpr (TAPS == kParity) {
-            const int st = tap % 9;
-            int f = t - 1 + tap / 9;  // taps 0-8 frame t-1, 9-17 frame t
-            if (f < 0 && p.replicate) f = 0;
-            tma_5d(dst, &map_a, bar, c, x0 + st % 3 - 1, y0 + st / 3 - 1, f, clip + qa);
-          } else if constexpr (TAPS == kTemporal) {
-            tma_3d(dst, &map_a, bar, c, r0 + tap * p.S, clip + qa);
-          } else if constexpr (TAPS == kCausal) {
-            tma_3d(dst, &map_a, bar, c, r0 + (tap - 2) * p.S, clip);  // < 0: zeros
-          } else {
-            // kDense: tap k is the operand's columns [k Cin, (k + 1) Cin); a
-            // box past them reads the next tap's, against zero weights
-            tma_2d(dst, &map_a, bar, tap * p.Cin + c, r0);
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const Tile o = tile_at<TAPS, BN>(p, tile);
+        for (int ks = 0; ks < p.k_total; ++ks) {
+          mbar_wait(empty + 8 * s, phase ^ 1);  // the first round passes
+          const uint32_t bar = full + 8 * s;
+          mbar_expect_tx(bar, kStage);
+          const uint32_t dst = base + s * kStage;
+          // F32: base step kb of product ks / k_base, whose activation piece
+          // lies qa images or clips on (its plane) and whose weight piece is jw
+          int kb = ks, qa = 0, jw = 0;
+          if constexpr (F32) {
+            const int prod = ks / p.k_base;
+            kb = ks - prod * p.k_base;
+            qa = ((kPieceA >> (4 * prod)) & 15) * p.planes;
+            jw = (kPieceW >> (4 * prod)) & 15;
           }
-          tma_5d(dst + kTileA, &map_w, bar, c, tap, jw, n0, par);
-        } else {
-          const int c = (kb - p.k_main) * BK;
-          tma_4d(dst, &map_x, bar, c, x0, y0, img + qa);
-          tma_5d(dst + kTileA, &map_wx, bar, c, 0, jw, n0, par);
+          if (kb < p.k_main) {
+            const int tap = kb / p.cin_steps;
+            const int c = (kb - tap * p.cin_steps) * BK;
+            if constexpr (TAPS == kSpatial) {
+              tma_4d(dst, &map_a, bar, c, o.x0 + tap % 3 - 1, o.y0 + tap / 3 - 1, o.img + qa);
+            } else if constexpr (TAPS == kParity) {
+              const int st = tap % 9;
+              int f = o.t - 1 + tap / 9;  // taps 0-8 frame t-1, 9-17 frame t
+              if (f < 0 && p.replicate) f = 0;
+              tma_5d(dst, &map_a, bar, c, o.x0 + st % 3 - 1, o.y0 + st / 3 - 1, f, o.clip + qa);
+            } else if constexpr (TAPS == kTemporal) {
+              tma_3d(dst, &map_a, bar, c, o.r0 + tap * p.S, o.clip + qa);
+            } else if constexpr (TAPS == kCausal) {
+              tma_3d(dst, &map_a, bar, c, o.r0 + (tap - 2) * p.S, o.clip);  // < 0: zeros
+            } else {
+              // kDense: tap k is the operand's columns [k Cin, (k + 1) Cin); a
+              // box past them reads the next tap's, against zero weights
+              tma_2d(dst, &map_a, bar, tap * p.Cin + c, o.r0);
+            }
+            tma_5d(dst + kTileA, &map_w, bar, c, tap, jw, o.n0, o.par);
+          } else {
+            const int c = (kb - p.k_main) * BK;
+            tma_4d(dst, &map_x, bar, c, o.x0, o.y0, o.img + qa);
+            tma_5d(dst + kTileA, &map_wx, bar, c, 0, jw, o.n0, o.par);
+          }
+          if (++s == p.stages) {
+            s = 0;
+            phase ^= 1;
+          }
         }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    using TO = typename Act<F32>::T;
+    const TO* res = static_cast<const TO*>(p.res);
+    TO* out = static_cast<TO*>(p.out);
+    const int tid = threadIdx.x & 127;
+    const int lane = threadIdx.x & 31;
+    // this warpgroup's 64 rows of the staging; its accumulator rows row and
+    // row + 8, columns 8j + cq and + 1; in the row passes it holds columns
+    // [8 grp, 8 grp + 8) of a chunk in rows prow + 16 k
+    float* stg = reinterpret_cast<float*>(smem + p.stages * kStage) + wg * 64 * kChunk;
+    const int row = (tid >> 5) * 16 + (lane >> 2);
+    const int cq = (lane & 3) * 2;
+    const int prow = tid >> 3, grp = tid & 7;
+    const bool has_bias = TAPS <= kParity || p.bias != nullptr;  // A, B, E, F: always
+    const float alpha = TAPS == kParity ? *p.alpha : 0.f;
+    constexpr int kChunks = BN / kChunk, kPasses = 64 / 16;
+    // chunks whose residual is loaded ahead: 64 registers' worth beside
+    // the accumulators (BN 256 in f32: 32), at most all of them
+    constexpr int kAheadRegs = BN == 256 && F32 ? 32 : 64;
+    constexpr int kPerChunk = kPasses * (F32 ? 8 : 4);
+    constexpr int kAhead = kChunks < kAheadRegs / kPerChunk ? kChunks : kAheadRegs / kPerChunk;
+    int s = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int ks = 0; ks < p.k_total; ++ks) {
+        mbar_wait(full + 8 * s, phase);
+        const uint32_t a = base + s * kStage + wg * (64 * 128);  // this warpgroup's rows
+        const uint32_t w = base + s * kStage + kTileA;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BK / 16; ++k)
+          wgmma_k16<BN>(acc, smem_desc(a + 32 * k), smem_desc(w + 32 * k));
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's products are done with its stage
+        fence_acc(acc);
+        if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+        prev = s;
         if (++s == p.stages) {
           s = 0;
           phase ^= 1;
         }
       }
-    }
-  } else {
-    if constexpr (BN == 256) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    float acc[BN / 2];
+      // the output row m of each row pass (-1: outside the frame or past
+      // the clip), and where its residual (kParity: s) and output rows lie;
+      // the first chunks' residual loaded while the last products run
+      const Tile o = tile_at<TAPS, BN>(p, tile);
+      long long roff[kPasses], ooff[kPasses];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    const int lane = threadIdx.x & 31;
-    int s = 0, phase = 0, prev = -1;
-    for (int ks = 0; ks < p.k_total; ++ks) {
-      mbar_wait(full + 8 * s, phase);
-      const uint32_t a = base + s * kStage + wg * (64 * 128);  // this warpgroup's rows
-      const uint32_t w = base + s * kStage + kTileA;
-      fence_acc(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < BK / 16; ++k)
-        wgmma_k16<BN>(acc, smem_desc(a + 32 * k), smem_desc(w + 32 * k));
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous step's products are done with its stage
-      fence_acc(acc);
-      if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
-      prev = s;
-      if (++s == p.stages) {
-        s = 0;
-        phase ^= 1;
-      }
-    }
-    wgmma_wait<0>();
-    fence_acc(acc);
-    named_sync(1, 128 * kConsumers);  // both warpgroups are done with the ring
-
-    // accumulators -> f32 tile [BM][BN + 8] over the ring (the padding
-    // spreads a warp's 8 rows over the banks)
-    constexpr int LD = BN + 8;
-    float* tile = reinterpret_cast<float*>(smem);
-    const int tid = threadIdx.x & 127;
-    const int row = wg * 64 + (tid >> 5) * 16 + (lane >> 2);
-    const int cq = (lane & 3) * 2;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      *reinterpret_cast<float2*>(tile + row * LD + 8 * j + cq) =
-          make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(tile + (row + 8) * LD + 8 * j + cq) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-    named_sync(2 + wg, 128);  // this warpgroup's 64 rows are in place
-
-    // whole rows: 8 columns a thread, bias and residual (or blend) in f32,
-    // bf16 out (F32: f32 residual and out)
-    using TO = typename Act<F32>::T;
-    const TO* res = static_cast<const TO*>(p.res);
-    TO* out = static_cast<TO*>(p.out);
-    constexpr int TPR = BN / 8, RPP = 128 / TPR;
-    const int col = (tid % TPR) * 8;
-    const int c0 = n0 + col;  // this thread's first channel of the parity's Cout
-    // a column group past Cout (the last N tile's) stores nothing
-    const int rows_end = c0 < p.Cout ? wg * 64 + 64 : 0;
-    const bool has_bias = TAPS <= kParity || p.bias != nullptr;  // A, B, E, F: always
-    float bias[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      bias[e] = has_bias && rows_end ? p.bias[par * p.Cout + c0 + e] : 0.f;
-    const float alpha = TAPS == kParity ? *p.alpha : 0.f;
-    for (int r = wg * 64 + tid / TPR; r < rows_end; r += RPP) {
-      long long m;
-      if constexpr (TAPS == kSpatial || TAPS == kParity) {
-        const int y = y0 + r / p.tw, x = x0 + r % p.tw;
-        if (y >= p.H || x >= p.W) continue;
-        m = ((long long)img * p.H + y) * p.W + x;
-      } else {
-        const long long rr = r0 + r;
-        if (rr >= (long long)p.T * p.S) continue;
-        m = (long long)clip * p.T * p.S + rr;
-      }
-      const float4 lo = *reinterpret_cast<const float4*>(tile + r * LD + col);
-      const float4 hi = *reinterpret_cast<const float4*>(tile + r * LD + col + 4);
-      float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] += bias[e];
-      if (TAPS == kParity) {
-        // s row m, then output frame 2 img + par at the same position
-        float sv[8];
-        ld8(res + m * p.Cout + c0, sv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = alpha * sv[e] + (1.f - alpha) * v[e];
-        const long long hw = (long long)p.H * p.W;
-        const long long off = ((2 * img + par) * hw + (m - img * hw)) * p.Cout + c0;
-        st8(out + off, v);
-        continue;
-      }
-      const long long off = m * p.Cout + c0;
-      if (res != nullptr) {
-        float rv[8];
-        ld8(res + off, rv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] += rv[e];
-      }
-      if constexpr (TAPS == kDense) {
-        if (p.outf != nullptr) {  // f32, unrounded: T1's h, read by its second LN
-          float4* o = reinterpret_cast<float4*>(p.outf + off);
-          o[0] = make_float4(v[0], v[1], v[2], v[3]);
-          o[1] = make_float4(v[4], v[5], v[6], v[7]);
-          continue;
+      for (int k = 0; k < kPasses; ++k) {
+        const int r = wg * 64 + prow + 16 * k;  // row of the M tile
+        long long m = -1;
+        if constexpr (TAPS == kSpatial || TAPS == kParity) {
+          const int y = o.y0 + r / p.tw, x = o.x0 + r % p.tw;
+          if (y < p.H && x < p.W) m = ((long long)o.img * p.H + y) * p.W + x;
+        } else {
+          const long long rr = o.r0 + r;
+          if (rr < (long long)p.T * p.S) m = (long long)o.clip * p.T * p.S + rr;
+        }
+        roff[k] = m < 0 ? -1 : m * p.Cout + o.n0 + 8 * grp;
+        ooff[k] = roff[k];
+        if (TAPS == kParity && m >= 0) {  // output frame 2 img + par, same position
+          const long long hw = (long long)p.H * p.W;
+          ooff[k] = ((2 * o.img + o.par) * hw + (m - o.img * hw)) * p.Cout + o.n0 + 8 * grp;
         }
       }
-      st8(out + off, v);
+      Raw8<F32> ahead[kAhead][kPasses];
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q)
+#pragma unroll
+        for (int k = 0; k < kPasses; ++k)
+          if (res != nullptr && roff[k] >= 0 && o.n0 + q * kChunk + 8 * grp < p.Cout)
+            ahead[q][k].load(res + roff[k] + q * kChunk);
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * prev);  // the ring is free for the next tile
+#pragma unroll
+      for (int ch = 0; ch < kChunks; ++ch) {
+        if (ch > 0) named_sync(2 + wg, 128);  // the previous chunk's rows are read
+        // accumulator groups [8 ch, 8 ch + 8) into the staging: row r's
+        // 8-column group g at group g ^ (r & 7), so a warp's 8 rows fall on
+        // distinct banks
+#pragma unroll
+        for (int g = 0; g < kChunk / 8; ++g) {
+          const int j = ch * (kChunk / 8) + g;
+          *reinterpret_cast<float2*>(stg + row * kChunk + 8 * (g ^ (row & 7)) + cq) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(stg + (row + 8) * kChunk + 8 * (g ^ (row & 7)) + cq) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        named_sync(2 + wg, 128);  // this warpgroup's chunk is in place
+        // this chunk's residual, and the load of the one kAhead on
+        const int c0 = o.n0 + ch * kChunk + 8 * grp;  // first channel of the parity's Cout
+        const bool col_ok = c0 < p.Cout;
+        Raw8<F32> rv[kPasses];
+#pragma unroll
+        for (int k = 0; k < kPasses; ++k) rv[k] = ahead[ch % kAhead][k];
+        if (ch + kAhead < kChunks) {
+#pragma unroll
+          for (int k = 0; k < kPasses; ++k)
+            if (res != nullptr && roff[k] >= 0 && c0 + kAhead * kChunk < p.Cout)
+              ahead[ch % kAhead][k].load(res + roff[k] + (ch + kAhead) * kChunk);
+        }
+        // whole rows: 8 columns a thread, bias and residual (or blend) in
+        // f32, bf16 out (F32: f32 residual and out); a column group past
+        // Cout (the last N tile's) stores nothing
+        if (col_ok) {
+          float bias[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) bias[e] = has_bias ? p.bias[o.par * p.Cout + c0 + e] : 0.f;
+#pragma unroll
+          for (int k = 0; k < kPasses; ++k) {
+            if (roff[k] < 0) continue;
+            const int r = prow + 16 * k;
+            const float* src = stg + r * kChunk + 8 * (grp ^ (r & 7));
+            const float4 lo = *reinterpret_cast<const float4*>(src);
+            const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+            float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[e] += bias[e];
+            if constexpr (TAPS == kParity) {
+              float sv[8];
+              rv[k].get(sv);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) v[e] = alpha * sv[e] + (1.f - alpha) * v[e];
+              st8(out + ooff[k] + ch * kChunk, v);
+            } else {
+              if (res != nullptr) {
+                float r8[8];
+                rv[k].get(r8);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) v[e] += r8[e];
+              }
+              bool done = false;
+              if constexpr (TAPS == kDense) {
+                if (p.outf != nullptr) {  // f32, unrounded: T1's h, read by its second LN
+                  float4* f = reinterpret_cast<float4*>(p.outf + ooff[k] + ch * kChunk);
+                  f[0] = make_float4(v[0], v[1], v[2], v[3]);
+                  f[1] = make_float4(v[4], v[5], v[6], v[7]);
+                  done = true;
+                }
+              }
+              if (!done) st8(out + ooff[k] + ch * kChunk, v);
+            }
+          }
+        }
+      }
+      named_sync(2 + wg, 128);  // the staging is free for the next tile
     }
   }
 }
@@ -685,21 +795,22 @@ static inline int weight_maps(CUtensorMap* main, CUtensorMap* nin, const void* w
 }
 
 static inline int smem_needed(int bn, int stages) {
-  return 1024 + stages * stage_bytes(bn) + 16 * stages;
+  return 1024 + stages * stage_bytes(bn) + kStagingBytes + 16 * stages;
 }
 
-// One conv launch of the plan (bn, stages, smem, grid); map_x and map_wx
-// (the 1x1 term's activation and weight) are read only when p.k_total >
-// p.k_main (F32: p.k_base > p.k_main). Returns a cudaError_t or kErrPlan.
+// One conv launch of the plan (bn, stages, smem, grid: at most one block a
+// tile); map_x and map_wx (the 1x1 term's activation and weight) are read
+// only when p.k_total > p.k_main (F32: p.k_base > p.k_main). Returns a
+// cudaError_t or kErrPlan.
 template <int TAPS, bool F32 = false>
 static inline int launch_conv(const CUtensorMap& map_a, const CUtensorMap& map_w,
                               const CUtensorMap& map_x, const CUtensorMap& map_wx,
                               const Params& p, int bn, int smem, int grid, cudaStream_t s) {
-  const int epilogue = BM * (bn + 8) * 4;
+  const long long tiles = (long long)p.m_tiles * p.n_tiles;
   if ((bn != 64 && bn != 128 && bn != 256) || p.stages < 2 || smem < smem_needed(bn, p.stages) ||
-      p.stages * stage_bytes(bn) < epilogue || p.Cout < 8 || p.Cout % 8 != 0 ||
-      p.par_tiles != (p.Cout + bn - 1) / bn ||
-      p.n_tiles != (TAPS == kParity ? 2 : 1) * p.par_tiles || grid <= 0 || p.cin_steps < 1 ||
+      p.Cout < 8 || p.Cout % 8 != 0 || p.par_tiles != (p.Cout + bn - 1) / bn ||
+      p.n_tiles != (TAPS == kParity ? 2 : 1) * p.par_tiles || p.m_tiles < 1 ||
+      tiles > 0x7fffffffLL || grid <= 0 || grid > tiles || p.cin_steps < 1 ||
       ((TAPS == kCausal || TAPS == kDense) && (F32 || p.k_total != p.k_main)) ||
       (F32 && (p.k_base < p.k_main || p.k_total != kProducts * p.k_base || p.planes < 1)))
     return kErrPlan;
@@ -709,8 +820,7 @@ static inline int launch_conv(const CUtensorMap& map_a, const CUtensorMap& map_w
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int threads = bn == 256 ? kThreads<256> : kThreads<128>;
-  kernel<<<grid, threads, smem, s>>>(map_a, map_w, map_x, map_wx, p);
+  kernel<<<grid, kThreads, smem, s>>>(map_a, map_w, map_x, map_wx, p);
   return (int)cudaGetLastError();
 }
 

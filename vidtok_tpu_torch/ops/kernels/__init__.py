@@ -2,9 +2,11 @@
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and its CUDA
 kernel for a CUDA tensor (or raises), under the span ``vt.kernel.<wrapper
-name>`` (``_lib.wrapper``). It keeps three counters: ``calls`` (every
-call), ``launches`` (calls that launched the kernel) and ``builds``
-(operand relayouts built because no cached one was served). Every kernel
+name>`` (``_lib.wrapper``). It keeps five counters: ``calls`` (every
+call), ``launches`` (calls that launched the kernel), ``builds``
+(operand relayouts built because no cached one was served), and
+``conv_tiles`` / ``conv_blocks``, the output tiles and blocks of its wgmma
+conv launches (A, B, E, F; 0 elsewhere). Every kernel
 takes bf16 or f32 activations (f32: ``split.py``'s scheme in A, B, E and
 F) and raises for another dtype, naming the kernel. J and K are the v1.1
 trilinear temporal upsample's passes around its cuDNN conv.
@@ -76,10 +78,10 @@ class KernelForms:
 
 def reset_counts() -> None:
     for fn in WRAPPERS.values():
-        fn.calls = fn.launches = fn.builds = 0
+        fn.calls = fn.launches = fn.builds = fn.conv_tiles = fn.conv_blocks = 0
 
 
 def counts(kind: str = "launches") -> dict:
-    """{wrapper name: count}; ``kind`` is ``calls``, ``launches`` or
-    ``builds``."""
+    """{wrapper name: count}; ``kind`` is ``calls``, ``launches``,
+    ``builds``, ``conv_tiles`` or ``conv_blocks``."""
     return {name: getattr(fn, kind) for name, fn in WRAPPERS.items()}

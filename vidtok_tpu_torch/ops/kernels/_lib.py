@@ -14,7 +14,7 @@ F, T1 and T2 and the tail of D and D', a refused tensor map or plan);
 :func:`call` raises when that is not 0.
 
 :func:`wrapper` makes a kernel wrapper: its span ``vt.kernel.<name>``
-and its counters. :func:`operands` caches the weights of A, B, D, D', E
+and its counters (:func:`count_conv` those of its wgmma conv launches). :func:`operands` caches the weights of A, B, D, D', E
 and F (and of B's parts, T1 and T2) as their kernels read them, per
 parameter;
 :func:`weight_map` encodes the tensor maps of such a weight for the wgmma
@@ -232,11 +232,12 @@ _BUILDS = 0  # entries operands() has built, read by the wrappers' ``builds``
 def wrapper(fn):
     """``fn``, a kernel wrapper, under the span ``vt.kernel.<fn's name>``
     from entry to return (plan, operands, tensor maps, allocation and
-    launch), with three counters: ``calls`` (every call), ``launches``
-    (counted by ``fn`` where it launches its kernel) and ``builds`` (the
+    launch), with five counters: ``calls`` (every call), ``launches``
+    (counted by ``fn`` where it launches its kernel), ``builds`` (the
     operand relayouts :func:`operands` built during its calls because no
     cached entry was served: none on a repeated call with unchanged
-    parameters)."""
+    parameters), and ``conv_tiles`` / ``conv_blocks`` (the output tiles and
+    the blocks of its wgmma conv launches, :func:`count_conv`)."""
     name = "vt.kernel." + fn.__name__
 
     @functools.wraps(fn)
@@ -250,7 +251,16 @@ def wrapper(fn):
             wrapped.builds += _BUILDS - built
 
     wrapped.calls = wrapped.launches = wrapped.builds = 0
+    wrapped.conv_tiles = wrapped.conv_blocks = 0
     return wrapped
+
+
+def count_conv(fn, pl, launches: int = 1) -> None:
+    """Count ``launches`` wgmma conv launches of plan ``pl`` on wrapper
+    ``fn``: its tiles and its blocks (the plan's grid), whose ratio is the
+    tiles a block walks."""
+    fn.conv_tiles += launches * pl.tiles
+    fn.conv_blocks += launches * pl.grid
 
 
 def _stamp(t):

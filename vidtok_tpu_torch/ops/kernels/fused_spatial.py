@@ -121,4 +121,5 @@ def fused_spatial_resblock(x, norm1, conv1, norm2, conv2, nin=None):
         _lib.call("vt_fused_spatial_resblock", x, out, h1, act, op["g1"], op["b1"], map1,
                   op["bias1"], op["g2"], op["b2"], map2, op["bias2"], *tail)
     fused_spatial_resblock.launches += 1
+    _lib.count_conv(fused_spatial_resblock, pl, 2)  # conv1, conv2
     return out

@@ -143,6 +143,7 @@ def fused_temporal_resblock(x, norm1, conv1, norm2, conv2,
               op["bias1"], op["g2"], op["b2"], map2, op["bias2"], b, t, h * w, c,
               int(first_pad_mode == "replicate"), pl.bn, pl.stages, pl.smem, pl.grid)
     fused_temporal_resblock.launches += 1
+    _lib.count_conv(fused_temporal_resblock, pl, 2)  # conv1, conv2
     return out
 
 
@@ -215,4 +216,5 @@ def fused_temporal_resblock_stream(x, norm1, conv1, norm2, conv2, c1, c2,
               map2, op["bias2"], b, t, h * w, c, int(first_chunk), offset, pl.bn,
               pl.stages, pl.smem, pl.grid)
     fused_temporal_resblock_stream.launches += 1
+    _lib.count_conv(fused_temporal_resblock_stream, pl, 2)  # conv1, conv2
     return out, nc1, nc2

@@ -127,4 +127,5 @@ def parity_up2x_fused(s, weight, bias, alpha, first_pad_mode: str):
     else:
         _lib.call("vt_parity_up2x", s, out, wmap, op["bias"], alpha, *sizes)
     parity_up2x_fused.launches += 1
+    _lib.count_conv(parity_up2x_fused, pl)
     return out

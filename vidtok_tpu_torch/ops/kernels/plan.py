@@ -5,11 +5,14 @@ Kernels A, B, E and F, and the temporal microbenchmark's T1 and T2
 (``tools/microbench_temporal.py``), launch that loop with a plan made here
 from the call's shape, so the shapes stay where the CPU tests reach them:
 the patch of an M tile, BN, the ring's stages, the shared memory and the
-grid. Kernels D
+grid. The loop is persistent: its grid is min(tiles, SMS), and block b
+walks tiles b, b + grid, ... (:func:`block_tiles`). Kernels D
 and D' launch the tail with :func:`tail_plan`'s patch, run of frames,
 stages, shared memory and grid (f32: :func:`tail_plan_f32`'s). Each C
-entry takes the plan as it is and refuses one it cannot run. :func:`tile_origin` and :func:`tail_block`
-mirror how a block finds its work from ``blockIdx.x``.
+entry takes the plan as it is and refuses one it cannot run.
+:func:`tile_origin` mirrors how a block finds a tile's origin from its
+index, :func:`tail_block` how a tail block finds its work from
+``blockIdx.x``.
 
 f32 (``split=True``): A, B, E and F under the loop's f32 scheme
 (``split.py``) run the bf16 plan's tiles, BN, stages and shared memory (a
@@ -43,10 +46,16 @@ from .split import PIECES
 
 BM, BK = 128, 64                   # rows of an M tile; channels of a K step
 PATCHES = ((8, 16), (4, 32))      # th x tw = BM
-# the ring's stages: BN 256 one block per SM (192 KB of ring), BN 128 and
-# 64 two (96 KB each: one block's epilogue overlaps the other's products)
-STAGES = {64: 4, 128: 3, 256: 4}
-BLOCKS_PER_SM = {64: 2, 128: 2, 256: 1}   # as wgmma_conv.cuh's kBlocksPerSM
+# the ring's stages, 192 KB at every BN, for one persistent block per SM
+# (wgmma_conv.cuh's kBlocksPerSM): two blocks of 288 threads an SM leave
+# 96 registers a thread, from which the epilogue spills
+STAGES = {64: 8, 128: 6, 256: 4}
+BLOCKS_PER_SM = 1
+# the epilogue's staging, apart from the ring (wgmma_conv.cuh:
+# kStagingBytes): each consumer warpgroup's 64 accumulator rows, one
+# chunk of EPILOGUE_CHUNK columns at a time, in f32
+EPILOGUE_CHUNK = 64
+STAGING_BYTES = 2 * 64 * EPILOGUE_CHUNK * 4
 # the channel domain of every kernel (check_channels)
 C_ALIGN, C_MAX = 8, 1024
 SMEM_LIMIT = 232_448               # bytes of shared memory a block can use
@@ -70,10 +79,13 @@ class ConvPlan:
     / ``tiles_y`` the patches across / down a frame (temporal: ``tiles_x``
     M tiles per clip, ``tiles_y`` 1); ``m_tiles`` all M tiles; ``n_tiles``
     the N tiles, ``parities`` x ceil(``cout`` / ``bn``); ``grid`` the
-    blocks, one per (M tile, N tile); ``a_channels`` the channels the A
+    blocks, min(``tiles``, SMS), each walking the tiles
+    :func:`block_tiles` gives it; ``a_channels`` the channels the A
     operand holds a position (f32: the activation's ``PIECES`` pieces);
     ``cout`` the output channels (E: of one parity, C); ``parities`` 2 for
-    E's two output frames, else 1."""
+    E's two output frames, else 1; ``frame_tiles`` (temporal, where a
+    frame is whole M tiles: S % BM == 0) the M tiles of a frame, which the
+    walk takes band by band, the frames of a band fastest, else 0."""
     taps: str
     th: int
     tw: int
@@ -88,6 +100,12 @@ class ConvPlan:
     a_channels: int = 0
     cout: int = 0
     parities: int = 1
+    frame_tiles: int = 0
+
+    @property
+    def tiles(self) -> int:
+        """Output tiles: one per (M tile, N tile)."""
+        return self.m_tiles * self.n_tiles
 
 
 def stage_bytes(bn: int) -> int:
@@ -95,13 +113,9 @@ def stage_bytes(bn: int) -> int:
 
 
 def smem_bytes(bn: int, stages: int) -> int:
-    """The ring, 1 KB to align it for the 128-byte swizzle, the barriers."""
-    return 1024 + stages * stage_bytes(bn) + 16 * stages
-
-
-def epilogue_bytes(bn: int) -> int:
-    """The f32 tile the epilogue stages in the ring: BM rows of bn + 8."""
-    return BM * (bn + 8) * 4
+    """The ring, 1 KB to align it for the 128-byte swizzle, the epilogue's
+    staging, the barriers."""
+    return 1024 + stages * stage_bytes(bn) + STAGING_BYTES + 16 * stages
 
 
 def check_channels(c: int, what: str = "C") -> None:
@@ -133,8 +147,8 @@ def k_steps(c: int) -> int:
 def pick_bn(unit: int, m_tiles: int, parities: int = 1) -> int:
     """BN for N tiles that cover ``unit`` output channels (E: one parity's
     C). 256 reads each A tile once for two N tiles' worth of products, but
-    halves the blocks: it is taken only where it divides ``unit`` and the
-    grid still fills the card. Otherwise the tile of {128, 64} that wastes
+    halves the tiles: it is taken only where it divides ``unit`` and the
+    tiles still fill the card. Otherwise the tile of {128, 64} that wastes
     the fewest columns in the last N tile, 128 on a tie: 64 is there for
     widths like Cout = 64, where 128 would multiply half zeros, and 192,
     where 128 wastes a quarter (wgmma has n64 as it has n128)."""
@@ -143,19 +157,24 @@ def pick_bn(unit: int, m_tiles: int, parities: int = 1) -> int:
     return min((128, 64), key=lambda bn: -(-unit // bn) * bn)
 
 
+def conv_grid(tiles: int) -> int:
+    """Blocks of a launch of ``tiles`` tiles: one per SM, fewer where there
+    are fewer tiles, so a small launch runs one tile a block."""
+    return min(tiles, SMS * BLOCKS_PER_SM)
+
+
 def _plan(taps, th, tw, tiles_x, tiles_y, m_tiles, cout, parities=1, cin=0,
           split=False) -> ConvPlan:
     bn = pick_bn(cout, m_tiles, parities)
     stages = STAGES[bn]
     n_tiles = parities * -(-cout // bn)
+    if m_tiles * n_tiles > GRID_LIMIT:
+        raise ValueError(f"{m_tiles * n_tiles} tiles exceed the grid limit")
     plan = ConvPlan(taps, th, tw, tiles_x, tiles_y, m_tiles, bn, n_tiles,
-                    stages, smem_bytes(bn, stages), m_tiles * n_tiles,
+                    stages, smem_bytes(bn, stages), conv_grid(m_tiles * n_tiles),
                     (PIECES if split else 1) * cin, cout, parities)
-    if (plan.smem > SMEM_LIMIT or stages * stage_bytes(bn) < epilogue_bytes(bn)
-            or BLOCKS_PER_SM[bn] * (plan.smem + 1024) > SMEM_PER_SM):
+    if plan.smem > SMEM_LIMIT or BLOCKS_PER_SM * (plan.smem + 1024) > SMEM_PER_SM:
         raise AssertionError(f"plan {plan} does not fit shared memory")
-    if plan.grid > GRID_LIMIT:
-        raise ValueError(f"{plan.grid} blocks exceed the grid limit")
     return plan
 
 
@@ -220,7 +239,7 @@ def conv_plan_temporal(b: int, t: int, s: int, c: int, split: bool = False) -> C
     per_clip = -(-t * s // BM)
     plan = _plan("temporal", 1, BM, per_clip, 1, b * per_clip, c, cin=c, split=split)
     _check_map((c, (t + 2) * s, (PIECES if split else 1) * b))
-    return plan
+    return dataclasses.replace(plan, frame_tiles=0 if s % BM else s // BM)
 
 
 @functools.lru_cache(maxsize=None)
@@ -241,29 +260,46 @@ def conv_plan_dense(m: int, k: int, cout: int) -> ConvPlan:
     return _plan("dense", 1, BM, m_tiles, 1, m_tiles, cout)
 
 
-def tile_origin(plan: ConvPlan, block: int) -> tuple:
-    """(M tile origin, first output column) of block ``block``, as the
-    kernel decodes ``blockIdx.x``: spatial and parity ``(frame, y0, x0)``
-    (parity: frame ``b * t + a`` of the input), temporal and dense
-    ``(clip, r0)`` (dense: clip 0). E's columns count both parities,
+def block_tiles(plan: ConvPlan, block: int):
+    """The tiles block ``block`` walks, in its order: ``block``, + grid,
+    ... below ``plan.tiles``."""
+    return np.arange(block, plan.tiles, plan.grid)
+
+
+def walk(plan: ConvPlan):
+    """Every tile of the launch's walk: each block's :func:`block_tiles`,
+    block after block."""
+    return np.concatenate([block_tiles(plan, b) for b in range(plan.grid)])
+
+
+def tile_origin(plan: ConvPlan, tile) -> tuple:
+    """(M tile origin, first output column) of tile ``tile``, as the
+    kernel decodes a tile's index (wgmma_conv.cuh: tile_at): spatial and
+    parity ``(frame, y0, x0)`` (parity: frame ``b * t + a`` of the input),
+    temporal and dense ``(clip, r0)`` (dense: clip 0; temporal with
+    ``frame_tiles``: M tile k of a clip is band k // T of frame k % T); the
+    N tiles of one M tile are neighbours. E's columns count both parities,
     parity p's C columns from p * C on."""
-    nt = block % plan.n_tiles
+    nt = tile % plan.n_tiles
     per = plan.n_tiles // plan.parities
     n0 = (nt // per) * plan.cout + (nt % per) * plan.bn
-    mt = block // plan.n_tiles
+    mt = tile // plan.n_tiles
     if plan.taps in ("spatial", "parity"):
         q, tx = divmod(mt, plan.tiles_x)
         img, ty = divmod(q, plan.tiles_y)
         return (img, ty * plan.th, tx * plan.tw), n0
-    clip, t = divmod(mt, plan.tiles_x)
-    return (clip, t * BM), n0
+    clip, rt = divmod(mt, plan.tiles_x)
+    if plan.frame_tiles:
+        band, frame = divmod(rt, plan.tiles_x // plan.frame_tiles)
+        rt = frame * plan.frame_tiles + band
+    return (clip, rt * BM), n0
 
 
-def tile_columns(plan: ConvPlan, block: int) -> tuple:
-    """[first, end) of the output columns block ``block`` stores (E's
-    counted as in :func:`tile_origin`): its N tile's, less those past the
-    parity's ``cout``, which the epilogue does not store."""
-    _, n0 = tile_origin(plan, block)
+def tile_columns(plan: ConvPlan, tile) -> tuple:
+    """[first, end) of the output columns of tile ``tile`` (E's counted as
+    in :func:`tile_origin`): its N tile's, less those past the parity's
+    ``cout``, which the epilogue does not store."""
+    _, n0 = tile_origin(plan, tile)
     par = n0 // plan.cout
     return n0, par * plan.cout + np.minimum(n0 - par * plan.cout + plan.bn, plan.cout)
 

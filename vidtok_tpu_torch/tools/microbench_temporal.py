@@ -23,7 +23,9 @@ run whole-warp exact row passes in ``act_rows_kernel``'s layout
 (``plan.row_layout``), so T2's ``ln`` row times the row pass B uses with
 the exact statistics in place of the fast ones. Each wrapper runs its plain
 PyTorch version for a CPU tensor and its kernel for a CUDA tensor (or
-raises), and counts ``calls`` and ``launches``. One deliberate divergence:
+raises), and counts ``calls`` and ``launches`` (T1 and T2 ``mm`` also
+``conv_tiles`` and ``conv_blocks``, as ``_lib.count_conv``). One
+deliberate divergence:
 JAX's grids (``s // tile_s``, ``t // tile_t``) leave a non-dividing tile's
 remainder uncopied; here such a tile raises, and ``main`` prints its row as
 not run.
@@ -172,6 +174,7 @@ def fused_fat(x, params):
               op["g2"], op["b2"], map2, op["bias2"], b, t, h * w, c, pl.bn, pl.stages,
               pl.smem, pl.grid)
     fused_fat.launches += 1
+    _lib.count_conv(fused_fat, pl, 2)  # the two dense products
     return out
 
 
@@ -210,6 +213,8 @@ def fused_diag(x, params, mode: str = "mm"):
     _lib.call("vt_microbench_diag", x, out, hb, g1, b1, map1, g2, b2, map2,
               b, t, h * w, c, DIAG_MODES[mode], bn, stages, smem, grid)
     fused_diag.launches += 1
+    if mode == "mm":
+        _lib.count_conv(fused_diag, pl, 2)  # the two causal convs
     return out
 
 
@@ -239,7 +244,7 @@ def copy_min(x, tile_s: int = 128, tile_t: int = None):
 
 WRAPPERS = {"fused_fat": fused_fat, "fused_diag": fused_diag, "copy_min": copy_min}
 for _fn in WRAPPERS.values():
-    _fn.calls = _fn.launches = 0
+    _fn.calls = _fn.launches = _fn.conv_tiles = _fn.conv_blocks = 0
 
 
 def tool_inputs(c: int, t: int, s: int, device):
