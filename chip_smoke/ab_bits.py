@@ -1,14 +1,15 @@
 """Compare the wgmma conv loop's outputs of two checkouts bit for bit.
 
-    python3 -m vidtok_tpu_torch.tools.ab_bits DIR_A DIR_B
+    python3 -m chip_smoke.ab_bits DIR_A DIR_B
 
 e.g. ``build/parent .``: each DIR is a checkout (its own
-``vidtok_tpu_torch`` and ``chip_smoke.py``), run in a process of its own
-that builds the checkout's kernels and runs, on ``chip_smoke``'s inputs
-(the same seeds in both checkouts), every call shape of the kernels that
-launch the loop: A, B, E and F in bf16 (``chip_smoke.kernel_cases``) and
-in f32 (``f32_kernel_cases``), and the tools' T1 and T2 with kernel B at
-the tools' shapes (``tool_cases``). Each output is fingerprinted on the
+``vidtok_tpu_torch`` and ``chip_smoke`` package), run in a process of its
+own that builds the checkout's kernels and runs, on ``chip_smoke``'s
+inputs (the same seeds in both checkouts), every call shape of the kernels
+that launch the loop: A, B, E and F in bf16
+(``chip_smoke.kernels.kernel_cases``) and in f32 (``f32_kernel_cases``),
+and the tools' T1 and T2 with kernel B at the tools' shapes
+(``chip_smoke.tool_kernels.tool_cases``). Each output is fingerprinted on the
 card: its elements' bits as integers (16- or 32-bit words), their sum and
 a position-weighted sum in 64-bit integers. Prints each case whose
 fingerprints differ and a summary line; exits 1 on any difference, or when
@@ -29,7 +30,7 @@ CONV_TOOLS = ("fused_temporal_resblock", "fused_fat", "fused_diag")
 CHILD = r'''
 import json, sys
 import torch
-import chip_smoke as cs
+from chip_smoke import kernels as ck, tool_kernels as tk
 from vidtok_tpu_torch.ops.kernels import _lib
 
 kernels, tools = json.loads(sys.argv[1])
@@ -51,16 +52,16 @@ def fingerprint(t):
 
 
 prints = {}
-for dtype, cases in (("bf16", cs.kernel_cases), ("f32", cs.f32_kernel_cases)):
+for dtype, cases in (("bf16", ck.kernel_cases), ("f32", ck.f32_kernel_cases)):
     for i, case in enumerate(cases(dev)):
         if case.name in kernels:
-            outs = cs._outs(case.kernel(*case.args))
+            outs = ck._outs(case.kernel(*case.args))
             prints[f"{dtype} {i} {case.name} {case.key} mean {case.mean}"] = [
                 fingerprint(o) for o in outs]
             del outs
         del case
         torch.cuda.empty_cache()
-for i, case in enumerate(cs.tool_cases(dev, set(tools))):
+for i, case in enumerate(tk.tool_cases(dev, set(tools))):
     prints[f"tool {i} {case.name} {case.row} {case.shape}"] = [
         fingerprint(case.kernel(*case.args))]
     del case

@@ -1,19 +1,21 @@
 """Compare two checkouts of the port on one card, in turns.
 
-    python3 -m vidtok_tpu_torch.tools.ab_trees NAME=DIR [NAME=DIR ...]
+    python3 -m chip_smoke.ab_trees NAME=DIR [NAME=DIR ...]
 
 e.g. ``parent=build/parent change=. change=. parent=build/parent``: each
-DIR is a checkout (its own ``vidtok_tpu_torch`` and ``chip_smoke.py``),
-run in the order given, each in a process of its own that builds the
-checkout's kernels and measures, with ``chip_smoke``'s own functions:
+DIR is a checkout (its own ``vidtok_tpu_torch`` and ``chip_smoke``
+package), run in the order given, each in a process of its own that
+builds the checkout's kernels and measures, with ``chip_smoke``'s own
+functions:
 
 * kernels A-I and D' (bf16): ms per forward of the v1.0, v1.1 and tiled
   T=65 paths (G, H, I and D' in the forms that run them), each call shape timed by
-  CUDA events (``chip_smoke.cuda_ms``) and weighted by its calls per
-  forward (``chip_smoke.kernel_cases``);
+  CUDA events (``chip_smoke.kernels.cuda_ms``) and weighted by its calls
+  per forward (``chip_smoke.kernels.kernel_cases``);
 * the request latency, s: ``chip_smoke.N_REQUESTS`` requests of
   ``REQUEST`` on the v1.0 kernel path and of ``TILED_REQUEST`` on the
-  tiled v1.1 kernel path (``chip_smoke.serve``), the best after the first;
+  tiled v1.1 kernel path (``chip_smoke.serving.serve``), the best after
+  the first;
 * the temporal microbenchmark's rows of kernel B, T1 and T2 (``v0
   shipped``, ``v1 fat``, ``v2 mm-only``, ``v3 ln-only``), ms per call, at
   each of ``chip_smoke.TOOL_RUNS`` (the tool's ``main``: median, L2
@@ -43,6 +45,7 @@ import json, subprocess, sys
 from collections import defaultdict
 import torch
 import chip_smoke as cs
+from chip_smoke import kernels as ck, serving as sv
 from vidtok_tpu_torch.ops.kernels import _lib
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -51,9 +54,9 @@ dev = torch.device("cuda", 0)
 _lib.library()
 kernels, paths, TOOL_ROWS = json.loads(sys.argv[1])
 per = defaultdict(lambda: defaultdict(float))
-for case in cs.kernel_cases(dev):
+for case in ck.kernel_cases(dev):
     if case.name in kernels and any(case.calls.get(p, 0) for p in paths):
-        ms = cs.cuda_ms(lambda: case.kernel(*case.args))
+        ms = ck.cuda_ms(lambda: case.kernel(*case.args))
         for path, n in case.calls.items():
             per[case.name][path] += n * ms
     del case
@@ -62,14 +65,14 @@ out = {"card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                 "--format=csv,noheader"], capture_output=True,
                                text=True).stdout.strip(),
        "ms_per_forward": {k: dict(v) for k, v in per.items()}}
-tok = cs.make_tokenizer(cs.V1_0_CFG, dev)
-out["v1_0_latency_s"] = cs.serve(tok, cs.N_REQUESTS, cs.REQUEST,
+tok = sv.make_tokenizer(cs.V1_0_CFG, dev)
+out["v1_0_latency_s"] = sv.serve(tok, cs.N_REQUESTS, cs.REQUEST,
                                  cs.PER_FORWARD["v1_0"])["latency_s"]
 del tok
 torch.cuda.empty_cache()
-tok = cs.make_tokenizer(cs.V1_1_CFG, dev)
+tok = sv.make_tokenizer(cs.V1_1_CFG, dev)
 tok.use_tiling, tok.use_overlap = True, True
-out["tiled_latency_s"] = cs.serve(tok, cs.N_REQUESTS, cs.TILED_REQUEST,
+out["tiled_latency_s"] = sv.serve(tok, cs.N_REQUESTS, cs.TILED_REQUEST,
                                   cs.tiled_per_forward(cs.TILED_REQUEST[2]))["latency_s"]
 del tok
 torch.cuda.empty_cache()

@@ -211,7 +211,7 @@ def test_chip_smoke_call_shapes(path, monkeypatch):
     """``chip_smoke.model_calls``, which gives the card's gates their call
     shapes and the serving runs their launches per forward, equals the
     kernel call sites the port's model reaches with ``fused`` on, key by
-    key, for each configuration ``chip_smoke.py`` serves (at ``ch`` 16 and
+    key, for each configuration ``chip_smoke`` serves (at ``ch`` 16 and
     32² frames here; the same walk at full width there)."""
     from collections import Counter
 
@@ -258,7 +258,7 @@ def test_chip_smoke_call_shapes(path, monkeypatch):
     ("FSQ_32768_V1_1_CFG", "v1_1/vidtok_fsq_causal_488_32768_v1_1.yaml"),
     ("NONCAUSAL_FSQ_CFG", "vidtok_fsq_noncausal_488_262144.yaml")])
 def test_chip_smoke_configs_are_the_files(name, path):
-    """``chip_smoke.py`` holds its model sections resolved, so the card
+    """``chip_smoke`` holds its model sections resolved, so the card
     needs no YAML parser: each equals its config file's."""
     want = model_section(path)["params"]
     got = getattr(cs, name)["model"]["params"]

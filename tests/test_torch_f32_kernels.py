@@ -8,7 +8,7 @@ decoder tail; C, G, H and I are templates of the element type. Here the
 scheme's arithmetic is written in PyTorch (the split, then each product in
 f32) and held on the CPU against the JAX kernel in interpret mode in f32,
 on inputs from a numpy seed at ``tests/test_torch_kernels.py``'s sizes:
-relative L2 at most REL (2e-5, the gate ``chip_smoke.py`` holds the card's
+relative L2 at most REL (2e-5, the gate ``chip_smoke`` holds the card's
 f32 kernels to against their plain versions); the tail's walk is modelled
 in ``tests/test_torch_tail.py``. Then the engine's default (the kernels on
 for a CUDA device in bf16 and f32), the ten serving wrappers taking f32 and

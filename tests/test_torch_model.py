@@ -10,6 +10,8 @@
 * Import hygiene: the port imports neither JAX, Flax nor PyYAML, also
   when it builds the v1.0 KL and FSQ models, and nothing of ``vidtok_tpu``
   when it loads a YAML config; without CUDA, naming no device raises.
+* Layers: no module of the port imports the card gate ``chip_smoke``,
+  which imports on the CPU without initialising CUDA.
 """
 
 import os
@@ -277,6 +279,49 @@ def test_import_hygiene(tmp_path):
         "       if m in sys.modules]\n"
         "assert not bad and 'yaml' in sys.modules, bad\n"
         "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr
+
+
+def test_port_does_not_import_chip_smoke():
+    """The card gate drives the port from outside it: no module under
+    ``vidtok_tpu_torch/`` imports ``chip_smoke`` (an import statement, or
+    ``importlib.import_module`` / ``__import__`` of its name), and
+    ``import chip_smoke`` on the CPU exposes the call model the tests and
+    ``vtbench``'s reference test read (``model_calls``, ``work``,
+    ``PER_FORWARD``) without initialising CUDA."""
+    import ast
+    from pathlib import Path
+
+    def imported(node):
+        if isinstance(node, ast.Import):
+            return [a.name for a in node.names]
+        if isinstance(node, ast.ImportFrom):
+            return [node.module or ""]
+        if (isinstance(node, ast.Call) and node.args
+                and isinstance(node.args[0], ast.Constant)
+                and getattr(node.func, "attr", getattr(node.func, "id", None))
+                in ("import_module", "__import__")):
+            return [str(node.args[0].value)]
+        return []
+
+    files = sorted(Path(ROOT, "vidtok_tpu_torch").rglob("*.py"))
+    assert len(files) > 50
+    bad = [f"{path.relative_to(ROOT)}:{node.lineno} {name}" for path in files
+           for node in ast.walk(ast.parse(path.read_text(), str(path)))
+           for name in imported(node) if name.split(".")[0] == "chip_smoke"]
+    assert not bad, bad
+    code = ("import sys, torch, chip_smoke\n"
+            "calls = chip_smoke.model_calls(chip_smoke.V1_0_CFG, chip_smoke.REQUEST)\n"
+            "assert chip_smoke.per_forward(calls) == chip_smoke.PER_FORWARD['v1_0']\n"
+            "assert all(chip_smoke.work(*k)[0] > 0 for k in calls)\n"
+            "assert not torch.cuda.is_initialized(), 'CUDA initialised'\n"
+            "bad = [m for m in ('jax', 'vidtok_tpu') if m in sys.modules]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr

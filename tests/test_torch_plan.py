@@ -4,7 +4,7 @@ Kernels A, B, E and F of the port run the warp-specialised TMA + wgmma
 conv of ``csrc/wgmma_conv.cuh`` with a plan made in ``ops/kernels/plan.py``,
 and read their weights from ``_lib.operands``, relaid out once per
 parameter. Neither needs the card: the plans are checked at every A, B, E
-and F call shape ``chip_smoke.py`` serves or gates (each output position,
+and F call shape ``chip_smoke`` serves or gates (each output position,
 and for E each output frame, in exactly one tile, BN dividing Cout (E: C),
 the shared memory and the grid within the H100's limits), the cache
 against the relayouts it stands for and against the ways a parameter
@@ -274,7 +274,7 @@ def test_operands_per_device_dtype_and_kind():
 # -- the plans ----------------------------------------------------------------
 
 def _f32_keys(name):
-    """The f32 call shapes of kernel ``name`` that chip_smoke.py serves or
+    """The f32 call shapes of kernel ``name`` that chip_smoke serves or
     gates: phase 19's two requests, F32_PARTIAL and the T=201 calls."""
     keys = {k for calls in cs.f32_calls().values() for (n, k) in calls if n == name}
     part = cs.F32_PARTIAL[name]
@@ -482,7 +482,7 @@ def test_f32_plans_are_the_bf16_plans_with_pieces(name):
     (the K steps are 6x, 6 products), so A, B, E and F's f32 plans are
     their bf16 plans (tiles, BN, stages, shared memory, grid) with an A
     operand of the activation's 3 bf16 pieces side by side, at every f32
-    call shape chip_smoke.py serves or gates."""
+    call shape chip_smoke serves or gates."""
     assert len(PRODUCTS) == 6 and PIECES == 3
     for key in _f32_keys(name):
         if name == "fused_spatial_resblock":
@@ -519,7 +519,7 @@ def test_tail_f32_plan_covers_each_output_once(key):
     """Kernels D's and D''s f32 form: tail_plan's blocks (every output
     position of every frame of every clip in exactly one block's patch and
     run, each frame read from two before its run's first) at the f32 call
-    shapes chip_smoke.py serves (phase 19's requests in every form, the
+    shapes chip_smoke serves (phase 19's requests in every form, the
     partial shape, the T=201 call) and at 64 channels; the raw stages and
     the shared memory within a block's limit, one block per SM."""
     b, t, h, w, c = key

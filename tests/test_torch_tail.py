@@ -7,7 +7,7 @@ multiplies it by the weights with the 27 (time tap, dx, out channel)
 columns packed onto N, and gathers the partials into a ring of three output
 accumulators. Nothing here needs the card:
 
-* the plan at every call shape ``chip_smoke.py`` serves or gates covers
+* the plan at every call shape ``chip_smoke`` serves or gates covers
   each output (clip, frame, y, x) exactly once, within the H100's shared
   memory, and fills the card at the serving shapes;
 * the packed weights match the OIDHW conv weight tap by tap, and are
@@ -138,7 +138,7 @@ def test_tail_operands_cached_then_rebuilt(update):
 # -- the plan -----------------------------------------------------------------
 
 def _tail_keys(which):
-    """Call shapes of kernels D and D' that chip_smoke.py serves or gates."""
+    """Call shapes of kernels D and D' that chip_smoke serves or gates."""
     if which == "serving":
         return [k for k, _ in cs.TAIL_SHAPES]
     if which == "tiled":

@@ -192,15 +192,16 @@ def test_loggers(tmp_path):
     ("vidtok_fsq_causal_488_4096.yaml", "TRAIN_BATCH"),
     ("v1_1/vidtok_kl_causal_488_16chn_v1_1.yaml", "TRAIN_BATCH_V1_1")])
 def test_chip_smoke_train_recipe_is_the_files(path, batch):
-    """``chip_smoke.py`` phase 15 trains at the configs' own recipe: their
+    """``chip_smoke`` phase 15 trains at the configs' own recipe: their
     loss section (``disc_start`` 0 aside), learning rate, precision, remat
     and clip, batch size, frames and frame size."""
     import chip_smoke as cs
+    from chip_smoke import training
     from vidtok_tpu_torch.config import load_config
 
     cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "configs", path))
-    ours = cs.train_cfg(cs.V1_0_CFG)
+    ours = training.train_cfg(cs.V1_0_CFG)
     want = cfg["model"]["params"]["loss_config"]
     assert ours["model"]["params"]["loss_config"] == dict(
         want, params=dict(want["params"], disc_start=0))
@@ -209,7 +210,7 @@ def test_chip_smoke_train_recipe_is_the_files(path, batch):
         assert ours["training"][key] == cfg["training"][key], key
     data = cfg["data"]["params"]
     vp = data["train"]["params"]["video_params"]
-    assert getattr(cs, batch) == (data["batch_size"], vp["sample_num_frames"],
+    assert getattr(training, batch) == (data["batch_size"], vp["sample_num_frames"],
                                   vp["input_height"], vp["input_width"], 3)
 
 

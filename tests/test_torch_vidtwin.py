@@ -22,7 +22,7 @@ places, so each lies about that far from the f32 result).
   permutes the frames the Q-Former sees and not the motion path's;
   drop-path;
 * the shipped config's full-width parameter tree (311,518,770
-  parameters) built on the meta device, and ``chip_smoke.py``'s copy of
+  parameters) built on the meta device, and ``chip_smoke``'s copy of
   its model section.
 
 The engine, the weights' sources and the CLIs are in
@@ -425,7 +425,7 @@ def test_full_width_parameters():
 
 
 def test_chip_smoke_config():
-    """``chip_smoke.py`` drives the shipped model section (its copy is
+    """``chip_smoke`` drives the shipped model section (its copy is
     resolved, so the card needs no YAML parser)."""
     import chip_smoke
 

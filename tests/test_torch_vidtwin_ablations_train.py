@@ -10,7 +10,7 @@ transformer and two layers a Q-Former:
   sides: every log within rtol 1e-4, ``d_weight`` (through
   ``decoder.final_layer.linear``) > 0, ``kl_loss`` 0. LPIPS is off
   (``perceptual_weight`` 0): ``test_torch_vidtwin_train.py`` holds it, and
-  its weights here are ``chip_smoke.lpips_npz``'s random ones;
+  its weights here are ``chip_smoke.clis.lpips_npz``'s random ones;
 * one step of the port's trainer on each of the other three targets:
   finite logs, ``d_weight`` > 0 and ``kl_loss`` 0 for every class, and
   the generator moved by a second step.
@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import lpips_npz
+from chip_smoke.clis import lpips_npz
 from tests.test_torch_vidtwin import random_params, to_torch
 from tests.test_torch_vidtwin_ablations_common import CASES, model_cfg
 from tests.test_vidtwin_train import CFG

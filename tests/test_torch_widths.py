@@ -3,7 +3,7 @@
 Kernels A, B, E, F, D and D' take any such C, Cin and Cout alike, with
 partial K steps and N tiles in the wgmma loop, masked vectors in the row
 passes and a partial last box (past 128 channels: channel groups) in the
-decoder tail. The kernels run only on the card (``chip_smoke.py`` phases 2
+decoder tail. The kernels run only on the card (``chip_smoke`` phases 2
 and 20); here, on the CPU:
 
 * the plans at every C of the domain (A also with Cin != Cout): no
