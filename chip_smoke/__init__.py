@@ -158,11 +158,10 @@ SOURCES = {
                               "vidtok_tpu/ops/pallas/subpixel_epilogue.py:57", ()),
     "decoder_tail_rgb_taps": ("vidtok_tpu_torch/csrc/decoder_tail.cu",
                               "vidtok_tpu/ops/pallas/decoder_tail.py:160", ()),
-    # J and K replace no TPU kernel: XLA fuses the JAX module's chain
-    "temporal_linear_up2x": ("vidtok_tpu_torch/csrc/temporal_linear.cu",
-                             "none (vidtok_tpu/modules/blocks.py:538-571, XLA)", ()),
-    "linear_blend": ("vidtok_tpu_torch/csrc/temporal_linear.cu",
-                     "none (vidtok_tpu/modules/blocks.py:571, XLA)", ()),
+    # the trilinear upsample's blend replaces no TPU kernel: XLA fuses the
+    # JAX module's chain
+    "temporal_linear_blend": ("vidtok_tpu_torch/csrc/temporal_linear.cu",
+                              "none (vidtok_tpu/modules/blocks.py:538-571, XLA)", ()),
 }
 # The decoder's kernel forms, KernelForms(parity, subpixel, tail), served by
 # phase 8 (v1.0) and by the tiled forms request of phase 7, with the path
@@ -197,8 +196,7 @@ def in_forms(per: dict, path: str) -> dict:
 PER_FORWARD = {"v1_0": dict(dict.fromkeys(SOURCES, 0), fused_spatial_resblock=20,
                             fused_temporal_resblock=20, subpixel_interleave=3,
                             decoder_tail_rgb=1, parity_up2x_fused=2)}
-PER_FORWARD["v1_1"] = dict(PER_FORWARD["v1_0"], parity_up2x_fused=0, temporal_linear_up2x=2,
-                           linear_blend=2)
+PER_FORWARD["v1_1"] = dict(PER_FORWARD["v1_0"], parity_up2x_fused=0, temporal_linear_blend=2)
 for _path in ("v1_0_forms", "v1_0_split"):
     PER_FORWARD[_path] = in_forms(PER_FORWARD["v1_0"], _path)
 KERNEL_GATE = 1e-2
@@ -247,10 +245,10 @@ PARTIAL_PARITY = [(2, 5, 33, 33, 512), (1, 10, 132, 132, 256)]
 # kernels D and D' at partial patches (two clips of a 33² frame; the
 # 264² frame of the v1.0 decoder), both modes
 PARTIAL_TAIL = [(2, 6, 33, 33, 128), (1, 20, 264, 264, 128)]
-# kernels J and K at two clips of a 33² frame, at a width that is a multiple
-# of 8 and not a power of 2 (vectors) and at one that is not a multiple of 8
-# (a channel a thread): J's head and tail segments, one segment, a later
-# chunk
+# the trilinear upsample's blend at two clips of a 33² frame, at a width
+# that is a multiple of 8 and not a power of 2 (vectors) and at one that is
+# not a multiple of 8 (a channel a thread): a stream's first and later
+# chunk, and one segment with the zero front
 PARTIAL_LINEAR = [(2, 5, 33, 33, 200), (2, 5, 33, 33, 37)]
 # kernel D's tail call of a non-tiled T=201 v1.0 request (204 frames, 3.4 GB
 # of input, in runs of frames that start with 2 warm-up frames): its last
@@ -363,7 +361,8 @@ F32_PARTIAL = {"fused_spatial_resblock": (5, 33, 33, 512, 512),
                "parity_blend_interleave": (2, 5, 33, 33, 512),
                "parity_blend_interleave4": (2, 5, 33, 33, 512),
                "subpixel_interleave_z": (5, 33, 33, 512),
-               "decoder_tail_rgb_taps": (2, 6, 33, 33, 128)}
+               "decoder_tail_rgb_taps": (2, 6, 33, 33, 128),
+               "temporal_linear_blend": (2, 5, 33, 33, 200)}
 F32_KERNELS = tuple(F32_PARTIAL)
 # each f32 kernel's path in the result line (launches, times)
 F32_MAIN_PATH = dict.fromkeys(F32_KERNELS, "v1_0_f32") | {
@@ -371,13 +370,13 @@ F32_MAIN_PATH = dict.fromkeys(F32_KERNELS, "v1_0_f32") | {
     "parity_blend_interleave": "v1_0_split_f32",
     "parity_blend_interleave4": "v1_0_forms_f32",
     "subpixel_interleave_z": "v1_0_forms_f32",
-    "decoder_tail_rgb_taps": "v1_0_forms_f32"}
+    "decoder_tail_rgb_taps": "v1_0_forms_f32",
+    "temporal_linear_blend": "tiled_f32"}
 
 # the path whose serving run gives each kernel's launches and times in the
 # result line
 MAIN_PATH = dict.fromkeys(SOURCES, "v1_0")
-MAIN_PATH.update(fused_temporal_resblock_stream="tiled", temporal_linear_up2x="tiled",
-                 linear_blend="tiled",
+MAIN_PATH.update(fused_temporal_resblock_stream="tiled", temporal_linear_blend="tiled",
                  parity_blend_interleave="v1_0_split",
                  parity_blend_interleave4="v1_0_forms",
                  subpixel_interleave_z="v1_0_forms",
@@ -452,9 +451,10 @@ def model_calls(cfg: dict, shape, tiled: bool = False) -> Counter:
     C); in a causal model B (non-tiled; key (shape, mode)) or F (tiled;
     (shape, first_chunk, offset)) at every temporal resblock, E (v1.0) at
     every temporal upsample and D on the decoder's last activations
-    (tiled: with the 2 cached frames); C at every spatial upsample; J and K
-    at every trilinear (v1.1) temporal upsample, J keyed (shape, split,
-    cached front: a later chunk), K by its y's shape."""
+    (tiled: with the 2 cached frames); C at every spatial upsample; the
+    blend at every trilinear (v1.1) temporal upsample, keyed (x's shape,
+    split, the front: ``replicate``, or ``carried`` on a later chunk, and
+    the next front's rows and predecessor on a tiled chunk)."""
     from vidtok_tpu_torch.models.autoencoder import _ENC_VARIANTS
 
     p = cfg["model"]["params"]
@@ -512,9 +512,11 @@ def model_calls(cfg: dict, shape, tiled: bool = False) -> Counter:
                         calls["parity_up2x_fused", ((b, f, s, s, c), mode)] += 1
                     elif variant == "causal_v1_1":
                         later = tiled and not first
-                        calls["temporal_linear_up2x",
-                              ((b, f, s, s, c), 0 if later else ntu, later)] += 1
-                        calls["linear_blend", (b, 2 * f, s, s, c)] += 1
+                        split = 0 if later else min(ntu, f)
+                        front = "carried" if later else mode
+                        nxt = ((2 * f - 2 * offs[i], f - ntu - 1 if later else f - 1)
+                               if tiled else None)
+                        calls["temporal_linear_blend", ((b, f, s, s, c), split, front, nxt)] += 1
                     f *= 2
                     ntu *= 2
         if causal:
@@ -570,14 +572,14 @@ def long_spatial_shapes() -> list:
 def tiled_per_forward(t: int, size: int = 256) -> dict:
     """Launches per tiled forward of the v1.1 model, summed from
     ``tiled_calls`` and checked against the formula: with E encoder and D
-    decoder chunks, F = A = 8E + 12D, C = 3D, D's tail D, J = K = 2D, B =
-    E's kernel = 0 (T=65: 100, 100, 15, 5, 10, 10, 0, 0)."""
+    decoder chunks, F = A = 8E + 12D, C = 3D, D's tail D, the blend 2D, B =
+    E's kernel = 0 (T=65: 100, 100, 15, 5, 10, 0, 0)."""
     per = per_forward(tiled_calls(t, size))
     n_enc, n_dec = map(len, chunk_schedule(t))
     want = dict(per, fused_temporal_resblock_stream=8 * n_enc + 12 * n_dec,
                 fused_spatial_resblock=8 * n_enc + 12 * n_dec,
                 subpixel_interleave=3 * n_dec, decoder_tail_rgb=n_dec,
-                temporal_linear_up2x=2 * n_dec, linear_blend=2 * n_dec,
+                temporal_linear_blend=2 * n_dec,
                 fused_temporal_resblock=0, parity_up2x_fused=0)
     if per != want:
         raise AssertionError(f"tiled launches {per} != formula {want}")
@@ -624,16 +626,15 @@ def work(name: str, key, elem: int = 2) -> tuple:
         b, t, h, w, c = key[0]
         m = b * t * h * w
         return elem * m * (c + 3) + 4 * (2 * c + 81 * c + 3), 2 * m * 81 * c, 0
-    if name == "temporal_linear_up2x":
-        # x read, [front | up] written (2T + 2 frames); a later chunk reads
-        # its 2 cached front frames and 1 previous frame; 4 FLOP a value
-        (b, t, h, w, c), _, cached = key
+    if name == "temporal_linear_blend":
+        # x and its base convs (3C) read, 2T output frames written; a
+        # carried front's 3 sums and predecessor read, the next front's 3
+        # sums written; 24 FLOP a base-conv value (4 rows x 3 taps), 5 an
+        # output value
+        (b, t, h, w, c), _, front, nxt = key
         frame = b * h * w * c
-        return elem * (t * frame + (2 * t + 2) * frame + 3 * cached * frame), 0, 8 * t * frame
-    if name == "linear_blend":
-        # up and y read, y written; the f32 bias and alpha; 5 FLOP a value
-        m = _nel(key)
-        return elem * 3 * m + 4 * (key[-1] + 1), 0, 5 * m
+        frames = 4 * t + 2 * t + 4 * (front == "carried") + 3 * (nxt is not None)
+        return elem * frames * frame + 4 * (c + 1), 0, (24 * t + 10 * t) * frame
     b, t, h, w, c = key[0]  # parity_up2x_fused
     m = b * t * h * w
     return elem * 3 * m * c + 4 * (27 * c * c + c + 1), 2 * m * 27 * c * c, 0

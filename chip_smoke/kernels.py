@@ -22,10 +22,11 @@ versions.
    (the streaming temporal resblock) is held at every chunk shape of the
    tiled T=65 request, with ``first_chunk`` True and False at each of its
    cache offsets (0, 1, 2, 4), on y and both new caches; A, C and D also
-   at their chunk shapes. J and K (the trilinear temporal upsample's
-   interpolation and blend) at every call shape of the v1.1 paths, J's
-   later chunks with their cached frames, both also at two clips of 33²
-   at C 200 and 37 (PARTIAL_LINEAR, checked, not timed). The kernels of
+   at their chunk shapes. The trilinear temporal upsample's blend at every
+   call shape of the v1.1 paths (a later chunk's with its carried front
+   sums and predecessor frame, on drawn base convs),
+   also at two clips of 33² at C 200 and 37 (PARTIAL_LINEAR, checked, not
+   timed). The kernels of
    the decoder's other forms
    (``KernelForms``): G and H at E's shapes, I at C's and D' at D's, the
    tiled chunk shapes included, in both stream-start modes where they have
@@ -299,12 +300,8 @@ def kernel_cases(device):
                    ue.parity_blend_interleave4,
                    ue.parity_blend_interleave4_plain,
                    (s, q.x((b, t, h, w, 4 * c), bf), bias, alpha, mode))
-    # J and K at the trilinear upsamples' call shapes (J of a later chunk
-    # with its cached frames; K writes its y in place, so its kernel runs on
-    # a copy made here, once)
-    for key, calls in shapes["temporal_linear_up2x"].items():
-        yield _linear_up_case(p, key, dict(calls), bf)
-    for key, calls in shapes["linear_blend"].items():
+    # the trilinear upsamples' blend at its call shapes, on drawn base convs
+    for key, calls in shapes["temporal_linear_blend"].items():
         yield _blend_case(p, key, dict(calls), bf)
     # partial tiles of A, F, B, E, D and D', on inputs of their own:
     # checked, not timed
@@ -356,40 +353,41 @@ def kernel_cases(device):
             yield Case("decoder_tail_rgb_taps", (shape, mode), {},
                        decoder_tail.decoder_tail_rgb_taps,
                        decoder_tail.decoder_tail_rgb_taps_plain, args)
-    for shape in PARTIAL_LINEAR:
-        for split, cached in ((1, False), (shape[1], False), (0, True)):
-            yield _linear_up_case(r, (shape, split, cached), {}, bf)
-        b, t, h, w, c = shape
-        yield _blend_case(r, (b, 2 * t, h, w, c), {}, bf)
+    for key in partial_linear_keys():
+        yield _blend_case(r, key, {}, bf)
     yield from width_cases(device, bf, 5)
 
 
-def _linear_up_case(p, key, calls: dict, dtype) -> Case:
-    """Kernel J at ``key`` (shape, split, cached): a later chunk's call
-    reads a cache of 2 input frames and the 2 cached up-frames."""
-    from vidtok_tpu_torch.ops.kernels import temporal_linear as tl
-
-    (b, t, h, w, c), split, cached = key
-    prev = p.x((b, 2, h, w, c), dtype) if cached else None
-    front = p.x((b, 2, h, w, c), dtype) if cached else "replicate"
-    return Case("temporal_linear_up2x", key, calls, tl.temporal_linear_up2x,
-                tl.temporal_linear_up2x_plain, (p.x((b, t, h, w, c), dtype), split, prev,
-                                                front))
+def partial_linear_keys() -> list:
+    """The blend's keys at PARTIAL_LINEAR's clips (cache offset 2): a
+    stream's first chunk (split 1), a later one, and one segment with the
+    zero front."""
+    keys = []
+    for shape in PARTIAL_LINEAR:
+        t = shape[1]
+        keys += [(shape, 1, "replicate", (2 * t - 2, t - 1)),
+                 (shape, 0, "carried", (2 * t - 2, t - 2)), (shape, t, "zero", None)]
+    return keys
 
 
 def _blend_case(p, key, calls: dict, dtype) -> Case:
-    """Kernel K on y ``key``: the kernel writes into a copy of y made once,
-    so that the plain version reads y as drawn."""
+    """The trilinear upsample's blend at ``key`` (x's shape, split, front,
+    next front) on drawn base convs, predecessor frame and front sums: the
+    output, and the next front sums where the call writes them."""
     from vidtok_tpu_torch.ops.kernels import temporal_linear as tl
 
-    b, ty, h, w, c = key
-    y = p.x(key, dtype)
-    out = y.clone()
-    alpha = p.t(1 / (1 + np.exp(-(2.0 + 0.5 * p.rng.randn(1)))))
-    return Case("linear_blend", key, calls,
-                lambda full, y, bias, alpha: tl.linear_blend(full, out, bias, alpha),
-                tl.linear_blend_plain,
-                (p.x((b, ty + 2, h, w, c), dtype), y, p.t(0.1 * p.rng.randn(c)), alpha))
+    (b, t, h, w, c), split, front, nxt = key
+    carried = front == "carried"
+    args = (p.x((b, t, h, w, c), dtype), p.x((b, t, h, w, 3 * c), dtype),
+            p.t(0.1 * p.rng.randn(c)), p.t(1 / (1 + np.exp(-(2.0 + 0.5 * p.rng.randn(1))))),
+            split, p.x((b, 1, h, w, c), dtype) if carried else None,
+            p.x((b, 3, h, w, c), dtype) if carried else front, nxt)
+
+    def outputs(blend):
+        return lambda *a: tuple(o for o in blend(*a) if o is not None)
+
+    return Case("temporal_linear_blend", key, calls, outputs(tl.temporal_linear_blend),
+                outputs(tl.temporal_linear_blend_plain), args)
 
 
 # Phase 2 at the widths the kernels take beside the released ones (checked,
@@ -479,10 +477,10 @@ def width_cases(device, dtype, seed: int):
 
 
 def f32_kernel_cases(device):
-    """Yield a ``Case`` for every f32 call shape of A-I and D' (see
-    F32_GATE): f32 activations and parameters on ``device``, cuDNN's f32
-    convs of the block (A, B, F), E's per-frame conv C -> 3C and D's and
-    D''s 3x3x3 conv as the yardstick."""
+    """Yield a ``Case`` for every f32 call shape of A-I, D' and the
+    trilinear upsample's blend (see F32_GATE): f32 activations and
+    parameters on ``device``, cuDNN's f32 convs of the block (A, B, F), E's
+    per-frame conv C -> 3C and D's and D''s 3x3x3 conv as the yardstick."""
     import torch
     import torch.nn.functional as F
 
@@ -596,6 +594,11 @@ def f32_kernel_cases(device):
                 p.t([0.88]), mode)
         yield Case("parity_blend_interleave4", (shape, mode), dict(calls),
                    ue.parity_blend_interleave4, ue.parity_blend_interleave4_plain, args)
+    for key, calls in shapes["temporal_linear_blend"].items():
+        yield _blend_case(p, key, dict(calls), f32)
+    for key in partial_linear_keys():
+        if key[0] == F32_PARTIAL["temporal_linear_blend"]:
+            yield _blend_case(p, key, {}, f32)
     # the row passes' statistics on rows of a large mean, at the partial
     # shapes, not timed
     mean = F32_ROW_MEAN

@@ -277,6 +277,13 @@ def e2e_gate(core, meta, shape, gate: Gate) -> dict:
         want = run.launches if run.fused else dict.fromkeys(K.WRAPPERS, 0)
         if K.counts() != want:
             raise AssertionError(f"{gate.label} {run.key}: launches {K.counts()} != {want}")
+        blend = K.WRAPPERS["temporal_linear_blend"]
+        if blend.base_frames:  # the trilinear upsample: two output frames an input frame
+            print(f"{gate.label} {run.key}: blend base_frames {blend.base_frames} up_frames "
+                  f"{blend.up_frames}", flush=True)
+            if 2 * blend.base_frames != blend.up_frames:
+                raise AssertionError(f"{gate.label} {run.key}: the blend wrote "
+                                     f"{blend.up_frames} frames of {blend.base_frames}")
         check_outputs(f"{gate.label} {run.key}", tok, shape, z, dec, log)
         outs[run.key] = tuple(t.cpu() if gate.host and t is not None else t
                               for t in (z, dec, log.get("indices")))

@@ -168,7 +168,7 @@ def test_family_forward(fam):
         if meta["variant"] == "causal":
             want.add("parity_up2x_fused")
         if meta["variant"] == "causal_v1_1":
-            want |= {"temporal_linear_up2x", "linear_blend"}
+            want.add("temporal_linear_blend")
         assert called == (want if f else set())
         assert out[1].shape == x.shape
         check(out, jout, meta["discrete"])
@@ -195,8 +195,8 @@ def test_family_tiled(fam):
         check((z, tok.decode(z), log), jout, meta["discrete"])
         called = {k for k, n in K.counts("calls").items() if n}
         assert called == ({"fused_spatial_resblock", "fused_temporal_resblock_stream",
-                           "subpixel_interleave", "decoder_tail_rgb", "temporal_linear_up2x",
-                           "linear_blend"} if f else set())
+                           "subpixel_interleave", "decoder_tail_rgb",
+                           "temporal_linear_blend"} if f else set())
 
 
 def _recorder(calls, name, fn, key):
@@ -216,6 +216,7 @@ def test_chip_smoke_call_shapes(path, monkeypatch):
     from collections import Counter
 
     from vidtok_tpu_torch.modules import blocks, decoder
+    from vidtok_tpu_torch.ops.kernels import temporal_linear
 
     cfg, shape, tiled = {"v1_0": (cs.V1_0_CFG, cs.REQUEST, False),
                          "tiled": (cs.V1_1_CFG, cs.TILED_REQUEST, True)}.get(
@@ -231,9 +232,10 @@ def test_chip_smoke_call_shapes(path, monkeypatch):
             lambda x, *a: (tuple(x.shape), a[-2], a[-1]),
         (blocks, "subpixel_interleave"): lambda y, *a: tuple(y.shape),
         (blocks, "parity_up2x_fused"): lambda s, *a: (tuple(s.shape), a[-1]),
-        (blocks, "temporal_linear_up2x"): lambda x, split, prev, front: (
-            tuple(x.shape), split, isinstance(front, torch.Tensor)),
-        (blocks, "linear_blend"): lambda full, y, *a: tuple(y.shape),
+        (temporal_linear, "temporal_linear_blend"):
+            lambda x, p, bias, alpha, split, prev, front, nxt: (
+                tuple(x.shape), split, "carried" if isinstance(front, torch.Tensor) else front,
+                nxt),
         (decoder, "decoder_tail_rgb"): lambda h, *a: (tuple(h.shape), a[-1]),
     }
     for (mod, name), key in keys.items():

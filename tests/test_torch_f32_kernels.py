@@ -502,10 +502,8 @@ def _args(name, dt):
     if name == "parity_blend_interleave":
         return (_m(1, 2, 8, 8, c, dtype=dt), _m(1, 2, 8, 8, 2 * c, dtype=dt),
                 _m(1, 2, 8, 8, 2 * c, dtype=dt), _m(c), _m(1), "zero")
-    if name == "temporal_linear_up2x":
-        return (_m(1, 2, 8, 8, c, dtype=dt), 1)
-    if name == "linear_blend":
-        return (_m(1, 6, 8, 8, c, dtype=dt), _m(1, 4, 8, 8, c, dtype=dt), _m(c), _m(1))
+    if name == "temporal_linear_blend":
+        return (_m(1, 2, 8, 8, c, dtype=dt), _m(1, 2, 8, 8, 3 * c, dtype=dt), _m(c), _m(1), 1)
     assert name == "parity_blend_interleave4"
     return (_m(1, 2, 8, 8, c, dtype=dt), _m(1, 2, 8, 8, 4 * c, dtype=dt), _m(c), _m(1), "zero")
 
@@ -513,14 +511,14 @@ def _args(name, dt):
 F32_KERNELS = ("fused_spatial_resblock", "fused_temporal_resblock",
                "fused_temporal_resblock_stream", "parity_up2x_fused", "subpixel_interleave",
                "decoder_tail_rgb", "parity_blend_interleave", "parity_blend_interleave4",
-               "subpixel_interleave_z", "decoder_tail_rgb_taps", "temporal_linear_up2x",
-               "linear_blend")
+               "subpixel_interleave_z", "decoder_tail_rgb_taps", "temporal_linear_blend")
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 @pytest.mark.parametrize("name", F32_KERNELS)
 def test_wrappers_refuse_other_dtypes(name, dtype):
-    """Off the CPU, the twelve serving kernels (A-K, D') take bf16 or f32 and
+    """Off the CPU, the eleven serving kernels (A-I, D', the trilinear
+    upsample's blend) take bf16 or f32 and
     raise for any other dtype before they look at the device; nothing is
     launched, no plain version runs."""
     K.reset_counts()

@@ -107,13 +107,15 @@ def test_tiny_v1_1_end_to_end(tiny, fused):
     calls = K.counts("calls")
     # one call per spatial/temporal resblock (1 + 1 encoder levels,
     # 2 + 2 decoder levels), one spatial upsample, one decoder tail
-    # (v1.1 upsamples time trilinearly: no parity upsample, J and K once)
+    # (v1.1 upsamples time trilinearly: no parity upsample; the blend once,
+    # two output frames an input frame)
     want = dict.fromkeys(K.WRAPPERS, 0)
     if fused:
         want.update(fused_spatial_resblock=6, fused_temporal_resblock=6,
-                    subpixel_interleave=1, decoder_tail_rgb=1, temporal_linear_up2x=1,
-                    linear_blend=1)
+                    subpixel_interleave=1, decoder_tail_rgb=1, temporal_linear_blend=1)
     assert calls == want
+    blend = K.WRAPPERS["temporal_linear_blend"]
+    assert 2 * blend.base_frames == blend.up_frames == (2 * z.shape[2] if fused else 0)
     assert all(n == 0 for n in K.counts().values())  # CPU: no launches
     assert z.shape == (1, 4, 3, 16, 16) and dec.shape == x.shape
     for j_fused in (False, True):

@@ -37,6 +37,7 @@ from vidtok_tpu_torch.modules import conv as TC
 from vidtok_tpu_torch.modules.decoder import Decoder
 from vidtok_tpu_torch.modules.stream import Stream
 from vidtok_tpu_torch.ops import kernels as K
+from vidtok_tpu_torch.ops.kernels import temporal_linear as TL
 from vidtok_tpu_torch.ops.kernels.fused_temporal import (
     fused_temporal_resblock_stream, fused_temporal_resblock_stream_plain)
 
@@ -240,7 +241,9 @@ def test_time_upsample_trilinear_stream(ntu, off):
     """The first chunk caches its last ntu frames; a later chunk caches
     ``[cache | x][-2ntu:-ntu]`` and drops its first 2ntu output frames; the
     conv's cache is stored ``off`` frames back. Plain, and with ``fused``
-    through kernels J and K's plain forms."""
+    (base convs and the blend's plain form), whose caches are what the blend
+    reads of JAX's: the last cached frame, and the front sums of the conv's
+    two cached frames and that frame."""
     rng = np.random.RandomState(3)
     chunks = chunks_of(rng, (ntu + 1, 3, 3), 1, 3, 4, 8)
     jm = JB.TimeUpsampleRes2x(8, interpolation_mode="trilinear",
@@ -252,10 +255,13 @@ def test_time_upsample_trilinear_stream(ntu, off):
     tm = load_port(TB.TimeUpsampleRes2x(8, 8, ntu, "replicate", cache_offset=off),
                    p, ("decoder", "up_temporal_1_upsample"),
                    "decoder.up_temporal.1.upsample.")
+    prev = t(jcache["interp"])[:, -1:]
+    fused_cache = {"interp": np.asarray(prev), "conv": {"tpad": np.asarray(TL.front_sums(
+        t(jcache["conv"]["tpad"]), prev, tm.conv.conv.weight.detach()))}}
     for fused in (False, True):
         got, cache = port_stream(tm, chunks, use_off=off > 0, fused=fused)
         close(got, want)
-        close_caches(cache, jcache)
+        close_caches(cache, fused_cache if fused else jcache)
 
 
 def test_decoder_stream_overlap_offsets():
@@ -355,14 +361,19 @@ def test_tiled_engine_vs_jax(tiny, jax_tiled, use_overlap, fused):
     assert (enc_chunks, dec_chunks) == (3, 3)
     # per chunk: 2 temporal (and spatial) blocks in the encoder, 4 in the
     # decoder; one spatial upsample and one tail per decoder chunk
-    # and one trilinear temporal upsample, J and K
+    # and one trilinear temporal upsample, its blend two output frames an
+    # input frame (one a latent frame)
+    frames = [e - s + (use_overlap and e + 1 <= z.shape[2])
+              for s, e in tok.build_chunk_start_end(z.shape[2], decoder_mode=True)]
     want = dict.fromkeys(K.WRAPPERS, 0)
     if fused:
         want.update(fused_temporal_resblock_stream=2 * enc_chunks + 4 * dec_chunks,
                     fused_spatial_resblock=2 * enc_chunks + 4 * dec_chunks,
                     subpixel_interleave=dec_chunks, decoder_tail_rgb=dec_chunks,
-                    temporal_linear_up2x=dec_chunks, linear_blend=dec_chunks)
+                    temporal_linear_blend=dec_chunks)
     assert calls == want
+    blend = K.WRAPPERS["temporal_linear_blend"]
+    assert 2 * blend.base_frames == blend.up_frames == (2 * sum(frames) if fused else 0)
     assert all(v == 0 for v in K.counts().values())
 
     tok.use_tiling = False
@@ -373,6 +384,37 @@ def test_tiled_engine_vs_jax(tiny, jax_tiled, use_overlap, fused):
     close(rec, jrec)
     assert rec.shape == x.shape
     close(log2["kl_loss"], log["kl_loss"])
+
+
+@pytest.mark.parametrize("t_chunk_dec", [1, 2])
+def test_tiled_decode_equals_whole_clip(tiny, t_chunk_dec):
+    """The chunked v1.1 decode with overlap (the tiled engine's, cache
+    offsets on) equals the whole clip's, both through the fused path: the
+    trilinear upsample's carried predecessor frame and front sums stand for
+    the frames before each chunk."""
+    _, _, params, x = tiny
+    tok = port_tok(params, fused=True, use_overlap=True)
+    tok.use_tiling = False
+    z = tok.encode(x)
+    whole = tok.decode(z)
+    tok.use_tiling, tok.t_chunk_dec = True, t_chunk_dec
+    close(tok.decode(z), whole)
+
+
+@pytest.mark.parametrize("use_overlap", [False, True])
+@pytest.mark.parametrize("t_chunk_dec", [1, 2])
+def test_fused_tiled_decode_equals_plain(tiny, use_overlap, t_chunk_dec):
+    """The fused tiled decode equals the plain one, chunk lengths of one
+    latent frame included: without overlap those give the upsamples later
+    chunks of ntu frames, whose next predecessor is the cached one (the
+    front sums take its share anew)."""
+    _, _, params, x = tiny
+    decs = []
+    for fused in (False, True):
+        tok = port_tok(params, fused=fused, use_overlap=use_overlap)
+        tok.t_chunk_dec = t_chunk_dec
+        decs.append(tok.decode(tok.encode(x)))
+    close(decs[1], decs[0])
 
 
 def test_batched_streams_match_single_streams(tiny):

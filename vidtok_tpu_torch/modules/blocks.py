@@ -6,8 +6,8 @@ convs, ``column`` and ``video`` GroupNorm statistics), each with
 ``layernorm`` or ``groupnorm``. ``fused=True`` routes the spatial and
 temporal resblocks, the spatial-upsample tail and the nearest temporal
 upsample through kernels A, B (F on a stream), C (or I) and E (or H, or G),
-and the trilinear temporal upsample's passes around its conv through J and
-K (``ops/kernels``), the upsamples in the forms a
+and the trilinear temporal upsample through cuDNN's base convs of its input
+frames and the blend kernel (``ops/kernels``), the upsamples in the forms a
 :class:`~..ops.kernels.KernelForms` names, where JAX would take its Pallas
 kernel: A only with layernorm, B and F only in a causal layernorm block,
 E only in the causal nearest upsample; the wrappers run the plain forms on
@@ -37,7 +37,9 @@ there, and each kernel is held to the plain path it replaces.
 A block given a :class:`~.stream.Stream` runs one chunk of a stream; the
 time-causal ones carry their state in it (the spatial blocks and attention
 are per frame and carry none). Each module keeps one cache layout on both
-paths, so a stream may switch ``fused`` between chunks.
+paths, so a stream may switch ``fused`` between chunks; the exception is
+the trilinear temporal upsample, whose fused form caches what its blend
+reads and raises on the unfused form's caches.
 
 Spans (``utils/profiling.span``): ``vt.model.down.spatial``,
 ``vt.model.down.temporal``, ``vt.model.up.spatial`` and
@@ -56,12 +58,13 @@ from torch import nn
 
 from ..ops.kernels import (KernelForms, fused_spatial_resblock,
                            fused_temporal_resblock,
-                           fused_temporal_resblock_stream, linear_blend,
+                           fused_temporal_resblock_stream,
                            parity_blend_interleave, parity_blend_interleave4,
                            parity_up2x_fused, subpixel_interleave,
-                           subpixel_interleave_z, temporal_linear_up2x)
+                           subpixel_interleave_z)
 from ..ops.kernels import _lib
 from ..ops.kernels.parity_upsample import parity_up2x_fused_plain
+from ..ops.kernels.temporal_linear import temporal_linear_upsample
 from ..parallel.mesh import shard_of
 from ..utils.profiling import span
 from .conv import (CausalConv1d, CausalConv3d, Conv1d, Conv3d, SpatialConv,
@@ -72,10 +75,13 @@ from .interp import (spatial_avg_pool2x, spatial_nearest_up2x,
 from .norms import make_norm, silu
 
 
-def _conv_cl(weight, dtype):
-    """A conv weight in ``dtype``, channels-last as cuDNN reads it beside
-    a channels-last input."""
-    return weight.to(dtype).contiguous(memory_format=torch.channels_last_3d)
+def _base_taps(weight, dtype):
+    """A 3x3x3 conv weight ``[C, C, 3, 3, 3]`` as the (1,3,3) conv of its
+    three time taps stacked on the output channels ``[3C, C, 1, 3, 3]``, in
+    ``dtype``, channels-last as cuDNN reads it beside a channels-last
+    input."""
+    taps = torch.cat(weight.to(dtype).unbind(2))[:, :, None]
+    return taps.contiguous(memory_format=torch.channels_last_3d)
 
 
 def _norm_args(norm):
@@ -401,9 +407,8 @@ class TimeUpsampleRes2x(nn.Module):
     chunk interpolates ``[cache | x]``, drops the first 2*ntu output
     frames, and caches ``[cache | x][-2*ntu:-ntu]`` (not the last ntu
     frames: with overlap the last ones are the look-ahead's), as JAX does.
-    With ``fused`` kernel J writes the conv's input, front included, cuDNN
-    convolves it without its bias and kernel K adds the bias and blends
-    (the same caches; on CPU tensors their plain forms). ``nearest``
+    With ``fused`` the conv runs on the input frames (``_linear_up_fused``).
+    ``nearest``
     (v1.0): the parity form of ``blocks.py:598-668``, which
     never builds the 2x tensor (kernel E when ``fused``); v1.0 cannot tile,
     and its streaming form is not ported. The blend needs ``cin == cout``;
@@ -480,34 +485,56 @@ class TimeUpsampleRes2x(nn.Module):
         return alpha * x + (1 - alpha) * self.conv(x, stream)
 
     def _linear_up_fused(self, x, alpha, stream):
-        """The trilinear branch as kernel J, the conv and kernel K: J writes
-        the conv's fronted input ``[front | up]`` (the stream's cached
-        frames read in place), cuDNN convolves it without its bias, and K
-        adds the bias and blends in place; the caches are those of the
-        plain branch."""
+        """The trilinear branch with its conv on the input frames
+        (``ops/kernels/temporal_linear.temporal_linear_upsample``): cuDNN's
+        (1,3,3) conv of x with the three time taps stacked (the weight cast
+        and laid out once; the H padding and the shard's halo rows of
+        ``conv_fronted``), then the blend kernel, which interpolates and
+        blends in one pass.
+
+        On a stream the caches are what the blend reads, not the plain
+        branch's: under this module the frame before the next chunk (the
+        last of the plain branch's ntu frames), under the conv the next
+        chunk's front sums ``[B, 3, H, W, C]``, what the frames before it add
+        to the conv of its first three output frames (the plain branch's two
+        front frames and that predecessor frame, convolved). So no cached
+        frame is convolved again. A later chunk of fewer than ntu frames,
+        whose next predecessor is an older cached frame, raises."""
         ntu, conv = self.ntu, self.conv
-        prev, split, front = None, ntu, conv.first_pad_mode
+        t = x.shape[1]
+        prev, split, front, nxt = None, ntu, conv.first_pad_mode, None
         if stream is not None:
             with span("vt.stream.cache"):
                 if stream.first_chunk:
-                    front = "replicate"
-                    stream.put(self, x[:, -ntu:].clone())
+                    front, q = "replicate", t - 1
                 else:
-                    prev = stream.get(self).to(x.dtype).contiguous()
-                    front = stream.get(conv).to(x.dtype).contiguous()
-                    split = 0
-                    xc = x if x.shape[1] >= 2 * ntu else torch.cat([prev, x], dim=1)
-                    stream.put(self, xc[:, -2 * ntu:-ntu].clone())
-        full = temporal_linear_up2x(x, split, prev, front)
+                    prev, front, split = stream.get(self), stream.get(conv), 0
+                    if prev.shape[1] != 1 or front.shape[1] != 3:
+                        raise ValueError("the fused trilinear upsample reads the caches "
+                                         "of its own fused form, not the unfused form's")
+                    prev, front = prev.to(x.dtype), front.to(x.dtype)
+                    # the plain branch caches [prev | x][-2ntu:-ntu]: the last of
+                    # them is x[t - ntu - 1], or prev itself when t == ntu
+                    q = t - ntu - 1
+                    if q < -1:
+                        raise ValueError(f"a later chunk of {t} frames is shorter than "
+                                         f"the upsample's {ntu} head frames")
+                nf = 2 * t - stream.offset(conv)  # the row of full the next front starts at
+                if nf < 0:
+                    raise ValueError(f"cache offset {stream.offset(conv)} reaches before "
+                                     f"the chunk start ({2 + 2 * t} frames with the front)")
+                nxt = (nf, q)
+        weight = _lib.operands(f"time_up_taps_{x.dtype}", (conv.conv.weight,),
+                               functools.partial(_base_taps, dtype=x.dtype))
+        base = functools.partial(conv.conv_fronted, weight=weight, bias=False)
+        # the blend reads the blend factor as one f32 on the device (E's rule)
+        y, sums = temporal_linear_upsample(x, base, conv.conv.bias, alpha.float(), split,
+                                           prev, front, nxt)
         if stream is not None:
-            stream.keep_tail(conv, full, conv.time_pad)
-        weight = None
-        if x.is_cuda:  # the weight as cuDNN reads it, cast and laid out once
-            weight = _lib.operands(f"conv_cl_{x.dtype}", (conv.conv.weight,),
-                                   functools.partial(_conv_cl, dtype=x.dtype))
-        y = conv.conv_fronted(full, weight, bias=False)
-        # K reads the blend factor as one f32 on the device (E's rule)
-        return linear_blend(full, y, conv.conv.bias, alpha.float())
+            with span("vt.stream.cache"):
+                stream.put(conv, sums)
+                stream.put(self, prev if q < 0 else x[:, q:q + 1].clone())
+        return y
 
     def _parity_up(self, x, alpha, fused: bool, forms: KernelForms):
         """The nearest upsample's parity form on ``x`` ``[B, T, H, W, C]``."""

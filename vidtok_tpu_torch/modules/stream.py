@@ -67,12 +67,6 @@ class Stream:
             self.put(module, tail(full, n, self.offset(module)))
             return full
 
-    def keep_tail(self, module: nn.Module, full, n: int) -> None:
-        """Cache ``full``'s tail as :meth:`front` does, for a caller that
-        built ``[n front frames | x]`` itself."""
-        with span("vt.stream.cache"):
-            self.put(module, tail(full, n, self.offset(module)))
-
 
 def tail(full, n: int, off: int):
     """``full[:, L-off-n : L-off]`` as a tensor of its own (a view would keep

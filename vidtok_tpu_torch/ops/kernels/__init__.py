@@ -2,14 +2,16 @@
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and its CUDA
 kernel for a CUDA tensor (or raises), under the span ``vt.kernel.<wrapper
-name>`` (``_lib.wrapper``). It keeps five counters: ``calls`` (every
+name>`` (``_lib.wrapper``). It keeps seven counters: ``calls`` (every
 call), ``launches`` (calls that launched the kernel), ``builds``
-(operand relayouts built because no cached one was served), and
+(operand relayouts built because no cached one was served),
 ``conv_tiles`` / ``conv_blocks``, the output tiles and blocks of its wgmma
-conv launches (A, B, E, F; 0 elsewhere). Every kernel
-takes bf16 or f32 activations (f32: ``split.py``'s scheme in A, B, E and
-F) and raises for another dtype, naming the kernel. J and K are the v1.1
-trilinear temporal upsample's passes around its cuDNN conv.
+conv launches (A, B, E, F; 0 elsewhere), and ``base_frames`` /
+``up_frames``, the input and output frames of the v1.1 trilinear temporal
+upsample's blend (``temporal_linear_blend``, which reads the base convs
+cuDNN takes of the input frames; 0 elsewhere). Every kernel takes bf16 or
+f32 activations (f32: ``split.py``'s scheme in A, B, E and F) and raises
+for another dtype, naming the kernel.
 
 :class:`KernelForms` picks which kernel form runs at the decoder's call
 sites that have more than one.
@@ -23,7 +25,7 @@ from .fused_temporal import (fused_temporal_resblock,
                              fused_temporal_resblock_stream)
 from .parity_upsample import parity_up2x_fused
 from .subpixel import subpixel_interleave, subpixel_interleave_z
-from .temporal_linear import linear_blend, temporal_linear_up2x
+from .temporal_linear import temporal_linear_blend
 from .upsample_epilogue import parity_blend_interleave, parity_blend_interleave4
 
 WRAPPERS = {
@@ -37,8 +39,7 @@ WRAPPERS = {
     "parity_blend_interleave4": parity_blend_interleave4,
     "subpixel_interleave_z": subpixel_interleave_z,
     "decoder_tail_rgb_taps": decoder_tail_rgb_taps,
-    "temporal_linear_up2x": temporal_linear_up2x,
-    "linear_blend": linear_blend,
+    "temporal_linear_blend": temporal_linear_blend,
 }
 
 # field -> its values, the default (JAX's default) first
@@ -79,9 +80,11 @@ class KernelForms:
 def reset_counts() -> None:
     for fn in WRAPPERS.values():
         fn.calls = fn.launches = fn.builds = fn.conv_tiles = fn.conv_blocks = 0
+        fn.base_frames = fn.up_frames = 0
 
 
 def counts(kind: str = "launches") -> dict:
     """{wrapper name: count}; ``kind`` is ``calls``, ``launches``,
-    ``builds``, ``conv_tiles`` or ``conv_blocks``."""
+    ``builds``, ``conv_tiles``, ``conv_blocks``, ``base_frames`` or
+    ``up_frames``."""
     return {name: getattr(fn, kind) for name, fn in WRAPPERS.items()}

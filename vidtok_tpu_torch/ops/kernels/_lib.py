@@ -83,12 +83,10 @@ _SIGNATURES = {
     "vt_subpixel_interleave_z": [_P] * 3 + [_I] * 4 + [_P],
     "vt_subpixel_interleave_z_f32": [_P] * 3 + [_I] * 4 + [_P],
     "vt_decoder_tail_rgb_taps": [_P] * 8 + [_I] * 12 + [_P],
-    # x, prev, n_prev, cache, out, B, T, S, C, split, front, vec, stream (J)
-    "vt_temporal_linear_up2x": [_P, _P, _I, _P, _P] + [_I] * 7 + [_P],
-    "vt_temporal_linear_up2x_f32": [_P, _P, _I, _P, _P] + [_I] * 7 + [_P],
-    # full, y, bias, alpha, B, Ty, S, C, vec, stream (K)
-    "vt_linear_blend": [_P] * 4 + [_I] * 5 + [_P],
-    "vt_linear_blend_f32": [_P] * 4 + [_I] * 5 + [_P],
+    # x, p, prev, front sums, out, next sums, bias, alpha, B, T, S, C, split,
+    # front, nf, q, vec, stream
+    "vt_temporal_linear_blend": [_P] * 8 + [_I] * 9 + [_P],
+    "vt_temporal_linear_blend_f32": [_P] * 8 + [_I] * 9 + [_P],
     # the tools' kernels (vidtok_tpu_torch/tools):
     # x, out, B, T, S, C, tile_t, tile_s, stream
     "vt_copy_units": [_P] * 2 + [_I] * 6 + [_P],
@@ -232,12 +230,14 @@ _BUILDS = 0  # entries operands() has built, read by the wrappers' ``builds``
 def wrapper(fn):
     """``fn``, a kernel wrapper, under the span ``vt.kernel.<fn's name>``
     from entry to return (plan, operands, tensor maps, allocation and
-    launch), with five counters: ``calls`` (every call), ``launches``
+    launch), with seven counters: ``calls`` (every call), ``launches``
     (counted by ``fn`` where it launches its kernel), ``builds`` (the
     operand relayouts :func:`operands` built during its calls because no
     cached entry was served: none on a repeated call with unchanged
-    parameters), and ``conv_tiles`` / ``conv_blocks`` (the output tiles and
-    the blocks of its wgmma conv launches, :func:`count_conv`)."""
+    parameters), ``conv_tiles`` / ``conv_blocks`` (the output tiles and
+    the blocks of its wgmma conv launches, :func:`count_conv`), and
+    ``base_frames`` / ``up_frames`` (the trilinear upsample's blend: the
+    input frames whose base convs it read and the output frames it wrote)."""
     name = "vt.kernel." + fn.__name__
 
     @functools.wraps(fn)
@@ -252,6 +252,7 @@ def wrapper(fn):
 
     wrapped.calls = wrapped.launches = wrapped.builds = 0
     wrapped.conv_tiles = wrapped.conv_blocks = 0
+    wrapped.base_frames = wrapped.up_frames = 0
     return wrapped
 
 
