@@ -19,6 +19,11 @@ and ``program_counter`` metrics of ``vtbench/metrics``).
   launched outside every span, stays unattributed.
 * Every new metric reads the synthetic trace's numbers, and returns None
   on a trace without ``vt.*`` spans or a program without the counter.
+* VidTwin (tiny, on the CPU) makes no profiler range with nothing
+  recording; under a CPU profiler its forward writes the engine, encoder,
+  decoder, attention, structure, Q-Former, dynamics and regularizer spans,
+  nested engine > model > attention or structure > Q-Former; the readers
+  of its spans read a synthetic VidTwin trace and nothing without spans.
 """
 
 import json
@@ -35,6 +40,7 @@ from vidtok_tpu_torch.ops.kernels import _lib
 from vidtok_tpu_torch.ops.kernels.fused_temporal import block_operands
 from vidtok_tpu_torch.utils import profiling as P
 from vtbench import harness, spans
+from vtbench.reference import vidtwin as VR
 from vtbench.trace import WINDOW
 
 torch.set_num_threads(2)
@@ -359,3 +365,118 @@ def test_conv_tiles_per_block_is_none_without_the_counters(name, tmp_path, monke
         monkeypatch.delattr(fn, "conv_tiles")
         monkeypatch.delattr(fn, "conv_blocks")
     assert read(ctx(synthetic(tmp_path))) is None
+
+
+# -- VidTwin's spans ----------------------------------------------------------
+
+VIDTWIN = VR.tiny(json.loads((harness.BENCH_DIR / "configs" /
+                              "vidtwin_structure_7_7_8_dynamics_7_8.json").read_text()))
+VIDTWIN_CLIP = (1, 3, 16, 32, 32)
+
+
+@pytest.fixture(scope="module")
+def twin():
+    return load_model_from_config(VIDTWIN, device="cpu")
+
+
+def test_vidtwin_no_range_while_nothing_records(twin, monkeypatch, tmp_path):
+    made = []
+    real = P._RANGE
+
+    def counted(name):
+        made.append(name)
+        return real(name)
+
+    monkeypatch.setattr(P, "_RANGE", counted)
+    x = torch.rand(VIDTWIN_CLIP, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    twin(x)
+    assert made == []
+    traced(tmp_path, lambda: twin(x))
+    assert {"vt.engine.forward", "vt.model.attn.temporal", "vt.model.qformer"} <= set(made)
+
+
+def test_vidtwin_forward_spans(twin, tmp_path):
+    x = torch.rand(VIDTWIN_CLIP, generator=torch.Generator().manual_seed(2)) * 2 - 1
+    s = traced(tmp_path, lambda: twin(x))
+    got = names(s)
+    check_nesting(s, "vt.engine.forward")
+    depth = twin.model.encoder.depth + twin.model.decoder.depth
+    want = {"vt.engine.input": 1, "vt.engine.output": 1, "vt.model.encoder": 1,
+            "vt.model.decoder": 1, "vt.model.attn.spatial": depth,
+            "vt.model.attn.temporal": depth, "vt.model.structure": 2, "vt.model.qformer": 1,
+            "vt.model.dynamics": 2, "vt.model.regularize": 3}
+    assert {n: got.count(n) for n in want} == want
+    assert not any(n.startswith(("vt.kernel.", "vt.stream.")) for n in got)
+    for i, p in enumerate(s.spans):
+        up = ancestors(s, i)
+        if p.name.startswith("vt.model.attn."):
+            assert up[0] in ("vt.model.encoder", "vt.model.decoder"), (p.name, up)
+        if p.name == "vt.model.qformer":
+            assert up[0] == "vt.model.structure"
+        if p.name in ("vt.model.structure", "vt.model.dynamics"):
+            assert up == ["vt.engine.forward"]
+
+
+def test_vidtwin_encode_and_decode_spans(twin, tmp_path):
+    x = torch.rand(VIDTWIN_CLIP, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    latents = twin.encode(x)[:3]
+    s = traced(tmp_path, lambda: twin.decode(*latents))
+    check_nesting(s, "vt.engine.decode")
+    got = names(s)
+    assert {"vt.engine.input", "vt.engine.output", "vt.model.decoder",
+            "vt.model.structure", "vt.model.dynamics"} <= set(got)
+    assert "vt.model.encoder" not in got and "vt.model.qformer" not in got
+    s = traced(tmp_path, lambda: twin.encode(x))
+    check_nesting(s, "vt.engine.encode")
+    assert "vt.model.decoder" not in names(s) and "vt.model.qformer" in names(s)
+
+
+# a VidTwin request's spans on the synthetic trace's clock: two attention
+# branches of the encoder, the structure pathway with its Q-Former, a
+# decoder launch outside both
+VIDTWIN_SPANS = [_x("vt.engine.forward", "cpu_op", 10, 890),
+                 _x("vt.model.encoder", "cpu_op", 20, 380),
+                 _x("vt.model.attn.spatial", "cpu_op", 30, 40),
+                 _x("vt.model.attn.temporal", "cpu_op", 80, 60),
+                 _x("vt.model.structure", "cpu_op", 410, 100),
+                 _x("vt.model.qformer", "cpu_op", 420, 50),
+                 _x("vt.model.decoder", "cpu_op", 600, 280)]
+VIDTWIN_LAUNCHED = [_x("cudaLaunchKernel", "cuda_runtime", 40, 5, corr=11),     # spatial
+                    _x("cudaMemcpyAsync", "cuda_runtime", 100, 5, corr=12),     # temporal copy
+                    _x("cudaLaunchKernel", "cuda_runtime", 430, 5, corr=13),    # Q-Former
+                    _x("cudaLaunchKernel", "cuda_runtime", 500, 5, corr=14),    # pyramid
+                    _x("cudaLaunchKernel", "cuda_runtime", 700, 5, corr=15)]    # decoder MLP
+VIDTWIN_DEVICE = [_x("sm90_xmma_gemm_bf16bf16", "kernel", 100, 100, 7, 11),
+                  _x("Memcpy DtoD (Device -> Device)", "gpu_memcpy", 210, 30, 7, 12),
+                  _x("fmha_cutlassF", "kernel", 450, 20, 7, 13),
+                  _x("cudnn_conv", "kernel", 520, 10, 7, 14),
+                  _x("elementwise_kernel", "kernel", 720, 50, 7, 15)]
+# device ms under each span over the two 512-frame requests of ctx()
+VIDTWIN_READS = {"spatial_attn_ms.fps": 0.100 / 1024, "temporal_attn_ms.fps": 0.030 / 1024,
+                 "structure_ms.fps": 0.030 / 1024, "encoder_ms.fps": 0.130 / 1024,
+                 "decoder_ms.fps": 0.050 / 1024}
+
+
+def vidtwin_ctx(tmp_path, with_spans: bool = True):
+    events = [_x(WINDOW, "user_annotation", 0, 1000)] + (VIDTWIN_SPANS if with_spans else [])
+    path = tmp_path / ("twin.json" if with_spans else "twin_without.json")
+    path.write_text(json.dumps({"traceEvents": events + VIDTWIN_LAUNCHED + VIDTWIN_DEVICE}))
+    records = [SimpleNamespace(frames=512), SimpleNamespace(frames=512)]
+    return SimpleNamespace(traced={"path": str(path), "records": records})
+
+
+@pytest.mark.parametrize("name", sorted(VIDTWIN_READS))
+def test_vidtwin_span_metric_reads_the_trace(name, tmp_path):
+    """The three readers of VidTwin's spans (``program_span``, the VidTwin
+    layer, the VidTwin cell) and the encoder's and decoder's, which read
+    the same cell."""
+    spec = {m["name"]: m for m in json.loads((harness.CHECKOUT / "BENCHMARK.json").read_text())
+            ["per_layer"]}[name]
+    assert spec["source"] == "program_span" and "vidtwin-t16-pipelined" in spec["workloads"]
+    if name not in ("encoder_ms.fps", "decoder_ms.fps"):
+        assert (spec["layer"], spec["moves"], spec["workloads"]) == (
+            "Model: models/vidtwin (STTransformer, QFormer, VidTwinVAE)", "frames_per_s",
+            ["vidtwin-t16-pipelined"])
+    read = harness.load_metric(harness.BENCH_DIR, name)
+    assert read(vidtwin_ctx(tmp_path)) == pytest.approx(VIDTWIN_READS[name])
+    assert read(vidtwin_ctx(tmp_path, with_spans=False)) is None

@@ -12,6 +12,10 @@ of the ladder (``ablations.py``) serves ``forward`` only: ``encode``,
 (``sample=True``) draws from the engine's ``torch.Generator`` on the
 device, which advances with every ``encode`` and ``forward`` as JAX's
 engine splits its key.
+
+Spans (``utils/profiling.span``): ``vt.engine.forward``, ``.encode``,
+``.decode`` around the calls, ``vt.engine.input`` around the clip's or
+latents' cast, ``vt.engine.output`` around the f32 casts of the results.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from ...config import load_config
 from ...utils import checkpoint
+from ...utils.profiling import span
 from .vidtwin_ae import VidTwinVAE, build_vidtwin_from_config, reset_params_
 
 
@@ -63,9 +68,10 @@ class VidTwinTokenizer:
         return self.model.encoder.input_size
 
     def _input(self, x):
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        return x.to(self.device, self.compute_dtype)
+        with span("vt.engine.input"):
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(x)
+            return x.to(self.device, self.compute_dtype)
 
     def _vae(self, what: str) -> None:
         if not isinstance(self.model, VidTwinVAE):
@@ -77,23 +83,29 @@ class VidTwinTokenizer:
         """x [B, C, T, H, W] -> (u_S [B, Fq, h, w, c], u_Dx [B, d, F, W'],
         u_Dy [B, d, F, H'], reg_log), f32."""
         self._vae("encode")
-        _, u_s, u_dx, u_dy, log = self.model.encode(self._input(x), sample, self.generator)
-        return u_s.float(), u_dx.float(), u_dy.float(), log
+        with span("vt.engine.encode"):
+            _, u_s, u_dx, u_dy, log = self.model.encode(self._input(x), sample, self.generator)
+            with span("vt.engine.output"):
+                return u_s.float(), u_dx.float(), u_dy.float(), log
 
     @torch.no_grad()
     def decode(self, u_s, u_dx, u_dy, only_part: Optional[str] = None):
         """-> x_rec [B, C, T, H, W], f32."""
         self._vae("decode")
-        dec = self.model.decode(self._input(u_s), self._input(u_dx), self._input(u_dy),
-                                only_part=only_part)
-        return dec.float()
+        with span("vt.engine.decode"):
+            dec = self.model.decode(self._input(u_s), self._input(u_dx), self._input(u_dy),
+                                    only_part=only_part)
+            with span("vt.engine.output"):
+                return dec.float()
 
     @torch.no_grad()
     def forward(self, x, sample: bool = False):
         """(z [B, hidden, F, H', W'] (SymDis: 2B), x_rec [B, C, T, H, W],
         reg_log), f32."""
-        z, dec, log, _ = self.model(self._input(x), sample, generator=self.generator)
-        return z.float(), dec.float(), log
+        with span("vt.engine.forward"):
+            z, dec, log, _ = self.model(self._input(x), sample, generator=self.generator)
+            with span("vt.engine.output"):
+                return z.float(), dec.float(), log
 
     __call__ = forward
 

@@ -11,6 +11,7 @@ Affine LayerNorms with eps 1e-12, exact GELU, attention by
 so the reference state dict loads as it is; the text branch's
 ``intermediate`` / ``output`` FFN that HF builds beside the query one never
 runs here and is not built (the checkpoint reader drops its keys).
+``QFormerInterface.forward`` runs under the span ``vt.model.qformer``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.profiling import span
 from .st_transformer import LayerNorm, Linear, init_, reset_linear_
 
 EPS = 1e-12
@@ -136,6 +138,7 @@ class QFormerInterface(nn.Module):
                 nn.init.zeros_(m.bias)
 
     def forward(self, encoder_hidden_states):
-        q = self.query_embeds.to(encoder_hidden_states.dtype)
-        x = q[None].expand(encoder_hidden_states.shape[0], -1, -1)
-        return self.qformer(x, encoder_hidden_states)
+        with span("vt.model.qformer"):
+            q = self.query_embeds.to(encoder_hidden_states.dtype)
+            x = q[None].expand(encoder_hidden_states.shape[0], -1, -1)
+            return self.qformer(x, encoder_hidden_states)

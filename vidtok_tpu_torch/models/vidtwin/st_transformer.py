@@ -23,6 +23,14 @@ stays bf16 (JAX promotes it to f32 at the first f32 embedding).
 The module names and parameter layouts are the reference torch model's
 (``encoder.blocks.3.attn_temp.qkv.weight``), so its state dict loads as it
 is; the sincos position embeddings are non-persistent buffers.
+
+Spans (``utils/profiling.span``): ``vt.model.encoder`` and
+``vt.model.decoder`` (with its head and ``unpatchify``) around the two
+transformers, and in each ``STBlock`` ``vt.model.attn.spatial`` (the
+first norm through the spatial branch's gated add) and
+``vt.model.attn.temporal`` (the layout copies to and from ``[B S, T, C]``,
+the ``tpe`` add, the causal attention and the gated add); the MLP branch
+has no span of its own.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...utils.profiling import span
 
 # -- layers that compute in their input's dtype ------------------------------
 
@@ -264,15 +274,17 @@ class STBlock(nn.Module):
         def dp(branch):
             return drop_path(branch, self.drop_path_rate, deterministic, generator)
 
-        x_m = t2i_modulate(layer_norm_noaffine(x), shift_msa, scale_msa)
-        x_s = self.attn(x_m.reshape(b * t, s, c))
-        x = x + dp(gate_msa * x_s.reshape(b, t, s, c))
+        with span("vt.model.attn.spatial"):
+            x_m = t2i_modulate(layer_norm_noaffine(x), shift_msa, scale_msa)
+            x_s = self.attn(x_m.reshape(b * t, s, c))
+            x = x + dp(gate_msa * x_s.reshape(b, t, s, c))
         if not self.no_temporal:
-            x_t = x.transpose(1, 2).reshape(b * s, t, c)
-            if tpe is not None:
-                x_t = x_t + tpe.to(x.dtype)
-            x_t = self.attn_temp(x_t, causal=self.temporal_causal)
-            x = x + dp(gate_msa * x_t.reshape(b, s, t, c).transpose(1, 2))
+            with span("vt.model.attn.temporal"):
+                x_t = x.transpose(1, 2).reshape(b * s, t, c)
+                if tpe is not None:
+                    x_t = x_t + tpe.to(x.dtype)
+                x_t = self.attn_temp(x_t, causal=self.temporal_causal)
+                x = x + dp(gate_msa * x_t.reshape(b, s, t, c).transpose(1, 2))
         h = t2i_modulate(layer_norm_noaffine(x), shift_mlp, scale_mlp)
         return x + dp(gate_mlp * self.mlp(h))
 
@@ -387,8 +399,9 @@ class STTEncoder(STTransformer):
         self.x_embedder = PatchEmbed3D(self.patch_size, self.in_channels, self.hidden_size)
 
     def forward(self, x, deterministic: bool = True, generator: torch.Generator = None):
-        y = self.run_blocks(self.x_embedder(x), deterministic, generator)
-        return y.transpose(1, 2).reshape((y.shape[0], self.hidden_size) + self.grid)
+        with span("vt.model.encoder"):
+            y = self.run_blocks(self.x_embedder(x), deterministic, generator)
+            return y.transpose(1, 2).reshape((y.shape[0], self.hidden_size) + self.grid)
 
 
 class STTDecoder(STTransformer):
@@ -400,8 +413,9 @@ class STTDecoder(STTransformer):
                                          self.in_channels)
 
     def forward(self, z, deterministic: bool = True, generator: torch.Generator = None):
-        y = self.run_blocks(z.flatten(2).transpose(1, 2), deterministic, generator)
-        return self.unpatchify(self.final_layer(y))
+        with span("vt.model.decoder"):
+            y = self.run_blocks(z.flatten(2).transpose(1, 2), deterministic, generator)
+            return self.unpatchify(self.final_layer(y))
 
     def unpatchify(self, y):
         """[B, N, prod(patch) * C] -> [B, C, T, H, W]."""

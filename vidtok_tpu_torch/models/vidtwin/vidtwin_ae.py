@@ -24,6 +24,12 @@ for each of the three posteriors (the structure posterior's first axis is
 B), as in JAX. The structure pathway (``ContentPyramid``), the embedding
 head (``EmbSeq``) and the glue's init (``reset_glue``) are shared with the
 ablation ladder (``ablations.py``).
+
+Spans (``utils/profiling.span``): ``vt.model.structure`` around
+``content_tokens`` and ``content_field`` (the Q-Former's own
+``vt.model.qformer`` inside the first), ``vt.model.dynamics`` around the
+motion latents and their embedding, ``vt.model.regularize`` around each
+posterior; the encoder's and decoder's are ``st_transformer.py``'s.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...modules.regularizers import DiagonalGaussian
+from ...utils.profiling import span
 from .qformer import QFormerInterface
 from .st_transformer import (Conv1d, Conv2d, Linear, STTDecoder, STTEncoder, STTransformer,
                              reset_linear_)
@@ -127,26 +134,28 @@ class ContentPyramid:
     def content_tokens(self, zl):
         """[B, F, H', W', C] -> the bottleneck's output ``[B, Fq, h, w,
         out_ch]`` (channels-last)."""
-        b, f, hh, ww, c = zl.shape
-        zc = self.temporal_qformer(zl.permute(0, 2, 3, 1, 4).reshape(b * hh * ww, f, c))
-        fq, cq = zc.shape[1], zc.shape[2]
-        zc = zc.reshape(b, hh, ww, fq, cq).permute(0, 3, 4, 1, 2).reshape(b * fq, cq, hh, ww)
-        h = self.bottle_down(self.content_downsample_blocks(self.conv_in(zc)))
-        return _nhwc(h).reshape((b, fq) + tuple(h.shape[2:]) + (h.shape[1],))
+        with span("vt.model.structure"):
+            b, f, hh, ww, c = zl.shape
+            zc = self.temporal_qformer(zl.permute(0, 2, 3, 1, 4).reshape(b * hh * ww, f, c))
+            fq, cq = zc.shape[1], zc.shape[2]
+            zc = zc.reshape(b, hh, ww, fq, cq).permute(0, 3, 4, 1, 2).reshape(b * fq, cq, hh, ww)
+            h = self.bottle_down(self.content_downsample_blocks(self.conv_in(zc)))
+            return _nhwc(h).reshape((b, fq) + tuple(h.shape[2:]) + (h.shape[1],))
 
     def content_field(self, u_s):
         """u_S ``[B, Fq, h, w, c]`` -> ``[B, F, H', W', hidden]``."""
-        f, hh, ww = self.encoder.grid
-        b, fq = u_s.shape[0], u_s.shape[1]
-        h = F.relu(self.bottle_up(_nchw(u_s.reshape((b * fq,) + tuple(u_s.shape[2:])))))
-        zc = self.conv_out(self.content_upsample_blocks(h))  # [(B Fq), Cq, H, W]
-        if zc.shape[2] > hh:
-            border = (zc.shape[2] - hh) // 2
-            zc = zc[:, :, border:border + hh, border:border + ww]
-        cq = zc.shape[1]
-        zc = zc.reshape(b, fq, cq, hh, ww).permute(0, 3, 4, 1, 2).reshape(b * hh * ww, fq, cq)
-        hidden = self.encoder.hidden_size
-        return self.cont_emb(zc).reshape(b, hh, ww, f, hidden).permute(0, 3, 1, 2, 4)
+        with span("vt.model.structure"):
+            f, hh, ww = self.encoder.grid
+            b, fq = u_s.shape[0], u_s.shape[1]
+            h = F.relu(self.bottle_up(_nchw(u_s.reshape((b * fq,) + tuple(u_s.shape[2:])))))
+            zc = self.conv_out(self.content_upsample_blocks(h))  # [(B Fq), Cq, H, W]
+            if zc.shape[2] > hh:
+                border = (zc.shape[2] - hh) // 2
+                zc = zc[:, :, border:border + hh, border:border + ww]
+            cq = zc.shape[1]
+            zc = zc.reshape(b, fq, cq, hh, ww).permute(0, 3, 4, 1, 2).reshape(b * hh * ww, fq, cq)
+            hidden = self.encoder.hidden_size
+            return self.cont_emb(zc).reshape(b, hh, ww, f, hidden).permute(0, 3, 1, 2, 4)
 
 
 class VidTwinVAE(ContentPyramid, nn.Module):
@@ -203,11 +212,12 @@ class VidTwinVAE(ContentPyramid, nn.Module):
         """Channels-last posterior parameters -> (latent, sum(kl) / batch)."""
         if not self.vae:
             return params, params.new_zeros((), dtype=torch.float32)
-        post = DiagonalGaussian(params)
-        do_sample = self.sample if sample is None else sample
-        z = post.sample(generator) if do_sample else post.mode()
-        kl = post.kl()
-        return z, kl.sum() / kl.shape[0]
+        with span("vt.model.regularize"):
+            post = DiagonalGaussian(params)
+            do_sample = self.sample if sample is None else sample
+            z = post.sample(generator) if do_sample else post.mode()
+            kl = post.kl()
+            return z, kl.sum() / kl.shape[0]
 
     # -- encode ----------------------------------------------------------------
 
@@ -225,15 +235,16 @@ class VidTwinVAE(ContentPyramid, nn.Module):
     def _motion_latent(self, zl, sample, generator):
         """[B, F, H', W', C] -> (u_Dx [B, d, F, W'], u_Dy [B, d, F, H'],
         their kls)."""
-        b, f, hh, ww, c = zl.shape
-        if self.downsample_motion:
-            h = self.downsample_motion_module(_nchw(zl.reshape(b * f, hh, ww, c)))
-            zl = _nhwc(h).reshape((b, f) + tuple(h.shape[2:]) + (c,))
-        ux = _nchw(zl.mean(2))  # over H: [B, C, F, W']
-        uy = _nchw(zl.mean(3))  # over W: [B, C, F, H']
-        sx, kl_x = self._regularize(_nhwc(self.motion_head(ux)), sample, generator)
-        sy, kl_y = self._regularize(_nhwc(self.motion_head(uy)), sample, generator)
-        return _nchw(sx), _nchw(sy), kl_x, kl_y
+        with span("vt.model.dynamics"):
+            b, f, hh, ww, c = zl.shape
+            if self.downsample_motion:
+                h = self.downsample_motion_module(_nchw(zl.reshape(b * f, hh, ww, c)))
+                zl = _nhwc(h).reshape((b, f) + tuple(h.shape[2:]) + (c,))
+            ux = _nchw(zl.mean(2))  # over H: [B, C, F, W']
+            uy = _nchw(zl.mean(3))  # over W: [B, C, F, H']
+            sx, kl_x = self._regularize(_nhwc(self.motion_head(ux)), sample, generator)
+            sy, kl_y = self._regularize(_nhwc(self.motion_head(uy)), sample, generator)
+            return _nchw(sx), _nchw(sy), kl_x, kl_y
 
     # -- decode ----------------------------------------------------------------
 
@@ -248,11 +259,12 @@ class VidTwinVAE(ContentPyramid, nn.Module):
         b = u_s.shape[0]
         vt = self.content_field(u_s)
 
-        vx = self._motion_embed(u_dx)  # [B, F, S, C]
-        vy = self._motion_embed(u_dy)
-        if self.downsample_motion:
-            vx = self.up_motion(vx.transpose(2, 3)).transpose(2, 3)
-            vy = self.up_motion(vy.transpose(2, 3)).transpose(2, 3)
+        with span("vt.model.dynamics"):
+            vx = self._motion_embed(u_dx)  # [B, F, S, C]
+            vy = self._motion_embed(u_dy)
+            if self.downsample_motion:
+                vx = self.up_motion(vx.transpose(2, 3)).transpose(2, 3)
+                vy = self.up_motion(vy.transpose(2, 3)).transpose(2, 3)
         vx_b = vx[:, :, None]     # broadcast over H
         vy_b = vy[:, :, :, None]  # broadcast over W
 

@@ -4,10 +4,15 @@ main.py:775, 1116-1123): a ``torch.profiler`` trace context, the program's
 spans, per-device memory and a parameter-memory line.
 
 The program marks its layer boundaries with :func:`span`: ``vt.engine.*``
-(``VideoTokenizer``'s calls, chunk steps, input cast and output),
+(``VideoTokenizer``'s and ``VidTwinTokenizer``'s calls, chunk steps, input
+cast and output),
 ``vt.model.*`` (encoder, decoder, regularizer, and each down- and
 upsample module: ``vt.model.down.spatial``, ``.down.temporal``,
-``.up.spatial``, ``.up.temporal``), ``vt.stream.cache`` (every read and write of a stream's cache)
+``.up.spatial``, ``.up.temporal``; in VidTwin the ST transformers as
+``vt.model.encoder`` and ``.decoder``, each block's ``vt.model.attn.spatial``
+and ``.attn.temporal`` branch, the structure pathway ``vt.model.structure``
+with its ``vt.model.qformer``, the motion pathway ``vt.model.dynamics``, each
+posterior's ``vt.model.regularize``), ``vt.stream.cache`` (every read and write of a stream's cache)
 and ``vt.kernel.<wrapper>`` (each kernel wrapper from entry to return). A
 span is a ``RecordFunction`` range while a profiler records, so it lands
 in the profiler's trace (a ``cpu_op`` event) on the clock of the device's
